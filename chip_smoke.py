@@ -1,0 +1,593 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (ssd_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                 # every phase, as a release check
+    python3 chip_smoke.py --phases env,kernels
+
+Phases, each printing one JSON line ({"phase": ...}); any failure raises and
+the script exits non-zero:
+
+1. env      - the card's name and power limit (nvidia-smi), torch and CUDA
+              versions, and the build of the CUDA kernels from the sources in
+              ssd_tpu_torch/csrc (seconds, ptxas register/spill lines).
+2. kernels  - each kernel against its plain PyTorch version on the card, at
+              the Llama-3.2-1B geometry (Hq/Hkv 32/8, head_dim 64, 64-token
+              pages), in fp32 (|err| <= 1e-4) and bf16 (|err| <= 1e-4 +
+              2^-7 |ref|: one bf16 rounding of the fp32 result), with TF32
+              off for matmuls and cuDNN; and their times:
+              the kernel, the plain version, one library call computing the
+              same function (scaled_dot_product_attention on the gathered
+              dense K/V, a yardstick the port never calls), and the bound.
+3. serve    - LLM(...).generate at the full Llama-3.2-1B width (16 layers,
+              random bf16 weights from a seed): 128 greedy tokens for 8
+              prompts of mixed length, then for 1 prompt. The kernels' launch
+              counts are zeroed just before and read just after; both must be
+              above zero.
+4. exact    - the same width at 2 layers in fp32 from one random checkpoint
+              (init scale 0.4): greedy tokens on the card equal those of
+              device="cpu", with the smallest top-1/top-2 logit margin seen.
+5. profile  - (only when asked for) the device's busy share and top kernels
+              over a prefill step and a window of decode steps at b=8.
+
+Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
+Without a CUDA device, or outside a checkout of the repository, it exits
+non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+PHASES = ("env", "kernels", "serve", "exact")
+EXTRA_PHASES = ("profile",)
+
+# Llama-3.2-1B geometry (the JAX package's bench.py random-weight config).
+LLAMA_1B = {
+    "model_type": "llama",
+    "vocab_size": 128256,
+    "hidden_size": 2048,
+    "intermediate_size": 8192,
+    "num_hidden_layers": 16,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 8,
+    "head_dim": 64,
+    "max_position_embeddings": 4096,
+    "rms_norm_eps": 1e-5,
+    "rope_theta": 500000.0,
+    "tie_word_embeddings": True,
+    "eos_token_id": 128001,
+}
+BLOCK = 64
+SERVE_LENS8 = [33, 111, 250, 400, 640, 900, 1300, 1900]  # serve phase, b8
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
+              "float32": 67e12}    # fp32 outside the tensor cores
+# |got - want| <= ATOL + RTOL[dtype] * |want| elementwise. Both sides compute
+# in fp32 and round the output once; 2^-7 |x| bounds one bf16 ulp at x.
+ATOL = 1e-4
+RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
+
+
+def emit(phase: str, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail(msg: str):
+    raise RuntimeError(msg)
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of one fn() call, by CUDA events around each call,
+    with the 50 MB L2 cache flushed before each: on the main path every
+    layer's attention finds its KV cold (the layer's weights streamed
+    through L2 since its previous step). A spin kernel first holds the
+    stream while the host enqueues every call, so the events time the
+    device's work and not the host's launch gaps."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's ~2 GHz clock
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def sdpa(q, k, v, mask):
+    """One scaled_dot_product_attention call over grouped K/V (q [N, Hq, L, hd],
+    k/v [N, Hkv, C, hd], mask [N, 1, L, C] bool)."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1
+# ---------------------------------------------------------------------------
+
+
+def phase_env() -> dict:
+    import torch
+
+    from ssd_tpu_torch.ops import cuda_lib
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "not read"
+    print(card, flush=True)
+    lib = cuda_lib.load()
+    ptxas = [ln.strip() for ln in lib.build_log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    emit("env", card=card, device=torch.cuda.get_device_name(0),
+         torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0], build_seconds=lib.build_seconds,
+         library=os.path.relpath(lib.path), ptxas=ptxas,
+         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         tf32_cudnn=torch.backends.cudnn.allow_tf32)
+    return {"card": card}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2
+# ---------------------------------------------------------------------------
+
+
+def _paged_case(B, Q, ctx_lens, M, ghosts, dtype, seed):
+    """Random q and cache, disjoint shuffled page tables; `ghosts` trailing
+    rows are batch padding (context 1, table all -1)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    Hq, Hkv, hd = 32, 8, 64
+    n_pages = B * M + 1
+    kv = torch.randn(Hkv, n_pages * BLOCK, 2 * hd, generator=g)
+    q = torch.randn(B, Q, Hq, hd, generator=g)
+    perm = torch.randperm(n_pages, generator=g)
+    bt = torch.full((B, M), -1, dtype=torch.int32)
+    ctx = torch.ones(B, dtype=torch.int32)
+    for b in range(B - ghosts):
+        ctx[b] = ctx_lens[b]
+        n = min(-(-ctx_lens[b] // BLOCK), M)
+        bt[b, :n] = perm[b * M: b * M + n].to(torch.int32)
+    qeff = torch.full((B,), Q, dtype=torch.int32)
+    dev = "cuda"
+    return (q.to(dev, dtype), kv.to(dev, dtype), bt.to(dev), ctx.to(dev),
+            qeff.to(dev))
+
+
+def _flat_case(ctx_lens, cached, dtype, seed, pad_rows=0, pad_pages=0):
+    """Mixed prefill batch: sequence s has ctx_lens[s] tokens of which
+    cached[s] are already in the cache; its pages form one run of the flat
+    page list, and each new token's window is an interval of that run. The
+    serving path passes no padding; `pad_rows` rows with lo == hi and
+    `pad_pages` -1 pages check the kernel's padding contract."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    Hq, Hkv, hd = 32, 8, 64
+    pages_per = [-(-c // BLOCK) for c in ctx_lens]
+    n_pages = sum(pages_per) + 1
+    perm = rng.permutation(n_pages).astype(np.int32)
+    T = sum(c - k for c, k in zip(ctx_lens, cached))
+    T_pad, P_pad = T + pad_rows, sum(pages_per) + pad_pages
+    lo = np.zeros(T_pad, np.int32)
+    hi = np.zeros(T_pad, np.int32)
+    pages = np.full(P_pad, -1, np.int32)
+    t = p = 0
+    for c, k, n in zip(ctx_lens, cached, pages_per):
+        pages[p:p + n] = perm[p:p + n]
+        lo[t:t + c - k] = p * BLOCK
+        hi[t:t + c - k] = p * BLOCK + np.arange(k, c) + 1
+        t += c - k
+        p += n
+    q = rng.standard_normal((T_pad, Hq, hd)).astype(np.float32)
+    kv = rng.standard_normal((Hkv, n_pages * BLOCK, 2 * hd)).astype(np.float32)
+    dev = "cuda"
+    return (torch.from_numpy(q).to(dev, dtype), torch.from_numpy(kv).to(dev, dtype),
+            torch.from_numpy(pages).to(dev), torch.from_numpy(lo).to(dev),
+            torch.from_numpy(hi).to(dev), T)
+
+
+def _check(name, dtype, got, want, case):
+    import torch
+
+    if not torch.isfinite(got).all():
+        fail(f"{name} {case} {dtype}: non-finite kernel output")
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    # The worst element's error over its own tolerance; <= 1 passes.
+    excess = (diff / (ATOL + RTOL[dtype] * want.float().abs())).max().item()
+    emit("kernels", kernel=name, case=case, dtype=dtype, max_abs_err=err,
+         atol=ATOL, rtol=RTOL[dtype], worst_err_over_tol=excess, ok=excess <= 1)
+    if not excess <= 1:
+        fail(f"{name} {case} {dtype}: max abs err {err}, worst element at "
+             f"{excess} x its tolerance ({ATOL} + {RTOL[dtype]} |ref|)")
+    return err
+
+
+def phase_kernels() -> dict:
+    import torch
+
+    from ssd_tpu_torch.ops import attention as att
+
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    scale = 64 ** -0.5
+    M = 2048 // BLOCK
+    decode8 = [2048, 1, 700, 1333, 64, 65, 1999]  # + one ghost row
+    # The serve phase's b8 batch halfway through its 128 decode steps.
+    serve8 = [n + 64 for n in SERVE_LENS8]
+    results = {}
+
+    for dname, dt in dts.items():
+        # K-A: decode at B = 1 and B = 8 (one ghost row), and the overshoot
+        # case (a full table with context beyond it, Q = 4).
+        for seed, (case, args) in enumerate({
+            "decode_b1": (1, 1, [1500], M, 0),
+            "decode_b8": (8, 1, decode8, M, 1),
+            "overshoot_q4": (3, 4, [258, 100, 256], 4, 0),  # table holds 256
+        }.items()):
+            q, kv, bt, ctx, qeff = _paged_case(*args, dt, seed=seed)
+            got = att.paged_attention(q, kv, bt, ctx, qeff, BLOCK, scale)
+            torch.cuda.synchronize()
+            want = att.paged_attention_plain(q, kv, bt, ctx, qeff, BLOCK, scale)
+            err = _check("paged_attention", dname, got, want, case)
+            results[("paged_attention", case, dname)] = {"max_abs_err": err}
+
+        # K-B: 8 prompts of 17-2048 tokens, two of them prefix-cached.
+        ctx_lens = [17, 100, 300, 600, 900, 1200, 1600, 2048]
+        cached = [0, 0, 0, 0, 512, 0, 0, 1024]
+        q, kv, pages, lo, hi, T = _flat_case(ctx_lens, cached, dt, seed=7,
+                                             pad_rows=13, pad_pages=3)
+        got = att.flat_prefill_attention(q, kv, pages, lo, hi, BLOCK, scale)
+        torch.cuda.synchronize()
+        want = att.flat_prefill_attention_plain(q, kv, pages, lo, hi, BLOCK, scale)
+        err = _check("flat_prefill_attention", dname, got, want, "mixed8_cached2")
+        if got[T:].abs().max().item() != 0.0:
+            fail("flat_prefill_attention: padding rows are not zero")
+        results[("flat_prefill_attention", "mixed8_cached2", dname)] = {"max_abs_err": err}
+
+    # Times at the main-path shapes in bf16 (the serving dtype).
+    counts = (att.paged_attention.launches, att.flat_prefill_attention.launches)
+    timings = {}
+    dt, dname = torch.bfloat16, "bfloat16"
+    elem = 2
+    Hq, Hkv, hd = 32, 8, 64
+
+    q, kv, bt, ctx, qeff = _paged_case(8, 1, serve8, M, 0, dt, seed=11)
+    kv_len = torch.clamp(ctx, max=M * BLOCK).long()
+    attended = int(kv_len.sum())
+    bytes_ = (attended * Hkv * 2 * hd * elem + 2 * q.numel() * elem
+              + bt.numel() * 4 + 2 * ctx.numel() * 4)
+    flops = 4 * Hq * hd * attended
+    ms = time_ms(lambda: att.paged_attention(q, kv, bt, ctx, qeff, BLOCK, scale), 50)
+    plain_ms = time_ms(lambda: att.paged_attention_plain(q, kv, bt, ctx, qeff, BLOCK, scale), 10)
+    k, v = att.gather_pages(kv, bt, BLOCK, M * BLOCK)          # [B, C, Hkv, hd]
+    k, v = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
+    qs = q.permute(0, 2, 1, 3).contiguous()                     # [B, Hq, 1, hd]
+    pos = torch.arange(M * BLOCK, device="cuda")
+    mask = (pos[None, :] < ctx[:, None])[:, None, None, :]
+    library_ms = time_ms(lambda: sdpa(qs, k, v, mask), 50)
+    timings["paged_attention"] = dict(
+        shape=f"decode B=8 (ctx {serve8}) Q=1 Hq/Hkv 32/8 hd 64 bf16",
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=bytes_, flops=flops,
+        bound_ms=max(bytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]) * 1e3,
+        bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[dname] else "operations")
+
+    ctx_lens = [17, 100, 300, 600, 900, 1200, 1600, 2048]
+    cached = [0, 0, 0, 0, 512, 0, 0, 1024]
+    q, kv, pages, lo, hi, T = _flat_case(ctx_lens, cached, dt, seed=13)
+    width = (hi - lo).long()
+    flops = int(4 * Hq * hd * width.sum())
+    n_pages = sum(-(-c // BLOCK) for c in ctx_lens)
+    bytes_ = (n_pages * BLOCK * Hkv * 2 * hd * elem + 2 * T * Hq * hd * elem
+              + pages.numel() * 4 + 2 * T * 4)
+    ms = time_ms(lambda: att.flat_prefill_attention(q, kv, pages, lo, hi, BLOCK, scale), 10)
+    plain_ms = time_ms(lambda: att.flat_prefill_attention_plain(q, kv, pages, lo, hi, BLOCK, scale), 3, warmup=1)
+    dense = att.dense_pages(kv, pages, BLOCK)                   # [Hkv, C, 2hd]
+    kd = dense[..., :hd][None].contiguous()
+    vd = dense[..., hd:][None].contiguous()
+    qs = q.permute(1, 0, 2)[None].contiguous()                  # [1, Hq, T, hd]
+    col = torch.arange(dense.shape[1], device="cuda")
+    mask = ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None]))[None, None]
+    library_ms = time_ms(lambda: sdpa(qs, kd, vd, mask), 5, warmup=1)
+    timings["flat_prefill_attention"] = dict(
+        shape=f"prefill 8 prompts ctx {ctx_lens}, cached {cached}, T={T} Hq/Hkv 32/8 hd 64 bf16",
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=bytes_, flops=flops,
+        bound_ms=max(bytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]) * 1e3,
+        bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[dname] else "operations")
+    for name, tm in timings.items():
+        emit("kernels", kernel=name, timing=tm)
+    att.paged_attention.launches, att.flat_prefill_attention.launches = counts
+    return {"errors": results, "timings": timings}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3
+# ---------------------------------------------------------------------------
+
+
+def _write_config(d: str, **over):
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({**LLAMA_1B, **over}, f)
+
+
+def _serving_llm():
+    """The full-width Llama-3.2-1B engine with random bf16 weights."""
+    from ssd_tpu_torch import LLM
+
+    with tempfile.TemporaryDirectory() as d:
+        _write_config(d)
+        return LLM(d, init_random=True, dtype="bfloat16", max_model_len=2048,
+                   kvcache_block_size=BLOCK, max_num_seqs=8)
+
+
+def _serving_prompts():
+    """8 prompts of mixed length (33-1900 tokens) and one of 512."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    V = LLAMA_1B["vocab_size"]
+    return ([rng.integers(3, V, size=n).tolist() for n in SERVE_LENS8],
+            [rng.integers(3, V, size=512).tolist()])
+
+
+def phase_serve() -> dict:
+    import torch
+
+    from ssd_tpu_torch import SamplingParams
+    from ssd_tpu_torch.ops import attention as att
+
+    V = LLAMA_1B["vocab_size"]
+    t0 = time.perf_counter()
+    llm = _serving_llm()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
+    prompts8, prompt1 = _serving_prompts()
+    llm.generate([p[:40] for p in prompts8[:2]],
+                 SamplingParams(temperature=0.0, max_new_tokens=4, ignore_eos=True),
+                 use_tqdm=False)  # warm-up: cuBLAS handles, allocator
+
+    att.paged_attention.launches = 0
+    att.flat_prefill_attention.launches = 0
+    runs = {}
+    for name, prompts in (("b8", prompts8), ("b1", prompt1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, m = llm.generate(prompts, sp, use_tqdm=False)
+        wall = time.perf_counter() - t0
+        for o in outs:
+            ids = o["token_ids"]
+            if len(ids) != 128 or not all(0 <= t < V for t in ids):
+                fail(f"serve {name}: bad output of {len(ids)} tokens")
+        runs[name] = dict(
+            prompts=len(prompts), prompt_tokens=sum(map(len, prompts)),
+            new_tokens=128 * len(prompts), wall_s=wall,
+            ttft_s=m["target_step_times"][0],
+            prefill_tok_s=m["prefill_total_tokens"] / m["prefill_total_time"],
+            decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
+            decode_step_ms=1e3 * m["decode_total_time"] / max(1, len(m["target_step_times"]) - 1),
+        )
+    launches = {"paged_attention": att.paged_attention.launches,
+                "flat_prefill_attention": att.flat_prefill_attention.launches}
+    emit("serve", geometry="Llama-3.2-1B (16 layers, random bf16 weights)",
+         init_s=init_s, kv_blocks=llm.model_runner.num_kvcache_blocks,
+         runs=runs, launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    if not all(n > 0 for n in launches.values()):
+        fail(f"serve: a kernel of the main path never launched: {launches}")
+    del llm
+    torch.cuda.empty_cache()
+    return {"launches": launches, "runs": runs}
+
+
+def phase_profile() -> dict:
+    """Not run by default: where a serving step's time goes. The same engine
+    and prompts as `serve`; one prefill step of the 8 prompts, then a window
+    of decode steps at b=8, each timed without and then with torch.profiler,
+    which gives the device's busy time (sum of kernel times; one stream) and
+    the kernels that take it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssd_tpu_torch import SamplingParams
+
+    llm = _serving_llm()
+    prompts8, _ = _serving_prompts()
+    llm.generate([p[:40] for p in prompts8[:2]],
+                 SamplingParams(temperature=0.0, max_new_tokens=4, ignore_eos=True),
+                 use_tqdm=False)  # warm-up
+
+    def window(steps: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            llm.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    sp = SamplingParams(temperature=0.0, max_new_tokens=100, ignore_eos=True)
+    out = {}
+    for label, steps in (("prefill_b8", 1), ("decode_b8", 20)):
+        if label == "prefill_b8":
+            for p in prompts8:
+                llm.add_request(p, sp)
+            plain_s = None   # the prefill happens once
+        else:
+            plain_s = window(steps)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prof_s = window(steps)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        out[label] = dict(
+            steps=steps, wall_ms_per_step=None if plain_s is None else plain_s * 1e3 / steps,
+            profiled_wall_ms_per_step=prof_s * 1e3 / steps,
+            device_busy_ms_per_step=busy_us / 1e3 / steps,
+            device_busy_share=busy_us / 1e6 / (plain_s or prof_s),
+            top_kernels=[dict(name=e.key[:90], ms_per_step=e.self_device_time_total / 1e3 / steps,
+                              calls=e.count) for e in top])
+    emit("profile", geometry="Llama-3.2-1B (16 layers, random bf16 weights)", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4
+# ---------------------------------------------------------------------------
+
+
+def _random_checkpoint(d: str, layers: int, scale: float, seed: int):
+    import torch
+
+    from ssd_tpu_torch.utils.loader import save_safetensors
+
+    c = LLAMA_1B
+    D, I, hd = c["hidden_size"], c["intermediate_size"], c["head_dim"]
+    Hq, Hkv = c["num_attention_heads"], c["num_key_value_heads"]
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape):
+        return torch.randn(*shape, generator=g) * scale
+
+    t = {"model.embed_tokens.weight": w(c["vocab_size"], D),
+         "model.norm.weight": torch.ones(D)}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        t.update({
+            p + "input_layernorm.weight": torch.ones(D),
+            p + "post_attention_layernorm.weight": torch.ones(D),
+            p + "self_attn.q_proj.weight": w(Hq * hd, D),
+            p + "self_attn.k_proj.weight": w(Hkv * hd, D),
+            p + "self_attn.v_proj.weight": w(Hkv * hd, D),
+            p + "self_attn.o_proj.weight": w(D, Hq * hd),
+            p + "mlp.gate_proj.weight": w(I, D),
+            p + "mlp.up_proj.weight": w(I, D),
+            p + "mlp.down_proj.weight": w(D, I),
+        })
+    save_safetensors(os.path.join(d, "model.safetensors"), t)
+    _write_config(d, num_hidden_layers=layers)
+
+
+def phase_exact() -> dict:
+    import numpy as np
+    import torch
+
+    from ssd_tpu_torch import LLM, SamplingParams
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, LLAMA_1B["vocab_size"], size=n).tolist()
+               for n in (20, 77, 130)]
+    sp = SamplingParams(temperature=0.0, max_new_tokens=16, ignore_eos=True)
+    tokens, margins = {}, []
+    with tempfile.TemporaryDirectory() as d:
+        _random_checkpoint(d, layers=2, scale=0.4, seed=3)
+        for dev in ("cuda", "cpu"):
+            llm = LLM(d, device=dev, dtype="float32", max_model_len=512,
+                      kvcache_block_size=BLOCK, max_num_seqs=4,
+                      num_kvcache_blocks=32)
+            runner, run = llm.model_runner, llm.model_runner.run
+
+            def recording_run(seqs, is_prefill, _run=run):
+                toks, logits = _run(seqs, is_prefill, return_logits=True)
+                top2 = logits.float().topk(2, dim=-1).values
+                margins.append(float((top2[:, 0] - top2[:, 1]).min()))
+                return toks
+
+            runner.run = recording_run
+            outs, _ = llm.generate(prompts, sp, use_tqdm=False)
+            tokens[dev] = [o["token_ids"] for o in outs]
+            del llm, runner
+    equal = tokens["cuda"] == tokens["cpu"]
+    emit("exact", geometry="Llama-3.2-1B width, 2 layers, fp32, init scale 0.4",
+         prompts=[len(p) for p in prompts], new_tokens=16, equal=equal,
+         min_top2_margin=min(margins),
+         first_diff=None if equal else [
+             (i, a, b) for i, (a, b) in enumerate(zip(tokens["cuda"], tokens["cpu"])) if a != b][:1])
+    if not equal:
+        fail("exact: greedy tokens on the card differ from the CPU's")
+    return {"equal": equal, "min_top2_margin": min(margins)}
+
+
+# ---------------------------------------------------------------------------
+
+
+def kernels_line(kern: dict, serve: dict | None) -> dict:
+    replaces = {
+        "paged_attention": "ssd_tpu/ops/pallas_attention.py:354 (_paged_attn_v2_kernel, B=1); :622 (_paged_attn_v3_kernel, B>1)",
+        "flat_prefill_attention": "ssd_tpu/ops/pallas_attention.py:1700 (_flat_prefill_kernel)",
+    }
+    out = []
+    for name, tm in kern["timings"].items():
+        err = max(v["max_abs_err"] for (k, _, _), v in kern["errors"].items() if k == name)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"ssd_tpu_torch/csrc/{name}.cu", "replaces": replaces[name],
+            # Counted only by the serve phase's run of the main path.
+            "launches": serve["launches"][name] if serve else None,
+            "max_abs_err": err, "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"],
+        })
+    return {"kernels": out}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {PHASES + EXTRA_PHASES}")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if set(phases) - set(PHASES + EXTRA_PHASES):
+        ap.error(f"unknown phases {set(phases) - set(PHASES + EXTRA_PHASES)}")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    try:
+        import ssd_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    phase_env()
+    kern = phase_kernels() if "kernels" in phases else None
+    serve = phase_serve() if "serve" in phases else None
+    if "exact" in phases:
+        phase_exact()
+    if "profile" in phases:
+        phase_profile()
+    if kern is not None:
+        print(json.dumps(kernels_line(kern, serve)), flush=True)
+    emit("done", seconds=time.perf_counter() - t0, phases=phases)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,39 @@
+"""ssd_tpu_torch: the PyTorch/CUDA port of ssd_tpu for NVIDIA Hopper GPUs.
+
+A second package beside the JAX one, which stays the reference. It imports
+PyTorch and never JAX or anything of ssd_tpu. Ported so far: greedy and
+temperature autoregressive serving of dense Llama-3 / Qwen-3 checkpoints
+through `LLM(...).generate`, with paged KV, prefix caching, continuous
+batching, preemption and chunked prefill; attention runs in hand-written
+CUDA kernels on the GPU (ops/attention.py, csrc/) and in their plain
+PyTorch versions on the CPU. The engine runs on "cuda" unless the caller
+passes device="cpu".
+"""
+
+from ssd_tpu_torch.config import Config, ModelConfig
+from ssd_tpu_torch.engine.sequence import Sequence, SequenceStatus
+from ssd_tpu_torch.sampling_params import SamplingParams
+
+__all__ = [
+    "Config",
+    "ModelConfig",
+    "SamplingParams",
+    "Sequence",
+    "SequenceStatus",
+    "LLM",
+    "LLMEngine",
+    "METRICS",
+]
+
+
+def __getattr__(name):
+    # Lazy import: `import ssd_tpu_torch` stays light for host-only users.
+    if name == "LLM":
+        from ssd_tpu_torch.llm import LLM
+
+        return LLM
+    if name in ("LLMEngine", "METRICS"):
+        from ssd_tpu_torch.engine import llm_engine
+
+        return getattr(llm_engine, name)
+    raise AttributeError(name)

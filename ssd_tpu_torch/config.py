@@ -1,0 +1,144 @@
+"""Engine configuration.
+
+Counterpart of ssd_tpu/config.py, cut to the fields the autoregressive path
+reads. Differences from the JAX package:
+
+- there is no `use_pallas` knob: a CUDA tensor goes through the hand-written
+  kernel and a CPU tensor through its plain PyTorch version
+  (ssd_tpu_torch/ops/attention.py);
+- `gpu_memory_utilization` replaces `hbm_memory_utilization`; the KV pool is
+  sized from `torch.cuda.mem_get_info()` (engine/model_runner.py);
+- `device` names where the engine runs: "cuda" unless the caller asks for
+  "cpu". Without a GPU and without device="cpu" the engine raises.
+
+The speculative fields below are read by the scheduler, which is ported
+whole; the modes they select (sync SD, async SSD, EAGLE, ngram, multi-step
+AR) are not ported yet and are refused here.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass, field
+
+
+@dataclass
+class ModelConfig:
+    """Subset of an HF `config.json` the engine needs, parsed without transformers."""
+
+    model_type: str = "llama"
+    vocab_size: int = 32000
+    hidden_size: int = 2048
+    intermediate_size: int = 8192
+    num_hidden_layers: int = 16
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    head_dim: int | None = None
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 500000.0
+    max_position_embeddings: int = 8192
+    tie_word_embeddings: bool = False
+    torch_dtype: str = "bfloat16"
+    eos_token_id: int | list[int] | None = None
+    bos_token_id: int | None = None
+    attention_bias: bool = False
+    num_experts: int = 0
+
+    @property
+    def head_dim_actual(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def eos(self) -> int:
+        e = self.eos_token_id
+        if isinstance(e, list):
+            return e[0]
+        return -1 if e is None else e
+
+    @classmethod
+    def from_pretrained(cls, model_path: str) -> "ModelConfig":
+        with open(os.path.join(model_path, "config.json")) as f:
+            raw = json.load(f)
+        known = {f_.name for f_ in cls.__dataclass_fields__.values()}  # type: ignore[attr-defined]
+        kwargs = {k: v for k, v in raw.items() if k in known}
+        return cls(**kwargs)
+
+
+@dataclass
+class Config:
+    model: str
+    max_num_batched_tokens: int = 16384
+    max_num_seqs: int = 1
+    max_model_len: int = 4096
+    gpu_memory_utilization: float = 0.7
+    device: str = "cuda"
+    hf_config: ModelConfig | None = None
+    eos: int = -1
+    kvcache_block_size: int = 256
+    num_kvcache_blocks: int = -1
+    dtype: str = "bfloat16"
+    seed: int = 0
+    # Nucleus / top-k warp at sampling; requests with top_p < 1 or top_k > 0
+    # on an engine built without it are refused at add_request.
+    enable_top_sampling: bool = False
+    # Admit a prompt longer than the per-dispatch token budget in
+    # budget-sized chunks, interleaving decode steps between chunks.
+    chunked_prefill: bool = False
+    verbose: bool = False
+
+    # Read by the scheduler; only their defaults (the AR path) are accepted
+    # until the speculative modes are ported.
+    speculate: bool = False
+    draft_async: bool = False
+    async_fused: bool = False
+    use_eagle: bool = False
+    ngram_speculate: bool = False
+    speculate_k: int = 1
+    spec_rounds: int = 1
+    async_fan_out: int = 3
+    fan_out_list: list[int] | None = None
+    fan_out_list_miss: list[int] | None = None
+    multi_step: int = 1
+
+    MQ_LEN: int = field(default=0, init=False)
+
+    @property
+    def max_blocks(self) -> int:
+        return (self.max_model_len + self.kvcache_block_size - 1) // self.kvcache_block_size
+
+    def __post_init__(self):
+        if not os.path.isdir(self.model):
+            raise ValueError(f"model path does not exist: {self.model}")
+        if self.dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"dtype must be bfloat16 or float32, got {self.dtype!r}")
+        unported = {
+            "speculate": self.speculate, "draft_async": self.draft_async,
+            "async_fused": self.async_fused, "use_eagle": self.use_eagle,
+            "ngram_speculate": self.ngram_speculate,
+            "multi_step > 1": self.multi_step > 1,
+            "speculate_k != 1": self.speculate_k != 1,
+            "spec_rounds != 1": self.spec_rounds != 1,
+            "async_fan_out != 3": self.async_fan_out != 3,
+            "fan_out_list": self.fan_out_list is not None,
+            "fan_out_list_miss": self.fan_out_list_miss is not None,
+        }
+        asked = [k for k, v in unported.items() if v]
+        if asked:
+            raise NotImplementedError(
+                f"not ported to ssd_tpu_torch yet: {', '.join(asked)}")
+
+        self.hf_config = ModelConfig.from_pretrained(self.model)
+        if self.hf_config.num_experts:
+            raise NotImplementedError("MoE models are not ported to ssd_tpu_torch yet")
+        self.max_model_len = min(self.max_model_len, self.hf_config.max_position_embeddings)
+        if self.eos == -1:
+            self.eos = self.hf_config.eos
+        # Without chunking, a batch-head prefill must fit one dispatch
+        # (scheduler admission can never livelock at the queue head).
+        if not (self.chunked_prefill
+                or self.max_num_batched_tokens >= self.max_model_len):
+            raise ValueError(
+                "max_num_batched_tokens < max_model_len requires chunked_prefill")

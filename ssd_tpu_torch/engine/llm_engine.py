@@ -1,0 +1,197 @@
+"""Engine: request lifecycle, generate loop, metrics.
+
+Counterpart of ssd_tpu/engine/llm_engine.py, autoregressive subset: the same
+module-global METRICS dict with the same keys, `add_request`, `step`,
+`generate` and `abort_request`. The speculative modes, the draft runners and
+the warm-up of compiled shape buckets have no counterpart yet (PyTorch runs
+eagerly, so there is nothing to pre-compile).
+"""
+
+from __future__ import annotations
+
+from dataclasses import fields
+from time import perf_counter
+
+from ssd_tpu_torch.config import Config
+from ssd_tpu_torch.engine.model_runner import ModelRunner
+from ssd_tpu_torch.engine.scheduler import Scheduler
+from ssd_tpu_torch.engine.sequence import Sequence
+from ssd_tpu_torch.engine.step import AutoRegressiveStep, InferenceStep
+from ssd_tpu_torch.sampling_params import SamplingParams
+from ssd_tpu_torch.utils.misc import load_tokenizer
+
+METRICS = {
+    "cache_hits": [],
+    "accepted_suffix_lens_with_recovery": [],
+    "accepted_suffix_lens_on_hit": [],
+    "accepted_suffix_lens_on_miss": [],
+    "prefill_total_time": 0,
+    "decode_total_time": 0,
+    "prefill_total_tokens": 0,
+    "decode_total_tokens": 0,
+    "target_step_times": [],
+    "target_verify_times": [],
+    "sd_superstep_times": [],
+}
+
+
+class LLMEngine:
+
+    def __init__(self, model: str, init_random: bool = False, **kwargs):
+        """`model` is a checkpoint directory (config.json plus safetensors,
+        or config.json alone with init_random=True, which makes seeded
+        random weights). Other keyword arguments are Config fields; the
+        engine runs on device="cuda" unless device="cpu" is passed."""
+        config_fields = {f.name for f in fields(Config) if f.init}
+        unknown = set(kwargs) - config_fields
+        if unknown:
+            raise TypeError(f"unknown engine arguments: {sorted(unknown)}")
+        config = Config(model, **kwargs)
+        self.config = config
+        Sequence.block_size = config.kvcache_block_size
+
+        self.model_runner = ModelRunner(config, init_random=init_random)
+        self.tokenizer = load_tokenizer(config.model)
+        if self.tokenizer is not None and self.tokenizer.eos_token_id is not None:
+            config.eos = self.tokenizer.eos_token_id
+        self.scheduler = Scheduler(config)
+
+    def abort_request(self, seq_id: int) -> bool:
+        """Cancel an in-flight or queued request by its seq_id; frees its KV
+        blocks at once."""
+        return self.scheduler.abort(seq_id)
+
+    def add_request(self, prompt: str | list[int], sampling_params: SamplingParams):
+        if isinstance(prompt, str):
+            if self.tokenizer is None:
+                raise ValueError("string prompts need a tokenizer in the "
+                                 "checkpoint and the transformers package")
+            prompt = self.tokenizer.encode(prompt)
+        if not prompt:
+            raise ValueError("empty prompt")
+        if len(prompt) >= self.config.max_model_len:
+            raise ValueError(
+                f"prompt length {len(prompt)} leaves no room for generation "
+                f"(max_model_len={self.config.max_model_len})"
+            )
+        if not (0.0 < sampling_params.top_p <= 1.0):
+            raise ValueError(f"top_p must be in (0, 1], got {sampling_params.top_p}")
+        if sampling_params.top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {sampling_params.top_k}")
+        if ((sampling_params.top_p < 1.0 or sampling_params.top_k > 0)
+                and not self.config.enable_top_sampling):
+            raise ValueError(
+                "top_p/top_k need an engine built with enable_top_sampling=True")
+        if (len(prompt) > self.config.max_num_batched_tokens
+                and not self.config.chunked_prefill):
+            raise ValueError(
+                f"prompt length {len(prompt)} exceeds max_num_batched_tokens="
+                f"{self.config.max_num_batched_tokens} "
+                f"(set chunked_prefill=True to admit it in chunks)"
+            )
+        seq = Sequence(prompt, sampling_params)
+        self.scheduler.add(seq)
+        return seq.seq_id
+
+    def _run_prefill_chunk(self, seq) -> int:
+        """One partial prefill dispatch (Config.chunked_prefill): write the
+        chunk's KV, advance the cached-token boundary, and leave the sequence
+        in the waiting queue. The sampled token is unused."""
+        chunk = seq.prefill_chunk
+        self.model_runner.run([seq], is_prefill=True)
+        seq.num_cached_tokens += chunk
+        seq.prefill_chunk = None
+        return chunk
+
+    def step(self, step: InferenceStep | None = None):
+        if step is None:
+            if not hasattr(self, "_default_step"):
+                self._default_step = self.create_inference_step()
+            step = self._default_step
+        t = perf_counter()
+        seqs, is_prefill = self.scheduler.schedule()
+        if is_prefill and seqs and seqs[0].prefill_chunk is not None:
+            ttl_tokens = self._run_prefill_chunk(seqs[0])
+        else:
+            ttl_tokens = step.prefill(seqs) if is_prefill else step.decode(seqs)
+        time_taken = perf_counter() - t
+
+        if is_prefill:
+            METRICS["prefill_total_time"] += time_taken
+            METRICS["prefill_total_tokens"] += ttl_tokens
+        else:
+            METRICS["decode_total_time"] += time_taken
+            METRICS["decode_total_tokens"] += ttl_tokens
+
+        finished = [seq for seq in seqs if seq.is_finished]
+        finished.extend(self.scheduler.newly_finished)
+        self.scheduler.newly_finished = []
+        return [(seq.seq_id, seq.completion_token_ids) for seq in finished]
+
+    def is_finished(self):
+        return self.scheduler.is_finished()
+
+    def create_inference_step(self) -> InferenceStep:
+        return AutoRegressiveStep(self.scheduler, self.model_runner)
+
+    def log_metrics(self):
+        if METRICS["prefill_total_time"] > 0:
+            print(
+                f"Final Prefill Throughput: "
+                f"{int(METRICS['prefill_total_tokens'] / METRICS['prefill_total_time'])}tok/s",
+                flush=True,
+            )
+        if METRICS["decode_total_time"] > 0:
+            print(
+                f"Final Decode Throughput: "
+                f"{int(METRICS['decode_total_tokens'] / METRICS['decode_total_time'])}tok/s",
+                flush=True,
+            )
+
+    def generate(
+        self,
+        prompts: list[str] | list[list[int]],
+        sampling_params: SamplingParams | list[SamplingParams],
+        use_tqdm: bool = True,
+    ):
+        """Serve the prompts to completion. Returns (outputs in submission
+        order, each {"text", "token_ids"}; METRICS)."""
+        for k in METRICS:
+            METRICS[k] = [] if isinstance(METRICS[k], list) else 0
+
+        pbar = None
+        if use_tqdm:
+            try:
+                from tqdm.auto import tqdm
+
+                pbar = tqdm(total=len(prompts), desc="Generating", dynamic_ncols=True)
+            except ImportError:
+                pass
+        if not isinstance(sampling_params, list):
+            sampling_params = [sampling_params] * len(prompts)
+        for prompt, sp in zip(prompts, sampling_params):
+            self.add_request(prompt, sp)
+
+        outputs = {}
+        inference_step = self.create_inference_step()
+        while not self.is_finished():
+            t = perf_counter()
+            output = self.step(inference_step)
+            METRICS["target_step_times"].append(perf_counter() - t)
+            for seq_id, token_ids in output:
+                outputs[seq_id] = token_ids
+                if pbar:
+                    pbar.update(1)
+
+        outputs = [outputs[seq_id] for seq_id in sorted(outputs)]
+        outputs = [
+            {
+                "text": self.tokenizer.decode(ids) if self.tokenizer else "",
+                "token_ids": ids,
+            }
+            for ids in outputs
+        ]
+        if pbar:
+            pbar.close()
+        self.log_metrics()
+        return outputs, METRICS

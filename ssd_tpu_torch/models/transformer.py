@@ -1,0 +1,146 @@
+"""Decoder-only transformer (Llama-3 and Qwen-3 families) as plain functions
+over a parameter dict.
+
+Counterpart of ssd_tpu/models/transformer.py. The JAX package stacks layers
+along a leading axis and runs one `lax.scan`; here the layers are a list of
+per-layer dicts and the forward is a Python loop over them. Weights are kept
+as [in, out] (x @ W), as in JAX. The attention itself is a callable built by
+the model runner for the phase (prefill or decode), which updates the layer's
+KV cache in place and returns the attention output.
+
+Parameter dict:
+  embed [V, D], final_ln [D], lm_head [V, D] (the same tensor as embed when
+  tied), layers: list of {input_ln [D], wq [D, Hq*hd], wk [D, Hkv*hd],
+  wv [D, Hkv*hd], wo [Hq*hd, D], post_ln [D], gate [D, I], up [D, I],
+  down [I, D], and q_norm/k_norm [hd] for Qwen-3}.
+Not ported yet: MoE layers, int8 weights, EAGLE activation taps, the reduced
+draft vocabulary (d2t).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from ssd_tpu_torch.config import ModelConfig
+from ssd_tpu_torch.ops.layers import (
+    apply_rope, rms_norm, rms_norm_residual, rope_cos_sin, silu_mul)
+
+# attn_call(layer index, q [T,Hq,hd], k [T,Hkv,hd], v [T,Hkv,hd]) -> [T,Hq,hd]
+AttnCall = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+@dataclass(frozen=True)
+class Arch:
+    """Static architecture descriptor."""
+
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rms_norm_eps: float
+    rope_theta: float
+    use_qk_norm: bool
+    tie_embeddings: bool
+
+    @classmethod
+    def from_model_config(cls, mc: ModelConfig) -> "Arch":
+        return cls(
+            vocab_size=mc.vocab_size,
+            hidden_size=mc.hidden_size,
+            intermediate_size=mc.intermediate_size,
+            num_layers=mc.num_hidden_layers,
+            num_heads=mc.num_attention_heads,
+            num_kv_heads=mc.num_key_value_heads,
+            head_dim=mc.head_dim_actual,
+            rms_norm_eps=mc.rms_norm_eps,
+            rope_theta=mc.rope_theta,
+            use_qk_norm=mc.model_type in ("qwen3", "qwen3_moe"),
+            tie_embeddings=mc.tie_word_embeddings,
+        )
+
+
+def init_params(arch: Arch, seed: int, dtype: torch.dtype,
+                device: torch.device, scale: float = 0.02) -> dict:
+    """Random-normal weights (norms at one) from a generator seeded with
+    `seed` on `device`, one tensor at a time."""
+    D, I = arch.hidden_size, arch.intermediate_size
+    Hq, Hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def w(*shape):
+        x = torch.randn(*shape, generator=gen, device=device, dtype=torch.float32)
+        return (x * scale).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(*shape, dtype=dtype, device=device)
+
+    layers = []
+    for _ in range(arch.num_layers):
+        lp = {
+            "input_ln": ones(D), "wq": w(D, Hq * hd), "wk": w(D, Hkv * hd),
+            "wv": w(D, Hkv * hd), "wo": w(Hq * hd, D), "post_ln": ones(D),
+            "gate": w(D, I), "up": w(D, I), "down": w(I, D),
+        }
+        if arch.use_qk_norm:
+            lp["q_norm"] = ones(hd)
+            lp["k_norm"] = ones(hd)
+        layers.append(lp)
+    params = {"embed": w(arch.vocab_size, D), "layers": layers,
+              "final_ln": ones(D)}
+    params["lm_head"] = (params["embed"] if arch.tie_embeddings
+                         else w(arch.vocab_size, D))
+    return params
+
+
+def forward_hidden(
+    params: dict,
+    input_ids: torch.Tensor,   # [T]
+    positions: torch.Tensor,   # [T] rope positions
+    attn_call: AttnCall,
+    arch: Arch,
+) -> torch.Tensor:
+    """Embed -> L x (attention + MLP) -> pre-final-norm hidden states [T, D]."""
+    T = input_ids.shape[0]
+    Hq, Hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    eps = arch.rms_norm_eps
+
+    hidden = params["embed"][input_ids]
+    cos, sin = rope_cos_sin(positions, hd, arch.rope_theta)
+    residual = torch.zeros_like(hidden)
+    for li, lp in enumerate(params["layers"]):
+        x, residual = rms_norm_residual(hidden, residual, lp["input_ln"], eps)
+        q = (x @ lp["wq"]).reshape(T, Hq, hd)
+        k = (x @ lp["wk"]).reshape(T, Hkv, hd)
+        v = (x @ lp["wv"]).reshape(T, Hkv, hd)
+        if arch.use_qk_norm:
+            q = rms_norm(q, lp["q_norm"], eps)
+            k = rms_norm(k, lp["k_norm"], eps)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        o = attn_call(li, q, k, v)
+        hidden = o.reshape(T, Hq * hd) @ lp["wo"]
+
+        x, residual = rms_norm_residual(hidden, residual, lp["post_ln"], eps)
+        hidden = silu_mul(x @ lp["gate"], x @ lp["up"]) @ lp["down"]
+    return (hidden.float() + residual.float()).to(hidden.dtype)
+
+
+def compute_logits(
+    params: dict,
+    hidden: torch.Tensor,   # [T, D] pre-final-norm
+    arch: Arch,
+    gather_idx: torch.Tensor | None = None,  # [B] token rows to project
+) -> torch.Tensor:
+    """Final RMSNorm + LM head in fp32, optionally on a gathered subset of
+    rows (prefill projects only each sequence's last token)."""
+    if gather_idx is not None:
+        hidden = hidden[gather_idx]
+    hidden = rms_norm(hidden, params["final_ln"], arch.rms_norm_eps)
+    return hidden.float() @ params["lm_head"].float().T

@@ -1,0 +1,130 @@
+"""Builds the port's CUDA kernels (ssd_tpu_torch/csrc/*.cu) into one shared
+library at first use and loads it with ctypes.
+
+Each source compiles with its own `nvcc` process, all started together, for
+`sm_90a` (Hopper); the objects then link into
+`csrc/build/libssd_tpu_torch_<hash>.so`, where `<hash>` covers the sources and
+flags, so an edited source rebuilds. The library has a plain C interface:
+pointers and the CUDA stream pass as `c_void_p`, and every entry point returns
+a `cudaError_t`, on which the wrappers in ops/attention.py raise. A failed
+build raises; nothing falls back to the plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
+]
+
+
+class KernelLibrary:
+    """The loaded library, with how it was obtained."""
+
+    def __init__(self, cdll: ctypes.CDLL, path: Path, build_seconds: float,
+                 build_log: str):
+        self.cdll = cdll
+        self.path = path
+        self.build_seconds = build_seconds  # 0.0 when an existing build was reused
+        self.build_log = build_log          # nvcc/ptxas output (registers, spills)
+
+    def check(self, err: int, what: str):
+        if err != 0:
+            msg = self.cdll.ssd_error_string(err).decode()
+            raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+_LIB: KernelLibrary | None = None
+
+
+def _nvcc() -> str:
+    cands = [os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc")] if os.environ.get("CUDA_HOME") else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels of ssd_tpu_torch need "
+                       "the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _digest(files: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in files:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(sources: list[Path], so: Path) -> str:
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sources:
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, so)
+    return "\n".join(log)
+
+
+def _bind(cdll: ctypes.CDLL):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
+    cdll.ssd_error_string.restype = ctypes.c_char_p
+    cdll.ssd_error_string.argtypes = [i]
+    cdll.ssd_paged_attention.restype = i
+    cdll.ssd_paged_attention.argtypes = [
+        i, p, p, p, p, p, p,     # dtype, q, kv, block_tables, context_lens, qeff, out
+        i, i, i, i, i, ll, i, i,  # B, Q, Hq, Hkv, hd, S, M, block_size
+        f, p,                     # scale, stream
+    ]
+    cdll.ssd_flat_prefill_attention.restype = i
+    cdll.ssd_flat_prefill_attention.argtypes = [
+        i, p, p, p, p, p, p,     # dtype, q, kv, flat_pages, row_lo, row_hi, out
+        i, i, i, i, ll, i, i,    # T, Hq, Hkv, hd, S, P, block_size
+        f, p,                     # scale, stream
+    ]
+
+
+def load() -> KernelLibrary:
+    """The kernel library, built on the first call of the process."""
+    global _LIB
+    if _LIB is None:
+        sources = sorted(CSRC.glob("*.cu"))
+        so = BUILD_DIR / f"libssd_tpu_torch_{_digest(sources + sorted(CSRC.glob('*.cuh')))}.so"
+        t0 = time.perf_counter()
+        log = _build(sources, so) if not so.exists() else ""
+        seconds = time.perf_counter() - t0 if log else 0.0
+        cdll = ctypes.CDLL(str(so))
+        _bind(cdll)
+        _LIB = KernelLibrary(cdll, so, seconds, log)
+    return _LIB

@@ -1,0 +1,61 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Needs an NVIDIA GPU (the kernels have no CPU mode) and skips without one.
+The file imports neither JAX nor the JAX package, so on a GPU machine
+without JAX it runs with the JAX-forcing conftest turned off:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ssd_tpu_torch.ops import attention as att
+from tests.torch_cases import flat_meta, paged_case
+
+
+def t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def close(got, want, dtype):
+    """Elementwise |got - want| <= 1e-4 + rtol |want|, where rtol is 0 in fp32
+    and 2^-7 in bf16: both sides compute in fp32 and round the output once,
+    and one bf16 ulp at x is at most 2^-7 |x|."""
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    want = want.float()
+    return bool(((got.float() - want).abs() <= 1e-4 + rtol * want.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv,hd", [(8, 2, 64), (6, 2, 128)])  # G = 4 and 3
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_on_card(dtype, Hq, Hkv, hd):
+    """The CUDA kernels against their plain versions on the card: decode with
+    a ghost row, overshoot at Q=4 (Q*G query rows take several passes), and
+    a mixed prefix-cached prefill, at both head sizes the kernels take."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    dev = "cuda"
+    scale = hd ** -0.5
+    for (B, Q, ctx_lens, M, ghosts) in [(4, 1, [300, 64, 129], 8, 1),
+                                        (3, 4, [258, 100, 256], 4, 0)]:
+        q, kv, bt, ctx = paged_case(7, B, Q, Hq, Hkv, hd, 64, M, ctx_lens, ghosts)
+        if M == 4:
+            ctx = np.asarray(ctx_lens, np.int32)   # beyond the full table
+        args = [t(a).to(dev) for a in (q, kv, bt, ctx, np.full(B, Q, np.int32))]
+        args[0], args[1] = args[0].to(dtype), args[1].to(dtype)
+        got = att.paged_attention(*args, 64, scale)
+        want = att.paged_attention_plain(*args, 64, scale)
+        assert close(got, want, dtype)
+    _, kv, bt, _ = paged_case(51, 3, 1, Hq, Hkv, hd, 16, 8, [9, 12, 19])
+    lo, hi, pages_per = flat_meta([9, 12, 19], [5, 12, 3], 16, 32)
+    pages = np.concatenate([bt[s, :pages_per[s]] for s in range(3)])
+    pages = np.pad(pages, (0, 8 - len(pages)), constant_values=-1).astype(np.int32)
+    q = np.random.default_rng(52).normal(size=(32, Hq, hd)).astype(np.float32)
+    args = [t(q).to(dev, dtype), t(kv).to(dev, dtype)] + [t(a).to(dev) for a in (pages, lo, hi)]
+    got = att.flat_prefill_attention(*args, 16, scale)
+    want = att.flat_prefill_attention_plain(*args, 16, scale)
+    assert close(got, want, dtype)
+    assert got[sum([5, 12, 3]):].abs().max() == 0   # padding rows

@@ -1,0 +1,38 @@
+"""Numpy-only input cases shared by the port's tests: paged decode batches
+and flat prefill windows. Free of JAX, so the card tests can use them on a
+machine without it."""
+
+import numpy as np
+
+
+def paged_case(seed, B, Q, Hq, Hkv, hd, block_size, max_blocks, ctx_lens,
+               ghosts=0):
+    """q, cache and disjoint shuffled page tables; `ghosts` trailing rows are
+    batch padding (context 1, table all -1)."""
+    rng = np.random.default_rng(seed)
+    S = block_size * (max_blocks * B + 1)
+    kv = rng.normal(size=(Hkv, S, 2 * hd)).astype(np.float32)
+    q = rng.normal(size=(B, Q, Hq, hd)).astype(np.float32)
+    pages = rng.permutation(S // block_size - 1) + 1
+    bt = np.full((B, max_blocks), -1, np.int32)
+    ctx = np.ones(B, np.int32)
+    for b in range(B - ghosts):
+        n = min(-(-ctx_lens[b] // block_size), max_blocks)
+        bt[b, :n] = pages[b * max_blocks: b * max_blocks + n]
+        ctx[b] = ctx_lens[b]
+    return q, kv, bt, ctx
+
+
+def flat_meta(ctx_lens, qeffs, block_size, T_pad):
+    """Per-sequence page runs concatenated; each new token's half-open window
+    in flat-context columns (the layout of test_pallas_kernels.py)."""
+    pages_per = [-(-c // block_size) for c in ctx_lens]
+    page_off = np.concatenate([[0], np.cumsum(pages_per)])[:-1]
+    lo, hi = [], []
+    for s, (c, qe) in enumerate(zip(ctx_lens, qeffs)):
+        base = page_off[s] * block_size
+        lo += [base] * qe
+        hi += [base + c - qe + i + 1 for i in range(qe)]
+    pad = T_pad - len(lo)
+    return (np.asarray(lo + [0] * pad, np.int32),
+            np.asarray(hi + [0] * pad, np.int32), pages_per)
