@@ -12,7 +12,9 @@ the script exits non-zero:
               ssd_tpu_torch/csrc (seconds, ptxas register/spill lines).
 2. kernels  - each kernel against its plain PyTorch version on the card, at
               the Llama-3.2-1B geometry (Hq/Hkv 32/8, head_dim 64, 64-token
-              pages), in fp32 (|err| <= 1e-4) and bf16 (|err| <= 1e-4 +
+              pages; the paged kernel at decode Q=1 and at the SD/SSD verify
+              Q=K+1=5; the tree kernel at K=4, 10 tree rows), in fp32
+              (|err| <= 1e-4) and bf16 (|err| <= 1e-4 +
               2^-7 |ref|: one bf16 rounding of the fp32 result), with TF32
               off for matmuls and cuDNN; and their times:
               the kernel, the plain version, one library call computing the
@@ -20,14 +22,34 @@ the script exits non-zero:
               dense K/V, a yardstick the port never calls), and the bound.
 3. serve    - LLM(...).generate at the full Llama-3.2-1B width (16 layers,
               random bf16 weights from a seed): 128 greedy tokens for 8
-              prompts of mixed length, then for 1 prompt. The kernels' launch
-              counts are zeroed just before and read just after; both must be
-              above zero.
-4. exact    - the same width at 2 layers in fp32 from one random checkpoint
-              (init scale 0.4): greedy tokens on the card equal those of
-              device="cpu", with the smallest top-1/top-2 logit margin seen.
-5. profile  - (only when asked for) the device's busy share and top kernels
+              prompts of mixed length, then for 1 prompt (the AR path). The
+              kernels' launch counts are zeroed just before and read just
+              after; both must be above zero.
+4. spec     - sync SD and async SSD (K=4, fan-out 2, so 10 tree rows per
+              sequence) through LLM(target, draft=..., speculate=True, ...)
+              at the same width: a target of 16 layers whose layers >= 4
+              have o_proj = down = 0 and a 4-layer draft sharing its live
+              layers (the construction of the JAX package's bench.py), bf16.
+              128 greedy tokens at b8 and b1, with the draft exact (the hit
+              path) and perturbed by a fixed noise level (the miss path),
+              whose SSD cache-hit rate must land between 0.2 and 0.8. Per run: decode
+              tok/s, accepted suffix length, hit rate, verify and draft step
+              times, and the overlap on the card of the draft's tree builds
+              (draft stream) with the target's verifies (target stream),
+              from CUDA events. Launch counts are zeroed before and read
+              after each run, with the draft thread drained on both sides
+              so that a run counts its own tree builds whole; every kernel
+              must launch on each path.
+5. exact    - the same width in fp32 from random checkpoints (init scale
+              0.4): AR at 2 layers, greedy tokens on the card equal those of
+              device="cpu", with the smallest top-1/top-2 logit margin seen;
+              then a target of 8 layers and a noisy 2-layer draft: AR, sync
+              SD and async SSD tokens on the card and on the CPU all equal.
+6. profile  - (only when asked for) the device's busy share and top kernels
               over a prefill step and a window of decode steps at b=8.
+7. spec_profile - (only when asked for) the same for sync SD and async SSD
+              at b=8: per step, the device time of each CUDA stream, their
+              union, and the time both streams ran kernels at once.
 
 Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -44,8 +66,8 @@ import sys
 import tempfile
 import time
 
-PHASES = ("env", "kernels", "serve", "exact")
-EXTRA_PHASES = ("profile",)
+PHASES = ("env", "kernels", "serve", "spec", "exact")
+EXTRA_PHASES = ("profile", "spec_profile")
 
 # Llama-3.2-1B geometry (the JAX package's bench.py random-weight config).
 LLAMA_1B = {
@@ -65,6 +87,12 @@ LLAMA_1B = {
 }
 BLOCK = 64
 SERVE_LENS8 = [33, 111, 250, 400, 640, 900, 1300, 1900]  # serve phase, b8
+SPEC_K, SPEC_F = 4, 2               # speculation depth, async fan-out
+SPEC_MQ = SPEC_F * (SPEC_K + 1)     # tree rows per sequence
+SPEC_LIVE = 4                       # draft layers = the target's live layers
+SPEC_MAX_LEN = 2112                 # 1900 + 128 tokens + the tree lookahead
+MISS_NOISE = 0.04                   # draft noise of the miss path
+MISS_HIT_RATE = (0.2, 0.8)          # the range its SSD hit rate must land in
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
               "float32": 67e12}    # fp32 outside the tensor cores
@@ -206,6 +234,25 @@ def _flat_case(ctx_lens, cached, dtype, seed, pad_rows=0, pad_pages=0):
             torch.from_numpy(hi).to(dev), T)
 
 
+def _tree_case(B, step, bases, ghosts, dtype, seed):
+    """One tree step s of the async draft at K=4, fan-out 2: sequence b's
+    recovery token sits at bases[b], so its context is bases[b] + (K+1) +
+    (s+1)*MQ. Even rows take the hit fan-out list [2]*5, odd rows a miss
+    list [3, 3, 2, 1, 1]; `ghosts` trailing rows are warm-up ghosts (table
+    all -1, a prefix of -3). Returns (q, kv, tables, contexts, fan rows)."""
+    import numpy as np
+    import torch
+
+    M = SPEC_MAX_LEN // BLOCK
+    ctx_lens = [b + SPEC_K + 1 + (step + 1) * SPEC_MQ for b in bases]
+    q, kv, bt, ctx, _ = _paged_case(B, SPEC_MQ, ctx_lens, M, ghosts, dtype, seed)
+    ctx[B - ghosts:] = SPEC_K + 1 + (step + 1) * SPEC_MQ - 3
+    hit = np.repeat(np.arange(SPEC_K + 1), [SPEC_F] * (SPEC_K + 1))
+    miss = np.repeat(np.arange(SPEC_K + 1), [3, 3, 2, 1, 1])
+    fan = np.stack([hit if b % 2 == 0 else miss for b in range(B)]).astype(np.int32)
+    return q, kv, bt, ctx, torch.from_numpy(fan).cuda()
+
+
 def _check(name, dtype, got, want, case):
     import torch
 
@@ -231,18 +278,25 @@ def phase_kernels() -> dict:
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     scale = 64 ** -0.5
     M = 2048 // BLOCK
+    M_spec = SPEC_MAX_LEN // BLOCK
     decode8 = [2048, 1, 700, 1333, 64, 65, 1999]  # + one ghost row
+    # SD/SSD verify and glue at Q = K+1 (G*Q = 20 rows per KV head: two full
+    # 8-row passes and a partial one); contexts up to the spec engine's
+    # table, down to Q itself, + one ghost row.
+    verify8 = [SPEC_MAX_LEN, SPEC_K + 1, 700, 1333, 64, 65, 2047]
     # The serve phase's b8 batch halfway through its 128 decode steps.
     serve8 = [n + 64 for n in SERVE_LENS8]
     results = {}
 
     for dname, dt in dts.items():
-        # K-A: decode at B = 1 and B = 8 (one ghost row), and the overshoot
-        # case (a full table with context beyond it, Q = 4).
+        # K-A: decode at B = 1 and B = 8 (one ghost row), the overshoot case
+        # (a full table with context beyond it, Q = 4), and the verify shape.
         for seed, (case, args) in enumerate({
             "decode_b1": (1, 1, [1500], M, 0),
             "decode_b8": (8, 1, decode8, M, 1),
             "overshoot_q4": (3, 4, [258, 100, 256], 4, 0),  # table holds 256
+            "verify_b1": (1, SPEC_K + 1, [2090], M_spec, 0),
+            "verify_b8": (8, SPEC_K + 1, verify8, M_spec, 1),
         }.items()):
             q, kv, bt, ctx, qeff = _paged_case(*args, dt, seed=seed)
             got = att.paged_attention(q, kv, bt, ctx, qeff, BLOCK, scale)
@@ -264,32 +318,60 @@ def phase_kernels() -> dict:
             fail("flat_prefill_attention: padding rows are not zero")
         results[("flat_prefill_attention", "mixed8_cached2", dname)] = {"max_abs_err": err}
 
+        # K-C: tree steps 0 and K-1 at B = 1 and B = 8 (one warm-up ghost).
+        for step in (0, SPEC_K - 1):
+            for case, (B, bases, ghosts) in {
+                "tree_b1": (1, [2048], 0),
+                "tree_b8": (8, [1500, 0, 700, 1333, 64, 65, 1999], 1),
+            }.items():
+                q, kv, bt, ctx, fan = _tree_case(B, step, bases, ghosts, dt, seed=20 + step)
+                got = att.tree_attention(q, kv, bt, ctx, fan, step, SPEC_K, BLOCK, scale)
+                torch.cuda.synchronize()
+                want = att.tree_attention_plain(q, kv, bt, ctx, fan, step, SPEC_K, BLOCK, scale)
+                name = f"{case}_step{step}"
+                err = _check("tree_attention", dname, got, want, name)
+                results[("tree_attention", name, dname)] = {"max_abs_err": err}
+
     # Times at the main-path shapes in bf16 (the serving dtype).
-    counts = (att.paged_attention.launches, att.flat_prefill_attention.launches)
+    counts = (att.paged_attention.launches, att.flat_prefill_attention.launches,
+              att.tree_attention.launches)
     timings = {}
     dt, dname = torch.bfloat16, "bfloat16"
     elem = 2
     Hq, Hkv, hd = 32, 8, 64
 
-    q, kv, bt, ctx, qeff = _paged_case(8, 1, serve8, M, 0, dt, seed=11)
-    kv_len = torch.clamp(ctx, max=M * BLOCK).long()
-    attended = int(kv_len.sum())
-    bytes_ = (attended * Hkv * 2 * hd * elem + 2 * q.numel() * elem
-              + bt.numel() * 4 + 2 * ctx.numel() * 4)
-    flops = 4 * Hq * hd * attended
-    ms = time_ms(lambda: att.paged_attention(q, kv, bt, ctx, qeff, BLOCK, scale), 50)
-    plain_ms = time_ms(lambda: att.paged_attention_plain(q, kv, bt, ctx, qeff, BLOCK, scale), 10)
-    k, v = att.gather_pages(kv, bt, BLOCK, M * BLOCK)          # [B, C, Hkv, hd]
-    k, v = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
-    qs = q.permute(0, 2, 1, 3).contiguous()                     # [B, Hq, 1, hd]
-    pos = torch.arange(M * BLOCK, device="cuda")
-    mask = (pos[None, :] < ctx[:, None])[:, None, None, :]
-    library_ms = time_ms(lambda: sdpa(qs, k, v, mask), 50)
-    timings["paged_attention"] = dict(
-        shape=f"decode B=8 (ctx {serve8}) Q=1 Hq/Hkv 32/8 hd 64 bf16",
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=bytes_, flops=flops,
-        bound_ms=max(bytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]) * 1e3,
-        bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[dname] else "operations")
+    def time_paged(Q, ctx_lens, M, seed, shape):
+        q, kv, bt, ctx, qeff = _paged_case(len(ctx_lens), Q, ctx_lens, M, 0, dt, seed=seed)
+        C = M * BLOCK
+        # Query i of a sequence attends min(ctx - Q + i + 1, C) positions.
+        rows = torch.arange(Q, device="cuda")[None, :]
+        per_row = torch.clamp(ctx[:, None].long() - Q + rows + 1, min=0, max=C)
+        kv_len = torch.clamp(ctx, max=C).long()
+        bytes_ = (int(kv_len.sum()) * Hkv * 2 * hd * elem + 2 * q.numel() * elem
+                  + bt.numel() * 4 + 2 * ctx.numel() * 4)
+        flops = 4 * Hq * hd * int(per_row.sum())
+        ms = time_ms(lambda: att.paged_attention(q, kv, bt, ctx, qeff, BLOCK, scale), 50)
+        plain_ms = time_ms(lambda: att.paged_attention_plain(q, kv, bt, ctx, qeff, BLOCK, scale), 10)
+        k, v = att.gather_pages(kv, bt, BLOCK, C)                  # [B, C, Hkv, hd]
+        k, v = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
+        qs = q.permute(0, 2, 1, 3).contiguous()                     # [B, Hq, Q, hd]
+        pos = torch.arange(C, device="cuda")[None, None, :]
+        mask = ((pos < per_row[:, :, None]) & (pos < ctx[:, None, None]))[:, None]
+        library_ms = time_ms(lambda: sdpa(qs, k, v, mask), 50)
+        return dict(
+            shape=shape, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=bytes_,
+            flops=flops, bound_ms=max(bytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]) * 1e3,
+            bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[dname] else "operations")
+
+    timings["paged_attention"] = time_paged(
+        1, serve8, M, 11, f"decode B=8 (ctx {serve8}) Q=1 Hq/Hkv 32/8 hd 64 bf16")
+    # The SD/SSD b8 verify halfway through 128 tokens: the same batch with
+    # the K+1 verified tokens in the context.
+    verify_ctx = [n + SPEC_K + 1 for n in serve8]
+    paged_verify = time_paged(
+        SPEC_K + 1, verify_ctx, M_spec, 12,
+        f"verify B=8 (ctx {verify_ctx}) Q={SPEC_K + 1} Hq/Hkv 32/8 hd 64 bf16")
+    emit("kernels", kernel="paged_attention", timing=paged_verify)
 
     ctx_lens = [17, 100, 300, 600, 900, 1200, 1600, 2048]
     cached = [0, 0, 0, 0, 512, 0, 0, 1024]
@@ -313,10 +395,59 @@ def phase_kernels() -> dict:
         ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=bytes_, flops=flops,
         bound_ms=max(bytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]) * 1e3,
         bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[dname] else "operations")
+    # Row #4 of the TPU kernel table (the JAX draft prefill's grouped
+    # kernel) is computed here by K1: its time at the draft-prefill shape,
+    # the serve b8 prompts with nothing cached.
+    q, kv, pages, lo, hi, T = _flat_case(SERVE_LENS8, [0] * 8, dt, seed=17)
+    flops = int(4 * Hq * hd * (hi - lo).long().sum())
+    n_pages = sum(-(-c // BLOCK) for c in SERVE_LENS8)
+    bytes_ = (n_pages * BLOCK * Hkv * 2 * hd * elem + 2 * T * Hq * hd * elem
+              + pages.numel() * 4 + 2 * T * 4)
+    ms = time_ms(lambda: att.flat_prefill_attention(q, kv, pages, lo, hi, BLOCK, scale), 10)
+    plain_ms = time_ms(lambda: att.flat_prefill_attention_plain(q, kv, pages, lo, hi, BLOCK, scale), 3, warmup=1)
+    dense = att.dense_pages(kv, pages, BLOCK)
+    kd, vd = dense[..., :hd][None].contiguous(), dense[..., hd:][None].contiguous()
+    qs = q.permute(1, 0, 2)[None].contiguous()
+    col = torch.arange(dense.shape[1], device="cuda")
+    mask = ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None]))[None, None]
+    library_ms = time_ms(lambda: sdpa(qs, kd, vd, mask), 5, warmup=1)
+    draft_prefill = dict(
+        shape=f"draft prefill, 8 prompts {SERVE_LENS8}, nothing cached, T={T} Hq/Hkv 32/8 hd 64 bf16",
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=bytes_, flops=flops,
+        bound_ms=max(bytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]) * 1e3,
+        bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[dname] else "operations")
+    emit("kernels", kernel="flat_prefill_attention", tpu_row="#4 _paged_attn_kernel "
+         "(draft prefill)", timing=draft_prefill)
+
+    # The tree build's last step at b8: the serve b8 batch after 64 steps.
+    step = SPEC_K - 1
+    q, kv, bt, ctx, fan = _tree_case(8, step, [n + 64 for n in SERVE_LENS8], 0, dt, seed=31)
+    C = bt.shape[1] * BLOCK
+    from ssd_tpu_torch.ops.spec_math import tree_attention_mask
+
+    mask = tree_attention_mask(ctx, step, fan, SPEC_K, SPEC_MQ, C)      # [B, MQ, C]
+    kv_len = torch.clamp(ctx, max=C).long()
+    bytes_ = (int(kv_len.sum()) * Hkv * 2 * hd * elem + 2 * q.numel() * elem
+              + bt.numel() * 4 + ctx.numel() * 4 + fan.numel() * 4)
+    flops = 4 * Hq * hd * int(mask.sum())
+    args = (q, kv, bt, ctx, fan, step, SPEC_K, BLOCK, scale)
+    ms = time_ms(lambda: att.tree_attention(*args), 50)
+    plain_ms = time_ms(lambda: att.tree_attention_plain(*args), 10)
+    k, v = att.gather_pages(kv, bt, BLOCK, C)                    # [B, C, Hkv, hd]
+    k, v = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
+    qs = q.permute(0, 2, 1, 3).contiguous()                      # [B, Hq, MQ, hd]
+    library_ms = time_ms(lambda: sdpa(qs, k, v, mask[:, None]), 50)
+    timings["tree_attention"] = dict(
+        shape=f"tree step {step} of K={SPEC_K}, B=8 (ctx {ctx.tolist()}) MQ={SPEC_MQ} "
+              f"Hq/Hkv 32/8 hd 64 bf16",
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=bytes_, flops=flops,
+        bound_ms=max(bytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]) * 1e3,
+        bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[dname] else "operations")
     for name, tm in timings.items():
         emit("kernels", kernel=name, timing=tm)
-    att.paged_attention.launches, att.flat_prefill_attention.launches = counts
-    return {"errors": results, "timings": timings}
+    (att.paged_attention.launches, att.flat_prefill_attention.launches,
+     att.tree_attention.launches) = counts
+    return {"errors": results, "timings": timings, "paged_verify": paged_verify}
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +585,322 @@ def phase_profile() -> dict:
 # Phase 4
 # ---------------------------------------------------------------------------
 
+PROJ = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+
+
+def _spec_pair(d: str, layers: int, live: int, scale: float, dtype, seed: int):
+    """Write a target/draft checkpoint pair with the construction of the JAX
+    package's bench.py::build_spec_checkpoints: the target's layers >= live
+    have o_proj = down = 0 (an exact residual pass-through) and the draft is
+    the target's `live` layers with the same embeddings, so greedy tokens
+    agree while the draft costs live/layers of the target. Random normal
+    weights times `scale` from a generator seeded with `seed`, drawn on the
+    card. Returns (target dir, draft dir)."""
+    import torch
+
+    from ssd_tpu_torch.utils.loader import save_safetensors
+
+    c = LLAMA_1B
+    D, I, hd = c["hidden_size"], c["intermediate_size"], c["head_dim"]
+    Hq, Hkv = c["num_attention_heads"], c["num_key_value_heads"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def w(*shape, zero=False):
+        x = torch.randn(*shape, generator=g, device="cuda") * scale
+        return (torch.zeros_like(x) if zero else x).to(dtype).cpu()
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype)
+
+    target = {"model.embed_tokens.weight": w(c["vocab_size"], D),
+              "model.norm.weight": ones(D)}
+    draft = dict(target)
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        dead = i >= live
+        layer = {
+            p + "input_layernorm.weight": ones(D),
+            p + "post_attention_layernorm.weight": ones(D),
+            p + "self_attn.q_proj.weight": w(Hq * hd, D),
+            p + "self_attn.k_proj.weight": w(Hkv * hd, D),
+            p + "self_attn.v_proj.weight": w(Hkv * hd, D),
+            p + "self_attn.o_proj.weight": w(D, Hq * hd, zero=dead),
+            p + "mlp.gate_proj.weight": w(I, D),
+            p + "mlp.up_proj.weight": w(I, D),
+            p + "mlp.down_proj.weight": w(D, I, zero=dead),
+        }
+        target.update(layer)
+        if not dead:
+            draft.update(layer)
+    dirs = []
+    for name, tensors, n in (("target", target, layers), ("draft", draft, live)):
+        sub = os.path.join(d, name)
+        os.makedirs(sub)
+        save_safetensors(os.path.join(sub, "model.safetensors"), tensors)
+        _write_config(sub, num_hidden_layers=n)
+        dirs.append(sub)
+    return tuple(dirs)
+
+
+def _draft_params(llm) -> dict:
+    runner = llm.draft_server.runner if llm.draft_server is not None else llm.draft_runner
+    return runner.params
+
+
+def _perturb_draft(llm, noise: float, scale: float):
+    """bench.py's draft_noise on the freshly loaded draft: every projection
+    of the live layers becomes w + (scale * noise) * N(0, 1), drawn from a
+    host generator seeded 1000 + layer."""
+    import torch
+
+    params = _draft_params(llm)
+    for i, lp in enumerate(params["layers"]):
+        # Drawn on the host, so the card's and the CPU's drafts are the same.
+        g = torch.Generator().manual_seed(1000 + i)
+        for k in PROJ:
+            z = torch.randn(lp[k].shape, generator=g) * (scale * noise)
+            lp[k].copy_(lp[k] + z.to(lp[k].device, lp[k].dtype))
+    torch.cuda.synchronize()
+
+
+class _Spans:
+    """CUDA events around every call of cls.name, recorded on the stream
+    that is current in the calling thread (the draft's own stream for the
+    tree build, the target's for the verify)."""
+
+    def __init__(self, cls, name):
+        import torch
+
+        self.cls, self.name, self.orig = cls, name, getattr(cls, name)
+        self.pairs = []
+        orig, pairs = self.orig, self.pairs
+
+        def wrapped(obj, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(obj, *args, **kwargs)
+            end.record()
+            pairs.append((start, end))
+            return out
+
+        setattr(cls, name, wrapped)
+
+    def restore(self):
+        setattr(self.cls, self.name, self.orig)
+
+    def intervals(self, ref) -> list[tuple[float, float]]:
+        return [(ref.elapsed_time(a), ref.elapsed_time(b)) for a, b in self.pairs]
+
+
+def _overlap(builds, verifies) -> dict:
+    """How much of the draft's tree-build time on the card fell inside the
+    target's verify windows."""
+    total = sum(e - s for s, e in builds)
+    inside = sum(max(0.0, min(e, ve) - max(s, vs))
+                 for s, e in builds for vs, ve in verifies)
+    return dict(tree_builds=len(builds), tree_build_ms_total=total,
+                verifies=len(verifies), verify_ms_total=sum(e - s for s, e in verifies),
+                overlapped_ms=inside, overlap_share_of_build=inside / total if total else None)
+
+
+def _spec_llm(tdir, ddir, mode, **kw):
+    from ssd_tpu_torch import LLM
+
+    extra = dict(draft_async=True, async_fan_out=SPEC_F) if mode == "ssd" else {}
+    return LLM(tdir, draft=ddir, speculate=True, speculate_k=SPEC_K, **extra, **kw)
+
+
+def _spec_run(llm, mode, prompts, n_new):
+    """One measured generate of the speculative main path: launch counts
+    zeroed just before and read just after, tree-build/verify spans on the
+    card, the draft's step and chain times."""
+    import torch
+
+    from ssd_tpu_torch import SamplingParams
+    from ssd_tpu_torch.engine.draft_runner import DraftRunner
+    from ssd_tpu_torch.engine.speculator_sync import SpeculatorSync
+    from ssd_tpu_torch.engine.verifier import Verifier
+    from ssd_tpu_torch.ops import attention as att
+
+    V = LLAMA_1B["vocab_size"]
+    sp = SamplingParams(temperature=0.0, max_new_tokens=n_new, ignore_eos=True)
+    n_steps0 = 0
+    if mode == "ssd":
+        # A tree build left running by an earlier generate (the warm-up)
+        # must not launch into this run's counts or spans.
+        llm.draft_server.drain()
+        n_steps0 = len(llm.draft_server._step_times)
+    verify_spans = _Spans(Verifier, "verify")
+    build_spans = _Spans(DraftRunner, "build_tree")
+    chain_spans = _Spans(SpeculatorSync, "speculate")
+    torch.cuda.synchronize()
+    ref = torch.cuda.Event(enable_timing=True)
+    ref.record()
+    for k in ("paged_attention", "flat_prefill_attention", "tree_attention"):
+        getattr(att, k).launches = 0
+    t0 = time.perf_counter()
+    try:
+        outs, m = llm.generate(prompts, sp, use_tqdm=False)
+        if mode == "ssd":
+            # The tree build answering the last step runs on after generate
+            # returns; it belongs to this run, so its launches count.
+            llm.draft_server.drain()
+    finally:
+        launches = {k: getattr(att, k).launches for k in
+                    ("paged_attention", "flat_prefill_attention", "tree_attention")}
+        for spans in (verify_spans, build_spans, chain_spans):
+            spans.restore()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for o in outs:
+        ids = o["token_ids"]
+        if len(ids) != n_new or not all(0 <= t < V for t in ids):
+            fail(f"spec {mode}: bad output of {len(ids)} tokens")
+    lens = m["accepted_suffix_lens_with_recovery"]
+    run = dict(
+        prompts=len(prompts), new_tokens=n_new * len(prompts), wall_s=wall,
+        decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
+        spec_steps=len(m["target_verify_times"]),
+        mean_accepted_suffix_len=sum(lens) / len(lens),
+        target_verify_ms=1e3 * sum(m["target_verify_times"]) / len(m["target_verify_times"]),
+        launches=launches)
+    if mode == "ssd":
+        steps = llm.draft_server._step_times[n_steps0:]
+        run.update(cache_hit_rate=sum(m["cache_hits"]) / len(m["cache_hits"]),
+                   draft_step_ms=1e3 * sum(steps) / len(steps),
+                   overlap=_overlap(build_spans.intervals(ref), verify_spans.intervals(ref)))
+    else:
+        chain = chain_spans.intervals(ref)
+        run.update(draft_chain_ms=sum(e - s for s, e in chain) / len(chain))
+    return run, [o["token_ids"] for o in outs]
+
+
+def phase_spec() -> dict:
+    """Sync SD and async SSD at the full Llama-3.2-1B width (module
+    docstring, phase 4)."""
+    import torch
+
+    from ssd_tpu_torch import SamplingParams
+
+    prompts8, prompt1 = _serving_prompts()
+    warm = SamplingParams(temperature=0.0, max_new_tokens=8, ignore_eos=True)
+    out = {"runs": {}, "noise": MISS_NOISE}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        tdir, ddir = _spec_pair(d, layers=16, live=SPEC_LIVE, scale=0.02,
+                                dtype=torch.bfloat16, seed=0)
+        out["checkpoints_s"] = time.perf_counter() - t0
+        engine = dict(dtype="bfloat16", max_model_len=SPEC_MAX_LEN,
+                      kvcache_block_size=BLOCK, max_num_seqs=8)
+
+        for level in (0.0, MISS_NOISE):
+            for mode in ("sd", "ssd"):
+                llm = _spec_llm(tdir, ddir, mode, **engine)
+                if level:
+                    _perturb_draft(llm, level, 0.02)
+                llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
+                for name, prompts in (("b8", prompts8), ("b1", prompt1)):
+                    run, _ = _spec_run(llm, mode, prompts, 128)
+                    key = f"{mode}_{name}_noise{level:g}"
+                    out["runs"][key] = run
+                    emit("spec", run=key, draft_noise=level, **run)
+                    need = ["paged_attention", "flat_prefill_attention"]
+                    need += ["tree_attention"] if mode == "ssd" else []
+                    if not all(run["launches"][k] > 0 for k in need):
+                        fail(f"spec {key}: a kernel of the path never launched: "
+                             f"{run['launches']}")
+                    lo, hi = MISS_HIT_RATE
+                    if mode == "ssd" and level and not lo <= run["cache_hit_rate"] <= hi:
+                        fail(f"spec {key}: the miss path's cache-hit rate "
+                             f"{run['cache_hit_rate']} is outside [{lo}, {hi}]")
+                blocks = llm.model_runner.num_kvcache_blocks
+                llm.exit()
+                del llm
+                torch.cuda.empty_cache()
+    emit("spec", geometry="Llama-3.2-1B width, target 16 layers (4 live), draft 4 layers, bf16",
+         K=SPEC_K, async_fan_out=SPEC_F, kv_blocks_each_pool=blocks,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def _stream_busy(prof) -> dict:
+    """Kernel time per CUDA stream in a profile, the union over streams, and
+    the time two streams ran kernels at once (sum minus union), in ms."""
+    from torch.autograd import DeviceType
+
+    def merge(xs):
+        out = []
+        for a, b in sorted(xs):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per.setdefault(str(getattr(e, "device_resource_id", 0)), []).append(
+                (e.time_range.start, e.time_range.end))
+    busy = {k: sum(b - a for a, b in merge(v)) / 1e3 for k, v in per.items()}
+    union = sum(b - a for a, b in merge([x for v in per.values() for x in v])) / 1e3
+    return dict(per_stream_ms=busy, union_ms=union, concurrent_ms=sum(busy.values()) - union)
+
+
+def phase_spec_profile() -> dict:
+    """Not run by default: SD and SSD decode steps at b=8 (noise 0), timed
+    without and then with torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssd_tpu_torch import SamplingParams
+
+    prompts8, _ = _serving_prompts()
+    sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        tdir, ddir = _spec_pair(d, layers=16, live=SPEC_LIVE, scale=0.02,
+                                dtype=torch.bfloat16, seed=0)
+        for mode in ("sd", "ssd"):
+            llm = _spec_llm(tdir, ddir, mode, dtype="bfloat16", max_model_len=SPEC_MAX_LEN,
+                            kvcache_block_size=BLOCK, max_num_seqs=8)
+            for p in prompts8:
+                llm.add_request(p, sp)
+            for _ in range(4):   # the prefill, then warm decode steps
+                llm.step()
+
+            def window(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    llm.step()
+                if llm.draft_server is not None:
+                    llm.draft_server.drain()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3 / steps
+
+            wall = window(8)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                prof_wall = window(8)
+            busy = _stream_busy(prof)
+            out[mode] = dict(steps=8, wall_ms_per_step=wall, profiled_wall_ms_per_step=prof_wall,
+                             device_union_ms_per_step=busy["union_ms"] / 8,
+                             device_busy_share=busy["union_ms"] / 8 / wall,
+                             per_stream_ms_per_step={k: v / 8 for k, v in busy["per_stream_ms"].items()},
+                             concurrent_ms_per_step=busy["concurrent_ms"] / 8)
+            llm.exit()
+            del llm
+            torch.cuda.empty_cache()
+    emit("spec_profile", geometry="Llama-3.2-1B width, target 16 layers (4 live), "
+         "draft 4 layers, bf16, b8, noise 0", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5
+# ---------------------------------------------------------------------------
+
 
 def _random_checkpoint(d: str, layers: int, scale: float, seed: int):
     import torch
@@ -524,29 +971,75 @@ def phase_exact() -> dict:
              (i, a, b) for i, (a, b) in enumerate(zip(tokens["cuda"], tokens["cpu"])) if a != b][:1])
     if not equal:
         fail("exact: greedy tokens on the card differ from the CPU's")
-    return {"equal": equal, "min_top2_margin": min(margins)}
+
+    # Speculative modes: target 8 layers (2 live), a 2-layer draft with
+    # noise, so steps both accept and reject; every mode on both devices
+    # must give the card's AR tokens.
+    spec_tokens, accepted = {}, {}
+    engine = dict(dtype="float32", max_model_len=512, kvcache_block_size=BLOCK,
+                  max_num_seqs=4, num_kvcache_blocks=32)
+    with tempfile.TemporaryDirectory() as d:
+        tdir, ddir = _spec_pair(d, layers=8, live=2, scale=0.4, dtype=torch.float32, seed=3)
+        for dev in ("cuda", "cpu"):
+            for mode in ("ar", "sd", "ssd"):
+                if mode == "ar":
+                    llm = LLM(tdir, device=dev, **engine)
+                else:
+                    llm = _spec_llm(tdir, ddir, mode, device=dev, **engine)
+                    _perturb_draft(llm, 0.01, 0.4)
+                outs, m = llm.generate(prompts, sp, use_tqdm=False)
+                llm.exit()
+                spec_tokens[(dev, mode)] = [o["token_ids"] for o in outs]
+                lens = m["accepted_suffix_lens_with_recovery"]
+                accepted[f"{dev}_{mode}"] = sum(lens) / len(lens) if lens else None
+                del llm
+    want = spec_tokens[("cuda", "ar")]
+    spec_equal = {f"{dev}_{mode}": toks == want for (dev, mode), toks in spec_tokens.items()}
+    emit("exact", geometry="Llama-3.2-1B width, target 8 layers (2 live), draft 2 layers "
+         "(noise 0.01), fp32, init scale 0.4", K=SPEC_K, async_fan_out=SPEC_F,
+         equal_to_card_ar=spec_equal, mean_accepted_suffix_len=accepted)
+    if not all(spec_equal.values()):
+        fail(f"exact: speculative greedy tokens differ from the card's AR: {spec_equal}")
+    return {"equal": equal, "min_top2_margin": min(margins), "spec_equal": spec_equal}
 
 
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(kern: dict, serve: dict | None) -> dict:
+def kernels_line(kern: dict, serve: dict | None, spec: dict | None) -> dict:
     replaces = {
         "paged_attention": "ssd_tpu/ops/pallas_attention.py:354 (_paged_attn_v2_kernel, B=1); :622 (_paged_attn_v3_kernel, B>1)",
         "flat_prefill_attention": "ssd_tpu/ops/pallas_attention.py:1700 (_flat_prefill_kernel)",
+        "tree_attention": "ssd_tpu/ops/pallas_attention.py:1527 (_tree_attn_kernel); :1024 (_tree_attn_v2_kernel, B=1); :1221 (_tree_attn_v3_kernel, B>1)",
     }
+    # Launches per path, each read from runs whose counts were zeroed just
+    # before them: the serve phase (AR) and the spec phase (SD, SSD).
+    by_path = {}
+    if serve:
+        by_path["ar"] = serve["launches"]
+    if spec:
+        for mode in ("sd", "ssd"):
+            runs = [r for k, r in spec["runs"].items() if k.startswith(mode + "_")]
+            by_path[mode] = {name: sum(r["launches"][name] for r in runs)
+                             for name in replaces}
     out = []
     for name, tm in kern["timings"].items():
         err = max(v["max_abs_err"] for (k, _, _), v in kern["errors"].items() if k == name)
+        paths = {p: c.get(name, 0) for p, c in by_path.items()}
         out.append({
             "name": name, "route": "cuda",
             "source": f"ssd_tpu_torch/csrc/{name}.cu", "replaces": replaces[name],
-            # Counted only by the serve phase's run of the main path.
-            "launches": serve["launches"][name] if serve else None,
+            "launches": sum(paths.values()) if paths else None,
+            "launches_by_path": paths,
             "max_abs_err": err, "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
         })
+        if name == "paged_attention":
+            # K2 also runs the SD/SSD verify and glue at Q = K+1.
+            out[-1]["at_verify_shape"] = {k: kern["paged_verify"][k] for k in
+                                          ("shape", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}
     return {"kernels": out}
 
 
@@ -576,12 +1069,15 @@ def main(argv=None) -> int:
     phase_env()
     kern = phase_kernels() if "kernels" in phases else None
     serve = phase_serve() if "serve" in phases else None
+    spec = phase_spec() if "spec" in phases else None
     if "exact" in phases:
         phase_exact()
     if "profile" in phases:
         phase_profile()
+    if "spec_profile" in phases:
+        phase_spec_profile()
     if kern is not None:
-        print(json.dumps(kernels_line(kern, serve)), flush=True)
+        print(json.dumps(kernels_line(kern, serve, spec)), flush=True)
     emit("done", seconds=time.perf_counter() - t0, phases=phases)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

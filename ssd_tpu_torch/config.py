@@ -1,7 +1,8 @@
 """Engine configuration.
 
-Counterpart of ssd_tpu/config.py, cut to the fields the autoregressive path
-reads. Differences from the JAX package:
+Counterpart of ssd_tpu/config.py, cut to the fields of the ported modes:
+autoregressive decoding (AR), sync speculative decoding (SD) and async tree
+speculation (SSD), both unfused. Differences from the JAX package:
 
 - there is no `use_pallas` knob: a CUDA tensor goes through the hand-written
   kernel and a CPU tensor through its plain PyTorch version
@@ -9,18 +10,18 @@ reads. Differences from the JAX package:
 - `gpu_memory_utilization` replaces `hbm_memory_utilization`; the KV pool is
   sized from `torch.cuda.mem_get_info()` (engine/model_runner.py);
 - `device` names where the engine runs: "cuda" unless the caller asks for
-  "cpu". Without a GPU and without device="cpu" the engine raises.
-
-The speculative fields below are read by the scheduler, which is ported
-whole; the modes they select (sync SD, async SSD, EAGLE, ngram, multi-step
-AR) are not ported yet and are refused here.
+  "cpu". Without a GPU and without device="cpu" the engine raises;
+- `draft` has no default checkpoint: speculate=True needs a draft path;
+- the modes not ported yet (fused SD and SSD, EAGLE, ngram, multi-step AR,
+  draft data parallelism, MoE) are refused here, and so is a speculative
+  knob on an engine that does not speculate, where it would be ignored.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 
 @dataclass
@@ -89,19 +90,27 @@ class Config:
     chunked_prefill: bool = False
     verbose: bool = False
 
-    # Read by the scheduler; only their defaults (the AR path) are accepted
-    # until the speculative modes are ported.
+    # Speculative decoding. speculate=True serves sync SD with the `draft`
+    # checkpoint; draft_async=True serves async SSD (a draft thread builds
+    # the speculation tree while the target verifies). The fused forms
+    # (async_fused, spec_rounds > 1), EAGLE, ngram speculation, multi-step
+    # AR and draft_dp > 1 are not ported yet and are refused.
+    draft_hf_config: ModelConfig | None = None
     speculate: bool = False
-    draft_async: bool = False
-    async_fused: bool = False
-    use_eagle: bool = False
-    ngram_speculate: bool = False
+    draft: str | None = None
     speculate_k: int = 1
-    spec_rounds: int = 1
+    draft_async: bool = False
     async_fan_out: int = 3
     fan_out_list: list[int] | None = None
     fan_out_list_miss: list[int] | None = None
+    sampler_x: float | None = None
+    jit_speculate: bool = False
+    async_fused: bool = False
+    spec_rounds: int = 1
+    use_eagle: bool = False
+    ngram_speculate: bool = False
     multi_step: int = 1
+    draft_dp: int = 1
 
     MQ_LEN: int = field(default=0, init=False)
 
@@ -115,25 +124,43 @@ class Config:
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be bfloat16 or float32, got {self.dtype!r}")
         unported = {
-            "speculate": self.speculate, "draft_async": self.draft_async,
             "async_fused": self.async_fused, "use_eagle": self.use_eagle,
             "ngram_speculate": self.ngram_speculate,
             "multi_step > 1": self.multi_step > 1,
-            "speculate_k != 1": self.speculate_k != 1,
-            "spec_rounds != 1": self.spec_rounds != 1,
-            "async_fan_out != 3": self.async_fan_out != 3,
-            "fan_out_list": self.fan_out_list is not None,
-            "fan_out_list_miss": self.fan_out_list_miss is not None,
+            "spec_rounds > 1": self.spec_rounds > 1,
+            "draft_dp > 1": self.draft_dp > 1,
         }
         asked = [k for k, v in unported.items() if v]
         if asked:
             raise NotImplementedError(
                 f"not ported to ssd_tpu_torch yet: {', '.join(asked)}")
+        spec_only = {
+            "draft": self.draft is not None,
+            "draft_async": self.draft_async,
+            "speculate_k": self.speculate_k != 1,
+            "async_fan_out": self.async_fan_out != 3,
+            "fan_out_list": self.fan_out_list is not None,
+            "fan_out_list_miss": self.fan_out_list_miss is not None,
+            "sampler_x": self.sampler_x is not None,
+            "jit_speculate": self.jit_speculate,
+        }
+        if not self.speculate:
+            ignored = [k for k, v in spec_only.items() if v]
+            if ignored:
+                raise ValueError(f"{', '.join(ignored)} need speculate=True")
+        elif not self.draft_async:
+            ignored = [k for k in ("async_fan_out", "fan_out_list",
+                                   "fan_out_list_miss", "sampler_x",
+                                   "jit_speculate") if spec_only[k]]
+            if ignored:
+                raise ValueError(f"{', '.join(ignored)} need draft_async=True")
 
         self.hf_config = ModelConfig.from_pretrained(self.model)
         if self.hf_config.num_experts:
             raise NotImplementedError("MoE models are not ported to ssd_tpu_torch yet")
         self.max_model_len = min(self.max_model_len, self.hf_config.max_position_embeddings)
+        if self.speculate:
+            self._derive_speculative()
         if self.eos == -1:
             self.eos = self.hf_config.eos
         # Without chunking, a batch-head prefill must fit one dispatch
@@ -142,3 +169,42 @@ class Config:
                 or self.max_num_batched_tokens >= self.max_model_len):
             raise ValueError(
                 "max_num_batched_tokens < max_model_len requires chunked_prefill")
+
+    def _derive_speculative(self):
+        """Draft config and tree geometry, as ssd_tpu/config.py derives them,
+        plus the block-size rule of ssd_tpu/engine/llm_engine.py."""
+        if self.draft is None or not os.path.isdir(self.draft):
+            raise ValueError(f"speculate=True needs an existing draft checkpoint "
+                             f"directory, got draft={self.draft!r}")
+        if self.speculate_k < 1:
+            raise ValueError(f"speculate_k must be >= 1, got {self.speculate_k}")
+        if self.kvcache_block_size < 2 * self.speculate_k + 2:
+            raise ValueError("kvcache_block_size must be >= 2*speculate_k+2")
+        self.draft_hf_config = ModelConfig.from_pretrained(self.draft)
+        d = self.draft_hf_config
+        if d.num_experts:
+            raise NotImplementedError("MoE models are not ported to ssd_tpu_torch yet")
+        if d.model_type != self.hf_config.model_type or d.vocab_size != self.hf_config.vocab_size:
+            raise ValueError("target and draft must share a model family and vocabulary, "
+                             f"got {self.hf_config.model_type}/{self.hf_config.vocab_size} "
+                             f"and {d.model_type}/{d.vocab_size}")
+        self.max_model_len = min(self.max_model_len, d.max_position_embeddings)
+        if self.draft_async:
+            if self.fan_out_list is None:
+                self.fan_out_list = [self.async_fan_out] * (self.speculate_k + 1)
+            if self.fan_out_list_miss is None:
+                self.fan_out_list_miss = list(self.fan_out_list)
+            for name in ("fan_out_list", "fan_out_list_miss"):
+                if len(getattr(self, name)) != self.speculate_k + 1:
+                    raise ValueError(f"{name} needs speculate_k+1 entries")
+            if sum(self.fan_out_list_miss) != sum(self.fan_out_list):
+                raise ValueError("fan_out_list_miss must sum to the same MQ_LEN "
+                                 "as fan_out_list")
+            self.MQ_LEN = sum(self.fan_out_list)
+
+    def create_draft_config(self) -> "Config":
+        """Config of the draft model runner. Unlike the JAX package, which
+        gives the draft its own chip and memory share, both runners share one
+        card: the draft keeps the target's block count (the engine sizes the
+        two pools together, engine/model_runner.py::kv_block_bytes)."""
+        return replace(self, model=self.draft)

@@ -1,14 +1,17 @@
 """Engine: request lifecycle, generate loop, metrics.
 
-Counterpart of ssd_tpu/engine/llm_engine.py, autoregressive subset: the same
-module-global METRICS dict with the same keys, `add_request`, `step`,
-`generate` and `abort_request`. The speculative modes, the draft runners and
-the warm-up of compiled shape buckets have no counterpart yet (PyTorch runs
-eagerly, so there is nothing to pre-compile).
+Counterpart of ssd_tpu/engine/llm_engine.py: the same module-global METRICS
+dict with the same keys, `add_request`, `step`, `generate`, `abort_request`
+and `exit`, serving AR, sync SD (a draft ModelRunner on the target's thread)
+and async SSD (a DraftServer thread on its own CUDA stream of the same
+card). The warm-up of compiled shape buckets has no counterpart (PyTorch
+runs eagerly, so there is nothing to pre-compile).
 """
 
 from __future__ import annotations
 
+import atexit
+import weakref
 from dataclasses import fields
 from time import perf_counter
 
@@ -16,7 +19,7 @@ from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.engine.model_runner import ModelRunner
 from ssd_tpu_torch.engine.scheduler import Scheduler
 from ssd_tpu_torch.engine.sequence import Sequence
-from ssd_tpu_torch.engine.step import AutoRegressiveStep, InferenceStep
+from ssd_tpu_torch.engine.step import AutoRegressiveStep, InferenceStep, SpecDecodeStep
 from ssd_tpu_torch.sampling_params import SamplingParams
 from ssd_tpu_torch.utils.misc import load_tokenizer
 
@@ -50,11 +53,37 @@ class LLMEngine:
         self.config = config
         Sequence.block_size = config.kvcache_block_size
 
-        self.model_runner = ModelRunner(config, init_random=init_random)
+        self.model_runner = ModelRunner(config, init_random=init_random,
+                                        partner=config.draft_hf_config)
+        self.draft_runner = None
+        self.draft_server = None
+        self.draft_cfg = None
+        self._exiting = False
+        if config.speculate:
+            # Made after the target runner: it inherits the block count that
+            # sized both pools together.
+            self.draft_cfg = config.create_draft_config()
+            if config.draft_async:
+                from ssd_tpu_torch.engine.draft_runner import DraftServer
+
+                self.draft_server = DraftServer(self.draft_cfg, init_random=init_random)
+            else:
+                self.draft_runner = ModelRunner(self.draft_cfg, init_random=init_random,
+                                                is_draft=True)
+            # Stop the draft thread at interpreter exit if the caller did not.
+            atexit.register(lambda ref=weakref.ref(self): ref() and ref().exit())
         self.tokenizer = load_tokenizer(config.model)
         if self.tokenizer is not None and self.tokenizer.eos_token_id is not None:
             config.eos = self.tokenizer.eos_token_id
-        self.scheduler = Scheduler(config)
+        self.scheduler = Scheduler(config, draft_cfg=self.draft_cfg)
+
+    def exit(self):
+        """Stop the async draft thread (idempotent)."""
+        if self._exiting:
+            return
+        self._exiting = True
+        if self.draft_server is not None:
+            self.draft_server.shutdown()
 
     def abort_request(self, seq_id: int) -> bool:
         """Cancel an in-flight or queued request by its seq_id; frees its KV
@@ -103,6 +132,21 @@ class LLMEngine:
         seq.prefill_chunk = None
         return chunk
 
+    def _publish_deferred_hashes(self, seqs):
+        """Prefix-cache hashes of chunk-allocated prompts publish once the
+        whole prompt's KV exists. The AR postprocess does it itself; this
+        sweep covers the speculative modes, whose prefill bookkeeping never
+        touches block hashes. Sequences that finished during the prefill are
+        skipped."""
+        sch = self.scheduler
+        for seq in seqs:
+            if seq.defer_publish and seq.block_table:
+                sch._finalize_full_blocks(sch.block_manager, seq, seq.block_table)
+                if sch.speculate:
+                    sch._finalize_full_blocks(sch._draft_bm(seq), seq,
+                                              seq.draft_block_table)
+            seq.defer_publish = False
+
     def step(self, step: InferenceStep | None = None):
         if step is None:
             if not hasattr(self, "_default_step"):
@@ -114,6 +158,8 @@ class LLMEngine:
             ttl_tokens = self._run_prefill_chunk(seqs[0])
         else:
             ttl_tokens = step.prefill(seqs) if is_prefill else step.decode(seqs)
+            if is_prefill:
+                self._publish_deferred_hashes(seqs)
         time_taken = perf_counter() - t
 
         if is_prefill:
@@ -132,7 +178,25 @@ class LLMEngine:
         return self.scheduler.is_finished()
 
     def create_inference_step(self) -> InferenceStep:
-        return AutoRegressiveStep(self.scheduler, self.model_runner)
+        config = self.config
+        if not config.speculate:
+            return AutoRegressiveStep(self.scheduler, self.model_runner)
+        from ssd_tpu_torch.engine.verifier import Verifier
+
+        if config.draft_async:
+            from ssd_tpu_torch.engine.speculator_async import SpeculatorAsync
+
+            speculator = SpeculatorAsync(config.speculate_k, self.draft_server)
+        else:
+            from ssd_tpu_torch.engine.speculator_sync import SpeculatorSync
+
+            speculator = SpeculatorSync(config.speculate_k, self.draft_runner)
+        verifier = Verifier(config.speculate_k, self.model_runner,
+                            sampler_x=config.sampler_x,
+                            async_fan_out=config.async_fan_out,
+                            jit_speculate=config.jit_speculate, metrics=METRICS)
+        return SpecDecodeStep(self.scheduler, speculator, verifier,
+                              async_spec=config.draft_async)
 
     def log_metrics(self):
         if METRICS["prefill_total_time"] > 0:
@@ -147,6 +211,21 @@ class LLMEngine:
                 f"{int(METRICS['decode_total_tokens'] / METRICS['decode_total_time'])}tok/s",
                 flush=True,
             )
+        lens = METRICS["accepted_suffix_lens_with_recovery"]
+        if self.config.speculate and lens:
+            ttl, n_steps = sum(lens), len(lens)
+            print(f"[metrics] Avg Tokens per step (incl recovery): {ttl / n_steps:.2f}",
+                  flush=True)
+            rate = ((ttl - n_steps) / n_steps) / self.config.speculate_k
+            print(f"[metrics] Avg Fraction of Speculated Tokens Accepted: {rate:.2f}",
+                  flush=True)
+            verify = METRICS["target_verify_times"]
+            if verify:
+                print(f"[metrics] Avg target verify time (ms): "
+                      f"{sum(verify) * 1000 / len(verify):.2f}", flush=True)
+            hits = METRICS["cache_hits"]
+            if self.config.draft_async and hits:
+                print(f"[metrics] Avg Cache Hits: {sum(hits) / len(hits):.2f}", flush=True)
 
     def generate(
         self,

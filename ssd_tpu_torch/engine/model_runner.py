@@ -1,18 +1,21 @@
-"""Per-model execution: weights, the paged KV cache, and the two step
-functions of the autoregressive path.
+"""Per-model execution: weights, the paged KV cache, and the step functions
+of the AR, SD and SSD paths.
 
-Counterpart of ssd_tpu/engine/model_runner.py, AR subset:
+Counterpart of ssd_tpu/engine/model_runner.py:
 - the KV cache is one [L, Hkv, S, 2*hd] tensor with K and V interleaved on
   the last axis, as in JAX, so caches compare 1:1; the steps update it in
   place;
 - `flat_prefill_step` runs a whole mixed-length prefill batch as one forward
   whose attention is ops/attention.py::flat_prefill_attention;
 - `decode_step` runs a batch of q_len-token decodes whose attention is
-  ops/attention.py::paged_attention;
+  ops/attention.py::paged_attention (decode, the K+1 verify, the glue);
+- `chain_decode_step` runs the draft's K(+1) single-token decodes as an
+  eager loop (the JAX package scans them inside one program);
 - host input prep stays in numpy; the JAX package's packed int32 payloads (a
   TPU transfer workaround) are not ported, each input is its own tensor.
-Not ported yet: the grouped prefill (`batched_prefill_step`), the
-multi-token chain (`chain_decode_step`), CUDA-graph capture.
+A runner built with is_draft=True reads the sequences' draft block tables.
+Not ported yet: the grouped prefill (`batched_prefill_step`; prefill always
+takes the flat path), CUDA-graph capture.
 """
 
 from __future__ import annotations
@@ -20,12 +23,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ssd_tpu_torch.config import Config
+from ssd_tpu_torch.config import Config, ModelConfig
 from ssd_tpu_torch.engine.sequence import Sequence
-from ssd_tpu_torch.models.transformer import Arch, compute_logits, forward_hidden, init_params
+from ssd_tpu_torch.models.transformer import (
+    Arch, compute_logits, forward_hidden, init_params, param_bytes)
 from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops.sampler import sample
-from ssd_tpu_torch.utils.native import prepare_multi_query, prepare_prefill
+from ssd_tpu_torch.utils.native import prepare_multi_query, prepare_prefill, slot_of
 
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -41,19 +45,6 @@ def resolve_device(name: str) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r} (use 'cuda' or 'cpu')")
     return device
-
-
-def slot_of(block_tables: torch.Tensor, positions: torch.Tensor,
-            b_of_row: torch.Tensor, block_size: int) -> torch.Tensor:
-    """Flat cache slot of each (row, position); -1 where the table entry is
-    -1 (ghost rows, padding) or the position falls past the table
-    (context-limit overshoot, which must not clamp onto the last real block).
-    Counterpart of ssd_tpu/engine/model_runner.py::slot_of."""
-    M = block_tables.shape[1]
-    blk = positions // block_size
-    blk_ids = block_tables[b_of_row, blk.clamp(max=M - 1)]
-    slot = blk_ids * block_size + positions % block_size
-    return torch.where((blk_ids < 0) | (blk >= M), -1, slot).to(torch.int32)
 
 
 def _store_rows(slot_map: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -96,6 +87,39 @@ def flat_prefill_step(
     return sample(logits, temperatures, generator, top_ps, top_ks), logits
 
 
+def decode_forward(
+    params: dict,
+    kv_cache: torch.Tensor,      # [L, Hkv, S, 2*hd], updated in place
+    input_ids: torch.Tensor,     # [B*q_len]
+    positions: torch.Tensor,     # [B*q_len]
+    slot_map: torch.Tensor,      # [B*q_len]
+    store_rows: torch.Tensor,    # rows of slot_map that are >= 0
+    block_tables: torch.Tensor,  # [B, M]
+    context_lens: torch.Tensor,  # [B]
+    *,
+    arch: Arch,
+    block_size: int,
+    q_len: int,
+) -> torch.Tensor:
+    """Batched forward of q_len queries per sequence; query i of sequence b
+    attends positions up to context_lens[b] - q_len + i. Returns logits
+    [B*q_len, V]."""
+    B = block_tables.shape[0]
+    scale = arch.head_dim ** -0.5
+    qeff = torch.full((B,), q_len, dtype=torch.int32, device=block_tables.device)
+
+    def attn_call(li, q, k, v):
+        kv_layer = kv_cache[li]
+        att.store_kv(kv_layer, k, v, slot_map, store_rows)
+        qr = q.reshape(B, q_len, arch.num_heads, arch.head_dim)
+        o = att.paged_attention(qr, kv_layer, block_tables, context_lens, qeff,
+                                block_size, scale)
+        return o.reshape(B * q_len, arch.num_heads, arch.head_dim)
+
+    hidden = forward_hidden(params, input_ids, positions, attn_call, arch)
+    return compute_logits(params, hidden, arch)
+
+
 def decode_step(
     params: dict,
     kv_cache: torch.Tensor,      # [L, Hkv, S, 2*hd], updated in place
@@ -117,29 +141,66 @@ def decode_step(
     """Batched decode with q_len queries per sequence. Returns (tokens
     sampled from each sequence's last row [B], logits [B*q_len, V])."""
     B = block_tables.shape[0]
-    scale = arch.head_dim ** -0.5
-    qeff = torch.full((B,), q_len, dtype=torch.int32, device=block_tables.device)
-
-    def attn_call(li, q, k, v):
-        kv_layer = kv_cache[li]
-        att.store_kv(kv_layer, k, v, slot_map, store_rows)
-        qr = q.reshape(B, q_len, arch.num_heads, arch.head_dim)
-        o = att.paged_attention(qr, kv_layer, block_tables, context_lens, qeff,
-                                block_size, scale)
-        return o.reshape(B * q_len, arch.num_heads, arch.head_dim)
-
-    hidden = forward_hidden(params, input_ids, positions, attn_call, arch)
-    logits = compute_logits(params, hidden, arch)
+    logits = decode_forward(params, kv_cache, input_ids, positions, slot_map,
+                            store_rows, block_tables, context_lens,
+                            arch=arch, block_size=block_size, q_len=q_len)
     last = logits.reshape(B, q_len, -1)[:, -1, :]
     return sample(last, temperatures, generator, top_ps, top_ks), logits
 
 
+def chain_decode_step(
+    params: dict,
+    kv_cache: torch.Tensor,      # [L, Hkv, S, 2*hd], updated in place
+    first_tokens: torch.Tensor,  # [B] the recovery tokens
+    positions: torch.Tensor,     # [n_steps, B] position of step i's input
+    slot_maps: torch.Tensor,     # [n_steps, B]
+    store_rows: list[torch.Tensor],  # per step, rows of slot_maps[i] >= 0
+    block_tables: torch.Tensor,  # [B, M]
+    context_lens: torch.Tensor,  # [n_steps, B] context incl. step i's input
+    temperatures: torch.Tensor,  # [B]
+    generator: torch.Generator | None,
+    top_ps: torch.Tensor | None = None,
+    top_ks: torch.Tensor | None = None,
+    *,
+    arch: Arch,
+    block_size: int,
+    K: int,
+    sampler_x: float | None = None,
+    fan_out: int = 3,
+    tree_sampling: bool = False,
+):
+    """The draft chain: n_steps (K, or K+1 to also write the K-th token's KV)
+    single-token decodes in an eager loop, each step feeding its sampled
+    token to the next. Returns (tokens [B, K], logits_q [B, K, V])."""
+    tok = first_tokens
+    toks, logits = [], []
+    for i in range(positions.shape[0]):
+        lg = decode_forward(params, kv_cache, tok, positions[i], slot_maps[i],
+                            store_rows[i], block_tables, context_lens[i],
+                            arch=arch, block_size=block_size, q_len=1)
+        tok = sample(lg, temperatures, generator, top_ps, top_ks,
+                     sampler_x=sampler_x, fan_out=fan_out, is_tree=tree_sampling)
+        toks.append(tok)
+        logits.append(lg)
+    return torch.stack(toks[:K], dim=1), torch.stack(logits[:K], dim=1)
+
+
+def kv_block_bytes(arch: Arch, block_size: int, dtype: torch.dtype) -> int:
+    """Bytes of one KV block across all layers ([K|V] rows of every head)."""
+    elem = torch.finfo(dtype).bits // 8
+    return 2 * arch.num_layers * block_size * arch.num_kv_heads * arch.head_dim * elem
+
+
 class ModelRunner:
     """Owns one model's weights and KV cache and serves the step functions
-    to the engine."""
+    to the engine. `partner` is the draft's model config when this is the
+    target of a speculative engine: the two KV pools share one card and are
+    sized together (see _decide_num_blocks)."""
 
-    def __init__(self, config: Config, init_random: bool = False):
+    def __init__(self, config: Config, init_random: bool = False,
+                 is_draft: bool = False, partner: ModelConfig | None = None):
         self.config = config
+        self.is_draft = is_draft
         self.device = resolve_device(config.device)
         self.hf_config = config.hf_config
         self.arch = Arch.from_model_config(self.hf_config)
@@ -148,7 +209,7 @@ class ModelRunner:
         self.dtype = _TORCH_DTYPES[config.dtype]
         self.use_warp = config.enable_top_sampling
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(config.seed)
+        self.generator.manual_seed(config.seed + (1 if is_draft else 0))
 
         with torch.no_grad():
             self.params = self._make_params(init_random)
@@ -156,7 +217,7 @@ class ModelRunner:
         # copy costs its memory once instead of a conversion every step.
         self.params["lm_head"] = self.params["lm_head"].float()
 
-        self.num_kvcache_blocks = self._decide_num_blocks()
+        self.num_kvcache_blocks = self._decide_num_blocks(partner)
         config.num_kvcache_blocks = self.num_kvcache_blocks
         a = self.arch
         self.kv_cache = torch.zeros(
@@ -172,18 +233,27 @@ class ModelRunner:
 
     # --- memory sizing ---
 
-    def _decide_num_blocks(self) -> int:
+    def _decide_num_blocks(self, partner: ModelConfig | None) -> int:
+        """Blocks of this runner's pool. On the card, the pool takes the
+        free memory up to gpu_memory_utilization. With a partner (the draft
+        of a speculative engine, built after this runner on the same card),
+        its weights are set aside first and every block is counted together
+        with one partner block: the draft config then inherits the same
+        block count, so both pools fit and neither starves the other."""
         cfg = self.config
         if cfg.num_kvcache_blocks != -1:
             return cfg.num_kvcache_blocks
-        a = self.arch
         if self.device.type != "cuda":
             # Enough for max_num_seqs full-length sequences plus slack.
             return max(64, cfg.max_num_seqs * cfg.max_blocks * 2)
-        elem = torch.finfo(self.dtype).bits // 8
-        block_bytes = 2 * a.num_layers * self.block_size * a.num_kv_heads * a.head_dim * elem
+        block_bytes = kv_block_bytes(self.arch, self.block_size, self.dtype)
+        reserve = 0
+        if partner is not None:
+            d_arch = Arch.from_model_config(partner)
+            block_bytes += kv_block_bytes(d_arch, self.block_size, self.dtype)
+            reserve = param_bytes(d_arch, self.dtype)
         free, total = torch.cuda.mem_get_info(self.device)
-        avail = int(total * cfg.gpu_memory_utilization) - (total - free)
+        avail = int(total * cfg.gpu_memory_utilization) - (total - free) - reserve
         num = max(16, avail // block_bytes)
         # No point exceeding what max_num_seqs full-length sequences can use.
         cap = (cfg.max_num_seqs + 1) * (cfg.max_blocks + 2) * 4
@@ -197,16 +267,39 @@ class ModelRunner:
     def _block_table_array(self, seqs: list[Sequence]) -> np.ndarray:
         out = np.full((len(seqs), self.max_blocks), -1, dtype=np.int32)
         for i, seq in enumerate(seqs):
-            out[i, : len(seq.block_table)] = seq.block_table
+            table = seq.draft_block_table if self.is_draft else seq.block_table
+            out[i, : len(table)] = table
         return out
 
+    def _temperatures(self, seqs: list[Sequence]) -> np.ndarray:
+        """Sampling temperatures: a draft runner takes the request's
+        draft_temperature where it has one."""
+        return np.asarray([
+            seq.draft_temperature if self.is_draft and seq.draft_temperature is not None
+            else seq.temperature for seq in seqs], dtype=np.float32)
+
+    def _warp_args(self, top_ps, top_ks):
+        if not self.use_warp or top_ps is None:
+            return None, None
+        return (self._tensor(np.asarray(top_ps, np.float32)),
+                self._tensor(np.asarray(top_ks, np.int32)))
+
     def _sampling_args(self, seqs: list[Sequence]):
-        temps = np.asarray([seq.temperature for seq in seqs], dtype=np.float32)
-        if not self.use_warp:
-            return self._tensor(temps), None, None
-        tp = np.asarray([seq.top_p for seq in seqs], dtype=np.float32)
-        tk = np.asarray([seq.top_k for seq in seqs], dtype=np.int32)
-        return self._tensor(temps), self._tensor(tp), self._tensor(tk)
+        tp, tk = self._warp_args([s.top_p for s in seqs], [s.top_k for s in seqs])
+        return self._tensor(self._temperatures(seqs)), tp, tk
+
+    def _prepare_multi_query(self, seqs: list[Sequence], q_len: int):
+        """Numpy inputs of a q_len-per-sequence decode over each sequence's
+        last q_len tokens: (input_ids, positions, slot_map, block_tables,
+        context_lens)."""
+        B = len(seqs)
+        tails = np.asarray([seq.token_ids[-q_len:] for seq in seqs],
+                           dtype=np.int32).reshape(B, q_len)
+        num_tokens = np.asarray([seq.num_tokens for seq in seqs], dtype=np.int32)
+        bt = self._block_table_array(seqs)
+        input_ids, positions, slot_map, context_lens = prepare_multi_query(
+            tails, num_tokens, bt, q_len, self.block_size)
+        return input_ids, positions, slot_map, bt, context_lens
 
     # --- phases ---
 
@@ -216,20 +309,28 @@ class ModelRunner:
         prefix-cached or chunked) prefill batch. Intra-batch prefix sharing
         is safe: every layer stores all sequences' KV before it attends.
         Returns (first sampled tokens [B], last-token logits [B, V])."""
-        B = len(seqs)
-        bs = self.block_size
         bt_rows = self._block_table_array(seqs)
-        cached_list, n_new_list, pages_per = [], [], []
-        for seq in seqs:
+        rows = []
+        for i, seq in enumerate(seqs):
             # A fully cached prompt recomputes its last token, so real
             # last-token logits exist to sample the first output from.
-            cached = min(seq.num_cached_tokens, seq.num_tokens - 1)
+            cached = seq.num_draft_cached_tokens if self.is_draft else seq.num_cached_tokens
+            cached = min(cached, seq.num_tokens - 1)
             n_new = seq.num_tokens - cached
             if seq.prefill_chunk is not None:
                 n_new = min(n_new, seq.prefill_chunk)
-            cached_list.append(cached)
-            n_new_list.append(n_new)
-            pages_per.append((cached + n_new + bs - 1) // bs)
+            rows.append((seq.token_ids, bt_rows[i], cached, n_new))
+        temps, top_ps, top_ks = self._sampling_args(seqs)
+        tokens, logits = self._flat_prefill(rows, temps, top_ps, top_ks)
+        return tokens.tolist(), logits
+
+    def _flat_prefill(self, rows, temps, top_ps=None, top_ks=None):
+        """flat_prefill_step over rows of (token_ids, block-table row, cached
+        tokens, new tokens): sequence i's new tokens sit at positions
+        [cached, cached + n_new) and attend its own pages up to themselves."""
+        bs = self.block_size
+        n_new_list = [r[3] for r in rows]
+        pages_per = [(r[2] + r[3] + bs - 1) // bs for r in rows]
         # No padding: the eager forward has no compiled shapes to reuse.
         T = sum(n_new_list)
         input_ids = np.zeros(T, dtype=np.int32)
@@ -238,15 +339,14 @@ class ModelRunner:
         flat_pages = np.full(sum(pages_per), -1, dtype=np.int32)
         row_lo = np.zeros(T, dtype=np.int32)
         row_hi = np.zeros(T, dtype=np.int32)
-        gather_idx = np.zeros(B, dtype=np.int64)
+        gather_idx = np.zeros(len(rows), dtype=np.int64)
         tok_off = page_off = 0
-        for i, seq in enumerate(seqs):
-            cached, n_new = cached_list[i], n_new_list[i]
+        for i, (token_ids, bt_row, cached, n_new) in enumerate(rows):
             sl = slice(tok_off, tok_off + n_new)
-            input_ids[sl] = seq.token_ids[cached:cached + n_new]
-            pos_i, slots_i = prepare_prefill(bt_rows[i], cached, n_new, bs)
+            input_ids[sl] = token_ids[cached:cached + n_new]
+            pos_i, slots_i = prepare_prefill(bt_row, cached, n_new, bs)
             positions[sl], slot_map[sl] = pos_i, slots_i
-            flat_pages[page_off:page_off + pages_per[i]] = bt_rows[i][:pages_per[i]]
+            flat_pages[page_off:page_off + pages_per[i]] = bt_row[:pages_per[i]]
             base = page_off * bs
             # The token at prompt position p sees flat context [base, base+p+1).
             row_lo[sl] = base
@@ -254,9 +354,7 @@ class ModelRunner:
             gather_idx[i] = tok_off + n_new - 1
             tok_off += n_new
             page_off += pages_per[i]
-
-        temps, top_ps, top_ks = self._sampling_args(seqs)
-        tokens, logits = flat_prefill_step(
+        return flat_prefill_step(
             self.params, self.kv_cache,
             self._tensor(input_ids), self._tensor(positions),
             self._tensor(slot_map), _store_rows(slot_map, self.device),
@@ -264,19 +362,14 @@ class ModelRunner:
             self._tensor(gather_idx), temps, self.generator, top_ps, top_ks,
             arch=self.arch, block_size=bs,
         )
-        return tokens.tolist(), logits
 
     @torch.no_grad()
     def run_decode(self, seqs: list[Sequence], q_len: int = 1):
         """Batched decode forward over each sequence's last q_len tokens.
         Returns (tokens [B], logits [B, q_len, V])."""
         B = len(seqs)
-        tails = np.asarray([seq.token_ids[-q_len:] for seq in seqs],
-                           dtype=np.int32).reshape(B, q_len)
-        num_tokens = np.asarray([seq.num_tokens for seq in seqs], dtype=np.int32)
-        bt = self._block_table_array(seqs)
-        input_ids, positions, slot_map, context_lens = prepare_multi_query(
-            tails, num_tokens, bt, q_len, self.block_size)
+        input_ids, positions, slot_map, bt, context_lens = self._prepare_multi_query(
+            seqs, q_len)
         temps, top_ps, top_ks = self._sampling_args(seqs)
         tokens, logits = decode_step(
             self.params, self.kv_cache,
@@ -287,6 +380,49 @@ class ModelRunner:
             arch=self.arch, block_size=self.block_size, q_len=q_len,
         )
         return tokens.tolist(), logits.reshape(B, q_len, -1)
+
+    @torch.no_grad()
+    def verify_forward(self, seqs: list[Sequence], q_len: int) -> torch.Tensor:
+        """The target's verify forward over each sequence's last q_len tokens
+        ([recovery | draft tokens]); no sampling. Returns logits
+        [B, q_len, V]."""
+        input_ids, positions, slot_map, bt, context_lens = self._prepare_multi_query(
+            seqs, q_len)
+        logits = decode_forward(
+            self.params, self.kv_cache,
+            self._tensor(input_ids), self._tensor(positions),
+            self._tensor(slot_map), _store_rows(slot_map, self.device),
+            self._tensor(bt), self._tensor(context_lens),
+            arch=self.arch, block_size=self.block_size, q_len=q_len)
+        return logits.reshape(len(seqs), q_len, -1)
+
+    @torch.no_grad()
+    def run_chain(self, first: np.ndarray, start_pos: np.ndarray, bt: np.ndarray,
+              temps: np.ndarray, K: int, extra_write: bool, top_ps=None,
+              top_ks=None, sampler_x: float | None = None, fan_out: int = 3,
+              tree_sampling: bool = False):
+        """The draft chain from host arrays, for the sync speculator and the
+        async draft's jit-speculate path (the JAX package's run_chain and
+        DraftRunner._jit_chain in one host entry): sequence b's chain starts at token
+        first[b] at position start_pos[b]; extra_write runs a (K+1)-th
+        decode that writes the K-th token's KV. Returns (tokens [B, K]
+        numpy, logits_q [B, K, V] on the device)."""
+        B = first.shape[0]
+        n_steps = K + 1 if extra_write else K
+        positions = start_pos[None, :] + np.arange(n_steps, dtype=np.int32)[:, None]
+        rows = np.arange(B)
+        slots = np.stack([slot_of(bt, positions[i], rows, self.block_size)
+                          for i in range(n_steps)])
+        tp, tk = self._warp_args(top_ps, top_ks)
+        tokens, logits_q = chain_decode_step(
+            self.params, self.kv_cache, self._tensor(first.astype(np.int64)),
+            self._tensor(positions), self._tensor(slots),
+            [_store_rows(s, self.device) for s in slots], self._tensor(bt),
+            self._tensor((positions + 1).astype(np.int32)),
+            self._tensor(temps.astype(np.float32)), self.generator, tp, tk,
+            arch=self.arch, block_size=self.block_size, K=K,
+            sampler_x=sampler_x, fan_out=fan_out, tree_sampling=tree_sampling)
+        return tokens.cpu().numpy(), logits_q
 
     def run(self, seqs: list[Sequence], is_prefill: bool,
             return_logits: bool = False):

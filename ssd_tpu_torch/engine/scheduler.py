@@ -18,13 +18,7 @@ import numpy as np
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.engine.block_manager import BlockManager
 from ssd_tpu_torch.engine.sequence import Sequence, SequenceStatus
-
-
-def compute_megaspec_lookahead(MQ_LEN: int, K: int) -> int:
-    """KV slots a single async spec step may consume beyond the trunk:
-    glue (K+1) + tree (K steps x MQ_LEN rows). Own copy of
-    ssd_tpu/ops/spec_math.py::compute_megaspec_lookahead."""
-    return K + 1 + K * MQ_LEN
+from ssd_tpu_torch.ops.spec_math import compute_megaspec_lookahead
 
 
 class Scheduler:
@@ -65,7 +59,7 @@ class Scheduler:
         if self.speculate:
             assert draft_cfg is not None
             # One allocator per draft replica; draft data parallelism
-            # (`draft_dp` replicas) comes with async SSD.
+            # (`draft_dp` > 1 replicas) is not ported, so there is one.
             self.draft_dp = 1
             self.draft_block_managers = [
                 BlockManager(

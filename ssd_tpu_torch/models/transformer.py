@@ -99,6 +99,17 @@ def init_params(arch: Arch, seed: int, dtype: torch.dtype,
     return params
 
 
+def param_bytes(arch: Arch, dtype: torch.dtype) -> int:
+    """Device bytes of a model's parameters as the runner holds them: the
+    weights in `dtype` plus the fp32 copy of the LM head."""
+    D, I = arch.hidden_size, arch.intermediate_size
+    Hq, Hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    per_layer = 2 * D * Hq * hd + 2 * D * Hkv * hd + 3 * D * I + 2 * D + 2 * hd
+    elem = torch.finfo(dtype).bits // 8
+    return (arch.vocab_size * D + arch.num_layers * per_layer + D) * elem \
+        + arch.vocab_size * D * 4
+
+
 def forward_hidden(
     params: dict,
     input_ids: torch.Tensor,   # [T]

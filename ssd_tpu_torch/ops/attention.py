@@ -1,5 +1,5 @@
-"""Paged-KV attention: cache scatter, page gathers, and the two attention
-contracts of the autoregressive path, each as a plain PyTorch version and a
+"""Paged-KV attention: cache scatter, page gathers, and the three attention
+contracts of the AR, SD and SSD paths, each as a plain PyTorch version and a
 wrapper around its hand-written CUDA kernel.
 
 Counterpart of ssd_tpu/ops/attention.py (plain versions) and of the Pallas
@@ -8,11 +8,15 @@ kernels in ssd_tpu/ops/pallas_attention.py that the AR path reaches:
 - `paged_attention` (kernel csrc/paged_attention.cu) replaces
   `_paged_attn_v2_kernel` / `_paged_attn_v3_kernel` (decode and verify);
 - `flat_prefill_attention` (kernel csrc/flat_prefill_attention.cu) replaces
-  `_flat_prefill_kernel` (the one-launch ragged prefill).
+  `_flat_prefill_kernel` (the one-launch ragged prefill);
+- `tree_attention` (kernel csrc/tree_attention.cu) replaces
+  `_tree_attn_kernel`, `_tree_attn_v2_kernel` and `_tree_attn_v3_kernel`
+  (the async draft's tree decode).
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
 launches the kernel or raises. It never falls back. Each wrapper counts its
-kernel launches in its `launches` attribute.
+kernel launches in its `launches` attribute (under a lock: the async draft
+thread launches kernels too).
 
 KV cache layout, as in the JAX package: per layer [Hkv, S, 2*hd] with
 S = num_blocks * block_size flat slots and K in lanes [0, hd), V in
@@ -22,12 +26,21 @@ S = num_blocks * block_size flat slots and K in lanes [0, hd), V in
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from ssd_tpu_torch.ops import cuda_lib
+from ssd_tpu_torch.ops.spec_math import tree_attention_mask
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 128)
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_launch(wrapper):
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def store_kv(
@@ -185,7 +198,7 @@ def paged_attention(
             out.data_ptr(), B, Q, Hq, Hkv, hd, S, block_tables.shape[1],
             block_size, float(scale), stream)
     lib.check(err, "paged_attention kernel launch")
-    paged_attention.launches += 1
+    _count_launch(paged_attention)
     return out
 
 
@@ -266,8 +279,88 @@ def flat_prefill_attention(
             out.data_ptr(), T, Hq, Hkv, hd, S, flat_pages.shape[0], block_size,
             float(scale), stream)
     lib.check(err, "flat_prefill_attention kernel launch")
-    flat_prefill_attention.launches += 1
+    _count_launch(flat_prefill_attention)
     return out
 
 
 flat_prefill_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Tree attention (async draft tree decode)
+# ---------------------------------------------------------------------------
+
+
+def tree_attention_plain(
+    q: torch.Tensor,             # [B, MQ, Hq, hd]
+    kv_layer: torch.Tensor,      # [Hkv, S, 2*hd]
+    block_tables: torch.Tensor,  # [B, M] int32 (-1 = no page)
+    context_lens: torch.Tensor,  # [B] attended length at this step
+    fan_idx_rows: torch.Tensor,  # [B, MQ] glue depth of each tree row
+    step: int,
+    K: int,
+    block_size: int,
+    scale: float,
+) -> torch.Tensor:
+    """Tree-decode attention of B*MQ fork rows over their shared prefix,
+    masked by spec_math.tree_attention_mask and capped by the table
+    (positions below M * block_size). The plain version of
+    csrc/tree_attention.cu; ssd_tpu/ops/attention.py::tree_attention with
+    ctx_pad = M * block_size."""
+    B, MQ, Hq, hd = q.shape
+    Hkv = kv_layer.shape[0]
+    G = Hq // Hkv
+    C = block_tables.shape[1] * block_size
+    k, v = gather_pages(kv_layer, block_tables, block_size, C)
+    qf = q.float().reshape(B, MQ, Hkv, G, hd)
+    scores = torch.einsum("bqhgd,bchd->bhgqc", qf, k.float()) * scale
+    mask = tree_attention_mask(context_lens, step, fan_idx_rows, K, MQ, C)
+    probs = masked_softmax(scores.reshape(B, Hq, MQ, C), mask[:, None, :, :])
+    out = torch.einsum("bhgqc,bchd->bqhgd", probs.reshape(B, Hkv, G, MQ, C), v.float())
+    return out.reshape(B, MQ, Hq, hd).to(q.dtype)
+
+
+def tree_attention(
+    q: torch.Tensor,             # [B, MQ, Hq, hd]
+    kv_layer: torch.Tensor,      # [Hkv, S, 2*hd]
+    block_tables: torch.Tensor,  # [B, M] int32
+    context_lens: torch.Tensor,  # [B] int32
+    fan_idx_rows: torch.Tensor,  # [B, MQ] int32
+    step: int,
+    K: int,
+    block_size: int,
+    scale: float,
+) -> torch.Tensor:
+    """Tree-decode attention: the plain version for CPU tensors, the CUDA
+    kernel (csrc/tree_attention.cu) for CUDA tensors."""
+    if q.device.type == "cpu":
+        return tree_attention_plain(q, kv_layer, block_tables, context_lens,
+                                    fan_idx_rows, step, K, block_size, scale)
+    B, MQ, Hq, hd = q.shape
+    Hkv, S, _ = kv_layer.shape
+    _check_cuda_args("tree_attention", q, kv_layer, {
+        "block_tables": block_tables, "context_lens": context_lens,
+        "fan_idx_rows": fan_idx_rows})
+    if Hq % Hkv or block_tables.shape[0] != B or context_lens.shape != (B,) \
+            or fan_idx_rows.shape != (B, MQ) or S % block_size \
+            or not 0 <= step < K:
+        raise ValueError("tree_attention: inconsistent shapes "
+                         f"q {tuple(q.shape)}, kv {tuple(kv_layer.shape)}, "
+                         f"tables {tuple(block_tables.shape)}, ctx "
+                         f"{tuple(context_lens.shape)}, fan "
+                         f"{tuple(fan_idx_rows.shape)}, step {step} of K={K}")
+    out = torch.empty_like(q)
+    lib = cuda_lib.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.cdll.ssd_tree_attention(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), kv_layer.data_ptr(),
+            block_tables.data_ptr(), context_lens.data_ptr(),
+            fan_idx_rows.data_ptr(), out.data_ptr(), B, MQ, Hq, Hkv, hd, S,
+            block_tables.shape[1], block_size, step, K, float(scale), stream)
+    lib.check(err, "tree_attention kernel launch")
+    _count_launch(tree_attention)
+    return out
+
+
+tree_attention.launches = 0

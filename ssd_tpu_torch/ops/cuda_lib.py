@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -45,6 +46,7 @@ class KernelLibrary:
 
 
 _LIB: KernelLibrary | None = None
+_LOAD_LOCK = threading.Lock()   # the async draft thread may load it first
 
 
 def _nvcc() -> str:
@@ -113,18 +115,29 @@ def _bind(cdll: ctypes.CDLL):
         i, i, i, i, ll, i, i,    # T, Hq, Hkv, hd, S, P, block_size
         f, p,                     # scale, stream
     ]
+    cdll.ssd_tree_attention.restype = i
+    cdll.ssd_tree_attention.argtypes = [
+        i, p, p, p, p, p, p,     # dtype, q, kv, block_tables, context_lens, fan_idx_rows, out
+        i, i, i, i, i, ll, i, i,  # B, MQ, Hq, Hkv, hd, S, M, block_size
+        i, i, f, p,               # step, K, scale, stream
+    ]
 
 
 def load() -> KernelLibrary:
     """The kernel library, built on the first call of the process."""
     global _LIB
-    if _LIB is None:
-        sources = sorted(CSRC.glob("*.cu"))
-        so = BUILD_DIR / f"libssd_tpu_torch_{_digest(sources + sorted(CSRC.glob('*.cuh')))}.so"
-        t0 = time.perf_counter()
-        log = _build(sources, so) if not so.exists() else ""
-        seconds = time.perf_counter() - t0 if log else 0.0
-        cdll = ctypes.CDLL(str(so))
-        _bind(cdll)
-        _LIB = KernelLibrary(cdll, so, seconds, log)
+    with _LOAD_LOCK:
+        if _LIB is None:
+            _LIB = _load()
     return _LIB
+
+
+def _load() -> KernelLibrary:
+    sources = sorted(CSRC.glob("*.cu"))
+    so = BUILD_DIR / f"libssd_tpu_torch_{_digest(sources + sorted(CSRC.glob('*.cuh')))}.so"
+    t0 = time.perf_counter()
+    log = _build(sources, so) if not so.exists() else ""
+    seconds = time.perf_counter() - t0 if log else 0.0
+    cdll = ctypes.CDLL(str(so))
+    _bind(cdll)
+    return KernelLibrary(cdll, so, seconds, log)

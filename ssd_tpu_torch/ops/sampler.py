@@ -1,5 +1,5 @@
 """Token sampling: greedy argmax, temperature sampling by exponential race,
-optional top-p / top-k warp.
+optional top-p / top-k warp, and the tree mode's sampler_x rescaling.
 
 Counterpart of ssd_tpu/ops/sampler.py. Randomness comes from an explicit
 `torch.Generator` owned by the model runner; it gives other numbers than JAX's
@@ -9,6 +9,8 @@ keys from the same seed, so only greedy outputs compare exactly.
 from __future__ import annotations
 
 import torch
+
+from ssd_tpu_torch.ops.spec_math import apply_sampler_x_rescaling
 
 
 def warp_top_probs(
@@ -41,16 +43,23 @@ def sample(
     generator: torch.Generator | None,
     top_p: torch.Tensor | None = None,  # [B]; None = no warp
     top_k: torch.Tensor | None = None,  # [B]
+    sampler_x: float | None = None,
+    fan_out: int = 3,
+    is_tree: bool = False,
 ) -> torch.Tensor:
     """Rows with temperature 0 take the argmax; the others sample
     softmax(logits / T) by exponential race (argmax of probs / Exp(1), which
-    is Categorical(probs)). Returns [B] int64."""
+    is Categorical(probs)). In tree mode (the async draft) with sampler_x,
+    the top-(fan_out+1) probabilities are boosted by sampler_x before the
+    warp and the draw. Returns [B] int64."""
     logits = logits.float()
     greedy = logits.argmax(dim=-1)
     if bool((temperatures == 0).all()):
         return greedy
     t = temperatures.clamp(min=1e-8)[:, None]
     probs = torch.softmax(logits / t, dim=-1)
+    if sampler_x is not None and is_tree:
+        probs = apply_sampler_x_rescaling(probs, sampler_x, fan_out)
     if top_p is not None:
         probs = warp_top_probs(probs, top_p, top_k)
     e = torch.empty_like(probs).exponential_(generator=generator)

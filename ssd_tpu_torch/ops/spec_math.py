@@ -1,0 +1,113 @@
+"""Speculative-decoding math: lookahead sizing, fork selection, sampler_x
+rescaling and the analytic tree-attention mask.
+
+Counterpart of ssd_tpu/ops/spec_math.py, in PyTorch. The tree mask is
+computed from four integers per row (prefix length, glue depth, step, row),
+never materialised as a bitmask; csrc/tree_attention.cu evaluates the same
+formula per position.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def compute_megaspec_lookahead(MQ_LEN: int, K: int) -> int:
+    """KV slots a single async spec step may consume beyond the trunk:
+    glue (K+1) + tree (K steps x MQ_LEN rows)."""
+    return K + 1 + K * MQ_LEN
+
+
+def fan_index(fan_out_list: list[int]) -> np.ndarray:
+    """Per-tree-row glue depth: row r descends from glue position
+    fan_index[r], e.g. [2, 2] -> [0, 0, 1, 1]. Length MQ_LEN."""
+    return np.repeat(np.arange(len(fan_out_list)), fan_out_list).astype(np.int32)
+
+
+def _small_topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Top-k indices of x [..., V], ties to the lowest index first, as
+    jax.lax.top_k orders them. For small k, k passes of argmax (which returns
+    the first maximal index) with the winner masked out; beyond k = 8, a
+    stable descending sort, which keeps equal values in index order."""
+    if k > 8:
+        return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+    flat = x.reshape(-1, x.shape[-1]).clone()
+    rows = torch.arange(flat.shape[0], device=x.device)
+    idxs = []
+    for _ in range(k):
+        i = flat.argmax(dim=-1)
+        idxs.append(i)
+        flat[rows, i] = float("-inf")
+    return torch.stack(idxs, dim=-1).reshape(x.shape[:-1] + (k,))
+
+
+def get_forked_recovery_tokens(
+    logits: torch.Tensor,           # [B, K+1, V] glue logits
+    cache_hits: torch.Tensor,       # [B] {0,1}
+    returned_tokens: torch.Tensor,  # [B, K+1] tokens already returned ([rec | spec])
+    fan_out_list: list[int],
+    fan_out_list_miss: list[int],
+) -> torch.Tensor:
+    """Top-F fork tokens per glue depth, excluding the token already returned
+    at that depth. Depth j gets fan_out_list[j] forks on a hit row and
+    fan_out_list_miss[j] on a miss row. Returns [B, MQ_LEN] int64."""
+    B, Kp1, V = logits.shape
+    K = Kp1 - 1
+    assert len(fan_out_list) == Kp1
+    dev = logits.device
+    logits = logits.clone()
+    b_idx = torch.arange(B, device=dev)[:, None]
+    d_idx = torch.arange(K, device=dev)[None, :]
+    logits[b_idx, d_idx, returned_tokens[:, 1:].long()] = float("-inf")
+
+    k_max = max(max(fan_out_list), max(fan_out_list_miss))
+    topk_idx = _small_topk_indices(logits, k_max)                    # [B, K+1, k]
+    hit_counts = torch.tensor(fan_out_list, device=dev)
+    miss_counts = torch.tensor(fan_out_list_miss, device=dev)
+    counts = torch.where(cache_hits.bool()[:, None], hit_counts[None, :],
+                         miss_counts[None, :])                      # [B, K+1]
+    mask = torch.arange(k_max, device=dev)[None, None, :] < counts[:, :, None]
+    MQ_LEN = sum(fan_out_list)
+    # A fixed count per row at varying places: stable-sort the "not
+    # selected" flag so the selected entries come first, in order.
+    order = torch.argsort((~mask).reshape(B, -1).to(torch.int8), dim=1,
+                          stable=True)[:, :MQ_LEN]
+    return torch.gather(topk_idx.reshape(B, -1), 1, order)
+
+
+def apply_sampler_x_rescaling(probs: torch.Tensor, sampler_x: float, F: int) -> torch.Tensor:
+    """Boost the top-(F+1) probabilities of each row by sampler_x, then
+    renormalise. probs: [..., V]."""
+    idx = _small_topk_indices(probs, F + 1)
+    boost = torch.ones_like(probs).scatter(-1, idx, sampler_x)
+    probs = probs * boost
+    return probs / probs.sum(dim=-1, keepdim=True)
+
+
+def tree_attention_mask(
+    context_lens: torch.Tensor,  # [B] attended context length at this step
+    step: int,                   # tree-decode depth s (0-based)
+    fan_idx_rows: torch.Tensor,  # [B, MQ_LEN] glue depth per row
+    K: int,
+    MQ_LEN: int,
+    ctx_pad: int,
+) -> torch.Tensor:
+    """Boolean mask [B, MQ_LEN, ctx_pad], True = attend. At step s a
+    sequence's attended context is laid out as
+      [ prefix (prefix_len) | glue (K+1) | step-0 rows (MQ_LEN) | ... | step-s rows ]
+    with prefix_len = context_lens - (K+1) - (s+1)*MQ_LEN. Row r attends the
+    whole prefix, glue offsets 0..fan_idx[r], and its own column r of every
+    tree step so far."""
+    dev = context_lens.device
+    ctx = context_lens.long()[:, None, None]
+    pfx = ctx - (K + 1) - (step + 1) * MQ_LEN
+    pos = torch.arange(ctx_pad, device=dev)[None, None, :]
+    in_prefix = pos < pfx
+    glue_off = pos - pfx
+    in_glue = (glue_off >= 0) & (glue_off <= fan_idx_rows.long()[:, :, None])
+    tree_off = pos - pfx - (K + 1)
+    rows = torch.arange(MQ_LEN, device=dev)[None, :, None]
+    in_tree = ((tree_off >= 0) & (tree_off < (step + 1) * MQ_LEN)
+               & (torch.remainder(tree_off, MQ_LEN) == rows))
+    return (in_prefix | in_glue | in_tree) & (pos < ctx)

@@ -10,15 +10,29 @@ from __future__ import annotations
 import numpy as np
 
 
+def slot_of(block_tables: np.ndarray, positions: np.ndarray,
+            b_of_row: np.ndarray, block_size: int) -> np.ndarray:
+    """Flat cache slot of each (row, position), computed on the host; -1
+    where the table entry is -1 (ghost rows, padding) or the position falls
+    past the table (context-limit overshoot, which must not clamp onto the
+    last real block). Counterpart of ssd_tpu/engine/model_runner.py::slot_of."""
+    M = block_tables.shape[1]
+    blk = positions // block_size
+    blk_ids = block_tables[b_of_row, np.minimum(blk, M - 1)]
+    slot = blk_ids * block_size + positions % block_size
+    return np.where((blk_ids < 0) | (blk >= M), -1, slot).astype(np.int32)
+
+
 def prepare_multi_query(tail_tokens: np.ndarray, num_tokens: np.ndarray,
                         block_tables: np.ndarray, q_len: int, block_size: int):
     """Batched decode input prep, one row per sequence. Returns (input_ids,
-    positions, slot_map, context_lens) int32 arrays."""
-    pos = (num_tokens[:, None] - q_len + np.arange(q_len)[None, :])  # [B, q]
-    blk = np.take_along_axis(block_tables, pos // block_size, axis=1)
-    slots = np.where(blk < 0, -1, blk * block_size + pos % block_size)
-    return (tail_tokens.reshape(-1).astype(np.int32), pos.reshape(-1).astype(np.int32),
-            slots.reshape(-1).astype(np.int32), num_tokens.astype(np.int32))
+    positions, slot_map, context_lens) int32 arrays; slots by slot_of (a
+    sync speculation overshooting the context limit drops its writes)."""
+    B = num_tokens.shape[0]
+    pos = (num_tokens[:, None] - q_len + np.arange(q_len)[None, :]).reshape(-1)
+    slots = slot_of(block_tables, pos, np.repeat(np.arange(B), q_len), block_size)
+    return (tail_tokens.reshape(-1).astype(np.int32), pos.astype(np.int32),
+            slots, num_tokens.astype(np.int32))
 
 
 def prepare_prefill(block_table: np.ndarray, cached: int, n_new: int,

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from ssd_tpu_torch.ops import attention as att
-from tests.torch_cases import flat_meta, paged_case
+from tests.torch_cases import flat_meta, paged_case, tree_case
 
 
 def t(a):
@@ -33,14 +33,16 @@ def close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain_on_card(dtype, Hq, Hkv, hd):
     """The CUDA kernels against their plain versions on the card: decode with
-    a ghost row, overshoot at Q=4 (Q*G query rows take several passes), and
+    a ghost row, overshoot at Q=4 (Q*G query rows take several passes), the
+    SD/SSD verify at Q=K+1=5 with a ghost row (a partial last row pass), and
     a mixed prefix-cached prefill, at both head sizes the kernels take."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
     dev = "cuda"
     scale = hd ** -0.5
     for (B, Q, ctx_lens, M, ghosts) in [(4, 1, [300, 64, 129], 8, 1),
-                                        (3, 4, [258, 100, 256], 4, 0)]:
+                                        (3, 4, [258, 100, 256], 4, 0),
+                                        (3, 5, [400, 5], 8, 1)]:
         q, kv, bt, ctx = paged_case(7, B, Q, Hq, Hkv, hd, 64, M, ctx_lens, ghosts)
         if M == 4:
             ctx = np.asarray(ctx_lens, np.int32)   # beyond the full table
@@ -59,3 +61,26 @@ def test_kernels_match_plain_on_card(dtype, Hq, Hkv, hd):
     want = att.flat_prefill_attention_plain(*args, 16, scale)
     assert close(got, want, dtype)
     assert got[sum([5, 12, 3]):].abs().max() == 0   # padding rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv,hd", [(32, 8, 64), (6, 2, 128)])  # G = 4 and 3
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tree_kernel_matches_plain_on_card(dtype, Hq, Hkv, hd):
+    """The tree kernel against its plain version on the card: B=1 and B=3
+    with a warm-up ghost row, the first and last step, hit and miss fan
+    rows, MQ=10 (K=4, fan-out 2) and an MQ*G above one block's 64 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    scale = hd ** -0.5
+    for K, fans, B, bases, ghosts in [(4, [2] * 5, 1, [300], 0),
+                                      (4, [2] * 5, 3, [130, 7], 1),
+                                      (3, [7, 5, 3, 2], 2, [64, 200], 0)]:
+        for step in (0, K - 1):
+            q, kv, bt, ctx, fan = tree_case(3 + step, B, K, fans, Hq, Hkv, hd,
+                                            64, 8, bases, step, ghosts)
+            args = [t(a).to("cuda") for a in (q, kv, bt, ctx, fan)]
+            args[0], args[1] = args[0].to(dtype), args[1].to(dtype)
+            got = att.tree_attention(*args, step, K, 64, scale)
+            want = att.tree_attention_plain(*args, step, K, 64, scale)
+            assert close(got, want, dtype), (K, B, step)

@@ -150,6 +150,22 @@ def test_metrics_keys_match_jax(llama_dir):
     # As in the JAX engine, a prefill counts the sequence length after its
     # first sampled token is appended.
     assert metrics["prefill_total_tokens"] == 4 and metrics["decode_total_tokens"] == 2
+    # The speculative modes fill the speculative keys (the model drafts for
+    # itself here): sync SD its acceptance and verify times, async SSD also
+    # the cache hits and the hit/miss split.
+    spec = dict(draft=llama_dir, speculate=True, speculate_k=2)
+    for extra, keys in (({}, ("accepted_suffix_lens_with_recovery", "target_verify_times")),
+                        ({"draft_async": True, "async_fan_out": 2},
+                         ("cache_hits", "accepted_suffix_lens_on_hit",
+                          "accepted_suffix_lens_on_miss"))):
+        llm = port(llama_dir, **spec, **extra)
+        _, metrics = llm.generate([[5, 6, 7]], SamplingParams(max_new_tokens=12, **GREEDY),
+                                  use_tqdm=False)
+        llm.exit()
+        assert set(metrics) == set(JAX_METRICS)
+        assert all(metrics[k] for k in keys), {k: metrics[k] for k in keys}
+        assert metrics["decode_total_tokens"] == sum(
+            metrics["accepted_suffix_lens_with_recovery"])
 
 
 def test_request_validation(llama_dir):
@@ -162,16 +178,27 @@ def test_request_validation(llama_dir):
         llm.add_request([5] * 256, SamplingParams())
     with pytest.raises(TypeError, match="use_pallas"):
         port(llama_dir, use_pallas=True)
-    with pytest.raises(NotImplementedError, match="speculate"):
-        port(llama_dir, speculate=True)
+    with pytest.raises(ValueError, match="draft"):
+        port(llama_dir, speculate=True)   # no default draft checkpoint
+
+
+# Modes not ported yet, refused whatever else is asked for.
+UNPORTED = {"spec_rounds", "async_fused", "use_eagle", "ngram_speculate",
+            "multi_step", "draft_dp"}
 
 
 @pytest.mark.parametrize("field,value", [
     ("speculate_k", 4), ("spec_rounds", 2), ("async_fan_out", 2),
-    ("fan_out_list", [3, 1]), ("fan_out_list_miss", [3, 1])])
+    ("fan_out_list", [3, 1]), ("fan_out_list_miss", [3, 1]),
+    ("draft_async", True), ("sampler_x", 1.5), ("jit_speculate", True),
+    ("async_fused", True), ("use_eagle", True), ("ngram_speculate", True),
+    ("multi_step", 2), ("draft_dp", 2)])
 def test_unported_speculative_fields_refused(llama_dir, field, value):
-    """A speculative knob the AR path would silently ignore is refused."""
-    with pytest.raises(NotImplementedError, match=field):
+    """A mode this slice does not port is refused (NotImplementedError); a
+    speculative knob on an engine that does not speculate, where it would be
+    silently ignored, is refused too (ValueError)."""
+    exc = NotImplementedError if field in UNPORTED else ValueError
+    with pytest.raises(exc, match=field):
         port(llama_dir, **{field: value})
 
 

@@ -171,9 +171,9 @@ def test_slot_of_matches_jax():
     bt = np.array([[3, 5, -1], [-1, -1, -1], [2, 0, 4]], np.int32)
     pos = np.array([0, 17, 33, 5, 47, 48, 60], np.int32)   # 48+ overshoots
     rows = np.array([0, 0, 0, 1, 2, 2, 2], np.int32)
-    got = slot_of(t(bt), t(pos).long(), t(rows).long(), 16)
+    got = slot_of(bt, pos, rows, 16)
     want = jax_slot_of(jnp.asarray(bt), jnp.asarray(pos), jnp.asarray(rows), 16)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def test_greedy_sampling_matches_jax():

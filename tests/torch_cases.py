@@ -36,3 +36,23 @@ def flat_meta(ctx_lens, qeffs, block_size, T_pad):
     pad = T_pad - len(lo)
     return (np.asarray(lo + [0] * pad, np.int32),
             np.asarray(hi + [0] * pad, np.int32), pages_per)
+
+
+def tree_case(seed, B, K, fan_out_list, Hq, Hkv, hd, block_size, max_blocks,
+              bases, step, ghosts=0):
+    """One tree-decode step s of the async draft: sequence b's recovery token
+    sits at position bases[b], so its context at step s is
+    bases[b] + (K+1) + (s+1)*MQ. Even rows take the hit fan-out list, odd
+    rows the miss list (its reverse). `ghosts` trailing rows are warm-up
+    ghosts: context (K+1) + (s+1)*MQ - 3 (a negative prefix) and a table of
+    -1 entries. Returns q, cache, tables, contexts and fan rows."""
+    MQ = sum(fan_out_list)
+    ctx_lens = [b + (K + 1) + (step + 1) * MQ for b in bases]
+    q, kv, bt, ctx = paged_case(seed, B, MQ, Hq, Hkv, hd, block_size,
+                                max_blocks, ctx_lens, ghosts)
+    for b in range(B - ghosts, B):
+        ctx[b] = (K + 1) + (step + 1) * MQ - 3
+    hit = np.repeat(np.arange(K + 1), fan_out_list)
+    miss = np.repeat(np.arange(K + 1), fan_out_list[::-1])
+    fan = np.stack([hit if b % 2 == 0 else miss for b in range(B)]).astype(np.int32)
+    return q, kv, bt, ctx, fan
