@@ -12,14 +12,20 @@ the script exits non-zero:
               ssd_tpu_torch/csrc (seconds, ptxas register/spill lines).
 2. kernels  - each kernel against its plain PyTorch version on the card, at
               the Llama-3.2-1B geometry (Hq/Hkv 32/8, head_dim 64, 64-token
-              pages; the paged kernel at decode Q=1 and at the SD/SSD verify
-              Q=K+1=5; the tree kernel at K=4, 10 tree rows), in fp32
-              (|err| <= 1e-4) and bf16 (|err| <= 1e-4 +
-              2^-7 |ref|: one bf16 rounding of the fp32 result), with TF32
-              off for matmuls and cuDNN; and their times:
+              pages; the paged kernels at decode Q=1 and at the SD/SSD verify
+              Q=K+1=5; the tree kernels at K=4, 10 tree rows; batches with a
+              ghost row), over the fp cache and over the int8 cache in both
+              kv_quant modes ("int8", and "int8_mxu" as the [s8] entries), in
+              fp32 (|err| <= 1e-4) and bf16 (|err| <= 1e-4 + 2^-7 |ref|: one
+              bf16 rounding of the fp32 result), with TF32 off for matmuls
+              and cuDNN. In the s8 mode kernel and plain version round the
+              same integers, so the same tolerance holds. Then their times:
               the kernel, the plain version, one library call computing the
               same function (scaled_dot_product_attention on the gathered
-              dense K/V, a yardstick the port never calls), and the bound.
+              dense K/V, dequantized for the int8 cache: a yardstick the port
+              never calls), and the bound (bytes, scales included, over the
+              HBM rate or operations over the peak of their type); the paged
+              kernels also at B=8 x 8192 tokens.
 3. serve    - LLM(...).generate at the full Llama-3.2-1B width (16 layers,
               random bf16 weights from a seed): 128 greedy tokens for 8
               prompts of mixed length, then for 1 prompt (the AR path). The
@@ -40,14 +46,22 @@ the script exits non-zero:
               after each run, with the draft thread drained on both sides
               so that a run counts its own tree builds whole; every kernel
               must launch on each path.
-5. exact    - the same width in fp32 from random checkpoints (init scale
+5. kvq      - the int8 KV cache at the same width: AR b8 (serve's engine)
+              and SD and SSD b8 at noise 0 (spec's pair) with
+              kv_quant="int8", then AR and SSD b8 with "int8_mxu". Per run
+              as in spec, plus the KV pool's block bytes and uncapped block
+              count; the int8 kernels of each path must launch and the
+              fp-cache kernels must not.
+6. exact    - the same width in fp32 from random checkpoints (init scale
               0.4): AR at 2 layers, greedy tokens on the card equal those of
               device="cpu", with the smallest top-1/top-2 logit margin seen;
               then a target of 8 layers and a noisy 2-layer draft: AR, sync
-              SD and async SSD tokens on the card and on the CPU all equal.
-6. profile  - (only when asked for) the device's busy share and top kernels
+              SD and async SSD tokens on the card and on the CPU all equal
+              the card's AR, over the fp32 cache and over the int8 cache;
+              and two card runs of int8_mxu AR give the same tokens.
+7. profile  - (only when asked for) the device's busy share and top kernels
               over a prefill step and a window of decode steps at b=8.
-7. spec_profile - (only when asked for) the same for sync SD and async SSD
+8. spec_profile - (only when asked for) the same for sync SD and async SSD
               at b=8: per step, the device time of each CUDA stream, their
               union, and the time both streams ran kernels at once.
 
@@ -66,7 +80,7 @@ import sys
 import tempfile
 import time
 
-PHASES = ("env", "kernels", "serve", "spec", "exact")
+PHASES = ("env", "kernels", "serve", "spec", "kvq", "exact")
 EXTRA_PHASES = ("profile", "spec_profile")
 
 # Llama-3.2-1B geometry (the JAX package's bench.py random-weight config).
@@ -96,6 +110,8 @@ MISS_HIT_RATE = (0.2, 0.8)          # the range its SSD hit rate must land in
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
               "float32": 67e12}    # fp32 outside the tensor cores
+PEAK_OPS_INT8 = 1979e12            # dense int8 tensor-core rate (kv_quant int8_mxu)
+LONG_CTX = 8192                    # the long-context decode timing, tokens per sequence
 # |got - want| <= ATOL + RTOL[dtype] * |want| elementwise. Both sides compute
 # in fp32 and round the output once; 2^-7 |x| bounds one bf16 ulp at x.
 ATOL = 1e-4
@@ -253,6 +269,23 @@ def _tree_case(B, step, bases, ghosts, dtype, seed):
     return q, kv, bt, ctx, torch.from_numpy(fan).cuda()
 
 
+def _int8_pair(kv):
+    """The cache layer kv [Hkv, S, 2hd] quantized by store_kv into the int8
+    pair (data int8 [Hkv, S, 2hd], scales f32 [Hkv, 2, S]), on the card."""
+    import torch
+
+    from ssd_tpu_torch.ops import attention as att
+
+    Hkv, S, hd2 = kv.shape
+    hd = hd2 // 2
+    x = kv.transpose(0, 1)                                      # [S, Hkv, 2hd]
+    pair = (torch.zeros(Hkv, S, hd2, dtype=torch.int8, device=kv.device),
+            torch.full((Hkv, 2, S), 1e-10, device=kv.device))
+    att.store_kv(pair, x[..., :hd], x[..., hd:],
+                 torch.arange(S, dtype=torch.int32, device=kv.device))
+    return pair
+
+
 def _check(name, dtype, got, want, case):
     import torch
 
@@ -268,6 +301,54 @@ def _check(name, dtype, got, want, case):
         fail(f"{name} {case} {dtype}: max abs err {err}, worst element at "
              f"{excess} x its tolerance ({ATOL} + {RTOL[dtype]} |ref|)")
     return err
+
+
+def _timing(shape, fn, plain_fn, library_fn, bytes_, ops, peak, iters=50,
+            plain_iters=10):
+    """One kernel's times at one shape: the kernel, its plain version, the
+    library yardstick, and the bound (bytes over the HBM rate or operations
+    over `peak`, whichever is larger)."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / peak
+    return dict(shape=shape, ms=time_ms(fn, iters),
+                plain_ms=time_ms(plain_fn, plain_iters, warmup=1),
+                library_ms=time_ms(library_fn, iters), bytes=bytes_, flops=ops,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _sdpa_paged(q, kv_layer, bt, ctx, Q, C, dt):
+    """The yardstick's inputs for a paged case: q [B, Hq, Q, hd] and the
+    context gathered dense (dequantized for the int8 pair) in q's dtype,
+    with the causal mask; the port never calls it."""
+    import torch
+
+    from ssd_tpu_torch.ops import attention as att
+
+    k, v = att.gather_pages(kv_layer, bt, BLOCK, C)            # [B, C, Hkv, hd]
+    k = k.to(dt).permute(0, 2, 1, 3).contiguous()
+    v = v.to(dt).permute(0, 2, 1, 3).contiguous()
+    qs = q.permute(0, 2, 1, 3).contiguous()
+    rows = torch.arange(Q, device="cuda")[None, :]
+    per_row = torch.clamp(ctx[:, None].long() - Q + rows + 1, min=0, max=C)
+    pos = torch.arange(C, device="cuda")[None, None, :]
+    mask = ((pos < per_row[:, :, None]) & (pos < ctx[:, None, None]))[:, None]
+    return lambda: sdpa(qs, k, v, mask)
+
+
+def _paged_work(q, ctx, bt, Q, C, Hkv, pos_bytes, elem):
+    """(bytes, operations) of a paged call: each attended K|V position read
+    once (pos_bytes per position and KV head, scales included), q read and
+    the output written once, the tables and lengths read once; 4 * hd
+    operations per (query head, attended position)."""
+    import torch
+
+    B, _, Hq, hd = q.shape
+    rows = torch.arange(Q, device="cuda")[None, :]
+    per_row = torch.clamp(ctx[:, None].long() - Q + rows + 1, min=0, max=C)
+    kv_len = torch.clamp(ctx, max=C).long()
+    bytes_ = (int(kv_len.sum()) * Hkv * pos_bytes + 2 * q.numel() * elem
+              + bt.numel() * 4 + 2 * ctx.numel() * 4)
+    return bytes_, 4 * Hq * hd * int(per_row.sum())
 
 
 def phase_kernels() -> dict:
@@ -286,136 +367,139 @@ def phase_kernels() -> dict:
     verify8 = [SPEC_MAX_LEN, SPEC_K + 1, 700, 1333, 64, 65, 2047]
     # The serve phase's b8 batch halfway through its 128 decode steps.
     serve8 = [n + 64 for n in SERVE_LENS8]
+    # decode at B = 1 and B = 8 (one ghost row), the overshoot case (a full
+    # table with context beyond it, Q = 4), and the verify shape.
+    paged_cases = {
+        "decode_b1": (1, 1, [1500], M, 0),
+        "decode_b8": (8, 1, decode8, M, 1),
+        "overshoot_q4": (3, 4, [258, 100, 256], 4, 0),  # table holds 256
+        "verify_b1": (1, SPEC_K + 1, [2090], M_spec, 0),
+        "verify_b8": (8, SPEC_K + 1, verify8, M_spec, 1),
+    }
+    tree_cases = {"tree_b1": (1, [2048], 0),
+                  "tree_b8": (8, [1500, 0, 700, 1333, 64, 65, 1999], 1)}
+    flat_lens = [17, 100, 300, 600, 900, 1200, 1600, 2048]
+    flat_cached = [0, 0, 0, 0, 512, 0, 0, 1024]
     results = {}
 
-    for dname, dt in dts.items():
-        # K-A: decode at B = 1 and B = 8 (one ghost row), the overshoot case
-        # (a full table with context beyond it, Q = 4), and the verify shape.
-        for seed, (case, args) in enumerate({
-            "decode_b1": (1, 1, [1500], M, 0),
-            "decode_b8": (8, 1, decode8, M, 1),
-            "overshoot_q4": (3, 4, [258, 100, 256], 4, 0),  # table holds 256
-            "verify_b1": (1, SPEC_K + 1, [2090], M_spec, 0),
-            "verify_b8": (8, SPEC_K + 1, verify8, M_spec, 1),
-        }.items()):
-            q, kv, bt, ctx, qeff = _paged_case(*args, dt, seed=seed)
-            got = att.paged_attention(q, kv, bt, ctx, qeff, BLOCK, scale)
-            torch.cuda.synchronize()
-            want = att.paged_attention_plain(q, kv, bt, ctx, qeff, BLOCK, scale)
-            err = _check("paged_attention", dname, got, want, case)
-            results[("paged_attention", case, dname)] = {"max_abs_err": err}
+    def record(name, case, dname, got, want):
+        results[(name, case, dname)] = {"max_abs_err": _check(name, dname, got, want, case)}
 
-        # K-B: 8 prompts of 17-2048 tokens, two of them prefix-cached.
-        ctx_lens = [17, 100, 300, 600, 900, 1200, 1600, 2048]
-        cached = [0, 0, 0, 0, 512, 0, 0, 1024]
-        q, kv, pages, lo, hi, T = _flat_case(ctx_lens, cached, dt, seed=7,
+    for dname, dt in dts.items():
+        # K-A (fp cache), then the int8 pair in both modes.
+        for seed, (case, args) in enumerate(paged_cases.items()):
+            q, kv, bt, ctx, qeff = _paged_case(*args, dt, seed=seed)
+            pair = _int8_pair(kv)
+            for name, layer, s8 in (("paged_attention", kv, False),
+                                    ("paged_attention_int8", pair, False),
+                                    ("paged_attention_int8[s8]", pair, True)):
+                got = att.paged_attention(q, layer, bt, ctx, qeff, BLOCK, scale, s8=s8)
+                torch.cuda.synchronize()
+                record(name, case, dname, got,
+                       att.paged_attention_plain(q, layer, bt, ctx, qeff, BLOCK, scale, s8=s8))
+
+        # K-B: 8 prompts of 17-2048 tokens, two of them prefix-cached; fp
+        # cache and int8 pages.
+        q, kv, pages, lo, hi, T = _flat_case(flat_lens, flat_cached, dt, seed=7,
                                              pad_rows=13, pad_pages=3)
-        got = att.flat_prefill_attention(q, kv, pages, lo, hi, BLOCK, scale)
-        torch.cuda.synchronize()
-        want = att.flat_prefill_attention_plain(q, kv, pages, lo, hi, BLOCK, scale)
-        err = _check("flat_prefill_attention", dname, got, want, "mixed8_cached2")
-        if got[T:].abs().max().item() != 0.0:
-            fail("flat_prefill_attention: padding rows are not zero")
-        results[("flat_prefill_attention", "mixed8_cached2", dname)] = {"max_abs_err": err}
+        for name, layer in (("flat_prefill_attention", kv),
+                            ("flat_prefill_attention_int8", _int8_pair(kv))):
+            got = att.flat_prefill_attention(q, layer, pages, lo, hi, BLOCK, scale)
+            torch.cuda.synchronize()
+            record(name, "mixed8_cached2", dname, got,
+                   att.flat_prefill_attention_plain(q, layer, pages, lo, hi, BLOCK, scale))
+            if got[T:].abs().max().item() != 0.0:
+                fail(f"{name}: padding rows are not zero")
 
         # K-C: tree steps 0 and K-1 at B = 1 and B = 8 (one warm-up ghost).
         for step in (0, SPEC_K - 1):
-            for case, (B, bases, ghosts) in {
-                "tree_b1": (1, [2048], 0),
-                "tree_b8": (8, [1500, 0, 700, 1333, 64, 65, 1999], 1),
-            }.items():
+            for case, (B, bases, ghosts) in tree_cases.items():
                 q, kv, bt, ctx, fan = _tree_case(B, step, bases, ghosts, dt, seed=20 + step)
-                got = att.tree_attention(q, kv, bt, ctx, fan, step, SPEC_K, BLOCK, scale)
-                torch.cuda.synchronize()
-                want = att.tree_attention_plain(q, kv, bt, ctx, fan, step, SPEC_K, BLOCK, scale)
-                name = f"{case}_step{step}"
-                err = _check("tree_attention", dname, got, want, name)
-                results[("tree_attention", name, dname)] = {"max_abs_err": err}
+                pair = _int8_pair(kv)
+                for name, layer, s8 in (("tree_attention", kv, False),
+                                        ("tree_attention_int8", pair, False),
+                                        ("tree_attention_int8[s8]", pair, True)):
+                    args = (bt, ctx, fan, step, SPEC_K, BLOCK, scale)
+                    got = att.tree_attention(q, layer, *args, s8=s8)
+                    torch.cuda.synchronize()
+                    record(name, f"{case}_step{step}", dname, got,
+                           att.tree_attention_plain(q, layer, *args, s8=s8))
 
     # Times at the main-path shapes in bf16 (the serving dtype).
-    counts = (att.paged_attention.launches, att.flat_prefill_attention.launches,
-              att.tree_attention.launches)
+    counts = [w.launches for w in att.KERNEL_WRAPPERS]
     timings = {}
     dt, dname = torch.bfloat16, "bfloat16"
     elem = 2
     Hq, Hkv, hd = 32, 8, 64
+    fp_pos, i8_pos = 2 * hd * elem, 2 * hd + 8   # bytes per (position, KV head)
 
-    def time_paged(Q, ctx_lens, M, seed, shape):
+    def time_paged(Q, ctx_lens, M, seed, shape, mode=None, iters=50, plain_iters=10):
         q, kv, bt, ctx, qeff = _paged_case(len(ctx_lens), Q, ctx_lens, M, 0, dt, seed=seed)
         C = M * BLOCK
-        # Query i of a sequence attends min(ctx - Q + i + 1, C) positions.
-        rows = torch.arange(Q, device="cuda")[None, :]
-        per_row = torch.clamp(ctx[:, None].long() - Q + rows + 1, min=0, max=C)
-        kv_len = torch.clamp(ctx, max=C).long()
-        bytes_ = (int(kv_len.sum()) * Hkv * 2 * hd * elem + 2 * q.numel() * elem
-                  + bt.numel() * 4 + 2 * ctx.numel() * 4)
-        flops = 4 * Hq * hd * int(per_row.sum())
-        ms = time_ms(lambda: att.paged_attention(q, kv, bt, ctx, qeff, BLOCK, scale), 50)
-        plain_ms = time_ms(lambda: att.paged_attention_plain(q, kv, bt, ctx, qeff, BLOCK, scale), 10)
-        k, v = att.gather_pages(kv, bt, BLOCK, C)                  # [B, C, Hkv, hd]
-        k, v = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
-        qs = q.permute(0, 2, 1, 3).contiguous()                     # [B, Hq, Q, hd]
-        pos = torch.arange(C, device="cuda")[None, None, :]
-        mask = ((pos < per_row[:, :, None]) & (pos < ctx[:, None, None]))[:, None]
-        library_ms = time_ms(lambda: sdpa(qs, k, v, mask), 50)
-        return dict(
-            shape=shape, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=bytes_,
-            flops=flops, bound_ms=max(bytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]) * 1e3,
-            bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[dname] else "operations")
+        layer = kv if mode is None else _int8_pair(kv)
+        s8 = mode == "int8_mxu"
+        bytes_, ops = _paged_work(q, ctx, bt, Q, C, Hkv, fp_pos if mode is None else i8_pos, elem)
+        peak = PEAK_OPS_INT8 if s8 else PEAK_FLOPS[dname]
+        return _timing(
+            shape + ("" if mode is None else f", {mode} cache"),
+            lambda: att.paged_attention(q, layer, bt, ctx, qeff, BLOCK, scale, s8=s8),
+            lambda: att.paged_attention_plain(q, layer, bt, ctx, qeff, BLOCK, scale, s8=s8),
+            _sdpa_paged(q, layer, bt, ctx, Q, C, dt), bytes_, ops, peak, iters, plain_iters)
 
-    timings["paged_attention"] = time_paged(
-        1, serve8, M, 11, f"decode B=8 (ctx {serve8}) Q=1 Hq/Hkv 32/8 hd 64 bf16")
+    decode_shape = f"decode B=8 (ctx {serve8}) Q=1 Hq/Hkv 32/8 hd 64 bf16"
     # The SD/SSD b8 verify halfway through 128 tokens: the same batch with
     # the K+1 verified tokens in the context.
     verify_ctx = [n + SPEC_K + 1 for n in serve8]
-    paged_verify = time_paged(
-        SPEC_K + 1, verify_ctx, M_spec, 12,
-        f"verify B=8 (ctx {verify_ctx}) Q={SPEC_K + 1} Hq/Hkv 32/8 hd 64 bf16")
-    emit("kernels", kernel="paged_attention", timing=paged_verify)
+    verify_shape = f"verify B=8 (ctx {verify_ctx}) Q={SPEC_K + 1} Hq/Hkv 32/8 hd 64 bf16"
+    at_verify = {}
+    for name, mode in (("paged_attention", None), ("paged_attention_int8", "int8"),
+                       ("paged_attention_int8[s8]", "int8_mxu")):
+        timings[name] = time_paged(1, serve8, M, 11, decode_shape, mode)
+        at_verify[name] = time_paged(SPEC_K + 1, verify_ctx, M_spec, 12, verify_shape, mode)
+        emit("kernels", kernel=name, timing=at_verify[name])
+    # The regime the int8 cache exists for: B=8 at LONG_CTX tokens each.
+    long_ctx = {}
+    M_long = LONG_CTX // BLOCK
+    for name, mode in (("paged_attention", None), ("paged_attention_int8", "int8"),
+                       ("paged_attention_int8[s8]", "int8_mxu")):
+        long_ctx[name] = time_paged(
+            1, [LONG_CTX] * 8, M_long, 14,
+            f"decode B=8 x {LONG_CTX} tokens Q=1 Hq/Hkv 32/8 hd 64 bf16", mode,
+            iters=20, plain_iters=3)
+        emit("kernels", kernel=name, long_context=long_ctx[name])
 
-    ctx_lens = [17, 100, 300, 600, 900, 1200, 1600, 2048]
-    cached = [0, 0, 0, 0, 512, 0, 0, 1024]
-    q, kv, pages, lo, hi, T = _flat_case(ctx_lens, cached, dt, seed=13)
-    width = (hi - lo).long()
-    flops = int(4 * Hq * hd * width.sum())
-    n_pages = sum(-(-c // BLOCK) for c in ctx_lens)
-    bytes_ = (n_pages * BLOCK * Hkv * 2 * hd * elem + 2 * T * Hq * hd * elem
-              + pages.numel() * 4 + 2 * T * 4)
-    ms = time_ms(lambda: att.flat_prefill_attention(q, kv, pages, lo, hi, BLOCK, scale), 10)
-    plain_ms = time_ms(lambda: att.flat_prefill_attention_plain(q, kv, pages, lo, hi, BLOCK, scale), 3, warmup=1)
-    dense = att.dense_pages(kv, pages, BLOCK)                   # [Hkv, C, 2hd]
-    kd = dense[..., :hd][None].contiguous()
-    vd = dense[..., hd:][None].contiguous()
-    qs = q.permute(1, 0, 2)[None].contiguous()                  # [1, Hq, T, hd]
-    col = torch.arange(dense.shape[1], device="cuda")
-    mask = ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None]))[None, None]
-    library_ms = time_ms(lambda: sdpa(qs, kd, vd, mask), 5, warmup=1)
-    timings["flat_prefill_attention"] = dict(
-        shape=f"prefill 8 prompts ctx {ctx_lens}, cached {cached}, T={T} Hq/Hkv 32/8 hd 64 bf16",
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=bytes_, flops=flops,
-        bound_ms=max(bytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]) * 1e3,
-        bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[dname] else "operations")
+    def flat_timing(lens, cached, seed, shape, int8):
+        q, kv, pages, lo, hi, T = _flat_case(lens, cached, dt, seed=seed)
+        layer = _int8_pair(kv) if int8 else kv
+        n_pages = sum(-(-c // BLOCK) for c in lens)
+        bytes_ = (n_pages * BLOCK * Hkv * (i8_pos if int8 else fp_pos)
+                  + 2 * T * Hq * hd * elem + pages.numel() * 4 + 2 * T * 4)
+        ops = int(4 * Hq * hd * (hi - lo).long().sum())
+        dense = att.dense_pages(layer, pages, BLOCK).to(dt)          # [Hkv, C, 2hd]
+        kd, vd = dense[..., :hd][None].contiguous(), dense[..., hd:][None].contiguous()
+        qs = q.permute(1, 0, 2)[None].contiguous()                  # [1, Hq, T, hd]
+        col = torch.arange(dense.shape[1], device="cuda")
+        mask = ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None]))[None, None]
+        return _timing(
+            shape.format(T=T) + (", int8 pages" if int8 else ""),
+            lambda: att.flat_prefill_attention(q, layer, pages, lo, hi, BLOCK, scale),
+            lambda: att.flat_prefill_attention_plain(q, layer, pages, lo, hi, BLOCK, scale),
+            lambda: sdpa(qs, kd, vd, mask), bytes_, ops, PEAK_FLOPS[dname],
+            iters=10, plain_iters=3)
+
+    prefill_shape = (f"prefill 8 prompts ctx {flat_lens}, cached {flat_cached}, "
+                     "T={T} Hq/Hkv 32/8 hd 64 bf16")
+    timings["flat_prefill_attention"] = flat_timing(flat_lens, flat_cached, 13,
+                                                    prefill_shape, False)
+    timings["flat_prefill_attention_int8"] = flat_timing(flat_lens, flat_cached, 13,
+                                                         prefill_shape, True)
     # Row #4 of the TPU kernel table (the JAX draft prefill's grouped
     # kernel) is computed here by K1: its time at the draft-prefill shape,
     # the serve b8 prompts with nothing cached.
-    q, kv, pages, lo, hi, T = _flat_case(SERVE_LENS8, [0] * 8, dt, seed=17)
-    flops = int(4 * Hq * hd * (hi - lo).long().sum())
-    n_pages = sum(-(-c // BLOCK) for c in SERVE_LENS8)
-    bytes_ = (n_pages * BLOCK * Hkv * 2 * hd * elem + 2 * T * Hq * hd * elem
-              + pages.numel() * 4 + 2 * T * 4)
-    ms = time_ms(lambda: att.flat_prefill_attention(q, kv, pages, lo, hi, BLOCK, scale), 10)
-    plain_ms = time_ms(lambda: att.flat_prefill_attention_plain(q, kv, pages, lo, hi, BLOCK, scale), 3, warmup=1)
-    dense = att.dense_pages(kv, pages, BLOCK)
-    kd, vd = dense[..., :hd][None].contiguous(), dense[..., hd:][None].contiguous()
-    qs = q.permute(1, 0, 2)[None].contiguous()
-    col = torch.arange(dense.shape[1], device="cuda")
-    mask = ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None]))[None, None]
-    library_ms = time_ms(lambda: sdpa(qs, kd, vd, mask), 5, warmup=1)
-    draft_prefill = dict(
-        shape=f"draft prefill, 8 prompts {SERVE_LENS8}, nothing cached, T={T} Hq/Hkv 32/8 hd 64 bf16",
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=bytes_, flops=flops,
-        bound_ms=max(bytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]) * 1e3,
-        bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[dname] else "operations")
+    draft_prefill = flat_timing(
+        SERVE_LENS8, [0] * 8, 17,
+        f"draft prefill, 8 prompts {SERVE_LENS8}, nothing cached, T={{T}} Hq/Hkv 32/8 hd 64 bf16",
+        False)
     emit("kernels", kernel="flat_prefill_attention", tpu_row="#4 _paged_attn_kernel "
          "(draft prefill)", timing=draft_prefill)
 
@@ -426,28 +510,33 @@ def phase_kernels() -> dict:
     from ssd_tpu_torch.ops.spec_math import tree_attention_mask
 
     mask = tree_attention_mask(ctx, step, fan, SPEC_K, SPEC_MQ, C)      # [B, MQ, C]
-    kv_len = torch.clamp(ctx, max=C).long()
-    bytes_ = (int(kv_len.sum()) * Hkv * 2 * hd * elem + 2 * q.numel() * elem
-              + bt.numel() * 4 + ctx.numel() * 4 + fan.numel() * 4)
-    flops = 4 * Hq * hd * int(mask.sum())
-    args = (q, kv, bt, ctx, fan, step, SPEC_K, BLOCK, scale)
-    ms = time_ms(lambda: att.tree_attention(*args), 50)
-    plain_ms = time_ms(lambda: att.tree_attention_plain(*args), 10)
-    k, v = att.gather_pages(kv, bt, BLOCK, C)                    # [B, C, Hkv, hd]
-    k, v = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
+    kv_len = int(torch.clamp(ctx, max=C).long().sum())
+    ops = 4 * Hq * hd * int(mask.sum())
     qs = q.permute(0, 2, 1, 3).contiguous()                      # [B, Hq, MQ, hd]
-    library_ms = time_ms(lambda: sdpa(qs, k, v, mask[:, None]), 50)
-    timings["tree_attention"] = dict(
-        shape=f"tree step {step} of K={SPEC_K}, B=8 (ctx {ctx.tolist()}) MQ={SPEC_MQ} "
-              f"Hq/Hkv 32/8 hd 64 bf16",
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=bytes_, flops=flops,
-        bound_ms=max(bytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]) * 1e3,
-        bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[dname] else "operations")
+    pair = _int8_pair(kv)
+    for name, mode in (("tree_attention", None), ("tree_attention_int8", "int8"),
+                       ("tree_attention_int8[s8]", "int8_mxu")):
+        layer = kv if mode is None else pair
+        s8 = mode == "int8_mxu"
+        bytes_ = (kv_len * Hkv * (fp_pos if mode is None else i8_pos) + 2 * q.numel() * elem
+                  + bt.numel() * 4 + ctx.numel() * 4 + fan.numel() * 4)
+        args = (q, layer, bt, ctx, fan, step, SPEC_K, BLOCK, scale)
+        k, v = att.gather_pages(layer, bt, BLOCK, C)             # [B, C, Hkv, hd]
+        k = k.to(dt).permute(0, 2, 1, 3).contiguous()
+        v = v.to(dt).permute(0, 2, 1, 3).contiguous()
+        timings[name] = _timing(
+            f"tree step {step} of K={SPEC_K}, B=8 (ctx {ctx.tolist()}) MQ={SPEC_MQ} "
+            f"Hq/Hkv 32/8 hd 64 bf16" + ("" if mode is None else f", {mode} cache"),
+            lambda: att.tree_attention(*args, s8=s8),
+            lambda: att.tree_attention_plain(*args, s8=s8),
+            lambda: sdpa(qs, k, v, mask[:, None]), bytes_, ops,
+            PEAK_OPS_INT8 if s8 else PEAK_FLOPS[dname])
     for name, tm in timings.items():
         emit("kernels", kernel=name, timing=tm)
-    (att.paged_attention.launches, att.flat_prefill_attention.launches,
-     att.tree_attention.launches) = counts
-    return {"errors": results, "timings": timings, "paged_verify": paged_verify}
+    for w, n in zip(att.KERNEL_WRAPPERS, counts):
+        w.launches = n
+    return {"errors": results, "timings": timings, "at_verify": at_verify,
+            "long_context": long_ctx}
 
 
 # ---------------------------------------------------------------------------
@@ -460,14 +549,14 @@ def _write_config(d: str, **over):
         json.dump({**LLAMA_1B, **over}, f)
 
 
-def _serving_llm():
+def _serving_llm(**kw):
     """The full-width Llama-3.2-1B engine with random bf16 weights."""
     from ssd_tpu_torch import LLM
 
     with tempfile.TemporaryDirectory() as d:
         _write_config(d)
         return LLM(d, init_random=True, dtype="bfloat16", max_model_len=2048,
-                   kvcache_block_size=BLOCK, max_num_seqs=8)
+                   kvcache_block_size=BLOCK, max_num_seqs=8, **kw)
 
 
 def _serving_prompts():
@@ -519,15 +608,16 @@ def phase_serve() -> dict:
         )
     launches = {"paged_attention": att.paged_attention.launches,
                 "flat_prefill_attention": att.flat_prefill_attention.launches}
+    pool = llm.model_runner.pool_sizing
     emit("serve", geometry="Llama-3.2-1B (16 layers, random bf16 weights)",
-         init_s=init_s, kv_blocks=llm.model_runner.num_kvcache_blocks,
+         init_s=init_s, kv_blocks=llm.model_runner.num_kvcache_blocks, pool=pool,
          runs=runs, launches=launches,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     if not all(n > 0 for n in launches.values()):
         fail(f"serve: a kernel of the main path never launched: {launches}")
     del llm
     torch.cuda.empty_cache()
-    return {"launches": launches, "runs": runs}
+    return {"launches": launches, "runs": runs, "pool": pool}
 
 
 def phase_profile() -> dict:
@@ -712,9 +802,10 @@ def _spec_llm(tdir, ddir, mode, **kw):
 
 
 def _spec_run(llm, mode, prompts, n_new):
-    """One measured generate of the speculative main path: launch counts
-    zeroed just before and read just after, tree-build/verify spans on the
-    card, the draft's step and chain times."""
+    """One measured generate of a main path ("ar", "sd" or "ssd"): launch
+    counts zeroed just before and read just after; for SD and SSD the
+    accepted lengths, tree-build/verify spans on the card, the draft's step
+    and chain times."""
     import torch
 
     from ssd_tpu_torch import SamplingParams
@@ -737,8 +828,8 @@ def _spec_run(llm, mode, prompts, n_new):
     torch.cuda.synchronize()
     ref = torch.cuda.Event(enable_timing=True)
     ref.record()
-    for k in ("paged_attention", "flat_prefill_attention", "tree_attention"):
-        getattr(att, k).launches = 0
+    for w in att.KERNEL_WRAPPERS:
+        w.launches = 0
     t0 = time.perf_counter()
     try:
         outs, m = llm.generate(prompts, sp, use_tqdm=False)
@@ -747,8 +838,7 @@ def _spec_run(llm, mode, prompts, n_new):
             # returns; it belongs to this run, so its launches count.
             llm.draft_server.drain()
     finally:
-        launches = {k: getattr(att, k).launches for k in
-                    ("paged_attention", "flat_prefill_attention", "tree_attention")}
+        launches = {w.__name__: w.launches for w in att.KERNEL_WRAPPERS}
         for spans in (verify_spans, build_spans, chain_spans):
             spans.restore()
     torch.cuda.synchronize()
@@ -757,14 +847,16 @@ def _spec_run(llm, mode, prompts, n_new):
         ids = o["token_ids"]
         if len(ids) != n_new or not all(0 <= t < V for t in ids):
             fail(f"spec {mode}: bad output of {len(ids)} tokens")
-    lens = m["accepted_suffix_lens_with_recovery"]
     run = dict(
         prompts=len(prompts), new_tokens=n_new * len(prompts), wall_s=wall,
         decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
-        spec_steps=len(m["target_verify_times"]),
-        mean_accepted_suffix_len=sum(lens) / len(lens),
-        target_verify_ms=1e3 * sum(m["target_verify_times"]) / len(m["target_verify_times"]),
         launches=launches)
+    if mode == "ar":
+        return run, [o["token_ids"] for o in outs]
+    lens = m["accepted_suffix_lens_with_recovery"]
+    run.update(spec_steps=len(m["target_verify_times"]),
+               mean_accepted_suffix_len=sum(lens) / len(lens),
+               target_verify_ms=1e3 * sum(m["target_verify_times"]) / len(m["target_verify_times"]))
     if mode == "ssd":
         steps = llm.draft_server._step_times[n_steps0:]
         run.update(cache_hit_rate=sum(m["cache_hits"]) / len(m["cache_hits"]),
@@ -815,11 +907,77 @@ def phase_spec() -> dict:
                         fail(f"spec {key}: the miss path's cache-hit rate "
                              f"{run['cache_hit_rate']} is outside [{lo}, {hi}]")
                 blocks = llm.model_runner.num_kvcache_blocks
+                out["pool"] = llm.model_runner.pool_sizing
                 llm.exit()
                 del llm
                 torch.cuda.empty_cache()
     emit("spec", geometry="Llama-3.2-1B width, target 16 layers (4 live), draft 4 layers, bf16",
-         K=SPEC_K, async_fan_out=SPEC_F, kv_blocks_each_pool=blocks,
+         K=SPEC_K, async_fan_out=SPEC_F, kv_blocks_each_pool=blocks, pool=out["pool"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def phase_kvq(serve: dict | None, spec: dict | None) -> dict:
+    """The int8 KV cache at the full Llama-3.2-1B width (module docstring,
+    phase 5): AR b8 on serve's engine and prompts, SD and SSD b8 (noise 0)
+    on spec's checkpoint pair, with kv_quant="int8", then AR b8 and SSD b8
+    with "int8_mxu". Every kernel launch count is zeroed before and read
+    after each run; the int8 kernels of the run's path must launch and the
+    fp-cache kernels must not."""
+    import torch
+
+    from ssd_tpu_torch import SamplingParams
+    from ssd_tpu_torch.config import ModelConfig
+    from ssd_tpu_torch.engine.model_runner import kv_block_bytes
+    from ssd_tpu_torch.models.transformer import Arch
+
+    prompts8, _ = _serving_prompts()
+    warm = SamplingParams(temperature=0.0, max_new_tokens=8, ignore_eos=True)
+    out = {"runs": {}, "pools": {}}
+    need = {"ar": ("paged_attention_int8", "flat_prefill_attention_int8"),
+            "sd": ("paged_attention_int8", "flat_prefill_attention_int8"),
+            "ssd": ("paged_attention_int8", "flat_prefill_attention_int8",
+                    "tree_attention_int8")}
+    with tempfile.TemporaryDirectory() as d:
+        tdir, ddir = _spec_pair(d, layers=16, live=SPEC_LIVE, scale=0.02,
+                                dtype=torch.bfloat16, seed=0)
+        engine = dict(dtype="bfloat16", max_model_len=SPEC_MAX_LEN,
+                      kvcache_block_size=BLOCK, max_num_seqs=8)
+        for kvq, mode in (("int8", "ar"), ("int8", "sd"), ("int8", "ssd"),
+                          ("int8_mxu", "ar"), ("int8_mxu", "ssd")):
+            if mode == "ar":
+                llm = _serving_llm(kv_quant=kvq)
+            else:
+                llm = _spec_llm(tdir, ddir, mode, kv_quant=kvq, **engine)
+            llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
+            run, _ = _spec_run(llm, mode, prompts8, 128)
+            key = f"{kvq}_{mode}_b8"
+            run["pool"] = llm.model_runner.pool_sizing
+            out["runs"][key] = run
+            emit("kvq", run=key, kv_quant=kvq, **run)
+            missing = [k for k in need[mode] if run["launches"][k] <= 0]
+            fp = [k for k in ("paged_attention", "flat_prefill_attention", "tree_attention")
+                  if run["launches"][k]]
+            if missing or fp:
+                fail(f"kvq {key}: int8 kernels that never launched {missing}, "
+                     f"fp-cache kernels that did {fp}: {run['launches']}")
+            llm.exit()
+            del llm
+            torch.cuda.empty_cache()
+    # Pool capacity, bf16 next to int8: one block's bytes (target + draft
+    # for the speculative engines), and how many blocks the free memory
+    # would hold before the engine's cap of (max_num_seqs+1)(max_blocks+2)*4.
+    arch = Arch.from_model_config(ModelConfig(**LLAMA_1B))
+    for dt_name, kvq in (("bfloat16", None), ("int8", "int8")):
+        out["pools"][dt_name] = dict(
+            block_bytes_per_layer_stack=kv_block_bytes(arch, BLOCK, torch.bfloat16, kvq),
+            blocks_per_gib=2**30 / kv_block_bytes(arch, BLOCK, torch.bfloat16, kvq))
+    measured = {"ar_bf16": (serve or {}).get("pool"), "spec_bf16": (spec or {}).get("pool"),
+                "ar_int8": out["runs"]["int8_ar_b8"]["pool"],
+                "spec_int8": out["runs"]["int8_sd_b8"]["pool"]}
+    out["pools"]["measured"] = measured
+    emit("kvq", geometry="Llama-3.2-1B width: AR 16 layers (serve's engine); SD/SSD target "
+         "16 layers (4 live), draft 4 layers; bf16 weights", pools=out["pools"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     return out
 
@@ -934,6 +1092,20 @@ def _random_checkpoint(d: str, layers: int, scale: float, seed: int):
     _write_config(d, num_hidden_layers=layers)
 
 
+def _record_margins(llm, margins: list):
+    """Append the smallest top-1/top-2 logit gap of every AR step's batch to
+    `margins` (how close greedy decoding came to a tie)."""
+    run = llm.model_runner.run
+
+    def recording_run(seqs, is_prefill):
+        toks, logits = run(seqs, is_prefill, return_logits=True)
+        top2 = logits.float().topk(2, dim=-1).values
+        margins.append(float((top2[:, 0] - top2[:, 1]).min()))
+        return toks
+
+    llm.model_runner.run = recording_run
+
+
 def phase_exact() -> dict:
     import numpy as np
     import torch
@@ -951,18 +1123,10 @@ def phase_exact() -> dict:
             llm = LLM(d, device=dev, dtype="float32", max_model_len=512,
                       kvcache_block_size=BLOCK, max_num_seqs=4,
                       num_kvcache_blocks=32)
-            runner, run = llm.model_runner, llm.model_runner.run
-
-            def recording_run(seqs, is_prefill, _run=run):
-                toks, logits = _run(seqs, is_prefill, return_logits=True)
-                top2 = logits.float().topk(2, dim=-1).values
-                margins.append(float((top2[:, 0] - top2[:, 1]).min()))
-                return toks
-
-            runner.run = recording_run
+            _record_margins(llm, margins)
             outs, _ = llm.generate(prompts, sp, use_tqdm=False)
             tokens[dev] = [o["token_ids"] for o in outs]
-            del llm, runner
+            del llm
     equal = tokens["cuda"] == tokens["cpu"]
     emit("exact", geometry="Llama-3.2-1B width, 2 layers, fp32, init scale 0.4",
          prompts=[len(p) for p in prompts], new_tokens=16, equal=equal,
@@ -974,72 +1138,128 @@ def phase_exact() -> dict:
 
     # Speculative modes: target 8 layers (2 live), a 2-layer draft with
     # noise, so steps both accept and reject; every mode on both devices
-    # must give the card's AR tokens.
-    spec_tokens, accepted = {}, {}
+    # must give the card's AR tokens, over the fp32 cache and over the int8
+    # cache (whose AR is the reference of its own modes; its AR
+    # runs record their top-1/top-2 margins). Then two card runs of
+    # int8_mxu AR must agree.
+    spec_tokens, accepted, int8_margins = {}, {}, []
     engine = dict(dtype="float32", max_model_len=512, kvcache_block_size=BLOCK,
                   max_num_seqs=4, num_kvcache_blocks=32)
     with tempfile.TemporaryDirectory() as d:
         tdir, ddir = _spec_pair(d, layers=8, live=2, scale=0.4, dtype=torch.float32, seed=3)
-        for dev in ("cuda", "cpu"):
-            for mode in ("ar", "sd", "ssd"):
-                if mode == "ar":
-                    llm = LLM(tdir, device=dev, **engine)
-                else:
-                    llm = _spec_llm(tdir, ddir, mode, device=dev, **engine)
-                    _perturb_draft(llm, 0.01, 0.4)
-                outs, m = llm.generate(prompts, sp, use_tqdm=False)
-                llm.exit()
-                spec_tokens[(dev, mode)] = [o["token_ids"] for o in outs]
-                lens = m["accepted_suffix_lens_with_recovery"]
-                accepted[f"{dev}_{mode}"] = sum(lens) / len(lens) if lens else None
-                del llm
-    want = spec_tokens[("cuda", "ar")]
-    spec_equal = {f"{dev}_{mode}": toks == want for (dev, mode), toks in spec_tokens.items()}
+        for kvq in (None, "int8"):
+            for dev in ("cuda", "cpu"):
+                for mode in ("ar", "sd", "ssd"):
+                    if mode == "ar":
+                        llm = LLM(tdir, device=dev, kv_quant=kvq, **engine)
+                        if kvq:
+                            _record_margins(llm, int8_margins)
+                    else:
+                        llm = _spec_llm(tdir, ddir, mode, device=dev, kv_quant=kvq, **engine)
+                        _perturb_draft(llm, 0.01, 0.4)
+                    outs, m = llm.generate(prompts, sp, use_tqdm=False)
+                    llm.exit()
+                    spec_tokens[(kvq or "fp32", dev, mode)] = [o["token_ids"] for o in outs]
+                    lens = m["accepted_suffix_lens_with_recovery"]
+                    accepted[f"{kvq or 'fp32'}_{dev}_{mode}"] = sum(lens) / len(lens) if lens else None
+                    del llm
+        mxu = []
+        for _ in range(2):
+            llm = LLM(tdir, device="cuda", kv_quant="int8_mxu", **engine)
+            mxu.append([o["token_ids"] for o in llm.generate(prompts, sp, use_tqdm=False)[0]])
+            del llm
+    spec_equal = {f"{kvq}_{dev}_{mode}": toks == spec_tokens[(kvq, "cuda", "ar")]
+                  for (kvq, dev, mode), toks in spec_tokens.items()}
+    int8_vs_fp32 = sum(a == b for x, y in zip(spec_tokens[("int8", "cuda", "ar")],
+                                              spec_tokens[("fp32", "cuda", "ar")])
+                       for a, b in zip(x, y))
     emit("exact", geometry="Llama-3.2-1B width, target 8 layers (2 live), draft 2 layers "
          "(noise 0.01), fp32, init scale 0.4", K=SPEC_K, async_fan_out=SPEC_F,
-         equal_to_card_ar=spec_equal, mean_accepted_suffix_len=accepted)
+         equal_to_card_ar_of_same_cache=spec_equal, mean_accepted_suffix_len=accepted,
+         int8_min_top2_margin=min(int8_margins),
+         int8_ar_tokens_equal_to_fp32_ar=int8_vs_fp32, tokens_per_run=16 * len(prompts),
+         int8_mxu_two_card_runs_equal=mxu[0] == mxu[1])
     if not all(spec_equal.values()):
-        fail(f"exact: speculative greedy tokens differ from the card's AR: {spec_equal}")
+        fail(f"exact: greedy tokens differ from the card's AR of the same cache: {spec_equal}")
+    if mxu[0] != mxu[1]:
+        fail("exact: two card runs of int8_mxu gave different tokens")
     return {"equal": equal, "min_top2_margin": min(margins), "spec_equal": spec_equal}
 
 
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(kern: dict, serve: dict | None, spec: dict | None) -> dict:
-    replaces = {
-        "paged_attention": "ssd_tpu/ops/pallas_attention.py:354 (_paged_attn_v2_kernel, B=1); :622 (_paged_attn_v3_kernel, B>1)",
-        "flat_prefill_attention": "ssd_tpu/ops/pallas_attention.py:1700 (_flat_prefill_kernel)",
-        "tree_attention": "ssd_tpu/ops/pallas_attention.py:1527 (_tree_attn_kernel); :1024 (_tree_attn_v2_kernel, B=1); :1221 (_tree_attn_v3_kernel, B>1)",
-    }
-    # Launches per path, each read from runs whose counts were zeroed just
-    # before them: the serve phase (AR) and the spec phase (SD, SSD).
+PALLAS = "ssd_tpu/ops/pallas_attention.py"
+# name in the kernels line -> (source, the TPU kernel it replaces)
+KERNEL_ROWS = {
+    "paged_attention": ("ssd_tpu_torch/csrc/paged_attention.cu",
+                        f"{PALLAS}:354 (_paged_attn_v2_kernel, B=1); :622 (_paged_attn_v3_kernel, B>1)"),
+    "flat_prefill_attention": ("ssd_tpu_torch/csrc/flat_prefill_attention.cu",
+                               f"{PALLAS}:1700 (_flat_prefill_kernel)"),
+    "tree_attention": ("ssd_tpu_torch/csrc/tree_attention.cu",
+                       f"{PALLAS}:1527 (_tree_attn_kernel); :1024 (_tree_attn_v2_kernel, B=1); "
+                       ":1221 (_tree_attn_v3_kernel, B>1)"),
+    "paged_attention_int8": ("ssd_tpu_torch/csrc/paged_attention_int8.cu",
+                             f"{PALLAS}:632 (_paged_attn_v3_kernel_i8, s8=False: kv_quant int8)"),
+    "paged_attention_int8[s8]": ("ssd_tpu_torch/csrc/paged_attention_int8.cu",
+                                 f"{PALLAS}:632 (_paged_attn_v3_kernel_i8, s8=True: kv_quant int8_mxu)"),
+    "flat_prefill_attention_int8": ("ssd_tpu_torch/csrc/flat_prefill_attention.cu",
+                                    f"{PALLAS}:1700 (_flat_prefill_kernel) over the int8 pages that "
+                                    "ssd_tpu/ops/attention.py:132 (dense_pages) dequantizes"),
+    "tree_attention_int8": ("ssd_tpu_torch/csrc/tree_attention_int8.cu",
+                            f"{PALLAS}:1231 (_tree_attn_v3_kernel_i8, s8=False: kv_quant int8)"),
+    "tree_attention_int8[s8]": ("ssd_tpu_torch/csrc/tree_attention_int8.cu",
+                                f"{PALLAS}:1231 (_tree_attn_v3_kernel_i8, s8=True: kv_quant int8_mxu)"),
+}
+
+
+def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
+                 kvq: dict | None) -> dict:
+    """Launches per path, each read from runs whose counts were zeroed just
+    before them: `serve` (AR) and `spec` (SD, SSD) for the fp-cache kernels,
+    `kvq` for the int8 ones (its int8_mxu runs for the [s8] entries; the
+    int8 prefill counts the runs of both modes)."""
     by_path = {}
+
+    def add(name, path, n):
+        paths = by_path.setdefault(name, {})
+        paths[path] = paths.get(path, 0) + n
+
     if serve:
-        by_path["ar"] = serve["launches"]
+        for name, n in serve["launches"].items():
+            add(name, "ar", n)
     if spec:
-        for mode in ("sd", "ssd"):
-            runs = [r for k, r in spec["runs"].items() if k.startswith(mode + "_")]
-            by_path[mode] = {name: sum(r["launches"][name] for r in runs)
-                             for name in replaces}
+        for key, run in spec["runs"].items():
+            for name in ("paged_attention", "flat_prefill_attention", "tree_attention"):
+                add(name, key.split("_")[0], run["launches"][name])
+    if kvq:
+        for key, run in kvq["runs"].items():
+            mxu, path = key.startswith("int8_mxu"), key.split("_")[-2]
+            for name in ("paged_attention_int8", "flat_prefill_attention_int8",
+                         "tree_attention_int8"):
+                tag = "[s8]" if mxu and name != "flat_prefill_attention_int8" else ""
+                add(name + tag, path, run["launches"][name])
     out = []
     for name, tm in kern["timings"].items():
         err = max(v["max_abs_err"] for (k, _, _), v in kern["errors"].items() if k == name)
-        paths = {p: c.get(name, 0) for p, c in by_path.items()}
-        out.append({
-            "name": name, "route": "cuda",
-            "source": f"ssd_tpu_torch/csrc/{name}.cu", "replaces": replaces[name],
+        paths = by_path.get(name)
+        source, replaces = KERNEL_ROWS[name]
+        entry = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()) if paths else None,
-            "launches_by_path": paths,
+            "launches_by_path": paths or {},
             "max_abs_err": err, "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
-        })
-        if name == "paged_attention":
-            # K2 also runs the SD/SSD verify and glue at Q = K+1.
-            out[-1]["at_verify_shape"] = {k: kern["paged_verify"][k] for k in
-                                          ("shape", "ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")}
+        }
+        # The paged kernels also run the SD/SSD verify and glue at Q = K+1,
+        # and are timed at a long context.
+        for label, table in (("at_verify_shape", kern["at_verify"]),
+                             ("at_long_context", kern["long_context"])):
+            if name in table:
+                entry[label] = {k: table[name][k] for k in
+                                ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -1066,19 +1286,27 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    phase_env()
-    kern = phase_kernels() if "kernels" in phases else None
-    serve = phase_serve() if "serve" in phases else None
-    spec = phase_spec() if "spec" in phases else None
-    if "exact" in phases:
-        phase_exact()
-    if "profile" in phases:
-        phase_profile()
-    if "spec_profile" in phases:
-        phase_spec_profile()
+    seconds = {}
+
+    def run(name, fn, *args):
+        if name not in phases:
+            return None
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    phase_env()   # always: the card's name and power limit
+    kern = run("kernels", phase_kernels)
+    serve = run("serve", phase_serve)
+    spec = run("spec", phase_spec)
+    kvq = run("kvq", phase_kvq, serve, spec)
+    run("exact", phase_exact)
+    run("profile", phase_profile)
+    run("spec_profile", phase_spec_profile)
     if kern is not None:
-        print(json.dumps(kernels_line(kern, serve, spec)), flush=True)
-    emit("done", seconds=time.perf_counter() - t0, phases=phases)
+        print(json.dumps(kernels_line(kern, serve, spec, kvq)), flush=True)
+    emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds, phases=phases)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

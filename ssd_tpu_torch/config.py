@@ -13,8 +13,9 @@ speculation (SSD), both unfused. Differences from the JAX package:
   "cpu". Without a GPU and without device="cpu" the engine raises;
 - `draft` has no default checkpoint: speculate=True needs a draft path;
 - the modes not ported yet (fused SD and SSD, EAGLE, ngram, multi-step AR,
-  draft data parallelism, MoE) are refused here, and so is a speculative
-  knob on an engine that does not speculate, where it would be ignored.
+  draft data parallelism, MoE, int8 weights) are refused here, and so is a
+  speculative knob on an engine that does not speculate, where it would be
+  ignored.
 """
 
 from __future__ import annotations
@@ -88,6 +89,16 @@ class Config:
     # Admit a prompt longer than the per-dispatch token budget in
     # budget-sized chunks, interleaving decode steps between chunks.
     chunked_prefill: bool = False
+    # int8 KV cache: int8 rows plus one f32 scale per (token, head, K|V),
+    # (hd + 4) bytes where bf16 takes 2 * hd (ops/attention.py). It is
+    # approximate against the fp cache but deterministic: the same context
+    # always quantizes to the same cache bytes, so AR, SD and SSD agree.
+    # "int8": the kernels dequantize in fp32 arithmetic.
+    # "int8_mxu": decode, verify and tree steps take the TPU's s8 arithmetic
+    #   (q and the softmax weights quantized, integer dots); approximate
+    #   against "int8" (csrc/paged_attention_int8.cu). Prefill is "int8"'s.
+    # Both apply to the draft's cache too.
+    kv_quant: str | None = None
     verbose: bool = False
 
     # Speculative decoding. speculate=True serves sync SD with the `draft`
@@ -123,6 +134,9 @@ class Config:
             raise ValueError(f"model path does not exist: {self.model}")
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be bfloat16 or float32, got {self.dtype!r}")
+        if self.kv_quant not in (None, "int8", "int8_mxu"):
+            raise ValueError(f"unknown kv_quant {self.kv_quant!r} "
+                             "(None, 'int8' or 'int8_mxu')")
         unported = {
             "async_fused": self.async_fused, "use_eagle": self.use_eagle,
             "ngram_speculate": self.ngram_speculate,

@@ -1,6 +1,6 @@
 // Shared helpers of the port's attention kernels: element conversion and
-// 16-byte vector loads for the two storage types the kernels take (fp32 and
-// bf16). Everything accumulates in fp32.
+// vector loads for the storage types the kernels take (fp32 and bf16 q and
+// caches, int8 caches). Float math accumulates in fp32, integer dots in int32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,6 +8,7 @@
 #include <math_constants.h>
 
 #include <climits>
+#include <cstdint>
 
 namespace ssd {
 
@@ -75,6 +76,47 @@ __device__ __forceinline__ void load_n(const __nv_bfloat16* p, float (&v)[N]) {
         __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
     v[0] = a.x; v[1] = a.y;
   }
+}
+
+// --- int8 cache (kv_quant) ---
+
+// The f32 nearest 1/127: q and p quantize as x * kInv127, as the TPU
+// kernel's `* (1.0 / 127.0)` does.
+constexpr float kInv127 = 1.0f / 127.0f;
+
+// Byte j of a 32-bit word as a signed value.
+__device__ __forceinline__ int sbyte(int w, int j) {
+  return static_cast<int>(static_cast<unsigned>(w) << (24 - 8 * j)) >> 24;
+}
+
+// N (2, 4 or 8) consecutive int8 values, widened; `p` aligned to N bytes.
+template <int N>
+__device__ __forceinline__ void load_i8(const int8_t* p, int (&v)[N]) {
+  if constexpr (N == 8) {
+    const int2 u = *reinterpret_cast<const int2*>(p);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = sbyte(u.x, j);
+      v[4 + j] = sbyte(u.y, j);
+    }
+  } else if constexpr (N == 4) {
+    const int u = *reinterpret_cast<const int*>(p);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = sbyte(u, j);
+  } else {
+    static_assert(N == 2, "load_i8 takes 2, 4 or 8 elements");
+    const int u = *reinterpret_cast<const short*>(p);
+    v[0] = sbyte(u, 0);
+    v[1] = sbyte(u, 1);
+  }
+}
+
+// Eight consecutive int8 values as floats (exact); `p` 8-byte aligned.
+__device__ __forceinline__ void load8(const int8_t* p, float (&v)[8]) {
+  int w[8];
+  load_i8<8>(p, w);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = static_cast<float>(w[j]);
 }
 
 __device__ __forceinline__ float warp_max(float x) {

@@ -22,7 +22,16 @@
 // micro-tiles per thread, and keeps the online softmax in fp32 registers.
 // It runs on the CUDA cores at a fraction of the tensor cores' rate;
 // mma.sync/wgmma tiles and a TMA pipeline are the next step.
+//
+// int8 pages (Config.kv_quant, entry ssd_flat_prefill_attention_int8): the
+// layer is int8 [Hkv, S, 2*hd] with f32 scales [Hkv, 2, S], and each K|V
+// element dequantizes as it is loaded into the tile, x_i8 * scales[h, 0|1,
+// slot], in fp32: the values of ssd_tpu/ops/attention.py::dense_pages, which
+// the TPU path gathers and casts to q's dtype before its kernel. The rest of
+// the kernel is unchanged; prefill never takes the s8 arithmetic.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace ssd {
 namespace {
@@ -38,9 +47,10 @@ constexpr size_t smem_bytes() {
          sizeof(int) * 2 * kBR;
 }
 
-template <typename T, int HD>
+template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(kThreads)
-    flat_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+    flat_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ kv,
+                        const float* __restrict__ scales,  // int8 KV only
                         const int* __restrict__ flat_pages,
                         const int* __restrict__ row_lo,
                         const int* __restrict__ row_hi, T* __restrict__ out,
@@ -61,7 +71,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tokens = kBR / G;  // tokens per block
   const int t0 = blockIdx.x * tokens;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const T* kv_h = kv + (size_t)h * S * (2 * HD);
+  const KV* kv_h = kv + (size_t)h * S * (2 * HD);
 
   // Row r = (token t0 + r / G, query head h * G + r % G).
   if (tid < kBR) {
@@ -123,7 +133,13 @@ __global__ void __launch_bounds__(kThreads)
       float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (col < n_cols) {
         const int page = max(flat_pages[col / bs], 0);
-        load8(kv_h + ((size_t)page * bs + col % bs) * (2 * HD) + d8, v8);
+        const size_t slot = (size_t)page * bs + col % bs;
+        load8(kv_h + slot * (2 * HD) + d8, v8);
+        if constexpr (std::is_same_v<KV, int8_t>) {
+          const float sc = scales[((size_t)h * 2 + (d8 < HD ? 0 : 1)) * S + slot];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v8[j] *= sc;
+        }
       }
       if (d8 < HD) {
 #pragma unroll
@@ -216,22 +232,41 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* kv, const int* pages,
-                   const int* lo, const int* hi, void* out, int T_tokens,
-                   int Hq, int Hkv, long long S, int P, int bs, float scale,
-                   cudaStream_t stream) {
+template <typename T, typename KV, int HD>
+cudaError_t launch(const void* q, const void* kv, const float* scales,
+                   const int* pages, const int* lo, const int* hi, void* out,
+                   int T_tokens, int Hq, int Hkv, long long S, int P, int bs,
+                   float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flat_prefill_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flat_prefill_kernel<T, KV, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int tokens = kBR / (Hq / Hkv);
   const dim3 grid((T_tokens + tokens - 1) / tokens, Hkv);
-  flat_prefill_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kv), pages, lo, hi,
-      static_cast<T*>(out), T_tokens, Hq, Hkv, S, P, bs, scale);
+  flat_prefill_kernel<T, KV, HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(kv), scales, pages, lo,
+      hi, static_cast<T*>(out), T_tokens, Hq, Hkv, S, P, bs, scale);
   return cudaGetLastError();
+}
+
+// The cache's element type is q's (fp) or int8 (KV8 = true, with scales).
+template <bool KV8>
+cudaError_t dispatch(int dtype, const void* q, const void* kv,
+                     const float* scales, const int* pages, const int* lo,
+                     const int* hi, void* out, int T, int Hq, int Hkv, int hd,
+                     long long S, int P, int bs, float scale, cudaStream_t st) {
+  using KVf = std::conditional_t<KV8, int8_t, float>;
+  using KVb = std::conditional_t<KV8, int8_t, __nv_bfloat16>;
+  if (dtype == kFloat32 && hd == 64)
+    return launch<float, KVf, 64>(q, kv, scales, pages, lo, hi, out, T, Hq, Hkv, S, P, bs, scale, st);
+  if (dtype == kFloat32 && hd == 128)
+    return launch<float, KVf, 128>(q, kv, scales, pages, lo, hi, out, T, Hq, Hkv, S, P, bs, scale, st);
+  if (dtype == kBFloat16 && hd == 64)
+    return launch<__nv_bfloat16, KVb, 64>(q, kv, scales, pages, lo, hi, out, T, Hq, Hkv, S, P, bs, scale, st);
+  if (dtype == kBFloat16 && hd == 128)
+    return launch<__nv_bfloat16, KVb, 128>(q, kv, scales, pages, lo, hi, out, T, Hq, Hkv, S, P, bs, scale, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -247,15 +282,22 @@ extern "C" int ssd_flat_prefill_attention(int dtype, const void* q,
   if (T == 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > ssd::kBR || bs <= 0)
     return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using ssd::launch;
-  if (dtype == ssd::kFloat32 && hd == 64)
-    return launch<float, 64>(q, kv, flat_pages, row_lo, row_hi, out, T, Hq, Hkv, S, P, bs, scale, st);
-  if (dtype == ssd::kFloat32 && hd == 128)
-    return launch<float, 128>(q, kv, flat_pages, row_lo, row_hi, out, T, Hq, Hkv, S, P, bs, scale, st);
-  if (dtype == ssd::kBFloat16 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, kv, flat_pages, row_lo, row_hi, out, T, Hq, Hkv, S, P, bs, scale, st);
-  if (dtype == ssd::kBFloat16 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, kv, flat_pages, row_lo, row_hi, out, T, Hq, Hkv, S, P, bs, scale, st);
-  return cudaErrorInvalidValue;
+  return ssd::dispatch<false>(dtype, q, kv, nullptr, flat_pages, row_lo, row_hi, out, T, Hq, Hkv, hd, S, P, bs, scale,
+                              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ssd_flat_prefill_attention_int8(int dtype, const void* q,
+                                               const void* kv,
+                                               const float* scales,
+                                               const int* flat_pages,
+                                               const int* row_lo,
+                                               const int* row_hi, void* out,
+                                               int T, int Hq, int Hkv, int hd,
+                                               long long S, int P, int bs,
+                                               float scale, void* stream) {
+  if (T == 0) return cudaSuccess;
+  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > ssd::kBR || bs <= 0)
+    return cudaErrorInvalidValue;
+  return ssd::dispatch<true>(dtype, q, kv, scales, flat_pages, row_lo, row_hi, out, T, Hq, Hkv, hd, S, P, bs, scale,
+                             static_cast<cudaStream_t>(stream));
 }

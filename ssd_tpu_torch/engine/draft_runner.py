@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from ssd_tpu_torch.config import Config
-from ssd_tpu_torch.engine.model_runner import ModelRunner, _store_rows, decode_forward
+from ssd_tpu_torch.engine.model_runner import (
+    KVCache, ModelRunner, _store_rows, decode_forward, layer_of)
 from ssd_tpu_torch.models.transformer import Arch, compute_logits, forward_hidden
 from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops.sampler import sample
@@ -45,7 +46,7 @@ from ssd_tpu_torch.utils.native import slot_of
 
 def tree_build_step(
     params: dict,
-    kv_cache: torch.Tensor,          # [L, Hkv, S, 2*hd], updated in place
+    kv_cache: KVCache,               # [L, Hkv, S, 2*hd] | int8 pair, in place
     glue_ids: torch.Tensor,          # [B, K+1] [recovery | spec_0..spec_{K-1}]
     base_positions: np.ndarray,      # [B] position of the recovery token
     block_tables: np.ndarray,        # [B, M] draft tables
@@ -62,6 +63,7 @@ def tree_build_step(
     fan_out_list_miss: list[int],
     sampler_x: float | None,
     F: int,
+    s8: bool = False,
 ):
     """Build the next step's speculation tree: the glue forward (the K+1
     returned tokens, paged attention at Q = K+1), the top-F fork per glue
@@ -71,7 +73,8 @@ def tree_build_step(
       [ trunk 0..base-1 | glue base..base+K | tree step s row r at
         base + (K+1) + s*MQ + r ]
     and tree row r (forked from glue depth fan_idx[r]) takes rope position
-    base + fan_idx[r] + 1 + s at step s.
+    base + fan_idx[r] + 1 + s at step s. Over the int8 cache the glue and
+    the tree steps take its kernels (s8 for kv_quant="int8_mxu").
 
     Returns (fork tokens [B, MQ], spec tokens [B, MQ, K], spec logits
     [B*MQ, K, V] with row b*MQ + r for tree row r of sequence b, glue logits
@@ -94,7 +97,7 @@ def tree_build_step(
         params, kv_cache, glue_ids.reshape(-1), upload(glue_pos.astype(np.int32)),
         upload(glue_slots), _store_rows(glue_slots, dev), bt,
         upload((base_positions + Kp1).astype(np.int32)),
-        arch=arch, block_size=block_size, q_len=Kp1).reshape(B, Kp1, -1)
+        arch=arch, block_size=block_size, q_len=Kp1, s8=s8).reshape(B, Kp1, -1)
 
     # ---- fork: top-F per glue depth, excluding the returned token ----
     fork = get_forked_recovery_tokens(glue_logits, upload(cache_hits), glue_ids,
@@ -122,10 +125,11 @@ def tree_build_step(
         ctx = upload((base_positions + Kp1 + (s + 1) * MQ).astype(np.int32))
 
         def attn_call(li, q, k, v, s=s, slots_t=slots_t, rows_t=rows_t, ctx=ctx):
-            kv_layer = kv_cache[li]
+            kv_layer = layer_of(kv_cache, li)
             att.store_kv(kv_layer, k, v, slots_t, rows_t)
             qr = q.reshape(B, MQ, arch.num_heads, arch.head_dim)
-            o = att.tree_attention(qr, kv_layer, bt, ctx, fan_t, s, K, block_size, scale)
+            o = att.tree_attention(qr, kv_layer, bt, ctx, fan_t, s, K, block_size,
+                                   scale, s8=s8)
             return o.reshape(B * MQ, arch.num_heads, arch.head_dim)
 
         rope = upload((base_n + fan_n + 1 + s).astype(np.int32))
@@ -247,7 +251,7 @@ class DraftRunner(ModelRunner):
             self.generator, tp, tk,
             arch=self.arch, block_size=self.block_size, K=self.K,
             fan_out_list=self.fan_out_list, fan_out_list_miss=self.fan_out_list_miss,
-            sampler_x=self.sampler_x, F=self.F)
+            sampler_x=self.sampler_x, F=self.F, s8=self.s8)
         self.populate_tree_cache(req.cache_keys[:, 0], resp.cache_hits,
                                  fork.cpu().numpy(), spec.cpu().numpy(), spec_logits)
 

@@ -4,7 +4,9 @@ of the AR, SD and SSD paths.
 Counterpart of ssd_tpu/engine/model_runner.py:
 - the KV cache is one [L, Hkv, S, 2*hd] tensor with K and V interleaved on
   the last axis, as in JAX, so caches compare 1:1; the steps update it in
-  place;
+  place. With Config.kv_quant it is the JAX package's pair (data int8
+  [L, Hkv, S, 2*hd], scales f32 [L, Hkv, 2, S]), and "int8_mxu" passes
+  s8=True to the decode, verify, chain and tree attention;
 - `flat_prefill_step` runs a whole mixed-length prefill batch as one forward
   whose attention is ops/attention.py::flat_prefill_attention;
 - `decode_step` runs a batch of q_len-token decodes whose attention is
@@ -47,6 +49,17 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+KVCache = torch.Tensor | tuple[torch.Tensor, torch.Tensor]
+
+
+def layer_of(kv_cache: KVCache, li: int):
+    """Layer li of the cache: a view of the tensor, or of both halves of the
+    int8 pair."""
+    if isinstance(kv_cache, tuple):
+        return kv_cache[0][li], kv_cache[1][li]
+    return kv_cache[li]
+
+
 def _store_rows(slot_map: np.ndarray, device: torch.device) -> torch.Tensor:
     """Indices of the rows whose slot is real, found on the host so that
     store_kv needs no device-to-host sync."""
@@ -55,7 +68,7 @@ def _store_rows(slot_map: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def flat_prefill_step(
     params: dict,
-    kv_cache: torch.Tensor,      # [L, Hkv, S, 2*hd], updated in place
+    kv_cache: KVCache,           # [L, Hkv, S, 2*hd] | int8 pair, updated in place
     input_ids: torch.Tensor,     # [T] all sequences' new tokens
     positions: torch.Tensor,     # [T]
     slot_map: torch.Tensor,      # [T] (-1 = no write)
@@ -77,7 +90,7 @@ def flat_prefill_step(
     scale = arch.head_dim ** -0.5
 
     def attn_call(li, q, k, v):
-        kv_layer = kv_cache[li]
+        kv_layer = layer_of(kv_cache, li)
         att.store_kv(kv_layer, k, v, slot_map, store_rows)
         return att.flat_prefill_attention(q, kv_layer, flat_pages, row_lo,
                                           row_hi, block_size, scale)
@@ -89,7 +102,7 @@ def flat_prefill_step(
 
 def decode_forward(
     params: dict,
-    kv_cache: torch.Tensor,      # [L, Hkv, S, 2*hd], updated in place
+    kv_cache: KVCache,           # [L, Hkv, S, 2*hd] | int8 pair, updated in place
     input_ids: torch.Tensor,     # [B*q_len]
     positions: torch.Tensor,     # [B*q_len]
     slot_map: torch.Tensor,      # [B*q_len]
@@ -100,6 +113,7 @@ def decode_forward(
     arch: Arch,
     block_size: int,
     q_len: int,
+    s8: bool = False,
 ) -> torch.Tensor:
     """Batched forward of q_len queries per sequence; query i of sequence b
     attends positions up to context_lens[b] - q_len + i. Returns logits
@@ -109,11 +123,11 @@ def decode_forward(
     qeff = torch.full((B,), q_len, dtype=torch.int32, device=block_tables.device)
 
     def attn_call(li, q, k, v):
-        kv_layer = kv_cache[li]
+        kv_layer = layer_of(kv_cache, li)
         att.store_kv(kv_layer, k, v, slot_map, store_rows)
         qr = q.reshape(B, q_len, arch.num_heads, arch.head_dim)
         o = att.paged_attention(qr, kv_layer, block_tables, context_lens, qeff,
-                                block_size, scale)
+                                block_size, scale, s8=s8)
         return o.reshape(B * q_len, arch.num_heads, arch.head_dim)
 
     hidden = forward_hidden(params, input_ids, positions, attn_call, arch)
@@ -122,7 +136,7 @@ def decode_forward(
 
 def decode_step(
     params: dict,
-    kv_cache: torch.Tensor,      # [L, Hkv, S, 2*hd], updated in place
+    kv_cache: KVCache,           # [L, Hkv, S, 2*hd] | int8 pair, updated in place
     input_ids: torch.Tensor,     # [B*q_len]
     positions: torch.Tensor,     # [B*q_len]
     slot_map: torch.Tensor,      # [B*q_len]
@@ -137,20 +151,21 @@ def decode_step(
     arch: Arch,
     block_size: int,
     q_len: int,
+    s8: bool = False,
 ):
     """Batched decode with q_len queries per sequence. Returns (tokens
     sampled from each sequence's last row [B], logits [B*q_len, V])."""
     B = block_tables.shape[0]
     logits = decode_forward(params, kv_cache, input_ids, positions, slot_map,
                             store_rows, block_tables, context_lens,
-                            arch=arch, block_size=block_size, q_len=q_len)
+                            arch=arch, block_size=block_size, q_len=q_len, s8=s8)
     last = logits.reshape(B, q_len, -1)[:, -1, :]
     return sample(last, temperatures, generator, top_ps, top_ks), logits
 
 
 def chain_decode_step(
     params: dict,
-    kv_cache: torch.Tensor,      # [L, Hkv, S, 2*hd], updated in place
+    kv_cache: KVCache,           # [L, Hkv, S, 2*hd] | int8 pair, updated in place
     first_tokens: torch.Tensor,  # [B] the recovery tokens
     positions: torch.Tensor,     # [n_steps, B] position of step i's input
     slot_maps: torch.Tensor,     # [n_steps, B]
@@ -168,6 +183,7 @@ def chain_decode_step(
     sampler_x: float | None = None,
     fan_out: int = 3,
     tree_sampling: bool = False,
+    s8: bool = False,
 ):
     """The draft chain: n_steps (K, or K+1 to also write the K-th token's KV)
     single-token decodes in an eager loop, each step feeding its sampled
@@ -177,7 +193,7 @@ def chain_decode_step(
     for i in range(positions.shape[0]):
         lg = decode_forward(params, kv_cache, tok, positions[i], slot_maps[i],
                             store_rows[i], block_tables, context_lens[i],
-                            arch=arch, block_size=block_size, q_len=1)
+                            arch=arch, block_size=block_size, q_len=1, s8=s8)
         tok = sample(lg, temperatures, generator, top_ps, top_ks,
                      sampler_x=sampler_x, fan_out=fan_out, is_tree=tree_sampling)
         toks.append(tok)
@@ -185,10 +201,14 @@ def chain_decode_step(
     return torch.stack(toks[:K], dim=1), torch.stack(logits[:K], dim=1)
 
 
-def kv_block_bytes(arch: Arch, block_size: int, dtype: torch.dtype) -> int:
-    """Bytes of one KV block across all layers ([K|V] rows of every head)."""
-    elem = torch.finfo(dtype).bits // 8
-    return 2 * arch.num_layers * block_size * arch.num_kv_heads * arch.head_dim * elem
+def kv_block_bytes(arch: Arch, block_size: int, dtype: torch.dtype,
+                   kv_quant: str | None = None) -> int:
+    """Bytes of one KV block across all layers ([K|V] rows of every head):
+    per (token, head), hd values of dtype for each of K and V, or for the
+    int8 cache hd int8 values and one f32 scale for each."""
+    per_half = (arch.head_dim + 4 if kv_quant is not None
+                else arch.head_dim * (torch.finfo(dtype).bits // 8))
+    return 2 * arch.num_layers * block_size * arch.num_kv_heads * per_half
 
 
 class ModelRunner:
@@ -207,6 +227,8 @@ class ModelRunner:
         self.block_size = config.kvcache_block_size
         self.max_blocks = config.max_blocks
         self.dtype = _TORCH_DTYPES[config.dtype]
+        self.kv_quant = config.kv_quant
+        self.s8 = config.kv_quant == "int8_mxu"
         self.use_warp = config.enable_top_sampling
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed + (1 if is_draft else 0))
@@ -217,12 +239,21 @@ class ModelRunner:
         # copy costs its memory once instead of a conversion every step.
         self.params["lm_head"] = self.params["lm_head"].float()
 
+        self.pool_sizing = None   # set when the pool is sized from free memory
         self.num_kvcache_blocks = self._decide_num_blocks(partner)
         config.num_kvcache_blocks = self.num_kvcache_blocks
         a = self.arch
-        self.kv_cache = torch.zeros(
-            a.num_layers, a.num_kv_heads, self.num_kvcache_blocks * self.block_size,
-            2 * a.head_dim, dtype=self.dtype, device=self.device)
+        shape = (a.num_layers, a.num_kv_heads, self.num_kvcache_blocks * self.block_size,
+                 2 * a.head_dim)
+        if self.kv_quant is None:
+            self.kv_cache = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        else:
+            # As the JAX package: scales start at 1e-10 so that slots never
+            # written dequantize to zeros.
+            self.kv_cache = (
+                torch.zeros(shape, dtype=torch.int8, device=self.device),
+                torch.full((a.num_layers, a.num_kv_heads, 2, shape[2]), 1e-10,
+                           dtype=torch.float32, device=self.device))
 
     def _make_params(self, init_random: bool) -> dict:
         if init_random:
@@ -246,17 +277,19 @@ class ModelRunner:
         if self.device.type != "cuda":
             # Enough for max_num_seqs full-length sequences plus slack.
             return max(64, cfg.max_num_seqs * cfg.max_blocks * 2)
-        block_bytes = kv_block_bytes(self.arch, self.block_size, self.dtype)
+        block_bytes = kv_block_bytes(self.arch, self.block_size, self.dtype, self.kv_quant)
         reserve = 0
         if partner is not None:
             d_arch = Arch.from_model_config(partner)
-            block_bytes += kv_block_bytes(d_arch, self.block_size, self.dtype)
+            block_bytes += kv_block_bytes(d_arch, self.block_size, self.dtype, self.kv_quant)
             reserve = param_bytes(d_arch, self.dtype)
         free, total = torch.cuda.mem_get_info(self.device)
         avail = int(total * cfg.gpu_memory_utilization) - (total - free) - reserve
         num = max(16, avail // block_bytes)
         # No point exceeding what max_num_seqs full-length sequences can use.
         cap = (cfg.max_num_seqs + 1) * (cfg.max_blocks + 2) * 4
+        self.pool_sizing = dict(block_bytes=block_bytes, avail_bytes=avail,
+                                uncapped_blocks=num, cap_blocks=cap)
         return min(num, cap)
 
     # --- host-side input prep ---
@@ -377,7 +410,7 @@ class ModelRunner:
             self._tensor(slot_map), _store_rows(slot_map, self.device),
             self._tensor(bt), self._tensor(context_lens),
             temps, self.generator, top_ps, top_ks,
-            arch=self.arch, block_size=self.block_size, q_len=q_len,
+            arch=self.arch, block_size=self.block_size, q_len=q_len, s8=self.s8,
         )
         return tokens.tolist(), logits.reshape(B, q_len, -1)
 
@@ -393,7 +426,7 @@ class ModelRunner:
             self._tensor(input_ids), self._tensor(positions),
             self._tensor(slot_map), _store_rows(slot_map, self.device),
             self._tensor(bt), self._tensor(context_lens),
-            arch=self.arch, block_size=self.block_size, q_len=q_len)
+            arch=self.arch, block_size=self.block_size, q_len=q_len, s8=self.s8)
         return logits.reshape(len(seqs), q_len, -1)
 
     @torch.no_grad()
@@ -421,7 +454,8 @@ class ModelRunner:
             self._tensor((positions + 1).astype(np.int32)),
             self._tensor(temps.astype(np.float32)), self.generator, tp, tk,
             arch=self.arch, block_size=self.block_size, K=K,
-            sampler_x=sampler_x, fan_out=fan_out, tree_sampling=tree_sampling)
+            sampler_x=sampler_x, fan_out=fan_out, tree_sampling=tree_sampling,
+            s8=self.s8)
         return tokens.cpu().numpy(), logits_q
 
     def run(self, seqs: list[Sequence], is_prefill: bool,

@@ -121,6 +121,29 @@ def _bind(cdll: ctypes.CDLL):
         i, i, i, i, i, ll, i, i,  # B, MQ, Hq, Hkv, hd, S, M, block_size
         i, i, f, p,               # step, K, scale, stream
     ]
+    # The int8 cache (kv_quant): an int8 layer plus its f32 scales [Hkv, 2, S];
+    # `s8` selects the integer-dot arithmetic of kv_quant="int8_mxu".
+    cdll.ssd_paged_attention_int8.restype = i
+    cdll.ssd_paged_attention_int8.argtypes = [
+        i, i, p, p, p,           # dtype, s8, q, kv, scales
+        p, p, p, p,              # block_tables, context_lens, qeff, out
+        i, i, i, i, i, ll, i, i,  # B, Q, Hq, Hkv, hd, S, M, block_size
+        f, p,                     # scale, stream
+    ]
+    cdll.ssd_flat_prefill_attention_int8.restype = i
+    cdll.ssd_flat_prefill_attention_int8.argtypes = [
+        i, p, p, p,              # dtype, q, kv, scales
+        p, p, p, p,              # flat_pages, row_lo, row_hi, out
+        i, i, i, i, ll, i, i,    # T, Hq, Hkv, hd, S, P, block_size
+        f, p,                     # scale, stream
+    ]
+    cdll.ssd_tree_attention_int8.restype = i
+    cdll.ssd_tree_attention_int8.argtypes = [
+        i, i, p, p, p,           # dtype, s8, q, kv, scales
+        p, p, p, p,              # block_tables, context_lens, fan_idx_rows, out
+        i, i, i, i, i, ll, i, i,  # B, MQ, Hq, Hkv, hd, S, M, block_size
+        i, i, f, p,               # step, K, scale, stream
+    ]
 
 
 def load() -> KernelLibrary:

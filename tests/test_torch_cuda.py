@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+over the fp cache and over the int8 cache (kv_quant "int8" and "int8_mxu").
 
 Needs an NVIDIA GPU (the kernels have no CPU mode) and skips without one.
 The file imports neither JAX nor the JAX package, so on a GPU machine
@@ -84,3 +85,67 @@ def test_tree_kernel_matches_plain_on_card(dtype, Hq, Hkv, hd):
             got = att.tree_attention(*args, step, K, 64, scale)
             want = att.tree_attention_plain(*args, step, K, 64, scale)
             assert close(got, want, dtype), (K, B, step)
+
+
+def int8_layer(kv, seed):
+    """The cache `kv` [Hkv, S, 2hd] quantized by store_kv into the int8 pair,
+    on the card (scales of never-written slots would be 1e-10; here every
+    slot is written)."""
+    Hkv, S, hd2 = kv.shape
+    hd = hd2 // 2
+    x = t(kv).transpose(0, 1).cuda()                          # [S, Hkv, 2hd]
+    layer = (torch.zeros(Hkv, S, hd2, dtype=torch.int8, device="cuda"),
+             torch.full((Hkv, 2, S), 1e-10, device="cuda"))
+    scale = torch.from_numpy(np.random.default_rng(seed).uniform(0.2, 3.0, size=(S, Hkv, 1)))
+    att.store_kv(layer, x[..., :hd] * scale.cuda().float(), x[..., hd:],
+                 torch.arange(S, dtype=torch.int32, device="cuda"))
+    return layer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s8", [False, True], ids=["int8", "int8_mxu"])
+@pytest.mark.parametrize("Hq,Hkv,hd", [(8, 2, 64), (6, 2, 128)])  # G = 4 and 3
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_kernels_match_plain_on_card(dtype, Hq, Hkv, hd, s8):
+    """The int8 paged and tree kernels (both modes) and K1's int8 entry
+    against their plain versions on the card, at the shapes of the fp tests
+    above. Tolerance: that of the fp kernels (close()). In the s8 mode the
+    kernel and its plain version round the same integers (q8 from the same
+    fp32 steps, p8 from each tile's own scores), so they too differ by fp32
+    rounding only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    scale = hd ** -0.5
+    for (B, Q, ctx_lens, M, ghosts) in [(4, 1, [300, 64, 129], 8, 1),
+                                        (3, 4, [258, 100, 256], 4, 0),
+                                        (3, 5, [400, 5], 8, 1)]:
+        q, kv, bt, ctx = paged_case(7, B, Q, Hq, Hkv, hd, 64, M, ctx_lens, ghosts)
+        if M == 4:
+            ctx = np.asarray(ctx_lens, np.int32)   # beyond the full table
+        layer = int8_layer(kv, 8)
+        args = [t(a).cuda() for a in (bt, ctx, np.full(B, Q, np.int32))]
+        qd = t(q).to("cuda", dtype)
+        got = att.paged_attention(qd, layer, *args, 64, scale, s8=s8)
+        want = att.paged_attention_plain(qd, layer, *args, 64, scale, s8=s8)
+        assert close(got, want, dtype), (B, Q, s8)
+    for K, fans, B, bases, ghosts in [(4, [2] * 5, 3, [130, 7], 1),
+                                      (3, [7, 5, 3, 2], 2, [64, 200], 0)]:
+        for step in (0, K - 1):
+            q, kv, bt, ctx, fan = tree_case(3 + step, B, K, fans, Hq, Hkv, hd,
+                                            64, 8, bases, step, ghosts)
+            layer = int8_layer(kv, 9)
+            args = [t(a).cuda() for a in (bt, ctx, fan)]
+            qd = t(q).to("cuda", dtype)
+            got = att.tree_attention(qd, layer, *args, step, K, 64, scale, s8=s8)
+            want = att.tree_attention_plain(qd, layer, *args, step, K, 64, scale, s8=s8)
+            assert close(got, want, dtype), (K, B, step, s8)
+    _, kv, bt, _ = paged_case(51, 3, 1, Hq, Hkv, hd, 16, 8, [9, 12, 19])
+    lo, hi, pages_per = flat_meta([9, 12, 19], [5, 12, 3], 16, 32)
+    pages = np.concatenate([bt[s, :pages_per[s]] for s in range(3)])
+    pages = np.pad(pages, (0, 8 - len(pages)), constant_values=-1).astype(np.int32)
+    q = t(np.random.default_rng(52).normal(size=(32, Hq, hd)).astype(np.float32))
+    args = [q.to("cuda", dtype), int8_layer(kv, 10)] + [t(a).cuda() for a in (pages, lo, hi)]
+    got = att.flat_prefill_attention(*args, 16, scale)
+    want = att.flat_prefill_attention_plain(*args, 16, scale)
+    assert close(got, want, dtype)
+    assert got[sum([5, 12, 3]):].abs().max() == 0   # padding rows
