@@ -25,7 +25,16 @@ the script exits non-zero:
               dense K/V, dequantized for the int8 cache: a yardstick the port
               never calls), and the bound (bytes, scales included, over the
               HBM rate or operations over the peak of their type); the paged
-              kernels also at B=8 x 8192 tokens.
+              kernels also at B=8 x 8192 tokens. The attention kernels are
+              held against their plain versions again at Qwen3-30B-A3B's
+              attention geometry (Hq/Hkv 32/4, head_dim 128), and K1 and K2
+              timed there. The grouped GEMM (K6) is held against its plain
+              version at Qwen3-30B-A3B's expert shapes (gate/up 2048 -> 768,
+              down 768 -> 2048; the serve prompts' prefill dispatch of
+              5534 x 8 rows and a b8 decode dispatch of 64 rows, group sizes
+              from a seeded router with an empty group) and timed there,
+              beside torch._grouped_mm as its yardstick (a dense matmul of
+              the same operations where that call is missing or refuses).
 3. serve    - LLM(...).generate at the full Llama-3.2-1B width (16 layers,
               random bf16 weights from a seed): 128 greedy tokens for 8
               prompts of mixed length, then for 1 prompt (the AR path). The
@@ -52,16 +61,31 @@ the script exits non-zero:
               as in spec, plus the KV pool's block bytes and uncapped block
               count; the int8 kernels of each path must launch and the
               fp-cache kernels must not.
-6. exact    - the same width in fp32 from random checkpoints (init scale
+6. moe      - Qwen3-30B-A3B (Qwen3-MoE: 48 layers, 128 experts, top-8,
+              hd 128, random bf16 weights from a seed) at full width and
+              depth through LLM(...).generate with
+              gpu_memory_utilization=0.92 (the default 0.7 of the card is
+              less than the 61 GB of weights): 128 greedy tokens for the 8
+              serve prompts, then for one of 512. It fails if the free memory
+              at its start is below the weights plus the capped KV pool, if
+              the pool holds fewer blocks than the cap of 1224, or if K1, K2
+              or the grouped GEMM never launched (counts zeroed just before,
+              read just after).
+7. exact    - the same width in fp32 from random checkpoints (init scale
               0.4): AR at 2 layers, greedy tokens on the card equal those of
               device="cpu", with the smallest top-1/top-2 logit margin seen;
               then a target of 8 layers and a noisy 2-layer draft: AR, sync
               SD and async SSD tokens on the card and on the CPU all equal
               the card's AR, over the fp32 cache and over the int8 cache;
-              and two card runs of int8_mxu AR give the same tokens.
-7. profile  - (only when asked for) the device's busy share and top kernels
-              over a prefill step and a window of decode steps at b=8.
-8. spec_profile - (only when asked for) the same for sync SD and async SSD
+              and two card runs of int8_mxu AR give the same tokens. Then
+              Qwen3-30B-A3B's width at 2 layers: AR on the card equals the
+              CPU's, and sync SD and async SSD on the card (self-draft) equal
+              the card's AR, with the smallest top-1/top-2 logit margin and
+              the smallest router gap between the k-th and (k+1)-th expert.
+8. profile  - (only when asked for) the device's busy share and top kernels
+              over a prefill step and a window of decode steps at b=8;
+              moe_profile the same on the `moe` engine.
+9. spec_profile - (only when asked for) the same for sync SD and async SSD
               at b=8: per step, the device time of each CUDA stream, their
               union, and the time both streams ran kernels at once.
 
@@ -80,8 +104,8 @@ import sys
 import tempfile
 import time
 
-PHASES = ("env", "kernels", "serve", "spec", "kvq", "exact")
-EXTRA_PHASES = ("profile", "spec_profile")
+PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "exact")
+EXTRA_PHASES = ("profile", "moe_profile", "spec_profile")
 
 # Llama-3.2-1B geometry (the JAX package's bench.py random-weight config).
 LLAMA_1B = {
@@ -99,6 +123,34 @@ LLAMA_1B = {
     "tie_word_embeddings": True,
     "eos_token_id": 128001,
 }
+LLAMA_HEADS = (32, 8, 64)   # Hq, Hkv, head_dim
+# Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B, config.json): the MoE
+# phase's model, at full width and depth.
+QWEN3_30B_A3B = {
+    "model_type": "qwen3_moe",
+    "vocab_size": 151936,
+    "hidden_size": 2048,
+    "intermediate_size": 6144,
+    "moe_intermediate_size": 768,
+    "num_hidden_layers": 48,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 4,
+    "head_dim": 128,
+    "num_experts": 128,
+    "num_experts_per_tok": 8,
+    "norm_topk_prob": True,
+    "decoder_sparse_step": 1,
+    "mlp_only_layers": [],
+    "max_position_embeddings": 40960,
+    "rms_norm_eps": 1e-6,
+    "rope_theta": 1000000.0,
+    "tie_word_embeddings": False,
+    "bos_token_id": 151643,
+    "eos_token_id": 151645,
+}
+MOE_GEOMETRY = "Qwen3-30B-A3B (48 layers, 128 experts, top-8, random bf16 weights)"
+QWEN_HEADS = (32, 4, 128)
+MOE_UTIL = 0.92   # gpu_memory_utilization: 0.7 of the card is less than the weights
 BLOCK = 64
 SERVE_LENS8 = [33, 111, 250, 400, 640, 900, 1300, 1900]  # serve phase, b8
 SPEC_K, SPEC_F = 4, 2               # speculation depth, async fan-out
@@ -193,13 +245,14 @@ def phase_env() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _paged_case(B, Q, ctx_lens, M, ghosts, dtype, seed):
+def _paged_case(B, Q, ctx_lens, M, ghosts, dtype, seed, heads=LLAMA_HEADS):
     """Random q and cache, disjoint shuffled page tables; `ghosts` trailing
-    rows are batch padding (context 1, table all -1)."""
+    rows are batch padding (context 1, table all -1). `heads` is (Hq, Hkv,
+    hd)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    Hq, Hkv, hd = 32, 8, 64
+    Hq, Hkv, hd = heads
     n_pages = B * M + 1
     kv = torch.randn(Hkv, n_pages * BLOCK, 2 * hd, generator=g)
     q = torch.randn(B, Q, Hq, hd, generator=g)
@@ -216,7 +269,8 @@ def _paged_case(B, Q, ctx_lens, M, ghosts, dtype, seed):
             qeff.to(dev))
 
 
-def _flat_case(ctx_lens, cached, dtype, seed, pad_rows=0, pad_pages=0):
+def _flat_case(ctx_lens, cached, dtype, seed, pad_rows=0, pad_pages=0,
+               heads=LLAMA_HEADS):
     """Mixed prefill batch: sequence s has ctx_lens[s] tokens of which
     cached[s] are already in the cache; its pages form one run of the flat
     page list, and each new token's window is an interval of that run. The
@@ -226,7 +280,7 @@ def _flat_case(ctx_lens, cached, dtype, seed, pad_rows=0, pad_pages=0):
     import torch
 
     rng = np.random.default_rng(seed)
-    Hq, Hkv, hd = 32, 8, 64
+    Hq, Hkv, hd = heads
     pages_per = [-(-c // BLOCK) for c in ctx_lens]
     n_pages = sum(pages_per) + 1
     perm = rng.permutation(n_pages).astype(np.int32)
@@ -250,7 +304,7 @@ def _flat_case(ctx_lens, cached, dtype, seed, pad_rows=0, pad_pages=0):
             torch.from_numpy(hi).to(dev), T)
 
 
-def _tree_case(B, step, bases, ghosts, dtype, seed):
+def _tree_case(B, step, bases, ghosts, dtype, seed, heads=LLAMA_HEADS):
     """One tree step s of the async draft at K=4, fan-out 2: sequence b's
     recovery token sits at bases[b], so its context is bases[b] + (K+1) +
     (s+1)*MQ. Even rows take the hit fan-out list [2]*5, odd rows a miss
@@ -261,7 +315,7 @@ def _tree_case(B, step, bases, ghosts, dtype, seed):
 
     M = SPEC_MAX_LEN // BLOCK
     ctx_lens = [b + SPEC_K + 1 + (step + 1) * SPEC_MQ for b in bases]
-    q, kv, bt, ctx, _ = _paged_case(B, SPEC_MQ, ctx_lens, M, ghosts, dtype, seed)
+    q, kv, bt, ctx, _ = _paged_case(B, SPEC_MQ, ctx_lens, M, ghosts, dtype, seed, heads)
     ctx[B - ghosts:] = SPEC_K + 1 + (step + 1) * SPEC_MQ - 3
     hit = np.repeat(np.arange(SPEC_K + 1), [SPEC_F] * (SPEC_K + 1))
     miss = np.repeat(np.arange(SPEC_K + 1), [3, 3, 2, 1, 1])
@@ -316,6 +370,65 @@ def _timing(shape, fn, plain_fn, library_fn, bytes_, ops, peak, iters=50,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def _moe_offsets(tokens: int, seed: int):
+    """Group offsets [E+1] of `tokens` tokens' top-k experts at the
+    Qwen3-30B-A3B geometry, from a seeded random router over random hidden
+    states (the last expert masked out, so at least one group is empty), on
+    the card: the grouped GEMM's N = tokens * k rows."""
+    import torch
+
+    from ssd_tpu_torch.ops import moe
+    from ssd_tpu_torch.ops.spec_math import stable_topk_indices
+
+    c = QWEN3_30B_A3B
+    E, k, D = c["num_experts"], c["num_experts_per_tok"], c["hidden_size"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(tokens, D, generator=g, device="cuda")
+    logits = x @ (torch.randn(D, E, generator=g, device="cuda") * 0.02)
+    logits[:, E - 1] = float("-inf")
+    return moe.expert_offsets(stable_topk_indices(logits, k).reshape(-1), E)
+
+
+def _gmm_case(offs, K: int, Nout: int, dtype, seed: int):
+    """Random rows x [N, K] (N = offs[-1]) and experts w [E, K, Nout] at the
+    init scale 0.02, on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    N, E = int(offs[-1]), offs.numel() - 1
+    x = torch.randn(N, K, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(E, K, Nout, generator=g, device="cuda") * 0.02).to(dtype)
+    return x, w
+
+
+def _grouped_mm_yardstick(x, w, offs, want):
+    """The library yardstick of the grouped GEMM, never called by the port:
+    torch._grouped_mm over the same groups where this torch has it and takes
+    the operands (w as stored, else a column-major copy), checked against
+    the plain version; else one dense matmul of the same operations
+    (x @ w[0]). Returns (callable, label)."""
+    import torch
+
+    why = "torch has no _grouped_mm"
+    if hasattr(torch, "_grouped_mm"):
+        ends = offs[1:].contiguous()
+        for label, wt in (("torch._grouped_mm", w),
+                          ("torch._grouped_mm (w column-major)",
+                           w.transpose(1, 2).contiguous().transpose(1, 2))):
+            try:
+                y = torch._grouped_mm(x, wt, offs=ends)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                why = f"torch._grouped_mm refused: {str(e)[:160]}"
+                continue
+            tol = ATOL + RTOL["bfloat16"] * want.float().abs()
+            if bool(((y.float() - want.float()).abs() <= 2 * tol).all()):
+                return (lambda: torch._grouped_mm(x, wt, offs=ends)), label
+            why = f"{label} disagrees with the plain version"
+    w0 = w[0]
+    return (lambda: x @ w0), f"dense torch.matmul x @ w[0], the same operations ({why})"
+
+
 def _sdpa_paged(q, kv_layer, bt, ctx, Q, C, dt):
     """The yardstick's inputs for a paged case: q [B, Hq, Q, hd] and the
     context gathered dense (dequantized for the int8 pair) in q's dtype,
@@ -355,6 +468,7 @@ def phase_kernels() -> dict:
     import torch
 
     from ssd_tpu_torch.ops import attention as att
+    from ssd_tpu_torch.ops import moe
 
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     scale = 64 ** -0.5
@@ -380,6 +494,13 @@ def phase_kernels() -> dict:
                   "tree_b8": (8, [1500, 0, 700, 1333, 64, 65, 1999], 1)}
     flat_lens = [17, 100, 300, 600, 900, 1200, 1600, 2048]
     flat_cached = [0, 0, 0, 0, 512, 0, 0, 1024]
+    c = QWEN3_30B_A3B
+    D, Im = c["hidden_size"], c["moe_intermediate_size"]
+    prefill_offs = _moe_offsets(sum(SERVE_LENS8), seed=1)   # N = 5534 * 8 rows
+    decode_offs = _moe_offsets(8, seed=2)                   # N = 64 rows
+    gmm_cases = {"prefill_gate": (prefill_offs, D, Im), "prefill_down": (prefill_offs, Im, D),
+                 "decode_b8_gate": (decode_offs, D, Im), "decode_b8_down": (decode_offs, Im, D)}
+    wrappers = _kernel_wrappers()
     results = {}
 
     def record(name, case, dname, got, want):
@@ -425,8 +546,50 @@ def phase_kernels() -> dict:
                     record(name, f"{case}_step{step}", dname, got,
                            att.tree_attention_plain(q, layer, *args, s8=s8))
 
+        # The same kernels at Qwen3-30B-A3B's attention geometry (Hq/Hkv
+        # 32/4, hd 128): the b8 decode and verify, the tree steps, the mixed
+        # prefill; fp cache and int8 pairs.
+        s128 = QWEN_HEADS[2] ** -0.5
+        for seed, case in enumerate(("decode_b8", "verify_b8")):
+            q, kv, bt, ctx, qeff = _paged_case(*paged_cases[case], dt, seed=40 + seed,
+                                               heads=QWEN_HEADS)
+            for name, layer in (("paged_attention", kv), ("paged_attention_int8", _int8_pair(kv))):
+                got = att.paged_attention(q, layer, bt, ctx, qeff, BLOCK, s128)
+                torch.cuda.synchronize()
+                record(name, f"{case}_hd128", dname, got,
+                       att.paged_attention_plain(q, layer, bt, ctx, qeff, BLOCK, s128))
+        q, kv, pages, lo, hi, T = _flat_case(flat_lens, flat_cached, dt, seed=42, pad_rows=13,
+                                             pad_pages=3, heads=QWEN_HEADS)
+        for name, layer in (("flat_prefill_attention", kv),
+                            ("flat_prefill_attention_int8", _int8_pair(kv))):
+            got = att.flat_prefill_attention(q, layer, pages, lo, hi, BLOCK, s128)
+            torch.cuda.synchronize()
+            record(name, "mixed8_cached2_hd128", dname, got,
+                   att.flat_prefill_attention_plain(q, layer, pages, lo, hi, BLOCK, s128))
+            if got[T:].abs().max().item() != 0.0:
+                fail(f"{name} hd 128: padding rows are not zero")
+        B, bases, ghosts = tree_cases["tree_b8"]
+        q, kv, bt, ctx, fan = _tree_case(B, SPEC_K - 1, bases, ghosts, dt, seed=43,
+                                         heads=QWEN_HEADS)
+        for name, layer in (("tree_attention", kv), ("tree_attention_int8", _int8_pair(kv))):
+            args = (bt, ctx, fan, SPEC_K - 1, SPEC_K, BLOCK, s128)
+            got = att.tree_attention(q, layer, *args)
+            torch.cuda.synchronize()
+            record(name, f"tree_b8_step{SPEC_K - 1}_hd128", dname, got,
+                   att.tree_attention_plain(q, layer, *args))
+
+        # K6: the grouped GEMM at the Qwen3-30B-A3B expert shapes, rows from
+        # a seeded router: the prefill dispatch of the serve prompts and a
+        # b8 decode dispatch, gate/up (D -> Im) and down (Im -> D).
+        for case, (offs, K, Nout) in gmm_cases.items():
+            x, w = _gmm_case(offs, K, Nout, dt, seed=50)
+            got = moe.grouped_gemm(x, w, offs)
+            torch.cuda.synchronize()
+            record("grouped_gemm", case, dname, got, moe.grouped_gemm_plain(x, w, offs))
+            del x, w, got
+
     # Times at the main-path shapes in bf16 (the serving dtype).
-    counts = [w.launches for w in att.KERNEL_WRAPPERS]
+    counts = [w.launches for w in wrappers]
     timings = {}
     dt, dname = torch.bfloat16, "bfloat16"
     elem = 2
@@ -531,12 +694,64 @@ def phase_kernels() -> dict:
             lambda: att.tree_attention_plain(*args, s8=s8),
             lambda: sdpa(qs, k, v, mask[:, None]), bytes_, ops,
             PEAK_OPS_INT8 if s8 else PEAK_FLOPS[dname])
+
+    # K1 and K2 at Qwen3-30B-A3B's attention geometry (Hq/Hkv 32/4, hd 128):
+    # the moe phase's b8 decode halfway through and its b8 prefill.
+    qwen = {}
+    Hq, Hkv, hd = QWEN_HEADS
+    s128, fp_pos = hd ** -0.5, 2 * hd * elem
+    q, kv, bt, ctx, qeff = _paged_case(8, 1, serve8, M, 0, dt, seed=44, heads=QWEN_HEADS)
+    bytes_, ops = _paged_work(q, ctx, bt, 1, M * BLOCK, Hkv, fp_pos, elem)
+    qwen["paged_attention"] = _timing(
+        f"decode B=8 (ctx {serve8}) Q=1 Hq/Hkv 32/4 hd 128 bf16",
+        lambda: att.paged_attention(q, kv, bt, ctx, qeff, BLOCK, s128),
+        lambda: att.paged_attention_plain(q, kv, bt, ctx, qeff, BLOCK, s128),
+        _sdpa_paged(q, kv, bt, ctx, 1, M * BLOCK, dt), bytes_, ops, PEAK_FLOPS[dname])
+    q, kv, pages, lo, hi, T = _flat_case(SERVE_LENS8, [0] * 8, dt, seed=45, heads=QWEN_HEADS)
+    n_pages = sum(-(-n // BLOCK) for n in SERVE_LENS8)
+    bytes_ = n_pages * BLOCK * Hkv * fp_pos + 2 * T * Hq * hd * elem + pages.numel() * 4 + 2 * T * 4
+    ops = int(4 * Hq * hd * (hi - lo).long().sum())
+    dense = att.dense_pages(kv, pages, BLOCK)
+    kd, vd = dense[..., :hd][None].contiguous(), dense[..., hd:][None].contiguous()
+    qs = q.permute(1, 0, 2)[None].contiguous()
+    col = torch.arange(dense.shape[1], device="cuda")
+    mask = ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None]))[None, None]
+    qwen["flat_prefill_attention"] = _timing(
+        f"prefill 8 prompts {SERVE_LENS8}, nothing cached, T={T} Hq/Hkv 32/4 hd 128 bf16",
+        lambda: att.flat_prefill_attention(q, kv, pages, lo, hi, BLOCK, s128),
+        lambda: att.flat_prefill_attention_plain(q, kv, pages, lo, hi, BLOCK, s128),
+        lambda: sdpa(qs, kd, vd, mask), bytes_, ops, PEAK_FLOPS[dname], iters=10, plain_iters=3)
+    del q, kv, kd, vd, dense
+    for name, tm in qwen.items():
+        emit("kernels", kernel=name, qwen3_moe_geometry=tm)
+
+    # K6 at the four dispatch shapes; the prefill gate call is its headline.
+    gmm_times = {}
+    for case, (offs, K, Nout) in gmm_cases.items():
+        x, w = _gmm_case(offs, K, Nout, dt, seed=51)
+        want = moe.grouped_gemm_plain(x, w, offs)
+        N = x.shape[0]
+        active = int((offs[1:] > offs[:-1]).sum())
+        bytes_ = (N * K + active * K * Nout + N * Nout) * elem + offs.numel() * 4
+        library, label = _grouped_mm_yardstick(x, w, offs, want)
+        tm = _timing(f"{case}: N={N} rows over {active} of {offs.numel() - 1} experts, "
+                     f"K={K} -> Nout={Nout} bf16",
+                     lambda: moe.grouped_gemm(x, w, offs),
+                     lambda: moe.grouped_gemm_plain(x, w, offs),
+                     library, bytes_, 2 * N * K * Nout, PEAK_FLOPS[dname],
+                     iters=20, plain_iters=3)
+        tm["library"] = label
+        gmm_times[case] = tm
+        emit("kernels", kernel="grouped_gemm", timing=tm)
+        del x, w, want
+    timings["grouped_gemm"] = gmm_times["prefill_gate"]
+
     for name, tm in timings.items():
         emit("kernels", kernel=name, timing=tm)
-    for w, n in zip(att.KERNEL_WRAPPERS, counts):
+    for w, n in zip(wrappers, counts):
         w.launches = n
     return {"errors": results, "timings": timings, "at_verify": at_verify,
-            "long_context": long_ctx}
+            "long_context": long_ctx, "qwen3_moe": qwen, "grouped_gemm": gmm_times}
 
 
 # ---------------------------------------------------------------------------
@@ -544,9 +759,9 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _write_config(d: str, **over):
+def _write_config(d: str, base: dict = LLAMA_1B, **over):
     with open(os.path.join(d, "config.json"), "w") as f:
-        json.dump({**LLAMA_1B, **over}, f)
+        json.dump({**base, **over}, f)
 
 
 def _serving_llm(**kw):
@@ -559,12 +774,12 @@ def _serving_llm(**kw):
                    kvcache_block_size=BLOCK, max_num_seqs=8, **kw)
 
 
-def _serving_prompts():
-    """8 prompts of mixed length (33-1900 tokens) and one of 512."""
+def _serving_prompts(V: int = LLAMA_1B["vocab_size"]):
+    """8 prompts of mixed length (33-1900 tokens) and one of 512, token ids
+    below V."""
     import numpy as np
 
     rng = np.random.default_rng(0)
-    V = LLAMA_1B["vocab_size"]
     return ([rng.integers(3, V, size=n).tolist() for n in SERVE_LENS8],
             [rng.integers(3, V, size=512).tolist()])
 
@@ -620,20 +835,24 @@ def phase_serve() -> dict:
     return {"launches": launches, "runs": runs, "pool": pool}
 
 
-def phase_profile() -> dict:
+def phase_profile(moe: bool = False) -> dict:
     """Not run by default: where a serving step's time goes. The same engine
-    and prompts as `serve`; one prefill step of the 8 prompts, then a window
-    of decode steps at b=8, each timed without and then with torch.profiler,
-    which gives the device's busy time (sum of kernel times; one stream) and
-    the kernels that take it."""
+    and prompts as `serve` (with moe=True, as `moe`); one prefill step of the
+    8 prompts, then a window of decode steps at b=8, each timed without and
+    then with torch.profiler, which gives the device's busy time (sum of
+    kernel times; one stream) and the kernels that take it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ssd_tpu_torch import SamplingParams
 
-    llm = _serving_llm()
-    prompts8, _ = _serving_prompts()
+    if moe:
+        llm, _ = _moe_llm()
+        prompts8, _ = _serving_prompts(QWEN3_30B_A3B["vocab_size"])
+    else:
+        llm = _serving_llm()
+        prompts8, _ = _serving_prompts()
     llm.generate([p[:40] for p in prompts8[:2]],
                  SamplingParams(temperature=0.0, max_new_tokens=4, ignore_eos=True),
                  use_tqdm=False)  # warm-up
@@ -667,7 +886,11 @@ def phase_profile() -> dict:
             device_busy_share=busy_us / 1e6 / (plain_s or prof_s),
             top_kernels=[dict(name=e.key[:90], ms_per_step=e.self_device_time_total / 1e3 / steps,
                               calls=e.count) for e in top])
-    emit("profile", geometry="Llama-3.2-1B (16 layers, random bf16 weights)", **out)
+    emit("moe_profile" if moe else "profile",
+         geometry=MOE_GEOMETRY if moe else "Llama-3.2-1B (16 layers, random bf16 weights)", **out)
+    llm.exit()
+    del llm
+    torch.cuda.empty_cache()
     return out
 
 
@@ -730,6 +953,14 @@ def _spec_pair(d: str, layers: int, live: int, scale: float, dtype, seed: int):
         _write_config(sub, num_hidden_layers=n)
         dirs.append(sub)
     return tuple(dirs)
+
+
+def _kernel_wrappers() -> tuple:
+    """Every kernel wrapper whose `launches` a run zeroes and reads."""
+    from ssd_tpu_torch.ops import attention as att
+    from ssd_tpu_torch.ops import moe
+
+    return att.KERNEL_WRAPPERS + (moe.grouped_gemm,)
 
 
 def _draft_params(llm) -> dict:
@@ -812,7 +1043,6 @@ def _spec_run(llm, mode, prompts, n_new):
     from ssd_tpu_torch.engine.draft_runner import DraftRunner
     from ssd_tpu_torch.engine.speculator_sync import SpeculatorSync
     from ssd_tpu_torch.engine.verifier import Verifier
-    from ssd_tpu_torch.ops import attention as att
 
     V = LLAMA_1B["vocab_size"]
     sp = SamplingParams(temperature=0.0, max_new_tokens=n_new, ignore_eos=True)
@@ -828,7 +1058,8 @@ def _spec_run(llm, mode, prompts, n_new):
     torch.cuda.synchronize()
     ref = torch.cuda.Event(enable_timing=True)
     ref.record()
-    for w in att.KERNEL_WRAPPERS:
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
         w.launches = 0
     t0 = time.perf_counter()
     try:
@@ -838,7 +1069,7 @@ def _spec_run(llm, mode, prompts, n_new):
             # returns; it belongs to this run, so its launches count.
             llm.draft_server.drain()
     finally:
-        launches = {w.__name__: w.launches for w in att.KERNEL_WRAPPERS}
+        launches = {w.__name__: w.launches for w in wrappers}
         for spans in (verify_spans, build_spans, chain_spans):
             spans.restore()
     torch.cuda.synchronize()
@@ -1056,7 +1287,99 @@ def phase_spec_profile() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5
+# Phase 6
+# ---------------------------------------------------------------------------
+
+
+def _moe_llm():
+    """The full-depth Qwen3-30B-A3B engine with random bf16 weights, built
+    after checking that the card's free memory holds its weights and its
+    capped KV pool (less points to an earlier engine still alive), and
+    checked to hold the capped pool. Returns (llm, facts of its sizing)."""
+    import torch
+
+    from ssd_tpu_torch import LLM
+    from ssd_tpu_torch.config import ModelConfig
+    from ssd_tpu_torch.engine.model_runner import kv_block_bytes
+    from ssd_tpu_torch.models.transformer import Arch, param_bytes
+
+    arch = Arch.from_model_config(ModelConfig(**QWEN3_30B_A3B))
+    max_len, seqs = 2048, 8
+    cap = (seqs + 1) * (max_len // BLOCK + 2) * 4          # the engine's pool cap
+    weights = param_bytes(arch, torch.bfloat16)
+    need = weights + cap * kv_block_bytes(arch, BLOCK, torch.bfloat16)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    if free < need:
+        fail(f"moe: {free / 1e9:.2f} GB free at the start, but the weights and the "
+             f"capped KV pool need {need / 1e9:.2f} GB: is an earlier phase's engine alive?")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        _write_config(d, QWEN3_30B_A3B)
+        llm = LLM(d, init_random=True, dtype="bfloat16", gpu_memory_utilization=MOE_UTIL,
+                  max_model_len=max_len, kvcache_block_size=BLOCK, max_num_seqs=seqs)
+    torch.cuda.synchronize()
+    facts = dict(init_s=time.perf_counter() - t0, weights_gb=weights / 1e9,
+                 free_at_start_gb=free / 1e9, total_gb=total / 1e9,
+                 gpu_memory_utilization=MOE_UTIL, kv_blocks=llm.model_runner.num_kvcache_blocks,
+                 cap_blocks=cap, pool=llm.model_runner.pool_sizing)
+    if facts["kv_blocks"] < cap:
+        fail(f"moe: the KV pool holds {facts['kv_blocks']} blocks, fewer than the cap's "
+             f"{cap}: {facts['pool']}")
+    return llm, facts
+
+
+def phase_moe() -> dict:
+    """Qwen3-30B-A3B at full width and depth through LLM(...).generate
+    (module docstring, phase 6)."""
+    import torch
+
+    from ssd_tpu_torch import SamplingParams
+
+    V = QWEN3_30B_A3B["vocab_size"]
+    llm, facts = _moe_llm()
+    prompts8, prompt1 = _serving_prompts(V)
+    llm.generate([p[:40] for p in prompts8[:2]],
+                 SamplingParams(temperature=0.0, max_new_tokens=4, ignore_eos=True),
+                 use_tqdm=False)  # warm-up: cuBLAS handles, allocator
+
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
+    runs = {}
+    for name, prompts in (("b8", prompts8), ("b1", prompt1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, m = llm.generate(prompts, sp, use_tqdm=False)
+        wall = time.perf_counter() - t0
+        for o in outs:
+            ids = o["token_ids"]
+            if len(ids) != 128 or not all(0 <= t < V for t in ids):
+                fail(f"moe {name}: bad output of {len(ids)} tokens")
+        runs[name] = dict(
+            prompts=len(prompts), prompt_tokens=sum(map(len, prompts)),
+            new_tokens=128 * len(prompts), wall_s=wall,
+            ttft_s=m["target_step_times"][0],
+            prefill_tok_s=m["prefill_total_tokens"] / m["prefill_total_time"],
+            decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
+            decode_step_ms=1e3 * m["decode_total_time"] / max(1, len(m["target_step_times"]) - 1),
+        )
+    launches = {w.__name__: w.launches for w in wrappers}
+    emit("moe", geometry=MOE_GEOMETRY, **facts, runs=runs, launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    need_k = ("paged_attention", "flat_prefill_attention", "grouped_gemm")
+    if not all(launches[k] > 0 for k in need_k):
+        fail(f"moe: a kernel of the path never launched: {launches}")
+    llm.exit()
+    del llm
+    torch.cuda.empty_cache()
+    return {"launches": launches, "runs": runs, **facts}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7
 # ---------------------------------------------------------------------------
 
 
@@ -1090,6 +1413,68 @@ def _random_checkpoint(d: str, layers: int, scale: float, seed: int):
         })
     save_safetensors(os.path.join(d, "model.safetensors"), t)
     _write_config(d, num_hidden_layers=layers)
+
+
+def _moe_checkpoint(d: str, layers: int, scale: float, seed: int):
+    """A Qwen3-30B-A3B-width checkpoint of `layers` layers: weights
+    N(0, 1) * scale drawn on the card from a generator seeded with `seed`,
+    stored in bf16 (half the file; the engines load them as fp32), norms at
+    one, an untied head."""
+    import torch
+
+    from ssd_tpu_torch.utils.loader import save_safetensors
+
+    c = QWEN3_30B_A3B
+    D, Im, E = c["hidden_size"], c["moe_intermediate_size"], c["num_experts"]
+    Hq, Hkv, hd = QWEN_HEADS
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(torch.bfloat16).cpu()
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16)
+
+    t = {"model.embed_tokens.weight": w(c["vocab_size"], D), "model.norm.weight": ones(D),
+         "lm_head.weight": w(c["vocab_size"], D)}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        t.update({
+            p + "input_layernorm.weight": ones(D),
+            p + "post_attention_layernorm.weight": ones(D),
+            p + "self_attn.q_proj.weight": w(Hq * hd, D),
+            p + "self_attn.k_proj.weight": w(Hkv * hd, D),
+            p + "self_attn.v_proj.weight": w(Hkv * hd, D),
+            p + "self_attn.o_proj.weight": w(D, Hq * hd),
+            p + "self_attn.q_norm.weight": ones(hd),
+            p + "self_attn.k_norm.weight": ones(hd),
+            p + "mlp.gate.weight": w(E, D),
+        })
+        for e in range(E):
+            q = f"{p}mlp.experts.{e}."
+            t.update({q + "gate_proj.weight": w(Im, D), q + "up_proj.weight": w(Im, D),
+                      q + "down_proj.weight": w(D, Im)})
+    save_safetensors(os.path.join(d, "model.safetensors"), t)
+    _write_config(d, c, num_hidden_layers=layers)
+
+
+def _record_router_margins(margins: list):
+    """Until the returned undo is called, append to `margins` the smallest
+    gap between the k-th and (k+1)-th router logit of every MoE layer call
+    (how close the expert choice came to a tie)."""
+    import torch
+
+    from ssd_tpu_torch.ops import moe
+
+    orig = moe.route
+
+    def recording(x, router, top_k, norm_topk_prob):
+        top = torch.sort((x @ router).float(), dim=-1, descending=True).values
+        margins.append(float((top[:, top_k - 1] - top[:, top_k]).min()))
+        return orig(x, router, top_k, norm_topk_prob)
+
+    moe.route = recording
+    return lambda: setattr(moe, "route", orig)
 
 
 def _record_margins(llm, margins: list):
@@ -1183,7 +1568,51 @@ def phase_exact() -> dict:
         fail(f"exact: greedy tokens differ from the card's AR of the same cache: {spec_equal}")
     if mxu[0] != mxu[1]:
         fail("exact: two card runs of int8_mxu gave different tokens")
-    return {"equal": equal, "min_top2_margin": min(margins), "spec_equal": spec_equal}
+
+    # Qwen3-MoE at the Qwen3-30B-A3B width, 2 layers, fp32: AR on the card
+    # equals the CPU's; sync SD and async SSD on the card (self-draft) equal
+    # the card's AR; the grouped GEMM launches in each card run.
+    mprompts = [rng.integers(3, QWEN3_30B_A3B["vocab_size"], size=n).tolist()
+                for n in (20, 77, 130)]
+    moe_tokens, moe_margins, router_margins, moe_launches, moe_accepted = {}, [], [], {}, {}
+    wrappers = _kernel_wrappers()
+    with tempfile.TemporaryDirectory() as d:
+        _moe_checkpoint(d, layers=2, scale=0.4, seed=5)
+        undo = _record_router_margins(router_margins)
+        try:
+            for dev, mode in (("cuda", "ar"), ("cpu", "ar"), ("cuda", "sd"), ("cuda", "ssd")):
+                if mode == "ar":
+                    llm = LLM(d, device=dev, **engine)
+                    _record_margins(llm, moe_margins)
+                else:
+                    llm = _spec_llm(d, d, mode, device=dev, **engine)
+                for w in wrappers:
+                    w.launches = 0
+                outs, m = llm.generate(mprompts, sp, use_tqdm=False)
+                if mode == "ssd":
+                    llm.draft_server.drain()
+                moe_launches[f"{dev}_{mode}"] = {w.__name__: w.launches for w in wrappers}
+                llm.exit()
+                moe_tokens[(dev, mode)] = [o["token_ids"] for o in outs]
+                lens = m["accepted_suffix_lens_with_recovery"]
+                moe_accepted[f"{dev}_{mode}"] = sum(lens) / len(lens) if lens else None
+                del llm
+        finally:
+            undo()
+    moe_equal = {f"{dev}_{mode}": toks == moe_tokens[("cuda", "ar")]
+                 for (dev, mode), toks in moe_tokens.items()}
+    emit("exact", geometry="Qwen3-30B-A3B width (128 experts, top-8, hd 128), 2 layers, "
+         "fp32, init scale 0.4; SD/SSD self-draft", K=SPEC_K, async_fan_out=SPEC_F,
+         equal_to_card_ar=moe_equal, mean_accepted_suffix_len=moe_accepted,
+         min_top2_margin=min(moe_margins), min_router_kth_margin=min(router_margins),
+         grouped_gemm_launches={k: v["grouped_gemm"] for k, v in moe_launches.items()},
+         launches=moe_launches)
+    if not all(moe_equal.values()):
+        fail(f"exact: Qwen3-MoE greedy tokens differ from the card's AR: {moe_equal}")
+    if not all(v["grouped_gemm"] > 0 for k, v in moe_launches.items() if k.startswith("cuda")):
+        fail(f"exact: the grouped GEMM did not launch in a card run: {moe_launches}")
+    return {"equal": equal, "min_top2_margin": min(margins), "spec_equal": spec_equal,
+            "moe_equal": moe_equal, "moe_launches": moe_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1210,15 +1639,19 @@ KERNEL_ROWS = {
                             f"{PALLAS}:1231 (_tree_attn_v3_kernel_i8, s8=False: kv_quant int8)"),
     "tree_attention_int8[s8]": ("ssd_tpu_torch/csrc/tree_attention_int8.cu",
                                 f"{PALLAS}:1231 (_tree_attn_v3_kernel_i8, s8=True: kv_quant int8_mxu)"),
+    "grouped_gemm": ("ssd_tpu_torch/csrc/grouped_gemm.cu",
+                     "ssd_tpu/models/transformer.py:268-273 (megablox gmm, called by _moe_mlp :164)"),
 }
 
 
 def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
-                 kvq: dict | None) -> dict:
+                 kvq: dict | None, moe_run: dict | None, exact: dict | None) -> dict:
     """Launches per path, each read from runs whose counts were zeroed just
     before them: `serve` (AR) and `spec` (SD, SSD) for the fp-cache kernels,
     `kvq` for the int8 ones (its int8_mxu runs for the [s8] entries; the
-    int8 prefill counts the runs of both modes)."""
+    int8 prefill counts the runs of both modes), `moe` (Qwen3-30B-A3B AR)
+    for K1, K2 and the grouped GEMM, and `exact`'s 2-layer Qwen3-MoE SD and
+    SSD card runs for the grouped GEMM."""
     by_path = {}
 
     def add(name, path, n):
@@ -1239,6 +1672,12 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                          "tree_attention_int8"):
                 tag = "[s8]" if mxu and name != "flat_prefill_attention_int8" else ""
                 add(name + tag, path, run["launches"][name])
+    if moe_run:
+        for name in ("paged_attention", "flat_prefill_attention", "grouped_gemm"):
+            add(name, "moe_ar", moe_run["launches"][name])
+    if exact and "moe_launches" in exact:
+        for mode in ("sd", "ssd"):
+            add("grouped_gemm", f"moe_{mode}_2layer", exact["moe_launches"][f"cuda_{mode}"]["grouped_gemm"])
     out = []
     for name, tm in kern["timings"].items():
         err = max(v["max_abs_err"] for (k, _, _), v in kern["errors"].items() if k == name)
@@ -1254,11 +1693,18 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
         }
         # The paged kernels also run the SD/SSD verify and glue at Q = K+1,
         # and are timed at a long context.
+        gmm = kern["grouped_gemm"]
         for label, table in (("at_verify_shape", kern["at_verify"]),
-                             ("at_long_context", kern["long_context"])):
+                             ("at_long_context", kern["long_context"]),
+                             ("at_qwen3_moe_geometry", kern["qwen3_moe"]),
+                             ("at_prefill_down", {"grouped_gemm": gmm["prefill_down"]}),
+                             ("at_decode_b8_gate", {"grouped_gemm": gmm["decode_b8_gate"]}),
+                             ("at_decode_b8_down", {"grouped_gemm": gmm["decode_b8_down"]})):
             if name in table:
                 entry[label] = {k: table[name][k] for k in
                                 ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        if name == "grouped_gemm":
+            entry["library"] = tm["library"]
         out.append(entry)
     return {"kernels": out}
 
@@ -1301,11 +1747,13 @@ def main(argv=None) -> int:
     serve = run("serve", phase_serve)
     spec = run("spec", phase_spec)
     kvq = run("kvq", phase_kvq, serve, spec)
-    run("exact", phase_exact)
+    moe_run = run("moe", phase_moe)
+    exact = run("exact", phase_exact)
     run("profile", phase_profile)
+    run("moe_profile", phase_profile, True)
     run("spec_profile", phase_spec_profile)
     if kern is not None:
-        print(json.dumps(kernels_line(kern, serve, spec, kvq)), flush=True)
+        print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, exact)), flush=True)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds, phases=phases)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

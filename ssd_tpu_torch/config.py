@@ -12,8 +12,10 @@ speculation (SSD), both unfused. Differences from the JAX package:
 - `device` names where the engine runs: "cuda" unless the caller asks for
   "cpu". Without a GPU and without device="cpu" the engine raises;
 - `draft` has no default checkpoint: speculate=True needs a draft path;
+- Qwen3-MoE checkpoints are served with a uniform stack only (every layer
+  sparse), as the JAX package asserts; a non-uniform one is refused here;
 - the modes not ported yet (fused SD and SSD, EAGLE, ngram, multi-step AR,
-  draft data parallelism, MoE, int8 weights) are refused here, and so is a
+  draft data parallelism, int8 weights) are refused here, and so is a
   speculative knob on an engine that does not speculate, where it would be
   ignored.
 """
@@ -45,7 +47,21 @@ class ModelConfig:
     eos_token_id: int | list[int] | None = None
     bos_token_id: int | None = None
     attention_bias: bool = False
+    # Mixture-of-experts (qwen3_moe): every decoder layer is sparse; the
+    # router picks num_experts_per_tok of num_experts experts per token.
     num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    norm_topk_prob: bool = False
+    decoder_sparse_step: int = 1
+    mlp_only_layers: list[int] | None = None
+
+    def __post_init__(self):
+        if self.num_experts and (self.decoder_sparse_step != 1 or self.mlp_only_layers):
+            raise NotImplementedError(
+                "MoE needs a uniform layer stack (decoder_sparse_step=1 and no "
+                f"mlp_only_layers), got decoder_sparse_step="
+                f"{self.decoder_sparse_step}, mlp_only_layers={self.mlp_only_layers}")
 
     @property
     def head_dim_actual(self) -> int:
@@ -170,8 +186,6 @@ class Config:
                 raise ValueError(f"{', '.join(ignored)} need draft_async=True")
 
         self.hf_config = ModelConfig.from_pretrained(self.model)
-        if self.hf_config.num_experts:
-            raise NotImplementedError("MoE models are not ported to ssd_tpu_torch yet")
         self.max_model_len = min(self.max_model_len, self.hf_config.max_position_embeddings)
         if self.speculate:
             self._derive_speculative()
@@ -196,8 +210,6 @@ class Config:
             raise ValueError("kvcache_block_size must be >= 2*speculate_k+2")
         self.draft_hf_config = ModelConfig.from_pretrained(self.draft)
         d = self.draft_hf_config
-        if d.num_experts:
-            raise NotImplementedError("MoE models are not ported to ssd_tpu_torch yet")
         if d.model_type != self.hf_config.model_type or d.vocab_size != self.hf_config.vocab_size:
             raise ValueError("target and draft must share a model family and vocabulary, "
                              f"got {self.hf_config.model_type}/{self.hf_config.vocab_size} "

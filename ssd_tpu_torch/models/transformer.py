@@ -1,5 +1,5 @@
-"""Decoder-only transformer (Llama-3 and Qwen-3 families) as plain functions
-over a parameter dict.
+"""Decoder-only transformer (Llama-3, Qwen-3 and Qwen3-MoE families) as plain
+functions over a parameter dict.
 
 Counterpart of ssd_tpu/models/transformer.py. The JAX package stacks layers
 along a leading axis and runs one `lax.scan`; here the layers are a list of
@@ -11,10 +11,13 @@ KV cache in place and returns the attention output.
 Parameter dict:
   embed [V, D], final_ln [D], lm_head [V, D] (the same tensor as embed when
   tied), layers: list of {input_ln [D], wq [D, Hq*hd], wk [D, Hkv*hd],
-  wv [D, Hkv*hd], wo [Hq*hd, D], post_ln [D], gate [D, I], up [D, I],
-  down [I, D], and q_norm/k_norm [hd] for Qwen-3}.
-Not ported yet: MoE layers, int8 weights, EAGLE activation taps, the reduced
-draft vocabulary (d2t).
+  wv [D, Hkv*hd], wo [Hq*hd, D], post_ln [D], the MLP, and q_norm/k_norm
+  [hd] for Qwen-3}. The MLP is gate [D, I], up [D, I], down [I, D] for a
+  dense model; for Qwen3-MoE it is router [D, E] and the expert stacks
+  moe_gate / moe_up [E, D, Im] and moe_down [E, Im, D] of the layer (the JAX
+  package stacks them [L, E, ...]), run by ops/moe.py::moe_mlp.
+Not ported yet: int8 weights, EAGLE activation taps, the reduced draft
+vocabulary (d2t).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from ssd_tpu_torch.config import ModelConfig
 from ssd_tpu_torch.ops.layers import (
     apply_rope, rms_norm, rms_norm_residual, rope_cos_sin, silu_mul)
+from ssd_tpu_torch.ops.moe import moe_mlp
 
 # attn_call(layer index, q [T,Hq,hd], k [T,Hkv,hd], v [T,Hkv,hd]) -> [T,Hq,hd]
 AttnCall = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -47,6 +51,12 @@ class Arch:
     rope_theta: float
     use_qk_norm: bool
     tie_embeddings: bool
+    # Mixture-of-experts (Qwen3-MoE): 0 experts = dense MLP; with experts,
+    # every layer is sparse (config.py refuses a non-uniform stack).
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    norm_topk_prob: bool = False
 
     @classmethod
     def from_model_config(cls, mc: ModelConfig) -> "Arch":
@@ -62,14 +72,20 @@ class Arch:
             rope_theta=mc.rope_theta,
             use_qk_norm=mc.model_type in ("qwen3", "qwen3_moe"),
             tie_embeddings=mc.tie_word_embeddings,
+            num_experts=mc.num_experts,
+            num_experts_per_tok=mc.num_experts_per_tok,
+            moe_intermediate_size=mc.moe_intermediate_size,
+            norm_topk_prob=mc.norm_topk_prob,
         )
 
 
 def init_params(arch: Arch, seed: int, dtype: torch.dtype,
                 device: torch.device, scale: float = 0.02) -> dict:
     """Random-normal weights (norms at one) from a generator seeded with
-    `seed` on `device`, one tensor at a time."""
+    `seed` on `device`, one tensor at a time (an expert stack's fp32 draw is
+    the largest temporary)."""
     D, I = arch.hidden_size, arch.intermediate_size
+    E, Im = arch.num_experts, arch.moe_intermediate_size
     Hq, Hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -86,8 +102,12 @@ def init_params(arch: Arch, seed: int, dtype: torch.dtype,
         lp = {
             "input_ln": ones(D), "wq": w(D, Hq * hd), "wk": w(D, Hkv * hd),
             "wv": w(D, Hkv * hd), "wo": w(Hq * hd, D), "post_ln": ones(D),
-            "gate": w(D, I), "up": w(D, I), "down": w(I, D),
         }
+        if E:
+            lp.update(router=w(D, E), moe_gate=w(E, D, Im), moe_up=w(E, D, Im),
+                      moe_down=w(E, Im, D))
+        else:
+            lp.update(gate=w(D, I), up=w(D, I), down=w(I, D))
         if arch.use_qk_norm:
             lp["q_norm"] = ones(hd)
             lp["k_norm"] = ones(hd)
@@ -103,8 +123,10 @@ def param_bytes(arch: Arch, dtype: torch.dtype) -> int:
     """Device bytes of a model's parameters as the runner holds them: the
     weights in `dtype` plus the fp32 copy of the LM head."""
     D, I = arch.hidden_size, arch.intermediate_size
+    E, Im = arch.num_experts, arch.moe_intermediate_size
     Hq, Hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
-    per_layer = 2 * D * Hq * hd + 2 * D * Hkv * hd + 3 * D * I + 2 * D + 2 * hd
+    mlp = D * E + 3 * E * D * Im if E else 3 * D * I
+    per_layer = 2 * D * Hq * hd + 2 * D * Hkv * hd + mlp + 2 * D + 2 * hd
     elem = torch.finfo(dtype).bits // 8
     return (arch.vocab_size * D + arch.num_layers * per_layer + D) * elem \
         + arch.vocab_size * D * 4
@@ -139,7 +161,10 @@ def forward_hidden(
         hidden = o.reshape(T, Hq * hd) @ lp["wo"]
 
         x, residual = rms_norm_residual(hidden, residual, lp["post_ln"], eps)
-        hidden = silu_mul(x @ lp["gate"], x @ lp["up"]) @ lp["down"]
+        if arch.num_experts:
+            hidden = moe_mlp(x, lp, arch.num_experts_per_tok, arch.norm_topk_prob)
+        else:
+            hidden = silu_mul(x @ lp["gate"], x @ lp["up"]) @ lp["down"]
     return (hidden.float() + residual.float()).to(hidden.dtype)
 
 

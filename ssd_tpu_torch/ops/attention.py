@@ -22,8 +22,8 @@ kernels in ssd_tpu/ops/pallas_attention.py that the AR path reaches:
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
 launches the kernel or raises. It never falls back. Each wrapper counts its
-kernel launches in its `launches` attribute (under a lock: the async draft
-thread launches kernels too).
+kernel launches in its `launches` attribute (cuda_lib.count_launch, under a
+lock: the async draft thread launches kernels too).
 
 KV cache layout, as in the JAX package: per layer [Hkv, S, 2*hd] with
 S = num_blocks * block_size flat slots and K in lanes [0, hd), V in
@@ -41,25 +41,16 @@ tiles, which their plain versions share).
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from ssd_tpu_torch.ops import cuda_lib
 from ssd_tpu_torch.ops.spec_math import tree_attention_mask
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 128)
 PAGED_S8_TILE = 32   # csrc/paged_attention_int8.cu: one warp's positions
 TREE_S8_TILE = 64    # csrc/tree_attention_int8.cu: one K/V tile
-_COUNT_LOCK = threading.Lock()
 
 KVLayer = torch.Tensor | tuple[torch.Tensor, torch.Tensor]
-
-
-def _count_launch(wrapper):
-    with _COUNT_LOCK:
-        wrapper.launches += 1
 
 
 def quantize_kv(k: torch.Tensor, v: torch.Tensor):
@@ -283,7 +274,7 @@ def _check_cuda_args(name: str, q: torch.Tensor, kv_layer: KVLayer,
                            f"CPU, got {q.device}")
     quant = isinstance(kv_layer, tuple)
     data = kv_layer[0] if quant else kv_layer
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in cuda_lib.DTYPE_CODES:
         raise TypeError(f"{name}: q must be float32 or bfloat16, got {q.dtype}")
     if quant:
         if data.dtype != torch.int8 or kv_layer[1].dtype != torch.float32:
@@ -359,12 +350,12 @@ def paged_attention(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cdll.ssd_paged_attention(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), kv_layer.data_ptr(),
+            cuda_lib.DTYPE_CODES[q.dtype], q.data_ptr(), kv_layer.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(), qeff.data_ptr(),
             out.data_ptr(), B, Q, Hq, Hkv, hd, S, block_tables.shape[1],
             block_size, float(scale), stream)
     lib.check(err, "paged_attention kernel launch")
-    _count_launch(paged_attention)
+    cuda_lib.count_launch(paged_attention)
     return out
 
 
@@ -399,12 +390,12 @@ def paged_attention_int8(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cdll.ssd_paged_attention_int8(
-            _DTYPE_CODES[q.dtype], int(s8), q.data_ptr(), data.data_ptr(),
+            cuda_lib.DTYPE_CODES[q.dtype], int(s8), q.data_ptr(), data.data_ptr(),
             scales.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
             qeff.data_ptr(), out.data_ptr(), B, Q, Hq, Hkv, hd, S,
             block_tables.shape[1], block_size, float(scale), stream)
     lib.check(err, "paged_attention_int8 kernel launch")
-    _count_launch(paged_attention_int8)
+    cuda_lib.count_launch(paged_attention_int8)
     return out
 
 
@@ -492,12 +483,12 @@ def flat_prefill_attention(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cdll.ssd_flat_prefill_attention(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), kv_layer.data_ptr(),
+            cuda_lib.DTYPE_CODES[q.dtype], q.data_ptr(), kv_layer.data_ptr(),
             flat_pages.data_ptr(), row_lo.data_ptr(), row_hi.data_ptr(),
             out.data_ptr(), T, Hq, Hkv, hd, S, flat_pages.shape[0], block_size,
             float(scale), stream)
     lib.check(err, "flat_prefill_attention kernel launch")
-    _count_launch(flat_prefill_attention)
+    cuda_lib.count_launch(flat_prefill_attention)
     return out
 
 
@@ -531,12 +522,12 @@ def flat_prefill_attention_int8(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cdll.ssd_flat_prefill_attention_int8(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), data.data_ptr(),
+            cuda_lib.DTYPE_CODES[q.dtype], q.data_ptr(), data.data_ptr(),
             scales.data_ptr(), flat_pages.data_ptr(), row_lo.data_ptr(),
             row_hi.data_ptr(), out.data_ptr(), T, Hq, Hkv, hd, S,
             flat_pages.shape[0], block_size, float(scale), stream)
     lib.check(err, "flat_prefill_attention_int8 kernel launch")
-    _count_launch(flat_prefill_attention_int8)
+    cuda_lib.count_launch(flat_prefill_attention_int8)
     return out
 
 
@@ -632,12 +623,12 @@ def tree_attention(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cdll.ssd_tree_attention(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), kv_layer.data_ptr(),
+            cuda_lib.DTYPE_CODES[q.dtype], q.data_ptr(), kv_layer.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(),
             fan_idx_rows.data_ptr(), out.data_ptr(), B, MQ, Hq, Hkv, hd, S,
             block_tables.shape[1], block_size, step, K, float(scale), stream)
     lib.check(err, "tree_attention kernel launch")
-    _count_launch(tree_attention)
+    cuda_lib.count_launch(tree_attention)
     return out
 
 
@@ -675,12 +666,12 @@ def tree_attention_int8(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cdll.ssd_tree_attention_int8(
-            _DTYPE_CODES[q.dtype], int(s8), q.data_ptr(), data.data_ptr(),
+            cuda_lib.DTYPE_CODES[q.dtype], int(s8), q.data_ptr(), data.data_ptr(),
             scales.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
             fan_idx_rows.data_ptr(), out.data_ptr(), B, MQ, Hq, Hkv, hd, S,
             block_tables.shape[1], block_size, step, K, float(scale), stream)
     lib.check(err, "tree_attention_int8 kernel launch")
-    _count_launch(tree_attention_int8)
+    cuda_lib.count_launch(tree_attention_int8)
     return out
 
 

@@ -6,8 +6,8 @@ Each source compiles with its own `nvcc` process, all started together, for
 `csrc/build/libssd_tpu_torch_<hash>.so`, where `<hash>` covers the sources and
 flags, so an edited source rebuilds. The library has a plain C interface:
 pointers and the CUDA stream pass as `c_void_p`, and every entry point returns
-a `cudaError_t`, on which the wrappers in ops/attention.py raise. A failed
-build raises; nothing falls back to the plain versions.
+a `cudaError_t`, on which the wrappers in ops/attention.py and ops/moe.py
+raise. A failed build raises; nothing falls back to the plain versions.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -45,8 +47,20 @@ class KernelLibrary:
             raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
+# The `dtype` argument of the entry points: the element type of the
+# floating-point operands.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
 _LIB: KernelLibrary | None = None
 _LOAD_LOCK = threading.Lock()   # the async draft thread may load it first
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper):
+    """One more launch in `wrapper.launches` (the async draft thread
+    launches kernels too, hence the lock)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _nvcc() -> str:
@@ -143,6 +157,12 @@ def _bind(cdll: ctypes.CDLL):
         p, p, p, p,              # block_tables, context_lens, fan_idx_rows, out
         i, i, i, i, i, ll, i, i,  # B, MQ, Hq, Hkv, hd, S, M, block_size
         i, i, f, p,               # step, K, scale, stream
+    ]
+    # Grouped GEMM (Qwen3-MoE experts) over expert-sorted rows.
+    cdll.ssd_grouped_gemm.restype = i
+    cdll.ssd_grouped_gemm.argtypes = [
+        i, p, p, p, p,           # dtype, x, w, group_offsets, out
+        i, i, i, i, p,           # N, K, Nout, E, stream
     ]
 
 

@@ -1,0 +1,159 @@
+"""Sparse mixture-of-experts feed-forward (Qwen3-MoE) and its grouped GEMM.
+
+Counterpart of ssd_tpu/models/transformer.py::_moe_mlp (HF
+Qwen3MoeSparseMoeBlock semantics: fp32 softmax router, top-k, optional
+renormalisation, weighted sum of the experts' SiLU MLPs). The JAX package
+picks one of three dispatch shapes per dispatch size (a per-row weight gather
+at decode, a ragged grouped GEMM, a dense all-expert einsum); the port has
+one: the (token, expert) pairs sorted by expert through `grouped_gemm`. A
+grouped GEMM reads only the experts that received rows, so at decode it
+streams the selected experts' weights, which is what the TPU's gather path
+was for, and at prefill it does k/E of the dense einsum's work.
+
+`grouped_gemm` (kernel csrc/grouped_gemm.cu) replaces the megablox `gmm`
+Pallas kernel that ssd_tpu's ragged path calls on the TPU
+(ssd_tpu/models/transformer.py:268-273; `lax.ragged_dot`, the same function,
+elsewhere). Given CPU tensors it computes the plain version; given CUDA
+tensors it launches the kernel or raises, and counts the launch in
+`grouped_gemm.launches`.
+
+Nothing in moe_mlp reads a device value on the host: group sizes come from
+scatter_add_ and their prefix sum stays on the device, and the sorted rows
+are gathered by index arithmetic (row r of the sorted list is token
+order[r] // k), so a layer launches its kernels without a sync.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ssd_tpu_torch.ops import cuda_lib
+from ssd_tpu_torch.ops.layers import silu_mul
+from ssd_tpu_torch.ops.spec_math import stable_topk_indices
+
+
+def route(x: torch.Tensor, router: torch.Tensor, top_k: int,
+          norm_topk_prob: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Router of x [T, D] over router [D, E]: softmax of x @ router in fp32,
+    the top_k experts in jax.lax.top_k's order (ties to the lowest index: in
+    bf16, logits over many experts tie often, and a tie at the k-th place
+    changes the expert set), weights renormalised if norm_topk_prob and cast
+    to x's dtype, then each token's k experts put in expert-index order.
+    Returns (experts [T, k] int64, weights [T, k])."""
+    probs = torch.softmax((x @ router).float(), dim=-1)
+    top_i = stable_topk_indices(probs, top_k)
+    top_w = probs.gather(-1, top_i)
+    if norm_topk_prob:
+        top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    top_w = top_w.to(x.dtype)
+    # Expert-index order, as JAX sums the experts: a different order can
+    # move the sum by an ulp and flip a greedy argmax across dispatch sizes.
+    top_i, order = torch.sort(top_i, dim=-1)
+    return top_i, top_w.gather(-1, order)
+
+
+def expert_offsets(flat_e: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Row offsets [E+1] int32 of each expert's group in the expert-sorted
+    list of the experts flat_e [N], computed on the device."""
+    sizes = torch.zeros(num_experts, dtype=torch.int32, device=flat_e.device)
+    sizes.scatter_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
+    return F.pad(torch.cumsum(sizes, 0, dtype=torch.int32), (1, 0))
+
+
+def moe_mlp(x: torch.Tensor, lp: dict, top_k: int, norm_topk_prob: bool) -> torch.Tensor:
+    """Sparse MoE feed-forward of x [T, D] with the layer's router [D, E] and
+    expert stacks moe_gate / moe_up [E, D, Im], moe_down [E, Im, D]. The
+    T*k (token, expert) pairs are stable-sorted by expert (each token's rows
+    stay in expert-index order), run through three grouped GEMMs with
+    silu_mul between (bf16 rounds g, u and the product, as JAX's rdot), then
+    put back in token order and summed over k in expert-index order."""
+    T, D = x.shape
+    E = lp["router"].shape[1]
+    top_i, top_w = route(x, lp["router"], top_k, norm_topk_prob)
+    flat_e = top_i.reshape(-1)                                   # [T*k]
+    order = torch.argsort(flat_e, stable=True)
+    xs = x.index_select(0, order // top_k)                       # [T*k, D]
+    offsets = expert_offsets(flat_e, E)
+    g = grouped_gemm(xs, lp["moe_gate"], offsets)
+    u = grouped_gemm(xs, lp["moe_up"], offsets)
+    d = grouped_gemm(silu_mul(g, u), lp["moe_down"], offsets)   # [T*k, D]
+    eo = torch.empty_like(d).index_copy_(0, order, d).reshape(T, top_k, D)
+    return torch.einsum("tkd,tk->td", eo, top_w)
+
+
+# ---------------------------------------------------------------------------
+# Grouped GEMM
+# ---------------------------------------------------------------------------
+
+
+def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
+                       group_offsets: torch.Tensor) -> torch.Tensor:
+    """out[r] = x[r] @ w[e] for rows r in [group_offsets[e],
+    group_offsets[e+1]), as fp32 products rounded once to x's dtype
+    (megablox gmm(..., preferred_element_type=f32).astype(x.dtype)). x
+    [N, K] with rows sorted by expert, w [E, K, Nout], group_offsets [E+1]
+    from 0 to N. Reads the offsets on the host: the plain version of
+    csrc/grouped_gemm.cu."""
+    offs = group_offsets.tolist()
+    if len(offs) != w.shape[0] + 1 or offs[0] != 0 or offs[-1] != x.shape[0]:
+        raise ValueError(f"grouped_gemm: offsets must run from 0 to N={x.shape[0]} "
+                         f"over {w.shape[0]} groups, got {offs}")
+    out = torch.empty(x.shape[0], w.shape[2], dtype=x.dtype, device=x.device)
+    for e in range(w.shape[0]):
+        lo, hi = offs[e], offs[e + 1]
+        if hi > lo:
+            out[lo:hi] = (x[lo:hi].float() @ w[e].float()).to(x.dtype)
+    return out
+
+
+def _check_cuda_args(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor):
+    if x.device.type != "cuda":
+        raise RuntimeError(f"grouped_gemm: tensors must be on a CUDA device or "
+                           f"the CPU, got {x.device}")
+    if x.dtype not in cuda_lib.DTYPE_CODES or w.dtype != x.dtype:
+        raise TypeError(f"grouped_gemm: x and w must share dtype float32 or "
+                        f"bfloat16, got {x.dtype} and {w.dtype}")
+    if group_offsets.dtype != torch.int32:
+        raise TypeError(f"grouped_gemm: group_offsets must be int32, got "
+                        f"{group_offsets.dtype}")
+    if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1] \
+            or group_offsets.shape != (w.shape[0] + 1,):
+        raise ValueError(f"grouped_gemm: inconsistent shapes x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}, offsets {tuple(group_offsets.shape)}")
+    for label, t in (("x", x), ("w", w), ("group_offsets", group_offsets)):
+        if t.device != x.device:
+            raise RuntimeError(f"grouped_gemm: {label} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"grouped_gemm: {label} must be contiguous")
+    for label, t in (("x", x), ("w", w)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"grouped_gemm: {label} must be 16-byte aligned")
+    if x.shape[1] % 8 or w.shape[2] % 8:
+        raise ValueError(f"grouped_gemm: the kernel takes K and Nout in multiples "
+                         f"of 8 (16-byte rows), got K={x.shape[1]}, Nout={w.shape[2]}")
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
+                 group_offsets: torch.Tensor) -> torch.Tensor:
+    """Grouped GEMM over expert-sorted rows: the plain version for CPU
+    tensors, the CUDA kernel (csrc/grouped_gemm.cu) for CUDA tensors. The
+    kernel reads the offsets on the device; group_offsets[E] must equal N."""
+    if x.device.type == "cpu":
+        return grouped_gemm_plain(x, w, group_offsets)
+    _check_cuda_args(x, w, group_offsets)
+    N, K = x.shape
+    E, _, Nout = w.shape
+    out = torch.empty(N, Nout, dtype=x.dtype, device=x.device)
+    lib = cuda_lib.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.cdll.ssd_grouped_gemm(
+            cuda_lib.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+            group_offsets.data_ptr(), out.data_ptr(), N, K, Nout, E, stream)
+    lib.check(err, "grouped_gemm kernel launch")
+    cuda_lib.count_launch(grouped_gemm)
+    return out
+
+
+grouped_gemm.launches = 0

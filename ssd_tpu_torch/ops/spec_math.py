@@ -25,13 +25,19 @@ def fan_index(fan_out_list: list[int]) -> np.ndarray:
     return np.repeat(np.arange(len(fan_out_list)), fan_out_list).astype(np.int32)
 
 
+def stable_topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Top-k indices of x [..., V] by one stable descending sort, which keeps
+    equal values in index order: ties go to the lowest index first, as
+    jax.lax.top_k orders them (torch.topk does not promise that order)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
 def _small_topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Top-k indices of x [..., V], ties to the lowest index first, as
-    jax.lax.top_k orders them. For small k, k passes of argmax (which returns
-    the first maximal index) with the winner masked out; beyond k = 8, a
-    stable descending sort, which keeps equal values in index order."""
+    """Top-k indices of x [..., V] in jax.lax.top_k's order. For small k, k
+    passes of argmax (which returns the first maximal index) with the winner
+    masked out; beyond k = 8, stable_topk_indices."""
     if k > 8:
-        return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+        return stable_topk_indices(x, k)
     flat = x.reshape(-1, x.shape[-1]).clone()
     rows = torch.arange(flat.shape[0], device=x.device)
     idxs = []

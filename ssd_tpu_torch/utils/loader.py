@@ -64,9 +64,13 @@ class SafetensorsIndex:
 
 def load_params(model_path: str, mc: ModelConfig, dtype: torch.dtype,
                 device: torch.device) -> dict:
-    """Load a Llama-3 / Qwen-3 checkpoint into the parameter dict of
-    models/transformer.py. HF stores linear weights as [out, in]; the
-    forward computes x @ W, so they are transposed to [in, out]."""
+    """Load a Llama-3 / Qwen-3 / Qwen3-MoE checkpoint into the parameter dict
+    of models/transformer.py. HF stores linear weights as [out, in]; the
+    forward computes x @ W, so they are transposed to [in, out]. A Qwen3-MoE
+    layer's router mlp.gate [E, D] becomes router [D, E], and its experts'
+    projections mlp.experts.{e}.{gate,up,down}_proj are transposed into one
+    [E, in, out] stack per projection, filled on the device expert by
+    expert."""
     arch = Arch.from_model_config(mc)
     t = SafetensorsIndex(model_path)
 
@@ -75,6 +79,15 @@ def load_params(model_path: str, mc: ModelConfig, dtype: torch.dtype,
         if transpose:
             w = w.T
         return w.contiguous().to(device)
+
+    def experts(prefix: str, proj: str) -> torch.Tensor:
+        first = t.get(f"{prefix}0.{proj}.weight")
+        out_f, in_f = first.shape
+        stack = torch.empty(arch.num_experts, in_f, out_f, dtype=dtype, device=device)
+        for e in range(arch.num_experts):
+            w = first if e == 0 else t.get(f"{prefix}{e}.{proj}.weight")
+            stack[e].copy_(w.to(dtype).T)
+        return stack
 
     layers = []
     for i in range(arch.num_layers):
@@ -86,10 +99,15 @@ def load_params(model_path: str, mc: ModelConfig, dtype: torch.dtype,
             "wv": get(p + "self_attn.v_proj.weight", True),
             "wo": get(p + "self_attn.o_proj.weight", True),
             "post_ln": get(p + "post_attention_layernorm.weight"),
-            "gate": get(p + "mlp.gate_proj.weight", True),
-            "up": get(p + "mlp.up_proj.weight", True),
-            "down": get(p + "mlp.down_proj.weight", True),
         }
+        if arch.num_experts:
+            lp["router"] = get(p + "mlp.gate.weight", True)
+            for proj in ("gate", "up", "down"):
+                lp["moe_" + proj] = experts(p + "mlp.experts.", proj + "_proj")
+        else:
+            lp.update(gate=get(p + "mlp.gate_proj.weight", True),
+                      up=get(p + "mlp.up_proj.weight", True),
+                      down=get(p + "mlp.down_proj.weight", True))
         if arch.use_qk_norm:
             lp["q_norm"] = get(p + "self_attn.q_norm.weight")
             lp["k_norm"] = get(p + "self_attn.k_norm.weight")

@@ -13,16 +13,22 @@ import numpy as np
 import torch
 
 _LAYER_KEYS = ("input_ln", "wq", "wk", "wv", "wo", "post_ln", "gate", "up",
-               "down", "q_norm", "k_norm")
+               "down", "q_norm", "k_norm",
+               # Qwen3-MoE: router [L, D, E], expert stacks [L, E, in, out]
+               "router", "moe_gate", "moe_up", "moe_down")
 
 
 def params_from_jax(np_params: dict) -> dict:
     """{embed, layers: {name: [L, ...]}, final_ln, lm_head} as numpy arrays ->
-    {embed, layers: [{name: tensor}] * L, final_ln, lm_head}, CPU tensors of
-    the arrays' dtype (which must be one torch has: float32, float16); a
-    tied head (the same array as embed) stays one tensor."""
+    {embed, layers: [{name: tensor}] * L, final_ln, lm_head} (an MoE layer
+    keeps its experts stacked, [E, ...]), CPU tensors of
+    the arrays' dtype (float32, float16 or ml_dtypes' bfloat16); a tied head
+    (the same array as embed) stays one tensor."""
     def conv(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a))  # a copy: device_get arrays are read-only
+        a = np.array(a)  # a copy: device_get arrays are read-only
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        return torch.from_numpy(a)
 
     stacked = np_params["layers"]
     unknown = set(stacked) - set(_LAYER_KEYS)

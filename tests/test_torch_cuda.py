@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-over the fp cache and over the int8 cache (kv_quant "int8" and "int8_mxu").
+over the fp cache and over the int8 cache (kv_quant "int8" and "int8_mxu"),
+and the MoE grouped GEMM.
 
 Needs an NVIDIA GPU (the kernels have no CPU mode) and skips without one.
 The file imports neither JAX nor the JAX package, so on a GPU machine
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from ssd_tpu_torch.ops import attention as att
+from ssd_tpu_torch.ops import moe
 from tests.torch_cases import flat_meta, paged_case, tree_case
 
 
@@ -30,13 +32,14 @@ def close(got, want, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Hq,Hkv,hd", [(8, 2, 64), (6, 2, 128)])  # G = 4 and 3
+@pytest.mark.parametrize("Hq,Hkv,hd", [(8, 2, 64), (6, 2, 128), (32, 4, 128)])  # G = 4, 3, 8
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain_on_card(dtype, Hq, Hkv, hd):
     """The CUDA kernels against their plain versions on the card: decode with
     a ghost row, overshoot at Q=4 (Q*G query rows take several passes), the
     SD/SSD verify at Q=K+1=5 with a ghost row (a partial last row pass), and
-    a mixed prefix-cached prefill, at both head sizes the kernels take."""
+    a mixed prefix-cached prefill, at both head sizes the kernels take
+    (hd 128 also at Qwen3-30B-A3B's 32/4 heads)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
     dev = "cuda"
@@ -149,3 +152,32 @@ def test_int8_kernels_match_plain_on_card(dtype, Hq, Hkv, hd, s8):
     want = att.flat_prefill_attention_plain(*args, 16, scale)
     assert close(got, want, dtype)
     assert got[sum([5, 12, 3]):].abs().max() == 0   # padding rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_gemm_matches_plain_on_card(dtype):
+    """The grouped GEMM against its plain version on the card: empty groups
+    (first, inner and last), one-row groups, N = 1, one group holding every
+    row, N and Nout that are not multiples of either dtype's tile, K not a
+    multiple of the K slice, and a decode-sized dispatch over 128 experts.
+    Tolerance: close() (both sides accumulate in fp32 and round once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    r = np.random.default_rng(3)
+    decode = np.zeros(128, np.int64)
+    decode[r.choice(128, 50, replace=False)] = 1
+    decode[r.choice(np.flatnonzero(decode), 14, replace=False)] += 1    # 64 rows
+    cases = [([0, 130, 1, 0, 64, 3, 0], 40, 200),    # K, Nout
+             ([1], 32, 48), ([0, 0, 300, 0], 96, 136), ([5, 6, 7, 6], 2048, 768),
+             (list(decode), 256, 136)]
+    for sizes, K, Nout in cases:
+        N, E = sum(sizes), len(sizes)
+        x = torch.from_numpy(r.normal(size=(N, K))).float().to("cuda", dtype)
+        w = (torch.from_numpy(r.normal(size=(E, K, Nout))).float() * 0.05).to("cuda", dtype)
+        offs = t(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)).cuda()
+        got = moe.grouped_gemm(x, w, offs)
+        torch.cuda.synchronize()
+        want = moe.grouped_gemm_plain(x, w, offs)
+        assert got.dtype == dtype and got.shape == (N, Nout)
+        assert close(got, want, dtype), (sizes[:8], K, Nout)

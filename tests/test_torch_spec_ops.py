@@ -200,10 +200,12 @@ def test_launch_counter_is_thread_safe():
     import sys
     import threading
 
+    from ssd_tpu_torch.ops import cuda_lib
+
     before, interval = att.tree_attention.launches, sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(target=lambda: [att._count_launch(att.tree_attention)
+        threads = [threading.Thread(target=lambda: [cuda_lib.count_launch(att.tree_attention)
                                                     for _ in range(2000)])
                    for _ in range(8)]
         for th in threads:
