@@ -35,6 +35,20 @@ the script exits non-zero:
               from a seeded router with an empty group) and timed there,
               beside torch._grouped_mm as its yardstick (a dense matmul of
               the same operations where that call is missing or refuses).
+              At Llama-3.1-8B's heads (Hq/Hkv 32/8, hd 128): K1 at the EAGLE
+              draft prefill of the 8 serve prompts; K2 and K4 (both int8
+              modes) at the EAGLE glue shape Q = 2K+1 with per-sequence
+              qeff, the b8 decode (Q=1), the verify (Q=K+1) and the head's
+              chain step (Q=1); K3 and K5 at the last tree step; both
+              dtypes, then K1 and the glue timed. The two bench probes: the s8 dot's three paths
+              (csrc/s8_probe.cu: mma.sync s8, __dp4a, bf16 mma after a cast)
+              at bench/s8_probe.py's shapes, exact against the fp64 plain
+              version, and the paged kernels' stage variants (full, dma,
+              compute, empty; K2 and K4's int8 mode) at the decode b8 batch
+              and at B=8 x 8192, "full" bit for bit the production kernel;
+              timed, then run once through their bench entry points
+              (python -m ssd_tpu_torch.bench.s8_probe / .kernel_diag), whose
+              launches the kernels line reports as the path "probe".
 3. serve    - LLM(...).generate at the full Llama-3.2-1B width (16 layers,
               random bf16 weights from a seed): 128 greedy tokens for 8
               prompts of mixed length, then for 1 prompt (the AR path). The
@@ -71,7 +85,21 @@ the script exits non-zero:
               the pool holds fewer blocks than the cap of 1224, or if K1, K2
               or the grouped GEMM never launched (counts zeroed just before,
               read just after).
-7. exact    - the same width in fp32 from random checkpoints (init scale
+7. eagle    - EAGLE-3 async SSD (K=4, fan-out 2) at Llama-3.1-8B's
+              geometry (32 layers, rope theta 5e5 without the published
+              rope scaling, which neither package reads) with its EAGLE-3
+              head's (1 layer, draft vocab 32000, 2048 positions, which cap
+              max_model_len; so serve's 1900-token prompt is cut to 1875),
+              random bf16 weights from a seed: AR b8/b1, EAGLE SSD b8/b1
+              over the fp cache and b8 over the int8 cache, 128 tokens. Then
+              the constructed pair of bench.py::build_eagle_checkpoints
+              (target cut to 8 layers): noise 0 must accept >= K tokens a
+              step with a hit rate above 0.9, and one noise level of a
+              fixed ladder must put the hit rate in [0.2, 0.8]. Per run as
+              in spec, plus TTFT and the pools; K1 (target and draft
+              prefill), K2 (verify, chain, glue) and K3 (tree), or over the
+              int8 cache their int8 kernels, must launch.
+8. exact    - the same width in fp32 from random checkpoints (init scale
               0.4): AR at 2 layers, greedy tokens on the card equal those of
               device="cpu", with the smallest top-1/top-2 logit margin seen;
               then a target of 8 layers and a noisy 2-layer draft: AR, sync
@@ -82,12 +110,17 @@ the script exits non-zero:
               CPU's, and sync SD and async SSD on the card (self-draft) equal
               the card's AR, with the smallest top-1/top-2 logit margin and
               the smallest router gap between the k-th and (k+1)-th expert.
-8. profile  - (only when asked for) the device's busy share and top kernels
+              Then the same width at 2 layers with the constructed EAGLE-3
+              head (noise 0.028): AR on the card equals the CPU's, and EAGLE
+              SSD on both devices equals the card's AR.
+9. profile  - (only when asked for) the device's busy share and top kernels
               over a prefill step and a window of decode steps at b=8;
               moe_profile the same on the `moe` engine.
-9. spec_profile - (only when asked for) the same for sync SD and async SSD
+10. spec_profile - (only when asked for) the same for sync SD and async SSD
               at b=8: per step, the device time of each CUDA stream, their
-              union, and the time both streams ran kernels at once.
+              union, the time both streams ran kernels at once, the
+              host-device copies and the verify's host time;
+              eagle_profile the same for EAGLE SSD on the eagle engine.
 
 Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -104,8 +137,8 @@ import sys
 import tempfile
 import time
 
-PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "exact")
-EXTRA_PHASES = ("profile", "moe_profile", "spec_profile")
+PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "eagle", "exact")
+EXTRA_PHASES = ("profile", "moe_profile", "spec_profile", "eagle_profile")
 
 # Llama-3.2-1B geometry (the JAX package's bench.py random-weight config).
 LLAMA_1B = {
@@ -149,6 +182,28 @@ QWEN3_30B_A3B = {
     "eos_token_id": 151645,
 }
 MOE_GEOMETRY = "Qwen3-30B-A3B (48 layers, 128 experts, top-8, random bf16 weights)"
+# Llama-3.1-8B (huggingface.co/meta-llama/Llama-3.1-8B, config.json) as both
+# packages compute it: rope theta 5e5 without the published llama3
+# rope_scaling, which neither ssd_tpu nor the port reads. The eagle phase's
+# target, at full width and depth.
+LLAMA_8B = {**LLAMA_1B, "hidden_size": 4096, "intermediate_size": 14336,
+            "num_hidden_layers": 32, "head_dim": 128, "max_position_embeddings": 131072,
+            "tie_word_embeddings": False}
+LLAMA8B_HEADS = (32, 8, 128)
+# Its EAGLE-3 head (huggingface.co/yuhuili/EAGLE3-LLaMA3.1-Instruct-8B,
+# config.json): one layer at the target's width, a 32000-token draft vocab,
+# 2048 positions (which cap max_model_len, as in ssd_tpu/config.py).
+EAGLE3_8B = {"model_type": "llama", "vocab_size": 128256, "draft_vocab_size": 32000,
+             "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 1,
+             "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 128,
+             "max_position_embeddings": 2048, "rms_norm_eps": 1e-5, "rope_theta": 500000.0,
+             "tie_word_embeddings": False, "eos_token_id": 128001}
+EAGLE_GEOMETRY = ("Llama-3.1-8B (32 layers, rope theta 5e5 unscaled) + EAGLE-3 head "
+                  "(1 layer, draft vocab 32000), random bf16 weights")
+EAGLE_MAX_LEN = 2048                # the head's max_position_embeddings
+EAGLE_PAIR_LAYERS = 8               # the constructed pair's target depth (cut from 32)
+EAGLE_NOISE_LADDER = (0.028, 0.032, 0.036, 0.04, 0.045)   # searched for the miss path
+EXACT_EAGLE_NOISE = 0.028           # the exact phase's EAGLE head noise: the eagle phase's miss level on an H100
 QWEN_HEADS = (32, 4, 128)
 MOE_UTIL = 0.92   # gpu_memory_utilization: 0.7 of the card is less than the weights
 BLOCK = 64
@@ -365,7 +420,8 @@ def _timing(shape, fn, plain_fn, library_fn, bytes_, ops, peak, iters=50,
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / peak
     return dict(shape=shape, ms=time_ms(fn, iters),
                 plain_ms=time_ms(plain_fn, plain_iters, warmup=1),
-                library_ms=time_ms(library_fn, iters), bytes=bytes_, flops=ops,
+                library_ms=time_ms(library_fn, iters) if library_fn else None,
+                bytes=bytes_, flops=ops,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -462,6 +518,121 @@ def _paged_work(q, ctx, bt, Q, C, Hkv, pos_bytes, elem):
     bytes_ = (int(kv_len.sum()) * Hkv * pos_bytes + 2 * q.numel() * elem
               + bt.numel() * 4 + 2 * ctx.numel() * 4)
     return bytes_, 4 * Hq * hd * int(per_row.sum())
+
+
+def _bmm_yardstick(qb, kb, want):
+    """The bf16 dot's library yardstick, never called by the port: one
+    torch.bmm of q by the bf16 copy of k (the cast is not timed), with fp32
+    output where this torch takes out_dtype. Returns (callable, label)."""
+    import torch
+
+    kt = kb.transpose(1, 2)
+    try:
+        y = torch.bmm(qb, kt, out_dtype=torch.float32)
+        if torch.equal(y.double(), want.double()):
+            return (lambda: torch.bmm(qb, kt, out_dtype=torch.float32)), \
+                "torch.bmm(q, bf16 k^T, out_dtype=float32)"
+    except (TypeError, RuntimeError):
+        pass
+    return (lambda: torch.bmm(qb, kt)), "torch.bmm(q, bf16 k^T), bf16 output"
+
+
+def _probe_kernels(record, decode_ctx: list[int]) -> dict:
+    """Rows #11 and #12 of the kernel table: the s8 probe's three paths at
+    bench/s8_probe.py's shapes, exact against the fp64 plain version; the
+    paged kernels' stage variants (K2, and K4's int8 mode) at the decode b8
+    batch and at B=8 x LONG_CTX, whose "full" stage must equal the
+    production kernel bit for bit. Then both bench entry points run once
+    (the probes' own path), with the probe launch counts zeroed just before
+    and read just after each."""
+    import torch
+
+    from ssd_tpu_torch.bench import kernel_diag, s8_probe
+    from ssd_tpu_torch.ops import attention as att
+    from ssd_tpu_torch.ops import probes
+
+    timings = {}
+    q8, k8, qb = s8_probe.inputs("cuda")
+    want = probes.s8_dot_plain(q8, k8)
+    N, R, D = q8.shape
+    L = k8.shape[1]
+    ops = 2 * N * R * L * D
+    bmm, bmm_label = _bmm_yardstick(qb, k8.to(torch.bfloat16), want)
+    no_lib = "none: torch._int_mm is 2-D; no single call takes a batched s8 product"
+    for name, fn, q, peak, lib, label in (
+            ("s8_dot_mma", probes.s8_dot_mma, q8, PEAK_OPS_INT8, None, no_lib),
+            ("s8_dot_dp4a", probes.s8_dot_dp4a, q8, PEAK_OPS_INT8, None, no_lib),
+            ("s8_dot_bf16", probes.s8_dot_bf16, qb, PEAK_FLOPS["bfloat16"], bmm, bmm_label)):
+        got = fn(q, k8)
+        torch.cuda.synchronize()
+        record(name, "s8_probe_shape", "float32", got, want)
+        if not torch.equal(got.double(), want.double()):
+            fail(f"{name}: differs from its exact plain version")
+        bytes_ = q.numel() * q.element_size() + k8.numel() + got.numel() * 4
+        tm = _timing(f"q [{N}, {R}, {D}] {q.dtype} . k [{N}, {L}, {D}] int8 -> "
+                     f"[{N}, {R}, {L}] {got.dtype}",
+                     lambda: fn(q, k8), lambda: probes.s8_dot_plain(q, k8), lib, bytes_, ops,
+                     peak, iters=50, plain_iters=5)
+        tm["library"] = label
+        timings[name] = tm
+
+    scale = 64 ** -0.5
+    shapes = {"decode_b8": decode_ctx, f"b8_x_{LONG_CTX}": [LONG_CTX] * 8}
+    for name, kvq in (("paged_attention_diag", None), ("paged_attention_int8_diag", "int8")):
+        per_shape = {}
+        for label, ctx_lens in shapes.items():
+            q, layer, bt, ctx, qeff = kernel_diag.decode_case(
+                8, 1, 32, 8, 64, BLOCK, ctx_lens, torch.bfloat16, kv_quant=kvq, seed=70)
+            args = (q, layer, bt, ctx, qeff, BLOCK, scale)
+            prod = att.paged_attention(*args)
+            full = probes.paged_attention_diag("full", *args)
+            torch.cuda.synchronize()
+            record(name, label, "bfloat16", full, att.paged_attention_plain(*args))
+            if not torch.equal(full, prod):
+                fail(f"{name} {label}: the full stage differs from the production kernel")
+            C = bt.shape[1] * BLOCK
+            bytes_, ops_ = _paged_work(q, ctx, bt, 1, C, 8, 2 * 64 * 2 if kvq is None
+                                       else 2 * 64 + 8, 2)
+            tm = _timing(f"decode B=8 (ctx {ctx_lens if label == 'decode_b8' else '8 x %d' % LONG_CTX})"
+                         f" Q=1 Hq/Hkv 32/8 hd 64 bf16" + (", int8 cache" if kvq else ""),
+                         lambda: probes.paged_attention_diag("full", *args),
+                         lambda: att.paged_attention_plain(*args),
+                         _sdpa_paged(q, layer, bt, ctx, 1, C, torch.bfloat16), bytes_, ops_,
+                         PEAK_FLOPS["bfloat16"], iters=20, plain_iters=3)
+            tm["stages_ms"] = {st: time_ms(lambda st=st: probes.paged_attention_diag(st, *args), 20)
+                               for st in probes.STAGES}
+            # A split of the full time into loads and math is only read when
+            # each stage alone takes no longer than the full kernel and the
+            # two together no less.
+            st = tm["stages_ms"]
+            tm["stages_bracket_full"] = (max(st["dma"], st["compute"]) <= st["full"]
+                                         <= st["dma"] + st["compute"])
+            per_shape[label] = tm
+            emit("kernels", kernel=name, stages=tm)
+        timings[name] = dict(per_shape["decode_b8"], **{f"at_{k}": v for k, v in per_shape.items()
+                                                       if k != "decode_b8"})
+
+    # The probes' own path: their bench entry points, as `python -m` runs them.
+    launches = {}
+    ctx_arg = ",".join(map(str, decode_ctx))
+    runs = (("s8", [], s8_probe.main, ["--iters", "20"]),
+            ("paged_attention_diag", ["bf16"], kernel_diag.main, None),
+            ("paged_attention_int8_diag", ["int8"], kernel_diag.main, None))
+    for name, kv, main_fn, argv in runs:
+        for w in probes.PROBE_WRAPPERS:
+            w.launches = 0
+        if argv is not None:
+            main_fn(argv)
+        else:
+            for ctx_list in (ctx_arg, ",".join([str(LONG_CTX)] * 8)):
+                main_fn(["--contexts", ctx_list, "--hd", "64", "--block", str(BLOCK),
+                         "--iters", "20", "--kv", kv[0]])
+        if name == "s8":
+            launches.update({w.__name__: w.launches for w in probes.PROBE_WRAPPERS[:3]})
+        else:
+            launches[name] = probes.paged_attention_diag.launches
+    emit("kernels", probe_launches=launches)
+    return {"timings": timings, "launches": launches}
 
 
 def phase_kernels() -> dict:
@@ -746,12 +917,117 @@ def phase_kernels() -> dict:
         del x, w, want
     timings["grouped_gemm"] = gmm_times["prefill_gate"]
 
+    # Llama-3.1-8B's attention (Hq/Hkv 32/8, hd 128, G 4: the eagle phase's
+    # target and head): K1 at the EAGLE draft prefill of the 8 serve prompts
+    # (each prompt's n-1 tokens at draft positions 0..n-2, nothing cached)
+    # and K2 at the glue shape Q = 2K+1 with a per-sequence qeff of
+    # n_ext + K + 1, held against their plain versions in both dtypes, then
+    # timed in bf16.
+    Hq, Hkv, hd = LLAMA8B_HEADS
+    s8b, fp_pos = hd ** -0.5, 2 * hd * elem
+    draft_lens = [n - 1 for n in _eagle_lens()]
+    W = 2 * SPEC_K + 1
+    glue_ctx = [n + 64 + SPEC_K + 1 for n in _eagle_lens()]   # base + 1 + K, 64 steps in
+    glue_qeff = [SPEC_K + 1 + (b % (SPEC_K + 1)) for b in range(8)]  # n_ext 0..K
+
+    def glue_case(dtc, seed):
+        q, kv, bt, ctx, _ = _paged_case(8, W, glue_ctx, M_spec, 0, dtc, seed=seed,
+                                        heads=LLAMA8B_HEADS)
+        return q, kv, bt, ctx, torch.tensor(glue_qeff, dtype=torch.int32, device="cuda")
+
+    # The other shapes of the eagle phase at G 4, where a Q=1 step takes
+    # K2/K4's 4-row instantiation (Q*G = 4) and Q=K+1 the 8-row one: the
+    # target's b8 decode 64 steps in, its verify, and the head's last chain
+    # step (draft context base + K with base = num_tokens - 2), all over the
+    # EAGLE_MAX_LEN table; then K3/K5 at the head's last tree step.
+    M_e = EAGLE_MAX_LEN // BLOCK
+    at64 = [n + 64 for n in _eagle_lens()]
+    eagle_paged = {"decode_b8": (8, 1, at64, M_e, 0),
+                   "verify_b8": (8, SPEC_K + 1, [n + SPEC_K + 1 for n in at64], M_e, 0),
+                   "chain_b8": (8, 1, [n - 2 + SPEC_K for n in at64], M_e, 0)}
+    paged_layers = (("paged_attention", False, False), ("paged_attention_int8", True, False),
+                    ("paged_attention_int8[s8]", True, True))
+
+    for dn, dtc in dts.items():
+        q, kv, pages, lo, hi, T = _flat_case(draft_lens, [0] * 8, dtc, seed=60,
+                                             heads=LLAMA8B_HEADS)
+        got = att.flat_prefill_attention(q, kv, pages, lo, hi, BLOCK, s8b)
+        torch.cuda.synchronize()
+        record("flat_prefill_attention", "eagle_draft_prefill_hd128_g4", dn, got,
+               att.flat_prefill_attention_plain(q, kv, pages, lo, hi, BLOCK, s8b))
+        cases = [(f"eagle_glue_q{W}", glue_case(dtc, 61))]
+        cases += [(f"eagle_{case}", _paged_case(*args, dtc, seed=64 + i, heads=LLAMA8B_HEADS))
+                  for i, (case, args) in enumerate(eagle_paged.items())]
+        for case, (q, kv, bt, ctx, qeff) in cases:
+            pair = _int8_pair(kv)
+            for name, int8, s8 in paged_layers:
+                layer = pair if int8 else kv
+                got = att.paged_attention(q, layer, bt, ctx, qeff, BLOCK, s8b, s8=s8)
+                torch.cuda.synchronize()
+                record(name, f"{case}_hd128_g4", dn, got,
+                       att.paged_attention_plain(q, layer, bt, ctx, qeff, BLOCK, s8b, s8=s8))
+        q, kv, bt, ctx, fan = _tree_case(8, SPEC_K - 1, [n - 2 for n in at64], 0, dtc,
+                                         seed=67, heads=LLAMA8B_HEADS)
+        pair = _int8_pair(kv)
+        for name, int8, s8 in paged_layers:
+            name = name.replace("paged", "tree")
+            layer = pair if int8 else kv
+            args = (bt, ctx, fan, SPEC_K - 1, SPEC_K, BLOCK, s8b)
+            got = att.tree_attention(q, layer, *args, s8=s8)
+            torch.cuda.synchronize()
+            record(name, f"eagle_tree_b8_step{SPEC_K - 1}_hd128_g4", dn, got,
+                   att.tree_attention_plain(q, layer, *args, s8=s8))
+        del q, kv, pair, cases
+    eagle_t = {}
+    q, kv, pages, lo, hi, T = _flat_case(draft_lens, [0] * 8, dt, seed=62, heads=LLAMA8B_HEADS)
+    n_pages = sum(-(-n // BLOCK) for n in draft_lens)
+    bytes_ = n_pages * BLOCK * Hkv * fp_pos + 2 * T * Hq * hd * elem + pages.numel() * 4 + 2 * T * 4
+    ops = int(4 * Hq * hd * (hi - lo).long().sum())
+    dense = att.dense_pages(kv, pages, BLOCK)
+    kd, vd = dense[..., :hd][None].contiguous(), dense[..., hd:][None].contiguous()
+    qs = q.permute(1, 0, 2)[None].contiguous()
+    col = torch.arange(dense.shape[1], device="cuda")
+    mask = ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None]))[None, None]
+    eagle_t["flat_prefill_attention"] = _timing(
+        f"EAGLE draft prefill, 8 prompts {draft_lens}, nothing cached, T={T} "
+        f"Hq/Hkv 32/8 hd 128 bf16",
+        lambda: att.flat_prefill_attention(q, kv, pages, lo, hi, BLOCK, s8b),
+        lambda: att.flat_prefill_attention_plain(q, kv, pages, lo, hi, BLOCK, s8b),
+        lambda: sdpa(qs, kd, vd, mask), bytes_, ops, PEAK_FLOPS[dname], iters=10, plain_iters=3)
+    del kd, vd, dense
+    q, kv, bt, ctx, qeff = glue_case(dt, 63)
+    C = M_spec * BLOCK
+    rows = torch.arange(W, device="cuda")[None, :]
+    limit = torch.minimum(ctx[:, None].long() - qeff[:, None].long() + rows + 1,
+                          ctx[:, None].long())                        # attended per row
+    bytes_ = (int(ctx.long().sum()) * Hkv * fp_pos + 2 * q.numel() * elem
+              + bt.numel() * 4 + 2 * ctx.numel() * 4)
+    k, v = att.gather_pages(kv, bt, BLOCK, C)
+    k = k.permute(0, 2, 1, 3).contiguous()
+    v = v.permute(0, 2, 1, 3).contiguous()
+    pos = torch.arange(C, device="cuda")[None, None, :]
+    gmask = (pos < limit[:, :, None])[:, None]
+    qg = q.permute(0, 2, 1, 3).contiguous()
+    eagle_t["paged_attention"] = _timing(
+        f"EAGLE glue B=8 (ctx {glue_ctx}) Q={W} qeff {glue_qeff} Hq/Hkv 32/8 hd 128 bf16",
+        lambda: att.paged_attention(q, kv, bt, ctx, qeff, BLOCK, s8b),
+        lambda: att.paged_attention_plain(q, kv, bt, ctx, qeff, BLOCK, s8b),
+        lambda: sdpa(qg, k, v, gmask), bytes_, 4 * Hq * hd * int(limit.sum()),
+        PEAK_FLOPS[dname])
+    del k, v
+    for name, tm in eagle_t.items():
+        emit("kernels", kernel=name, llama31_8b_eagle=tm)
+
+    probes_out = _probe_kernels(record, serve8)
+    timings.update(probes_out["timings"])
+
     for name, tm in timings.items():
         emit("kernels", kernel=name, timing=tm)
     for w, n in zip(wrappers, counts):
         w.launches = n
     return {"errors": results, "timings": timings, "at_verify": at_verify,
-            "long_context": long_ctx, "qwen3_moe": qwen, "grouped_gemm": gmm_times}
+            "long_context": long_ctx, "qwen3_moe": qwen, "grouped_gemm": gmm_times,
+            "llama31_8b_eagle": eagle_t, "probes": probes_out}
 
 
 # ---------------------------------------------------------------------------
@@ -1032,11 +1308,11 @@ def _spec_llm(tdir, ddir, mode, **kw):
     return LLM(tdir, draft=ddir, speculate=True, speculate_k=SPEC_K, **extra, **kw)
 
 
-def _spec_run(llm, mode, prompts, n_new):
-    """One measured generate of a main path ("ar", "sd" or "ssd"): launch
-    counts zeroed just before and read just after; for SD and SSD the
-    accepted lengths, tree-build/verify spans on the card, the draft's step
-    and chain times."""
+def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"]):
+    """One measured generate of a main path ("ar", "sd" or "ssd", the last
+    with a plain or an EAGLE draft): launch counts zeroed just before and
+    read just after; for SD and SSD the accepted lengths, tree-build/verify
+    spans on the card, the draft's step and chain times."""
     import torch
 
     from ssd_tpu_torch import SamplingParams
@@ -1044,7 +1320,6 @@ def _spec_run(llm, mode, prompts, n_new):
     from ssd_tpu_torch.engine.speculator_sync import SpeculatorSync
     from ssd_tpu_torch.engine.verifier import Verifier
 
-    V = LLAMA_1B["vocab_size"]
     sp = SamplingParams(temperature=0.0, max_new_tokens=n_new, ignore_eos=True)
     n_steps0 = 0
     if mode == "ssd":
@@ -1053,7 +1328,8 @@ def _spec_run(llm, mode, prompts, n_new):
         llm.draft_server.drain()
         n_steps0 = len(llm.draft_server._step_times)
     verify_spans = _Spans(Verifier, "verify")
-    build_spans = _Spans(DraftRunner, "build_tree")
+    build_spans = _Spans(type(llm.draft_server.runner) if mode == "ssd" else DraftRunner,
+                         "build_tree")
     chain_spans = _Spans(SpeculatorSync, "speculate")
     torch.cuda.synchronize()
     ref = torch.cuda.Event(enable_timing=True)
@@ -1080,6 +1356,7 @@ def _spec_run(llm, mode, prompts, n_new):
             fail(f"spec {mode}: bad output of {len(ids)} tokens")
     run = dict(
         prompts=len(prompts), new_tokens=n_new * len(prompts), wall_s=wall,
+        ttft_s=m["target_step_times"][0],
         decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
         launches=launches)
     if mode == "ar":
@@ -1237,11 +1514,51 @@ def _stream_busy(prof) -> dict:
     return dict(per_stream_ms=busy, union_ms=union, concurrent_ms=sum(busy.values()) - union)
 
 
+def _profile_window(llm, steps: int = 8) -> dict:
+    """`steps` decode steps of a warm engine, timed without and then with
+    torch.profiler: wall ms per step, the device time of each CUDA stream,
+    their union and the time two streams ran kernels at once, the
+    host-device copies, and the target's verify time on the host (these
+    four in the profiled window)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssd_tpu_torch.engine.llm_engine import METRICS
+
+    def window():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            llm.step()
+        if llm.draft_server is not None:
+            llm.draft_server.drain()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    wall = window()
+    n_verify = len(METRICS["target_verify_times"])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_wall = window()
+    verify = METRICS["target_verify_times"][n_verify:]
+    busy = _stream_busy(prof)
+    copies = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and e.name.startswith("Memcpy")]
+    return dict(steps=steps, wall_ms_per_step=wall, profiled_wall_ms_per_step=prof_wall,
+                device_union_ms_per_step=busy["union_ms"] / steps,
+                device_busy_share=busy["union_ms"] / steps / wall,
+                per_stream_ms_per_step={k: v / steps for k, v in busy["per_stream_ms"].items()},
+                concurrent_ms_per_step=busy["concurrent_ms"] / steps,
+                memcpy_per_step=len(copies) / steps,
+                memcpy_ms_per_step=sum(e.time_range.end - e.time_range.start
+                                       for e in copies) / 1e3 / steps,
+                verify_host_ms=1e3 * sum(verify) / len(verify) if verify else None)
+
+
 def phase_spec_profile() -> dict:
     """Not run by default: SD and SSD decode steps at b=8 (noise 0), timed
     without and then with torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ssd_tpu_torch import SamplingParams
 
@@ -1258,31 +1575,42 @@ def phase_spec_profile() -> dict:
                 llm.add_request(p, sp)
             for _ in range(4):   # the prefill, then warm decode steps
                 llm.step()
-
-            def window(steps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(steps):
-                    llm.step()
-                if llm.draft_server is not None:
-                    llm.draft_server.drain()
-                torch.cuda.synchronize()
-                return (time.perf_counter() - t0) * 1e3 / steps
-
-            wall = window(8)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                prof_wall = window(8)
-            busy = _stream_busy(prof)
-            out[mode] = dict(steps=8, wall_ms_per_step=wall, profiled_wall_ms_per_step=prof_wall,
-                             device_union_ms_per_step=busy["union_ms"] / 8,
-                             device_busy_share=busy["union_ms"] / 8 / wall,
-                             per_stream_ms_per_step={k: v / 8 for k, v in busy["per_stream_ms"].items()},
-                             concurrent_ms_per_step=busy["concurrent_ms"] / 8)
+            out[mode] = _profile_window(llm)
             llm.exit()
             del llm
             torch.cuda.empty_cache()
     emit("spec_profile", geometry="Llama-3.2-1B width, target 16 layers (4 live), "
          "draft 4 layers, bf16, b8, noise 0", **out)
+    return out
+
+
+def phase_eagle_profile() -> dict:
+    """Not run by default: EAGLE-3 async SSD decode steps at b=8 on the eagle
+    phase's Llama-3.1-8B engine (full depth, random bf16 weights), timed
+    without and then with torch.profiler."""
+    import torch
+
+    from ssd_tpu_torch import SamplingParams
+
+    p8, _ = _serving_prompts(LLAMA_8B["vocab_size"])
+    sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
+    with tempfile.TemporaryDirectory() as d:
+        tdir, edir = os.path.join(d, "t"), os.path.join(d, "e")
+        os.makedirs(tdir)
+        os.makedirs(edir)
+        _write_config(tdir, LLAMA_8B)
+        _eagle_config(edir)
+        llm = _eagle_llm(tdir, edir, init_random=True, dtype="bfloat16",
+                         max_model_len=EAGLE_MAX_LEN, kvcache_block_size=BLOCK, max_num_seqs=8)
+        for p in _eagle_prompts(p8, 128):
+            llm.add_request(p, sp)
+        for _ in range(4):   # the prefill, then warm decode steps
+            llm.step()
+        out = {"eagle": _profile_window(llm)}
+        llm.exit()
+        del llm
+        torch.cuda.empty_cache()
+    emit("eagle_profile", geometry=EAGLE_GEOMETRY + ", b8", **out)
     return out
 
 
@@ -1379,7 +1707,252 @@ def phase_moe() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7
+# Phase 7: EAGLE-3 async SSD at the Llama-3.1-8B geometry
+# ---------------------------------------------------------------------------
+
+
+def _eagle_config(d: str, **over):
+    """An EAGLE-3 head's config.json (EAGLE3_8B, with `over`)."""
+    _write_config(d, EAGLE3_8B, **over)
+
+
+def _eagle_pair(d: str, layers: int, dtype, seed: int = 11, base: dict = LLAMA_8B):
+    """bench.py::build_eagle_checkpoints at the width of `base`, in torch:
+    a target whose layers are residual pass-throughs (o_proj = down = 0), so
+    its last hidden state is the token's embedding, with unit-rms embeddings
+    on the first Hkv*hd coordinates and an untied head that is the table
+    rolled by one row (greedy walks t -> t-1); and a one-layer EAGLE head
+    whose attention cancels the conditioning stream and replaces it with the
+    token's normed embedding, so its logits equal the target's at every
+    depth (noise 0 accepts ~K+1). Weights drawn on the card from a generator
+    seeded with `seed`, stored in `dtype`. Returns (target dir, draft dir)."""
+    import torch
+
+    from ssd_tpu_torch.utils.loader import save_safetensors
+
+    c = base
+    D, I, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    Hq, Hkv, hd = c["num_attention_heads"], c["num_key_value_heads"], c["head_dim"]
+    G, S, beta = Hq // Hkv, Hkv * hd, 8.0
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def cpu(x):
+        return x.to(dtype).cpu()
+
+    def w(*shape):
+        return cpu(torch.randn(*shape, generator=g, device="cuda") * 0.02)
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype)
+
+    e = torch.randn(V, S, generator=g, device="cuda")
+    e *= D ** 0.5 / e.norm(dim=1, keepdim=True)
+    emb = torch.zeros(V, D, device="cuda")
+    emb[:, :S] = e
+    head = torch.roll(emb, -1, dims=0)
+    emb, head = cpu(emb), cpu(head)
+    target = {"model.embed_tokens.weight": emb, "lm_head.weight": head,
+              "model.norm.weight": ones(D)}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        target.update({
+            p + "input_layernorm.weight": ones(D),
+            p + "post_attention_layernorm.weight": ones(D),
+            p + "self_attn.q_proj.weight": w(Hq * hd, D),
+            p + "self_attn.k_proj.weight": w(Hkv * hd, D),
+            p + "self_attn.v_proj.weight": w(Hkv * hd, D),
+            p + "self_attn.o_proj.weight": torch.zeros(D, Hq * hd, dtype=dtype),
+            p + "mlp.gate_proj.weight": w(I, D),
+            p + "mlp.up_proj.weight": w(I, D),
+            p + "mlp.down_proj.weight": torch.zeros(D, I, dtype=dtype),
+        })
+    # The head's layer, HF [out, in]; its attention input is [norm(tok) | norm(cond)].
+    r = torch.arange(Hq * hd)
+    qw = torch.zeros(Hq * hd, 2 * D)
+    qw[r, (r // hd // G) * hd + r % hd] = beta
+    s = torch.arange(S)
+    kw = torch.zeros(S, 2 * D)
+    kw[s, s] = beta
+    vw = torch.zeros(S, 2 * D)
+    vw[s, s] = 1.0            # + the token's coordinates
+    vw[s, D + s] = -1.0       # - the conditioning's (cancels the residual)
+    ow = torch.zeros(D, Hq * hd)
+    ow[s, (s // hd) * G * hd + s % hd] = 1.0   # one q head per group rebuilds v
+    fc = torch.zeros(D, 3 * D)
+    fc[torch.arange(D), torch.arange(D)] = 1.0  # the first tap
+    draft = {
+        "fc.weight": fc.to(dtype), "midlayer.self_attn.q_proj.weight": qw.to(dtype),
+        "midlayer.self_attn.k_proj.weight": kw.to(dtype),
+        "midlayer.self_attn.v_proj.weight": vw.to(dtype),
+        "midlayer.self_attn.o_proj.weight": ow.to(dtype),
+        "midlayer.mlp.gate_proj.weight": w(I, D), "midlayer.mlp.up_proj.weight": w(I, D),
+        "midlayer.mlp.down_proj.weight": torch.zeros(D, I, dtype=dtype),
+        "midlayer.input_layernorm.weight": ones(D), "midlayer.hidden_norm.weight": ones(D),
+        "midlayer.post_attention_layernorm.weight": ones(D), "norm.weight": ones(D),
+        "lm_head.weight": head, "embed_tokens.weight": emb,
+    }
+    dirs = []
+    for name, tensors in (("target", target), ("draft", draft)):
+        sub = os.path.join(d, name)
+        os.makedirs(sub)
+        save_safetensors(os.path.join(sub, "model.safetensors"), tensors)
+        dirs.append(sub)
+    _write_config(dirs[0], base, num_hidden_layers=layers, tie_word_embeddings=False)
+    _eagle_config(dirs[1], draft_vocab_size=V, hidden_size=D, intermediate_size=I,
+                  num_attention_heads=Hq, num_key_value_heads=Hkv, head_dim=hd)
+    return tuple(dirs)
+
+
+EAGLE_NOISE = ("fc", "wq", "wk", "wv", "wo")
+
+
+def _perturb_eagle(llm, noise: float, originals: dict):
+    """bench.py::build_eagle_checkpoints' draft_noise on the loaded head:
+    each of fc, q, k, v, o becomes its constructed value plus noise times
+    the rms of its nonzero entries times N(0, 1), drawn on the host from a
+    generator seeded 2000 + index (so the card's and the CPU's heads are the
+    same). `originals` keeps the constructed values across calls."""
+    import torch
+
+    params = llm.draft_server.runner.params
+    for i, k in enumerate(EAGLE_NOISE):
+        base = originals.setdefault(k, params[k].clone())
+        nz = base.float()[base != 0]
+        rms = float(nz.pow(2).mean().sqrt()) if nz.numel() else 1.0
+        z = torch.randn(base.shape, generator=torch.Generator().manual_seed(2000 + i))
+        params[k].copy_(base + (noise * rms * z).to(base.device, base.dtype))
+    torch.cuda.synchronize()
+
+
+def _eagle_llm(tdir, ddir, init_random=False, **kw):
+    from ssd_tpu_torch import LLM
+
+    return LLM(tdir, draft=ddir, speculate=True, draft_async=True, use_eagle=True,
+               jit_speculate=True, speculate_k=SPEC_K, async_fan_out=SPEC_F,
+               init_random=init_random, **kw)
+
+
+def _eagle_room(n_new: int = 128) -> int:
+    """The longest prompt the eagle phase serves: prompt + n_new + the tree
+    lookahead (K+1 + K*MQ) fit the head's EAGLE_MAX_LEN positions."""
+    return EAGLE_MAX_LEN - n_new - (SPEC_K + 1 + SPEC_K * SPEC_MQ)
+
+
+def _eagle_lens() -> list[int]:
+    """serve's b8 prompt lengths as the eagle phase serves them (only the
+    1900-token prompt is cut, to _eagle_room())."""
+    return [min(n, _eagle_room()) for n in SERVE_LENS8]
+
+
+def _eagle_prompts(prompts: list[list[int]], n_new: int) -> list[list[int]]:
+    return [p[:_eagle_room(n_new)] for p in prompts]
+
+
+def phase_eagle() -> dict:
+    """EAGLE-3 async SSD at the Llama-3.1-8B geometry (module docstring,
+    phase 7)."""
+    import torch
+
+    from ssd_tpu_torch import SamplingParams
+
+    V = LLAMA_8B["vocab_size"]
+    p8, p1 = _serving_prompts(V)
+    prompts = {"b8": _eagle_prompts(p8, 128), "b1": _eagle_prompts(p1, 128)}
+    warm = SamplingParams(temperature=0.0, max_new_tokens=8, ignore_eos=True)
+    engine = dict(dtype="bfloat16", max_model_len=EAGLE_MAX_LEN, kvcache_block_size=BLOCK,
+                  max_num_seqs=8)
+    out = {"runs": {}}
+    need = {"ar": ("paged_attention", "flat_prefill_attention"),
+            "eagle": ("paged_attention", "flat_prefill_attention", "tree_attention"),
+            "eagle_int8": ("paged_attention_int8", "flat_prefill_attention_int8",
+                           "tree_attention_int8")}
+
+    def measured(llm, key, path, mode, ps, n_new=128):
+        t0 = time.perf_counter()
+        run, _ = _spec_run(llm, mode, ps, n_new, V=V)
+        run["wall_incl_checks_s"] = time.perf_counter() - t0
+        out["runs"][key] = run
+        emit("eagle", run=key, **run)
+        missing = [k for k in need[path] if run["launches"][k] <= 0]
+        if missing:
+            fail(f"eagle {key}: kernels of the path never launched {missing}: {run['launches']}")
+        if path != "ar":
+            # Each prefill step launches K1 once per target layer and once
+            # for the head's conditioned prefill.
+            per_step = llm.model_runner.arch.num_layers + 1
+            if run["launches"][need[path][1]] % per_step:
+                fail(f"eagle {key}: {run['launches'][need[path][1]]} prefill launches are "
+                     f"not whole steps of {per_step} (target layers + the head)")
+        return run
+
+    with tempfile.TemporaryDirectory() as d:
+        tdir, edir = os.path.join(d, "t"), os.path.join(d, "e")
+        os.makedirs(tdir)
+        os.makedirs(edir)
+        _write_config(tdir, LLAMA_8B)
+        _eagle_config(edir)
+        # Full depth, random bf16 weights: AR, then EAGLE SSD over the fp and
+        # the int8 cache (the same seeded target each time).
+        for path, kvq in (("ar", None), ("eagle", None), ("eagle_int8", "int8")):
+            t0 = time.perf_counter()
+            if path == "ar":
+                from ssd_tpu_torch import LLM
+
+                llm = LLM(tdir, init_random=True, **engine)
+            else:
+                llm = _eagle_llm(tdir, edir, init_random=True, kv_quant=kvq, **engine)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            llm.generate([p[:40] for p in prompts["b8"][:2]], warm, use_tqdm=False)
+            for name in (("b8", "b1") if path != "eagle_int8" else ("b8",)):
+                run = measured(llm, f"{path}_{name}", path,
+                               "ar" if path == "ar" else "ssd", prompts[name])
+                run["init_s"] = init_s
+            out.setdefault("pools", {})[path] = llm.model_runner.pool_sizing
+            out.setdefault("kv_blocks", {})[path] = llm.model_runner.num_kvcache_blocks
+            llm.exit()
+            del llm
+            torch.cuda.empty_cache()
+
+    # The constructed pair (target cut to EAGLE_PAIR_LAYERS layers): noise 0
+    # must accept near K+1 and hit the tree cache; one level of a fixed
+    # ladder must land the hit rate in MISS_HIT_RATE.
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        tdir, edir = _eagle_pair(d, EAGLE_PAIR_LAYERS, torch.bfloat16)
+        out["pair_checkpoints_s"] = time.perf_counter() - t0
+        llm = _eagle_llm(tdir, edir, **engine)
+        llm.generate([p[:40] for p in prompts["b8"][:2]], warm, use_tqdm=False)
+        run = measured(llm, "pair_noise0_b8", "eagle", "ssd", prompts["b8"])
+        if run["mean_accepted_suffix_len"] < SPEC_K or run["cache_hit_rate"] <= 0.9:
+            fail(f"eagle: the constructed pair at noise 0 accepted "
+                 f"{run['mean_accepted_suffix_len']} (K+1 = {SPEC_K + 1}) with hit rate "
+                 f"{run['cache_hit_rate']}")
+        originals, found = {}, None
+        lo, hi = MISS_HIT_RATE
+        for level in EAGLE_NOISE_LADDER:
+            _perturb_eagle(llm, level, originals)
+            run = measured(llm, f"pair_noise{level:g}_b8", "eagle", "ssd", prompts["b8"], 64)
+            run["draft_noise"] = level
+            if lo <= run["cache_hit_rate"] <= hi:
+                found = level
+                break
+        if found is None:
+            fail(f"eagle: no draft noise of {EAGLE_NOISE_LADDER} put the hit rate in "
+                 f"[{lo}, {hi}]")
+        out["miss_noise"] = found
+        llm.exit()
+        del llm
+        torch.cuda.empty_cache()
+    emit("eagle", geometry=EAGLE_GEOMETRY, K=SPEC_K, async_fan_out=SPEC_F,
+         max_model_len=EAGLE_MAX_LEN, pair_layers=EAGLE_PAIR_LAYERS, miss_noise=found,
+         pools=out["pools"], kv_blocks=out["kv_blocks"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8
 # ---------------------------------------------------------------------------
 
 
@@ -1611,8 +2184,43 @@ def phase_exact() -> dict:
         fail(f"exact: Qwen3-MoE greedy tokens differ from the card's AR: {moe_equal}")
     if not all(v["grouped_gemm"] > 0 for k, v in moe_launches.items() if k.startswith("cuda")):
         fail(f"exact: the grouped GEMM did not launch in a card run: {moe_launches}")
+
+    # EAGLE-3 at the width of the checks above (Llama-3.2-1B), 2 layers,
+    # fp32: the constructed pair (stored bf16, loaded fp32) with draft noise
+    # EXACT_EAGLE_NOISE, so steps both accept and reject. AR on the card equals the CPU's, and
+    # EAGLE SSD on both devices equals the card's AR. (EAGLE over the int8
+    # cache is held to the int8 AR by the CPU tests; `eagle` runs it on the
+    # card.)
+    eprompts = [rng.integers(3, LLAMA_1B["vocab_size"], size=n).tolist() for n in (20, 77, 130)]
+    e_tokens, e_accepted, e_hits, e_margins = {}, {}, {}, []
+    with tempfile.TemporaryDirectory() as d:
+        tdir, edir = _eagle_pair(d, 2, torch.bfloat16, seed=13, base=LLAMA_1B)
+        for dev, mode in (("cuda", "ar"), ("cpu", "ar"), ("cuda", "eagle"), ("cpu", "eagle")):
+            if mode == "ar":
+                llm = LLM(tdir, device=dev, **engine)
+                _record_margins(llm, e_margins)
+            else:
+                # Taps of the 2-layer target (its layers pass the embedding
+                # through, so every tap is the embedding).
+                llm = _eagle_llm(tdir, edir, device=dev, eagle_layers=[0, 1, 1], **engine)
+                _perturb_eagle(llm, EXACT_EAGLE_NOISE, {})
+            outs, m = llm.generate(eprompts, sp, use_tqdm=False)
+            llm.exit()
+            key = f"{dev}_{mode}"
+            e_tokens[key] = [o["token_ids"] for o in outs]
+            lens = m["accepted_suffix_lens_with_recovery"]
+            e_accepted[key] = sum(lens) / len(lens) if lens else None
+            e_hits[key] = sum(m["cache_hits"]) / len(m["cache_hits"]) if m["cache_hits"] else None
+            del llm
+    eagle_equal = {k: toks == e_tokens["cuda_ar"] for k, toks in e_tokens.items()}
+    emit("exact", geometry="Llama-3.2-1B width, 2 layers, + the constructed EAGLE-3 head "
+         f"(noise {EXACT_EAGLE_NOISE}), fp32", K=SPEC_K, async_fan_out=SPEC_F,
+         equal_to_card_ar_of_same_cache=eagle_equal, mean_accepted_suffix_len=e_accepted,
+         cache_hit_rate=e_hits, min_top2_margin=min(e_margins))
+    if not all(eagle_equal.values()):
+        fail(f"exact: EAGLE greedy tokens differ from the card's AR: {eagle_equal}")
     return {"equal": equal, "min_top2_margin": min(margins), "spec_equal": spec_equal,
-            "moe_equal": moe_equal, "moe_launches": moe_launches}
+            "moe_equal": moe_equal, "moe_launches": moe_launches, "eagle_equal": eagle_equal}
 
 
 # ---------------------------------------------------------------------------
@@ -1641,17 +2249,31 @@ KERNEL_ROWS = {
                                 f"{PALLAS}:1231 (_tree_attn_v3_kernel_i8, s8=True: kv_quant int8_mxu)"),
     "grouped_gemm": ("ssd_tpu_torch/csrc/grouped_gemm.cu",
                      "ssd_tpu/models/transformer.py:268-273 (megablox gmm, called by _moe_mlp :164)"),
+    "s8_dot_mma": ("ssd_tpu_torch/csrc/s8_probe.cu",
+                   "bench/s8_probe.py:18 (_kernel_s8, pallas_call :36)"),
+    "s8_dot_dp4a": ("ssd_tpu_torch/csrc/s8_probe.cu",
+                    "bench/s8_probe.py:18 (_kernel_s8, pallas_call :36), on SIMT"),
+    "s8_dot_bf16": ("ssd_tpu_torch/csrc/s8_probe.cu",
+                    "bench/s8_probe.py:25 (_kernel_bf16, pallas_call :36)"),
+    "paged_attention_diag": ("ssd_tpu_torch/csrc/paged_attention.cu (stage variants)",
+                             "bench/kernel_diag.py:39 (_diag_kernel, pallas_call :171)"),
+    "paged_attention_int8_diag": ("ssd_tpu_torch/csrc/paged_attention_int8.cu (stage variants)",
+                                  "bench/kernel_diag.py:39 (_diag_kernel, pallas_call :171) "
+                                  "over the int8 cache"),
 }
 
 
 def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
-                 kvq: dict | None, moe_run: dict | None, exact: dict | None) -> dict:
+                 kvq: dict | None, moe_run: dict | None, eagle: dict | None,
+                 exact: dict | None) -> dict:
     """Launches per path, each read from runs whose counts were zeroed just
     before them: `serve` (AR) and `spec` (SD, SSD) for the fp-cache kernels,
     `kvq` for the int8 ones (its int8_mxu runs for the [s8] entries; the
     int8 prefill counts the runs of both modes), `moe` (Qwen3-30B-A3B AR)
-    for K1, K2 and the grouped GEMM, and `exact`'s 2-layer Qwen3-MoE SD and
-    SSD card runs for the grouped GEMM."""
+    for K1, K2 and the grouped GEMM, `eagle` (Llama-3.1-8B AR, EAGLE SSD over
+    the fp and the int8 cache, the constructed pair's runs), `exact`'s
+    2-layer Qwen3-MoE SD and SSD card runs for the grouped GEMM, and the
+    probes' bench entry points (path "probe") for rows #11 and #12."""
     by_path = {}
 
     def add(name, path, n):
@@ -1675,6 +2297,16 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
     if moe_run:
         for name in ("paged_attention", "flat_prefill_attention", "grouped_gemm"):
             add(name, "moe_ar", moe_run["launches"][name])
+    if eagle:
+        for key, run in eagle["runs"].items():
+            path = ("llama8b_ar" if key.startswith("ar_") else
+                    "eagle_int8" if key.startswith("eagle_int8") else
+                    "eagle_pair" if key.startswith("pair") else "eagle")
+            for name, n in run["launches"].items():
+                if n:
+                    add(name, path, n)
+    for name, n in kern.get("probes", {}).get("launches", {}).items():
+        add(name, "probe", n)
     if exact and "moe_launches" in exact:
         for mode in ("sd", "ssd"):
             add("grouped_gemm", f"moe_{mode}_2layer", exact["moe_launches"][f"cuda_{mode}"]["grouped_gemm"])
@@ -1697,14 +2329,20 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
         for label, table in (("at_verify_shape", kern["at_verify"]),
                              ("at_long_context", kern["long_context"]),
                              ("at_qwen3_moe_geometry", kern["qwen3_moe"]),
+                             ("at_llama31_8b_eagle", kern["llama31_8b_eagle"]),
                              ("at_prefill_down", {"grouped_gemm": gmm["prefill_down"]}),
                              ("at_decode_b8_gate", {"grouped_gemm": gmm["decode_b8_gate"]}),
                              ("at_decode_b8_down", {"grouped_gemm": gmm["decode_b8_down"]})):
             if name in table:
                 entry[label] = {k: table[name][k] for k in
                                 ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        if name == "grouped_gemm":
+        if "library" in tm:
             entry["library"] = tm["library"]
+        if "stages_ms" in tm:
+            entry["stages_ms"] = tm["stages_ms"]
+            entry[f"at_b8_x_{LONG_CTX}"] = {k: tm[f"at_b8_x_{LONG_CTX}"][k] for k in
+                                            ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "stages_ms")}
         out.append(entry)
     return {"kernels": out}
 
@@ -1748,12 +2386,15 @@ def main(argv=None) -> int:
     spec = run("spec", phase_spec)
     kvq = run("kvq", phase_kvq, serve, spec)
     moe_run = run("moe", phase_moe)
+    eagle = run("eagle", phase_eagle)
     exact = run("exact", phase_exact)
     run("profile", phase_profile)
     run("moe_profile", phase_profile, True)
     run("spec_profile", phase_spec_profile)
+    run("eagle_profile", phase_eagle_profile)
     if kern is not None:
-        print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, exact)), flush=True)
+        print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, eagle, exact)),
+              flush=True)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds, phases=phases)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,11 @@ speculation (SSD), both unfused. Differences from the JAX package:
 - `draft` has no default checkpoint: speculate=True needs a draft path;
 - Qwen3-MoE checkpoints are served with a uniform stack only (every layer
   sparse), as the JAX package asserts; a non-uniform one is refused here;
-- the modes not ported yet (fused SD and SSD, EAGLE, ngram, multi-step AR,
-  draft data parallelism, int8 weights) are refused here, and so is a
+- EAGLE-3 (use_eagle) is served in its async form only (draft_async with
+  jit_speculate); its fused sync form (spec_rounds > 1) waits for the fused
+  modes;
+- the modes not ported yet (fused SD and SSD, ngram, multi-step AR, draft
+  data parallelism, int8 weights) are refused here, and so is a
   speculative knob on an engine that does not speculate, where it would be
   ignored.
 """
@@ -47,6 +50,8 @@ class ModelConfig:
     eos_token_id: int | list[int] | None = None
     bos_token_id: int | None = None
     attention_bias: bool = False
+    # EAGLE-3 draft checkpoints carry a reduced LM-head vocabulary.
+    draft_vocab_size: int | None = None
     # Mixture-of-experts (qwen3_moe): every decoder layer is sparse; the
     # router picks num_experts_per_tok of num_experts experts per token.
     num_experts: int = 0
@@ -120,8 +125,13 @@ class Config:
     # Speculative decoding. speculate=True serves sync SD with the `draft`
     # checkpoint; draft_async=True serves async SSD (a draft thread builds
     # the speculation tree while the target verifies). The fused forms
-    # (async_fused, spec_rounds > 1), EAGLE, ngram speculation, multi-step
-    # AR and draft_dp > 1 are not ported yet and are refused.
+    # (async_fused, spec_rounds > 1), ngram speculation, multi-step AR and
+    # draft_dp > 1 are not ported yet and are refused. use_eagle=True serves
+    # an EAGLE-3 draft in async SSD: it is conditioned on the target's
+    # residual stream entering the layers `eagle_layers` (default
+    # [2, L//2, L-3]); `d_model_target` is the target's width and
+    # `tokenizer_path` the target checkpoint the draft borrows its
+    # embeddings from when it ships none (both set by create_draft_config).
     draft_hf_config: ModelConfig | None = None
     speculate: bool = False
     draft: str | None = None
@@ -135,6 +145,9 @@ class Config:
     async_fused: bool = False
     spec_rounds: int = 1
     use_eagle: bool = False
+    eagle_layers: list[int] | None = None
+    d_model_target: int | None = None
+    tokenizer_path: str | None = None
     ngram_speculate: bool = False
     multi_step: int = 1
     draft_dp: int = 1
@@ -154,7 +167,7 @@ class Config:
             raise ValueError(f"unknown kv_quant {self.kv_quant!r} "
                              "(None, 'int8' or 'int8_mxu')")
         unported = {
-            "async_fused": self.async_fused, "use_eagle": self.use_eagle,
+            "async_fused": self.async_fused,
             "ngram_speculate": self.ngram_speculate,
             "multi_step > 1": self.multi_step > 1,
             "spec_rounds > 1": self.spec_rounds > 1,
@@ -173,6 +186,7 @@ class Config:
             "fan_out_list_miss": self.fan_out_list_miss is not None,
             "sampler_x": self.sampler_x is not None,
             "jit_speculate": self.jit_speculate,
+            "use_eagle": self.use_eagle,
         }
         if not self.speculate:
             ignored = [k for k, v in spec_only.items() if v]
@@ -189,6 +203,8 @@ class Config:
         self.max_model_len = min(self.max_model_len, self.hf_config.max_position_embeddings)
         if self.speculate:
             self._derive_speculative()
+        if self.use_eagle:
+            self._derive_eagle()
         if self.eos == -1:
             self.eos = self.hf_config.eos
         # Without chunking, a batch-head prefill must fit one dispatch
@@ -210,7 +226,9 @@ class Config:
             raise ValueError("kvcache_block_size must be >= 2*speculate_k+2")
         self.draft_hf_config = ModelConfig.from_pretrained(self.draft)
         d = self.draft_hf_config
-        if d.model_type != self.hf_config.model_type or d.vocab_size != self.hf_config.vocab_size:
+        # An EAGLE-3 head is written as a llama layer whatever its target.
+        same_family = self.use_eagle or d.model_type == self.hf_config.model_type
+        if not same_family or d.vocab_size != self.hf_config.vocab_size:
             raise ValueError("target and draft must share a model family and vocabulary, "
                              f"got {self.hf_config.model_type}/{self.hf_config.vocab_size} "
                              f"and {d.model_type}/{d.vocab_size}")
@@ -228,9 +246,42 @@ class Config:
                                  "as fan_out_list")
             self.MQ_LEN = sum(self.fan_out_list)
 
+    def _derive_eagle(self):
+        """EAGLE-3 rules and defaults of ssd_tpu/config.py and
+        ssd_tpu/engine/llm_engine.py: the async form needs jit_speculate (a
+        cache miss needs the draft's activations); the draft takes the
+        target's rope and position limit."""
+        if not (self.speculate and self.draft_async):
+            raise NotImplementedError(
+                "use_eagle runs async (speculate=True, draft_async=True); its "
+                "fused sync form (spec_rounds > 1) is not ported to "
+                "ssd_tpu_torch yet")
+        if not self.jit_speculate:
+            raise ValueError("EAGLE requires jit_speculate=True (cache misses "
+                             "need draft activations)")
+        if self.model == self.draft:
+            return  # the draft's own config (create_draft_config)
+        L = self.hf_config.num_hidden_layers
+        if self.eagle_layers is None:
+            self.eagle_layers = [2, L // 2, L - 3]
+        if not all(0 <= t < L for t in self.eagle_layers):
+            raise ValueError(f"eagle_layers {self.eagle_layers} outside the "
+                             f"target's {L} layers")
+        if self.d_model_target is None:
+            self.d_model_target = self.hf_config.hidden_size
+        self.draft_hf_config.rope_theta = self.hf_config.rope_theta
+        self.draft_hf_config.max_position_embeddings = \
+            self.hf_config.max_position_embeddings
+
     def create_draft_config(self) -> "Config":
         """Config of the draft model runner. Unlike the JAX package, which
         gives the draft its own chip and memory share, both runners share one
         card: the draft keeps the target's block count (the engine sizes the
-        two pools together, engine/model_runner.py::kv_block_bytes)."""
-        return replace(self, model=self.draft)
+        two pools together, engine/model_runner.py::kv_block_bytes). An
+        EAGLE draft's model config is the one derived here (the target's
+        rope), and it borrows the target's embeddings when it has none."""
+        if not self.use_eagle:
+            return replace(self, model=self.draft)
+        cfg = replace(self, model=self.draft, tokenizer_path=self.model)
+        cfg.hf_config = self.draft_hf_config
+        return cfg

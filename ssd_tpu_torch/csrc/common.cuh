@@ -14,6 +14,10 @@ namespace ssd {
 
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
+// Stage variants of the paged kernels (bench probes): the production kernel,
+// its page loads alone, its math alone on resident rows, neither.
+enum Stage : int { kStageFull = 0, kStageLoads = 1, kStageMath = 2, kStageEmpty = 3 };
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);

@@ -21,6 +21,16 @@
 // softmax in registers; the warps merge at the end. There is no split over
 // the context and no cp.async/TMA pipelining yet: at small batch fewer blocks
 // than SMs run, which is the first thing a faster version changes.
+//
+// Stage variants (template STAGE, ssd_paged_attention_diag): the counterpart
+// of bench/kernel_diag.py::_diag_kernel, which splits the TPU kernel's time
+// into its stages. kStageFull is the production kernel (the only one
+// ssd_paged_attention instantiates); kStageLoads walks the pages and loads
+// every K and V row but does no attention math (the loaded values' bits are
+// XORed into eight independent words, which keeps the loads alive without a
+// serial chain of dependent adds); kStageMath does all the math on K and V
+// rows read from shared memory (no page table, no page loads); kStageEmpty
+// does neither (the grid, the query load and the output write).
 #include "common.cuh"
 
 namespace ssd {
@@ -29,7 +39,7 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
-template <typename T, int HD, int ROWS>
+template <typename T, int HD, int ROWS, int STAGE = kStageFull>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                            const int* __restrict__ block_tables,
@@ -38,6 +48,8 @@ __global__ void __launch_bounds__(kThreads)
                            int Q, int Hq, int Hkv, long long S, int M, int bs,
                            float scale) {
   constexpr int DPL = HD / 32;  // output dims per lane
+  constexpr bool kLoad = STAGE == kStageFull || STAGE == kStageLoads;
+  constexpr bool kMath = STAGE == kStageFull || STAGE == kStageMath;
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int G = Hq / Hkv, R = Q * G;
@@ -81,12 +93,13 @@ __global__ void __launch_bounds__(kThreads)
       for (int k = 0; k < DPL; ++k) acc[rr][k] = 0.f;
     }
 
-    for (int t0 = warp * 32; t0 < n_pos; t0 += kThreads) {
+    unsigned chk[8] = {};  // kStageLoads: the loaded values' bits, XORed
+    for (int t0 = warp * 32; (kLoad || kMath) && t0 < n_pos; t0 += kThreads) {
       const int p = t0 + lane;
       const bool live = p < n_pos;
       int slot = 0;
       if (live) {
-        const int page = max(table[p / bs], 0);
+        const int page = kLoad ? max(table[p / bs], 0) : 0;
         slot = page * bs + p % bs;
       }
       float s[ROWS];
@@ -97,7 +110,19 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int d0 = 0; d0 < HD; d0 += 8) {
           float k8[8];
-          load8(krow + d0, k8);
+          if constexpr (kLoad) {
+            load8(krow + d0, k8);
+          } else {
+            const float4 ka = *reinterpret_cast<const float4*>(&q_s[lane % ROWS][d0]);
+            const float4 kb = *reinterpret_cast<const float4*>(&q_s[lane % ROWS][d0 + 4]);
+            k8[0] = ka.x; k8[1] = ka.y; k8[2] = ka.z; k8[3] = ka.w;
+            k8[4] = kb.x; k8[5] = kb.y; k8[6] = kb.z; k8[7] = kb.w;
+          }
+          if constexpr (!kMath) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) chk[j] ^= __float_as_uint(k8[j]);
+            continue;
+          }
 #pragma unroll
           for (int rr = 0; rr < ROWS; ++rr) {
             const float4 qa = *reinterpret_cast<const float4*>(&q_s[rr][d0]);
@@ -115,7 +140,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       // Online softmax over this warp's 32 positions, one row at a time.
 #pragma unroll
-      for (int rr = 0; rr < ROWS; ++rr) {
+      for (int rr = 0; rr < ROWS && kMath; ++rr) {
         const bool ok = live && p <= row_limit[rr];
         const float sc = ok ? s[rr] * scale : -CUDART_INF_F;
         const float m_new = fmaxf(m[rr], warp_max(sc));
@@ -133,7 +158,17 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 32; ++j) {
         const int slot_j = __shfl_sync(0xffffffffu, slot, j);
         float v[DPL];
-        load_n<DPL>(kv_h + (size_t)slot_j * (2 * HD) + HD + lane * DPL, v);
+        if constexpr (kLoad) {
+          load_n<DPL>(kv_h + (size_t)slot_j * (2 * HD) + HD + lane * DPL, v);
+        } else {
+#pragma unroll
+          for (int k = 0; k < DPL; ++k) v[k] = q_s[j % ROWS][lane * DPL + k];
+        }
+        if constexpr (!kMath) {
+#pragma unroll
+          for (int k = 0; k < DPL; ++k) chk[k % 8] ^= __float_as_uint(v[k]);
+          continue;
+        }
 #pragma unroll
         for (int rr = 0; rr < ROWS; ++rr) {
           const float pj = __shfl_sync(0xffffffffu, s[rr], j);
@@ -143,6 +178,14 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
+    if constexpr (STAGE == kStageLoads) {  // the folded bits reach the output
+      unsigned c = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) c ^= chk[j];
+      m[0] = 0.f;
+      l[0] = 1.f;
+      acc[0][0] = static_cast<float>(c >> 8);
+    }
     // Merge the warps' partial softmax states.
 #pragma unroll
     for (int rr = 0; rr < ROWS; ++rr) {
@@ -177,22 +220,38 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int STAGE = kStageFull>
 cudaError_t launch(const void* q, const void* kv, const int* bt,
                    const int* ctx, const int* qeff, void* out, int B, int Q,
                    int Hq, int Hkv, long long S, int M, int bs, float scale,
                    cudaStream_t stream) {
   const dim3 grid(Hkv, B);
   if (Q * (Hq / Hkv) <= 4) {
-    paged_attention_kernel<T, HD, 4><<<grid, kThreads, 0, stream>>>(
+    paged_attention_kernel<T, HD, 4, STAGE><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(kv), bt, ctx, qeff,
         static_cast<T*>(out), Q, Hq, Hkv, S, M, bs, scale);
   } else {
-    paged_attention_kernel<T, HD, 8><<<grid, kThreads, 0, stream>>>(
+    paged_attention_kernel<T, HD, 8, STAGE><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(kv), bt, ctx, qeff,
         static_cast<T*>(out), Q, Hq, Hkv, S, M, bs, scale);
   }
   return cudaGetLastError();
+}
+
+template <int STAGE>
+cudaError_t dispatch(int dtype, const void* q, const void* kv, const int* bt,
+                     const int* ctx, const int* qeff, void* out, int B, int Q,
+                     int Hq, int Hkv, int hd, long long S, int M, int bs,
+                     float scale, cudaStream_t st) {
+  if (dtype == kFloat32 && hd == 64)
+    return launch<float, 64, STAGE>(q, kv, bt, ctx, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
+  if (dtype == kFloat32 && hd == 128)
+    return launch<float, 128, STAGE>(q, kv, bt, ctx, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
+  if (dtype == kBFloat16 && hd == 64)
+    return launch<__nv_bfloat16, 64, STAGE>(q, kv, bt, ctx, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
+  if (dtype == kBFloat16 && hd == 128)
+    return launch<__nv_bfloat16, 128, STAGE>(q, kv, bt, ctx, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -207,15 +266,31 @@ extern "C" int ssd_paged_attention(int dtype, const void* q, const void* kv,
   if (B == 0 || Q == 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || M <= 0 || bs <= 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using ssd::launch;
-  if (dtype == ssd::kFloat32 && hd == 64)
-    return launch<float, 64>(q, kv, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
-  if (dtype == ssd::kFloat32 && hd == 128)
-    return launch<float, 128>(q, kv, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
-  if (dtype == ssd::kBFloat16 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, kv, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
-  if (dtype == ssd::kBFloat16 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, kv, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
+  return ssd::dispatch<ssd::kStageFull>(dtype, q, kv, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, hd, S, M, bs, scale, st);
+}
+
+// The stage variants (bench probe; see the header). stage: 0 full, 1 loads,
+// 2 math, 3 empty.
+extern "C" int ssd_paged_attention_diag(int stage, int dtype, const void* q,
+                                        const void* kv, const int* block_tables,
+                                        const int* context_lens, const int* qeff,
+                                        void* out, int B, int Q, int Hq, int Hkv,
+                                        int hd, long long S, int M, int bs,
+                                        float scale, void* stream) {
+  if (B == 0 || Q == 0) return cudaSuccess;
+  if (Hkv <= 0 || Hq % Hkv != 0 || M <= 0 || bs <= 0) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using ssd::dispatch;
+  switch (stage) {
+    case ssd::kStageFull:
+      return dispatch<ssd::kStageFull>(dtype, q, kv, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, hd, S, M, bs, scale, st);
+    case ssd::kStageLoads:
+      return dispatch<ssd::kStageLoads>(dtype, q, kv, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, hd, S, M, bs, scale, st);
+    case ssd::kStageMath:
+      return dispatch<ssd::kStageMath>(dtype, q, kv, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, hd, S, M, bs, scale, st);
+    case ssd::kStageEmpty:
+      return dispatch<ssd::kStageEmpty>(dtype, q, kv, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, hd, S, M, bs, scale, st);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -45,6 +45,13 @@
 // output slice per lane for P.V; each warp keeps an online softmax in fp32
 // registers and the warps merge at the end. No split over the context and
 // no tensor cores (mma.sync s8 / wgmma) yet.
+//
+// Stage variants of the "int8" mode (template STAGE, ssd_paged_attention_int8_diag),
+// as in csrc/paged_attention.cu: kStageLoads walks the pages and loads every
+// K row, V row and scale without the math (their bits XORed into eight
+// independent words); kStageMath does the math on rows
+// and scales that stay resident (no page loads); kStageEmpty neither. The
+// production entry instantiates kStageFull only.
 #include "common.cuh"
 
 namespace ssd {
@@ -53,7 +60,7 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
-template <typename T, int HD, int ROWS, bool S8>
+template <typename T, int HD, int ROWS, bool S8, int STAGE = kStageFull>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_int8_kernel(const T* __restrict__ q,
                                 const int8_t* __restrict__ kv,
@@ -65,6 +72,9 @@ __global__ void __launch_bounds__(kThreads)
                                 long long S, int M, int bs, float scale) {
   constexpr int DPL = HD / 32;  // output dims per lane
   constexpr int W = HD / 4;     // 32-bit words of one K row
+  constexpr bool kLoad = STAGE == kStageFull || STAGE == kStageLoads;
+  constexpr bool kMath = STAGE == kStageFull || STAGE == kStageMath;
+  static_assert(STAGE == kStageFull || !S8, "stage variants are of the int8 mode");
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int G = Hq / Hkv, R = Q * G;
@@ -128,17 +138,18 @@ __global__ void __launch_bounds__(kThreads)
       for (int k = 0; k < DPL; ++k) acc[rr][k] = 0.f;
     }
 
-    for (int t0 = warp * 32; t0 < n_pos; t0 += kThreads) {
+    unsigned chk[8] = {};  // kStageLoads: the loaded values' bits, XORed
+    for (int t0 = warp * 32; (kLoad || kMath) && t0 < n_pos; t0 += kThreads) {
       const int p = t0 + lane;
       const bool live = p < n_pos;
       int slot = 0;
       if (live) {
-        const int page = max(table[p / bs], 0);
+        const int page = kLoad ? max(table[p / bs], 0) : 0;
         slot = page * bs + p % bs;
       }
       // Dead lanes read slot 0 (valid memory) and are masked below.
-      const float sk = sk_h[slot];
-      const float sv = sk_h[S + slot];
+      const float sk = kLoad ? sk_h[slot] : q_s[0][lane];
+      const float sv = kLoad ? sk_h[S + slot] : q_s[1 % ROWS][lane];
       const int8_t* krow = kv_h + (size_t)slot * (2 * HD);
       float s[ROWS];
       if constexpr (S8) {
@@ -169,7 +180,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int d0 = 0; d0 < HD; d0 += 8) {
             float k8[8];
-            load8(krow + d0, k8);
+            if constexpr (kLoad) {
+              load8(krow + d0, k8);
+            } else {
+#pragma unroll
+              for (int j = 0; j < 8; ++j) k8[j] = q_s[lane % ROWS][d0 + j];
+            }
+            if constexpr (!kMath) {
+#pragma unroll
+              for (int j = 0; j < 8; ++j) chk[j] ^= __float_as_uint(k8[j]);
+              continue;
+            }
 #pragma unroll
             for (int rr = 0; rr < ROWS; ++rr) {
               const float4 qa = *reinterpret_cast<const float4*>(&q_s[rr][d0]);
@@ -235,9 +256,13 @@ __global__ void __launch_bounds__(kThreads)
           for (int k = 0; k < DPL; ++k)
             acc[rr][k] = fmaf(static_cast<float>(t[rr][k]), f[rr], acc[rr][k]);
       } else {
+        if constexpr (!kMath) {
+          chk[0] ^= __float_as_uint(sk);
+          chk[1] ^= __float_as_uint(sv);
+        }
         // Online softmax, one row at a time; the P.V weight is p * sv.
 #pragma unroll
-        for (int rr = 0; rr < ROWS; ++rr) {
+        for (int rr = 0; rr < ROWS && kMath; ++rr) {
           const bool ok = live && p <= row_limit[rr];
           const float sc = ok ? s[rr] : -CUDART_INF_F;
           const float m_new = fmaxf(m[rr], warp_max(sc));
@@ -253,7 +278,17 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < 32; ++j) {
           const int slot_j = __shfl_sync(0xffffffffu, slot, j);
           int v[DPL];
-          load_i8<DPL>(kv_h + (size_t)slot_j * (2 * HD) + HD + lane * DPL, v);
+          if constexpr (kLoad) {
+            load_i8<DPL>(kv_h + (size_t)slot_j * (2 * HD) + HD + lane * DPL, v);
+          } else {
+#pragma unroll
+            for (int k = 0; k < DPL; ++k) v[k] = static_cast<int>(q_s[j % ROWS][lane * DPL + k]);
+          }
+          if constexpr (!kMath) {
+#pragma unroll
+            for (int k = 0; k < DPL; ++k) chk[k % 8] ^= static_cast<unsigned>(v[k]);
+            continue;
+          }
 #pragma unroll
           for (int rr = 0; rr < ROWS; ++rr) {
             const float pj = __shfl_sync(0xffffffffu, s[rr], j);
@@ -265,6 +300,14 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
+    if constexpr (STAGE == kStageLoads) {  // the folded bits reach the output
+      unsigned c = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) c ^= chk[j];
+      m[0] = 0.f;
+      l[0] = 1.f;
+      acc[0][0] = static_cast<float>(c >> 8);
+    }
     // Merge the warps' partial softmax states.
 #pragma unroll
     for (int rr = 0; rr < ROWS; ++rr) {
@@ -299,7 +342,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int HD, bool S8>
+template <typename T, int HD, bool S8, int STAGE = kStageFull>
 cudaError_t launch(const void* q, const void* kv, const float* scales,
                    const int* bt, const int* ctx, const int* qeff, void* out,
                    int B, int Q, int Hq, int Hkv, long long S, int M, int bs,
@@ -307,31 +350,31 @@ cudaError_t launch(const void* q, const void* kv, const float* scales,
   const dim3 grid(Hkv, B);
   const auto* kv8 = static_cast<const int8_t*>(kv);
   if (Q * (Hq / Hkv) <= 4) {
-    paged_attention_int8_kernel<T, HD, 4, S8><<<grid, kThreads, 0, stream>>>(
+    paged_attention_int8_kernel<T, HD, 4, S8, STAGE><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(q), kv8, scales, bt, ctx, qeff,
         static_cast<T*>(out), Q, Hq, Hkv, S, M, bs, scale);
   } else {
-    paged_attention_int8_kernel<T, HD, 8, S8><<<grid, kThreads, 0, stream>>>(
+    paged_attention_int8_kernel<T, HD, 8, S8, STAGE><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(q), kv8, scales, bt, ctx, qeff,
         static_cast<T*>(out), Q, Hq, Hkv, S, M, bs, scale);
   }
   return cudaGetLastError();
 }
 
-template <bool S8>
+template <bool S8, int STAGE = kStageFull>
 cudaError_t dispatch(int dtype, const void* q, const void* kv,
                      const float* scales, const int* bt, const int* ctx,
                      const int* qeff, void* out, int B, int Q, int Hq, int Hkv,
                      int hd, long long S, int M, int bs, float scale,
                      cudaStream_t st) {
   if (dtype == kFloat32 && hd == 64)
-    return launch<float, 64, S8>(q, kv, scales, bt, ctx, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
+    return launch<float, 64, S8, STAGE>(q, kv, scales, bt, ctx, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
   if (dtype == kFloat32 && hd == 128)
-    return launch<float, 128, S8>(q, kv, scales, bt, ctx, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
+    return launch<float, 128, S8, STAGE>(q, kv, scales, bt, ctx, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
   if (dtype == kBFloat16 && hd == 64)
-    return launch<__nv_bfloat16, 64, S8>(q, kv, scales, bt, ctx, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
+    return launch<__nv_bfloat16, 64, S8, STAGE>(q, kv, scales, bt, ctx, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
   if (dtype == kBFloat16 && hd == 128)
-    return launch<__nv_bfloat16, 128, S8>(q, kv, scales, bt, ctx, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
+    return launch<__nv_bfloat16, 128, S8, STAGE>(q, kv, scales, bt, ctx, qeff, out, B, Q, Hq, Hkv, S, M, bs, scale, st);
   return cudaErrorInvalidValue;
 }
 
@@ -351,4 +394,31 @@ extern "C" int ssd_paged_attention_int8(int dtype, int s8, const void* q,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return s8 ? ssd::dispatch<true>(dtype, q, kv, scales, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, hd, S, M, bs, scale, st)
             : ssd::dispatch<false>(dtype, q, kv, scales, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, hd, S, M, bs, scale, st);
+}
+
+// The stage variants of the "int8" mode (bench probe; see the header).
+// stage: 0 full, 1 loads, 2 math, 3 empty.
+extern "C" int ssd_paged_attention_int8_diag(int stage, int dtype, const void* q,
+                                             const void* kv, const float* scales,
+                                             const int* block_tables,
+                                             const int* context_lens,
+                                             const int* qeff, void* out, int B,
+                                             int Q, int Hq, int Hkv, int hd,
+                                             long long S, int M, int bs,
+                                             float scale, void* stream) {
+  if (B == 0 || Q == 0) return cudaSuccess;
+  if (Hkv <= 0 || Hq % Hkv != 0 || M <= 0 || bs <= 0) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using ssd::dispatch;
+  switch (stage) {
+    case ssd::kStageFull:
+      return dispatch<false, ssd::kStageFull>(dtype, q, kv, scales, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, hd, S, M, bs, scale, st);
+    case ssd::kStageLoads:
+      return dispatch<false, ssd::kStageLoads>(dtype, q, kv, scales, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, hd, S, M, bs, scale, st);
+    case ssd::kStageMath:
+      return dispatch<false, ssd::kStageMath>(dtype, q, kv, scales, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, hd, S, M, bs, scale, st);
+    case ssd::kStageEmpty:
+      return dispatch<false, ssd::kStageEmpty>(dtype, q, kv, scales, block_tables, context_lens, qeff, out, B, Q, Hq, Hkv, hd, S, M, bs, scale, st);
+  }
+  return cudaErrorInvalidValue;
 }

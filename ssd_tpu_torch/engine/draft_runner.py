@@ -159,6 +159,13 @@ class SpecRequest:
     temperatures: np.ndarray    # [B] float32 draft temperatures
     top_ps: np.ndarray | None = None   # [B] float32 (Config.enable_top_sampling)
     top_ks: np.ndarray | None = None   # [B] int32
+    # EAGLE-3 conditioning payload (the taps: fp32 on the target's device,
+    # made on its stream before acts_ready):
+    recovery_acts: torch.Tensor | None = None   # [B, n_taps*D_target]
+    extend_counts: np.ndarray | None = None     # [B] int64
+    extend_acts: torch.Tensor | None = None     # [B, K, n_taps*D_target]
+    extend_token_ids: np.ndarray | None = None  # [B, K] int64
+    acts_ready: torch.cuda.Event | None = None  # (on a card)
 
 
 @dataclass
@@ -169,6 +176,7 @@ class SpecResponse:
     tokens: np.ndarray          # [B, K] int64
     logits_q: torch.Tensor      # [B, K, V], made on the draft's stream
     ready: torch.cuda.Event | None = None  # recorded after logits_q (on a card)
+    activations: torch.Tensor | None = None  # [B, K, D_draft] prenorms (EAGLE)
 
 
 class DraftRunner(ModelRunner):
@@ -191,6 +199,7 @@ class DraftRunner(ModelRunner):
         self.tree_cache_keys = np.zeros((0, 3), dtype=np.int64)
         self.tree_cache_tokens = None   # np [N, K]
         self.tree_cache_logits = None   # device [N, K, V]
+        self.tree_cache_acts = None     # device [N, K, D] (EAGLE only)
 
     @torch.no_grad()
     def prefill_from_payload(self, input_id_lists: list[list[int]],
@@ -216,26 +225,37 @@ class DraftRunner(ModelRunner):
 
         all_hit = bool(hits.all()) and self.tree_cache_keys.shape[0] > 0
         if self.jit_speculate and not all_hit:
-            # Any miss: recompute every row with real logits (K draft decodes
-            # and the K-th token's KV write, sampled in tree mode); cache_hits
+            # Any miss: recompute every row with real logits; cache_hits
             # keeps the match result for metrics and fan-out selection.
-            tokens, logits_q = self.run_chain(
-                req.cache_keys[:, 2].copy(), (req.num_tokens - 1).astype(np.int32),
-                req.block_tables, req.temperatures, K, extra_write=True,
-                top_ps=req.top_ps, top_ks=req.top_ks, sampler_x=self.sampler_x,
-                fan_out=self.F, tree_sampling=True)
-            return SpecResponse(hits, tokens.astype(np.int64), logits_q)
+            tokens, logits_q, acts = self._jit_chain(req)
+            return SpecResponse(hits, tokens.astype(np.int64), logits_q,
+                                activations=acts)
 
         # Miss rows: random valid tokens and logits verify() never consults
         # (greedy acceptance there; ratio rows are masked by cache_hits).
         tokens = self._rng.integers(0, V, size=(B, K), dtype=np.int64)
+        acts = None
         if hits.any():
             cached = self.tree_cache_tokens[idx]
             tokens = np.where(hits[:, None].astype(bool), cached, tokens)
-            logits_q = self.tree_cache_logits[self._tensor(idx)]
+            idx_t = self._tensor(idx)
+            logits_q = self.tree_cache_logits[idx_t]
+            if self.tree_cache_acts is not None:   # EAGLE, all rows hit
+                acts = self.tree_cache_acts[idx_t]
         else:
             logits_q = torch.zeros((B, K, V), dtype=torch.float32, device=self.device)
-        return SpecResponse(hits, tokens, logits_q)
+        return SpecResponse(hits, tokens, logits_q, activations=acts)
+
+    def _jit_chain(self, req: SpecRequest):
+        """The miss path: K draft decodes and the K-th token's KV write,
+        sampled in tree mode. Returns (tokens [B, K] numpy, logits
+        [B, K, V], None: a plain draft has no activations)."""
+        tokens, logits_q = self.run_chain(
+            req.cache_keys[:, 2].copy(), (req.num_tokens - 1).astype(np.int32),
+            req.block_tables, req.temperatures, self.K, extra_write=True,
+            top_ps=req.top_ps, top_ks=req.top_ks, sampler_x=self.sampler_x,
+            fan_out=self.F, tree_sampling=True)
+        return tokens, logits_q, None
 
     @torch.no_grad()
     def build_tree(self, req: SpecRequest, resp: SpecResponse):
@@ -274,7 +294,12 @@ class DraftServer:
     response queue stand in for the reference's separate draft process."""
 
     def __init__(self, draft_cfg: Config, init_random: bool = False):
-        self.runner = DraftRunner(draft_cfg, init_random=init_random)
+        if draft_cfg.use_eagle:
+            from ssd_tpu_torch.engine.eagle_runner import EagleDraftRunner
+
+            self.runner = EagleDraftRunner(draft_cfg, init_random=init_random)
+        else:
+            self.runner = DraftRunner(draft_cfg, init_random=init_random)
         dev = self.runner.device
         self.stream = None
         if dev.type == "cuda":
@@ -303,9 +328,13 @@ class DraftServer:
                     continue
                 try:
                     if cmd == "prefill":
-                        self.runner.prefill_from_payload(*payload)
+                        args, ready = payload
+                        self._receive(ready, args[2:])
+                        self.runner.prefill_from_payload(*args)
                     elif cmd == "spec":
                         t0 = perf_counter()
+                        self._receive(payload.acts_ready,
+                                      (payload.recovery_acts, payload.extend_acts))
                         resp = self.runner.service(payload)
                         if self.stream is not None:
                             resp.ready = torch.cuda.Event()
@@ -325,10 +354,37 @@ class DraftServer:
                     self._resp_q.put(e)
                     break
 
-    def prefill(self, input_id_lists: list[list[int]], block_tables: np.ndarray):
+    def handoff(self) -> torch.cuda.Event | None:
+        """An event recorded on the caller's (the target's) stream after the
+        tensors it hands to the draft; None on the CPU."""
+        if self.stream is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.runner.device))
+        return ev
+
+    def _receive(self, ready, tensors):
+        """Draft thread: the draft's stream waits for tensors the target
+        made, and marks them as used by it, so the caching allocator cannot
+        hand their memory back to the target while the draft reads them."""
+        if ready is None:
+            return
+        self.stream.wait_event(ready)
+        for t in tensors:
+            for x in (t if isinstance(t, list) else [t]):
+                if x is not None:
+                    x.record_stream(self.stream)
+
+    def prefill(self, input_id_lists: list[list[int]], block_tables: np.ndarray,
+                acts_list: list[torch.Tensor] | None = None):
+        """Queue the draft prefill; an EAGLE draft takes the target's
+        per-sequence taps (tensors on the target's device)."""
         if self._dead:
             self._raise_dead()
-        self._req_q.put(("prefill", (input_id_lists, block_tables)))
+        args = (input_id_lists, block_tables)
+        if acts_list is not None:
+            args += (acts_list,)
+        self._req_q.put(("prefill", (args, self.handoff() if acts_list is not None else None)))
 
     def _raise_dead(self):
         try:

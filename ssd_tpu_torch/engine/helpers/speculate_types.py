@@ -10,6 +10,8 @@ from abc import ABC, abstractmethod
 from dataclasses import dataclass
 from typing import Any
 
+import torch
+
 
 @dataclass
 class SpeculateResult:
@@ -22,7 +24,9 @@ class SpeculateResult:
 class VerifyResult:
     new_suffixes: list[list[int]]
     recovery_tokens: list[int]
-    eagle_acts: Any = None  # [B, K+1, 3*D_target] target activations
+    # EAGLE target taps on the target's device: the verify's [B, K+1,
+    # n_taps*D_target], or the prefill's per-sequence [n_i, n_taps*D_target].
+    eagle_acts: torch.Tensor | list[torch.Tensor] | None = None
 
 
 class SpeculatorBase(ABC):

@@ -4,7 +4,8 @@ Counterpart of ssd_tpu/engine/llm_engine.py: the same module-global METRICS
 dict with the same keys, `add_request`, `step`, `generate`, `abort_request`
 and `exit`, serving AR, sync SD (a draft ModelRunner on the target's thread)
 and async SSD (a DraftServer thread on its own CUDA stream of the same
-card). The warm-up of compiled shape buckets has no counterpart (PyTorch
+card), with a plain or an EAGLE-3 draft (Config.use_eagle; the target's KV
+pool is sized with the EAGLE head's bytes). The warm-up of compiled shape buckets has no counterpart (PyTorch
 runs eagerly, so there is nothing to pre-compile).
 """
 
@@ -186,7 +187,8 @@ class LLMEngine:
         if config.draft_async:
             from ssd_tpu_torch.engine.speculator_async import SpeculatorAsync
 
-            speculator = SpeculatorAsync(config.speculate_k, self.draft_server)
+            speculator = SpeculatorAsync(config.speculate_k, self.draft_server,
+                                         eagle=config.use_eagle)
         else:
             from ssd_tpu_torch.engine.speculator_sync import SpeculatorSync
 
@@ -196,7 +198,7 @@ class LLMEngine:
                             async_fan_out=config.async_fan_out,
                             jit_speculate=config.jit_speculate, metrics=METRICS)
         return SpecDecodeStep(self.scheduler, speculator, verifier,
-                              async_spec=config.draft_async)
+                              async_spec=config.draft_async, eagle=config.use_eagle)
 
     def log_metrics(self):
         if METRICS["prefill_total_time"] > 0:

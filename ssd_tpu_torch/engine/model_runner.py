@@ -16,8 +16,12 @@ Counterpart of ssd_tpu/engine/model_runner.py:
 - host input prep stays in numpy; the JAX package's packed int32 payloads (a
   TPU transfer workaround) are not ported, each input is its own tensor.
 A runner built with is_draft=True reads the sequences' draft block tables.
-Not ported yet: the grouped prefill (`batched_prefill_step`; prefill always
-takes the flat path), CUDA-graph capture.
+The target of an EAGLE engine taps its residual stream (Config.eagle_layers)
+in the prefill and the verify. The JAX package prefills EAGLE batches through
+its grouped, power-of-two padded prefill because it needs per-sequence
+activation rows; the flat layout has them directly (token t of sequence i is
+row off_i + t), so every prefill here is flat. Not ported yet: CUDA-graph
+capture.
 """
 
 from __future__ import annotations
@@ -84,9 +88,11 @@ def flat_prefill_step(
     *,
     arch: Arch,
     block_size: int,
+    eagle_layers: tuple[int, ...] | None = None,
 ):
     """Mixed-length prefill as one forward. Returns (tokens [B], logits
-    [B, V])."""
+    [B, V]), and with eagle_layers the taps [T, n_taps * D] as a third
+    element."""
     scale = arch.head_dim ** -0.5
 
     def attn_call(li, q, k, v):
@@ -95,9 +101,11 @@ def flat_prefill_step(
         return att.flat_prefill_attention(q, kv_layer, flat_pages, row_lo,
                                           row_hi, block_size, scale)
 
-    hidden = forward_hidden(params, input_ids, positions, attn_call, arch)
+    out = forward_hidden(params, input_ids, positions, attn_call, arch, eagle_layers)
+    hidden, acts = out if eagle_layers else (out, None)
     logits = compute_logits(params, hidden, arch, gather_idx=gather_idx)
-    return sample(logits, temperatures, generator, top_ps, top_ks), logits
+    tokens = sample(logits, temperatures, generator, top_ps, top_ks)
+    return (tokens, logits, acts) if eagle_layers else (tokens, logits)
 
 
 def decode_forward(
@@ -114,10 +122,12 @@ def decode_forward(
     block_size: int,
     q_len: int,
     s8: bool = False,
-) -> torch.Tensor:
+    eagle_layers: tuple[int, ...] | None = None,
+):
     """Batched forward of q_len queries per sequence; query i of sequence b
     attends positions up to context_lens[b] - q_len + i. Returns logits
-    [B*q_len, V]."""
+    [B*q_len, V], or (logits, taps [B*q_len, n_taps * D]) with
+    eagle_layers."""
     B = block_tables.shape[0]
     scale = arch.head_dim ** -0.5
     qeff = torch.full((B,), q_len, dtype=torch.int32, device=block_tables.device)
@@ -130,8 +140,10 @@ def decode_forward(
                                 block_size, scale, s8=s8)
         return o.reshape(B * q_len, arch.num_heads, arch.head_dim)
 
-    hidden = forward_hidden(params, input_ids, positions, attn_call, arch)
-    return compute_logits(params, hidden, arch)
+    out = forward_hidden(params, input_ids, positions, attn_call, arch, eagle_layers)
+    if eagle_layers:
+        return compute_logits(params, out[0], arch), out[1]
+    return compute_logits(params, out, arch)
 
 
 def decode_step(
@@ -223,7 +235,9 @@ class ModelRunner:
         self.is_draft = is_draft
         self.device = resolve_device(config.device)
         self.hf_config = config.hf_config
-        self.arch = Arch.from_model_config(self.hf_config)
+        self.arch = self._make_arch()
+        self.eagle_layers = (tuple(config.eagle_layers)
+                             if config.use_eagle and not is_draft else None)
         self.block_size = config.kvcache_block_size
         self.max_blocks = config.max_blocks
         self.dtype = _TORCH_DTYPES[config.dtype]
@@ -255,6 +269,9 @@ class ModelRunner:
                 torch.full((a.num_layers, a.num_kv_heads, 2, shape[2]), 1e-10,
                            dtype=torch.float32, device=self.device))
 
+    def _make_arch(self):
+        return Arch.from_model_config(self.hf_config)
+
     def _make_params(self, init_random: bool) -> dict:
         if init_random:
             return init_params(self.arch, self.config.seed, self.dtype, self.device)
@@ -279,7 +296,14 @@ class ModelRunner:
             return max(64, cfg.max_num_seqs * cfg.max_blocks * 2)
         block_bytes = kv_block_bytes(self.arch, self.block_size, self.dtype, self.kv_quant)
         reserve = 0
-        if partner is not None:
+        if partner is not None and cfg.use_eagle:
+            from ssd_tpu_torch.models.eagle3 import EagleArch, eagle_param_bytes
+
+            d_arch = EagleArch.from_model_config(partner, cfg.d_model_target,
+                                                 len(cfg.eagle_layers))
+            block_bytes += kv_block_bytes(d_arch, self.block_size, self.dtype, self.kv_quant)
+            reserve = eagle_param_bytes(d_arch, self.dtype)
+        elif partner is not None:
             d_arch = Arch.from_model_config(partner)
             block_bytes += kv_block_bytes(d_arch, self.block_size, self.dtype, self.kv_quant)
             reserve = param_bytes(d_arch, self.dtype)
@@ -337,30 +361,47 @@ class ModelRunner:
     # --- phases ---
 
     @torch.no_grad()
-    def run_prefill(self, seqs: list[Sequence]):
+    def run_prefill(self, seqs: list[Sequence], return_acts: bool = False):
         """One flat-packed forward for the whole (mixed-length, possibly
         prefix-cached or chunked) prefill batch. Intra-batch prefix sharing
         is safe: every layer stores all sequences' KV before it attends.
-        Returns (first sampled tokens [B], last-token logits [B, V])."""
+        Returns (first sampled tokens [B], last-token logits [B, V]); with
+        return_acts also each sequence's EAGLE taps, [n_new_i, n_taps * D]
+        views of the flat rows on the device (the JAX package's
+        _run_prefill_group rows)."""
         bt_rows = self._block_table_array(seqs)
         rows = []
         for i, seq in enumerate(seqs):
+            cached = seq.num_draft_cached_tokens if self.is_draft else seq.num_cached_tokens
+            if self.eagle_layers and seq.prefill_chunk is None:
+                # The draft is conditioned on every prompt token's taps, so
+                # a prefix-cached span is recomputed (rewriting its KV is
+                # idempotent). A partial chunk only writes KV forward; the
+                # last prefill of a chunked prompt recomputes it whole.
+                cached = 0
             # A fully cached prompt recomputes its last token, so real
             # last-token logits exist to sample the first output from.
-            cached = seq.num_draft_cached_tokens if self.is_draft else seq.num_cached_tokens
             cached = min(cached, seq.num_tokens - 1)
             n_new = seq.num_tokens - cached
             if seq.prefill_chunk is not None:
                 n_new = min(n_new, seq.prefill_chunk)
             rows.append((seq.token_ids, bt_rows[i], cached, n_new))
         temps, top_ps, top_ks = self._sampling_args(seqs)
-        tokens, logits = self._flat_prefill(rows, temps, top_ps, top_ks)
+        out = self._flat_prefill(rows, temps, top_ps, top_ks)
+        if not self.eagle_layers:
+            return out[0].tolist(), out[1]
+        tokens, logits, acts = out
+        if return_acts:
+            offs = np.cumsum([0] + [r[3] for r in rows])
+            return tokens.tolist(), logits, [acts[offs[i]:offs[i + 1]]
+                                             for i in range(len(rows))]
         return tokens.tolist(), logits
 
-    def _flat_prefill(self, rows, temps, top_ps=None, top_ks=None):
-        """flat_prefill_step over rows of (token_ids, block-table row, cached
-        tokens, new tokens): sequence i's new tokens sit at positions
-        [cached, cached + n_new) and attend its own pages up to themselves."""
+    def _flat_inputs(self, rows):
+        """Flat-prefill inputs for rows of (token_ids, block-table row,
+        cached tokens, new tokens): sequence i's new tokens sit at positions
+        [cached, cached + n_new) and attend its own pages up to themselves.
+        Returns a dict of device tensors (flat_prefill_step's arguments)."""
         bs = self.block_size
         n_new_list = [r[3] for r in rows]
         pages_per = [(r[2] + r[3] + bs - 1) // bs for r in rows]
@@ -387,14 +428,20 @@ class ModelRunner:
             gather_idx[i] = tok_off + n_new - 1
             tok_off += n_new
             page_off += pages_per[i]
+        return dict(
+            input_ids=self._tensor(input_ids), positions=self._tensor(positions),
+            slot_map=self._tensor(slot_map),
+            store_rows=_store_rows(slot_map, self.device),
+            flat_pages=self._tensor(flat_pages), row_lo=self._tensor(row_lo),
+            row_hi=self._tensor(row_hi), gather_idx=self._tensor(gather_idx))
+
+    def _flat_prefill(self, rows, temps, top_ps=None, top_ks=None):
+        """flat_prefill_step over rows (see _flat_inputs)."""
         return flat_prefill_step(
-            self.params, self.kv_cache,
-            self._tensor(input_ids), self._tensor(positions),
-            self._tensor(slot_map), _store_rows(slot_map, self.device),
-            self._tensor(flat_pages), self._tensor(row_lo), self._tensor(row_hi),
-            self._tensor(gather_idx), temps, self.generator, top_ps, top_ks,
-            arch=self.arch, block_size=bs,
-        )
+            self.params, self.kv_cache, **self._flat_inputs(rows),
+            temperatures=temps, generator=self.generator, top_ps=top_ps,
+            top_ks=top_ks, arch=self.arch, block_size=self.block_size,
+            eagle_layers=self.eagle_layers)
 
     @torch.no_grad()
     def run_decode(self, seqs: list[Sequence], q_len: int = 1):
@@ -415,19 +462,24 @@ class ModelRunner:
         return tokens.tolist(), logits.reshape(B, q_len, -1)
 
     @torch.no_grad()
-    def verify_forward(self, seqs: list[Sequence], q_len: int) -> torch.Tensor:
+    def verify_forward(self, seqs: list[Sequence], q_len: int):
         """The target's verify forward over each sequence's last q_len tokens
-        ([recovery | draft tokens]); no sampling. Returns logits
-        [B, q_len, V]."""
+        ([recovery | draft tokens]); no sampling. Returns (logits
+        [B, q_len, V], the taps [B, q_len, n_taps * D] of an EAGLE target,
+        else None)."""
+        B = len(seqs)
         input_ids, positions, slot_map, bt, context_lens = self._prepare_multi_query(
             seqs, q_len)
-        logits = decode_forward(
+        out = decode_forward(
             self.params, self.kv_cache,
             self._tensor(input_ids), self._tensor(positions),
             self._tensor(slot_map), _store_rows(slot_map, self.device),
             self._tensor(bt), self._tensor(context_lens),
-            arch=self.arch, block_size=self.block_size, q_len=q_len, s8=self.s8)
-        return logits.reshape(len(seqs), q_len, -1)
+            arch=self.arch, block_size=self.block_size, q_len=q_len, s8=self.s8,
+            eagle_layers=self.eagle_layers)
+        if self.eagle_layers:
+            return out[0].reshape(B, q_len, -1), out[1].reshape(B, q_len, -1)
+        return out.reshape(B, q_len, -1), None
 
     @torch.no_grad()
     def run_chain(self, first: np.ndarray, start_pos: np.ndarray, bt: np.ndarray,

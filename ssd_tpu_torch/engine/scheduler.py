@@ -472,7 +472,7 @@ class Scheduler:
         seqs: list[Sequence],
         new_suffixes: list[list[int]],
         next_recovery_tokens: list[int],
-        eagle_acts: np.ndarray | None = None,  # [B, K+1, 3*D_target]
+        eagle_acts=None,  # tensor [B, K+1, 3*D_target] fp32, on the target's device
     ):
         for i, (seq, new_suffix, rec) in enumerate(
             zip(seqs, new_suffixes, next_recovery_tokens)
@@ -484,11 +484,11 @@ class Scheduler:
             if eagle_acts is not None:
                 accepted_len = len(new_suffix)
                 idx = min(accepted_len - 1, eagle_acts.shape[1] - 1)
-                seq.last_target_hidden_state = np.asarray(eagle_acts[i, idx])
+                seq.last_target_hidden_state = eagle_acts[i, idx]
                 n_ext = min(accepted_len - 1, self.K)
                 seq.extend_count = n_ext
                 if n_ext > 0:
-                    seq.extend_eagle_acts = np.asarray(eagle_acts[i, :n_ext]).copy()
+                    seq.extend_eagle_acts = eagle_acts[i, :n_ext]
                     seq.extend_token_ids = np.asarray(new_suffix[1:1 + n_ext], dtype=np.int64)
                 else:
                     seq.extend_eagle_acts = None

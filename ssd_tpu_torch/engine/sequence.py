@@ -77,7 +77,8 @@ class Sequence:
         self.top_p = sp.top_p
         self.top_k = sp.top_k
 
-        # --- EAGLE conditioning carries (numpy, host-side) ---
+        # --- EAGLE conditioning carries (taps: fp32 tensors on the target's
+        # device; token ids: numpy) ---
         self.last_target_hidden_state = None  # [3*D_target]
         self.extend_eagle_acts = None         # [n_ext, 3*D_target]
         self.extend_token_ids = None          # [n_ext]

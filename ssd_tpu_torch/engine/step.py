@@ -3,7 +3,9 @@
 Counterpart of ssd_tpu/engine/step.py: AutoRegressiveStep runs the model and
 the scheduler's postprocess; SpecDecodeStep composes a speculator (sync
 draft chain or async draft server) and a verifier: save the sequences'
-light state, speculate, verify, restore, postprocess_speculate. Not ported
+light state, speculate, verify, restore, postprocess_speculate. With an
+EAGLE-3 draft the draft prefill follows the target's (it is conditioned on
+the target's taps) and the verify's taps flow to the scheduler. Not ported
 yet: AR multi-step and the fused SD/SSD/EAGLE/ngram steps (Config refuses
 them).
 """
@@ -52,20 +54,22 @@ class AutoRegressiveStep(InferenceStep):
 
 class SpecDecodeStep(InferenceStep):
 
-    def __init__(self, scheduler: Scheduler, speculator, verifier, async_spec: bool):
+    def __init__(self, scheduler: Scheduler, speculator, verifier, async_spec: bool,
+                 eagle: bool = False):
         super().__init__(scheduler)
         self.speculator = speculator
         self.verifier = verifier
         self.async_spec = async_spec
+        self.eagle = eagle
 
     def prefill(self, seqs: list[Sequence]) -> int:
-        if self.async_spec:
+        if self.async_spec and not self.eagle:
             # The draft prefill is queued first, so it runs on the draft
             # thread while the target prefills.
             self.speculator.prefill(seqs, VerifyResult([], [], None))
             self.verifier.prefill(seqs)
         else:
-            verify_result = self.verifier.prefill(seqs)
+            verify_result = self.verifier.prefill(seqs, eagle=self.eagle)
             self.speculator.prefill(seqs, verify_result)
         for seq in seqs:
             assert seq.recovery_token_id is not None
@@ -80,11 +84,12 @@ class SpecDecodeStep(InferenceStep):
         # needs the sequences as they were.
         saved = [(len(s.token_ids), s.num_tokens, s.last_token) for s in seqs]
         speculate_result = self.speculator.speculate(seqs, VerifyResult([], [], None))
-        out_result = self.verifier.verify(seqs, speculate_result)
+        out_result = self.verifier.verify(seqs, speculate_result, eagle=self.eagle)
         for seq, (n_tok, nt, lt) in zip(seqs, saved):
             del seq.token_ids[n_tok:]
             seq.num_tokens = nt
             seq.last_token = lt
         self.scheduler.postprocess_speculate(
-            seqs, out_result.new_suffixes, out_result.recovery_tokens)
+            seqs, out_result.new_suffixes, out_result.recovery_tokens,
+            eagle_acts=out_result.eagle_acts)
         return sum(len(s) for s in out_result.new_suffixes)

@@ -7,6 +7,12 @@ suffix assembly; it records the same acceptance METRICS. The JAX package
 fuses the forward and verify() into one program fed by one packed int32
 payload, a TPU round-trip workaround that is not ported: here the forward
 and verify() run eagerly and one small readback returns the result.
+With an EAGLE-3 draft the target's prefill and verify also return its taps
+(the draft's conditioning), as fp32 tensors on the target's device: target
+and draft share the card, so the taps never pass through the host. The
+verify's taps are rounded to bf16 on the device, as the JAX package rounds
+them for its readback, so both packages condition the draft on the same
+values.
 """
 
 from __future__ import annotations
@@ -43,7 +49,16 @@ class Verifier(VerifierBase):
 
     def prefill(self, seqs: list[Sequence], eagle: bool = False) -> VerifyResult:
         """Target prefill; the sampled token becomes each sequence's
-        recovery token."""
+        recovery token. With eagle, also returns each sequence's taps
+        [n, n_taps * D] and seeds last_target_hidden_state with the last
+        row."""
+        if eagle:
+            token_ids, _, acts_rows = self.target_model_runner.run_prefill(
+                seqs, return_acts=True)
+            for seq, token_id, acts in zip(seqs, token_ids, acts_rows):
+                seq.recovery_token_id = token_id
+                seq.last_target_hidden_state = acts[-1].float()
+            return VerifyResult([], list(token_ids), acts_rows)
         token_ids = self.target_model_runner.run(seqs, is_prefill=True)
         for seq, token_id in zip(seqs, token_ids):
             seq.recovery_token_id = token_id
@@ -57,7 +72,10 @@ class Verifier(VerifierBase):
         K = self.lookahead
         # The sequences already carry [recovery | draft tokens] as their last
         # K+1 tokens (the speculator appended them).
-        logits_p = runner.verify_forward(seqs, K + 1)            # [B, K+1, V]
+        logits_p, acts = runner.verify_forward(seqs, K + 1)      # [B, K+1, V]
+        eagle_acts = None
+        if eagle and acts is not None:
+            eagle_acts = acts.to(torch.bfloat16).float()
         temps_t = runner._tensor(np.asarray([s.temperature for s in seqs], np.float32))
         temps_q = runner._tensor(np.asarray([
             s.draft_temperature if s.draft_temperature is not None else s.temperature
@@ -87,4 +105,5 @@ class Verifier(VerifierBase):
                 bucket = ("accepted_suffix_lens_on_hit" if ch[i] == 1
                           else "accepted_suffix_lens_on_miss")
                 self.metrics.setdefault(bucket, []).append(len(s))
-        return VerifyResult(new_suffixes=new_suffixes, recovery_tokens=recovery_tokens)
+        return VerifyResult(new_suffixes=new_suffixes, recovery_tokens=recovery_tokens,
+                            eagle_acts=eagle_acts)

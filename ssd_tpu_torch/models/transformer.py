@@ -16,8 +16,9 @@ Parameter dict:
   dense model; for Qwen3-MoE it is router [D, E] and the expert stacks
   moe_gate / moe_up [E, D, Im] and moe_down [E, Im, D] of the layer (the JAX
   package stacks them [L, E, ...]), run by ops/moe.py::moe_mlp.
-Not ported yet: int8 weights, EAGLE activation taps, the reduced draft
-vocabulary (d2t).
+With `eagle_layers`, forward_hidden also returns the EAGLE-3 taps: the
+residual stream entering each tapped layer, concatenated. Not ported yet:
+int8 weights, the reduced vocabulary of a plain (non-EAGLE) draft (d2t).
 """
 
 from __future__ import annotations
@@ -138,8 +139,13 @@ def forward_hidden(
     positions: torch.Tensor,   # [T] rope positions
     attn_call: AttnCall,
     arch: Arch,
-) -> torch.Tensor:
-    """Embed -> L x (attention + MLP) -> pre-final-norm hidden states [T, D]."""
+    eagle_layers: tuple[int, ...] | None = None,
+):
+    """Embed -> L x (attention + MLP) -> pre-final-norm hidden states [T, D].
+    With eagle_layers, returns (hidden, acts [T, len(eagle_layers) * D]):
+    the residual-stream value entering each tapped layer (hidden + residual,
+    summed in fp32 as the JAX package does), in ascending tap order with
+    duplicates repeated (ssd_tpu/models/transformer.py::forward_hidden)."""
     T = input_ids.shape[0]
     Hq, Hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
     eps = arch.rms_norm_eps
@@ -147,7 +153,12 @@ def forward_hidden(
     hidden = params["embed"][input_ids]
     cos, sin = rope_cos_sin(positions, hd, arch.rope_theta)
     residual = torch.zeros_like(hidden)
+    taps = sorted(eagle_layers) if eagle_layers else []
+    acts = []
     for li, lp in enumerate(params["layers"]):
+        if li in taps:
+            pre = (hidden.float() + residual.float()).to(hidden.dtype)
+            acts += [pre] * taps.count(li)
         x, residual = rms_norm_residual(hidden, residual, lp["input_ln"], eps)
         q = (x @ lp["wq"]).reshape(T, Hq, hd)
         k = (x @ lp["wk"]).reshape(T, Hkv, hd)
@@ -165,7 +176,10 @@ def forward_hidden(
             hidden = moe_mlp(x, lp, arch.num_experts_per_tok, arch.norm_topk_prob)
         else:
             hidden = silu_mul(x @ lp["gate"], x @ lp["up"]) @ lp["down"]
-    return (hidden.float() + residual.float()).to(hidden.dtype)
+    hidden = (hidden.float() + residual.float()).to(hidden.dtype)
+    if eagle_layers:
+        return hidden, torch.cat(acts, dim=-1)
+    return hidden
 
 
 def compute_logits(

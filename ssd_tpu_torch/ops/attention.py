@@ -159,13 +159,17 @@ def dense_pages(
 
 
 def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Softmax over the last axis with a boolean mask (True = attend), fp32.
-    Fully masked rows give zeros, not NaN."""
-    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    m = scores.amax(dim=-1, keepdim=True)
-    e = torch.where(mask, torch.exp(scores - m), torch.zeros_like(scores))
-    s = e.sum(dim=-1, keepdim=True)
-    return e / s.clamp(min=1e-30)
+    """Softmax over the last axis with a boolean mask (True = attend),
+    computed in fp64 and returned in the scores' dtype. Fully masked rows
+    give zeros, not NaN. fp64 because an fp32 exp on the CPU was seen to come
+    out up to 1.8e-4 off (relative) on rare calls while JAX worked in the
+    same process, which an fp32 plain version then passed on to its output;
+    the plain paged and tree versions are the kernels' references and must
+    repeat."""
+    s64 = torch.where(mask, scores.double(), torch.full_like(scores, -1e30, dtype=torch.float64))
+    m = s64.amax(dim=-1, keepdim=True)
+    e = torch.where(mask, torch.exp(s64 - m), torch.zeros_like(s64))
+    return (e / e.sum(dim=-1, keepdim=True).clamp(min=1e-30)).to(scores.dtype)
 
 
 def _s8_attention_plain(

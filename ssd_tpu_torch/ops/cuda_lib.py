@@ -158,6 +158,23 @@ def _bind(cdll: ctypes.CDLL):
         i, i, i, i, i, ll, i, i,  # B, MQ, Hq, Hkv, hd, S, M, block_size
         i, i, f, p,               # step, K, scale, stream
     ]
+    # Stage variants of the paged kernels (ops/probes.py): `stage` 0 full,
+    # 1 page loads only, 2 math only, 3 neither; otherwise the production
+    # entries' arguments (the int8 variant takes the "int8" mode).
+    cdll.ssd_paged_attention_diag.restype = i
+    cdll.ssd_paged_attention_diag.argtypes = [i, *cdll.ssd_paged_attention.argtypes]
+    cdll.ssd_paged_attention_int8_diag.restype = i
+    cdll.ssd_paged_attention_int8_diag.argtypes = [
+        i, i, p, p, p,           # stage, dtype, q, kv, scales
+        p, p, p, p,              # block_tables, context_lens, qeff, out
+        i, i, i, i, i, ll, i, i,  # B, Q, Hq, Hkv, hd, S, M, block_size
+        f, p,                     # scale, stream
+    ]
+    # The int8 dot-rate probe (csrc/s8_probe.cu): q [N, R, D], k [N, L, D].
+    for name in ("ssd_s8_dot_mma", "ssd_s8_dot_dp4a", "ssd_s8_dot_bf16"):
+        fn = getattr(cdll, name)
+        fn.restype = i
+        fn.argtypes = [p, p, p, i, i, i, i, p]   # q, k, out, N, R, L, D, stream
     # Grouped GEMM (Qwen3-MoE experts) over expert-sorted rows.
     cdll.ssd_grouped_gemm.restype = i
     cdll.ssd_grouped_gemm.argtypes = [

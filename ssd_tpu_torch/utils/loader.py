@@ -1,6 +1,6 @@
 """Checkpoint loading: HF safetensors -> the port's parameter dict.
 
-Counterpart of ssd_tpu/utils/loader.py::load_params. The safetensors format
+Counterpart of ssd_tpu/utils/loader.py::load_params and load_eagle_params. The safetensors format
 is read directly (an 8-byte little-endian header length, a JSON header, then
 raw little-endian bytes), so the port does not need the `safetensors`
 package. Tensors are staged one at a time: read into host memory, converted
@@ -122,6 +122,73 @@ def load_params(model_path: str, mc: ModelConfig, dtype: torch.dtype,
         params["lm_head"] = params["embed"]
     else:
         params["lm_head"] = get("lm_head.weight")
+    return params
+
+
+def load_eagle_params(model_path: str, mc: ModelConfig, d_model_target: int,
+                      num_eagle_layers: int, dtype: torch.dtype,
+                      device: torch.device, target_path: str | None = None) -> dict:
+    """Load an EAGLE-3 draft checkpoint into the dict of models/eagle3.py
+    (ssd_tpu/utils/loader.py::load_eagle_params): bare `midlayer.*` or
+    `model.midlayer.*` keys, `hidden_norm` as the conditioning norm, `fc`,
+    the `d2t` offsets (`t2d` is not needed), and the target's embeddings
+    when the draft ships none. A full-vocabulary head must carry an all-zero
+    d2t (or none)."""
+    from ssd_tpu_torch.models.eagle3 import EagleArch
+
+    arch = EagleArch.from_model_config(mc, d_model_target, num_eagle_layers)
+    t = SafetensorsIndex(model_path)
+
+    def key(*cands: str) -> str:
+        for c in cands:
+            if c in t:
+                return c
+        raise KeyError(f"none of {cands} in EAGLE checkpoint {model_path}")
+
+    def get(name: str, transpose: bool = False, index: SafetensorsIndex = t):
+        w = index.get(name).to(dtype)
+        return (w.T if transpose else w).contiguous().to(device)
+
+    mid = "midlayer." if any(k.startswith("midlayer.") for k in t.names()) \
+        else "model.midlayer."
+    params = {
+        "fc": get(key("fc.weight", "model.fc.weight"), True),
+        "input_ln": get(key(mid + "input_layernorm.weight")),
+        "cond_ln": get(key(mid + "hidden_norm.weight")),
+        "post_ln": get(key(mid + "post_attention_layernorm.weight")),
+        "final_ln": get(key("norm.weight", "model.norm.weight")),
+        "lm_head": get(key("lm_head.weight", "model.lm_head.weight")),
+    }
+    for name, hf in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                     ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
+                     ("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"),
+                     ("down", "mlp.down_proj")):
+        params[name] = get(key(mid + hf + ".weight"), True)
+    if "d2t" in t:
+        d2t = t.get("d2t").long()
+        if arch.draft_vocab_size == arch.vocab_size and bool(d2t.any()):
+            raise ValueError("an EAGLE checkpoint with draft_vocab == vocab must "
+                             "carry an all-zero d2t (the identity map)")
+    elif arch.draft_vocab_size != arch.vocab_size:
+        raise ValueError("an EAGLE checkpoint without d2t needs draft_vocab == "
+                         "target vocab")
+    else:
+        d2t = torch.zeros(arch.draft_vocab_size, dtype=torch.int64)
+    params["d2t"] = d2t.to(device)
+
+    embed_key = next((k for k in t.names() if "embed_tokens" in k), None)
+    if embed_key is not None:
+        params["embed"] = get(embed_key)
+    else:
+        if target_path is None:
+            raise ValueError("the EAGLE checkpoint has no embed_tokens; the "
+                             "target's path is needed to borrow them")
+        tt = SafetensorsIndex(target_path)
+        ek = next(k for k in tt.names() if "embed_tokens" in k)
+        params["embed"] = get(ek, index=tt)
+        if params["embed"].shape[1] != arch.hidden_size:
+            raise ValueError(f"target embedding width {params['embed'].shape[1]} "
+                             f"!= draft hidden {arch.hidden_size}")
     return params
 
 

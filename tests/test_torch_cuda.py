@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over the fp cache and over the int8 cache (kv_quant "int8" and "int8_mxu"),
-and the MoE grouped GEMM.
+the MoE grouped GEMM, and the two bench probes (the s8 dot paths and the
+paged kernels' stage variants).
 
 Needs an NVIDIA GPU (the kernels have no CPU mode) and skips without one.
 The file imports neither JAX nor the JAX package, so on a GPU machine
@@ -13,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from ssd_tpu_torch.bench import kernel_diag, s8_probe
 from ssd_tpu_torch.ops import attention as att
-from ssd_tpu_torch.ops import moe
+from ssd_tpu_torch.ops import moe, probes
 from tests.torch_cases import flat_meta, paged_case, tree_case
 
 
@@ -32,14 +34,15 @@ def close(got, want, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Hq,Hkv,hd", [(8, 2, 64), (6, 2, 128), (32, 4, 128)])  # G = 4, 3, 8
+@pytest.mark.parametrize("Hq,Hkv,hd", [(8, 2, 64), (6, 2, 128), (32, 4, 128),
+                                      (32, 8, 128)])  # G = 4, 3, 8, 4
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain_on_card(dtype, Hq, Hkv, hd):
     """The CUDA kernels against their plain versions on the card: decode with
     a ghost row, overshoot at Q=4 (Q*G query rows take several passes), the
     SD/SSD verify at Q=K+1=5 with a ghost row (a partial last row pass), and
     a mixed prefix-cached prefill, at both head sizes the kernels take
-    (hd 128 also at Qwen3-30B-A3B's 32/4 heads)."""
+    (hd 128 also at Qwen3-30B-A3B's 32/4 heads and Llama-3.1-8B's 32/8)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
     dev = "cuda"
@@ -181,3 +184,71 @@ def test_grouped_gemm_matches_plain_on_card(dtype):
         want = moe.grouped_gemm_plain(x, w, offs)
         assert got.dtype == dtype and got.shape == (N, Nout)
         assert close(got, want, dtype), (sizes[:8], K, Nout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eagle_glue_and_draft_prefill_on_card(dtype):
+    """The EAGLE path's shapes at Llama-3.1-8B's heads (32/8, hd 128): the
+    glue at Q = 2K+1 = 9 with a per-sequence qeff of n_ext + K + 1 (5..9),
+    over the fp and the int8 cache, and the draft prefill (each prompt's n-1
+    tokens, nothing cached) through the flat kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    Hq, Hkv, hd, scale = 32, 8, 128, 128 ** -0.5
+    q, kv, bt, ctx = paged_case(61, 4, 9, Hq, Hkv, hd, 64, 8, [300, 77, 129, 400])
+    qeff = np.array([5, 9, 7, 6], np.int32)
+    args = [t(a).to("cuda") for a in (q, kv, bt, ctx, qeff)]
+    args[0], args[1] = args[0].to(dtype), args[1].to(dtype)
+    assert close(att.paged_attention(*args, 64, scale),
+                 att.paged_attention_plain(*args, 64, scale), dtype)
+    pair = (torch.zeros(args[1].shape, dtype=torch.int8, device="cuda"),
+            torch.full((Hkv, 2, args[1].shape[1]), 1e-10, device="cuda"))
+    rows = torch.arange(args[1].shape[1], device="cuda")
+    att.store_kv(pair, args[1][:, :, :hd].transpose(0, 1), args[1][:, :, hd:].transpose(0, 1),
+                 rows.int(), rows)
+    iargs = [args[0], pair] + args[2:]
+    assert close(att.paged_attention(*iargs, 64, scale),
+                 att.paged_attention_plain(*iargs, 64, scale), dtype)
+    lens = [33 - 1, 250 - 1, 400 - 1]
+    _, kv, bt, _ = paged_case(62, 3, 1, Hq, Hkv, hd, 64, 8, lens)
+    lo, hi, pages_per = flat_meta(lens, lens, 64, sum(lens))
+    pages = np.concatenate([bt[s, :pages_per[s]] for s in range(3)]).astype(np.int32)
+    q = np.random.default_rng(63).normal(size=(sum(lens), Hq, hd)).astype(np.float32)
+    fargs = [t(q).to("cuda", dtype), t(kv).to("cuda", dtype)] + \
+        [t(a).to("cuda") for a in (pages, lo, hi)]
+    assert close(att.flat_prefill_attention(*fargs, 64, scale),
+                 att.flat_prefill_attention_plain(*fargs, 64, scale), dtype)
+
+
+@pytest.mark.cuda
+def test_s8_probe_paths_exact_on_card():
+    """The three s8 probe kernels at bench/s8_probe.py's shapes equal their
+    fp64 plain version bit for bit, and each launch is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    q8, k8, qb = s8_probe.inputs("cuda")
+    want = probes.s8_dot_plain(q8, k8)
+    for fn, q in ((probes.s8_dot_mma, q8), (probes.s8_dot_dp4a, q8), (probes.s8_dot_bf16, qb)):
+        n = fn.launches
+        got = fn(q, k8)
+        torch.cuda.synchronize()
+        assert torch.equal(got.double(), want.double()), fn.__name__
+        assert fn.launches == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_diag_stages_on_card(kv_quant):
+    """The paged kernels' stage variants: "full" equals the production
+    kernel bit for bit; "empty" writes zeros; every stage launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    q, layer, bt, ctx, qeff = kernel_diag.decode_case(3, 1, 8, 2, 64, 64, [300, 5, 129],
+                                                      torch.bfloat16, kv_quant=kv_quant)
+    args = (q, layer, bt, ctx, qeff, 64, 0.125)
+    assert torch.equal(probes.paged_attention_diag("full", *args), att.paged_attention(*args))
+    assert probes.paged_attention_diag("empty", *args).abs().max() == 0
+    for stage in ("dma", "compute"):
+        assert torch.isfinite(probes.paged_attention_diag(stage, *args)).all()
+    torch.cuda.synchronize()

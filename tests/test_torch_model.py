@@ -25,7 +25,18 @@ from ssd_tpu_torch.utils.loader import SafetensorsIndex, load_params, save_safet
 from ssd_tpu_torch.weights import params_from_jax
 from tests.utils_models import make_tiny_llama, make_tiny_qwen3
 
-torch.set_num_threads(2)
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two torch threads for this module's tests, restored after it, so the
+    other modules' torch code in the same xdist worker (the HF oracle of the
+    JAX package's tests) keeps its own thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 BS = 16
 

@@ -41,7 +41,18 @@ from ssd_tpu_torch.utils.loader import load_params
 from ssd_tpu_torch.weights import params_from_jax
 from tests.utils_models import hf_greedy, make_tiny_qwen3_moe, random_prompt, rng
 
-torch.set_num_threads(2)
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two torch threads for this module's tests, restored after it, so the
+    other modules' torch code in the same xdist worker (the HF oracle of the
+    JAX package's tests) keeps its own thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)   # fp32: summation order only
 ENGINE = dict(max_model_len=256, max_num_batched_tokens=1024, kvcache_block_size=16,
               num_kvcache_blocks=64, max_num_seqs=2, dtype="float32")

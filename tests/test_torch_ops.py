@@ -23,7 +23,18 @@ from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops import layers, sampler
 from tests.torch_cases import flat_meta, paged_case
 
-torch.set_num_threads(2)
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two torch threads for this module's tests, restored after it, so the
+    other modules' torch code in the same xdist worker (the HF oracle of the
+    JAX package's tests) keeps its own thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

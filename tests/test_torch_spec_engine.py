@@ -33,7 +33,18 @@ from ssd_tpu_torch.engine import draft_runner as dr
 from ssd_tpu_torch.engine.model_runner import ModelRunner
 from tests.utils_models import hf_greedy, make_tiny_llama, random_prompt, rng
 
-torch.set_num_threads(2)
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two torch threads for this module's tests, restored after it, so the
+    other modules' torch code in the same xdist worker (the HF oracle of the
+    JAX package's tests) keeps its own thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 ENGINE = dict(max_model_len=256, max_num_batched_tokens=1024, kvcache_block_size=16,
               num_kvcache_blocks=96, max_num_seqs=4, dtype="float32")
