@@ -9,7 +9,9 @@ the script exits non-zero:
 
 1. env      - the card's name and power limit (nvidia-smi), torch and CUDA
               versions, and the build of the CUDA kernels from the sources in
-              ssd_tpu_torch/csrc (seconds, ptxas register/spill lines).
+              ssd_tpu_torch/csrc (seconds, ptxas register/spill lines; for
+              each instantiation of the split-KV paged kernels K2/K4, its
+              registers, spills and shared memory).
 2. kernels  - each kernel against its plain PyTorch version on the card, at
               the Llama-3.2-1B geometry (Hq/Hkv 32/8, head_dim 64, 64-token
               pages; the paged kernels at decode Q=1 and at the SD/SSD verify
@@ -27,8 +29,12 @@ the script exits non-zero:
               HBM rate or operations over the peak of their type); the paged
               kernels also at B=8 x 8192 tokens. The attention kernels are
               held against their plain versions again at Qwen3-30B-A3B's
-              attention geometry (Hq/Hkv 32/4, head_dim 128), and K1 and K2
-              timed there. The grouped GEMM (K6) is held against its plain
+              attention geometry (Hq/Hkv 32/4, head_dim 128: K2 and K4 in
+              all three cache modes at the b8 decode, the Qwen3-MoE verify
+              Q=K+1 (40 rows a KV head) and the glue Q=2K+1 (72 rows)), and
+              K1 and K2 timed there. K2 and K4 must be batch-invariant bit
+              for bit: a repeated call, each sequence alone against the
+              batch of 8, and a Q=1 call against query 0 of a Q=K+1 call. The grouped GEMM (K6) is held against its plain
               version at Qwen3-30B-A3B's expert shapes (gate/up 2048 -> 768,
               down 768 -> 2048; the serve prompts' prefill dispatch of
               5534 x 8 rows and a b8 decode dispatch of 64 rows, group sizes
@@ -273,6 +279,32 @@ def sdpa(q, k, v, mask):
 # ---------------------------------------------------------------------------
 
 
+def _paged_split_resources(lib) -> list[dict]:
+    """Registers, spills and shared memory of each instantiation of the
+    split-KV paged kernels (csrc/paged_split.cuh), from ptxas's report of
+    the build and the kernels' own shared-memory layout."""
+    import re
+
+    kinds = {0: "fp", 1: "int8", 2: "int8_mxu"}
+    stages = {0: "full", 1: "loads", 2: "math", 3: "empty"}
+    out, cur = [], None
+    for ln in lib.build_log.splitlines():
+        m = re.search(r"paged_split_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", ln)
+        if m and "Compiling entry" in ln:
+            dt = "bfloat16" if m.group(1) != "f" else "float32"
+            hd, mt, kind, stage = (int(x) for x in m.groups()[1:])
+            cur = {"dtype": dt, "hd": hd, "row_tiles": mt, "cache": kinds[kind],
+                   "stage": stages[stage],
+                   "smem_bytes": lib.cdll.ssd_paged_smem_bytes(kind, int(dt == "bfloat16"), hd, mt)}
+            out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            cur["spill"] = ln.split("stack frame, ")[-1].strip()
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            cur = None
+    return out
+
+
 def phase_env() -> dict:
     import torch
 
@@ -290,6 +322,7 @@ def phase_env() -> dict:
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], build_seconds=lib.build_seconds,
          library=os.path.relpath(lib.path), ptxas=ptxas,
+         paged_split=_paged_split_resources(lib),
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          tf32_cudnn=torch.backends.cudnn.allow_tf32)
     return {"card": card}
@@ -537,6 +570,44 @@ def _bmm_yardstick(qb, kb, want):
     return (lambda: torch.bmm(qb, kt)), "torch.bmm(q, bf16 k^T), bf16 output"
 
 
+def _paged_batch_invariance(decode_ctx: list[int]):
+    """The split-KV paged kernels' promise, bit for bit in bf16 over the fp
+    cache and both int8 modes, at Llama-3.2-1B's and Qwen3-30B-A3B's heads:
+    a call repeated gives the same bits; each sequence's rows alone equal
+    its rows in the batch of 8; a Q=1 call equals query 0 of a Q=K+1 call
+    whose contexts hold the K later queries (the same causal limit)."""
+    import torch
+
+    from ssd_tpu_torch.ops import attention as att
+
+    Q = SPEC_K + 1
+    M = SPEC_MAX_LEN // BLOCK
+    ctx_lens = [n + Q for n in decode_ctx]
+    checked = []
+    for heads in (LLAMA_HEADS, QWEN_HEADS):
+        scale = heads[2] ** -0.5
+        q, kv, bt, ctx, qeff = _paged_case(8, Q, ctx_lens, M, 0, torch.bfloat16, seed=71,
+                                           heads=heads)
+        pair = _int8_pair(kv)
+        for name, layer, s8 in (("paged_attention", kv, False),
+                                ("paged_attention_int8", pair, False),
+                                ("paged_attention_int8[s8]", pair, True)):
+            full = att.paged_attention(q, layer, bt, ctx, qeff, BLOCK, scale, s8=s8)
+            same = torch.equal(full, att.paged_attention(q, layer, bt, ctx, qeff, BLOCK, scale,
+                                                         s8=s8))
+            for b in range(8):
+                alone = att.paged_attention(q[b:b + 1], layer, bt[b:b + 1], ctx[b:b + 1],
+                                            qeff[:1], BLOCK, scale, s8=s8)
+                same = same and torch.equal(alone[0], full[b])
+            one = att.paged_attention(q[:, :1].contiguous(), layer, bt, ctx - (Q - 1),
+                                      torch.ones_like(qeff), BLOCK, scale, s8=s8)
+            same = same and torch.equal(one[:, 0], full[:, 0])
+            checked.append(f"{name} hd {heads[2]} G {heads[0] // heads[1]}")
+            if not same:
+                fail(f"{name} at heads {heads}: not batch-invariant bit for bit")
+    emit("kernels", batch_invariance={"bitwise": True, "checked": checked})
+
+
 def _probe_kernels(record, decode_ctx: list[int]) -> dict:
     """Rows #11 and #12 of the kernel table: the s8 probe's three paths at
     bench/s8_probe.py's shapes, exact against the fp64 plain version; the
@@ -721,14 +792,25 @@ def phase_kernels() -> dict:
         # 32/4, hd 128): the b8 decode and verify, the tree steps, the mixed
         # prefill; fp cache and int8 pairs.
         s128 = QWEN_HEADS[2] ** -0.5
-        for seed, case in enumerate(("decode_b8", "verify_b8")):
-            q, kv, bt, ctx, qeff = _paged_case(*paged_cases[case], dt, seed=40 + seed,
-                                               heads=QWEN_HEADS)
-            for name, layer in (("paged_attention", kv), ("paged_attention_int8", _int8_pair(kv))):
-                got = att.paged_attention(q, layer, bt, ctx, qeff, BLOCK, s128)
+        # The paged kernels at G 8: decode (8 rows), the Qwen3-MoE verify
+        # (Q = K+1, 40 rows) and the glue Q = 2K+1 with per-sequence qeff
+        # (72 rows: two row passes), in all three cache modes.
+        glue8 = (8, 2 * SPEC_K + 1, [n + 64 + SPEC_K + 1 for n in SERVE_LENS8], M_spec, 0)
+        for seed, (case, args) in enumerate((("decode_b8", paged_cases["decode_b8"]),
+                                             ("verify_b8", paged_cases["verify_b8"]),
+                                             (f"glue_q{2 * SPEC_K + 1}", glue8))):
+            q, kv, bt, ctx, qeff = _paged_case(*args, dt, seed=40 + seed, heads=QWEN_HEADS)
+            if case.startswith("glue"):
+                qeff = torch.tensor([SPEC_K + 1 + b % (SPEC_K + 1) for b in range(8)],
+                                    dtype=torch.int32, device="cuda")
+            pair = _int8_pair(kv)
+            for name, layer, s8 in (("paged_attention", kv, False),
+                                    ("paged_attention_int8", pair, False),
+                                    ("paged_attention_int8[s8]", pair, True)):
+                got = att.paged_attention(q, layer, bt, ctx, qeff, BLOCK, s128, s8=s8)
                 torch.cuda.synchronize()
-                record(name, f"{case}_hd128", dname, got,
-                       att.paged_attention_plain(q, layer, bt, ctx, qeff, BLOCK, s128))
+                record(name, f"{case}_hd128_g8", dname, got,
+                       att.paged_attention_plain(q, layer, bt, ctx, qeff, BLOCK, s128, s8=s8))
         q, kv, pages, lo, hi, T = _flat_case(flat_lens, flat_cached, dt, seed=42, pad_rows=13,
                                              pad_pages=3, heads=QWEN_HEADS)
         for name, layer in (("flat_prefill_attention", kv),
@@ -758,6 +840,8 @@ def phase_kernels() -> dict:
             torch.cuda.synchronize()
             record("grouped_gemm", case, dname, got, moe.grouped_gemm_plain(x, w, offs))
             del x, w, got
+
+    _paged_batch_invariance(serve8)
 
     # Times at the main-path shapes in bf16 (the serving dtype).
     counts = [w.launches for w in wrappers]

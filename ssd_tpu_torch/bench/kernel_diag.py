@@ -9,6 +9,12 @@ its math compiled out (ops/probes.py::paged_attention_diag):
   empty    neither: the grid, the query load and the output write
 
   python -m ssd_tpu_torch.bench.kernel_diag --ctx 2048 --batch 8 --block 256
+  python -m ssd_tpu_torch.bench.kernel_diag --contexts 1500 --chunks 32,64,128,256
+
+--chunks times the production kernel at each chunk length (positions per
+block; ops/attention.py::PAGED_CHUNK holds the one the port uses), the way
+that value is chosen; the variants run at the port's own chunk. Every time
+is taken with the L2 cache flushed before each call.
 
 The JAX script's flags are kept except --ppc (pages per TPU grid step): the
 GPU kernel walks a sequence's pages in one block and has no such knob. "full"
@@ -22,7 +28,6 @@ import argparse
 import numpy as np
 import torch
 
-from ssd_tpu_torch.bench.s8_probe import time_ms
 from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops import probes
 
@@ -50,6 +55,27 @@ def decode_case(B, Q, Hq, Hkv, hd, bs, ctx_lens, dtype, kv_quant=None, seed=0,
     return q, layer, bt, ctx, torch.full((B,), Q, dtype=torch.int32, device=device)
 
 
+def time_cold_ms(fn, iters: int) -> float:
+    """Mean device time of one fn() call with the L2 cache flushed before
+    each (a 256 MiB write), as a layer's attention finds its KV on the
+    serving path; a spin kernel holds the stream while the host enqueues,
+    so CUDA events around each call time the device's work."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--ctx", type=int, default=2048)
@@ -64,6 +90,8 @@ def main(argv=None):
     p.add_argument("--kv", choices=("bf16", "int8"), default="bf16")
     p.add_argument("--contexts", default=None,
                    help="comma-separated per-sequence contexts (overrides --ctx, --batch)")
+    p.add_argument("--chunks", default=None,
+                   help="comma-separated chunk lengths at which to time the production kernel")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_diag times the CUDA kernel and needs a card")
@@ -83,9 +111,20 @@ def main(argv=None):
     # The attended K|V bytes (and the int8 cache's two scales per position).
     per_pos = 2 * args.hd * (1 if args.kv == "int8" else 2) + (8 if args.kv == "int8" else 0)
     kv_bytes = sum(ctx_lens) * args.kv_heads * per_pos
+    key = (args.hd, args.kv == "int8")
+    for chunk in [int(c) for c in args.chunks.split(",")] if args.chunks else []:
+        own = att.PAGED_CHUNK[key]
+        att.PAGED_CHUNK[key] = chunk
+        try:
+            dt = time_cold_ms(lambda: att.paged_attention(q, layer, bt, ctx, qeff, bs, scale),
+                              args.iters)
+        finally:
+            att.PAGED_CHUNK[key] = own
+        print(f"[chunk {chunk:4d}] {dt:.4f} ms/call  {kv_bytes / dt / 1e6:.1f} GB/s-equiv",
+              flush=True)
     for name in args.variants.split(","):
-        dt = time_ms(lambda: probes.paged_attention_diag(name, q, layer, bt, ctx, qeff,
-                                                         bs, scale), args.iters)
+        dt = time_cold_ms(lambda: probes.paged_attention_diag(name, q, layer, bt, ctx, qeff,
+                                                              bs, scale), args.iters)
         print(f"[{name:7s}] {dt:.4f} ms/call  {kv_bytes / dt / 1e6:.1f} GB/s-equiv",
               flush=True)
 

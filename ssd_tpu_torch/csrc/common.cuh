@@ -136,4 +136,81 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// --- Tensor cores and asynchronous copies (sm_80+: mma.sync, ldmatrix,
+// cp.async), shared by the grouped GEMM, the paged kernels and the s8 probe ---
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !pred.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_u32(smem)), "l"(gmem), "r"(pred ? 16 : 0));
+}
+
+// 4 bytes global -> shared, asynchronously; zeros where !pred.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(smem_u32(smem)), "l"(gmem), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a (16 x 16, row-major fragment) . b (16 x 8, column fragment), bf16
+// products summed in fp32. Fragments (g = lane / 4, t = lane % 4): a[0] row
+// g, columns 2t, 2t+1; a[1] row g+8; a[2], a[3] the same rows at columns
+// 2t+8, 2t+9; b0 rows 2t, 2t+1 of column g, b1 rows 2t+8, 2t+9; d[0], d[1]
+// row g, columns 2t, 2t+1, d[2], d[3] row g+8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16 x 32 s8) . b (32 x 8 s8) in int32. a[0] row g, columns 4t..4t+3;
+// a[1] row g+8; a[2], a[3] the same rows at columns 16+4t..; b[0] rows
+// 4t..4t+3 of column g, b[1] rows 16+4t..; c as mma_bf16's d.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], const int (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two floats as a bf16 pair (x in the low half), rounded to nearest.
+__device__ __forceinline__ unsigned bf16x2(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Two int8 values (bytes 0 and 1 of a 16-bit word) as a bf16 pair, low half
+// first: exact, since |x| <= 128.
+__device__ __forceinline__ unsigned s8x2_to_bf16x2(int w) {
+  return bf16x2(static_cast<float>(sbyte(w, 0)), static_cast<float>(sbyte(w, 1)));
+}
+
 }  // namespace ssd

@@ -32,23 +32,6 @@ namespace {
 constexpr int kProbeWarps = 4;
 constexpr int kProbeThreads = kProbeWarps * 32;
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], const int (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // Grid (ceil(L / (8 * kProbeWarps * tiles_per_warp)), N); R must be 8 and D a
 // multiple of 32. Lane (g = lane / 4, t = lane % 4): A row g, B column g.
 __global__ void __launch_bounds__(kProbeThreads)
@@ -110,14 +93,6 @@ __global__ void __launch_bounds__(kProbeThreads)
   for (int r = 0; r < 8; ++r) out[((size_t)n * 8 + r) * L + l] = acc[r];
 }
 
-// Two int8 values (bytes 0 and 1 of a 16-bit word) as a bf16 pair, low half
-// first: exact, since |x| <= 128.
-__device__ __forceinline__ unsigned s8x2_to_bf16x2(int w) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(static_cast<float>(sbyte(w, 0)),
-                                                 static_cast<float>(sbyte(w, 1)));
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
 // The mma layout of s8_dot_mma_kernel with bf16 m16n8k16: A row g holds
 // columns 2t, 2t+1 (a[0]) and 2t+8, 2t+9 (a[2]); B column g the same rows.
 __global__ void __launch_bounds__(kProbeThreads)
@@ -142,7 +117,7 @@ __global__ void __launch_bounds__(kProbeThreads)
       const unsigned b[2] = {
           s8x2_to_bf16x2(*reinterpret_cast<const short*>(krow + d0 + 2 * t)),
           s8x2_to_bf16x2(*reinterpret_cast<const short*>(krow + d0 + 8 + 2 * t))};
-      mma_bf16(c, a, b);
+      mma_bf16(c, a, b[0], b[1]);
     }
     *reinterpret_cast<float2*>(on + (size_t)g * L + l0 + 2 * t) = make_float2(c[0], c[1]);
   }

@@ -41,14 +41,23 @@ tiles, which their plain versions share).
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from ssd_tpu_torch.ops import cuda_lib
 from ssd_tpu_torch.ops.spec_math import tree_attention_mask
 
 KERNEL_HEAD_DIMS = (64, 128)
-PAGED_S8_TILE = 32   # csrc/paged_attention_int8.cu: one warp's positions
+PAGED_S8_TILE = 32   # csrc/paged_split.cuh: one ring tile of the paged kernels
 TREE_S8_TILE = 64    # csrc/tree_attention_int8.cu: one K/V tile
+# Positions one block of the paged kernels (K2, K4) walks, by (head_dim, int8
+# cache): fixed absolute chunks [c * chunk, (c + 1) * chunk), multiples of
+# the kernels' 64-position ring tile (two PAGED_S8_TILEs), so a row's result
+# does not depend on the batch or on Q. Chosen on the card with
+# `python -m ssd_tpu_torch.bench.kernel_diag --chunks` (times in PERF.md).
+PAGED_CHUNK = {(64, False): 128, (64, True): 128, (128, False): 128, (128, True): 128}
+PAGED_MAX_SPAN = 512  # positions one block may walk (csrc/paged_split.cuh kMaxChunk)
 
 KVLayer = torch.Tensor | tuple[torch.Tensor, torch.Tensor]
 
@@ -322,6 +331,40 @@ def _check_paged_shapes(name, q, data, block_tables, context_lens, qeff, block_s
                          f"{tuple(context_lens.shape)}, qeff {tuple(qeff.shape)}")
 
 
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+_COUNTERS_LOCK = threading.Lock()
+
+
+def paged_split_buffers(q: torch.Tensor, Hkv: int, M: int, block_size: int, int8: bool):
+    """What a paged kernel launch needs beside its operands, on q's device
+    and the current stream: (chunk, chunks per block, workspace, counters,
+    stream handle). The workspace holds the blocks' partial softmax states
+    (fp32 acc and (m, l) per row and chunk), fresh from the caching
+    allocator on this stream, so no other stream can touch it while the
+    call runs. The
+    counters (B * Hkv ints) find the last block of each (sequence, KV head);
+    they are zero between calls, since that block resets its own, and are
+    kept per stream: the target's and the draft's streams run these kernels
+    at the same time."""
+    B, Q, Hq, hd = q.shape
+    chunk = PAGED_CHUNK[(hd, int8)]
+    n_chunks = -(-M * block_size // chunk)
+    # Chunks per block: one, unless the table holds over 1024 chunks in all
+    # (long contexts), where a block takes up to PAGED_MAX_SPAN positions
+    # and pays its fixed costs once; the chunks and results are the same.
+    per_block = max(1, min(PAGED_MAX_SPAN // chunk, B * Hkv * n_chunks // 1024))
+    ws = torch.empty(B * Hkv * n_chunks * Q * (Hq // Hkv) * (hd + 2),
+                     dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device)
+    key = (q.device.index, stream.cuda_stream)
+    with _COUNTERS_LOCK:
+        counters = _COUNTERS.get(key)
+        if counters is None or counters.numel() < B * Hkv:
+            counters = torch.zeros(max(B * Hkv, 1024), dtype=torch.int32, device=q.device)
+            _COUNTERS[key] = counters
+    return chunk, per_block, ws, counters, stream.cuda_stream
+
+
 def paged_attention(
     q: torch.Tensor,             # [B, Q, Hq, hd]
     kv_layer: KVLayer,           # [Hkv, S, 2*hd] | (int8 data, scales)
@@ -352,12 +395,13 @@ def paged_attention(
     out = torch.empty_like(q)
     lib = cuda_lib.load()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        chunk, per_block, ws, counters, stream = paged_split_buffers(
+            q, Hkv, block_tables.shape[1], block_size, False)
         err = lib.cdll.ssd_paged_attention(
             cuda_lib.DTYPE_CODES[q.dtype], q.data_ptr(), kv_layer.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(), qeff.data_ptr(),
-            out.data_ptr(), B, Q, Hq, Hkv, hd, S, block_tables.shape[1],
-            block_size, float(scale), stream)
+            out.data_ptr(), ws.data_ptr(), counters.data_ptr(), B, Q, Hq, Hkv, hd, S,
+            block_tables.shape[1], block_size, chunk, per_block, float(scale), stream)
     lib.check(err, "paged_attention kernel launch")
     cuda_lib.count_launch(paged_attention)
     return out
@@ -392,12 +436,14 @@ def paged_attention_int8(
     out = torch.empty_like(q)
     lib = cuda_lib.load()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        chunk, per_block, ws, counters, stream = paged_split_buffers(
+            q, Hkv, block_tables.shape[1], block_size, True)
         err = lib.cdll.ssd_paged_attention_int8(
             cuda_lib.DTYPE_CODES[q.dtype], int(s8), q.data_ptr(), data.data_ptr(),
             scales.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
-            qeff.data_ptr(), out.data_ptr(), B, Q, Hq, Hkv, hd, S,
-            block_tables.shape[1], block_size, float(scale), stream)
+            qeff.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), B, Q, Hq,
+            Hkv, hd, S, block_tables.shape[1], block_size, chunk, per_block, float(scale),
+            stream)
     lib.check(err, "paged_attention_int8 kernel launch")
     cuda_lib.count_launch(paged_attention_int8)
     return out

@@ -118,10 +118,13 @@ def _bind(cdll: ctypes.CDLL):
     cdll.ssd_error_string.restype = ctypes.c_char_p
     cdll.ssd_error_string.argtypes = [i]
     cdll.ssd_paged_attention.restype = i
+    # The paged kernels (csrc/paged_split.cuh) also take the chunk length,
+    # a workspace for the blocks' partials and per-stream counters.
     cdll.ssd_paged_attention.argtypes = [
         i, p, p, p, p, p, p,     # dtype, q, kv, block_tables, context_lens, qeff, out
+        p, p,                     # workspace, counters
         i, i, i, i, i, ll, i, i,  # B, Q, Hq, Hkv, hd, S, M, block_size
-        f, p,                     # scale, stream
+        i, i, f, p,               # chunk, chunks per block, scale, stream
     ]
     cdll.ssd_flat_prefill_attention.restype = i
     cdll.ssd_flat_prefill_attention.argtypes = [
@@ -141,8 +144,9 @@ def _bind(cdll: ctypes.CDLL):
     cdll.ssd_paged_attention_int8.argtypes = [
         i, i, p, p, p,           # dtype, s8, q, kv, scales
         p, p, p, p,              # block_tables, context_lens, qeff, out
+        p, p,                     # workspace, counters
         i, i, i, i, i, ll, i, i,  # B, Q, Hq, Hkv, hd, S, M, block_size
-        f, p,                     # scale, stream
+        i, i, f, p,               # chunk, chunks per block, scale, stream
     ]
     cdll.ssd_flat_prefill_attention_int8.restype = i
     cdll.ssd_flat_prefill_attention_int8.argtypes = [
@@ -160,16 +164,20 @@ def _bind(cdll: ctypes.CDLL):
     ]
     # Stage variants of the paged kernels (ops/probes.py): `stage` 0 full,
     # 1 page loads only, 2 math only, 3 neither; otherwise the production
-    # entries' arguments (the int8 variant takes the "int8" mode).
+    # entries' arguments (the int8 variant takes the "int8" mode); stages
+    # 1-3 take bf16 q.
     cdll.ssd_paged_attention_diag.restype = i
     cdll.ssd_paged_attention_diag.argtypes = [i, *cdll.ssd_paged_attention.argtypes]
     cdll.ssd_paged_attention_int8_diag.restype = i
     cdll.ssd_paged_attention_int8_diag.argtypes = [
         i, i, p, p, p,           # stage, dtype, q, kv, scales
         p, p, p, p,              # block_tables, context_lens, qeff, out
+        p, p,                     # workspace, counters
         i, i, i, i, i, ll, i, i,  # B, Q, Hq, Hkv, hd, S, M, block_size
-        f, p,                     # scale, stream
+        i, i, f, p,               # chunk, chunks per block, scale, stream
     ]
+    cdll.ssd_paged_smem_bytes.restype = i
+    cdll.ssd_paged_smem_bytes.argtypes = [i, i, i, i]   # kind, dtype, hd, row tiles
     # The int8 dot-rate probe (csrc/s8_probe.cu): q [N, R, D], k [N, L, D].
     for name in ("ssd_s8_dot_mma", "ssd_s8_dot_dp4a", "ssd_s8_dot_bf16"):
         fn = getattr(cdll, name)

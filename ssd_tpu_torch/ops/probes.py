@@ -108,8 +108,9 @@ def paged_attention_diag(
     scale: float,
 ) -> torch.Tensor:
     """The paged decode kernel (K2, or K4's "int8" mode for the int8 pair)
-    built as stage `stage` of STAGES. "full" is the production kernel; on
-    CPU tensors only "full" runs, as paged_attention_plain."""
+    built as stage `stage` of STAGES. "full" is the production kernel; the
+    other stages take bf16 q. On CPU tensors only "full" runs, as
+    paged_attention_plain."""
     if stage not in STAGES:
         raise ValueError(f"paged_attention_diag: stage must be one of {list(STAGES)}")
     if q.device.type == "cpu":
@@ -128,12 +129,13 @@ def paged_attention_diag(
     Hkv, S, _ = data.shape
     out = torch.empty_like(q)
     lib = cuda_lib.load()
-    common = (q.data_ptr(), data.data_ptr())
-    rest = (block_tables.data_ptr(), context_lens.data_ptr(), qeff.data_ptr(),
-            out.data_ptr(), B, Q, Hq, Hkv, hd, S, block_tables.shape[1], block_size,
-            float(scale))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        chunk, per_block, ws, counters, stream = att.paged_split_buffers(
+            q, Hkv, block_tables.shape[1], block_size, quant)
+        common = (q.data_ptr(), data.data_ptr())
+        rest = (block_tables.data_ptr(), context_lens.data_ptr(), qeff.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), counters.data_ptr(), B, Q, Hq, Hkv, hd, S,
+                block_tables.shape[1], block_size, chunk, per_block, float(scale))
         if quant:
             err = lib.cdll.ssd_paged_attention_int8_diag(
                 STAGES[stage], cuda_lib.DTYPE_CODES[q.dtype], *common,

@@ -252,3 +252,103 @@ def test_diag_stages_on_card(kv_quant):
     for stage in ("dma", "compute"):
         assert torch.isfinite(probes.paged_attention_diag(stage, *args)).all()
     torch.cuda.synchronize()
+
+
+def _split_layer(kv, kind, dtype):
+    """The numpy cache kv as the paged kernel of `kind` reads it on the card:
+    in `dtype` for the fp cache, else the int8 pair ("int8", "int8_mxu")."""
+    return t(kv).to("cuda", dtype) if kind == "fp" else int8_layer(kv, 11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp", "int8", "int8_mxu"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_paged_kernels_match_plain_on_card(dtype, hd, kind):
+    """The split-KV K2/K4 against their plain versions at R = Q * G of 4, 20,
+    36, 40 and 72 rows (decode, verify and glue at G 4 and 8; 72 takes two
+    row passes), with contexts across several chunks, one at a chunk
+    boundary, one of 0 and a ghost row; the glue with per-sequence qeff."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    scale = hd ** -0.5
+    for Q, G in ((1, 4), (5, 4), (9, 4), (5, 8), (9, 8)):
+        Hkv = 2
+        ctx_lens = [700, 0, 128, 333, 9]
+        q, kv, bt, ctx = paged_case(80 + Q + G, 6, Q, G * Hkv, Hkv, hd, 64, 12, ctx_lens, 1)
+        qeff = np.full(6, Q, np.int32)
+        if Q == 9:
+            qeff[:5] = [5, 9, 7, 6, 9]
+        layer = _split_layer(kv, kind, dtype)
+        args = [t(a).cuda() for a in (bt, ctx, qeff)]
+        qd = t(q).to("cuda", dtype)
+        got = att.paged_attention(qd, layer, *args, 64, scale, s8=kind == "int8_mxu")
+        torch.cuda.synchronize()
+        want = att.paged_attention_plain(qd, layer, *args, 64, scale, s8=kind == "int8_mxu")
+        assert close(got, want, dtype), (Q, G)
+        assert got[1].abs().max() == 0   # context 0 attends nothing
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp", "int8", "int8_mxu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_paged_kernels_are_batch_invariant_on_card(dtype, kind):
+    """Bitwise: repeated calls; each sequence's rows alone equal its rows in
+    a batch of 8; a Q=1 call equals query 0 of a Q=5 call whose context
+    holds the 4 later queries (the same causal limit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    s8 = kind == "int8_mxu"
+    for Hq, Hkv, hd in ((8, 2, 64), (32, 4, 128)):
+        scale = hd ** -0.5
+        ctx_lens = [97, 175, 640, 1, 964, 1364, 64, 1964]
+        q, kv, bt, ctx = paged_case(90 + hd, 8, 5, Hq, Hkv, hd, 64, 32, ctx_lens)
+        layer = _split_layer(kv, kind, dtype)
+        qd, btd, ctxd = t(q).to("cuda", dtype), t(bt).cuda(), t(ctx).cuda()
+        five = torch.full((8,), 5, dtype=torch.int32, device="cuda")
+        full = att.paged_attention(qd, layer, btd, ctxd, five, 64, scale, s8=s8)
+        again = att.paged_attention(qd, layer, btd, ctxd, five, 64, scale, s8=s8)
+        assert torch.equal(full, again)
+        for b in (0, 4, 7):
+            alone = att.paged_attention(qd[b:b + 1], layer, btd[b:b + 1], ctxd[b:b + 1],
+                                        five[:1], 64, scale, s8=s8)
+            assert torch.equal(alone[0], full[b]), (hd, b)
+        one = torch.ones(8, dtype=torch.int32, device="cuda")
+        q1 = att.paged_attention(qd[:, :1].contiguous(), layer, btd, (ctxd - 4).clamp(min=0),
+                                 one, 64, scale, s8=s8)
+        live = ctxd >= 5
+        assert torch.equal(q1[live, 0], full[live, 0]), hd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp", "int8", "int8_mxu"])
+def test_split_paged_kernels_on_two_streams(kind):
+    """Two streams running the paged kernel at once (as SSD's target and
+    draft streams do) give what the same calls give one after the other:
+    neither the workspace nor the counters are shared."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    s8 = kind == "int8_mxu"
+    calls = []
+    for seed, Q in ((1, 1), (2, 5), (3, 9)):
+        ctx_lens = [1500, 300, 2000, 64, 777, 1024, 1, 1800]
+        q, kv, bt, ctx = paged_case(seed, 8, Q, 32, 8, 64, 64, 32, ctx_lens)
+        layer = _split_layer(kv, kind, torch.bfloat16)
+        calls.append((t(q).to("cuda", torch.bfloat16), layer, t(bt).cuda(), t(ctx).cuda(),
+                      torch.full((8,), Q, dtype=torch.int32, device="cuda")))
+    serial = [att.paged_attention(*c, 64, 0.125, s8=s8) for c in calls]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                for c in (calls if i == 0 else calls[::-1]):
+                    outs[i].append(att.paged_attention(*c, 64, 0.125, s8=s8))
+    torch.cuda.synchronize()
+    for k, got in enumerate(outs[0]):
+        assert torch.equal(got, serial[k % 3]), k
+    for k, got in enumerate(outs[1]):
+        assert torch.equal(got, serial[2 - k % 3]), k
