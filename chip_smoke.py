@@ -10,8 +10,8 @@ the script exits non-zero:
 1. env      - the card's name and power limit (nvidia-smi), torch and CUDA
               versions, and the build of the CUDA kernels from the sources in
               ssd_tpu_torch/csrc (seconds, ptxas register/spill lines; for
-              each instantiation of the split-KV paged kernels K2/K4, its
-              registers, spills and shared memory).
+              each instantiation of the split-KV paged kernels K2/K4 and
+              tree kernels K3/K5, its registers, spills and shared memory).
 2. kernels  - each kernel against its plain PyTorch version on the card, at
               the Llama-3.2-1B geometry (Hq/Hkv 32/8, head_dim 64, 64-token
               pages; the paged kernels at decode Q=1 and at the SD/SSD verify
@@ -46,7 +46,10 @@ the script exits non-zero:
               modes) at the EAGLE glue shape Q = 2K+1 with per-sequence
               qeff, the b8 decode (Q=1), the verify (Q=K+1) and the head's
               chain step (Q=1); K3 and K5 at the last tree step; both
-              dtypes, then K1 and the glue timed. The two bench probes: the s8 dot's three paths
+              dtypes, then K1, the glue and K3/K5 (both int8 modes) at the
+              last tree step timed. K3/K5 are timed at the Llama-3.2-1B
+              b8 tree step and at B=1 over 2048 positions (tree_b1) too.
+              The two bench probes: the s8 dot's three paths
               (csrc/s8_probe.cu: mma.sync s8, __dp4a, bf16 mma after a cast)
               at bench/s8_probe.py's shapes, exact against the fp64 plain
               version, and the paged kernels' stage variants (full, dma,
@@ -279,24 +282,35 @@ def sdpa(q, k, v, mask):
 # ---------------------------------------------------------------------------
 
 
-def _paged_split_resources(lib) -> list[dict]:
+def _split_resources(lib) -> dict:
     """Registers, spills and shared memory of each instantiation of the
-    split-KV paged kernels (csrc/paged_split.cuh), from ptxas's report of
-    the build and the kernels' own shared-memory layout."""
+    split-KV paged kernels (csrc/paged_split.cuh) and tree kernels
+    (csrc/tree_split.cuh, shared memory at the port's TREE_CHUNK), from
+    ptxas's report of the build and the kernels' own shared-memory
+    layouts."""
     import re
+
+    from ssd_tpu_torch.ops import attention as att
 
     kinds = {0: "fp", 1: "int8", 2: "int8_mxu"}
     stages = {0: "full", 1: "loads", 2: "math", 3: "empty"}
-    out, cur = [], None
+    out, cur = {"paged_split": [], "tree_split": []}, None
     for ln in lib.build_log.splitlines():
-        m = re.search(r"paged_split_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", ln)
+        m = re.search(r"(paged|tree)_split_kernelI(13__nv_bfloat16|f)((?:Li\d+E)+)", ln)
         if m and "Compiling entry" in ln:
-            dt = "bfloat16" if m.group(1) != "f" else "float32"
-            hd, mt, kind, stage = (int(x) for x in m.groups()[1:])
-            cur = {"dtype": dt, "hd": hd, "row_tiles": mt, "cache": kinds[kind],
-                   "stage": stages[stage],
-                   "smem_bytes": lib.cdll.ssd_paged_smem_bytes(kind, int(dt == "bfloat16"), hd, mt)}
-            out.append(cur)
+            dt = "bfloat16" if m.group(2) != "f" else "float32"
+            ints = [int(x) for x in re.findall(r"Li(\d+)E", m.group(3))]
+            if m.group(1) == "paged":
+                hd, mt, kind, stage = ints
+                cur = {"row_tiles": mt, "stage": stages[stage],
+                       "smem_bytes": lib.cdll.ssd_paged_smem_bytes(kind, int(dt == "bfloat16"), hd, mt)}
+            else:
+                hd, kind = ints
+                chunk = att.TREE_CHUNK[(hd, kind != 0)]
+                cur = {"chunk": chunk, "smem_bytes": lib.cdll.ssd_tree_smem_bytes(
+                    kind, int(dt == "bfloat16"), hd, chunk)}
+            cur = {"dtype": dt, "hd": hd, "cache": kinds[kind], **cur}
+            out[f"{m.group(1)}_split"].append(cur)
         elif cur is not None and "spill stores" in ln:
             cur["spill"] = ln.split("stack frame, ")[-1].strip()
         elif cur is not None and "Used" in ln and "registers" in ln:
@@ -322,7 +336,7 @@ def phase_env() -> dict:
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], build_seconds=lib.build_seconds,
          library=os.path.relpath(lib.path), ptxas=ptxas,
-         paged_split=_paged_split_resources(lib),
+         **_split_resources(lib),
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          tf32_cudnn=torch.backends.cudnn.allow_tf32)
     return {"card": card}
@@ -706,6 +720,50 @@ def _probe_kernels(record, decode_ctx: list[int]) -> dict:
     return {"timings": timings, "launches": launches}
 
 
+def _tree_timings(q, kv, bt, ctx, fan, label, heads) -> dict:
+    """K3 and K5 (both int8 modes) timed in bf16 at one tree step (the last,
+    s = K-1) of the async draft: each attended K|V position read once (and
+    its two scales for the int8 cache), q read and the output written once,
+    the tables, contexts and fan rows read once; 4 * hd operations per
+    (query head, attended position). The yardstick: SDPA over the gathered
+    dense K/V (dequantized for the int8 cache) with the tree mask."""
+    import torch
+
+    from ssd_tpu_torch.ops import attention as att
+    from ssd_tpu_torch.ops.spec_math import tree_attention_mask
+
+    Hq, Hkv, hd = heads
+    step, dt, elem = SPEC_K - 1, torch.bfloat16, 2
+    scale = hd ** -0.5
+    C = bt.shape[1] * BLOCK
+    mask = tree_attention_mask(ctx, step, fan, SPEC_K, SPEC_MQ, C)      # [B, MQ, C]
+    kv_len = int(torch.clamp(ctx, max=C).long().sum())
+    ops = 4 * Hq * hd * int(mask.sum())
+    qs = q.permute(0, 2, 1, 3).contiguous()                             # [B, Hq, MQ, hd]
+    pair = _int8_pair(kv)
+    out = {}
+    for name, mode in (("tree_attention", None), ("tree_attention_int8", "int8"),
+                       ("tree_attention_int8[s8]", "int8_mxu")):
+        layer = kv if mode is None else pair
+        s8 = mode == "int8_mxu"
+        pos_bytes = 2 * hd * elem if mode is None else 2 * hd + 8
+        bytes_ = (kv_len * Hkv * pos_bytes + 2 * q.numel() * elem
+                  + bt.numel() * 4 + ctx.numel() * 4 + fan.numel() * 4)
+        args = (q, layer, bt, ctx, fan, step, SPEC_K, BLOCK, scale)
+        k, v = att.gather_pages(layer, bt, BLOCK, C)                    # [B, C, Hkv, hd]
+        k = k.to(dt).permute(0, 2, 1, 3).contiguous()
+        v = v.to(dt).permute(0, 2, 1, 3).contiguous()
+        out[name] = _timing(
+            f"tree step {step} of K={SPEC_K}, {label} (ctx {ctx.tolist()}) MQ={SPEC_MQ} "
+            f"Hq/Hkv {Hq}/{Hkv} hd {hd} bf16" + ("" if mode is None else f", {mode} cache"),
+            lambda: att.tree_attention(*args, s8=s8),
+            lambda: att.tree_attention_plain(*args, s8=s8),
+            lambda: sdpa(qs, k, v, mask[:, None]), bytes_, ops,
+            PEAK_OPS_INT8 if s8 else PEAK_FLOPS["bfloat16"])
+        del k, v
+    return out
+
+
 def phase_kernels() -> dict:
     import torch
 
@@ -921,34 +979,17 @@ def phase_kernels() -> dict:
     emit("kernels", kernel="flat_prefill_attention", tpu_row="#4 _paged_attn_kernel "
          "(draft prefill)", timing=draft_prefill)
 
-    # The tree build's last step at b8: the serve b8 batch after 64 steps.
+    # The tree build's last step at b8: the serve b8 batch after 64 steps;
+    # then at B=1 over 2048 positions of prefix (tree_b1, the b1 SSD path).
     step = SPEC_K - 1
     q, kv, bt, ctx, fan = _tree_case(8, step, [n + 64 for n in SERVE_LENS8], 0, dt, seed=31)
-    C = bt.shape[1] * BLOCK
-    from ssd_tpu_torch.ops.spec_math import tree_attention_mask
-
-    mask = tree_attention_mask(ctx, step, fan, SPEC_K, SPEC_MQ, C)      # [B, MQ, C]
-    kv_len = int(torch.clamp(ctx, max=C).long().sum())
-    ops = 4 * Hq * hd * int(mask.sum())
-    qs = q.permute(0, 2, 1, 3).contiguous()                      # [B, Hq, MQ, hd]
-    pair = _int8_pair(kv)
-    for name, mode in (("tree_attention", None), ("tree_attention_int8", "int8"),
-                       ("tree_attention_int8[s8]", "int8_mxu")):
-        layer = kv if mode is None else pair
-        s8 = mode == "int8_mxu"
-        bytes_ = (kv_len * Hkv * (fp_pos if mode is None else i8_pos) + 2 * q.numel() * elem
-                  + bt.numel() * 4 + ctx.numel() * 4 + fan.numel() * 4)
-        args = (q, layer, bt, ctx, fan, step, SPEC_K, BLOCK, scale)
-        k, v = att.gather_pages(layer, bt, BLOCK, C)             # [B, C, Hkv, hd]
-        k = k.to(dt).permute(0, 2, 1, 3).contiguous()
-        v = v.to(dt).permute(0, 2, 1, 3).contiguous()
-        timings[name] = _timing(
-            f"tree step {step} of K={SPEC_K}, B=8 (ctx {ctx.tolist()}) MQ={SPEC_MQ} "
-            f"Hq/Hkv 32/8 hd 64 bf16" + ("" if mode is None else f", {mode} cache"),
-            lambda: att.tree_attention(*args, s8=s8),
-            lambda: att.tree_attention_plain(*args, s8=s8),
-            lambda: sdpa(qs, k, v, mask[:, None]), bytes_, ops,
-            PEAK_OPS_INT8 if s8 else PEAK_FLOPS[dname])
+    timings.update(_tree_timings(q, kv, bt, ctx, fan, "B=8", LLAMA_HEADS))
+    B, bases, _ = tree_cases["tree_b1"]
+    q, kv, bt, ctx, fan = _tree_case(B, step, bases, 0, dt, seed=32)
+    tree_b1 = _tree_timings(q, kv, bt, ctx, fan, "B=1", LLAMA_HEADS)
+    for name, tm in tree_b1.items():
+        emit("kernels", kernel=name, tree_b1=tm)
+    del q, kv
 
     # K1 and K2 at Qwen3-30B-A3B's attention geometry (Hq/Hkv 32/4, hd 128):
     # the moe phase's b8 decode halfway through and its b8 prefill.
@@ -1099,6 +1140,11 @@ def phase_kernels() -> dict:
         lambda: sdpa(qg, k, v, gmask), bytes_, 4 * Hq * hd * int(limit.sum()),
         PEAK_FLOPS[dname])
     del k, v
+    # K3/K5 at the head's last tree step, the glue's contexts + K MQ rows.
+    q, kv, bt, ctx, fan = _tree_case(8, SPEC_K - 1, [n - 2 for n in at64], 0, dt, seed=68,
+                                     heads=LLAMA8B_HEADS)
+    eagle_t.update(_tree_timings(q, kv, bt, ctx, fan, "EAGLE B=8", LLAMA8B_HEADS))
+    del q, kv
     for name, tm in eagle_t.items():
         emit("kernels", kernel=name, llama31_8b_eagle=tm)
 
@@ -1111,7 +1157,7 @@ def phase_kernels() -> dict:
         w.launches = n
     return {"errors": results, "timings": timings, "at_verify": at_verify,
             "long_context": long_ctx, "qwen3_moe": qwen, "grouped_gemm": gmm_times,
-            "llama31_8b_eagle": eagle_t, "probes": probes_out}
+            "llama31_8b_eagle": eagle_t, "tree_b1": tree_b1, "probes": probes_out}
 
 
 # ---------------------------------------------------------------------------
@@ -2414,6 +2460,7 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                              ("at_long_context", kern["long_context"]),
                              ("at_qwen3_moe_geometry", kern["qwen3_moe"]),
                              ("at_llama31_8b_eagle", kern["llama31_8b_eagle"]),
+                             ("at_tree_b1", kern["tree_b1"]),
                              ("at_prefill_down", {"grouped_gemm": gmm["prefill_down"]}),
                              ("at_decode_b8_gate", {"grouped_gemm": gmm["decode_b8_gate"]}),
                              ("at_decode_b8_down", {"grouped_gemm": gmm["decode_b8_down"]})):

@@ -16,6 +16,17 @@ block; ops/attention.py::PAGED_CHUNK holds the one the port uses), the way
 that value is chosen; the variants run at the port's own chunk. Every time
 is taken with the L2 cache flushed before each call.
 
+--tree times the tree kernels instead (csrc/tree_split.cuh: K3, and K5 in
+both int8 modes with --kv int8), at the last tree step of the async draft
+(K=4, fan-out 2: MQ=10) over the same contexts (each sequence's prefix; its
+tree tail is added), at each --chunks length (TREE_CHUNK holds the port's),
+or without --chunks at the package's own. Run by its path with another
+checkout of the package first on PYTHONPATH, the latter times that
+checkout's tree kernels on the same inputs:
+
+  python -m ssd_tpu_torch.bench.kernel_diag --tree --contexts 97,175 --chunks 64,128,256
+  cd <other checkout> && PYTHONPATH=. python <this checkout>/ssd_tpu_torch/bench/kernel_diag.py --tree ...
+
 The JAX script's flags are kept except --ppc (pages per TPU grid step): the
 GPU kernel walks a sequence's pages in one block and has no such knob. "full"
 is checked bit for bit against the production entry before timing.
@@ -55,6 +66,21 @@ def decode_case(B, Q, Hq, Hkv, hd, bs, ctx_lens, dtype, kv_quant=None, seed=0,
     return q, layer, bt, ctx, torch.full((B,), Q, dtype=torch.int32, device=device)
 
 
+def tree_case(Hq, Hkv, hd, bs, bases, dtype, kv_quant=None, K=4, fan_out=2, seed=0,
+              device="cuda"):
+    """The last tree step of the async draft (K, fan-out: MQ = fan_out * (K+1)
+    rows a sequence) whose prefixes are `bases`: contexts base + (K+1) +
+    K * MQ, the hit fan-out rows. Returns (q, layer, block_tables,
+    context_lens, fan_idx_rows, step, K)."""
+    MQ = fan_out * (K + 1)
+    ctx = [n + (K + 1) + K * MQ for n in bases]
+    q, layer, bt, ctx_t, _ = decode_case(len(ctx), MQ, Hq, Hkv, hd, bs, ctx, dtype,
+                                         kv_quant=kv_quant, seed=seed, device=device)
+    fan = torch.arange(K + 1, device=device).repeat_interleave(fan_out)
+    fan = fan[None].expand(len(ctx), MQ).to(torch.int32).contiguous()
+    return q, layer, bt, ctx_t, fan, K - 1, K
+
+
 def time_cold_ms(fn, iters: int) -> float:
     """Mean device time of one fn() call with the L2 cache flushed before
     each (a 256 MiB write), as a layer's attention finds its KV on the
@@ -92,11 +118,16 @@ def main(argv=None):
                    help="comma-separated per-sequence contexts (overrides --ctx, --batch)")
     p.add_argument("--chunks", default=None,
                    help="comma-separated chunk lengths at which to time the production kernel")
+    p.add_argument("--tree", action="store_true",
+                   help="time the tree kernels (at --chunks, else at the package's own) "
+                        "instead of the paged kernel's stages")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_diag times the CUDA kernel and needs a card")
     ctx_lens = ([int(c) for c in args.contexts.split(",")] if args.contexts
                 else [args.ctx] * args.batch)
+    if args.tree:
+        return tree_chunks(args, ctx_lens)
     B, Q, bs = len(ctx_lens), args.q, args.block
     q, layer, bt, ctx, qeff = decode_case(
         B, Q, args.heads, args.kv_heads, args.hd, bs, ctx_lens, torch.bfloat16,
@@ -127,6 +158,32 @@ def main(argv=None):
                                                               bs, scale), args.iters)
         print(f"[{name:7s}] {dt:.4f} ms/call  {kv_bytes / dt / 1e6:.1f} GB/s-equiv",
               flush=True)
+
+
+def tree_chunks(args, bases):
+    """--tree: the tree kernels' time at each chunk length."""
+    kvq = "int8" if args.kv == "int8" else None
+    q, layer, bt, ctx, fan, step, K = tree_case(args.heads, args.kv_heads, args.hd, args.block,
+                                                bases, torch.bfloat16, kv_quant=kvq)
+    scale = args.hd ** -0.5
+    print(f"device: {torch.cuda.get_device_name(0)}  tree step {step} of K={K}, "
+          f"contexts {ctx.tolist()}", flush=True)
+    key = (args.hd, kvq is not None)
+    run = lambda s8: att.tree_attention(q, layer, bt, ctx, fan, step, K, args.block,  # noqa: E731
+                                        scale, s8=s8)
+    for s8 in ((False, True) if kvq else (False,)):
+        mode = "int8_mxu" if s8 else args.kv
+        if not args.chunks:  # the package's own chunk (any version of it)
+            print(f"[tree {mode:8s}] {time_cold_ms(lambda: run(s8), args.iters):.4f} ms/call",
+                  flush=True)
+        for chunk in [int(c) for c in args.chunks.split(",")] if args.chunks else []:
+            own = att.TREE_CHUNK[key]
+            att.TREE_CHUNK[key] = chunk
+            try:
+                dt = time_cold_ms(lambda: run(s8), args.iters)
+            finally:
+                att.TREE_CHUNK[key] = own
+            print(f"[tree {mode:8s} chunk {chunk:4d}] {dt:.4f} ms/call", flush=True)
 
 
 if __name__ == "__main__":

@@ -9,9 +9,9 @@ kernels in ssd_tpu/ops/pallas_attention.py that the AR path reaches:
   `_paged_attn_v2_kernel` / `_paged_attn_v3_kernel` (decode and verify);
 - `flat_prefill_attention` (kernel csrc/flat_prefill_attention.cu) replaces
   `_flat_prefill_kernel` (the one-launch ragged prefill);
-- `tree_attention` (kernel csrc/tree_attention.cu) replaces
-  `_tree_attn_kernel`, `_tree_attn_v2_kernel` and `_tree_attn_v3_kernel`
-  (the async draft's tree decode);
+- `tree_attention` (kernel csrc/tree_attention.cu, on the split-KV
+  csrc/tree_split.cuh) replaces `_tree_attn_kernel`, `_tree_attn_v2_kernel`
+  and `_tree_attn_v3_kernel` (the async draft's tree decode);
 - over the int8 cache (Config.kv_quant), `paged_attention_int8` (kernel
   csrc/paged_attention_int8.cu) replaces `_paged_attn_v3_kernel_i8`,
   `tree_attention_int8` (csrc/tree_attention_int8.cu) replaces
@@ -50,14 +50,20 @@ from ssd_tpu_torch.ops.spec_math import tree_attention_mask
 
 KERNEL_HEAD_DIMS = (64, 128)
 PAGED_S8_TILE = 32   # csrc/paged_split.cuh: one ring tile of the paged kernels
-TREE_S8_TILE = 64    # csrc/tree_attention_int8.cu: one K/V tile
+TREE_S8_TILE = 64    # csrc/tree_split.cuh: one tile of the tree kernels
 # Positions one block of the paged kernels (K2, K4) walks, by (head_dim, int8
 # cache): fixed absolute chunks [c * chunk, (c + 1) * chunk), multiples of
 # the kernels' 64-position ring tile (two PAGED_S8_TILEs), so a row's result
 # does not depend on the batch or on Q. Chosen on the card with
 # `python -m ssd_tpu_torch.bench.kernel_diag --chunks` (times in PERF.md).
 PAGED_CHUNK = {(64, False): 128, (64, True): 128, (128, False): 128, (128, True): 128}
-PAGED_MAX_SPAN = 512  # positions one block may walk (csrc/paged_split.cuh kMaxChunk)
+# The same for the tree kernels (K3, K5; csrc/tree_split.cuh): multiples of
+# TREE_S8_TILE, each held whole in a block's shared memory. Chosen on the
+# card with `python -m ssd_tpu_torch.bench.kernel_diag --tree --chunks`
+# (PERF.md); the fp cache at hd 128 stays at 128 because in fp32 a
+# position's K|V there takes 1040 bytes and 256 positions would not fit.
+TREE_CHUNK = {(64, False): 256, (64, True): 256, (128, False): 128, (128, True): 256}
+SPLIT_MAX_SPAN = 512  # positions one block may walk (kMaxChunk of both headers)
 
 KVLayer = torch.Tensor | tuple[torch.Tensor, torch.Tensor]
 
@@ -335,24 +341,22 @@ _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 _COUNTERS_LOCK = threading.Lock()
 
 
-def paged_split_buffers(q: torch.Tensor, Hkv: int, M: int, block_size: int, int8: bool):
-    """What a paged kernel launch needs beside its operands, on q's device
-    and the current stream: (chunk, chunks per block, workspace, counters,
-    stream handle). The workspace holds the blocks' partial softmax states
-    (fp32 acc and (m, l) per row and chunk), fresh from the caching
-    allocator on this stream, so no other stream can touch it while the
-    call runs. The
-    counters (B * Hkv ints) find the last block of each (sequence, KV head);
-    they are zero between calls, since that block resets its own, and are
-    kept per stream: the target's and the draft's streams run these kernels
-    at the same time."""
+def split_buffers(q: torch.Tensor, Hkv: int, M: int, block_size: int, chunk: int):
+    """What a split-KV kernel launch (paged or tree) needs beside its
+    operands, on q's device and the current stream: (chunk, chunks per
+    block, workspace, counters, stream handle). The workspace holds the
+    blocks' partial softmax states (fp32 acc and (m, l) per row and chunk),
+    fresh from the caching allocator on this stream, so no other stream can
+    touch it while the call runs. The counters (B * Hkv ints) find the last
+    block of each (sequence, KV head); they are zero between calls, since
+    that block resets its own, and are kept per stream: the target's and the
+    draft's streams run these kernels at the same time."""
     B, Q, Hq, hd = q.shape
-    chunk = PAGED_CHUNK[(hd, int8)]
     n_chunks = -(-M * block_size // chunk)
     # Chunks per block: one, unless the table holds over 1024 chunks in all
-    # (long contexts), where a block takes up to PAGED_MAX_SPAN positions
+    # (long contexts), where a block takes up to SPLIT_MAX_SPAN positions
     # and pays its fixed costs once; the chunks and results are the same.
-    per_block = max(1, min(PAGED_MAX_SPAN // chunk, B * Hkv * n_chunks // 1024))
+    per_block = max(1, min(SPLIT_MAX_SPAN // chunk, B * Hkv * n_chunks // 1024))
     ws = torch.empty(B * Hkv * n_chunks * Q * (Hq // Hkv) * (hd + 2),
                      dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device)
@@ -395,8 +399,8 @@ def paged_attention(
     out = torch.empty_like(q)
     lib = cuda_lib.load()
     with torch.cuda.device(q.device):
-        chunk, per_block, ws, counters, stream = paged_split_buffers(
-            q, Hkv, block_tables.shape[1], block_size, False)
+        chunk, per_block, ws, counters, stream = split_buffers(
+            q, Hkv, block_tables.shape[1], block_size, PAGED_CHUNK[(hd, False)])
         err = lib.cdll.ssd_paged_attention(
             cuda_lib.DTYPE_CODES[q.dtype], q.data_ptr(), kv_layer.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(), qeff.data_ptr(),
@@ -436,8 +440,8 @@ def paged_attention_int8(
     out = torch.empty_like(q)
     lib = cuda_lib.load()
     with torch.cuda.device(q.device):
-        chunk, per_block, ws, counters, stream = paged_split_buffers(
-            q, Hkv, block_tables.shape[1], block_size, True)
+        chunk, per_block, ws, counters, stream = split_buffers(
+            q, Hkv, block_tables.shape[1], block_size, PAGED_CHUNK[(hd, True)])
         err = lib.cdll.ssd_paged_attention_int8(
             cuda_lib.DTYPE_CODES[q.dtype], int(s8), q.data_ptr(), data.data_ptr(),
             scales.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
@@ -671,12 +675,14 @@ def tree_attention(
     out = torch.empty_like(q)
     lib = cuda_lib.load()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        chunk, per_block, ws, counters, stream = split_buffers(
+            q, Hkv, block_tables.shape[1], block_size, TREE_CHUNK[(hd, False)])
         err = lib.cdll.ssd_tree_attention(
             cuda_lib.DTYPE_CODES[q.dtype], q.data_ptr(), kv_layer.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(),
-            fan_idx_rows.data_ptr(), out.data_ptr(), B, MQ, Hq, Hkv, hd, S,
-            block_tables.shape[1], block_size, step, K, float(scale), stream)
+            fan_idx_rows.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
+            B, MQ, Hq, Hkv, hd, S, block_tables.shape[1], block_size, step, K, chunk,
+            per_block, float(scale), stream)
     lib.check(err, "tree_attention kernel launch")
     cuda_lib.count_launch(tree_attention)
     return out
@@ -714,12 +720,14 @@ def tree_attention_int8(
     out = torch.empty_like(q)
     lib = cuda_lib.load()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        chunk, per_block, ws, counters, stream = split_buffers(
+            q, Hkv, block_tables.shape[1], block_size, TREE_CHUNK[(hd, True)])
         err = lib.cdll.ssd_tree_attention_int8(
             cuda_lib.DTYPE_CODES[q.dtype], int(s8), q.data_ptr(), data.data_ptr(),
             scales.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
-            fan_idx_rows.data_ptr(), out.data_ptr(), B, MQ, Hq, Hkv, hd, S,
-            block_tables.shape[1], block_size, step, K, float(scale), stream)
+            fan_idx_rows.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
+            B, MQ, Hq, Hkv, hd, S, block_tables.shape[1], block_size, step, K, chunk,
+            per_block, float(scale), stream)
     lib.check(err, "tree_attention_int8 kernel launch")
     cuda_lib.count_launch(tree_attention_int8)
     return out

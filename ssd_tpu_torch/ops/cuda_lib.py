@@ -132,11 +132,14 @@ def _bind(cdll: ctypes.CDLL):
         i, i, i, i, ll, i, i,    # T, Hq, Hkv, hd, S, P, block_size
         f, p,                     # scale, stream
     ]
+    # The tree kernels (csrc/tree_split.cuh) take the same three as the
+    # paged ones beside the tree step and depth.
     cdll.ssd_tree_attention.restype = i
     cdll.ssd_tree_attention.argtypes = [
         i, p, p, p, p, p, p,     # dtype, q, kv, block_tables, context_lens, fan_idx_rows, out
+        p, p,                     # workspace, counters
         i, i, i, i, i, ll, i, i,  # B, MQ, Hq, Hkv, hd, S, M, block_size
-        i, i, f, p,               # step, K, scale, stream
+        i, i, i, i, f, p,         # step, K, chunk, chunks per block, scale, stream
     ]
     # The int8 cache (kv_quant): an int8 layer plus its f32 scales [Hkv, 2, S];
     # `s8` selects the integer-dot arithmetic of kv_quant="int8_mxu".
@@ -159,8 +162,9 @@ def _bind(cdll: ctypes.CDLL):
     cdll.ssd_tree_attention_int8.argtypes = [
         i, i, p, p, p,           # dtype, s8, q, kv, scales
         p, p, p, p,              # block_tables, context_lens, fan_idx_rows, out
+        p, p,                     # workspace, counters
         i, i, i, i, i, ll, i, i,  # B, MQ, Hq, Hkv, hd, S, M, block_size
-        i, i, f, p,               # step, K, scale, stream
+        i, i, i, i, f, p,         # step, K, chunk, chunks per block, scale, stream
     ]
     # Stage variants of the paged kernels (ops/probes.py): `stage` 0 full,
     # 1 page loads only, 2 math only, 3 neither; otherwise the production
@@ -178,6 +182,8 @@ def _bind(cdll: ctypes.CDLL):
     ]
     cdll.ssd_paged_smem_bytes.restype = i
     cdll.ssd_paged_smem_bytes.argtypes = [i, i, i, i]   # kind, dtype, hd, row tiles
+    cdll.ssd_tree_smem_bytes.restype = i
+    cdll.ssd_tree_smem_bytes.argtypes = [i, i, i, i]    # kind, dtype, hd, chunk
     # The int8 dot-rate probe (csrc/s8_probe.cu): q [N, R, D], k [N, L, D].
     for name in ("ssd_s8_dot_mma", "ssd_s8_dot_dp4a", "ssd_s8_dot_bf16"):
         fn = getattr(cdll, name)

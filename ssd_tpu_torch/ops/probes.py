@@ -130,8 +130,8 @@ def paged_attention_diag(
     out = torch.empty_like(q)
     lib = cuda_lib.load()
     with torch.cuda.device(q.device):
-        chunk, per_block, ws, counters, stream = att.paged_split_buffers(
-            q, Hkv, block_tables.shape[1], block_size, quant)
+        chunk, per_block, ws, counters, stream = att.split_buffers(
+            q, Hkv, block_tables.shape[1], block_size, att.PAGED_CHUNK[(hd, quant)])
         common = (q.data_ptr(), data.data_ptr())
         rest = (block_tables.data_ptr(), context_lens.data_ptr(), qeff.data_ptr(),
                 out.data_ptr(), ws.data_ptr(), counters.data_ptr(), B, Q, Hq, Hkv, hd, S,

@@ -352,3 +352,96 @@ def test_split_paged_kernels_on_two_streams(kind):
         assert torch.equal(got, serial[k % 3]), k
     for k, got in enumerate(outs[1]):
         assert torch.equal(got, serial[2 - k % 3]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp", "int8", "int8_mxu"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_tree_kernels_match_plain_on_card(dtype, hd, kind):
+    """The split-KV K3/K5 against their plain versions at R = MQ * G of 20,
+    40 and 80 rows (MQ 5 and 10, hit and miss fan-out lists, G 4 and 8; 80
+    takes two row groups), at steps 0 and K-1, with contexts over several
+    chunks, ending exactly on a chunk boundary (128, 256, 512), tails across
+    a chunk boundary, a context past the full table and a ghost row (a
+    negative prefix, a table of -1 entries)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    scale, K = hd ** -0.5, 4
+    for fans, G in (([1] * 5, 4), ([2] * 5, 4), ([2] * 5, 8), ([3, 3, 2, 1, 1], 8)):
+        MQ = sum(fans)
+        for step in (0, K - 1):
+            tail = K + 1 + (step + 1) * MQ
+            # 1500: past the 1024-slot table
+            bases = [700, 128 - tail, 256 - tail, 512 - tail, 100, 240, 1500]
+            q, kv, bt, ctx, fan = tree_case(110 + MQ + G + step, 8, K, fans, 2 * G, 2, hd, 64, 16,
+                                            bases, step, 1)
+            layer = _split_layer(kv, kind, dtype)
+            args = [t(a).cuda() for a in (bt, ctx, fan)]
+            qd = t(q).to("cuda", dtype)
+            got = att.tree_attention(qd, layer, *args, step, K, 64, scale, s8=kind == "int8_mxu")
+            torch.cuda.synchronize()
+            want = att.tree_attention_plain(qd, layer, *args, step, K, 64, scale,
+                                            s8=kind == "int8_mxu")
+            assert close(got, want, dtype), (fans, G, step)
+            assert torch.isfinite(got).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp", "int8", "int8_mxu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_tree_kernels_are_batch_invariant_on_card(dtype, kind):
+    """Bitwise: a repeated call; each sequence's rows alone equal its rows
+    in a batch of 8 with other contexts (at G 4 and, two row groups, G 8)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    s8 = kind == "int8_mxu"
+    for Hq, Hkv, hd in ((32, 8, 64), (32, 4, 128)):
+        scale = hd ** -0.5
+        bases = [97, 175, 640, 1, 964, 1364, 64, 1964]
+        q, kv, bt, ctx, fan = tree_case(95 + hd, 8, 4, [2] * 5, Hq, Hkv, hd, 64, 32, bases, 3)
+        layer = _split_layer(kv, kind, dtype)
+        qd, btd, ctxd, fand = t(q).to("cuda", dtype), t(bt).cuda(), t(ctx).cuda(), t(fan).cuda()
+        full = att.tree_attention(qd, layer, btd, ctxd, fand, 3, 4, 64, scale, s8=s8)
+        again = att.tree_attention(qd, layer, btd, ctxd, fand, 3, 4, 64, scale, s8=s8)
+        assert torch.equal(full, again)
+        for b in (0, 4, 7):
+            alone = att.tree_attention(qd[b:b + 1], layer, btd[b:b + 1], ctxd[b:b + 1],
+                                       fand[b:b + 1], 3, 4, 64, scale, s8=s8)
+            assert torch.equal(alone[0], full[b]), (hd, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp", "int8", "int8_mxu"])
+def test_split_tree_kernels_on_two_streams(kind):
+    """Two streams running the tree kernel at once (as SSD's draft stream
+    runs it beside the target's paged kernels) give what the same calls give
+    one after the other: neither the workspace nor the counters are
+    shared."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    s8 = kind == "int8_mxu"
+    calls = []
+    for seed, (fans, step) in enumerate((([2] * 5, 0), ([3, 3, 2, 1, 1], 3), ([1] * 5, 2))):
+        bases = [1500, 300, 2000, 64, 777, 1024, 1, 1800]
+        q, kv, bt, ctx, fan = tree_case(seed, 8, 4, fans, 32, 8, 64, 64, 40, bases, step)
+        layer = _split_layer(kv, kind, torch.bfloat16)
+        calls.append((t(q).to("cuda", torch.bfloat16), layer, t(bt).cuda(), t(ctx).cuda(),
+                      t(fan).cuda(), step))
+    run = lambda c: att.tree_attention(*c[:5], c[5], 4, 64, 0.125, s8=s8)  # noqa: E731
+    serial = [run(c) for c in calls]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                for c in (calls if i == 0 else calls[::-1]):
+                    outs[i].append(run(c))
+    torch.cuda.synchronize()
+    for k, got in enumerate(outs[0]):
+        assert torch.equal(got, serial[k % 3]), k
+    for k, got in enumerate(outs[1]):
+        assert torch.equal(got, serial[2 - k % 3]), k
