@@ -11,7 +11,8 @@ the script exits non-zero:
               versions, and the build of the CUDA kernels from the sources in
               ssd_tpu_torch/csrc (seconds, ptxas register/spill lines; for
               each instantiation of the split-KV paged kernels K2/K4 and
-              tree kernels K3/K5, its registers, spills and shared memory).
+              tree kernels K3/K5, and of K1's bf16 kernel and K6's two bf16
+              routes, its registers, spills and shared memory).
 2. kernels  - each kernel against its plain PyTorch version on the card, at
               the Llama-3.2-1B geometry (Hq/Hkv 32/8, head_dim 64, 64-token
               pages; the paged kernels at decode Q=1 and at the SD/SSD verify
@@ -34,11 +35,16 @@ the script exits non-zero:
               Q=K+1 (40 rows a KV head) and the glue Q=2K+1 (72 rows)), and
               K1 and K2 timed there. K2 and K4 must be batch-invariant bit
               for bit: a repeated call, each sequence alone against the
-              batch of 8, and a Q=1 call against query 0 of a Q=K+1 call. The grouped GEMM (K6) is held against its plain
+              batch of 8, and a Q=1 call against query 0 of a Q=K+1 call;
+              K1 (bf16, fp and int8 pages, hd 64 G 4 and hd 128 G 8, block
+              size 64) too: each serve prompt alone against its rows in the
+              batch of 8. The grouped GEMM (K6) is held against its plain
               version at Qwen3-30B-A3B's expert shapes (gate/up 2048 -> 768,
               down 768 -> 2048; the serve prompts' prefill dispatch of
-              5534 x 8 rows and a b8 decode dispatch of 64 rows, group sizes
-              from a seeded router with an empty group) and timed there,
+              5534 x 8 rows on the prefill route, a b8 decode dispatch of 64
+              rows and a b1 one of 8 one-row groups on the decode route,
+              group sizes from a seeded router with an empty group) and
+              timed there,
               beside torch._grouped_mm as its yardstick (a dense matmul of
               the same operations where that call is missing or refuses).
               At Llama-3.1-8B's heads (Hq/Hkv 32/8, hd 128): K1 at the EAGLE
@@ -282,35 +288,50 @@ def sdpa(q, k, v, mask):
 # ---------------------------------------------------------------------------
 
 
-def _split_resources(lib) -> dict:
+def _kernel_resources(lib) -> dict:
     """Registers, spills and shared memory of each instantiation of the
-    split-KV paged kernels (csrc/paged_split.cuh) and tree kernels
-    (csrc/tree_split.cuh, shared memory at the port's TREE_CHUNK), from
-    ptxas's report of the build and the kernels' own shared-memory
-    layouts."""
+    split-KV paged kernels (csrc/paged_split.cuh), the tree kernels
+    (csrc/tree_split.cuh, shared memory at the port's TREE_CHUNK), K1's
+    bf16 kernel and K6's two bf16 routes, from ptxas's report of the build
+    and the kernels' own shared-memory layouts."""
     import re
 
     from ssd_tpu_torch.ops import attention as att
 
     kinds = {0: "fp", 1: "int8", 2: "int8_mxu"}
     stages = {0: "full", 1: "loads", 2: "math", 3: "empty"}
-    out, cur = {"paged_split": [], "tree_split": []}, None
+    out = {"paged_split": [], "tree_split": [], "flat_prefill_tc": [], "grouped_gemm_wgmma": []}
+    cur = None
     for ln in lib.build_log.splitlines():
-        m = re.search(r"(paged|tree)_split_kernelI(13__nv_bfloat16|f)((?:Li\d+E)+)", ln)
-        if m and "Compiling entry" in ln:
-            dt = "bfloat16" if m.group(2) != "f" else "float32"
-            ints = [int(x) for x in re.findall(r"Li(\d+)E", m.group(3))]
-            if m.group(1) == "paged":
-                hd, mt, kind, stage = ints
-                cur = {"row_tiles": mt, "stage": stages[stage],
-                       "smem_bytes": lib.cdll.ssd_paged_smem_bytes(kind, int(dt == "bfloat16"), hd, mt)}
-            else:
-                hd, kind = ints
-                chunk = att.TREE_CHUNK[(hd, kind != 0)]
-                cur = {"chunk": chunk, "smem_bytes": lib.cdll.ssd_tree_smem_bytes(
-                    kind, int(dt == "bfloat16"), hd, chunk)}
-            cur = {"dtype": dt, "hd": hd, "cache": kinds[kind], **cur}
-            out[f"{m.group(1)}_split"].append(cur)
+        if "Compiling entry" in ln:
+            cur = None
+            m = re.search(r"(paged|tree)_split_kernelI(13__nv_bfloat16|f)((?:Li\d+E)+)", ln)
+            if m:
+                dt = "bfloat16" if m.group(2) != "f" else "float32"
+                ints = [int(x) for x in re.findall(r"Li(\d+)E", m.group(3))]
+                if m.group(1) == "paged":
+                    hd, mt, kind, stage = ints
+                    cur = {"row_tiles": mt, "stage": stages[stage],
+                           "smem_bytes": lib.cdll.ssd_paged_smem_bytes(kind, int(dt == "bfloat16"), hd, mt)}
+                else:
+                    hd, kind = ints
+                    chunk = att.TREE_CHUNK[(hd, kind != 0)]
+                    cur = {"chunk": chunk, "smem_bytes": lib.cdll.ssd_tree_smem_bytes(
+                        kind, int(dt == "bfloat16"), hd, chunk)}
+                cur = {"dtype": dt, "hd": hd, "cache": kinds[kind], **cur}
+                out[f"{m.group(1)}_split"].append(cur)
+            m = re.search(r"flat_prefill_tc_kernelI(13__nv_bfloat16|a)Li(\d+)E", ln)
+            if m:
+                int8, hd = m.group(1) == "a", int(m.group(2))
+                cur = {"dtype": "bfloat16", "hd": hd, "cache": "int8" if int8 else "fp",
+                       "smem_bytes": lib.cdll.ssd_flat_prefill_smem_bytes(int(int8), hd)}
+                out["flat_prefill_tc"].append(cur)
+            m = re.search(r"grouped_gemm_wgmma_(decode_)?kernel", ln)
+            if m:
+                decode = m.group(1) is not None
+                cur = {"route": "decode" if decode else "prefill",
+                       "smem_bytes": lib.cdll.ssd_grouped_gemm_smem_bytes(int(decode))}
+                out["grouped_gemm_wgmma"].append(cur)
         elif cur is not None and "spill stores" in ln:
             cur["spill"] = ln.split("stack frame, ")[-1].strip()
         elif cur is not None and "Used" in ln and "registers" in ln:
@@ -336,7 +357,7 @@ def phase_env() -> dict:
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], build_seconds=lib.build_seconds,
          library=os.path.relpath(lib.path), ptxas=ptxas,
-         **_split_resources(lib),
+         **_kernel_resources(lib),
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          tf32_cudnn=torch.backends.cudnn.allow_tf32)
     return {"card": card}
@@ -622,6 +643,38 @@ def _paged_batch_invariance(decode_ctx: list[int]):
     emit("kernels", batch_invariance={"bitwise": True, "checked": checked})
 
 
+def _flat_batch_invariance():
+    """K1's bf16 kernel over the fp cache and the int8 pages, at the
+    serving block size 64, bit for bit: each of the serve prompts run alone
+    (its own pages, columns from 0) equals its rows in the batch of 8, at
+    the Llama-3.2-1B heads (hd 64, G 4) and Qwen3-30B-A3B's (hd 128, G 8)."""
+    import torch
+
+    from ssd_tpu_torch.ops import attention as att
+
+    checked = 0
+    for seed, heads in enumerate((LLAMA_HEADS, QWEN_HEADS)):
+        q, kv, pages, lo, hi, T = _flat_case(SERVE_LENS8, [0] * 8, torch.bfloat16,
+                                             seed=90 + seed, heads=heads)
+        s = heads[2] ** -0.5
+        for layer in (kv, _int8_pair(kv)):
+            full = att.flat_prefill_attention(q, layer, pages, lo, hi, BLOCK, s)
+            off = p = 0
+            for n in SERVE_LENS8:
+                npages = -(-n // BLOCK)
+                alone = att.flat_prefill_attention(
+                    q[off:off + n].contiguous(), layer, pages[p:p + npages].contiguous(),
+                    torch.zeros(n, dtype=torch.int32, device="cuda"),
+                    torch.arange(1, n + 1, dtype=torch.int32, device="cuda"), BLOCK, s)
+                if not torch.equal(alone, full[off:off + n]):
+                    fail(f"flat_prefill_attention: prompt of {n} tokens alone differs from "
+                         f"its rows in the batch (heads {heads}, "
+                         f"{'int8' if isinstance(layer, tuple) else 'fp'} cache)")
+                off, p, checked = off + n, p + npages, checked + 1
+    emit("kernels", kernel="flat_prefill_attention", batch_invariant=True,
+         prompts_checked=checked, block_size=BLOCK)
+
+
 def _probe_kernels(record, decode_ctx: list[int]) -> dict:
     """Rows #11 and #12 of the kernel table: the s8 probe's three paths at
     bench/s8_probe.py's shapes, exact against the fp64 plain version; the
@@ -798,8 +851,10 @@ def phase_kernels() -> dict:
     D, Im = c["hidden_size"], c["moe_intermediate_size"]
     prefill_offs = _moe_offsets(sum(SERVE_LENS8), seed=1)   # N = 5534 * 8 rows
     decode_offs = _moe_offsets(8, seed=2)                   # N = 64 rows
+    decode1_offs = _moe_offsets(1, seed=3)                  # N = 8 rows, one a group
     gmm_cases = {"prefill_gate": (prefill_offs, D, Im), "prefill_down": (prefill_offs, Im, D),
-                 "decode_b8_gate": (decode_offs, D, Im), "decode_b8_down": (decode_offs, Im, D)}
+                 "decode_b8_gate": (decode_offs, D, Im), "decode_b8_down": (decode_offs, Im, D),
+                 "decode_b1_gate": (decode1_offs, D, Im), "decode_b1_down": (decode1_offs, Im, D)}
     wrappers = _kernel_wrappers()
     results = {}
 
@@ -900,6 +955,7 @@ def phase_kernels() -> dict:
             del x, w, got
 
     _paged_batch_invariance(serve8)
+    _flat_batch_invariance()
 
     # Times at the main-path shapes in bf16 (the serving dtype).
     counts = [w.launches for w in wrappers]
@@ -1037,6 +1093,7 @@ def phase_kernels() -> dict:
                      library, bytes_, 2 * N * K * Nout, PEAK_FLOPS[dname],
                      iters=20, plain_iters=3)
         tm["library"] = label
+        tm["route"] = moe.grouped_gemm_route(x.dtype, N, offs.numel() - 1)
         gmm_times[case] = tm
         emit("kernels", kernel="grouped_gemm", timing=tm)
         del x, w, want
@@ -2463,10 +2520,13 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                              ("at_tree_b1", kern["tree_b1"]),
                              ("at_prefill_down", {"grouped_gemm": gmm["prefill_down"]}),
                              ("at_decode_b8_gate", {"grouped_gemm": gmm["decode_b8_gate"]}),
-                             ("at_decode_b8_down", {"grouped_gemm": gmm["decode_b8_down"]})):
+                             ("at_decode_b8_down", {"grouped_gemm": gmm["decode_b8_down"]}),
+                             ("at_decode_b1_gate", {"grouped_gemm": gmm["decode_b1_gate"]}),
+                             ("at_decode_b1_down", {"grouped_gemm": gmm["decode_b1_down"]})):
             if name in table:
                 entry[label] = {k: table[name][k] for k in
-                                ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                                ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+                                + (("route",) if "route" in table[name] else ())}
         if "library" in tm:
             entry["library"] = tm["library"]
         if "stages_ms" in tm:

@@ -14,47 +14,75 @@
 //
 // Tiles without a host read. The row tiles of all experts are numbered
 // expert after expert, ceil(n_e / BM) of them for expert e. Their total is at
-// most ceil(N / BM) + E, so the grid is that static bound times the column
-// tiles. Each block forms the device-side prefix sum of ceil(n_e / BM) with
-// one warp's shuffle scan (32 experts a step: at E = 128, four steps, which
-// cost less than the eight dependent loads of a binary search in memory),
-// takes the expert whose range holds its tile number, and returns if none
+// most ceil(N / BM) + min(E, N), since at most N groups hold a row, so the
+// bf16 grid is that static bound times the column tiles (fp32's keeps + E).
+// At a b1 decode dispatch (8 rows) that is 9 row tiles' blocks where + E
+// launched 129, all but 8 of them returning at once. Each block forms the
+// device-side prefix sum of ceil(n_e / BM) with one warp's shuffle scan (32
+// experts a step: at E = 128, four steps, which cost less than the eight
+// dependent loads of a binary search in memory), takes the expert whose range holds its tile number, and returns if none
 // does. So the wrapper never reads the group sizes on the host, and an MoE
 // layer launches its three grouped GEMMs without a device-to-host sync.
 //
 // What bounds it on an H100 (Qwen3-30B-A3B, D 2048, Im 768, 128 experts,
-// top-8). At prefill (the 8 serve prompts: N = 44,272 rows, gate K 2048 ->
-// Nout 768) a call does 139 GFLOP and moves 0.6 GB: operations over the bf16
-// tensor-core peak bound it (989 TFLOP/s, 0.141 ms). At decode (8 tokens:
-// N = 64 rows over ~50 experts) it streams the selected experts' weights,
-// ~157 MB for ~0.2 GFLOP: bytes over 3.35 TB/s bound it (0.047 ms). The
-// design for both: bf16 runs on the tensor cores, mma.sync m16n8k16 with fp32
-// accumulators on 128 x 128 output tiles (eight warps of 32 x 64); K advances
-// in 32-wide slices that cp.async stages in shared memory two deep, so the
-// next slice's weights stream while the tensor cores work on this one; the
-// fragments come from shared memory by ldmatrix (B transposed on the fly, as
-// w is stored [K, Nout]). A weight tile is read once per row tile, which at
-// decode means once: a block there holds the one or two rows its expert got,
-// and its time is the weight stream. fp32 (the dtype of the exactness checks)
-// runs the same tiling on the SIMT units with fp32 FMAs. Next: wgmma with a
-// TMA pipeline, and a short row tile for decode-sized groups.
+// top-8). At prefill (the 8 serve prompts: N = 44,272 rows) the gate call
+// (K 2048 -> Nout 768) moves x 181 MB, the experts' w 403 MB and out 68 MB:
+// 0.652 GB, 0.195 ms at 3.35 TB/s; its 139 GFLOP take 0.141 ms at the bf16
+// tensor-core peak (989 TFLOP/s). So bytes bound it, with the tensor cores
+// close behind: the kernel has to stream near the HBM rate and multiply near
+// the wgmma rate at once. At decode (8 tokens: N = 64 rows over ~50
+// experts) it streams the selected experts' weights, ~157 MB for ~0.2
+// GFLOP: bytes bound it (0.047 ms), and the rows are too few to fill any
+// tensor-core tile.
+//
+// Design, bf16 (the serving dtype), two routes that the wrapper picks from
+// N and E alone (ops/moe.py::grouped_gemm_route), never from a device read:
+//  - prefill: 128 x 256 output tiles, K in 64-wide slices. TMA
+//    (cp.async.bulk.tensor, 128-byte swizzle) fills a four-stage ring of
+//    48 KB stages from two tensor maps, x [N, K] (2-D, K-major) and w
+//    [E, K, Nout] (3-D, read MN-major); one producer warp keeps the ring
+//    full through full/empty mbarriers, and two consumer warpgroups run
+//    wgmma.mma_async m64n256k16 (bf16 in, fp32 sums; B transposed) on the
+//    swizzled tiles, one stage's group in flight while the next is issued.
+//    Consecutive blocks take the column tiles of one row tile, so a row
+//    tile's x and its expert's weights are read from HBM about once. The
+//    epilogue stages the tile in shared memory and writes whole 512-byte
+//    rows: the accumulator fragments' own 4-byte stores (8 rows x 16 bytes
+//    a warp instruction) had cost a tenth of the gate call and a sixth of
+//    down on the card. A 128 x 256 tile reads 25% fewer L2 bytes per flop
+//    than 128 x 128 and measured 1.10-1.15x faster; clusters sharing x by
+//    TMA multicast, and a persistent grid, measured slower and were left
+//    out. A tile's TMA box may run past its group's end: those rows (the
+//    next expert's, or zeros past N) are read and never stored.
+//  - decode: the product turned around, out^T = w^T . x^T: 64 weight
+//    columns are wgmma's M operand (m64n16k16, A transposed) and the
+//    tile's 16 rows its N, so a group of 1-2 rows costs one 16-row tile
+//    and not a 128-row one. An eight-stage ring of 10 KB per block keeps the
+//    weight stream, not latency, setting the time.
+// The epilogue rounds the fp32 sums once to bf16 and stores only rows in
+// [row0, row_end) and columns below Nout. fp32 (the dtype of the exactness
+// checks) runs a 64 x 64 tiling on the SIMT units with fp32 FMAs. The
+// tensor maps are encoded on the host per call (cuTensorMapEncodeTiled,
+// from the driver through cudaGetDriverEntryPoint) and passed as
+// __grid_constant__ kernel parameters.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace ssd {
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// This block's row tile: expert e_out, rows [row0, row_end) of x. False when
-// blockIdx.x is past the last tile; every thread of the block gets the same
+// Row tile `target`: expert e_out, rows [row0, row_end) of x. False when
+// `target` is past the last tile; every thread of the block gets the same
 // answer.
 template <int BM>
-__device__ __forceinline__ bool find_row_tile(const int* __restrict__ offs, int E,
-                                              int& e_out, int& row0, int& row_end) {
+__device__ __forceinline__ bool find_row_tile_at(const int* __restrict__ offs, int E,
+                                                 int target, int& e_out, int& row0,
+                                                 int& row_end) {
   __shared__ int tile[3];
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
-    const int target = blockIdx.x;
     int carry = 0, found = -1, beg = 0, end = 0;
     for (int base = 0; base < E; base += 32) {
       const int e = base + lane;
@@ -93,123 +121,223 @@ __device__ __forceinline__ bool find_row_tile(const int* __restrict__ offs, int 
   return e_out >= 0;
 }
 
-// --- bf16: tensor cores ---
+// This block's row tile, blockIdx.x.
+template <int BM>
+__device__ __forceinline__ bool find_row_tile(const int* __restrict__ offs, int E,
+                                              int& e_out, int& row0, int& row_end) {
+  return find_row_tile_at<BM>(offs, E, blockIdx.x, e_out, row0, row_end);
+}
 
-constexpr int kBM = 128;             // rows per block tile
-constexpr int kBN = 128;             // output columns per block tile
-constexpr int kBK = 32;              // K per shared-memory stage
-constexpr int kThreads = 256;        // 8 warps: 4 (rows) x 2 (columns)
-constexpr int kAStride = kBK + 8;    // bf16 per A row in shared memory (80 B)
-constexpr int kBStride = kBN + 8;    // bf16 per B row in shared memory (272 B)
-// The padded strides put the 8 rows an ldmatrix reads in 8 disjoint groups
-// of banks.
+// --- bf16: wgmma on TMA-fed shared memory ---
 
-__global__ void __launch_bounds__(kThreads)
-    grouped_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                             const __nv_bfloat16* __restrict__ w,
-                             const int* __restrict__ offs,
-                             __nv_bfloat16* __restrict__ out, int K, int Nout,
-                             int E) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][kBM * kAStride];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][kBK * kBStride];
+namespace gmm {
+// Prefill route: 128 x 256 output tiles, two consumer warpgroups of 64 rows.
+constexpr int kBM = 128;
+constexpr int kBN = 256;
+constexpr int kBK = 64;                          // one 128-byte swizzle row of bf16
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;
+constexpr int kWgThreads = kConsumers * 128 + 32;  // + the producer warp
+constexpr int kABytes = kBM * kBK * 2;           // 16 KB of x rows
+constexpr int kPanel = kBK * 64 * 2;             // 8 KB: 64 K rows x 64 columns of w[e]
+constexpr int kStageBytes = kABytes + (kBN / 64) * kPanel;  // 48 KB
+constexpr int kSmem = kStages * kStageBytes + 1024;         // + the 1024-byte alignment
+// Decode route (out^T = w^T . x^T): 64 output columns are wgmma's M, the
+// tile's 16 rows its N.
+constexpr int kDM = 64;
+constexpr int kDR = 16;
+constexpr int kDStages = 8;
+constexpr int kDThreads = 128 + 32;
+constexpr int kDWBytes = kBK * kDM * 2;          // 8 KB of w[e]
+constexpr int kDStageBytes = kDWBytes + kDR * kBK * 2;  // + 2 KB of x rows
+constexpr int kDSmem = kDStages * kDStageBytes + 1024;
+static_assert(kStageBytes % 1024 == 0 && kDStageBytes % 1024 == 0 && kDWBytes % 1024 == 0,
+              "TMA tiles with the 128-byte swizzle start 1024-byte aligned");
+}  // namespace gmm
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (hopper::smem_addr(p) & 1023)) & 1023);
+}
+
+// Prefill route. Block b computes row tile b / col_tiles (find_row_tile_at)
+// times columns [n0, n0 + 256), n0 = 256 (b % col_tiles): consecutive blocks
+// share the tile's x rows and its expert's weights in L2. Warp 8 is the
+// producer: one lane waits for a free stage, announces its bytes and sends
+// the TMA loads (x rows [row0, row0 + 128) x K slice, and four 64-column
+// panels of w[e]'s K slice). Warpgroups 0 and 1 wait for a full stage and
+// run four m64n256k16 wgmmas on it (rows 64 wg ..), keeping one stage's
+// group in flight: a stage is released when the group that read it is done.
+__global__ void __launch_bounds__(gmm::kWgThreads, 1)
+    grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                              const __grid_constant__ CUtensorMap wmap,
+                              const int* __restrict__ offs, __nv_bfloat16* __restrict__ out,
+                              int K, int Nout, int E, int col_tiles) {
+  using namespace gmm;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   int e, row0, row_end;
-  if (!find_row_tile<kBM>(offs, E, e, row0, row_end)) return;
-  const int m_rows = row_end - row0;
-  const int n0 = blockIdx.y * kBN;
-  const __nv_bfloat16* xa = x + (size_t)row0 * K;
-  const __nv_bfloat16* wb = w + (size_t)e * K * Nout + n0;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;  // warp tile: rows 32 wm, cols 64 wn
-
-  // One stage: A is kBM x kBK and B kBK x kBN, 512 chunks of 8 bf16 each,
-  // two chunks of each per thread. Rows past the group, K past the end and
-  // columns past Nout load zeros.
-  auto load_stage = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads;
-      const int r = c >> 2, kc = (c & 3) * 8;
-      const bool ok = r < m_rows && k0 + kc < K;
-      cp_async16(&As[stage][r * kAStride + kc], ok ? xa + (size_t)r * K + k0 + kc : x, ok);
+  if (!find_row_tile_at<kBM>(offs, E, blockIdx.x / col_tiles, e, row0, row_end)) return;
+  const int n0 = (blockIdx.x % col_tiles) * kBN;
+  unsigned char* smem = align1024(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads;
-      const int kr = c >> 4, nc = (c & 15) * 8;
-      const bool ok = k0 + kr < K && n0 + nc < Nout;
-      cp_async16(&Bs[stage][kr * kBStride + nc], ok ? wb + (size_t)(k0 + kr) * Nout + nc : w,
-                 ok);
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
   const int nk = (K + kBK - 1) / kBK;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load_stage((kt + 1) & 1, (kt + 1) * kBK);
-    cp_async_commit();
-    cp_async_wait<1>();  // this slice has landed; the next one is in flight
-    __syncthreads();
-    const __nv_bfloat16* as = As[kt & 1];
-    const __nv_bfloat16* bs = Bs[kt & 1];
+
+  if (warp == 4 * kConsumers) {
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        hopper::mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        unsigned char* st = smem + s * kStageBytes;
+        hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
+        hopper::tma_load_2d(st, &xmap, &full[s], kt * kBK, row0);
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      // A fragments: lanes 0-15 address rows 0-15 at k, lanes 16-31 at k + 8.
-      unsigned a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4(a[mi], as + (wm * 32 + mi * 16 + (lane & 15)) * kAStride + kk +
-                               (lane >> 4) * 8);
-      // B fragments of two 8-column tiles per ldmatrix: matrix m = lane / 8
-      // holds k rows (m & 1) * 8 .. + 7 of column tile 2 nj + (m >> 1),
-      // transposed into the column-fragment layout.
-      const int mat = lane >> 3;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        unsigned b[4];
-        ldmatrix_x4_trans(b, bs + (kk + (mat & 1) * 8 + (lane & 7)) * kBStride + wn * 64 +
-                                 (2 * nj + (mat >> 1)) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
-          mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
-        }
+        for (int p = 0; p < kBN / 64; ++p)
+          hopper::tma_load_3d(st + kABytes + p * kPanel, &wmap, &full[s], n0 + 64 * p, kt * kBK, e);
       }
     }
-    __syncthreads();  // before the next iteration refills this stage
+    return;
   }
 
-  // Accumulator (mi, ni): rows g and g + 8 of the 16-row tile, columns 2c
-  // and 2c + 1 of the 8-column tile; rounded once to bf16.
-  const int g = lane >> 2, c = lane & 3;
+  const int wg = warp / 4;
+  float acc[kBN / 2];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kStages;
+    hopper::mbar_wait(&full[s], (kt / kStages) & 1);
+    const unsigned char* a = smem + s * kStageBytes + wg * 64 * 128;
+    const unsigned char* b = smem + s * kStageBytes + kABytes;
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = wm * 32 + mi * 16 + g + half * 8;
-      if (r >= m_rows) continue;
-      __nv_bfloat16* orow = out + (size_t)(row0 + r) * Nout + n0;
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      hopper::wgmma_m64n256k16_bt(acc, hopper::gmma_desc(a + 32 * kk, 16, 1024),
+                                  hopper::gmma_desc(b + 2048 * kk, kPanel, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();  // the group of stage kt-1 is done
+    hopper::fence_regs(acc);
+    if (kt > 0 && threadIdx.x % 128 == 0) hopper::mbar_arrive(&empty[(kt - 1) % kStages]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  // The tile goes out through shared memory (the ring, read by now): warp
+  // w's 16 rows, rounded once to bf16, then one 512-byte row a store. Rows
+  // past the group's end were read (the next expert's rows, or TMA's zeros
+  // past N) and are not stored; nor are columns past Nout.
+  const int g = lane / 4, t = lane % 4;
+  constexpr int kStride = kBN * 2 + 16;  // padded: the fragment writes hit 32 banks
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
+  unsigned char* stg = smem + warp * 16 * kStride;
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int col = wn * 64 + ni * 8 + 2 * c;
-        if (n0 + col < Nout)
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+      *reinterpret_cast<unsigned*>(stg + (g + 8 * half) * kStride + (8 * j + 2 * t) * 2) =
+          bf16x2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+  __syncwarp();
+  const int r0 = row0 + wg * 64 + (warp % 4) * 16, col = n0 + 8 * lane;
+  for (int rr = 0; rr < 16 && r0 + rr < row_end; ++rr)
+    if (col < Nout)
+      *reinterpret_cast<uint4*>(out + (size_t)(r0 + rr) * Nout + col) =
+          *reinterpret_cast<const uint4*>(stg + rr * kStride + lane * 16);
+}
+
+// Decode route: the groups hold a few rows each, so a block takes a
+// 16-row tile and 64 output columns, and its time is the stream of w[e]'s
+// K x 64 slab. wgmma computes out^T: M = the 64 columns of w[e] (A, read
+// MN-major: trans-a), N = the tile's 16 rows of x (B, K-major), through an
+// eight-stage ring of 10 KB, so each block keeps up to 80 KB of the weight
+// stream in flight.
+__global__ void __launch_bounds__(gmm::kDThreads)
+    grouped_gemm_wgmma_decode_kernel(const __grid_constant__ CUtensorMap xmap,
+                                     const __grid_constant__ CUtensorMap wmap,
+                                     const int* __restrict__ offs,
+                                     __nv_bfloat16* __restrict__ out, int K, int Nout, int E,
+                                     int col_tiles) {
+  using namespace gmm;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kDStages], empty[kDStages];
+  int e, row0, row_end;
+  if (!find_row_tile_at<kDR>(offs, E, blockIdx.x / col_tiles, e, row0, row_end)) return;
+  const int n0 = (blockIdx.x % col_tiles) * kDM;
+  unsigned char* smem = align1024(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 1);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int nk = (K + kBK - 1) / kBK;
+
+  if (warp == 4) {
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kDStages;
+        hopper::mbar_wait(&empty[s], ((kt / kDStages) & 1) ^ 1);
+        unsigned char* st = smem + s * kDStageBytes;
+        hopper::mbar_arrive_expect_tx(&full[s], kDStageBytes);
+        hopper::tma_load_3d(st, &wmap, &full[s], n0, kt * kBK, e);
+        hopper::tma_load_2d(st + kDWBytes, &xmap, &full[s], kt * kBK, row0);
       }
     }
+    return;
+  }
+
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kDStages;
+    hopper::mbar_wait(&full[s], (kt / kDStages) & 1);
+    const unsigned char* a = smem + s * kDStageBytes;
+    const unsigned char* b = a + kDWBytes;
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      hopper::wgmma_m64n16k16_at(acc, hopper::gmma_desc(a + 2048 * kk, kDWBytes, 1024),
+                                 hopper::gmma_desc(b + 32 * kk, 16, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(acc);
+    if (kt > 0 && threadIdx.x == 0) hopper::mbar_arrive(&empty[(kt - 1) % kDStages]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  // acc[4j + 2 half + u]: column n0 + 16 warp + g + 8 half of row
+  // row0 + 8j + 2t + u.
+  const int g = lane / 4, t = lane % 4;
+  const int m_rows = row_end - row0;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int col = n0 + 16 * warp + g + 8 * half;
+    if (col >= Nout) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = 8 * j + 2 * t + u;
+        if (r < m_rows) out[(size_t)(row0 + r) * Nout + col] = __float2bfloat16(acc[4 * j + 2 * half + u]);
+      }
   }
 }
 
 // --- fp32: SIMT ---
 
+constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr int kSBM = 64;   // rows per block tile
 constexpr int kSBN = 64;   // output columns per block tile
 constexpr int kSBK = 16;   // K per shared-memory tile; 16 x 16 threads, 4 x 4 each
@@ -273,25 +401,127 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 }  // namespace ssd
 
+namespace ssd {
+namespace {
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map with the 128-byte swizzle: dims and box innermost first,
+// strides in bytes for dims 1.. (multiples of 16: K and Nout are multiples of
+// 8); parts of a box outside the tensor read as zeros.
+bool encode_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                 const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// x [N, K] in boxes of 64 K x `rows` rows; w [E, K, Nout] in boxes of 64
+// columns x 64 K of one expert.
+bool encode_maps(CUtensorMap* xmap, CUtensorMap* wmap, const void* x, const void* w, int N,
+                 int K, int Nout, int E, int rows) {
+  const cuuint64_t xd[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t xs[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t xb[2] = {gmm::kBK, (cuuint32_t)rows};
+  const cuuint64_t wd[3] = {(cuuint64_t)Nout, (cuuint64_t)K, (cuuint64_t)E};
+  const cuuint64_t ws[2] = {(cuuint64_t)Nout * 2, (cuuint64_t)K * Nout * 2};
+  const cuuint32_t wb[3] = {64, gmm::kBK, 1};
+  return encode_bf16(xmap, x, 2, xd, xs, xb) && encode_bf16(wmap, w, 3, wd, ws, wb);
+}
+
+bool bad_shape(int N, int K, int Nout, int E) {
+  return E <= 0 || K <= 0 || K % 8 != 0 || Nout % 8 != 0 || N < 0;
+}
+
+// The bf16 grids' bound on the row tiles of N rows over E groups.
+long long row_tile_bound(int N, int BM, int E) {
+  return (long long)(N + BM - 1) / BM + (E < N ? E : N);
+}
+
+
+}  // namespace
+}  // namespace ssd
+
+// Prefill route for bf16 (and the fp32 SIMT kernel).
 extern "C" int ssd_grouped_gemm(int dtype, const void* x, const void* w,
                                 const int* group_offsets, void* out, int N, int K,
                                 int Nout, int E, void* stream) {
+  using namespace ssd;
   if (N == 0 || Nout == 0) return cudaSuccess;
-  if (E <= 0 || K <= 0 || K % 8 != 0 || Nout % 8 != 0) return cudaErrorInvalidValue;
+  if (bad_shape(N, K, Nout, E)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == ssd::kBFloat16) {
-    const dim3 grid((N + ssd::kBM - 1) / ssd::kBM + E, (Nout + ssd::kBN - 1) / ssd::kBN);
-    ssd::grouped_gemm_bf16_kernel<<<grid, ssd::kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        group_offsets, static_cast<__nv_bfloat16*>(out), K, Nout, E);
+  if (dtype == kBFloat16) {
+    CUtensorMap xmap, wmap;
+    if (!encode_maps(&xmap, &wmap, x, w, N, K, Nout, E, gmm::kBM)) return cudaErrorInvalidValue;
+    const int col_tiles = (Nout + gmm::kBN - 1) / gmm::kBN;
+    const long long blocks = row_tile_bound(N, gmm::kBM, E) * col_tiles;
+    if (blocks > INT_MAX) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        grouped_gemm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gmm::kSmem);
+    if (err != cudaSuccess) return err;
+    grouped_gemm_wgmma_kernel<<<(unsigned)blocks, gmm::kWgThreads, gmm::kSmem, st>>>(
+        xmap, wmap, group_offsets, static_cast<__nv_bfloat16*>(out), K, Nout, E, col_tiles);
     return cudaGetLastError();
   }
-  if (dtype == ssd::kFloat32) {
-    const dim3 grid((N + ssd::kSBM - 1) / ssd::kSBM + E, (Nout + ssd::kSBN - 1) / ssd::kSBN);
-    ssd::grouped_gemm_f32_kernel<<<grid, ssd::kThreads, 0, st>>>(
+  if (dtype == kFloat32) {
+    const dim3 grid((N + kSBM - 1) / kSBM + E, (Nout + kSBN - 1) / kSBN);
+    grouped_gemm_f32_kernel<<<grid, kThreads, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), group_offsets,
         static_cast<float*>(out), K, Nout, E);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
+}
+
+// Decode route, bf16 only.
+extern "C" int ssd_grouped_gemm_decode(const void* x, const void* w, const int* group_offsets,
+                                       void* out, int N, int K, int Nout, int E,
+                                       void* stream) {
+  using namespace ssd;
+  if (N == 0 || Nout == 0) return cudaSuccess;
+  if (bad_shape(N, K, Nout, E)) return cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap;
+  if (!encode_maps(&xmap, &wmap, x, w, N, K, Nout, E, gmm::kDR)) return cudaErrorInvalidValue;
+  const int col_tiles = (Nout + gmm::kDM - 1) / gmm::kDM;
+  const long long blocks = row_tile_bound(N, gmm::kDR, E) * col_tiles;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(grouped_gemm_wgmma_decode_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         gmm::kDSmem);
+  if (err != cudaSuccess) return err;
+  grouped_gemm_wgmma_decode_kernel<<<(unsigned)blocks, gmm::kDThreads, gmm::kDSmem,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      xmap, wmap, group_offsets, static_cast<__nv_bfloat16*>(out), K, Nout, E, col_tiles);
+  return cudaGetLastError();
+}
+
+// Dynamic shared memory of a bf16 route's kernel (for the smoke run's
+// resource report).
+extern "C" int ssd_grouped_gemm_smem_bytes(int decode) {
+  return decode ? ssd::gmm::kDSmem : ssd::gmm::kSmem;
 }

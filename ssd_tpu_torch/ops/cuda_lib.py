@@ -195,6 +195,15 @@ def _bind(cdll: ctypes.CDLL):
         i, p, p, p, p,           # dtype, x, w, group_offsets, out
         i, i, i, i, p,           # N, K, Nout, E, stream
     ]
+    # Its bf16 decode route (a few rows per expert): the same arguments but dtype.
+    cdll.ssd_grouped_gemm_decode.restype = i
+    cdll.ssd_grouped_gemm_decode.argtypes = cdll.ssd_grouped_gemm.argtypes[1:]
+    # Dynamic shared memory of the bf16 kernels of K6 (route: 0 prefill,
+    # 1 decode) and K1 (int8 pages, head_dim).
+    cdll.ssd_grouped_gemm_smem_bytes.restype = i
+    cdll.ssd_grouped_gemm_smem_bytes.argtypes = [i]
+    cdll.ssd_flat_prefill_smem_bytes.restype = i
+    cdll.ssd_flat_prefill_smem_bytes.argtypes = [i, i]
 
 
 def load() -> KernelLibrary:

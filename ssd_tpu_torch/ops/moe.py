@@ -134,23 +134,50 @@ def _check_cuda_args(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tens
                          f"of 8 (16-byte rows), got K={x.shape[1]}, Nout={w.shape[2]}")
 
 
-def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
-                 group_offsets: torch.Tensor) -> torch.Tensor:
+# The bf16 kernel's decode route takes dispatches of at most this many rows
+# per expert on average (N <= GMM_DECODE_ROWS * E): there the groups hold a
+# few rows each, and a 16-row tile streams each selected expert's weights
+# once where the prefill route's 128-row tile would compute mostly padding.
+# ssd_tpu_torch/bench/gmm_routes.py put the crossover at Qwen3-30B-A3B's
+# shapes between 4 and 8 rows per expert from a seeded router (NVIDIA H100
+# 80GB HBM3, 700 W: at 512 rows decode 0.1470 / 0.1490 ms against prefill
+# 0.1489 / 0.1493 at the gate / down; at 1024 rows 0.1484 / 0.1543 against
+# 0.1505 / 0.1510). When every token picks the same 8 experts, the prefill
+# route is faster at the down shape from 8 tokens on (0.0223 against
+# 0.0257 ms), as the decode route splits each large group into 16-row tiles.
+GMM_DECODE_ROWS = 4
+
+
+def grouped_gemm_route(dtype: torch.dtype, N: int, E: int) -> str:
+    """The kernel route of csrc/grouped_gemm.cu for a dispatch of N rows over
+    E experts, from the shapes alone (no device read): "simt" for fp32,
+    "decode" for bf16 with N <= GMM_DECODE_ROWS * E, else "prefill"."""
+    if dtype == torch.float32:
+        return "simt"
+    return "decode" if N <= GMM_DECODE_ROWS * E else "prefill"
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor) -> torch.Tensor:
     """Grouped GEMM over expert-sorted rows: the plain version for CPU
-    tensors, the CUDA kernel (csrc/grouped_gemm.cu) for CUDA tensors. The
-    kernel reads the offsets on the device; group_offsets[E] must equal N."""
+    tensors, the CUDA kernel (csrc/grouped_gemm.cu) for CUDA tensors, on
+    grouped_gemm_route's route. The kernel reads the offsets on the
+    device; group_offsets[E] must equal N."""
     if x.device.type == "cpu":
         return grouped_gemm_plain(x, w, group_offsets)
     _check_cuda_args(x, w, group_offsets)
     N, K = x.shape
     E, _, Nout = w.shape
+    route = grouped_gemm_route(x.dtype, N, E)
     out = torch.empty(N, Nout, dtype=x.dtype, device=x.device)
     lib = cuda_lib.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cdll.ssd_grouped_gemm(
-            cuda_lib.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-            group_offsets.data_ptr(), out.data_ptr(), N, K, Nout, E, stream)
+        args = (x.data_ptr(), w.data_ptr(), group_offsets.data_ptr(), out.data_ptr(),
+                N, K, Nout, E, stream)
+        if route == "decode":
+            err = lib.cdll.ssd_grouped_gemm_decode(*args)
+        else:
+            err = lib.cdll.ssd_grouped_gemm(cuda_lib.DTYPE_CODES[x.dtype], *args)
     lib.check(err, "grouped_gemm kernel launch")
     cuda_lib.count_launch(grouped_gemm)
     return out

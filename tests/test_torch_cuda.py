@@ -17,7 +17,7 @@ import torch
 from ssd_tpu_torch.bench import kernel_diag, s8_probe
 from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops import moe, probes
-from tests.torch_cases import flat_meta, paged_case, tree_case
+from tests.torch_cases import flat_batch, flat_meta, paged_case, tree_case
 
 
 def t(a):
@@ -445,3 +445,89 @@ def test_split_tree_kernels_on_two_streams(kind):
         assert torch.equal(got, serial[k % 3]), k
     for k, got in enumerate(outs[1]):
         assert torch.equal(got, serial[2 - k % 3]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["prefill", "decode"])
+def test_grouped_gemm_routes_match_plain_on_card(route, monkeypatch):
+    """Both bf16 routes of the grouped GEMM (wgmma on TMA tiles; the decode
+    route with the product turned around) against the plain version, each
+    forced on every case: empty groups first, inside and last, one-row
+    groups, N below one tile, a group larger than a tile, Nout that is not
+    a multiple of the column tile, K that is not a multiple of the 64-wide
+    K slice, and the Qwen3-30B-A3B gate and down shapes at a b8 decode
+    dispatch (64 rows in 1-2 row groups over 128 experts)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    monkeypatch.setattr(moe, "grouped_gemm_route", lambda *shape: route)
+    r = np.random.default_rng(33)
+    decode = np.zeros(128, np.int64)
+    decode[r.choice(128, 50, replace=False)] = 1
+    decode[r.choice(np.flatnonzero(decode), 14, replace=False)] += 1    # 64 rows
+    cases = [([0, 130, 1, 0, 64, 3, 0], 40, 200),    # K, Nout
+             ([5], 64, 72), ([0, 1, 0], 136, 8), ([17, 0, 2, 1], 2048, 768),
+             ([0, 0, 300, 0], 96, 264), (list(decode), 2048, 768), (list(decode), 768, 2048)]
+    for sizes, K, Nout in cases:
+        N, E = sum(sizes), len(sizes)
+        x = torch.from_numpy(r.normal(size=(N, K))).float().to("cuda", torch.bfloat16)
+        w = (torch.from_numpy(r.normal(size=(E, K, Nout))).float() * 0.05).to("cuda", torch.bfloat16)
+        offs = t(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)).cuda()
+        got = moe.grouped_gemm(x, w, offs)
+        torch.cuda.synchronize()
+        want = moe.grouped_gemm_plain(x, w, offs)
+        assert got.shape == (N, Nout)
+        assert close(got, want, torch.bfloat16), (route, sizes[:8], K, Nout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+@pytest.mark.parametrize("G", [4, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("bs", [16, 64])
+def test_flat_prefill_tc_matches_plain_on_card(bs, hd, G, kind):
+    """K1's bf16 kernel (tensor cores, page ring) over the fp cache and the
+    int8 pair against the plain version: a prefix-cached prompt whose new
+    rows start mid-tile, a one-token prompt, prompts across several 64-column
+    tiles, a fully cached prompt but its last token, and padding rows
+    (zeros). Tolerance: close() in bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    Hkv = 2
+    lens, cached = [37, 1, 300, 130, 77], [20, 0, 0, 129, 13]
+    q, kv, pages, lo, hi, _, T = flat_batch(70 + hd + G, lens, cached, G * Hkv, Hkv, hd, bs,
+                                             pad_rows=5)
+    layer = int8_layer(kv, 11) if kind == "int8" else t(kv).to("cuda", torch.bfloat16)
+    args = [t(q).to("cuda", torch.bfloat16), layer] + [t(a).cuda() for a in (pages, lo, hi)]
+    got = att.flat_prefill_attention(*args, bs, hd ** -0.5)
+    torch.cuda.synchronize()
+    want = att.flat_prefill_attention_plain(*args, bs, hd ** -0.5)
+    assert close(got, want, torch.bfloat16), (bs, hd, G, kind)
+    assert got[T:].abs().max() == 0   # padding rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+@pytest.mark.parametrize("hd,G", [(64, 4), (128, 8)])
+def test_flat_prefill_tc_is_batch_invariant_on_card(hd, G, kind):
+    """Bitwise, at the serving block size 64: each prompt run alone (its own
+    pages, columns from 0) equals its rows in the batch of 8, and a repeated
+    call equals the first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    Hkv, bs, scale = 4, 64, hd ** -0.5
+    lens = [33, 111, 250, 400, 64, 900, 1, 190]
+    q, kv, pages, lo, hi, bt, T = flat_batch(80 + hd, lens, [0] * 8, G * Hkv, Hkv, hd, bs)
+    layer = int8_layer(kv, 12) if kind == "int8" else t(kv).to("cuda", torch.bfloat16)
+    qd = t(q).to("cuda", torch.bfloat16)
+    args = [t(a).cuda() for a in (pages, lo, hi)]
+    full = att.flat_prefill_attention(qd, layer, *args, bs, scale)
+    assert torch.equal(full, att.flat_prefill_attention(qd, layer, *args, bs, scale))
+    off = 0
+    for s, n in enumerate(lens):
+        npages = -(-n // bs)
+        alone = att.flat_prefill_attention(
+            qd[off:off + n].contiguous(), layer, t(bt[s, :npages]).cuda(),
+            torch.zeros(n, dtype=torch.int32, device="cuda"),
+            torch.arange(1, n + 1, dtype=torch.int32, device="cuda"), bs, scale)
+        assert torch.equal(alone, full[off:off + n]), (hd, kind, s)
+        off += n

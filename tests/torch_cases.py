@@ -38,6 +38,21 @@ def flat_meta(ctx_lens, qeffs, block_size, T_pad):
             np.asarray(hi + [0] * pad, np.int32), pages_per)
 
 
+def flat_batch(seed, lens, cached, Hq, Hkv, hd, bs, pad_rows=0):
+    """A prefill batch over one shuffled cache: prompt s has lens[s] tokens
+    of which cached[s] are in the cache already; its pages form one run of
+    the flat page list. Returns q, kv (numpy), the flat pages, lo, hi, the
+    tables and the new-token count."""
+    q_new = [n - c for n, c in zip(lens, cached)]
+    M = max(-(-n // bs) for n in lens)
+    _, kv, bt, _ = paged_case(seed, len(lens), 1, Hq, Hkv, hd, bs, M, lens)
+    T = sum(q_new)
+    lo, hi, pages_per = flat_meta(lens, q_new, bs, T + pad_rows)
+    pages = np.concatenate([bt[s, :pages_per[s]] for s in range(len(lens))]).astype(np.int32)
+    q = np.random.default_rng(seed + 1).normal(size=(T + pad_rows, Hq, hd)).astype(np.float32)
+    return q, kv, pages, lo, hi, bt, T
+
+
 def tree_case(seed, B, K, fan_out_list, Hq, Hkv, hd, block_size, max_blocks,
               bases, step, ghosts=0):
     """One tree-decode step s of the async draft: sequence b's recovery token
