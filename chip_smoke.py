@@ -66,19 +66,41 @@ the script exits non-zero:
               launches the kernels line reports as the path "probe".
 3. serve    - LLM(...).generate at the full Llama-3.2-1B width (16 layers,
               random bf16 weights from a seed): 128 greedy tokens for 8
-              prompts of mixed length, then for 1 prompt (the AR path). The
-              kernels' launch counts are zeroed just before and read just
-              after; both must be above zero.
-4. spec     - sync SD and async SSD (K=4, fan-out 2, so 10 tree rows per
-              sequence) through LLM(target, draft=..., speculate=True, ...)
-              at the same width: a target of 16 layers whose layers >= 4
+              prompts of mixed length, then for 1 prompt (the AR path), each
+              run with the engine's CUDA graphs (the default on the card:
+              one graph per decode step and batch bucket, captured at init)
+              and with them detached (what enforce_eager=True runs), in turns
+              (graph, eager, eager, graph, graph, eager): decode tok/s of
+              every repeat with min / median / max, graph replays a decode
+              step, capture seconds and the memory the captures reserved.
+              Then the same with AR multi-step (multi_step=4; four repeats).
+              The kernels' launch counts are zeroed just before each run and
+              read just after; a graph run's must be above zero and equal
+              the eager run's, and both modes' tokens must agree over the
+              runs that find the prompts in the prefix cache (all but the
+              first: a cached prompt recomputes only its last token, through
+              GEMMs of other shapes, which can flip a near tie).
+4. spec     - sync SD, async SSD, fused sync SD (spec_rounds 4 and 8) and
+              ngram speculation (no draft: the last 3 tokens matched against
+              the sequence's history, 4 rounds a step) (K=4, fan-out 2, so
+              10 tree rows per sequence for SSD)
+              through LLM(target, draft=..., speculate=True, ...) at the same
+              width: a target of 16 layers whose layers >= 4
               have o_proj = down = 0 and a 4-layer draft sharing its live
               layers (the construction of the JAX package's bench.py), bf16.
               128 greedy tokens at b8 and b1, with the draft exact (the hit
-              path) and perturbed by a fixed noise level (the miss path),
-              whose SSD cache-hit rate must land between 0.2 and 0.8. Per run: decode
+              path) and perturbed by a fixed noise level (the miss path; SD
+              and SSD),
+              whose SSD cache-hit rate must land between 0.2 and 0.8. SD,
+              fused SD and ngram run graphs, and eagerly beside them in
+              turns (graph, eager, eager, graph) at b8 (SD at noise 0 at b1
+              too; fused R=8 graphs only); their tokens must agree
+              over the runs that find the prompts in the prefix cache (all
+              but the first; see serve).
+              Per run: decode
               tok/s, accepted suffix length, hit rate, verify and draft step
-              times, and the overlap on the card of the draft's tree builds
+              times, the superstep's time, graph replays a step, and the
+              overlap on the card of the draft's tree builds
               (draft stream) with the target's verifies (target stream),
               from CUDA events. Launch counts are zeroed before and read
               after each run, with the draft thread drained on both sides
@@ -95,11 +117,12 @@ the script exits non-zero:
               depth through LLM(...).generate with
               gpu_memory_utilization=0.92 (the default 0.7 of the card is
               less than the 61 GB of weights): 128 greedy tokens for the 8
-              serve prompts, then for one of 512. It fails if the free memory
-              at its start is below the weights plus the capped KV pool, if
-              the pool holds fewer blocks than the cap of 1224, or if K1, K2
-              or the grouped GEMM never launched (counts zeroed just before,
-              read just after).
+              serve prompts, then for one of 512, with graphs and eagerly in
+              turns as in serve (b8 four runs, b1 three). It fails if the free
+              memory at its start is below the weights plus the capped KV
+              pool, if the pool holds fewer blocks than the cap of 1224, if
+              K1, K2 or the grouped GEMM never launched (counts zeroed just
+              before, read just after), or if graph and eager tokens differ.
 7. eagle    - EAGLE-3 async SSD (K=4, fan-out 2) at Llama-3.1-8B's
               geometry (32 layers, rope theta 5e5 without the published
               rope scaling, which neither package reads) with its EAGLE-3
@@ -118,18 +141,23 @@ the script exits non-zero:
               0.4): AR at 2 layers, greedy tokens on the card equal those of
               device="cpu", with the smallest top-1/top-2 logit margin seen;
               then a target of 8 layers and a noisy 2-layer draft: AR, sync
-              SD and async SSD tokens on the card and on the CPU all equal
-              the card's AR, over the fp32 cache and over the int8 cache;
+              SD and async SSD on the card (graphs for AR and SD) and on the
+              CPU, and on the card AR multi-step, fused SD (4 rounds) and
+              ngram under graphs over the fp32 cache, all equal the card's
+              eager AR, over the fp32 cache and over the int8 cache;
               and two card runs of int8_mxu AR give the same tokens. Then
-              Qwen3-30B-A3B's width at 2 layers: AR on the card equals the
-              CPU's, and sync SD and async SSD on the card (self-draft) equal
-              the card's AR, with the smallest top-1/top-2 logit margin and
-              the smallest router gap between the k-th and (k+1)-th expert.
+              Qwen3-30B-A3B's width at 2 layers: the CPU's AR, the card's
+              graph AR and sync SD (graphs) and async SSD on the card
+              (self-draft) equal the card's eager AR, with the smallest
+              top-1/top-2 logit margin and the smallest router gap between
+              the k-th and (k+1)-th expert (eager runs only: a graph's
+              capture reads nothing back).
               Then the same width at 2 layers with the constructed EAGLE-3
               head (noise 0.028): AR on the card equals the CPU's, and EAGLE
               SSD on both devices equals the card's AR.
-9. profile  - (only when asked for) the device's busy share and top kernels
-              over a prefill step and a window of decode steps at b=8;
+9. profile  - (only when asked for) the device's busy share, kernels and
+              graph replays a step and top kernels over a prefill step and
+              a window of decode steps at b=8, with graphs and eagerly;
               moe_profile the same on the `moe` engine.
 10. spec_profile - (only when asked for) the same for sync SD and async SSD
               at b=8: per step, the device time of each CUDA stream, their
@@ -145,6 +173,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -222,12 +251,15 @@ EXACT_EAGLE_NOISE = 0.028           # the exact phase's EAGLE head noise: the ea
 QWEN_HEADS = (32, 4, 128)
 MOE_UTIL = 0.92   # gpu_memory_utilization: 0.7 of the card is less than the weights
 BLOCK = 64
+SERVE_M = 4                         # AR multi-step tokens a step (serve_multi_step)
 SERVE_LENS8 = [33, 111, 250, 400, 640, 900, 1300, 1900]  # serve phase, b8
 SPEC_K, SPEC_F = 4, 2               # speculation depth, async fan-out
 SPEC_MQ = SPEC_F * (SPEC_K + 1)     # tree rows per sequence
 SPEC_LIVE = 4                       # draft layers = the target's live layers
 SPEC_MAX_LEN = 2112                 # 1900 + 128 tokens + the tree lookahead
 MISS_NOISE = 0.04                   # draft noise of the miss path
+NGRAM_N = 3                         # ngram speculation: match the last 3 tokens
+SPEC_R = 4                          # its rounds a step
 MISS_HIT_RATE = (0.2, 0.8)          # the range its SSD hit rate must land in
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
@@ -240,8 +272,12 @@ ATOL = 1e-4
 RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
 
 
+CARD = "not read"   # nvidia-smi's name and power limit, read by phase_env
+
+
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of a phase, with the card's name and power limit."""
+    print(json.dumps({"phase": phase, "card": CARD, **fields}), flush=True)
 
 
 def fail(msg: str):
@@ -341,6 +377,7 @@ def _kernel_resources(lib) -> dict:
 
 
 def phase_env() -> dict:
+    global CARD
     import torch
 
     from ssd_tpu_torch.ops import cuda_lib
@@ -349,6 +386,7 @@ def phase_env() -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "not read"
+    CARD = card
     print(card, flush=True)
     lib = cuda_lib.load()
     ptxas = [ln.strip() for ln in lib.build_log.splitlines()
@@ -1247,55 +1285,145 @@ def _serving_prompts(V: int = LLAMA_1B["vocab_size"]):
             [rng.integers(3, V, size=512).tolist()])
 
 
+@contextlib.contextmanager
+def _eager(llm):
+    """Inside the block the engine's decode-side steps run eagerly: its
+    runners' CUDA graphs are detached, which leaves the path that
+    enforce_eager=True runs (the same step functions, launched one by one),
+    on the same weights and KV pool, so graph and eager alternate in one
+    process."""
+    runners = [r for r in (llm.model_runner, llm.draft_runner) if r is not None]
+    saved = [r.graphs for r in runners]
+    for r in runners:
+        r.graphs = None
+    try:
+        yield
+    finally:
+        for r, g in zip(runners, saved):
+            r.graphs = g
+
+
+def _graph_facts(llm) -> dict | None:
+    """Graphs, capture seconds and reserved bytes of an engine's captures."""
+    return None if llm.graphs is None else llm.graphs.summary()
+
+
+REPEATS = ("graph", "eager", "eager", "graph", "graph", "eager")   # in turns
+
+
+def _decode_run(llm, prompts, sp, V, label, eager: bool) -> dict:
+    """One measured generate: launch counts zeroed just before and read just
+    after, graph replays a decode step, decode tok/s."""
+    import torch
+
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    replays0 = llm.graphs.replays if llm.graphs is not None else 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _eager(llm) if eager else contextlib.nullcontext():
+        outs, m = llm.generate(prompts, sp, use_tqdm=False)
+    wall = time.perf_counter() - t0
+    n_new = sp.max_new_tokens
+    for o in outs:
+        ids = o["token_ids"]
+        if len(ids) != n_new or not all(0 <= t < V for t in ids):
+            fail(f"{label}: bad output of {len(ids)} tokens")
+    steps = max(1, len(m["target_step_times"]) - 1)
+    return dict(
+        prompts=len(prompts), prompt_tokens=sum(map(len, prompts)),
+        new_tokens=n_new * len(prompts), wall_s=wall, ttft_s=m["target_step_times"][0],
+        prefill_tok_s=m["prefill_total_tokens"] / m["prefill_total_time"],
+        decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
+        decode_step_ms=1e3 * m["decode_total_time"] / steps,
+        graph_replays_per_decode_step=(
+            0.0 if llm.graphs is None else (llm.graphs.replays - replays0) / steps),
+        launches={w.__name__: w.launches for w in wrappers},
+        tokens=[o["token_ids"] for o in outs])
+
+
+def _spread(xs: list[float]) -> dict:
+    ys = sorted(xs)
+    return dict(min=ys[0], median=ys[len(ys) // 2], max=ys[-1], all=xs)
+
+
+def _graph_vs_eager(llm, runs_of, V, label, repeats=REPEATS) -> dict:
+    """Graph and eager generates of the same engine in turns, per batch:
+    decode tok/s of each repeat with min / median / max, the first graph
+    run's launch counts (and the first eager run's beside them) and
+    replays a step. The first run prefills its prompts fresh, the later ones
+    find them in the prefix cache and recompute only the last token, whose
+    K/V and logits then come from GEMMs of other shapes: so the two modes'
+    greedy tokens are held equal over the later runs (`tokens_equal`), and
+    the first run's against them is reported (`fresh_run_equal`)."""
+    out = {}
+    for name, (prompts, sp) in runs_of.items():
+        runs = {"graph": [], "eager": []}
+        for mode in repeats:
+            runs[mode].append(_decode_run(llm, prompts, sp, V, f"{label} {name} {mode}",
+                                          eager=mode == "eager"))
+        g0, e0 = runs["graph"][0], runs["eager"][0]
+        out[name] = dict(
+            decode_tok_s={k: _spread([r["decode_tok_s"] for r in v]) for k, v in runs.items()},
+            decode_step_ms={k: _spread([r["decode_step_ms"] for r in v]) for k, v in runs.items()},
+            ttft_s={k: _spread([r["ttft_s"] for r in v]) for k, v in runs.items()},
+            graph_replays_per_decode_step=g0["graph_replays_per_decode_step"],
+            launches=g0["launches"], launches_eager=e0["launches"],
+            tokens_equal=all(r["tokens"] == e0["tokens"] for v in runs.values()
+                             for r in v if r is not g0),
+            fresh_run_equal=g0["tokens"] == e0["tokens"], ttft_fresh_s=g0["ttft_s"],
+            prompts=g0["prompts"], prompt_tokens=g0["prompt_tokens"],
+            new_tokens=g0["new_tokens"])
+        emit(label, run=name, **out[name])
+    return out
+
+
 def phase_serve() -> dict:
+    """AR (and AR multi-step) at the full Llama-3.2-1B width (module
+    docstring, phase 3)."""
     import torch
 
     from ssd_tpu_torch import SamplingParams
-    from ssd_tpu_torch.ops import attention as att
 
     V = LLAMA_1B["vocab_size"]
-    t0 = time.perf_counter()
-    llm = _serving_llm()
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
+    warm = SamplingParams(temperature=0.0, max_new_tokens=4, ignore_eos=True)
     prompts8, prompt1 = _serving_prompts()
-    llm.generate([p[:40] for p in prompts8[:2]],
-                 SamplingParams(temperature=0.0, max_new_tokens=4, ignore_eos=True),
-                 use_tqdm=False)  # warm-up: cuBLAS handles, allocator
-
-    att.paged_attention.launches = 0
-    att.flat_prefill_attention.launches = 0
-    runs = {}
-    for name, prompts in (("b8", prompts8), ("b1", prompt1)):
-        torch.cuda.synchronize()
+    out = {"launches": {}}
+    for label, kw in (("serve", {}), ("serve_multi_step", dict(multi_step=SERVE_M))):
         t0 = time.perf_counter()
-        outs, m = llm.generate(prompts, sp, use_tqdm=False)
-        wall = time.perf_counter() - t0
-        for o in outs:
-            ids = o["token_ids"]
-            if len(ids) != 128 or not all(0 <= t < V for t in ids):
-                fail(f"serve {name}: bad output of {len(ids)} tokens")
-        runs[name] = dict(
-            prompts=len(prompts), prompt_tokens=sum(map(len, prompts)),
-            new_tokens=128 * len(prompts), wall_s=wall,
-            ttft_s=m["target_step_times"][0],
-            prefill_tok_s=m["prefill_total_tokens"] / m["prefill_total_time"],
-            decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
-            decode_step_ms=1e3 * m["decode_total_time"] / max(1, len(m["target_step_times"]) - 1),
-        )
-    launches = {"paged_attention": att.paged_attention.launches,
-                "flat_prefill_attention": att.flat_prefill_attention.launches}
-    pool = llm.model_runner.pool_sizing
-    emit("serve", geometry="Llama-3.2-1B (16 layers, random bf16 weights)",
-         init_s=init_s, kv_blocks=llm.model_runner.num_kvcache_blocks, pool=pool,
-         runs=runs, launches=launches,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
-    if not all(n > 0 for n in launches.values()):
-        fail(f"serve: a kernel of the main path never launched: {launches}")
-    del llm
-    torch.cuda.empty_cache()
-    return {"launches": launches, "runs": runs, "pool": pool}
+        llm = _serving_llm(**kw)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        for eager in (False, True):   # warm-up: cuBLAS handles, allocator
+            with _eager(llm) if eager else contextlib.nullcontext():
+                llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
+        runs = _graph_vs_eager(llm, {"b8": (prompts8, sp), "b1": (prompt1, sp)}, V, label,
+                               REPEATS if label == "serve" else REPEATS[:4])
+        launches = {k: sum(r["launches"][k] for r in runs.values())
+                    for k in ("paged_attention", "flat_prefill_attention")}
+        emit(label, geometry="Llama-3.2-1B (16 layers, random bf16 weights)", **kw,
+             init_s=init_s, graphs=_graph_facts(llm),
+             kv_blocks=llm.model_runner.num_kvcache_blocks, pool=llm.model_runner.pool_sizing,
+             launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        if not all(n > 0 for n in launches.values()):
+            fail(f"{label}: a kernel of the main path never launched: {launches}")
+        for name, r in runs.items():
+            if not r["tokens_equal"]:
+                fail(f"{label} {name}: graph and eager greedy tokens differ")
+            if r["launches"] != r["launches_eager"]:
+                fail(f"{label} {name}: launches through replays {r['launches']} differ from "
+                     f"the eager run's {r['launches_eager']}")
+            if not r["graph_replays_per_decode_step"] > 0:
+                fail(f"{label} {name}: no graph replayed")
+        out["launches"]["ar" if label == "serve" else "ar_multi"] = launches
+        out[label] = dict(runs=runs, init_s=init_s, graphs=_graph_facts(llm),
+                          pool=llm.model_runner.pool_sizing)
+        del llm
+        torch.cuda.empty_cache()
+    out["pool"] = out["serve"]["pool"]
+    return out
 
 
 def phase_profile(moe: bool = False) -> dict:
@@ -1329,21 +1457,27 @@ def phase_profile(moe: bool = False) -> dict:
         return time.perf_counter() - t0
 
     sp = SamplingParams(temperature=0.0, max_new_tokens=100, ignore_eos=True)
-    out = {}
-    for label, steps in (("prefill_b8", 1), ("decode_b8", 20)):
-        if label == "prefill_b8":
-            for p in prompts8:
-                llm.add_request(p, sp)
-            plain_s = None   # the prefill happens once
-        else:
-            plain_s = window(steps)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            prof_s = window(steps)
+    out = {"graphs": _graph_facts(llm)}
+    for label, steps in (("prefill_b8", 1), ("decode_b8", 20), ("decode_b8_eager", 20)):
+        replays0 = llm.graphs.replays if llm.graphs is not None else 0
+        with _eager(llm) if label.endswith("eager") else contextlib.nullcontext():
+            if label == "prefill_b8":
+                for p in prompts8:
+                    llm.add_request(p, sp)
+                plain_s = None   # the prefill happens once
+            else:
+                plain_s = window(steps)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                prof_s = window(steps)
         kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy_us = sum(e.self_device_time_total for e in kernels)
         top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        n_windows = 1 if plain_s is None else 2
         out[label] = dict(
-            steps=steps, wall_ms_per_step=None if plain_s is None else plain_s * 1e3 / steps,
+            steps=steps, kernels_per_step=sum(e.count for e in kernels) / steps,
+            graph_replays_per_step=(0 if llm.graphs is None else
+                                    (llm.graphs.replays - replays0) / (n_windows * steps)),
+            wall_ms_per_step=None if plain_s is None else plain_s * 1e3 / steps,
             profiled_wall_ms_per_step=prof_s * 1e3 / steps,
             device_busy_ms_per_step=busy_us / 1e3 / steps,
             device_busy_share=busy_us / 1e6 / (plain_s or prof_s),
@@ -1489,17 +1623,26 @@ def _overlap(builds, verifies) -> dict:
 
 
 def _spec_llm(tdir, ddir, mode, **kw):
+    """The engine of a speculative mode: "sd", "ssd", "fused<R>" (sync SD
+    with R rounds a step) or "ngram" (no draft; K tokens from the last
+    NGRAM_N, SPEC_R rounds a step)."""
     from ssd_tpu_torch import LLM
 
-    extra = dict(draft_async=True, async_fan_out=SPEC_F) if mode == "ssd" else {}
+    if mode == "ngram":
+        return LLM(tdir, ngram_speculate=True, ngram_n=NGRAM_N, speculate_k=SPEC_K,
+                   spec_rounds=SPEC_R, **kw)
+    extra = (dict(draft_async=True, async_fan_out=SPEC_F) if mode == "ssd" else
+             dict(spec_rounds=int(mode[5:])) if mode.startswith("fused") else {})
     return LLM(tdir, draft=ddir, speculate=True, speculate_k=SPEC_K, **extra, **kw)
 
 
-def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"]):
-    """One measured generate of a main path ("ar", "sd" or "ssd", the last
-    with a plain or an EAGLE draft): launch counts zeroed just before and
-    read just after; for SD and SSD the accepted lengths, tree-build/verify
-    spans on the card, the draft's step and chain times."""
+def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"], eager=False):
+    """One measured generate of a main path ("ar", "sd", "ssd" (a plain or
+    an EAGLE draft), "fused<R>" or "ngram"), with eager the engine's graphs
+    detached: launch counts zeroed just before and read just after; for the
+    speculative modes the accepted lengths; for SD and SSD tree-build/verify
+    spans on the card, the draft's step and chain times; for the fused modes
+    the superstep's time; graph replays a decode step."""
     import torch
 
     from ssd_tpu_torch import SamplingParams
@@ -1524,9 +1667,11 @@ def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"]):
     wrappers = _kernel_wrappers()
     for w in wrappers:
         w.launches = 0
+    replays0 = llm.graphs.replays if llm.graphs is not None else 0
     t0 = time.perf_counter()
     try:
-        outs, m = llm.generate(prompts, sp, use_tqdm=False)
+        with _eager(llm) if eager else contextlib.nullcontext():
+            outs, m = llm.generate(prompts, sp, use_tqdm=False)
         if mode == "ssd":
             # The tree build answering the last step runs on after generate
             # returns; it belongs to this run, so its launches count.
@@ -1541,16 +1686,23 @@ def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"]):
         ids = o["token_ids"]
         if len(ids) != n_new or not all(0 <= t < V for t in ids):
             fail(f"spec {mode}: bad output of {len(ids)} tokens")
+    steps = max(1, len(m["target_step_times"]) - 1)
     run = dict(
         prompts=len(prompts), new_tokens=n_new * len(prompts), wall_s=wall,
         ttft_s=m["target_step_times"][0],
         decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
+        decode_steps=steps, graph_replays_per_decode_step=(
+            0.0 if llm.graphs is None or eager else (llm.graphs.replays - replays0) / steps),
         launches=launches)
     if mode == "ar":
         return run, [o["token_ids"] for o in outs]
     lens = m["accepted_suffix_lens_with_recovery"]
+    run.update(mean_accepted_suffix_len=sum(lens) / len(lens))
+    if mode.startswith("fused") or mode == "ngram":
+        t = m["sd_superstep_times"]
+        run.update(spec_steps=len(t), superstep_ms=1e3 * sum(t) / len(t))
+        return run, [o["token_ids"] for o in outs]
     run.update(spec_steps=len(m["target_verify_times"]),
-               mean_accepted_suffix_len=sum(lens) / len(lens),
                target_verify_ms=1e3 * sum(m["target_verify_times"]) / len(m["target_verify_times"]))
     if mode == "ssd":
         steps = llm.draft_server._step_times[n_steps0:]
@@ -1563,6 +1715,11 @@ def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"]):
     return run, [o["token_ids"] for o in outs]
 
 
+SPEC_PLAN = (   # (draft noise, mode, batches also run eagerly): the spec phase's engines
+    (0.0, "sd", ("b8", "b1")), (0.0, "ssd", ()), (0.0, "fused4", ("b8",)), (0.0, "fused8", ()),
+    (0.0, "ngram", ("b8",)), (MISS_NOISE, "sd", ("b8",)), (MISS_NOISE, "ssd", ()))
+
+
 def phase_spec() -> dict:
     """Sync SD and async SSD at the full Llama-3.2-1B width (module
     docstring, phase 4)."""
@@ -1572,7 +1729,7 @@ def phase_spec() -> dict:
 
     prompts8, prompt1 = _serving_prompts()
     warm = SamplingParams(temperature=0.0, max_new_tokens=8, ignore_eos=True)
-    out = {"runs": {}, "noise": MISS_NOISE}
+    out = {"runs": {}, "tokens": {}, "graphs": {}, "noise": MISS_NOISE}
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         tdir, ddir = _spec_pair(d, layers=16, live=SPEC_LIVE, scale=0.02,
@@ -1581,33 +1738,49 @@ def phase_spec() -> dict:
         engine = dict(dtype="bfloat16", max_model_len=SPEC_MAX_LEN,
                       kvcache_block_size=BLOCK, max_num_seqs=8)
 
-        for level in (0.0, MISS_NOISE):
-            for mode in ("sd", "ssd"):
-                llm = _spec_llm(tdir, ddir, mode, **engine)
-                if level:
-                    _perturb_draft(llm, level, 0.02)
-                llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
-                for name, prompts in (("b8", prompts8), ("b1", prompt1)):
-                    run, _ = _spec_run(llm, mode, prompts, 128)
-                    key = f"{mode}_{name}_noise{level:g}"
-                    out["runs"][key] = run
-                    emit("spec", run=key, draft_noise=level, **run)
+        for level, mode, eager_batches in SPEC_PLAN:
+            llm = _spec_llm(tdir, ddir, mode, **engine)
+            if level:
+                _perturb_draft(llm, level, 0.02)
+            for eager in (False, True) if eager_batches else (False,):
+                with _eager(llm) if eager else contextlib.nullcontext():
+                    llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
+            out["graphs"][f"{mode}_noise{level:g}"] = _graph_facts(llm)
+            for name, prompts in (("b8", prompts8), ("b1", prompt1)):
+                base = f"{mode}_{name}_noise{level:g}"
+                for i, eager in enumerate((False, True, True, False) if name in eager_batches
+                                          else (False,)):
+                    run, toks = _spec_run(llm, mode, prompts, 128, eager=eager)
+                    key = base + ("_eager" if eager else "")
+                    if key in out["runs"]:   # the second run in turns
+                        out["runs"][key]["decode_tok_s_again"] = run["decode_tok_s"]
+                    else:
+                        out["runs"][key] = run
+                        emit("spec", run=key, draft_noise=level, **run)
+                    # Runs after the first find the prompts in the prefix
+                    # cache (see _graph_vs_eager): graph and eager agree there.
+                    if i and toks != out["tokens"].setdefault(base, toks):
+                        fail(f"spec {key}: graph and eager greedy tokens differ")
                     need = ["paged_attention", "flat_prefill_attention"]
                     need += ["tree_attention"] if mode == "ssd" else []
                     if not all(run["launches"][k] > 0 for k in need):
                         fail(f"spec {key}: a kernel of the path never launched: "
                              f"{run['launches']}")
+                    if mode != "ssd" and not eager and not run["graph_replays_per_decode_step"] > 0:
+                        fail(f"spec {key}: no graph replayed")
                     lo, hi = MISS_HIT_RATE
                     if mode == "ssd" and level and not lo <= run["cache_hit_rate"] <= hi:
                         fail(f"spec {key}: the miss path's cache-hit rate "
                              f"{run['cache_hit_rate']} is outside [{lo}, {hi}]")
-                blocks = llm.model_runner.num_kvcache_blocks
-                out["pool"] = llm.model_runner.pool_sizing
-                llm.exit()
-                del llm
-                torch.cuda.empty_cache()
+            blocks = llm.model_runner.num_kvcache_blocks
+            out["pool"] = llm.model_runner.pool_sizing
+            llm.exit()
+            del llm
+            torch.cuda.empty_cache()
+    out.pop("tokens")
     emit("spec", geometry="Llama-3.2-1B width, target 16 layers (4 live), draft 4 layers, bf16",
-         K=SPEC_K, async_fan_out=SPEC_F, kv_blocks_each_pool=blocks, pool=out["pool"],
+         K=SPEC_K, async_fan_out=SPEC_F, ngram_n=NGRAM_N, ngram_rounds=SPEC_R,
+         graphs=out["graphs"], kv_blocks_each_pool=blocks, pool=out["pool"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     return out
 
@@ -1855,38 +2028,26 @@ def phase_moe() -> dict:
     V = QWEN3_30B_A3B["vocab_size"]
     llm, facts = _moe_llm()
     prompts8, prompt1 = _serving_prompts(V)
-    llm.generate([p[:40] for p in prompts8[:2]],
-                 SamplingParams(temperature=0.0, max_new_tokens=4, ignore_eos=True),
-                 use_tqdm=False)  # warm-up: cuBLAS handles, allocator
-
-    wrappers = _kernel_wrappers()
-    for w in wrappers:
-        w.launches = 0
+    warm = SamplingParams(temperature=0.0, max_new_tokens=4, ignore_eos=True)
+    for eager in (False, True):   # warm-up: cuBLAS handles, allocator
+        with _eager(llm) if eager else contextlib.nullcontext():
+            llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
     sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
-    runs = {}
-    for name, prompts in (("b8", prompts8), ("b1", prompt1)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs, m = llm.generate(prompts, sp, use_tqdm=False)
-        wall = time.perf_counter() - t0
-        for o in outs:
-            ids = o["token_ids"]
-            if len(ids) != 128 or not all(0 <= t < V for t in ids):
-                fail(f"moe {name}: bad output of {len(ids)} tokens")
-        runs[name] = dict(
-            prompts=len(prompts), prompt_tokens=sum(map(len, prompts)),
-            new_tokens=128 * len(prompts), wall_s=wall,
-            ttft_s=m["target_step_times"][0],
-            prefill_tok_s=m["prefill_total_tokens"] / m["prefill_total_time"],
-            decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
-            decode_step_ms=1e3 * m["decode_total_time"] / max(1, len(m["target_step_times"]) - 1),
-        )
-    launches = {w.__name__: w.launches for w in wrappers}
-    emit("moe", geometry=MOE_GEOMETRY, **facts, runs=runs, launches=launches,
+    runs = _graph_vs_eager(llm, {"b8": (prompts8, sp)}, V, "moe", REPEATS[:4])
+    runs.update(_graph_vs_eager(llm, {"b1": (prompt1, sp)}, V, "moe",
+                                ("graph", "eager", "graph")))
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in ("paged_attention", "flat_prefill_attention", "grouped_gemm")}
+    emit("moe", geometry=MOE_GEOMETRY, **facts, graphs=_graph_facts(llm), launches=launches,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
-    need_k = ("paged_attention", "flat_prefill_attention", "grouped_gemm")
-    if not all(launches[k] > 0 for k in need_k):
+    if not all(n > 0 for n in launches.values()):
         fail(f"moe: a kernel of the path never launched: {launches}")
+    for name, r in runs.items():
+        if not r["tokens_equal"]:
+            fail(f"moe {name}: graph and eager greedy tokens differ")
+        if not r["graph_replays_per_decode_step"] > 0:
+            fail(f"moe {name}: no graph replayed")
+    facts["graphs"] = _graph_facts(llm)
     llm.exit()
     del llm
     torch.cuda.empty_cache()
@@ -2283,22 +2444,32 @@ def phase_exact() -> dict:
 
     # Speculative modes: target 8 layers (2 live), a 2-layer draft with
     # noise, so steps both accept and reject; every mode on both devices
-    # must give the card's AR tokens, over the fp32 cache and over the int8
-    # cache (whose AR is the reference of its own modes; its AR
-    # runs record their top-1/top-2 margins). Then two card runs of
+    # must give the card's eager AR tokens, over the fp32 cache and over the
+    # int8 cache (whose AR is the reference of its own modes; its AR runs
+    # record their top-1/top-2 margins). On the card AR, AR multi-step, SD,
+    # fused SD and ngram run their CUDA graphs; the CPU runs the graph-free
+    # modes in both caches and the new ones in fp32. Then two card runs of
     # int8_mxu AR must agree.
     spec_tokens, accepted, int8_margins = {}, {}, []
     engine = dict(dtype="float32", max_model_len=512, kvcache_block_size=BLOCK,
                   max_num_seqs=4, num_kvcache_blocks=32)
+    new_modes = ("multi", "fused4", "ngram")
     with tempfile.TemporaryDirectory() as d:
         tdir, ddir = _spec_pair(d, layers=8, live=2, scale=0.4, dtype=torch.float32, seed=3)
         for kvq in (None, "int8"):
             for dev in ("cuda", "cpu"):
-                for mode in ("ar", "sd", "ssd"):
-                    if mode == "ar":
-                        llm = LLM(tdir, device=dev, kv_quant=kvq, **engine)
-                        if kvq:
+                # The CPU runs the modes it ran before graphs; the card's new
+                # modes are held to the card's eager AR, itself held to the CPU's.
+                modes = (("ar_eager", "ar") + (() if kvq else new_modes) + ("sd", "ssd")
+                         if dev == "cuda" else ("ar", "sd", "ssd"))
+                for mode in modes:
+                    if mode in ("ar", "ar_eager", "multi"):
+                        llm = LLM(tdir, device=dev, kv_quant=kvq, enforce_eager=mode == "ar_eager",
+                                  multi_step=SERVE_M if mode == "multi" else 1, **engine)
+                        if kvq and mode == "ar_eager":
                             _record_margins(llm, int8_margins)
+                    elif mode == "ngram":
+                        llm = _spec_llm(tdir, None, mode, device=dev, kv_quant=kvq, **engine)
                     else:
                         llm = _spec_llm(tdir, ddir, mode, device=dev, kv_quant=kvq, **engine)
                         _perturb_draft(llm, 0.01, 0.4)
@@ -2313,10 +2484,10 @@ def phase_exact() -> dict:
             llm = LLM(tdir, device="cuda", kv_quant="int8_mxu", **engine)
             mxu.append([o["token_ids"] for o in llm.generate(prompts, sp, use_tqdm=False)[0]])
             del llm
-    spec_equal = {f"{kvq}_{dev}_{mode}": toks == spec_tokens[(kvq, "cuda", "ar")]
+    spec_equal = {f"{kvq}_{dev}_{mode}": toks == spec_tokens[(kvq, "cuda", "ar_eager")]
                   for (kvq, dev, mode), toks in spec_tokens.items()}
-    int8_vs_fp32 = sum(a == b for x, y in zip(spec_tokens[("int8", "cuda", "ar")],
-                                              spec_tokens[("fp32", "cuda", "ar")])
+    int8_vs_fp32 = sum(a == b for x, y in zip(spec_tokens[("int8", "cuda", "ar_eager")],
+                                              spec_tokens[("fp32", "cuda", "ar_eager")])
                        for a, b in zip(x, y))
     emit("exact", geometry="Llama-3.2-1B width, target 8 layers (2 live), draft 2 layers "
          "(noise 0.01), fp32, init scale 0.4", K=SPEC_K, async_fan_out=SPEC_F,
@@ -2325,25 +2496,31 @@ def phase_exact() -> dict:
          int8_ar_tokens_equal_to_fp32_ar=int8_vs_fp32, tokens_per_run=16 * len(prompts),
          int8_mxu_two_card_runs_equal=mxu[0] == mxu[1])
     if not all(spec_equal.values()):
-        fail(f"exact: greedy tokens differ from the card's AR of the same cache: {spec_equal}")
+        fail(f"exact: greedy tokens differ from the card's eager AR of the same cache: "
+             f"{spec_equal}")
     if mxu[0] != mxu[1]:
         fail("exact: two card runs of int8_mxu gave different tokens")
 
-    # Qwen3-MoE at the Qwen3-30B-A3B width, 2 layers, fp32: AR on the card
-    # equals the CPU's; sync SD and async SSD on the card (self-draft) equal
-    # the card's AR; the grouped GEMM launches in each card run.
+    # Qwen3-MoE at the Qwen3-30B-A3B width, 2 layers, fp32: AR on the CPU,
+    # graph AR, sync SD (graphs) and async SSD on the card (self-draft)
+    # equal the card's eager AR; the grouped GEMM launches in each card run.
     mprompts = [rng.integers(3, QWEN3_30B_A3B["vocab_size"], size=n).tolist()
                 for n in (20, 77, 130)]
     moe_tokens, moe_margins, router_margins, moe_launches, moe_accepted = {}, [], [], {}, {}
     wrappers = _kernel_wrappers()
     with tempfile.TemporaryDirectory() as d:
         _moe_checkpoint(d, layers=2, scale=0.4, seed=5)
-        undo = _record_router_margins(router_margins)
-        try:
-            for dev, mode in (("cuda", "ar"), ("cpu", "ar"), ("cuda", "sd"), ("cuda", "ssd")):
-                if mode == "ar":
-                    llm = LLM(d, device=dev, **engine)
-                    _record_margins(llm, moe_margins)
+        for dev, mode in (("cuda", "ar_eager"), ("cpu", "ar"), ("cuda", "ar"), ("cuda", "sd"),
+                          ("cuda", "ssd")):
+            # The margins are read on the host, so only the eager runs
+            # record them (a graph's capture must read nothing back).
+            eager = dev == "cpu" or mode in ("ar_eager", "ssd")
+            undo = _record_router_margins(router_margins) if eager else (lambda: None)
+            try:
+                if mode in ("ar", "ar_eager"):
+                    llm = LLM(d, device=dev, enforce_eager=mode == "ar_eager", **engine)
+                    if eager:
+                        _record_margins(llm, moe_margins)
                 else:
                     llm = _spec_llm(d, d, mode, device=dev, **engine)
                 for w in wrappers:
@@ -2353,13 +2530,13 @@ def phase_exact() -> dict:
                     llm.draft_server.drain()
                 moe_launches[f"{dev}_{mode}"] = {w.__name__: w.launches for w in wrappers}
                 llm.exit()
-                moe_tokens[(dev, mode)] = [o["token_ids"] for o in outs]
-                lens = m["accepted_suffix_lens_with_recovery"]
-                moe_accepted[f"{dev}_{mode}"] = sum(lens) / len(lens) if lens else None
-                del llm
-        finally:
-            undo()
-    moe_equal = {f"{dev}_{mode}": toks == moe_tokens[("cuda", "ar")]
+            finally:
+                undo()
+            moe_tokens[(dev, mode)] = [o["token_ids"] for o in outs]
+            lens = m["accepted_suffix_lens_with_recovery"]
+            moe_accepted[f"{dev}_{mode}"] = sum(lens) / len(lens) if lens else None
+            del llm
+    moe_equal = {f"{dev}_{mode}": toks == moe_tokens[("cuda", "ar_eager")]
                  for (dev, mode), toks in moe_tokens.items()}
     emit("exact", geometry="Qwen3-30B-A3B width (128 experts, top-8, hd 128), 2 layers, "
          "fp32, init scale 0.4; SD/SSD self-draft", K=SPEC_K, async_fan_out=SPEC_F,
@@ -2454,7 +2631,9 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                  kvq: dict | None, moe_run: dict | None, eagle: dict | None,
                  exact: dict | None) -> dict:
     """Launches per path, each read from runs whose counts were zeroed just
-    before them: `serve` (AR) and `spec` (SD, SSD) for the fp-cache kernels,
+    before them: `serve` (AR, AR multi-step) and `spec` (SD, fused SD,
+    ngram, SSD) for the fp-cache kernels, from the graph runs (launches
+    counted through replays; the eager runs beside them are left out),
     `kvq` for the int8 ones (its int8_mxu runs for the [s8] entries; the
     int8 prefill counts the runs of both modes), `moe` (Qwen3-30B-A3B AR)
     for K1, K2 and the grouped GEMM, `eagle` (Llama-3.1-8B AR, EAGLE SSD over
@@ -2468,10 +2647,13 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
         paths[path] = paths.get(path, 0) + n
 
     if serve:
-        for name, n in serve["launches"].items():
-            add(name, "ar", n)
+        for path, launches in serve["launches"].items():
+            for name, n in launches.items():
+                add(name, path, n)
     if spec:
         for key, run in spec["runs"].items():
+            if key.endswith("_eager"):
+                continue
             for name in ("paged_attention", "flat_prefill_attention", "tree_attention"):
                 add(name, key.split("_")[0], run["launches"][name])
     if kvq:

@@ -2,13 +2,16 @@
 
 A second package beside the JAX one, which stays the reference. It imports
 PyTorch and never JAX or anything of ssd_tpu. Ported so far: autoregressive
-serving, sync speculative decoding and async tree speculation (unfused) of
-dense Llama-3 / Qwen-3 and of Qwen3-MoE checkpoints through
-`LLM(...).generate`, with paged KV (bf16/fp32 or int8), prefix caching,
-continuous batching, preemption and chunked prefill; attention and the MoE
-experts' grouped GEMM run in hand-written CUDA kernels on the GPU
+serving (also multi-step), sync speculative decoding (also with fused
+rounds), ngram speculation and async tree speculation (unfused, with a plain
+or an EAGLE-3 draft) of dense Llama-3 / Qwen-3 and of Qwen3-MoE checkpoints
+through `LLM(...).generate`, with paged KV (bf16/fp32 or int8), prefix
+caching, continuous batching, preemption and chunked prefill; attention and
+the MoE experts' grouped GEMM run in hand-written CUDA kernels on the GPU
 (ops/attention.py, ops/moe.py, csrc/) and in their plain PyTorch versions on
-the CPU. The engine runs on "cuda" unless the caller passes device="cpu".
+the CPU, and the sync modes' decode-side steps replay CUDA graphs
+(engine/graphs.py). The engine runs on "cuda" unless the caller passes
+device="cpu".
 """
 
 from ssd_tpu_torch.config import Config, ModelConfig

@@ -57,9 +57,8 @@ def decode_case(B, Q, Hq, Hkv, hd, bs, ctx_lens, dtype, kv_quant=None, seed=0,
     if kv_quant:
         layer = (torch.zeros(Hkv, S, 2 * hd, dtype=torch.int8, device=device),
                  torch.full((Hkv, 2, S), 1e-10, device=device))
-        rows = torch.arange(S, device=device)
         att.store_kv(layer, kv[:, :, :hd].transpose(0, 1), kv[:, :, hd:].transpose(0, 1),
-                     rows.int(), rows)
+                     torch.arange(S, dtype=torch.int32, device=device))
     else:
         layer = kv.to(dtype)
     ctx = torch.tensor(ctx_lens, dtype=torch.int32, device=device)

@@ -14,13 +14,16 @@ speculation (SSD), both unfused. Differences from the JAX package:
 - `draft` has no default checkpoint: speculate=True needs a draft path;
 - Qwen3-MoE checkpoints are served with a uniform stack only (every layer
   sparse), as the JAX package asserts; a non-uniform one is refused here;
+- `enforce_eager` is served: on "cuda" the decode-side steps of AR
+  (multi_step included), sync SD (spec_rounds 1 and > 1) and ngram
+  speculation run as CUDA graphs captured at engine init
+  (engine/graphs.py) unless it is True; on "cpu" every step runs eagerly;
 - EAGLE-3 (use_eagle) is served in its async form only (draft_async with
-  jit_speculate); its fused sync form (spec_rounds > 1) waits for the fused
-  modes;
-- the modes not ported yet (fused SD and SSD, ngram, multi-step AR, draft
-  data parallelism, int8 weights) are refused here, and so is a
-  speculative knob on an engine that does not speculate, where it would be
-  ignored.
+  jit_speculate); its fused sync form (spec_rounds > 1) is not ported;
+- the modes not ported yet (the fused async forms async_fused and
+  spec_rounds > 1 with draft_async, draft data parallelism, int8 weights)
+  are refused here, and so is a speculative knob on an engine that does not
+  use it, where it would be ignored.
 """
 
 from __future__ import annotations
@@ -121,12 +124,23 @@ class Config:
     # Both apply to the draft's cache too.
     kv_quant: str | None = None
     verbose: bool = False
+    # Run the decode-side steps eagerly on the card instead of replaying
+    # their CUDA graphs (engine/graphs.py). The CPU always runs eagerly.
+    enforce_eager: bool = False
+    # AR multi-step decoding: sample this many tokens per engine step from
+    # one chain (one graph replay); EOS overshoot is truncated and rolled
+    # back like a rejected speculation.
+    multi_step: int = 1
 
     # Speculative decoding. speculate=True serves sync SD with the `draft`
-    # checkpoint; draft_async=True serves async SSD (a draft thread builds
-    # the speculation tree while the target verifies). The fused forms
-    # (async_fused, spec_rounds > 1), ngram speculation, multi-step AR and
-    # draft_dp > 1 are not ported yet and are refused. use_eagle=True serves
+    # checkpoint, spec_rounds > 1 of its rounds fused per engine step
+    # (engine/fused_sd.py); draft_async=True serves async SSD (a draft
+    # thread builds the speculation tree while the target verifies). The
+    # fused async forms (async_fused, spec_rounds > 1 with draft_async) and
+    # draft_dp > 1 are not ported yet and are refused. ngram_speculate=True
+    # (without speculate) proposes speculate_k tokens a round by matching
+    # the last ngram_n tokens against the sequence's own history, in
+    # spec_rounds fused rounds, with no draft model. use_eagle=True serves
     # an EAGLE-3 draft in async SSD: it is conditioned on the target's
     # residual stream entering the layers `eagle_layers` (default
     # [2, L//2, L-3]); `d_model_target` is the target's width and
@@ -149,7 +163,7 @@ class Config:
     d_model_target: int | None = None
     tokenizer_path: str | None = None
     ngram_speculate: bool = False
-    multi_step: int = 1
+    ngram_n: int = 3
     draft_dp: int = 1
 
     MQ_LEN: int = field(default=0, init=False)
@@ -168,19 +182,27 @@ class Config:
                              "(None, 'int8' or 'int8_mxu')")
         unported = {
             "async_fused": self.async_fused,
-            "ngram_speculate": self.ngram_speculate,
-            "multi_step > 1": self.multi_step > 1,
-            "spec_rounds > 1": self.spec_rounds > 1,
+            "spec_rounds > 1 with draft_async": self.spec_rounds > 1 and self.draft_async,
             "draft_dp > 1": self.draft_dp > 1,
         }
         asked = [k for k, v in unported.items() if v]
         if asked:
             raise NotImplementedError(
                 f"not ported to ssd_tpu_torch yet: {', '.join(asked)}")
+        for name in ("multi_step", "spec_rounds", "speculate_k", "ngram_n"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
+        if self.ngram_speculate and self.speculate:
+            raise ValueError("ngram_speculate is model-free; it excludes speculate "
+                             "(pick one proposal source)")
+        if self.multi_step > 1 and (self.speculate or self.ngram_speculate):
+            raise ValueError("multi_step applies to AR decoding; it needs neither "
+                             "speculate nor ngram_speculate")
         spec_only = {
             "draft": self.draft is not None,
             "draft_async": self.draft_async,
             "speculate_k": self.speculate_k != 1,
+            "spec_rounds": self.spec_rounds != 1,
             "async_fan_out": self.async_fan_out != 3,
             "fan_out_list": self.fan_out_list is not None,
             "fan_out_list_miss": self.fan_out_list_miss is not None,
@@ -189,7 +211,9 @@ class Config:
             "use_eagle": self.use_eagle,
         }
         if not self.speculate:
-            ignored = [k for k, v in spec_only.items() if v]
+            # ngram speculation takes speculate_k and spec_rounds.
+            ignored = [k for k, v in spec_only.items() if v and not (
+                self.ngram_speculate and k in ("speculate_k", "spec_rounds"))]
             if ignored:
                 raise ValueError(f"{', '.join(ignored)} need speculate=True")
         elif not self.draft_async:
@@ -198,6 +222,8 @@ class Config:
                                    "jit_speculate") if spec_only[k]]
             if ignored:
                 raise ValueError(f"{', '.join(ignored)} need draft_async=True")
+        if self.ngram_n != 3 and not self.ngram_speculate:
+            raise ValueError("ngram_n needs ngram_speculate=True")
 
         self.hf_config = ModelConfig.from_pretrained(self.model)
         self.max_model_len = min(self.max_model_len, self.hf_config.max_position_embeddings)

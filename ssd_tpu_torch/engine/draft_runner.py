@@ -36,7 +36,7 @@ import torch
 
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.engine.model_runner import (
-    KVCache, ModelRunner, _store_rows, decode_forward, layer_of)
+    KVCache, ModelRunner, decode_forward, layer_of)
 from ssd_tpu_torch.models.transformer import Arch, compute_logits, forward_hidden
 from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops.sampler import sample
@@ -64,6 +64,7 @@ def tree_build_step(
     sampler_x: float | None,
     F: int,
     s8: bool = False,
+    greedy: bool = False,
 ):
     """Build the next step's speculation tree: the glue forward (the K+1
     returned tokens, paged attention at Q = K+1), the top-F fork per glue
@@ -91,11 +92,8 @@ def tree_build_step(
     bt = upload(block_tables)
     # ---- glue: one K+1 multi-query forward per sequence ----
     glue_pos = (base_positions[:, None] + np.arange(Kp1)[None, :]).reshape(-1)
-    glue_slots = slot_of(block_tables, glue_pos, np.repeat(np.arange(B), Kp1),
-                         block_size)
     glue_logits = decode_forward(
-        params, kv_cache, glue_ids.reshape(-1), upload(glue_pos.astype(np.int32)),
-        upload(glue_slots), _store_rows(glue_slots, dev), bt,
+        params, kv_cache, glue_ids.reshape(-1), upload(glue_pos.astype(np.int32)), bt,
         upload((base_positions + Kp1).astype(np.int32)),
         arch=arch, block_size=block_size, q_len=Kp1, s8=s8).reshape(B, Kp1, -1)
 
@@ -121,12 +119,12 @@ def tree_build_step(
     for s in range(K):
         slots = slot_of(block_tables, base_n + Kp1 + s * MQ + r_flat, b_flat,
                         block_size)
-        slots_t, rows_t = upload(slots), _store_rows(slots, dev)
+        slots_t = upload(slots)
         ctx = upload((base_positions + Kp1 + (s + 1) * MQ).astype(np.int32))
 
-        def attn_call(li, q, k, v, s=s, slots_t=slots_t, rows_t=rows_t, ctx=ctx):
+        def attn_call(li, q, k, v, s=s, slots_t=slots_t, ctx=ctx):
             kv_layer = layer_of(kv_cache, li)
-            att.store_kv(kv_layer, k, v, slots_t, rows_t)
+            att.store_kv(kv_layer, k, v, slots_t)
             qr = q.reshape(B, MQ, arch.num_heads, arch.head_dim)
             o = att.tree_attention(qr, kv_layer, bt, ctx, fan_t, s, K, block_size,
                                    scale, s8=s8)
@@ -136,7 +134,7 @@ def tree_build_step(
         hidden = forward_hidden(params, tok, rope, attn_call, arch)
         logits = compute_logits(params, hidden, arch)                  # [N, V]
         tok = sample(logits, temps_n, generator, tp_n, tk_n,
-                     sampler_x=sampler_x, fan_out=F, is_tree=True)
+                     sampler_x=sampler_x, fan_out=F, is_tree=True, greedy=greedy)
         toks.append(tok)
         logits_all.append(logits)
     spec_tokens = torch.stack(toks, dim=1).reshape(B, MQ, K)
@@ -210,7 +208,7 @@ class DraftRunner(ModelRunner):
         rows = [(ids, block_tables[i], 0, len(ids))
                 for i, ids in enumerate(input_id_lists)]
         temps = torch.zeros(len(rows), dtype=torch.float32, device=self.device)
-        self._flat_prefill(rows, temps)
+        self._flat_prefill(rows, temps, greedy=True)
 
     @torch.no_grad()
     def service(self, req: SpecRequest) -> SpecResponse:
@@ -271,7 +269,8 @@ class DraftRunner(ModelRunner):
             self.generator, tp, tk,
             arch=self.arch, block_size=self.block_size, K=self.K,
             fan_out_list=self.fan_out_list, fan_out_list_miss=self.fan_out_list_miss,
-            sampler_x=self.sampler_x, F=self.F, s8=self.s8)
+            sampler_x=self.sampler_x, F=self.F, s8=self.s8,
+            greedy=not (req.temperatures > 0).any())
         self.populate_tree_cache(req.cache_keys[:, 0], resp.cache_hits,
                                  fork.cpu().numpy(), spec.cpu().numpy(), spec_logits)
 

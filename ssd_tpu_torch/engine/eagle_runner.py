@@ -30,7 +30,7 @@ import torch
 
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.engine.draft_runner import DraftRunner, SpecRequest, SpecResponse
-from ssd_tpu_torch.engine.model_runner import KVCache, _store_rows, layer_of
+from ssd_tpu_torch.engine.model_runner import KVCache, layer_of
 from ssd_tpu_torch.models.eagle3 import (
     EagleArch, eagle_forward, eagle_logits, init_eagle_params, project_target_acts)
 from ssd_tpu_torch.ops import attention as att
@@ -43,14 +43,14 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, non_blocking=True)
 
 
-def _paged_call(kv_cache, slots_t, rows_t, bt, ctx, qeff, q_len, arch, block_size, s8):
+def _paged_call(kv_cache, slots_t, bt, ctx, qeff, q_len, arch, block_size, s8):
     """attn_call of one paged step: store the rows' KV, then paged attention
     of q_len queries per sequence."""
     scale = arch.head_dim ** -0.5
 
     def attn_call(li, q, k, v):
         kv_layer = layer_of(kv_cache, li)
-        att.store_kv(kv_layer, k, v, slots_t, rows_t)
+        att.store_kv(kv_layer, k, v, slots_t)
         B = bt.shape[0]
         o = att.paged_attention(q.reshape(B, q_len, arch.num_heads, arch.head_dim),
                                 kv_layer, bt, ctx, qeff, block_size, scale, s8=s8)
@@ -77,6 +77,7 @@ def eagle_chain_step(
     sampler_x: float | None,
     F: int,
     s8: bool = False,
+    greedy: bool = False,
 ):
     """K conditioned decodes (eagle_chain_program): step 0 is conditioned on
     fc(recovery taps), step i > 0 on step i-1's prenorm. Returns (tokens
@@ -91,12 +92,12 @@ def eagle_chain_step(
     for i in range(K):
         pos = (base_positions + i).astype(np.int32)
         slots = slot_of(block_tables, pos, np.arange(B), block_size)
-        attn_call = _paged_call(kv_cache, _upload(slots, dev), _store_rows(slots, dev),
+        attn_call = _paged_call(kv_cache, _upload(slots, dev),
                                 bt, _upload(pos + 1, dev), ones, 1, arch, block_size, s8)
         prenorm = eagle_forward(params, tok, cond, _upload(pos, dev), attn_call, arch)
         logits = eagle_logits(params, prenorm, arch)
         tok = sample(logits, temperatures, generator, top_ps, top_ks,
-                     sampler_x=sampler_x, fan_out=F, is_tree=True)
+                     sampler_x=sampler_x, fan_out=F, is_tree=True, greedy=greedy)
         cond = prenorm
         toks.append(tok)
         logits_all.append(logits)
@@ -128,6 +129,7 @@ def eagle_tree_build_step(
     sampler_x: float | None,
     F: int,
     s8: bool = False,
+    greedy: bool = False,
 ):
     """The glue forward, the top-F fork per glue depth and K tree steps
     (eagle_tree_build_program). Draft cache geometry, with base the
@@ -158,7 +160,7 @@ def eagle_tree_build_step(
     cond[fc_rows] = project_target_acts(
         params, fc_acts.reshape(B * W, -1)[fc_rows]).to(cond.dtype)
     cond[_upload(spec_rows, dev)] = prev_acts.reshape(B * K, D).to(cond.dtype)
-    attn_call = _paged_call(kv_cache, _upload(slots, dev), _store_rows(slots, dev), bt,
+    attn_call = _paged_call(kv_cache, _upload(slots, dev), bt,
                             _upload((base_positions + Kp1).astype(np.int32), dev),
                             _upload(qeff, dev), W, arch, block_size, s8)
     prenorm = eagle_forward(params, _upload(glue_tokens.reshape(-1), dev), cond,
@@ -194,12 +196,12 @@ def eagle_tree_build_step(
     toks, logits_all, prenorms = [], [], []
     for s in range(K):
         slots_s = slot_of(block_tables, base_n + Kp1 + s * MQ + r_flat, b_flat, block_size)
-        slots_t, rows_t = _upload(slots_s, dev), _store_rows(slots_s, dev)
+        slots_t = _upload(slots_s, dev)
         ctx = _upload((base_positions + Kp1 + (s + 1) * MQ).astype(np.int32), dev)
 
-        def tree_call(li, q, k, v, s=s, slots_t=slots_t, rows_t=rows_t, ctx=ctx):
+        def tree_call(li, q, k, v, s=s, slots_t=slots_t, ctx=ctx):
             kv_layer = layer_of(kv_cache, li)
-            att.store_kv(kv_layer, k, v, slots_t, rows_t)
+            att.store_kv(kv_layer, k, v, slots_t)
             o = att.tree_attention(q.reshape(B, MQ, arch.num_heads, arch.head_dim),
                                    kv_layer, bt, ctx, fan_t, s, K, block_size, scale,
                                    s8=s8)
@@ -209,7 +211,7 @@ def eagle_tree_build_step(
         tcond = eagle_forward(params, tok, tcond, rope, tree_call, arch)
         logits = eagle_logits(params, tcond, arch)
         tok = sample(logits, temps_n, generator, tp_n, tk_n,
-                     sampler_x=sampler_x, fan_out=F, is_tree=True)
+                     sampler_x=sampler_x, fan_out=F, is_tree=True, greedy=greedy)
         toks.append(tok)
         logits_all.append(logits)
         prenorms.append(tcond)
@@ -266,7 +268,7 @@ class EagleDraftRunner(DraftRunner):
 
         def attn_call(li, q, k, v):
             kv_layer = layer_of(self.kv_cache, li)
-            att.store_kv(kv_layer, k, v, inp["slot_map"], inp["store_rows"])
+            att.store_kv(kv_layer, k, v, inp["slot_map"])
             return att.flat_prefill_attention(q, kv_layer, inp["flat_pages"],
                                               inp["row_lo"], inp["row_hi"],
                                               self.block_size, scale)
@@ -281,7 +283,8 @@ class EagleDraftRunner(DraftRunner):
             req.recovery_acts, (req.num_tokens - 2).astype(np.int64),
             req.block_tables, self._tensor(req.temperatures.astype(np.float32)),
             self.generator, tp, tk, arch=self.arch, block_size=self.block_size,
-            K=self.K, sampler_x=self.sampler_x, F=self.F, s8=self.s8)
+            K=self.K, sampler_x=self.sampler_x, F=self.F, s8=self.s8,
+            greedy=not (req.temperatures > 0).any())
         return tokens.cpu().numpy(), logits, prenorms
 
     @torch.no_grad()
@@ -314,7 +317,8 @@ class EagleDraftRunner(DraftRunner):
             self._tensor(req.temperatures.astype(np.float32)), self.generator, tp, tk,
             arch=self.arch, block_size=self.block_size, K=K,
             fan_out_list=self.fan_out_list, fan_out_list_miss=self.fan_out_list_miss,
-            sampler_x=self.sampler_x, F=self.F, s8=self.s8)
+            sampler_x=self.sampler_x, F=self.F, s8=self.s8,
+            greedy=not (req.temperatures > 0).any())
         self.populate_tree_cache(req.cache_keys[:, 0], resp.cache_hits,
                                  fork.cpu().numpy(), spec.cpu().numpy(), spec_logits)
         self.tree_cache_acts = spec_acts

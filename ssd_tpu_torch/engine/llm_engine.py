@@ -5,8 +5,12 @@ dict with the same keys, `add_request`, `step`, `generate`, `abort_request`
 and `exit`, serving AR, sync SD (a draft ModelRunner on the target's thread)
 and async SSD (a DraftServer thread on its own CUDA stream of the same
 card), with a plain or an EAGLE-3 draft (Config.use_eagle; the target's KV
-pool is sized with the EAGLE head's bytes). The warm-up of compiled shape buckets has no counterpart (PyTorch
-runs eagerly, so there is nothing to pre-compile).
+pool is sized with the EAGLE head's bytes), AR multi-step, fused sync SD
+(spec_rounds > 1) and ngram speculation. The JAX package's warm-up, which
+compiles every decode-side shape bucket at init, becomes the capture of one
+CUDA graph per decode-side step and batch bucket (engine/graphs.py) on the
+card, for AR, sync SD and the fused modes unless Config.enforce_eager; async
+SSD and EAGLE run eagerly.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.engine.model_runner import ModelRunner
 from ssd_tpu_torch.engine.scheduler import Scheduler
 from ssd_tpu_torch.engine.sequence import Sequence
-from ssd_tpu_torch.engine.step import AutoRegressiveStep, InferenceStep, SpecDecodeStep
+from ssd_tpu_torch.engine.step import (
+    AutoRegressiveStep, FusedSpecDecodeStep, InferenceStep, NgramSpecDecodeStep, SpecDecodeStep)
 from ssd_tpu_torch.sampling_params import SamplingParams
 from ssd_tpu_torch.utils.misc import load_tokenizer
 
@@ -77,6 +82,25 @@ class LLMEngine:
         if self.tokenizer is not None and self.tokenizer.eos_token_id is not None:
             config.eos = self.tokenizer.eos_token_id
         self.scheduler = Scheduler(config, draft_cfg=self.draft_cfg)
+        self.graphs = None
+        if (self.model_runner.device.type == "cuda" and not config.enforce_eager
+                and not config.draft_async):
+            self._capture_graphs()
+
+    def _capture_graphs(self):
+        """Capture the decode-side steps of this engine's mode for every
+        batch bucket up to next_pow2(max_num_seqs), greedy forms (a sampled
+        form is captured on its first use), all into one memory pool."""
+        from ssd_tpu_torch.engine.graphs import StepGraphs
+        from ssd_tpu_torch.engine.model_runner import next_pow2
+
+        runners = [r for r in (self.model_runner, self.draft_runner) if r is not None]
+        self.graphs = StepGraphs(self.model_runner.device, [r.generator for r in runners])
+        for r in runners:
+            r.graphs = self.graphs
+        top = next_pow2(self.config.max_num_seqs)
+        self._default_step = self.create_inference_step()
+        self._default_step.capture([1 << i for i in range(top.bit_length())])
 
     def exit(self):
         """Stop the async draft thread (idempotent)."""
@@ -180,8 +204,17 @@ class LLMEngine:
 
     def create_inference_step(self) -> InferenceStep:
         config = self.config
+        if config.ngram_speculate:
+            return NgramSpecDecodeStep(self.scheduler, self.model_runner,
+                                       K=config.speculate_k, rounds=config.spec_rounds,
+                                       N=config.ngram_n, metrics=METRICS)
         if not config.speculate:
-            return AutoRegressiveStep(self.scheduler, self.model_runner)
+            return AutoRegressiveStep(self.scheduler, self.model_runner,
+                                      multi_step=config.multi_step)
+        if not config.draft_async and config.spec_rounds > 1:
+            return FusedSpecDecodeStep(self.scheduler, self.model_runner, self.draft_runner,
+                                       K=config.speculate_k, rounds=config.spec_rounds,
+                                       metrics=METRICS)
         from ssd_tpu_torch.engine.verifier import Verifier
 
         if config.draft_async:

@@ -11,8 +11,16 @@ Counterpart of ssd_tpu/engine/model_runner.py:
   whose attention is ops/attention.py::flat_prefill_attention;
 - `decode_step` runs a batch of q_len-token decodes whose attention is
   ops/attention.py::paged_attention (decode, the K+1 verify, the glue);
-- `chain_decode_step` runs the draft's K(+1) single-token decodes as an
-  eager loop (the JAX package scans them inside one program);
+- `chain_decode_step` runs the draft's K(+1) single-token decodes (the JAX
+  package scans them inside one program; here they are a loop of launches
+  that engine/graphs.py captures into one CUDA graph);
+- the decode-side steps take fixed-shape device inputs only (tokens,
+  positions, block tables, context lengths, temperatures) at the batch
+  bucket B_pad = next_pow2(B), compute their cache slots on the device
+  (`device_slot_of`) and read nothing back, so each (step, B_pad) is one CUDA
+  graph on the card (engine/graphs.py; Config.enforce_eager or the CPU run
+  them eagerly). A ghost row has a table of -1 entries, context 1 and
+  temperature 0;
 - host input prep stays in numpy; the JAX package's packed int32 payloads (a
   TPU transfer workaround) are not ported, each input is its own tensor.
 A runner built with is_draft=True reads the sequences' draft block tables.
@@ -20,11 +28,12 @@ The target of an EAGLE engine taps its residual stream (Config.eagle_layers)
 in the prefill and the verify. The JAX package prefills EAGLE batches through
 its grouped, power-of-two padded prefill because it needs per-sequence
 activation rows; the flat layout has them directly (token t of sequence i is
-row off_i + t), so every prefill here is flat. Not ported yet: CUDA-graph
-capture.
+row off_i + t), so every prefill here is flat and eager (its T varies).
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -35,7 +44,7 @@ from ssd_tpu_torch.models.transformer import (
     Arch, compute_logits, forward_hidden, init_params, param_bytes)
 from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops.sampler import sample
-from ssd_tpu_torch.utils.native import prepare_multi_query, prepare_prefill, slot_of
+from ssd_tpu_torch.utils.native import prepare_prefill, slot_of  # noqa: F401 (the host copy)
 
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -64,10 +73,25 @@ def layer_of(kv_cache: KVCache, li: int):
     return kv_cache[li]
 
 
-def _store_rows(slot_map: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Indices of the rows whose slot is real, found on the host so that
-    store_kv needs no device-to-host sync."""
-    return torch.from_numpy(np.flatnonzero(slot_map >= 0)).to(device)
+def next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def device_slot_of(block_tables: torch.Tensor, positions: torch.Tensor,
+                   b_of_row: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Flat cache slot of each (row, position) on the device; -1 where the
+    table entry is -1 (ghost rows, padding) or the position falls past the
+    table (context-limit overshoot, which must not clamp onto the last real
+    block). ssd_tpu/engine/model_runner.py::slot_of; utils/native.py holds
+    the numpy copy of the eager host paths."""
+    M = block_tables.shape[1]
+    blk = positions.long() // block_size
+    blk_ids = block_tables[b_of_row, blk.clamp(max=M - 1)].long()
+    slot = blk_ids * block_size + positions.long() % block_size
+    return torch.where((blk_ids < 0) | (blk >= M), -1, slot).int()
 
 
 def flat_prefill_step(
@@ -76,7 +100,6 @@ def flat_prefill_step(
     input_ids: torch.Tensor,     # [T] all sequences' new tokens
     positions: torch.Tensor,     # [T]
     slot_map: torch.Tensor,      # [T] (-1 = no write)
-    store_rows: torch.Tensor,    # rows of slot_map that are >= 0
     flat_pages: torch.Tensor,    # [P] per-sequence page runs
     row_lo: torch.Tensor,        # [T] flat-context interval start
     row_hi: torch.Tensor,        # [T] interval end (padding: lo == hi)
@@ -89,6 +112,7 @@ def flat_prefill_step(
     arch: Arch,
     block_size: int,
     eagle_layers: tuple[int, ...] | None = None,
+    greedy: bool = False,
 ):
     """Mixed-length prefill as one forward. Returns (tokens [B], logits
     [B, V]), and with eagle_layers the taps [T, n_taps * D] as a third
@@ -97,14 +121,14 @@ def flat_prefill_step(
 
     def attn_call(li, q, k, v):
         kv_layer = layer_of(kv_cache, li)
-        att.store_kv(kv_layer, k, v, slot_map, store_rows)
+        att.store_kv(kv_layer, k, v, slot_map)
         return att.flat_prefill_attention(q, kv_layer, flat_pages, row_lo,
                                           row_hi, block_size, scale)
 
     out = forward_hidden(params, input_ids, positions, attn_call, arch, eagle_layers)
     hidden, acts = out if eagle_layers else (out, None)
     logits = compute_logits(params, hidden, arch, gather_idx=gather_idx)
-    tokens = sample(logits, temperatures, generator, top_ps, top_ks)
+    tokens = sample(logits, temperatures, generator, top_ps, top_ks, greedy=greedy)
     return (tokens, logits, acts) if eagle_layers else (tokens, logits)
 
 
@@ -113,8 +137,6 @@ def decode_forward(
     kv_cache: KVCache,           # [L, Hkv, S, 2*hd] | int8 pair, updated in place
     input_ids: torch.Tensor,     # [B*q_len]
     positions: torch.Tensor,     # [B*q_len]
-    slot_map: torch.Tensor,      # [B*q_len]
-    store_rows: torch.Tensor,    # rows of slot_map that are >= 0
     block_tables: torch.Tensor,  # [B, M]
     context_lens: torch.Tensor,  # [B]
     *,
@@ -125,16 +147,20 @@ def decode_forward(
     eagle_layers: tuple[int, ...] | None = None,
 ):
     """Batched forward of q_len queries per sequence; query i of sequence b
-    attends positions up to context_lens[b] - q_len + i. Returns logits
-    [B*q_len, V], or (logits, taps [B*q_len, n_taps * D]) with
-    eagle_layers."""
+    attends positions up to context_lens[b] - q_len + i and writes its KV at
+    device_slot_of(positions). Returns logits [B*q_len, V], or (logits, taps
+    [B*q_len, n_taps * D]) with eagle_layers."""
     B = block_tables.shape[0]
+    dev = block_tables.device
     scale = arch.head_dim ** -0.5
-    qeff = torch.full((B,), q_len, dtype=torch.int32, device=block_tables.device)
+    context_lens = context_lens.to(torch.int32)
+    qeff = torch.full((B,), q_len, dtype=torch.int32, device=dev)
+    b_of = torch.arange(B * q_len, device=dev) // q_len
+    slot_map = device_slot_of(block_tables, positions, b_of, block_size)
 
     def attn_call(li, q, k, v):
         kv_layer = layer_of(kv_cache, li)
-        att.store_kv(kv_layer, k, v, slot_map, store_rows)
+        att.store_kv(kv_layer, k, v, slot_map)
         qr = q.reshape(B, q_len, arch.num_heads, arch.head_dim)
         o = att.paged_attention(qr, kv_layer, block_tables, context_lens, qeff,
                                 block_size, scale, s8=s8)
@@ -151,8 +177,6 @@ def decode_step(
     kv_cache: KVCache,           # [L, Hkv, S, 2*hd] | int8 pair, updated in place
     input_ids: torch.Tensor,     # [B*q_len]
     positions: torch.Tensor,     # [B*q_len]
-    slot_map: torch.Tensor,      # [B*q_len]
-    store_rows: torch.Tensor,    # rows of slot_map that are >= 0
     block_tables: torch.Tensor,  # [B, M]
     context_lens: torch.Tensor,  # [B]
     temperatures: torch.Tensor,  # [B]
@@ -164,27 +188,27 @@ def decode_step(
     block_size: int,
     q_len: int,
     s8: bool = False,
+    greedy: bool = False,
 ):
     """Batched decode with q_len queries per sequence. Returns (tokens
-    sampled from each sequence's last row [B], logits [B*q_len, V])."""
+    sampled from each sequence's last row [B], logits [B*q_len, V]);
+    `greedy` as in ops/sampler.py::sample."""
     B = block_tables.shape[0]
-    logits = decode_forward(params, kv_cache, input_ids, positions, slot_map,
-                            store_rows, block_tables, context_lens,
-                            arch=arch, block_size=block_size, q_len=q_len, s8=s8)
+    logits = decode_forward(params, kv_cache, input_ids, positions, block_tables,
+                            context_lens, arch=arch, block_size=block_size,
+                            q_len=q_len, s8=s8)
     last = logits.reshape(B, q_len, -1)[:, -1, :]
-    return sample(last, temperatures, generator, top_ps, top_ks), logits
+    return sample(last, temperatures, generator, top_ps, top_ks, greedy=greedy), logits
 
 
 def chain_decode_step(
     params: dict,
-    kv_cache: KVCache,           # [L, Hkv, S, 2*hd] | int8 pair, updated in place
-    first_tokens: torch.Tensor,  # [B] the recovery tokens
-    positions: torch.Tensor,     # [n_steps, B] position of step i's input
-    slot_maps: torch.Tensor,     # [n_steps, B]
-    store_rows: list[torch.Tensor],  # per step, rows of slot_maps[i] >= 0
-    block_tables: torch.Tensor,  # [B, M]
-    context_lens: torch.Tensor,  # [n_steps, B] context incl. step i's input
-    temperatures: torch.Tensor,  # [B]
+    kv_cache: KVCache,                 # [L, Hkv, S, 2*hd] | int8 pair, updated in place
+    first_tokens: torch.Tensor,        # [B] the recovery tokens
+    start_positions: torch.Tensor,     # [B] position of first_tokens
+    block_tables: torch.Tensor,        # [B, M]
+    start_context_lens: torch.Tensor,  # [B] context incl. first_tokens
+    temperatures: torch.Tensor,        # [B]
     generator: torch.Generator | None,
     top_ps: torch.Tensor | None = None,
     top_ks: torch.Tensor | None = None,
@@ -192,22 +216,26 @@ def chain_decode_step(
     arch: Arch,
     block_size: int,
     K: int,
+    extra_write: bool = True,
     sampler_x: float | None = None,
     fan_out: int = 3,
     tree_sampling: bool = False,
     s8: bool = False,
+    greedy: bool = False,
 ):
-    """The draft chain: n_steps (K, or K+1 to also write the K-th token's KV)
-    single-token decodes in an eager loop, each step feeding its sampled
-    token to the next. Returns (tokens [B, K], logits_q [B, K, V])."""
+    """The chain: K single-token decodes, each feeding its sampled token to
+    the next; with extra_write a (K+1)-th decode writes the K-th token's KV
+    (the sync draft); AR multi-step skips it. Step i reads at position
+    start + i with context start_context_lens + i. Returns (tokens [B, K],
+    logits_q [B, K, V])."""
     tok = first_tokens
     toks, logits = [], []
-    for i in range(positions.shape[0]):
-        lg = decode_forward(params, kv_cache, tok, positions[i], slot_maps[i],
-                            store_rows[i], block_tables, context_lens[i],
-                            arch=arch, block_size=block_size, q_len=1, s8=s8)
-        tok = sample(lg, temperatures, generator, top_ps, top_ks,
-                     sampler_x=sampler_x, fan_out=fan_out, is_tree=tree_sampling)
+    for i in range(K + 1 if extra_write else K):
+        lg = decode_forward(params, kv_cache, tok, start_positions + i, block_tables,
+                            start_context_lens + i, arch=arch, block_size=block_size,
+                            q_len=1, s8=s8)
+        tok = sample(lg, temperatures, generator, top_ps, top_ks, sampler_x=sampler_x,
+                     fan_out=fan_out, is_tree=tree_sampling, greedy=greedy)
         toks.append(tok)
         logits.append(lg)
     return torch.stack(toks[:K], dim=1), torch.stack(logits[:K], dim=1)
@@ -246,6 +274,7 @@ class ModelRunner:
         self.use_warp = config.enable_top_sampling
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed + (1 if is_draft else 0))
+        self.graphs = None   # engine/graphs.py::StepGraphs, set by the engine
 
         with torch.no_grad():
             self.params = self._make_params(init_random)
@@ -341,22 +370,114 @@ class ModelRunner:
         return (self._tensor(np.asarray(top_ps, np.float32)),
                 self._tensor(np.asarray(top_ks, np.int32)))
 
-    def _sampling_args(self, seqs: list[Sequence]):
-        tp, tk = self._warp_args([s.top_p for s in seqs], [s.top_k for s in seqs])
-        return self._tensor(self._temperatures(seqs)), tp, tk
+    # --- fixed-shape steps (eager, or one CUDA graph per key) ---
+    #
+    # A step call is (key, fn, inputs, ghost): fn takes the numpy inputs as
+    # device tensors; ghost() gives inputs of ghost rows only, from which a
+    # graph is captured (engine/graphs.py).
 
-    def _prepare_multi_query(self, seqs: list[Sequence], q_len: int):
-        """Numpy inputs of a q_len-per-sequence decode over each sequence's
-        last q_len tokens: (input_ids, positions, slot_map, block_tables,
-        context_lens)."""
+    def run_step(self, key: tuple, fn, inputs: dict, ghost):
+        """fn(**inputs as device tensors): eagerly, or through the CUDA graph
+        of `key`, captured on first use. Returns fn's outputs; under a graph
+        they are its own buffers, valid until the next replay of any graph."""
+        if self.graphs is None:
+            return fn(**{k: self._tensor(np.ascontiguousarray(v)) for k, v in inputs.items()})
+        return self.graphs.run(key, fn, inputs, ghost)
+
+    def capture_step(self, key: tuple, fn, inputs: dict, ghost):
+        """Capture a step call's graph (the engine's warm-up)."""
+        self.graphs.capture(key, fn, ghost())
+
+    def _rows(self, B_pad: int, **cols):
+        """Numpy columns padded to B_pad rows: each keyword is (rows, fill),
+        ghost rows taking fill."""
+        out = {}
+        for name, (a, fill) in cols.items():
+            a = np.asarray(a)
+            pad = np.full((B_pad,) + a.shape[1:], fill, dtype=a.dtype)
+            pad[:len(a)] = a
+            out[name] = pad
+        return out
+
+    def _sampling_inputs(self, B_pad: int, temps, top_ps=None, top_ks=None) -> dict:
+        """temperatures (ghosts 0) and, with the top-p/top-k warp, top_ps and
+        top_ks (ghosts 1.0, 0) at B_pad rows."""
+        n = len(temps)
+        cols = dict(temperatures=(np.asarray(temps, np.float32), 0.0))
+        if self.use_warp:
+            cols["top_ps"] = (np.asarray([1.0] * n if top_ps is None else top_ps,
+                                         np.float32), 1.0)
+            cols["top_ks"] = (np.asarray([0] * n if top_ks is None else top_ks, np.int32), 0)
+        return self._rows(B_pad, **cols)
+
+    def _seq_warp(self, seqs):
+        return [s.top_p for s in seqs], [s.top_k for s in seqs]
+
+    def _multi_query_inputs(self, seqs: list[Sequence], q_len: int, B_pad: int) -> dict:
+        """Inputs of a q_len-per-sequence decode over each sequence's last
+        q_len tokens, at B_pad rows (ghosts: tokens 0 at position 0, a table
+        of -1, context 1)."""
         B = len(seqs)
         tails = np.asarray([seq.token_ids[-q_len:] for seq in seqs],
                            dtype=np.int32).reshape(B, q_len)
-        num_tokens = np.asarray([seq.num_tokens for seq in seqs], dtype=np.int32)
-        bt = self._block_table_array(seqs)
-        input_ids, positions, slot_map, context_lens = prepare_multi_query(
-            tails, num_tokens, bt, q_len, self.block_size)
-        return input_ids, positions, slot_map, bt, context_lens
+        n = np.asarray([seq.num_tokens for seq in seqs], dtype=np.int32)
+        pos = (n[:, None] - q_len + np.arange(q_len, dtype=np.int32)[None, :]).astype(np.int32)
+        inp = self._rows(B_pad, input_ids=(tails, 0), positions=(pos, 0),
+                         block_tables=(self._block_table_array(seqs), -1),
+                         context_lens=(n, 1))
+        inp["input_ids"] = inp["input_ids"].reshape(-1)
+        inp["positions"] = inp["positions"].reshape(-1)
+        return inp
+
+    def decode_call(self, seqs: list[Sequence], q_len: int, B_pad: int):
+        """The decode step over each sequence's last q_len tokens, sampling
+        the last row (decode_step)."""
+        temps = self._temperatures(seqs)
+        greedy = not (temps > 0).any()
+
+        def inputs(seqs, temps):
+            return {**self._multi_query_inputs(seqs, q_len, B_pad),
+                    **self._sampling_inputs(B_pad, temps, *self._seq_warp(seqs))}
+
+        fn = partial(decode_step, self.params, self.kv_cache, generator=self.generator,
+                     arch=self.arch, block_size=self.block_size, q_len=q_len, s8=self.s8,
+                     greedy=greedy)
+        return (("decode", B_pad, q_len, greedy), fn, inputs(seqs, temps),
+                lambda: inputs([], temps[:0]))
+
+    def verify_call(self, seqs: list[Sequence], q_len: int, B_pad: int):
+        """The verify forward over each sequence's last q_len tokens, no
+        sampling (decode_forward)."""
+        fn = partial(decode_forward, self.params, self.kv_cache, arch=self.arch,
+                     block_size=self.block_size, q_len=q_len, s8=self.s8,
+                     eagle_layers=self.eagle_layers)
+        return (("verify", B_pad, q_len), fn, self._multi_query_inputs(seqs, q_len, B_pad),
+                lambda: self._multi_query_inputs([], q_len, B_pad))
+
+    def chain_call(self, B_pad: int, K: int, extra_write: bool, first=(), start_pos=(),
+                   bt=None, temps=(), top_ps=None, top_ks=None, **tree):
+        """The chain (chain_decode_step) whose row b starts at token first[b]
+        at position start_pos[b] (ghosts: token 0 at position 0, context 1);
+        no rows given: ghost rows only. The tree sampler of the async draft
+        (`tree`) runs eagerly: async engines hold no graphs, so the key
+        leaves it out."""
+        temps = np.asarray(temps, np.float32)
+        greedy = not (temps > 0).any()
+
+        def inputs(first, start_pos, bt, temps, top_ps, top_ks):
+            start_pos = np.asarray(start_pos, np.int32)
+            return {**self._rows(B_pad, first_tokens=(np.asarray(first, np.int32), 0),
+                                 start_positions=(start_pos, 0), block_tables=(bt, -1),
+                                 start_context_lens=(start_pos + 1, 1)),
+                    **self._sampling_inputs(B_pad, temps, top_ps, top_ks)}
+
+        no_rows = np.zeros((0, self.max_blocks), np.int32)
+        fn = partial(chain_decode_step, self.params, self.kv_cache, generator=self.generator,
+                     arch=self.arch, block_size=self.block_size, K=K,
+                     extra_write=extra_write, s8=self.s8, greedy=greedy, **tree)
+        return (("chain", B_pad, K, extra_write, greedy), fn,
+                inputs(first, start_pos, no_rows if bt is None else bt, temps, top_ps, top_ks),
+                lambda: inputs((), (), no_rows, temps[:0], None, None))
 
     # --- phases ---
 
@@ -386,8 +507,10 @@ class ModelRunner:
             if seq.prefill_chunk is not None:
                 n_new = min(n_new, seq.prefill_chunk)
             rows.append((seq.token_ids, bt_rows[i], cached, n_new))
-        temps, top_ps, top_ks = self._sampling_args(seqs)
-        out = self._flat_prefill(rows, temps, top_ps, top_ks)
+        temps = self._temperatures(seqs)
+        top_ps, top_ks = self._warp_args(*self._seq_warp(seqs))
+        out = self._flat_prefill(rows, self._tensor(temps), top_ps, top_ks,
+                                 greedy=not (temps > 0).any())
         if not self.eagle_layers:
             return out[0].tolist(), out[1]
         tokens, logits, acts = out
@@ -431,35 +554,24 @@ class ModelRunner:
         return dict(
             input_ids=self._tensor(input_ids), positions=self._tensor(positions),
             slot_map=self._tensor(slot_map),
-            store_rows=_store_rows(slot_map, self.device),
             flat_pages=self._tensor(flat_pages), row_lo=self._tensor(row_lo),
             row_hi=self._tensor(row_hi), gather_idx=self._tensor(gather_idx))
 
-    def _flat_prefill(self, rows, temps, top_ps=None, top_ks=None):
+    def _flat_prefill(self, rows, temps, top_ps=None, top_ks=None, greedy=False):
         """flat_prefill_step over rows (see _flat_inputs)."""
         return flat_prefill_step(
             self.params, self.kv_cache, **self._flat_inputs(rows),
             temperatures=temps, generator=self.generator, top_ps=top_ps,
             top_ks=top_ks, arch=self.arch, block_size=self.block_size,
-            eagle_layers=self.eagle_layers)
+            eagle_layers=self.eagle_layers, greedy=greedy)
 
     @torch.no_grad()
     def run_decode(self, seqs: list[Sequence], q_len: int = 1):
         """Batched decode forward over each sequence's last q_len tokens.
         Returns (tokens [B], logits [B, q_len, V])."""
-        B = len(seqs)
-        input_ids, positions, slot_map, bt, context_lens = self._prepare_multi_query(
-            seqs, q_len)
-        temps, top_ps, top_ks = self._sampling_args(seqs)
-        tokens, logits = decode_step(
-            self.params, self.kv_cache,
-            self._tensor(input_ids), self._tensor(positions),
-            self._tensor(slot_map), _store_rows(slot_map, self.device),
-            self._tensor(bt), self._tensor(context_lens),
-            temps, self.generator, top_ps, top_ks,
-            arch=self.arch, block_size=self.block_size, q_len=q_len, s8=self.s8,
-        )
-        return tokens.tolist(), logits.reshape(B, q_len, -1)
+        B, B_pad = len(seqs), next_pow2(len(seqs))
+        tokens, logits = self.run_step(*self.decode_call(seqs, q_len, B_pad))
+        return tokens[:B].tolist(), logits.reshape(B_pad, q_len, -1)[:B]
 
     @torch.no_grad()
     def verify_forward(self, seqs: list[Sequence], q_len: int):
@@ -467,48 +579,46 @@ class ModelRunner:
         ([recovery | draft tokens]); no sampling. Returns (logits
         [B, q_len, V], the taps [B, q_len, n_taps * D] of an EAGLE target,
         else None)."""
-        B = len(seqs)
-        input_ids, positions, slot_map, bt, context_lens = self._prepare_multi_query(
-            seqs, q_len)
-        out = decode_forward(
-            self.params, self.kv_cache,
-            self._tensor(input_ids), self._tensor(positions),
-            self._tensor(slot_map), _store_rows(slot_map, self.device),
-            self._tensor(bt), self._tensor(context_lens),
-            arch=self.arch, block_size=self.block_size, q_len=q_len, s8=self.s8,
-            eagle_layers=self.eagle_layers)
+        B, B_pad = len(seqs), next_pow2(len(seqs))
+        out = self.run_step(*self.verify_call(seqs, q_len, B_pad))
         if self.eagle_layers:
-            return out[0].reshape(B, q_len, -1), out[1].reshape(B, q_len, -1)
-        return out.reshape(B, q_len, -1), None
+            return (out[0].reshape(B_pad, q_len, -1)[:B],
+                    out[1].reshape(B_pad, q_len, -1)[:B])
+        return out.reshape(B_pad, q_len, -1)[:B], None
 
     @torch.no_grad()
     def run_chain(self, first: np.ndarray, start_pos: np.ndarray, bt: np.ndarray,
-              temps: np.ndarray, K: int, extra_write: bool, top_ps=None,
-              top_ks=None, sampler_x: float | None = None, fan_out: int = 3,
-              tree_sampling: bool = False):
+                  temps: np.ndarray, K: int, extra_write: bool, top_ps=None,
+                  top_ks=None, sampler_x: float | None = None, fan_out: int = 3,
+                  tree_sampling: bool = False):
         """The draft chain from host arrays, for the sync speculator and the
         async draft's jit-speculate path (the JAX package's run_chain and
-        DraftRunner._jit_chain in one host entry): sequence b's chain starts at token
-        first[b] at position start_pos[b]; extra_write runs a (K+1)-th
-        decode that writes the K-th token's KV. Returns (tokens [B, K]
-        numpy, logits_q [B, K, V] on the device)."""
+        DraftRunner._jit_chain in one host entry): sequence b's chain starts
+        at token first[b] at position start_pos[b]; extra_write runs a
+        (K+1)-th decode that writes the K-th token's KV. Returns (tokens
+        [B, K] numpy, logits_q [B, K, V] on the device, a copy of the
+        graph's own buffer under a graph, since the verify's replay comes
+        before the caller reads it)."""
         B = first.shape[0]
-        n_steps = K + 1 if extra_write else K
-        positions = start_pos[None, :] + np.arange(n_steps, dtype=np.int32)[:, None]
-        rows = np.arange(B)
-        slots = np.stack([slot_of(bt, positions[i], rows, self.block_size)
-                          for i in range(n_steps)])
-        tp, tk = self._warp_args(top_ps, top_ks)
-        tokens, logits_q = chain_decode_step(
-            self.params, self.kv_cache, self._tensor(first.astype(np.int64)),
-            self._tensor(positions), self._tensor(slots),
-            [_store_rows(s, self.device) for s in slots], self._tensor(bt),
-            self._tensor((positions + 1).astype(np.int32)),
-            self._tensor(temps.astype(np.float32)), self.generator, tp, tk,
-            arch=self.arch, block_size=self.block_size, K=K,
-            sampler_x=sampler_x, fan_out=fan_out, tree_sampling=tree_sampling,
-            s8=self.s8)
-        return tokens.cpu().numpy(), logits_q
+        tokens, logits_q = self.run_step(*self.chain_call(
+            next_pow2(B), K, extra_write, first, start_pos, bt, temps, top_ps, top_ks,
+            sampler_x=sampler_x, fan_out=fan_out, tree_sampling=tree_sampling))
+        logits_q = logits_q[:B]
+        if self.graphs is not None:
+            logits_q = logits_q.clone()
+        return tokens[:B].cpu().numpy(), logits_q
+
+    @torch.no_grad()
+    def run_multi_step(self, seqs: list[Sequence], M: int) -> list[list[int]]:
+        """AR multi-step: M tokens per sequence from one chain of M decodes
+        from each sequence's last token (the JAX package's run_chain(seqs,
+        K=M) on the target, without the extra write)."""
+        B = len(seqs)
+        n = np.asarray([s.num_tokens for s in seqs], np.int32)
+        tokens, _ = self.run_step(*self.chain_call(
+            next_pow2(B), M, False, [s.last_token for s in seqs], n - 1,
+            self._block_table_array(seqs), self._temperatures(seqs), *self._seq_warp(seqs)))
+        return tokens[:B].tolist()
 
     def run(self, seqs: list[Sequence], is_prefill: bool,
             return_logits: bool = False):

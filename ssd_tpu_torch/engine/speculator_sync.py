@@ -3,8 +3,8 @@
 Counterpart of ssd_tpu/engine/speculator_sync.py: append the recovery token,
 run the draft chain (K+1 single-token decodes, the last one writing the
 K-th token's KV) and return [B, K] tokens with their [B, K, V] logits. The
-chain is an eager loop of kernel launches (ModelRunner.run_chain), where the
-JAX package scans it inside one program.
+chain (ModelRunner.run_chain) is one CUDA graph replay on the card, where
+the JAX package scans it inside one program.
 """
 
 from __future__ import annotations

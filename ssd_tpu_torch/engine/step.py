@@ -1,18 +1,23 @@
 """Inference-step strategies: autoregressive and speculative decode.
 
 Counterpart of ssd_tpu/engine/step.py: AutoRegressiveStep runs the model and
-the scheduler's postprocess; SpecDecodeStep composes a speculator (sync
-draft chain or async draft server) and a verifier: save the sequences'
-light state, speculate, verify, restore, postprocess_speculate. With an
-EAGLE-3 draft the draft prefill follows the target's (it is conditioned on
-the target's taps) and the verify's taps flow to the scheduler. Not ported
-yet: AR multi-step and the fused SD/SSD/EAGLE/ngram steps (Config refuses
-them).
+the scheduler's postprocess, or with multi_step > 1 a chain of M decodes
+and postprocess_multi; SpecDecodeStep composes a speculator (sync draft
+chain or async draft server) and a verifier: save the sequences' light
+state, speculate, verify, restore, postprocess_speculate. With an EAGLE-3
+draft the draft prefill follows the target's (it is conditioned on the
+target's taps) and the verify's taps flow to the scheduler.
+FusedSpecDecodeStep runs spec_rounds whole sync-SD rounds per engine step
+(engine/fused_sd.py), NgramSpecDecodeStep the model-free form. Each step's
+`capture` captures its CUDA graphs at engine init (engine/graphs.py). Not
+ported yet: the fused async (async_fused) and EAGLE (eagle_sd_superstep)
+steps.
 """
 
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
+from time import perf_counter
 
 from ssd_tpu_torch.engine.helpers.speculate_types import VerifyResult
 from ssd_tpu_torch.engine.model_runner import ModelRunner
@@ -20,10 +25,26 @@ from ssd_tpu_torch.engine.scheduler import Scheduler
 from ssd_tpu_torch.engine.sequence import Sequence
 
 
+def round_choices(rounds: int) -> tuple[int, ...]:
+    """The fused-SD round-count ladder for spec_rounds=R: R and its halvings
+    down to 4 (ascending). The engine captures every rung at init, so the
+    per-superstep pick never waits on a capture."""
+    s = {rounds}
+    r = rounds
+    while r > 4:
+        r //= 2
+        s.add(max(r, 4))
+    return tuple(sorted(s))
+
+
 class InferenceStep(ABC):
 
     def __init__(self, scheduler: Scheduler):
         self.scheduler = scheduler
+
+    def capture(self, batch_pads: list[int]):
+        """Capture this step's CUDA graphs for each batch bucket (the
+        engine's warm-up; engine/graphs.py)."""
 
     @abstractmethod
     def decode(self, seqs: list[Sequence]) -> int: ...
@@ -34,9 +55,18 @@ class InferenceStep(ABC):
 
 class AutoRegressiveStep(InferenceStep):
 
-    def __init__(self, scheduler: Scheduler, model_runner: ModelRunner):
+    def __init__(self, scheduler: Scheduler, model_runner: ModelRunner,
+                 multi_step: int = 1):
         super().__init__(scheduler)
         self.model_runner = model_runner
+        self.multi_step = multi_step
+
+    def capture(self, batch_pads: list[int]):
+        r = self.model_runner
+        for B_pad in batch_pads:
+            r.capture_step(*r.decode_call([], 1, B_pad))
+            if self.multi_step > 1:
+                r.capture_step(*r.chain_call(B_pad, self.multi_step, extra_write=False))
 
     def step(self, seqs: list[Sequence], is_prefill: bool) -> int:
         token_ids = self.model_runner.run(seqs, is_prefill)
@@ -49,7 +79,130 @@ class AutoRegressiveStep(InferenceStep):
     def decode(self, seqs: list[Sequence]) -> int:
         if not seqs:
             return 0  # everything preempted this step; next step re-prefills
-        return self.step(seqs, is_prefill=False)
+        # Multi-step: M sampled tokens per step from one chain; EOS and
+        # max-length overshoot is truncated and rolled back by the
+        # scheduler, like a rejected speculation.
+        M = max(1, min(self.multi_step,
+                       self.scheduler.max_model_len - max(s.num_tokens for s in seqs)))
+        if M <= 1:
+            return self.step(seqs, is_prefill=False)
+        suffixes = self.model_runner.run_multi_step(seqs, M)
+        before = sum(s.num_tokens for s in seqs)
+        self.scheduler.postprocess_multi(seqs, suffixes)
+        return sum(s.num_tokens for s in seqs) - before
+
+
+class FusedSpecDecodeStep(InferenceStep):
+    """Sync SD with `spec_rounds` whole rounds per engine step
+    (engine/fused_sd.py): one graph replay and one host sync per
+    R * E[accepted+1] tokens. Greedy outputs are token-exact against the
+    unfused path; EOS / max-token overshoot is truncated and rolled back
+    like AR multi-step overshoot."""
+
+    def __init__(self, scheduler: Scheduler, target_runner: ModelRunner,
+                 draft_runner: ModelRunner | None, K: int, rounds: int,
+                 metrics: dict | None = None):
+        super().__init__(scheduler)
+        self.target_runner = target_runner
+        self.draft_runner = draft_runner
+        self.K = K
+        self.rounds = rounds
+        self.round_set = round_choices(rounds)
+        self.metrics = metrics if metrics is not None else {}
+
+    def capture(self, batch_pads: list[int]):
+        from ssd_tpu_torch.engine.fused_sd import sd_call
+
+        for B_pad in batch_pads:
+            for R in self.round_set:
+                self.target_runner.capture_step(*sd_call(
+                    self.target_runner, self.draft_runner, [], self.K, R, B_pad))
+
+    def _pick_rounds(self, seqs: list[Sequence]) -> int:
+        """Smallest captured round count that covers the remaining token
+        budget at the observed acceptance rate (a static R wastes rounds
+        near the horizon)."""
+        rem = max(s.max_new_tokens - s.num_completion_tokens for s in seqs)
+        recent = (self.metrics.get("accepted_suffix_lens_with_recovery") or [])[-512:]
+        per_round = (sum(recent) / len(recent)) if recent else (self.K + 1)
+        need = -(-rem // max(per_round, 1.0))  # ceil
+        for r in self.round_set:
+            if r >= need:
+                return r
+        return self.round_set[-1]
+
+    def prefill(self, seqs: list[Sequence]) -> int:
+        token_ids = self.target_runner.run(seqs, is_prefill=True)
+        self.draft_runner.run(seqs, is_prefill=True)
+        for seq, token_id in zip(seqs, token_ids):
+            seq.recovery_token_id = token_id
+            seq.num_cached_tokens = seq.num_prompt_tokens
+            seq.num_draft_cached_tokens = seq.num_prompt_tokens
+        return sum(len(s) for s in seqs)
+
+    def _run_superstep(self, seqs: list[Sequence], rounds: int):
+        """Mode hook: R fused rounds, returning (suffixes, final recoveries,
+        per-round lengths); the ngram step overrides it."""
+        from ssd_tpu_torch.engine.fused_sd import run_sd_superstep
+
+        return run_sd_superstep(self.target_runner, self.draft_runner, seqs, self.K, rounds)
+
+    def decode(self, seqs: list[Sequence]) -> int:
+        if not seqs:
+            return 0
+        t0 = perf_counter()
+        suffixes, final_recs, per_round_lens = self._run_superstep(
+            seqs, self._pick_rounds(seqs))
+        # The whole superstep gets its own key: it is not comparable to the
+        # unfused path's per-round target_verify_times.
+        self.metrics.setdefault("sd_superstep_times", []).append(perf_counter() - t0)
+        before_each = [s.num_tokens for s in seqs]
+        self.scheduler.postprocess_speculate(seqs, suffixes, final_recs)
+        # Acceptance metrics count only rounds wholly inside the committed
+        # suffix (EOS / max truncation invalidates the tail rounds).
+        lens_out = self.metrics.setdefault("accepted_suffix_lens_with_recovery", [])
+        for seq, before, lens in zip(seqs, before_each, per_round_lens):
+            committed = seq.num_tokens - before
+            used = 0
+            for n in lens:
+                if used + n > committed:
+                    break
+                lens_out.append(n)
+                used += n
+        return sum(s.num_tokens - b for s, b in zip(seqs, before_each))
+
+
+class NgramSpecDecodeStep(FusedSpecDecodeStep):
+    """Model-free speculation (Config.ngram_speculate): prompt-lookup n-gram
+    proposals verified by the fused multi-round superstep
+    (fused_sd.ngram_superstep). No draft model and no draft KV: the token
+    history lives on the device and the matcher runs in the step."""
+
+    def __init__(self, scheduler: Scheduler, target_runner: ModelRunner,
+                 K: int, rounds: int, N: int, metrics: dict | None = None):
+        super().__init__(scheduler, target_runner, None, K=K, rounds=rounds,
+                         metrics=metrics)
+        self.N = N
+
+    def capture(self, batch_pads: list[int]):
+        from ssd_tpu_torch.engine.fused_sd import ngram_call
+
+        for B_pad in batch_pads:
+            for R in self.round_set:
+                self.target_runner.capture_step(*ngram_call(
+                    self.target_runner, [], self.N, self.K, R, B_pad))
+
+    def prefill(self, seqs: list[Sequence]) -> int:
+        token_ids = self.target_runner.run(seqs, is_prefill=True)
+        for seq, token_id in zip(seqs, token_ids):
+            seq.recovery_token_id = token_id
+            seq.num_cached_tokens = seq.num_prompt_tokens
+        return sum(len(s) for s in seqs)
+
+    def _run_superstep(self, seqs: list[Sequence], rounds: int):
+        from ssd_tpu_torch.engine.fused_sd import run_ngram_superstep
+
+        return run_ngram_superstep(self.target_runner, seqs, self.N, self.K, rounds)
 
 
 class SpecDecodeStep(InferenceStep):
@@ -61,6 +214,15 @@ class SpecDecodeStep(InferenceStep):
         self.verifier = verifier
         self.async_spec = async_spec
         self.eagle = eagle
+
+    def capture(self, batch_pads: list[int]):
+        """Sync SD: the draft chain and the target's verify forward (async
+        SSD and EAGLE run eagerly)."""
+        K = self.speculator.lookahead
+        draft, target = self.speculator.draft_model_runner, self.verifier.target_model_runner
+        for B_pad in batch_pads:
+            draft.capture_step(*draft.chain_call(B_pad, K, extra_write=True))
+            target.capture_step(*target.verify_call([], K + 1, B_pad))
 
     def prefill(self, seqs: list[Sequence]) -> int:
         if self.async_spec and not self.eagle:

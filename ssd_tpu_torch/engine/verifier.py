@@ -26,7 +26,7 @@ from ssd_tpu_torch.engine.helpers.speculate_types import (
     SpeculateResult, VerifierBase, VerifyResult)
 from ssd_tpu_torch.engine.model_runner import ModelRunner
 from ssd_tpu_torch.engine.sequence import Sequence
-from ssd_tpu_torch.ops.verify import build_suffixes, verify
+from ssd_tpu_torch.ops.verify import all_greedy, build_suffixes, verify
 
 
 class Verifier(VerifierBase):
@@ -76,10 +76,10 @@ class Verifier(VerifierBase):
         eagle_acts = None
         if eagle and acts is not None:
             eagle_acts = acts.to(torch.bfloat16).float()
-        temps_t = runner._tensor(np.asarray([s.temperature for s in seqs], np.float32))
-        temps_q = runner._tensor(np.asarray([
+        temps_t = np.asarray([s.temperature for s in seqs], np.float32)
+        temps_q = np.asarray([
             s.draft_temperature if s.draft_temperature is not None else s.temperature
-            for s in seqs], np.float32))
+            for s in seqs], np.float32)
         cache_hits = speculate_result.cache_hits
         hits = None if cache_hits is None else runner._tensor(
             np.asarray(cache_hits, dtype=np.int64))
@@ -87,10 +87,11 @@ class Verifier(VerifierBase):
         top_p, top_k = runner._warp_args([s.top_p for s in seqs], [s.top_k for s in seqs])
         accept_until, recovery = verify(
             logits_p, speculate_result.logits_q, runner._tensor(speculations),
-            temps_t, temps_q, hits, runner.generator,
+            runner._tensor(temps_t), runner._tensor(temps_q), hits, runner.generator,
             jit_speculate=self.jit_speculate, sampler_x=self.sampler_x,
             async_fan_out=self.async_fan_out if self.sampler_x is not None else None,
-            top_p=top_p, top_k=top_k)
+            top_p=top_p, top_k=top_k,
+            greedy=all_greedy(temps_t, temps_q, cache_hits, self.jit_speculate))
         accept_np = accept_until.cpu().numpy()
         recovery_tokens = recovery.tolist()
         new_suffixes, _ = build_suffixes(speculations, accept_np)

@@ -41,6 +41,7 @@ tiles, which their plain versions share).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -91,24 +92,33 @@ def store_kv(
     k: torch.Tensor,            # [T, Hkv, hd]
     v: torch.Tensor,            # [T, Hkv, hd]
     slot_mapping: torch.Tensor,  # [T] int; negative = ghost (dropped)
-    rows: torch.Tensor | None = None,
 ) -> KVLayer:
     """Write new [K|V] rows into their flat cache slots; negative slots are
-    dropped (for the int8 pair, both the data and the scales). `rows` lists
-    the indices of the non-negative slots when the caller already knows them
-    (the runner computes them on the host, which spares a device-to-host
-    sync per layer); otherwise they are found here."""
-    if rows is None:
-        rows = torch.nonzero(slot_mapping >= 0).flatten()
-    slots = slot_mapping[rows].long()
+    dropped (for the int8 pair, both the data and the scales). The store
+    keeps its shapes whatever the slots hold and reads nothing back, as a
+    CUDA graph needs: a ghost row writes what the first real row writes, to
+    that row's slot, so the two writes agree and the result does not depend
+    on their order; a call with no real row writes slot 0's own content
+    back."""
+    real = slot_mapping >= 0
+    src = torch.where(real, torch.arange(real.shape[0], device=real.device),
+                      real.int().argmax())
+    any_real = real.any()
+    slots = torch.where(any_real, slot_mapping[src], 0).long()
+
+    def keep(new, old):   # slot 0's own content when no row is real
+        return torch.where(any_real, new, old)
+
     if isinstance(kv_layer, tuple):
         data, scales = kv_layer
-        qk, qv, sk, sv = quantize_kv(k[rows], v[rows])
-        data.index_copy_(1, slots, torch.cat([qk, qv], dim=-1).transpose(0, 1))
-        scales.index_copy_(2, slots, torch.stack([sk, sv], dim=-1).permute(1, 2, 0))
+        qk, qv, sk, sv = quantize_kv(k[src], v[src])
+        data.index_copy_(1, slots, keep(torch.cat([qk, qv], dim=-1).transpose(0, 1),
+                                        data[:, :1]))
+        scales.index_copy_(2, slots, keep(torch.stack([sk, sv], dim=-1).permute(1, 2, 0),
+                                          scales[:, :, :1]))
         return kv_layer
-    val = torch.cat([k[rows], v[rows]], dim=-1).transpose(0, 1)  # [Hkv, n, 2hd]
-    kv_layer.index_copy_(1, slots, val.to(kv_layer.dtype))
+    val = torch.cat([k[src], v[src]], dim=-1).transpose(0, 1)  # [Hkv, n, 2hd]
+    kv_layer.index_copy_(1, slots, keep(val.to(kv_layer.dtype), kv_layer[:, :1]))
     return kv_layer
 
 
@@ -339,6 +349,42 @@ def _check_paged_shapes(name, q, data, block_tables, context_lens, qeff, block_s
 
 _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 _COUNTERS_LOCK = threading.Lock()
+_SCRATCH = threading.local()
+
+
+class SplitScratch:
+    """The split-KV workspace and counters of one captured step
+    (engine/graphs.py): held for the life of its CUDA graph, so every replay
+    finds them at the addresses the capture recorded, and shared by no other
+    graph or stream. They grow during the eager warm-up run that precedes
+    the capture; a capture that would need more raises."""
+
+    def __init__(self):
+        self.ws: torch.Tensor | None = None
+        self.counters: torch.Tensor | None = None
+
+    def take(self, ws_elems: int, n_counters: int, device: torch.device):
+        if self.ws is None or self.ws.numel() < ws_elems \
+                or self.counters.numel() < n_counters:
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("split-KV scratch too small inside a CUDA graph "
+                                   "capture: run the step eagerly under it first")
+            self.ws = torch.empty(max(ws_elems, 0 if self.ws is None else self.ws.numel()),
+                                  dtype=torch.float32, device=device)
+            self.counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32,
+                                        device=device)
+        return self.ws[:ws_elems], self.counters
+
+
+@contextlib.contextmanager
+def split_scratch(scratch: SplitScratch):
+    """Split-KV launches of this thread inside the block take `scratch`'s
+    workspace and counters."""
+    _SCRATCH.current = scratch
+    try:
+        yield scratch
+    finally:
+        _SCRATCH.current = None
 
 
 def split_buffers(q: torch.Tensor, Hkv: int, M: int, block_size: int, chunk: int):
@@ -350,16 +396,21 @@ def split_buffers(q: torch.Tensor, Hkv: int, M: int, block_size: int, chunk: int
     touch it while the call runs. The counters (B * Hkv ints) find the last
     block of each (sequence, KV head); they are zero between calls, since
     that block resets its own, and are kept per stream: the target's and the
-    draft's streams run these kernels at the same time."""
+    draft's streams run these kernels at the same time. Inside
+    `split_scratch` (a captured step), both come from its SplitScratch."""
     B, Q, Hq, hd = q.shape
     n_chunks = -(-M * block_size // chunk)
     # Chunks per block: one, unless the table holds over 1024 chunks in all
     # (long contexts), where a block takes up to SPLIT_MAX_SPAN positions
     # and pays its fixed costs once; the chunks and results are the same.
     per_block = max(1, min(SPLIT_MAX_SPAN // chunk, B * Hkv * n_chunks // 1024))
-    ws = torch.empty(B * Hkv * n_chunks * Q * (Hq // Hkv) * (hd + 2),
-                     dtype=torch.float32, device=q.device)
+    ws_elems = B * Hkv * n_chunks * Q * (Hq // Hkv) * (hd + 2)
     stream = torch.cuda.current_stream(q.device)
+    scratch = getattr(_SCRATCH, "current", None)
+    if scratch is not None:
+        ws, counters = scratch.take(ws_elems, B * Hkv, q.device)
+        return chunk, per_block, ws, counters, stream.cuda_stream
+    ws = torch.empty(ws_elems, dtype=torch.float32, device=q.device)
     key = (q.device.index, stream.cuda_stream)
     with _COUNTERS_LOCK:
         counters = _COUNTERS.get(key)

@@ -12,6 +12,7 @@ raise. A failed build raises; nothing falls back to the plain versions.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -56,11 +57,39 @@ _LOAD_LOCK = threading.Lock()   # the async draft thread may load it first
 _COUNT_LOCK = threading.Lock()
 
 
+_RECORD = threading.local()
+
+
 def count_launch(wrapper):
     """One more launch in `wrapper.launches` (the async draft thread
-    launches kernels too, hence the lock)."""
+    launches kernels too, hence the lock). Inside `recording_launches` (a
+    CUDA graph capture, which launches nothing) the launch goes to the
+    record instead; the graph adds it at every replay (`add_launches`)."""
+    record = getattr(_RECORD, "launches", None)
+    if record is not None:
+        record[wrapper] = record.get(wrapper, 0) + 1
+        return
     with _COUNT_LOCK:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """The launches this thread's wrappers make inside the block, as a dict
+    {wrapper: count}, kept out of the wrappers' own counts."""
+    record: dict = {}
+    _RECORD.launches = record
+    try:
+        yield record
+    finally:
+        _RECORD.launches = None
+
+
+def add_launches(record: dict):
+    """Count the launches of one replay of a captured step."""
+    with _COUNT_LOCK:
+        for wrapper, n in record.items():
+            wrapper.launches += n
 
 
 def _nvcc() -> str:

@@ -46,16 +46,20 @@ def sample(
     sampler_x: float | None = None,
     fan_out: int = 3,
     is_tree: bool = False,
+    greedy: bool = False,
 ) -> torch.Tensor:
     """Rows with temperature 0 take the argmax; the others sample
     softmax(logits / T) by exponential race (argmax of probs / Exp(1), which
     is Categorical(probs)). In tree mode (the async draft) with sampler_x,
     the top-(fan_out+1) probabilities are boosted by sampler_x before the
-    warp and the draw. Returns [B] int64."""
+    warp and the draw. `greedy` says that every row's temperature is 0, as
+    the caller knows from its host copy of them: the draw is then skipped.
+    The function reads nothing back from the device, so a CUDA graph can
+    capture it. Returns [B] int64."""
     logits = logits.float()
-    greedy = logits.argmax(dim=-1)
-    if bool((temperatures == 0).all()):
-        return greedy
+    argmax = logits.argmax(dim=-1)
+    if greedy:
+        return argmax
     t = temperatures.clamp(min=1e-8)[:, None]
     probs = torch.softmax(logits / t, dim=-1)
     if sampler_x is not None and is_tree:
@@ -64,4 +68,4 @@ def sample(
         probs = warp_top_probs(probs, top_p, top_k)
     e = torch.empty_like(probs).exponential_(generator=generator)
     sampled = (probs / (e + 1e-10)).argmax(dim=-1)
-    return torch.where(temperatures == 0, greedy, sampled)
+    return torch.where(temperatures == 0, argmax, sampled)

@@ -57,12 +57,17 @@ def verify(
     top_p: torch.Tensor | None = None,  # [B]; warps both p and q
     top_k: torch.Tensor | None = None,  # [B]
     noise: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    greedy: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (accept_until [B] in [0, K], recovery token [B]). The
     accepted suffix of row b is [speculations[b, 0]] +
     draft_tokens[b, :accept_until[b]]. `noise` = (uniforms [B, K], Gumbel
     noise [B, V] for the adjusted recovery, Gumbel noise [B, V] for the
-    recovery from p); drawn from `generator` when None."""
+    recovery from p); drawn from `generator` when None. `greedy` says that
+    no row samples: every target temperature is 0 and no row takes ratio
+    acceptance (`all_greedy` computes it from the host's copies). The
+    probabilities are then skipped. Nothing is read back from the device, so
+    a CUDA graph can capture the function."""
     B, Kp1, V = logits_p.shape
     K = Kp1 - 1
     dev = logits_p.device
@@ -85,7 +90,7 @@ def verify(
         ratio_rows = base_ratio_rows & cache_hits.bool()
     else:
         ratio_rows = torch.zeros_like(base_ratio_rows)
-    if not bool((temps_t > 0).any()) and not bool(ratio_rows.any()):
+    if greedy:
         return accept_greedy, rec_greedy   # all greedy: no probabilities needed
 
     probs_p = _probs_with_greedy_onehot(logits_p, temps_t)  # [B, K+1, V]
@@ -126,6 +131,18 @@ def verify(
     rec_ratio = torch.where(adjust, _categorical(adj_norm, g_adj),
                             _categorical(fallback, g_p))
     return accept_until, torch.where(temps_t > 0, rec_ratio, rec_greedy)
+
+
+def all_greedy(temps_target, temps_draft, cache_hits=None,
+               jit_speculate: bool = False) -> bool:
+    """verify()'s `greedy` flag from the host's copies (numpy) of its inputs:
+    no target temperature above 0 and no row that takes ratio acceptance."""
+    sampled_t = np.asarray(temps_target) > 0
+    ratio = sampled_t | (np.asarray(temps_draft) > 0)
+    if not jit_speculate:
+        ratio &= (np.zeros_like(ratio) if cache_hits is None
+                  else np.asarray(cache_hits).astype(bool))
+    return not sampled_t.any() and not ratio.any()
 
 
 def build_suffixes(speculations, accept_until) -> tuple[list[list[int]], None]:

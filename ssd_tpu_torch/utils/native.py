@@ -23,18 +23,6 @@ def slot_of(block_tables: np.ndarray, positions: np.ndarray,
     return np.where((blk_ids < 0) | (blk >= M), -1, slot).astype(np.int32)
 
 
-def prepare_multi_query(tail_tokens: np.ndarray, num_tokens: np.ndarray,
-                        block_tables: np.ndarray, q_len: int, block_size: int):
-    """Batched decode input prep, one row per sequence. Returns (input_ids,
-    positions, slot_map, context_lens) int32 arrays; slots by slot_of (a
-    sync speculation overshooting the context limit drops its writes)."""
-    B = num_tokens.shape[0]
-    pos = (num_tokens[:, None] - q_len + np.arange(q_len)[None, :]).reshape(-1)
-    slots = slot_of(block_tables, pos, np.repeat(np.arange(B), q_len), block_size)
-    return (tail_tokens.reshape(-1).astype(np.int32), pos.astype(np.int32),
-            slots, num_tokens.astype(np.int32))
-
-
 def prepare_prefill(block_table: np.ndarray, cached: int, n_new: int,
                     block_size: int):
     """Single-sequence prefill positions and slots of its n_new new tokens."""

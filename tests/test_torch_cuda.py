@@ -204,9 +204,8 @@ def test_eagle_glue_and_draft_prefill_on_card(dtype):
                  att.paged_attention_plain(*args, 64, scale), dtype)
     pair = (torch.zeros(args[1].shape, dtype=torch.int8, device="cuda"),
             torch.full((Hkv, 2, args[1].shape[1]), 1e-10, device="cuda"))
-    rows = torch.arange(args[1].shape[1], device="cuda")
     att.store_kv(pair, args[1][:, :, :hd].transpose(0, 1), args[1][:, :, hd:].transpose(0, 1),
-                 rows.int(), rows)
+                 torch.arange(args[1].shape[1], dtype=torch.int32, device="cuda"))
     iargs = [args[0], pair] + args[2:]
     assert close(att.paged_attention(*iargs, 64, scale),
                  att.paged_attention_plain(*iargs, 64, scale), dtype)
@@ -531,3 +530,169 @@ def test_flat_prefill_tc_is_batch_invariant_on_card(hd, G, kind):
             torch.arange(1, n + 1, dtype=torch.int32, device="cuda"), bs, scale)
         assert torch.equal(alone, full[off:off + n]), (hd, kind, s)
         off += n
+
+
+# --- CUDA graphs of the decode-side steps (engine/graphs.py) ---------------------
+
+TINY_LLAMA = {"model_type": "llama", "vocab_size": 512, "hidden_size": 256,
+              "intermediate_size": 512, "num_hidden_layers": 2, "num_attention_heads": 4,
+              "num_key_value_heads": 2, "head_dim": 64, "max_position_embeddings": 512,
+              "rms_norm_eps": 1e-5, "rope_theta": 10000.0, "tie_word_embeddings": False}
+TINY_MOE = {**TINY_LLAMA, "model_type": "qwen3_moe", "num_experts": 8,
+            "num_experts_per_tok": 2, "moe_intermediate_size": 128, "head_dim": 64,
+            "norm_topk_prob": True}
+GRAPH_K, GRAPH_R, GRAPH_BS = 4, 2, 16
+
+
+def _tiny_engine(tmp_path, base=TINY_LLAMA, **kw):
+    """A random bf16 engine on the card that runs eagerly, with graphs of
+    its own attached by the test."""
+    import json
+
+    from ssd_tpu_torch import LLM
+    from ssd_tpu_torch.engine.graphs import StepGraphs
+
+    d = tmp_path / base["model_type"]
+    d.mkdir(exist_ok=True)
+    (d / "config.json").write_text(json.dumps(base))
+    llm = LLM(str(d), init_random=True, device="cuda", dtype="bfloat16", enforce_eager=True,
+              max_model_len=256, kvcache_block_size=GRAPH_BS, num_kvcache_blocks=64,
+              max_num_seqs=4, **kw)
+    runner = llm.model_runner
+    graphs = StepGraphs(runner.device, [runner.generator])
+    return runner, graphs
+
+
+def _graph_case(runner, kind, B_pad=4, B=3, greedy=True):
+    """(key, fn, inputs, ghost) of one step kind at B rows in bucket B_pad:
+    disjoint tables, contexts 33-70, the ngram history repeating; only the
+    decode takes greedy=False."""
+    from functools import partial
+
+    from ssd_tpu_torch.engine import fused_sd
+    from ssd_tpu_torch.engine import model_runner as mr
+
+    r = np.random.default_rng(5)
+    K, R, M = GRAPH_K, GRAPH_R, runner.max_blocks
+    n = np.array([40, 57, 70, 33][:B], np.int32)
+    bt = np.full((B, M), -1, np.int32)
+    for b in range(B):
+        bt[b, :8] = np.arange(8) + 1 + 8 * b
+    temps = np.zeros(B, np.float32) if greedy else np.ones(B, np.float32)
+    tok = r.integers(3, 512, size=B).astype(np.int32)
+    if kind == "chain":
+        return runner.chain_call(B_pad, K, True, tok, n - 1, bt, temps)
+    if kind in ("decode", "verify"):
+        q = 1 if kind == "decode" else K + 1
+        pos = (n[:, None] - q + np.arange(q)).astype(np.int32)
+        ids = r.integers(3, 512, size=(B, q)).astype(np.int32)
+
+        def build(rows):
+            inp = runner._rows(B_pad, input_ids=(ids[:rows], 0), positions=(pos[:rows], 0),
+                               block_tables=(bt[:rows], -1), context_lens=(n[:rows], 1))
+            inp["input_ids"] = inp["input_ids"].reshape(-1)
+            inp["positions"] = inp["positions"].reshape(-1)
+            if kind == "decode":
+                inp.update(runner._sampling_inputs(B_pad, temps[:rows]))
+            return inp
+        if kind == "verify":
+            key, fn, _, _ = runner.verify_call([], q, B_pad)
+        else:
+            key = ("decode", B_pad, q, greedy)
+            fn = partial(mr.decode_step, runner.params, runner.kv_cache,
+                         generator=runner.generator, arch=runner.arch,
+                         block_size=runner.block_size, q_len=q, greedy=greedy)
+        return key, fn, build(B), lambda: build(0)
+    H = fused_sd.ngram_width(runner, K, R)
+    hist = np.tile(r.integers(3, 512, size=(B, 11)), H // 11 + 1)[:, :H].astype(np.int32)
+
+    def build(rows):
+        inp = runner._rows(B_pad, rec0=(tok[:rows], 0), n0=(n[:rows], 1),
+                           bt_target=(bt[:rows], -1), temps_t=(temps[:rows], 0.0))
+        if kind == "sd":
+            inp.update(runner._rows(B_pad, bt_draft=(bt[:rows], -1),
+                                    temps_d=(temps[:rows], 0.0)))
+        else:
+            inp["hist0"] = runner._rows(B_pad, h=(hist[:rows], 0))["h"]
+        return inp
+    # The sd case's runner drafts for itself, on its own cache.
+    key, fn, _, _ = (fused_sd.sd_call(runner, runner, [], K, R, B_pad) if kind == "sd" else
+                     fused_sd.ngram_call(runner, [], 3, K, R, B_pad))
+    return key, fn, build(B), lambda: build(0)
+
+
+def _cpu(out):
+    return [x.detach().clone().cpu() for x in (out if isinstance(out, tuple) else (out,))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "verify", "chain", "sd", "ngram", "moe"])
+def test_graph_replay_equals_eager_on_card(kind, tmp_path):
+    """A step's graph replay against the same step run eagerly on the same
+    inputs (B = 3 in bucket 4): integer outputs exact, logits within close()
+    in bf16; the Qwen3-MoE case runs K6 inside the graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    base = TINY_MOE if kind == "moe" else TINY_LLAMA
+    runner, graphs = _tiny_engine(tmp_path, base)
+    runner.graphs = graphs
+    key, fn, inputs, ghost = _graph_case(runner, "decode" if kind == "moe" else kind)
+    eager = _cpu(fn(**{k: torch.from_numpy(v).cuda() for k, v in inputs.items()}))
+    replay = _cpu(graphs.run(key, fn, inputs, ghost))
+    for e, g in zip(eager, replay):
+        if e.is_floating_point():
+            assert close(g, e, torch.bfloat16), kind
+        else:
+            assert torch.equal(g, e), kind
+    if kind == "moe":
+        assert graphs.steps[key].launches.get(moe.grouped_gemm) == 3 * base["num_hidden_layers"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "sd"])
+def test_graph_split_counters_read_zero_after_replays_on_card(kind, tmp_path):
+    """After 100 replays the step's own split-KV counters are all zero and
+    the outputs still equal the first replay's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    runner, graphs = _tiny_engine(tmp_path)
+    key, fn, inputs, ghost = _graph_case(runner, kind)
+    first = _cpu(graphs.run(key, fn, inputs, ghost))
+    for _ in range(99):
+        graphs.run(key, fn, inputs, ghost)
+    last = _cpu(graphs.run(key, fn, inputs, ghost))
+    torch.cuda.synchronize()
+    assert not graphs.steps[key].scratch.counters.any()
+    for a, b in zip(first, last):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_graph_launches_counted_per_replay_on_card(tmp_path):
+    """The paged kernel's launch count grows by its launches in the capture
+    at every replay: L a decode, (K+1) L a chain with the extra write."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    runner, graphs = _tiny_engine(tmp_path)
+    L = TINY_LLAMA["num_hidden_layers"]
+    for kind, per in (("decode", L), ("chain", (GRAPH_K + 1) * L)):
+        key, fn, inputs, ghost = _graph_case(runner, kind)
+        graphs.capture(key, fn, ghost())
+        att.paged_attention.launches = 0
+        for _ in range(5):
+            graphs.run(key, fn, inputs, ghost)
+        assert att.paged_attention.launches == 5 * per, kind
+        assert graphs.steps[key].launches == {att.paged_attention: per}
+
+
+@pytest.mark.cuda
+def test_sampled_graph_advances_its_generator_on_card(tmp_path):
+    """A sampled decode graph draws anew at each replay (the runner's
+    generator is registered with the graph): eight replays on the same
+    inputs at temperature 1 do not all give the same tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    runner, graphs = _tiny_engine(tmp_path)
+    key, fn, inputs, ghost = _graph_case(runner, "decode", greedy=False)
+    draws = {tuple(graphs.run(key, fn, inputs, ghost)[0][:3].tolist()) for _ in range(8)}
+    assert len(draws) > 1

@@ -195,8 +195,11 @@ def test_request_validation(llama_dir):
 
 # Modes not ported yet, refused whatever else is asked for. use_eagle is
 # served since the EAGLE-3 slice: without speculate=True it is an ignored
-# knob, refused with a ValueError.
-UNPORTED = {"spec_rounds", "async_fused", "ngram_speculate", "multi_step", "draft_dp"}
+# knob, refused with a ValueError. ngram speculation and AR multi-step are
+# served since the CUDA-graph slice, and spec_rounds without speculate is an
+# ignored knob.
+UNPORTED = {"async_fused", "draft_dp"}
+SERVED = {"ngram_speculate", "multi_step"}
 
 
 @pytest.mark.parametrize("field,value", [
@@ -208,7 +211,13 @@ UNPORTED = {"spec_rounds", "async_fused", "ngram_speculate", "multi_step", "draf
 def test_unported_speculative_fields_refused(llama_dir, field, value):
     """A mode this slice does not port is refused (NotImplementedError); a
     speculative knob on an engine that does not speculate, where it would be
-    silently ignored, is refused too (ValueError)."""
+    silently ignored, is refused too (ValueError). The served modes among
+    these fields give the AR engine's greedy tokens."""
+    if field in SERVED:
+        prompts = [random_prompt(rng(9), 5, 20) for _ in range(2)]
+        assert run(port(llama_dir, **{field: value}), prompts, 12) == \
+            run(port(llama_dir), prompts, 12)
+        return
     exc = NotImplementedError if field in UNPORTED else ValueError
     with pytest.raises(exc, match=field):
         port(llama_dir, **{field: value})

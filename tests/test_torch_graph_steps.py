@@ -1,0 +1,335 @@
+"""The port's fixed-shape decode-side steps on the CPU: what lets one CUDA
+graph per (step, batch bucket) replay them (engine/graphs.py).
+
+- AR multi-step (M in {2, 4}) gives the port's and ssd_tpu's AR greedy
+  tokens, through EOS truncation too;
+- a padded bucket (B = 3 run at B_pad = 4 with a ghost row) gives the
+  unpadded step's tokens exactly, the real rows' cache slots within fp32
+  rounding, and leaves every other cache slot bit for bit as it was: the
+  decode (Q = 1 and Q = K+1), the chain, and both supersteps;
+- ghost rows alone (a capture's warm-up) write nothing, in the fp and the
+  int8 cache;
+- the step functions read nothing back to the host: under a guard that
+  makes Tensor.item / tolist / __bool__ / cpu / numpy raise they run
+  greedy and sampled;
+- the launch record of a capture (ops/cuda_lib.py), the split-KV scratch
+  and the fused-SD round ladder.
+"""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from ssd_tpu import SamplingParams as JaxSamplingParams
+from ssd_tpu.llm import LLM as JaxLLM
+import ssd_tpu_torch
+from ssd_tpu_torch import SamplingParams
+from ssd_tpu_torch.config import Config
+from ssd_tpu_torch.engine import fused_sd
+from ssd_tpu_torch.engine import model_runner as mr
+from ssd_tpu_torch.engine.step import round_choices
+from ssd_tpu_torch.ops import attention as att
+from ssd_tpu_torch.ops import cuda_lib
+from tests.utils_models import make_tiny_llama, random_prompt, rng
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two torch threads for this module's tests, restored after it, so the
+    other modules' torch code in the same xdist worker (the HF oracle of the
+    JAX package's tests) keeps its own thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+ENGINE = dict(max_model_len=256, max_num_batched_tokens=1024, kvcache_block_size=16,
+              num_kvcache_blocks=64, max_num_seqs=4, dtype="float32")
+BS, K = 16, 3
+TOL = dict(rtol=1e-4, atol=1e-4)
+PROMPTS = [random_prompt(rng(60 + i), 8, 24) for i in range(3)]
+
+
+@pytest.fixture(scope="module")
+def model_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("graph_steps_llama")
+    make_tiny_llama(d, seed=0)
+    return str(d)
+
+
+def generate(llm, n, ignore_eos=True):
+    outs, _ = llm.generate([list(p) for p in PROMPTS],
+                           SamplingParams(temperature=0.0, max_new_tokens=n,
+                                          ignore_eos=ignore_eos), use_tqdm=False)
+    return [o["token_ids"] for o in outs]
+
+
+@pytest.fixture(scope="module")
+def ar_tokens(model_dir):
+    got = generate(ssd_tpu_torch.LLM(model_dir, device="cpu", **ENGINE), 30)
+    jouts, _ = JaxLLM(model_dir, **ENGINE).generate(
+        [list(p) for p in PROMPTS],
+        JaxSamplingParams(temperature=0.0, max_new_tokens=30, ignore_eos=True),
+        use_tqdm=False)
+    assert got == [o["token_ids"] for o in jouts]
+    return got
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_multi_step_matches_ar_and_jax(M, model_dir, ar_tokens):
+    """30 new tokens (not a multiple of M): the last chain overshoots and
+    is truncated."""
+    llm = ssd_tpu_torch.LLM(model_dir, device="cpu", multi_step=M, **ENGINE)
+    assert generate(llm, 30) == ar_tokens
+
+
+def test_multi_step_eos_truncation(model_dir, ar_tokens):
+    """Without ignore_eos the output stops at the first EOS even mid-chain:
+    with the EOS set to the sixth token AR emits for the first prompt,
+    multi-step gives AR's outputs."""
+    eos = ar_tokens[0][5]
+    ar = generate(ssd_tpu_torch.LLM(model_dir, device="cpu", eos=eos, **ENGINE), 30,
+                  ignore_eos=False)
+    got = generate(ssd_tpu_torch.LLM(model_dir, device="cpu", eos=eos, multi_step=4,
+                                     **ENGINE), 30, ignore_eos=False)
+    assert got == ar
+    assert len(got[0]) == ar_tokens[0].index(eos) + 1
+
+
+def test_device_slot_of_matches_jax():
+    """The slots a step computes on the device: ghost tables and positions
+    past the table give -1."""
+    import jax.numpy as jnp
+
+    from ssd_tpu.engine.model_runner import slot_of as jax_slot_of
+
+    bt = np.array([[3, 5, -1], [-1, -1, -1], [2, 0, 4]], np.int32)
+    pos = np.array([0, 17, 33, 5, 47, 48, 60], np.int32)   # 48+ overshoots
+    rows = np.array([0, 0, 0, 1, 2, 2, 2], np.int64)
+    got = mr.device_slot_of(torch.from_numpy(bt), torch.from_numpy(pos),
+                            torch.from_numpy(rows), 16)
+    want = jax_slot_of(jnp.asarray(bt), jnp.asarray(pos), jnp.asarray(rows), 16)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# --- padded buckets ----------------------------------------------------------------
+
+
+def _runner(path, seed, kv_quant=None):
+    cfg = Config(path, device="cpu", dtype="float32", kvcache_block_size=BS,
+                 num_kvcache_blocks=32, max_model_len=256, kv_quant=kv_quant)
+    runner = mr.ModelRunner(cfg)
+    if kv_quant is None:
+        runner.kv_cache = torch.from_numpy(np.random.default_rng(seed).normal(
+            size=tuple(runner.kv_cache.shape)).astype(np.float32))
+    return runner
+
+
+def _cache(runner):
+    c = runner.kv_cache
+    return tuple(x.clone() for x in c) if isinstance(c, tuple) else c.clone()
+
+
+N0 = np.array([20, 9, 33], np.int32)
+
+
+def _tables(B_pad, R=1, shift=0):
+    bt = np.full((B_pad, 16), -1, np.int32)
+    for b, n in enumerate(N0):
+        pages = -(-(int(n) + R * (K + 1) + 1) // BS)
+        bt[b, :pages] = np.arange(pages) + 1 + 8 * b + shift
+    return bt
+
+
+def _pad(a, B_pad, fill):
+    out = np.full((B_pad,) + a.shape[1:], fill, a.dtype)
+    out[:len(a)] = a
+    return torch.from_numpy(out)
+
+
+def _check_bucket(run, runners, n_out):
+    """run(B_pad) -> outputs (tensors with the batch on axis n_out's dim);
+    B=3 and B_pad=4 from the same caches: real rows' outputs equal, the
+    real rows' slots close, every other slot bit for bit unchanged."""
+    before = [_cache(r) for r in runners]
+    out3 = run(3)
+    after3 = [_cache(r) for r in runners]
+    for r, c in zip(runners, before):
+        r.kv_cache.copy_(c)
+    out4 = run(4)
+    for a, b in zip(out3, out4):
+        torch.testing.assert_close(b.narrow(n_out, 0, 3), a, rtol=0, atol=0)
+    for r, c0, c3 in zip(runners, before, after3):
+        touched = (c3 != c0).any(dim=-1)               # slots the real rows wrote
+        np.testing.assert_allclose(r.kv_cache[touched].numpy(), c3[touched].numpy(), **TOL)
+        torch.testing.assert_close(r.kv_cache[~touched], c0[~touched], rtol=0, atol=0)
+        assert touched.any()
+
+
+@pytest.mark.parametrize("q_len", [1, K + 1])
+def test_padded_decode_matches_unpadded(q_len, model_dir):
+    r = _runner(model_dir, 1)
+    n = N0 + q_len
+    ids = np.random.default_rng(2).integers(3, 128, size=(3, q_len)).astype(np.int32)
+    pos = (n[:, None] - q_len + np.arange(q_len)).astype(np.int32)
+
+    def run(B_pad):
+        tok, logits = mr.decode_step(
+            r.params, r.kv_cache, _pad(ids, B_pad, 0).reshape(-1),
+            _pad(pos, B_pad, 0).reshape(-1), _pad(_tables(4)[:3], B_pad, -1),
+            _pad(n, B_pad, 1), _pad(np.zeros(3, np.float32), B_pad, 0.0), None,
+            arch=r.arch, block_size=BS, q_len=q_len, greedy=True)
+        return tok, logits.reshape(B_pad, q_len, -1)
+
+    _check_bucket(run, [r], 0)
+
+
+def test_padded_chain_matches_unpadded(model_dir):
+    r = _runner(model_dir, 3)
+    first = np.array([17, 99, 5], np.int32)
+
+    def run(B_pad):
+        return mr.chain_decode_step(
+            r.params, r.kv_cache, _pad(first, B_pad, 0), _pad(N0, B_pad, 0),
+            _pad(_tables(4)[:3], B_pad, -1), _pad(N0 + 1, B_pad, 1),
+            _pad(np.zeros(3, np.float32), B_pad, 0.0), None, arch=r.arch,
+            block_size=BS, K=K, extra_write=True, greedy=True)
+
+    _check_bucket(run, [r], 0)
+
+
+@pytest.mark.parametrize("kind", ["sd", "ngram"])
+def test_padded_superstep_matches_unpadded(kind, model_dir):
+    R = 2
+    t, d = _runner(model_dir, 4), _runner(model_dir, 5)
+    rec0 = np.array([17, 99, 5], np.int32)
+    temps = np.zeros(3, np.float32)
+    H = fused_sd.ngram_width(t, K, R)
+    hist = np.zeros((3, H), np.int32)
+    hist[:, :40] = np.tile([7, 8, 9, 10], 10)
+
+    def run(B_pad):
+        args = dict(rec0=_pad(rec0, B_pad, 0), n0=_pad(N0, B_pad, 1),
+                    bt_target=_pad(_tables(4, R)[:3], B_pad, -1),
+                    temps_t=_pad(temps, B_pad, 0.0))
+        if kind == "ngram":
+            return fused_sd.ngram_superstep(
+                t.params, t.kv_cache, hist0=_pad(hist, B_pad, 0), **args, generator=None,
+                t_arch=t.arch, block_size=BS, N=2, K=K, R=R, greedy=True)
+        return fused_sd.sd_superstep(
+            t.params, t.kv_cache, d.params, d.kv_cache, **args,
+            bt_draft=_pad(_tables(4, R, shift=4)[:3], B_pad, -1),
+            temps_d=_pad(temps, B_pad, 0.0), t_generator=None, d_generator=None,
+            t_arch=t.arch, d_arch=d.arch, block_size=BS, K=K, R=R, greedy=True)
+
+    _check_bucket(run, [t] if kind == "ngram" else [t, d], 1)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_ghost_rows_write_nothing(kv_quant, model_dir):
+    """A step of ghost rows only (what a capture's eager warm-up runs) leaves
+    the cache bit for bit as it was, in the fp cache and the int8 pair."""
+    r = _runner(model_dir, 6, kv_quant)
+    if kv_quant:
+        data, scales = r.kv_cache
+        data.copy_(torch.randint(-127, 128, data.shape, dtype=torch.int8))
+        scales.uniform_(0.01, 0.1)
+    before = _cache(r)
+    tok, _ = mr.decode_step(
+        r.params, r.kv_cache, torch.zeros(4 * (K + 1), dtype=torch.int32),
+        torch.zeros(4 * (K + 1), dtype=torch.int32),
+        torch.full((4, 16), -1, dtype=torch.int32), torch.ones(4, dtype=torch.int32),
+        torch.zeros(4), None, arch=r.arch, block_size=BS, q_len=K + 1, greedy=True)
+    after = r.kv_cache if kv_quant else (r.kv_cache,)
+    for a, b in zip(after, before if kv_quant else (before,)):
+        assert torch.equal(a, b)
+    assert tok.shape == (4,)
+
+
+# --- no host reads ----------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Tensor.item / tolist / __bool__ / cpu / numpy raise inside the block."""
+    names = ("item", "tolist", "__bool__", "cpu", "numpy")
+    saved = {n: getattr(torch.Tensor, n) for n in names}
+
+    def refuse(name):
+        def f(*a, **k):
+            raise AssertionError(f"host read inside a step: Tensor.{name}")
+        return f
+
+    for n in names:
+        setattr(torch.Tensor, n, refuse(n))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(torch.Tensor, n, f)
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_steps_read_nothing_back(greedy, model_dir):
+    r, d = _runner(model_dir, 7), _runner(model_dir, 8)
+    gen = torch.Generator().manual_seed(0)
+    B_pad, R = 4, 2
+    temps = torch.tensor([0.0, 0.7, 1.0, 0.0]) if not greedy else torch.zeros(B_pad)
+    bt = _pad(_tables(4, R)[:3], B_pad, -1)
+    n0 = _pad(N0, B_pad, 1)
+    rec0 = _pad(np.array([17, 99, 5], np.int32), B_pad, 0)
+    hist = torch.zeros(B_pad, fused_sd.ngram_width(r, K, R), dtype=torch.int32)
+    with no_host_reads():
+        mr.decode_step(r.params, r.kv_cache, rec0, n0, bt, n0 + 1, temps, gen,
+                       arch=r.arch, block_size=BS, q_len=1, greedy=greedy)
+        mr.chain_decode_step(r.params, r.kv_cache, rec0, n0, bt, n0 + 1, temps, gen,
+                             arch=r.arch, block_size=BS, K=K, greedy=greedy)
+        fused_sd.sd_superstep(r.params, r.kv_cache, d.params, d.kv_cache, rec0, n0, bt,
+                              _pad(_tables(4, R, shift=4)[:3], B_pad, -1), temps, temps,
+                              gen, gen, t_arch=r.arch, d_arch=d.arch, block_size=BS,
+                              K=K, R=R, greedy=greedy)
+        fused_sd.ngram_superstep(r.params, r.kv_cache, hist, rec0, n0, bt, temps, gen,
+                                 t_arch=r.arch, block_size=BS, N=2, K=K, R=R,
+                                 greedy=greedy)
+    with pytest.raises(AssertionError, match="host read"), no_host_reads():
+        bool(temps.any())
+
+
+# --- capture bookkeeping ------------------------------------------------------------
+
+
+def test_launch_record_counts_at_replay():
+    """Inside recording_launches a wrapper's launch goes to the record, not
+    to its count; add_launches adds one replay's launches."""
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    cuda_lib.count_launch(wrapper)
+    with cuda_lib.recording_launches() as record:
+        for _ in range(3):
+            cuda_lib.count_launch(wrapper)
+    assert wrapper.launches == 1 and record == {wrapper: 3}
+    for _ in range(2):
+        cuda_lib.add_launches(record)
+    assert wrapper.launches == 7
+
+
+def test_split_scratch_grows_outside_capture_only():
+    s = att.SplitScratch()
+    ws, counters = s.take(100, 8, torch.device("cpu"))
+    assert ws.numel() == 100 and counters.numel() >= 1024 and not counters.any()
+    big, _ = s.take(300, 8, torch.device("cpu"))
+    small, _ = s.take(50, 8, torch.device("cpu"))
+    assert big.numel() == 300 and small.data_ptr() == big.data_ptr()
+
+
+def test_round_choices_ladder():
+    assert round_choices(1) == (1,)
+    assert round_choices(4) == (4,)
+    assert round_choices(8) == (4, 8)
+    assert round_choices(32) == (4, 8, 16, 32)
+    assert round_choices(6) == (4, 6)

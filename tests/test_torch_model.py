@@ -98,7 +98,7 @@ def test_flat_prefill_and_decode_steps_match_jax(model):
     cache = torch.from_numpy(cache0.copy())
     t = torch.from_numpy
     tok, logits = mr.flat_prefill_step(
-        params, cache, t(ids), t(pos), t(slots), t(np.flatnonzero(slots >= 0)),
+        params, cache, t(ids), t(pos), t(slots),
         t(pages), t(lo), t(hi), t(gather).long(), t(temps), None,
         arch=arch, block_size=BS)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
@@ -116,8 +116,8 @@ def test_flat_prefill_and_decode_steps_match_jax(model):
         jparams, jcache, nxt, dpos, dslots, bt, ctx, temps, jax.random.PRNGKey(1),
         arch=jarch, block_size=BS, ctx_pad=64, q_len=1, use_pallas=False)
     tok2, logits2 = mr.decode_step(
-        params, cache, t(nxt), t(dpos), t(dslots), t(np.arange(2)), t(bt), t(ctx),
-        t(temps), None, arch=arch, block_size=BS, q_len=1)
+        params, cache, t(nxt), t(dpos), t(bt), t(ctx), t(temps), None,
+        arch=arch, block_size=BS, q_len=1)
     np.testing.assert_allclose(logits2.numpy(), np.asarray(jlogits2), **TOL)
     np.testing.assert_allclose(cache.numpy(), np.asarray(jcache2), **TOL)
     np.testing.assert_array_equal(tok2.numpy(), np.asarray(jtok2))
