@@ -80,23 +80,31 @@ the script exits non-zero:
               runs that find the prompts in the prefix cache (all but the
               first: a cached prompt recomputes only its last token, through
               GEMMs of other shapes, which can flip a near tie).
-4. spec     - sync SD, async SSD, fused sync SD (spec_rounds 4 and 8) and
-              ngram speculation (no draft: the last 3 tokens matched against
-              the sequence's history, 4 rounds a step) (K=4, fan-out 2, so
-              10 tree rows per sequence for SSD)
+4. spec     - sync SD, async SSD (unfused: a draft thread on its own
+              stream; the fused exchange, async_fused; the fused async
+              superstep, async_fused with spec_rounds 4 and 8), fused sync
+              SD (spec_rounds 4 and 8) and ngram speculation (no draft: the
+              last 3 tokens matched against the sequence's history, 4
+              rounds a step) (K=4, fan-out 2, so 10 tree rows per sequence
+              for SSD)
               through LLM(target, draft=..., speculate=True, ...) at the same
               width: a target of 16 layers whose layers >= 4
               have o_proj = down = 0 and a 4-layer draft sharing its live
               layers (the construction of the JAX package's bench.py), bf16.
               128 greedy tokens at b8 and b1, with the draft exact (the hit
               path) and perturbed by a fixed noise level (the miss path; SD
-              and SSD),
-              whose SSD cache-hit rate must land between 0.2 and 0.8. SD,
-              fused SD and ngram run graphs, and eagerly beside them in
-              turns (graph, eager, eager, graph) at b8 (SD at noise 0 at b1
-              too; fused R=8 graphs only); their tokens must agree
-              over the runs that find the prompts in the prefix cache (all
-              but the first; see serve).
+              and the async forms),
+              whose async cache-hit rate must land between 0.2 and 0.8.
+              Every mode runs graphs (the unfused SSD draft its own, on its
+              thread's stream), and SD, SSD, the exchange, the R=4
+              superstep, fused SD and ngram eagerly beside them in turns
+              (graph, eager, graph) at b8 noise 0 (SD at b1 too);
+              their tokens (and the async forms' hits and accepted lengths)
+              must agree over the runs that find the prompts in the prefix
+              cache (all but the first; see serve); every graph run must
+              replay graphs, and every async run launch the tree kernel.
+              One engine per mode serves its noise levels: the draft is
+              perturbed in place and the prefix caches emptied between.
               Per run: decode
               tok/s, accepted suffix length, hit rate, verify and draft step
               times, the superstep's time, graph replays a step, and the
@@ -110,15 +118,16 @@ the script exits non-zero:
               and SD and SSD b8 at noise 0 (spec's pair) with
               kv_quant="int8", then AR and SSD b8 with "int8_mxu". Per run
               as in spec, plus the KV pool's block bytes and uncapped block
-              count; the int8 kernels of each path must launch and the
-              fp-cache kernels must not.
+              count; every run must replay graphs (SSD's draft its own), the
+              int8 kernels of each path must launch and the fp-cache kernels
+              must not.
 6. moe      - Qwen3-30B-A3B (Qwen3-MoE: 48 layers, 128 experts, top-8,
               hd 128, random bf16 weights from a seed) at full width and
               depth through LLM(...).generate with
               gpu_memory_utilization=0.92 (the default 0.7 of the card is
               less than the 61 GB of weights): 128 greedy tokens for the 8
               serve prompts, then for one of 512, with graphs and eagerly in
-              turns as in serve (b8 four runs, b1 three). It fails if the free
+              turns as in serve (b8 and b1 three runs each). It fails if the free
               memory at its start is below the weights plus the capped KV
               pool, if the pool holds fewer blocks than the cap of 1224, if
               K1, K2 or the grouped GEMM never launched (counts zeroed just
@@ -140,15 +149,18 @@ the script exits non-zero:
 8. exact    - the same width in fp32 from random checkpoints (init scale
               0.4): AR at 2 layers, greedy tokens on the card equal those of
               device="cpu", with the smallest top-1/top-2 logit margin seen;
-              then a target of 8 layers and a noisy 2-layer draft: AR, sync
-              SD and async SSD on the card (graphs for AR and SD) and on the
-              CPU, and on the card AR multi-step, fused SD (4 rounds) and
-              ngram under graphs over the fp32 cache, all equal the card's
-              eager AR, over the fp32 cache and over the int8 cache;
-              and two card runs of int8_mxu AR give the same tokens. Then
-              Qwen3-30B-A3B's width at 2 layers: the CPU's AR, the card's
-              graph AR and sync SD (graphs) and async SSD on the card
-              (self-draft) equal the card's eager AR, with the smallest
+              then a target of 4 layers and a noisy 2-layer draft: AR, sync
+              SD, async SSD, the fused exchange and the fused superstep
+              (4 rounds) on the card under graphs, over the fp32 and the
+              int8 cache, AR, SD and SSD on the CPU over fp32 and AR over
+              int8, and on the card AR multi-step, fused SD
+              (4 rounds) and ngram under graphs over the fp32 cache, all
+              equal the card's eager AR of the same cache (seconds per
+              engine reported); and two card runs of int8_mxu AR give the
+              same tokens. Then
+              Qwen3-30B-A3B's width at 1 layer: the CPU's AR, the card's
+              graph AR, sync SD and async SSD (graphs;
+              self-draft) equal the card's eager AR, with the smallest
               top-1/top-2 logit margin and the smallest router gap between
               the k-th and (k+1)-th expert (eager runs only: a graph's
               capture reads nothing back).
@@ -159,11 +171,19 @@ the script exits non-zero:
               graph replays a step and top kernels over a prefill step and
               a window of decode steps at b=8, with graphs and eagerly;
               moe_profile the same on the `moe` engine.
-10. spec_profile - (only when asked for) the same for sync SD and async SSD
-              at b=8: per step, the device time of each CUDA stream, their
-              union, the time both streams ran kernels at once, the
-              host-device copies and the verify's host time;
-              eagle_profile the same for EAGLE SSD on the eagle engine.
+10. spec_profile - (only when asked for) the same for sync SD, unfused
+              async SSD, the exchange and the R=4 superstep under graphs at
+              b=8: per step, the device time of each CUDA stream, their
+              union, the time two streams (or a graph's two branches) ran
+              kernels at once, the host-device copies and the verify's host
+              time; eagle_profile the same for EAGLE SSD on the eagle
+              engine.
+11. spec_async - (only when asked for) the three async forms (SSD, the
+              exchange, the superstep at R=4 and 8) at b8 and b1, noise 0
+              and 0.04, graphs against eager in turns, three runs each:
+              decode tok/s min / median / max, hit rate, accepted length,
+              replays and launches a decode step, capture seconds and pool
+              bytes.
 
 Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -182,7 +202,7 @@ import tempfile
 import time
 
 PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "eagle", "exact")
-EXTRA_PHASES = ("profile", "moe_profile", "spec_profile", "eagle_profile")
+EXTRA_PHASES = ("profile", "moe_profile", "spec_profile", "eagle_profile", "spec_async")
 
 # Llama-3.2-1B geometry (the JAX package's bench.py random-weight config).
 LLAMA_1B = {
@@ -1292,7 +1312,7 @@ def _eager(llm):
     enforce_eager=True runs (the same step functions, launched one by one),
     on the same weights and KV pool, so graph and eager alternate in one
     process."""
-    runners = [r for r in (llm.model_runner, llm.draft_runner) if r is not None]
+    runners = _runners(llm)
     saved = [r.graphs for r in runners]
     for r in runners:
         r.graphs = None
@@ -1303,9 +1323,34 @@ def _eager(llm):
             r.graphs = g
 
 
+def _runners(llm) -> list:
+    """The engine's model runners: the target, and the draft (inline, or
+    the unfused async draft server's)."""
+    rs = [llm.model_runner, llm.draft_runner,
+          llm.draft_server.runner if llm.draft_server is not None else None]
+    return [r for r in rs if r is not None]
+
+
+def _step_graphs(llm) -> list:
+    """The engine's StepGraphs: its own, and the unfused async draft's."""
+    gs = [llm.graphs, llm.draft_server.runner.graphs if llm.draft_server else None]
+    return [g for g in gs if g is not None]
+
+
 def _graph_facts(llm) -> dict | None:
-    """Graphs, capture seconds and reserved bytes of an engine's captures."""
-    return None if llm.graphs is None else llm.graphs.summary()
+    """Graphs, capture seconds and reserved bytes of an engine's captures
+    (its own StepGraphs, and the unfused async draft's under "draft")."""
+    if llm.graphs is None:
+        return None
+    facts = llm.graphs.summary()
+    for g in _step_graphs(llm)[1:]:
+        facts["draft"] = g.summary()
+    return facts
+
+
+def _replays(llm) -> int:
+    """Graph replays so far, over every StepGraphs of the engine."""
+    return sum(g.replays for g in _step_graphs(llm))
 
 
 REPEATS = ("graph", "eager", "eager", "graph", "graph", "eager")   # in turns
@@ -1319,7 +1364,7 @@ def _decode_run(llm, prompts, sp, V, label, eager: bool) -> dict:
     wrappers = _kernel_wrappers()
     for w in wrappers:
         w.launches = 0
-    replays0 = llm.graphs.replays if llm.graphs is not None else 0
+    replays0 = _replays(llm)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _eager(llm) if eager else contextlib.nullcontext():
@@ -1337,8 +1382,7 @@ def _decode_run(llm, prompts, sp, V, label, eager: bool) -> dict:
         prefill_tok_s=m["prefill_total_tokens"] / m["prefill_total_time"],
         decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
         decode_step_ms=1e3 * m["decode_total_time"] / steps,
-        graph_replays_per_decode_step=(
-            0.0 if llm.graphs is None else (llm.graphs.replays - replays0) / steps),
+        graph_replays_per_decode_step=(_replays(llm) - replays0) / steps,
         launches={w.__name__: w.launches for w in wrappers},
         tokens=[o["token_ids"] for o in outs])
 
@@ -1622,27 +1666,40 @@ def _overlap(builds, verifies) -> dict:
                 overlapped_ms=inside, overlap_share_of_build=inside / total if total else None)
 
 
+def _forget_prefixes(llm):
+    """Empty the engine's prefix caches (target and draft), so that the
+    next requests prefill as on a fresh engine; the engine must be idle."""
+    sch = llm.scheduler
+    for bm in [sch.block_manager] + list(getattr(sch, "draft_block_managers", [])):
+        bm.hash_to_block_id.clear()
+
+
 def _spec_llm(tdir, ddir, mode, **kw):
-    """The engine of a speculative mode: "sd", "ssd", "fused<R>" (sync SD
-    with R rounds a step) or "ngram" (no draft; K tokens from the last
-    NGRAM_N, SPEC_R rounds a step)."""
+    """The engine of a speculative mode: "sd", "ssd" (unfused async SSD),
+    "fasync1" (the fused exchange), "fasync<R>" (the fused async superstep,
+    R rounds a step), "fused<R>" (sync SD with R rounds a step) or "ngram"
+    (no draft; K tokens from the last NGRAM_N, SPEC_R rounds a step)."""
     from ssd_tpu_torch import LLM
 
     if mode == "ngram":
         return LLM(tdir, ngram_speculate=True, ngram_n=NGRAM_N, speculate_k=SPEC_K,
                    spec_rounds=SPEC_R, **kw)
-    extra = (dict(draft_async=True, async_fan_out=SPEC_F) if mode == "ssd" else
+    async_ = dict(draft_async=True, async_fan_out=SPEC_F)
+    extra = (async_ if mode == "ssd" else
+             dict(async_, async_fused=True, spec_rounds=int(mode[6:]))
+             if mode.startswith("fasync") else
              dict(spec_rounds=int(mode[5:])) if mode.startswith("fused") else {})
     return LLM(tdir, draft=ddir, speculate=True, speculate_k=SPEC_K, **extra, **kw)
 
 
 def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"], eager=False):
     """One measured generate of a main path ("ar", "sd", "ssd" (a plain or
-    an EAGLE draft), "fused<R>" or "ngram"), with eager the engine's graphs
-    detached: launch counts zeroed just before and read just after; for the
-    speculative modes the accepted lengths; for SD and SSD tree-build/verify
-    spans on the card, the draft's step and chain times; for the fused modes
-    the superstep's time; graph replays a decode step."""
+    an EAGLE draft), "fasync<R>", "fused<R>" or "ngram"), with eager the
+    engine's graphs detached: launch counts zeroed just before and read just
+    after; for the speculative modes the accepted lengths and, async, the
+    cache-hit rate; for SD and SSD tree-build/verify spans on the card, the
+    draft's step and chain times; for the fused modes the superstep's time
+    (the exchange's verify + tree time); graph replays a decode step."""
     import torch
 
     from ssd_tpu_torch import SamplingParams
@@ -1667,15 +1724,16 @@ def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"], eager=
     wrappers = _kernel_wrappers()
     for w in wrappers:
         w.launches = 0
-    replays0 = llm.graphs.replays if llm.graphs is not None else 0
+    replays0 = _replays(llm)
     t0 = time.perf_counter()
     try:
         with _eager(llm) if eager else contextlib.nullcontext():
             outs, m = llm.generate(prompts, sp, use_tqdm=False)
-        if mode == "ssd":
-            # The tree build answering the last step runs on after generate
-            # returns; it belongs to this run, so its launches count.
-            llm.draft_server.drain()
+            if mode == "ssd":
+                # The tree build answering the last step runs on after
+                # generate returns; it belongs to this run, so its
+                # launches count.
+                llm.draft_server.drain()
     finally:
         launches = {w.__name__: w.launches for w in wrappers}
         for spans in (verify_spans, build_spans, chain_spans):
@@ -1691,14 +1749,15 @@ def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"], eager=
         prompts=len(prompts), new_tokens=n_new * len(prompts), wall_s=wall,
         ttft_s=m["target_step_times"][0],
         decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
-        decode_steps=steps, graph_replays_per_decode_step=(
-            0.0 if llm.graphs is None or eager else (llm.graphs.replays - replays0) / steps),
+        decode_steps=steps, graph_replays_per_decode_step=(_replays(llm) - replays0) / steps,
         launches=launches)
     if mode == "ar":
         return run, [o["token_ids"] for o in outs]
     lens = m["accepted_suffix_lens_with_recovery"]
     run.update(mean_accepted_suffix_len=sum(lens) / len(lens))
-    if mode.startswith("fused") or mode == "ngram":
+    if m["cache_hits"]:
+        run.update(cache_hit_rate=sum(m["cache_hits"]) / len(m["cache_hits"]))
+    if m["sd_superstep_times"]:   # fused SD, ngram, the async superstep
         t = m["sd_superstep_times"]
         run.update(spec_steps=len(t), superstep_ms=1e3 * sum(t) / len(t))
         return run, [o["token_ids"] for o in outs]
@@ -1706,18 +1765,26 @@ def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"], eager=
                target_verify_ms=1e3 * sum(m["target_verify_times"]) / len(m["target_verify_times"]))
     if mode == "ssd":
         steps = llm.draft_server._step_times[n_steps0:]
-        run.update(cache_hit_rate=sum(m["cache_hits"]) / len(m["cache_hits"]),
-                   draft_step_ms=1e3 * sum(steps) / len(steps),
+        run.update(draft_step_ms=1e3 * sum(steps) / len(steps),
                    overlap=_overlap(build_spans.intervals(ref), verify_spans.intervals(ref)))
-    else:
+    elif mode == "sd":
         chain = chain_spans.intervals(ref)
         run.update(draft_chain_ms=sum(e - s for s, e in chain) / len(chain))
     return run, [o["token_ids"] for o in outs]
 
 
-SPEC_PLAN = (   # (draft noise, mode, batches also run eagerly): the spec phase's engines
-    (0.0, "sd", ("b8", "b1")), (0.0, "ssd", ()), (0.0, "fused4", ("b8",)), (0.0, "fused8", ()),
-    (0.0, "ngram", ("b8",)), (MISS_NOISE, "sd", ("b8",)), (MISS_NOISE, "ssd", ()))
+# The spec phase's engines: (mode, ((draft noise, batches also run eagerly),
+# ...)). One engine serves its levels in turn: the draft is perturbed in
+# place (the graphs read the same tensors) and the prefix caches emptied
+# between them, so each level starts as a fresh engine would.
+SPEC_PLAN = (
+    ("sd", ((0.0, ("b8", "b1")), (MISS_NOISE, ("b8",)))),
+    ("ssd", ((0.0, ("b8",)), (MISS_NOISE, ()))),
+    ("fasync1", ((0.0, ("b8",)), (MISS_NOISE, ()))),
+    ("fasync4", ((0.0, ("b8",)), (MISS_NOISE, ()))),
+    ("fasync8", ((0.0, ()), (MISS_NOISE, ()))),
+    ("fused4", ((0.0, ("b8",)),)), ("fused8", ((0.0, ()),)), ("ngram", ((0.0, ("b8",)),)))
+ASYNC_MODES = ("ssd", "fasync1", "fasync4", "fasync8")
 
 
 def phase_spec() -> dict:
@@ -1738,40 +1805,49 @@ def phase_spec() -> dict:
         engine = dict(dtype="bfloat16", max_model_len=SPEC_MAX_LEN,
                       kvcache_block_size=BLOCK, max_num_seqs=8)
 
-        for level, mode, eager_batches in SPEC_PLAN:
+        for mode, levels in SPEC_PLAN:
+            t0 = time.perf_counter()
             llm = _spec_llm(tdir, ddir, mode, **engine)
-            if level:
-                _perturb_draft(llm, level, 0.02)
-            for eager in (False, True) if eager_batches else (False,):
+            out["graphs"][mode] = dict(_graph_facts(llm), init_s=time.perf_counter() - t0)
+            for eager in (False, True):
                 with _eager(llm) if eager else contextlib.nullcontext():
                     llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
-            out["graphs"][f"{mode}_noise{level:g}"] = _graph_facts(llm)
-            for name, prompts in (("b8", prompts8), ("b1", prompt1)):
-                base = f"{mode}_{name}_noise{level:g}"
-                for i, eager in enumerate((False, True, True, False) if name in eager_batches
-                                          else (False,)):
-                    run, toks = _spec_run(llm, mode, prompts, 128, eager=eager)
-                    key = base + ("_eager" if eager else "")
-                    if key in out["runs"]:   # the second run in turns
-                        out["runs"][key]["decode_tok_s_again"] = run["decode_tok_s"]
-                    else:
-                        out["runs"][key] = run
-                        emit("spec", run=key, draft_noise=level, **run)
-                    # Runs after the first find the prompts in the prefix
-                    # cache (see _graph_vs_eager): graph and eager agree there.
-                    if i and toks != out["tokens"].setdefault(base, toks):
-                        fail(f"spec {key}: graph and eager greedy tokens differ")
-                    need = ["paged_attention", "flat_prefill_attention"]
-                    need += ["tree_attention"] if mode == "ssd" else []
-                    if not all(run["launches"][k] > 0 for k in need):
-                        fail(f"spec {key}: a kernel of the path never launched: "
-                             f"{run['launches']}")
-                    if mode != "ssd" and not eager and not run["graph_replays_per_decode_step"] > 0:
-                        fail(f"spec {key}: no graph replayed")
-                    lo, hi = MISS_HIT_RATE
-                    if mode == "ssd" and level and not lo <= run["cache_hit_rate"] <= hi:
-                        fail(f"spec {key}: the miss path's cache-hit rate "
-                             f"{run['cache_hit_rate']} is outside [{lo}, {hi}]")
+            for level, eager_batches in levels:
+                if level:
+                    _perturb_draft(llm, level, 0.02)
+                    _forget_prefixes(llm)
+                for name, prompts in (("b8", prompts8), ("b1", prompt1)):
+                    base = f"{mode}_{name}_noise{level:g}"
+                    for i, eager in enumerate((False, True, False)
+                                              if name in eager_batches else (False,)):
+                        run, toks = _spec_run(llm, mode, prompts, 128, eager=eager)
+                        key = base + ("_eager" if eager else "")
+                        if key in out["runs"]:   # the second run in turns
+                            out["runs"][key]["decode_tok_s_again"] = run["decode_tok_s"]
+                        else:
+                            out["runs"][key] = run
+                            emit("spec", run=key, draft_noise=level, **run)
+                        # Runs after the first find the prompts in the prefix
+                        # cache (see _graph_vs_eager): graph and eager agree
+                        # there, in tokens and, async, in hits and accepted
+                        # lengths (the same kernels in the same order).
+                        stats = (toks, run.get("cache_hit_rate"),
+                                 run["mean_accepted_suffix_len"])
+                        if i and stats != out["tokens"].setdefault(base, stats):
+                            fail(f"spec {key}: graph and eager greedy tokens, hits or "
+                                 f"accepted lengths differ")
+                        need = ["paged_attention", "flat_prefill_attention"]
+                        need += ["tree_attention"] if mode in ASYNC_MODES else []
+                        if not all(run["launches"][k] > 0 for k in need):
+                            fail(f"spec {key}: a kernel of the path never launched: "
+                                 f"{run['launches']}")
+                        if not eager and not run["graph_replays_per_decode_step"] > 0:
+                            fail(f"spec {key}: no graph replayed")
+                        lo, hi = MISS_HIT_RATE
+                        if mode in ASYNC_MODES and level and \
+                                not lo <= run["cache_hit_rate"] <= hi:
+                            fail(f"spec {key}: the miss path's cache-hit rate "
+                                 f"{run['cache_hit_rate']} is outside [{lo}, {hi}]")
             blocks = llm.model_runner.num_kvcache_blocks
             out["pool"] = llm.model_runner.pool_sizing
             llm.exit()
@@ -1782,6 +1858,69 @@ def phase_spec() -> dict:
          K=SPEC_K, async_fan_out=SPEC_F, ngram_n=NGRAM_N, ngram_rounds=SPEC_R,
          graphs=out["graphs"], kv_blocks_each_pool=blocks, pool=out["pool"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def phase_spec_async() -> dict:
+    """Not run by default: the three async forms (unfused SSD, the fused
+    exchange, the fused superstep at R = 4 and 8) on spec's pair at b8 and
+    b1, noise 0 and MISS_NOISE, with graphs and with them detached in turns
+    (REPEATS: three runs each): decode tok/s min / median / max, hit rate
+    and accepted length, graph replays and kernel launches a decode step,
+    capture seconds and pool bytes."""
+    import torch
+
+    from ssd_tpu_torch import SamplingParams
+
+    prompts8, prompt1 = _serving_prompts()
+    warm = SamplingParams(temperature=0.0, max_new_tokens=8, ignore_eos=True)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        tdir, ddir = _spec_pair(d, layers=16, live=SPEC_LIVE, scale=0.02,
+                                dtype=torch.bfloat16, seed=0)
+        engine = dict(dtype="bfloat16", max_model_len=SPEC_MAX_LEN,
+                      kvcache_block_size=BLOCK, max_num_seqs=8)
+        for level in (0.0, MISS_NOISE):
+            for mode in ASYNC_MODES:
+                t0 = time.perf_counter()
+                llm = _spec_llm(tdir, ddir, mode, **engine)
+                init_s = time.perf_counter() - t0
+                if level:
+                    _perturb_draft(llm, level, 0.02)
+                for eager in (False, True):
+                    with _eager(llm) if eager else contextlib.nullcontext():
+                        llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
+                for name, prompts in (("b8", prompts8), ("b1", prompt1)):
+                    runs = {"graph": [], "eager": []}
+                    for kind in REPEATS:
+                        runs[kind].append(_spec_run(llm, mode, prompts, 128,
+                                                    eager=kind == "eager")[0])
+                    g = runs["graph"][0]
+                    key = f"{mode}_{name}_noise{level:g}"
+                    out[key] = dict(
+                        decode_tok_s={k: _spread([r["decode_tok_s"] for r in v])
+                                      for k, v in runs.items()},
+                        cache_hit_rate={k: [r["cache_hit_rate"] for r in v]
+                                        for k, v in runs.items()},
+                        mean_accepted_suffix_len={k: [r["mean_accepted_suffix_len"] for r in v]
+                                                  for k, v in runs.items()},
+                        graph_replays_per_decode_step=g["graph_replays_per_decode_step"],
+                        launches_per_decode_step={k: n / g["decode_steps"]
+                                                  for k, n in g["launches"].items() if n},
+                        decode_steps=g["decode_steps"])
+                    emit("spec_async", run=key, draft_noise=level, **out[key])
+                    if not g["launches"]["tree_attention"] > 0 or \
+                            not g["graph_replays_per_decode_step"] > 0:
+                        fail(f"spec_async {key}: no replay or no tree kernel: {g}")
+                out[f"{mode}_noise{level:g}_graphs"] = dict(graphs=_graph_facts(llm),
+                                                           init_s=init_s)
+                emit("spec_async", engine=f"{mode}_noise{level:g}", init_s=init_s,
+                     graphs=_graph_facts(llm))
+                llm.exit()
+                del llm
+                torch.cuda.empty_cache()
+    emit("spec_async", geometry="Llama-3.2-1B width, target 16 layers (4 live), draft "
+         "4 layers, bf16", K=SPEC_K, async_fan_out=SPEC_F, repeats=REPEATS)
     return out
 
 
@@ -1823,6 +1962,8 @@ def phase_kvq(serve: dict | None, spec: dict | None) -> dict:
             run["pool"] = llm.model_runner.pool_sizing
             out["runs"][key] = run
             emit("kvq", run=key, kv_quant=kvq, **run)
+            if not run["graph_replays_per_decode_step"] > 0:
+                fail(f"kvq {key}: no graph replayed")
             missing = [k for k in need[mode] if run["launches"][k] <= 0]
             fp = [k for k in ("paged_attention", "flat_prefill_attention", "tree_attention")
                   if run["launches"][k]]
@@ -1878,8 +2019,9 @@ def _profile_window(llm, steps: int = 8) -> dict:
     """`steps` decode steps of a warm engine, timed without and then with
     torch.profiler: wall ms per step, the device time of each CUDA stream,
     their union and the time two streams ran kernels at once, the
-    host-device copies, and the target's verify time on the host (these
-    four in the profiled window)."""
+    host-device copies, the target's verify time on the host, and the
+    kernels a step with the top ten by device time (these in the profiled
+    window)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1904,6 +2046,8 @@ def _profile_window(llm, steps: int = 8) -> dict:
     busy = _stream_busy(prof)
     copies = [e for e in prof.events()
               if e.device_type == DeviceType.CUDA and e.name.startswith("Memcpy")]
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     return dict(steps=steps, wall_ms_per_step=wall, profiled_wall_ms_per_step=prof_wall,
                 device_union_ms_per_step=busy["union_ms"] / steps,
                 device_busy_share=busy["union_ms"] / steps / wall,
@@ -1912,12 +2056,17 @@ def _profile_window(llm, steps: int = 8) -> dict:
                 memcpy_per_step=len(copies) / steps,
                 memcpy_ms_per_step=sum(e.time_range.end - e.time_range.start
                                        for e in copies) / 1e3 / steps,
-                verify_host_ms=1e3 * sum(verify) / len(verify) if verify else None)
+                verify_host_ms=1e3 * sum(verify) / len(verify) if verify else None,
+                kernels_per_step=sum(e.count for e in kernels) / steps,
+                top_kernels=[dict(name=e.key[:90],
+                                  ms_per_step=e.self_device_time_total / 1e3 / steps,
+                                  calls=e.count) for e in top])
 
 
 def phase_spec_profile() -> dict:
-    """Not run by default: SD and SSD decode steps at b=8 (noise 0), timed
-    without and then with torch.profiler."""
+    """Not run by default: decode steps at b=8 (noise 0) of SD, unfused SSD
+    and the fused exchange and superstep (R = 4), under their graphs, timed
+    without and then with torch.profiler (a superstep's step is R rounds)."""
     import torch
 
     from ssd_tpu_torch import SamplingParams
@@ -1928,19 +2077,23 @@ def phase_spec_profile() -> dict:
     with tempfile.TemporaryDirectory() as d:
         tdir, ddir = _spec_pair(d, layers=16, live=SPEC_LIVE, scale=0.02,
                                 dtype=torch.bfloat16, seed=0)
-        for mode in ("sd", "ssd"):
+        for mode in ("sd", "ssd", "fasync1", "fasync4"):
             llm = _spec_llm(tdir, ddir, mode, dtype="bfloat16", max_model_len=SPEC_MAX_LEN,
                             kvcache_block_size=BLOCK, max_num_seqs=8)
             for p in prompts8:
                 llm.add_request(p, sp)
-            for _ in range(4):   # the prefill, then warm decode steps
+            # A superstep's step is R rounds: its windows take 8 / R steps,
+            # so every window runs before the 128 tokens are out.
+            R = int(mode[6:]) if mode.startswith("fasync") else 1
+            for _ in range(4 if R == 1 else 2):   # the prefill, then warm decode steps
                 llm.step()
-            out[mode] = _profile_window(llm)
+            out[mode] = dict(_profile_window(llm, steps=8 // R), rounds_per_step=R,
+                             graphs=_graph_facts(llm))
             llm.exit()
             del llm
             torch.cuda.empty_cache()
     emit("spec_profile", geometry="Llama-3.2-1B width, target 16 layers (4 live), "
-         "draft 4 layers, bf16, b8, noise 0", **out)
+         "draft 4 layers, bf16, b8, noise 0, CUDA graphs", **out)
     return out
 
 
@@ -2033,7 +2186,7 @@ def phase_moe() -> dict:
         with _eager(llm) if eager else contextlib.nullcontext():
             llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
     sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
-    runs = _graph_vs_eager(llm, {"b8": (prompts8, sp)}, V, "moe", REPEATS[:4])
+    runs = _graph_vs_eager(llm, {"b8": (prompts8, sp)}, V, "moe", ("graph", "eager", "graph"))
     runs.update(_graph_vs_eager(llm, {"b1": (prompt1, sp)}, V, "moe",
                                 ("graph", "eager", "graph")))
     launches = {k: sum(r["launches"][k] for r in runs.values())
@@ -2442,27 +2595,32 @@ def phase_exact() -> dict:
     if not equal:
         fail("exact: greedy tokens on the card differ from the CPU's")
 
-    # Speculative modes: target 8 layers (2 live), a 2-layer draft with
-    # noise, so steps both accept and reject; every mode on both devices
-    # must give the card's eager AR tokens, over the fp32 cache and over the
-    # int8 cache (whose AR is the reference of its own modes; its AR runs
-    # record their top-1/top-2 margins). On the card AR, AR multi-step, SD,
-    # fused SD and ngram run their CUDA graphs; the CPU runs the graph-free
-    # modes in both caches and the new ones in fp32. Then two card runs of
-    # int8_mxu AR must agree.
-    spec_tokens, accepted, int8_margins = {}, {}, []
+    # Speculative modes: target 4 layers (2 live; cut from 8 to hold the
+    # run's time), a 2-layer draft with noise, so steps both accept and
+    # reject; every mode on both devices must give the card's eager AR
+    # tokens, over the fp32 cache and over the int8 cache (whose AR is the
+    # reference of its own modes; its AR runs record their top-1/top-2
+    # margins). On the card every mode but ar_eager runs its CUDA graphs;
+    # the CPU runs AR, SD and SSD over fp32 and AR over int8 (its int8 SD
+    # and SSD were cut to hold the run's time: the card's int8 modes equal
+    # the card's int8 AR, which equals the CPU's). Then two card runs
+    # of int8_mxu AR must agree.
+    spec_tokens, accepted, hit_rates, int8_margins, seconds = {}, {}, {}, [], {}
     engine = dict(dtype="float32", max_model_len=512, kvcache_block_size=BLOCK,
                   max_num_seqs=4, num_kvcache_blocks=32)
     new_modes = ("multi", "fused4", "ngram")
+    async_modes = ("ssd", "fasync1", "fasync4")
     with tempfile.TemporaryDirectory() as d:
-        tdir, ddir = _spec_pair(d, layers=8, live=2, scale=0.4, dtype=torch.float32, seed=3)
+        tdir, ddir = _spec_pair(d, layers=4, live=2, scale=0.4, dtype=torch.float32, seed=3)
         for kvq in (None, "int8"):
             for dev in ("cuda", "cpu"):
                 # The CPU runs the modes it ran before graphs; the card's new
-                # modes are held to the card's eager AR, itself held to the CPU's.
-                modes = (("ar_eager", "ar") + (() if kvq else new_modes) + ("sd", "ssd")
-                         if dev == "cuda" else ("ar", "sd", "ssd"))
+                # modes are held to the card's eager AR, itself held to the
+                # CPU's.
+                modes = (("ar_eager", "ar") + (() if kvq else new_modes) + ("sd",) + async_modes
+                         if dev == "cuda" else ("ar",) if kvq else ("ar", "sd", "ssd"))
                 for mode in modes:
+                    t0 = time.perf_counter()
                     if mode in ("ar", "ar_eager", "multi"):
                         llm = LLM(tdir, device=dev, kv_quant=kvq, enforce_eager=mode == "ar_eager",
                                   multi_step=SERVE_M if mode == "multi" else 1, **engine)
@@ -2475,9 +2633,15 @@ def phase_exact() -> dict:
                         _perturb_draft(llm, 0.01, 0.4)
                     outs, m = llm.generate(prompts, sp, use_tqdm=False)
                     llm.exit()
+                    if dev == "cuda" and mode != "ar_eager" and llm.graphs is None:
+                        fail(f"exact: the card's {kvq or 'fp32'} {mode} engine holds no graphs")
                     spec_tokens[(kvq or "fp32", dev, mode)] = [o["token_ids"] for o in outs]
+                    run = f"{kvq or 'fp32'}_{dev}_{mode}"
+                    seconds[run] = time.perf_counter() - t0
                     lens = m["accepted_suffix_lens_with_recovery"]
-                    accepted[f"{kvq or 'fp32'}_{dev}_{mode}"] = sum(lens) / len(lens) if lens else None
+                    accepted[run] = sum(lens) / len(lens) if lens else None
+                    if m["cache_hits"]:
+                        hit_rates[run] = sum(m["cache_hits"]) / len(m["cache_hits"])
                     del llm
         mxu = []
         for _ in range(2):
@@ -2489,9 +2653,10 @@ def phase_exact() -> dict:
     int8_vs_fp32 = sum(a == b for x, y in zip(spec_tokens[("int8", "cuda", "ar_eager")],
                                               spec_tokens[("fp32", "cuda", "ar_eager")])
                        for a, b in zip(x, y))
-    emit("exact", geometry="Llama-3.2-1B width, target 8 layers (2 live), draft 2 layers "
+    emit("exact", geometry="Llama-3.2-1B width, target 4 layers (2 live), draft 2 layers "
          "(noise 0.01), fp32, init scale 0.4", K=SPEC_K, async_fan_out=SPEC_F,
          equal_to_card_ar_of_same_cache=spec_equal, mean_accepted_suffix_len=accepted,
+         cache_hit_rate=hit_rates, seconds=seconds,
          int8_min_top2_margin=min(int8_margins),
          int8_ar_tokens_equal_to_fp32_ar=int8_vs_fp32, tokens_per_run=16 * len(prompts),
          int8_mxu_two_card_runs_equal=mxu[0] == mxu[1])
@@ -2501,20 +2666,22 @@ def phase_exact() -> dict:
     if mxu[0] != mxu[1]:
         fail("exact: two card runs of int8_mxu gave different tokens")
 
-    # Qwen3-MoE at the Qwen3-30B-A3B width, 2 layers, fp32: AR on the CPU,
+    # Qwen3-MoE at the Qwen3-30B-A3B width, 1 layer, fp32: AR on the CPU,
     # graph AR, sync SD (graphs) and async SSD on the card (self-draft)
     # equal the card's eager AR; the grouped GEMM launches in each card run.
+    t_moe = time.perf_counter()
     mprompts = [rng.integers(3, QWEN3_30B_A3B["vocab_size"], size=n).tolist()
                 for n in (20, 77, 130)]
     moe_tokens, moe_margins, router_margins, moe_launches, moe_accepted = {}, [], [], {}, {}
     wrappers = _kernel_wrappers()
     with tempfile.TemporaryDirectory() as d:
-        _moe_checkpoint(d, layers=2, scale=0.4, seed=5)
+        # One layer (cut from two to hold the run's time).
+        _moe_checkpoint(d, layers=1, scale=0.4, seed=5)
         for dev, mode in (("cuda", "ar_eager"), ("cpu", "ar"), ("cuda", "ar"), ("cuda", "sd"),
                           ("cuda", "ssd")):
             # The margins are read on the host, so only the eager runs
             # record them (a graph's capture must read nothing back).
-            eager = dev == "cpu" or mode in ("ar_eager", "ssd")
+            eager = dev == "cpu" or mode == "ar_eager"
             undo = _record_router_margins(router_margins) if eager else (lambda: None)
             try:
                 if mode in ("ar", "ar_eager"):
@@ -2538,9 +2705,10 @@ def phase_exact() -> dict:
             del llm
     moe_equal = {f"{dev}_{mode}": toks == moe_tokens[("cuda", "ar_eager")]
                  for (dev, mode), toks in moe_tokens.items()}
-    emit("exact", geometry="Qwen3-30B-A3B width (128 experts, top-8, hd 128), 2 layers, "
+    emit("exact", geometry="Qwen3-30B-A3B width (128 experts, top-8, hd 128), 1 layer, "
          "fp32, init scale 0.4; SD/SSD self-draft", K=SPEC_K, async_fan_out=SPEC_F,
          equal_to_card_ar=moe_equal, mean_accepted_suffix_len=moe_accepted,
+         seconds=time.perf_counter() - t_moe,
          min_top2_margin=min(moe_margins), min_router_kth_margin=min(router_margins),
          grouped_gemm_launches={k: v["grouped_gemm"] for k, v in moe_launches.items()},
          launches=moe_launches)
@@ -2555,6 +2723,7 @@ def phase_exact() -> dict:
     # EAGLE SSD on both devices equals the card's AR. (EAGLE over the int8
     # cache is held to the int8 AR by the CPU tests; `eagle` runs it on the
     # card.)
+    t_eagle = time.perf_counter()
     eprompts = [rng.integers(3, LLAMA_1B["vocab_size"], size=n).tolist() for n in (20, 77, 130)]
     e_tokens, e_accepted, e_hits, e_margins = {}, {}, {}, []
     with tempfile.TemporaryDirectory() as d:
@@ -2580,7 +2749,8 @@ def phase_exact() -> dict:
     emit("exact", geometry="Llama-3.2-1B width, 2 layers, + the constructed EAGLE-3 head "
          f"(noise {EXACT_EAGLE_NOISE}), fp32", K=SPEC_K, async_fan_out=SPEC_F,
          equal_to_card_ar_of_same_cache=eagle_equal, mean_accepted_suffix_len=e_accepted,
-         cache_hit_rate=e_hits, min_top2_margin=min(e_margins))
+         cache_hit_rate=e_hits, min_top2_margin=min(e_margins),
+         seconds=time.perf_counter() - t_eagle)
     if not all(eagle_equal.values()):
         fail(f"exact: EAGLE greedy tokens differ from the card's AR: {eagle_equal}")
     return {"equal": equal, "min_top2_margin": min(margins), "spec_equal": spec_equal,
@@ -2632,13 +2802,14 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                  exact: dict | None) -> dict:
     """Launches per path, each read from runs whose counts were zeroed just
     before them: `serve` (AR, AR multi-step) and `spec` (SD, fused SD,
-    ngram, SSD) for the fp-cache kernels, from the graph runs (launches
-    counted through replays; the eager runs beside them are left out),
+    ngram, SSD, the fused exchange and superstep) for the fp-cache
+    kernels, from the graph runs (launches counted through replays; the
+    eager runs beside them are left out),
     `kvq` for the int8 ones (its int8_mxu runs for the [s8] entries; the
     int8 prefill counts the runs of both modes), `moe` (Qwen3-30B-A3B AR)
     for K1, K2 and the grouped GEMM, `eagle` (Llama-3.1-8B AR, EAGLE SSD over
     the fp and the int8 cache, the constructed pair's runs), `exact`'s
-    2-layer Qwen3-MoE SD and SSD card runs for the grouped GEMM, and the
+    1-layer Qwen3-MoE SD and SSD card runs for the grouped GEMM, and the
     probes' bench entry points (path "probe") for rows #11 and #12."""
     by_path = {}
 
@@ -2678,7 +2849,7 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
         add(name, "probe", n)
     if exact and "moe_launches" in exact:
         for mode in ("sd", "ssd"):
-            add("grouped_gemm", f"moe_{mode}_2layer", exact["moe_launches"][f"cuda_{mode}"]["grouped_gemm"])
+            add("grouped_gemm", f"moe_{mode}_1layer", exact["moe_launches"][f"cuda_{mode}"]["grouped_gemm"])
     out = []
     for name, tm in kern["timings"].items():
         err = max(v["max_abs_err"] for (k, _, _), v in kern["errors"].items() if k == name)
@@ -2764,6 +2935,7 @@ def main(argv=None) -> int:
     run("profile", phase_profile)
     run("moe_profile", phase_profile, True)
     run("spec_profile", phase_spec_profile)
+    run("spec_async", phase_spec_async)
     run("eagle_profile", phase_eagle_profile)
     if kern is not None:
         print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, eagle, exact)),

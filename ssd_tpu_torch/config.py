@@ -2,7 +2,7 @@
 
 Counterpart of ssd_tpu/config.py, cut to the fields of the ported modes:
 autoregressive decoding (AR), sync speculative decoding (SD) and async tree
-speculation (SSD), both unfused. Differences from the JAX package:
+speculation (SSD), each plain and fused. Differences from the JAX package:
 
 - there is no `use_pallas` knob: a CUDA tensor goes through the hand-written
   kernel and a CPU tensor through its plain PyTorch version
@@ -15,14 +15,14 @@ speculation (SSD), both unfused. Differences from the JAX package:
 - Qwen3-MoE checkpoints are served with a uniform stack only (every layer
   sparse), as the JAX package asserts; a non-uniform one is refused here;
 - `enforce_eager` is served: on "cuda" the decode-side steps of AR
-  (multi_step included), sync SD (spec_rounds 1 and > 1) and ngram
-  speculation run as CUDA graphs captured at engine init
-  (engine/graphs.py) unless it is True; on "cpu" every step runs eagerly;
+  (multi_step included), sync SD (spec_rounds 1 and > 1), ngram
+  speculation and async SSD (unfused, the fused exchange and the fused
+  superstep) run as CUDA graphs captured at engine init (engine/graphs.py)
+  unless it is True; on "cpu" every step runs eagerly; EAGLE runs eagerly;
 - EAGLE-3 (use_eagle) is served in its async form only (draft_async with
   jit_speculate); its fused sync form (spec_rounds > 1) is not ported;
-- the modes not ported yet (the fused async forms async_fused and
-  spec_rounds > 1 with draft_async, draft data parallelism, int8 weights)
-  are refused here, and so is a speculative knob on an engine that does not
+- the modes not ported yet (draft data parallelism, int8 weights) are
+  refused here, and so is a speculative knob on an engine that does not
   use it, where it would be ignored.
 """
 
@@ -135,9 +135,12 @@ class Config:
     # Speculative decoding. speculate=True serves sync SD with the `draft`
     # checkpoint, spec_rounds > 1 of its rounds fused per engine step
     # (engine/fused_sd.py); draft_async=True serves async SSD (a draft
-    # thread builds the speculation tree while the target verifies). The
-    # fused async forms (async_fused, spec_rounds > 1 with draft_async) and
-    # draft_dp > 1 are not ported yet and are refused. ngram_speculate=True
+    # thread builds the speculation tree while the target verifies);
+    # draft_async with async_fused=True runs the draft inline, verify and the
+    # next tree build in one step (engine/async_fused.py): one exchange a
+    # step, or with spec_rounds > 1 that many exchanges and the tree-cache
+    # match in one superstep. draft_dp > 1 is not ported yet and is
+    # refused. ngram_speculate=True
     # (without speculate) proposes speculate_k tokens a round by matching
     # the last ngram_n tokens against the sequence's own history, in
     # spec_rounds fused rounds, with no draft model. use_eagle=True serves
@@ -180,15 +183,23 @@ class Config:
         if self.kv_quant not in (None, "int8", "int8_mxu"):
             raise ValueError(f"unknown kv_quant {self.kv_quant!r} "
                              "(None, 'int8' or 'int8_mxu')")
-        unported = {
-            "async_fused": self.async_fused,
-            "spec_rounds > 1 with draft_async": self.spec_rounds > 1 and self.draft_async,
-            "draft_dp > 1": self.draft_dp > 1,
-        }
-        asked = [k for k, v in unported.items() if v]
-        if asked:
-            raise NotImplementedError(
-                f"not ported to ssd_tpu_torch yet: {', '.join(asked)}")
+        if self.async_fused and self.speculate:
+            # The JAX package's rules (ssd_tpu/config.py): the fused forms
+            # run the draft inline beside the target, with one draft.
+            if not self.draft_async:
+                raise ValueError("async_fused requires draft_async=True")
+            if self.use_eagle:
+                raise ValueError("async_fused excludes use_eagle (EAGLE's fused form "
+                                 "is the sync superstep)")
+            if self.draft_dp > 1:
+                raise ValueError("async_fused excludes draft_dp > 1 (the fused forms "
+                                 "run one draft inline)")
+        if self.speculate and self.draft_async and self.spec_rounds > 1 \
+                and not self.async_fused:
+            raise ValueError("spec_rounds > 1 with draft_async needs async_fused=True "
+                             "(the async superstep)")
+        if self.draft_dp > 1:
+            raise NotImplementedError("not ported to ssd_tpu_torch yet: draft_dp > 1")
         for name in ("multi_step", "spec_rounds", "speculate_k", "ngram_n"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
@@ -208,6 +219,7 @@ class Config:
             "fan_out_list_miss": self.fan_out_list_miss is not None,
             "sampler_x": self.sampler_x is not None,
             "jit_speculate": self.jit_speculate,
+            "async_fused": self.async_fused,
             "use_eagle": self.use_eagle,
         }
         if not self.speculate:

@@ -14,7 +14,11 @@ back before the next tree is built, so the tree build (glue forward, fork,
 K tree steps through csrc/tree_attention.cu) runs on the draft stream while
 the target verifies on its own. The reply's logits are made on the draft
 stream: the reply carries an event recorded after them, and the target
-waits on it and marks the tensor used by its stream before reading it.
+waits on it and marks the tensor used by its stream before reading it. On
+a card that is not eager, the tree build (`tree_build_call`) and the
+jit-speculate miss chain replay CUDA graphs of the draft's own StepGraphs
+(engine/graphs.py), captured before the thread starts. The fused forms
+(engine/async_fused.py) run a DraftRunner inline, with no thread.
 
 A failure in the draft thread is parked in the response queue and raised in
 the target thread as RuntimeError("draft server died"); it is never
@@ -29,6 +33,7 @@ import queue
 import threading
 import traceback
 from dataclasses import dataclass
+from functools import partial
 from time import perf_counter
 
 import numpy as np
@@ -36,21 +41,20 @@ import torch
 
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.engine.model_runner import (
-    KVCache, ModelRunner, decode_forward, layer_of)
+    KVCache, ModelRunner, decode_forward, device_slot_of, layer_of, next_pow2)
 from ssd_tpu_torch.models.transformer import Arch, compute_logits, forward_hidden
 from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops.sampler import sample
-from ssd_tpu_torch.ops.spec_math import fan_index, get_forked_recovery_tokens
-from ssd_tpu_torch.utils.native import slot_of
+from ssd_tpu_torch.ops.spec_math import FanOut, fan_index, get_forked_recovery_tokens
 
 
 def tree_build_step(
     params: dict,
     kv_cache: KVCache,               # [L, Hkv, S, 2*hd] | int8 pair, in place
     glue_ids: torch.Tensor,          # [B, K+1] [recovery | spec_0..spec_{K-1}]
-    base_positions: np.ndarray,      # [B] position of the recovery token
-    block_tables: np.ndarray,        # [B, M] draft tables
-    cache_hits: np.ndarray,          # [B] {0,1}
+    base_positions: torch.Tensor,    # [B] position of the recovery token
+    block_tables: torch.Tensor,      # [B, M] draft tables
+    cache_hits: torch.Tensor,        # [B] {0,1}
     temperatures: torch.Tensor,      # [B]
     generator: torch.Generator | None,
     top_ps: torch.Tensor | None = None,
@@ -59,8 +63,7 @@ def tree_build_step(
     arch: Arch,
     block_size: int,
     K: int,
-    fan_out_list: list[int],
-    fan_out_list_miss: list[int],
+    fan: FanOut,
     sampler_x: float | None,
     F: int,
     s8: bool = False,
@@ -69,77 +72,72 @@ def tree_build_step(
     """Build the next step's speculation tree: the glue forward (the K+1
     returned tokens, paged attention at Q = K+1), the top-F fork per glue
     depth, then K tree steps over the B*MQ fork rows (tree attention).
-    Counterpart of ssd_tpu/engine/draft_runner.py::tree_build_program, as
-    eager steps. Geometry, with base = num_tokens - 1: the draft cache holds
+    Counterpart of ssd_tpu/engine/draft_runner.py::tree_build_program.
+    Geometry, with base = num_tokens - 1: the draft cache holds
       [ trunk 0..base-1 | glue base..base+K | tree step s row r at
         base + (K+1) + s*MQ + r ]
     and tree row r (forked from glue depth fan_idx[r]) takes rope position
     base + fan_idx[r] + 1 + s at step s. Over the int8 cache the glue and
     the tree steps take its kernels (s8 for kv_quant="int8_mxu").
 
-    Returns (fork tokens [B, MQ], spec tokens [B, MQ, K], spec logits
-    [B*MQ, K, V] with row b*MQ + r for tree row r of sequence b, glue logits
-    [B, K+1, V])."""
+    A fixed-shape device step (one CUDA graph per batch bucket, engine/
+    graphs.py): positions, fan rows, slots, contexts and rope positions are
+    computed on the device, and nothing is uploaded or read back. A ghost
+    row (table of -1, base 0, hits 0) writes nothing.
+
+    Returns (tree tokens [B, MQ, K+1]: each tree row's fork token, then its
+    K spec tokens; spec logits [B*MQ, K, V] with row b*MQ + r for tree row
+    r of sequence b; glue logits [B, K+1, V])."""
     dev = glue_ids.device
     B = block_tables.shape[0]
     Kp1 = K + 1
-    MQ = sum(fan_out_list)
+    MQ = fan.MQ
     scale = arch.head_dim ** -0.5
+    base = base_positions.long()
 
-    def upload(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, non_blocking=True)
-
-    bt = upload(block_tables)
     # ---- glue: one K+1 multi-query forward per sequence ----
-    glue_pos = (base_positions[:, None] + np.arange(Kp1)[None, :]).reshape(-1)
+    glue_pos = (base[:, None] + torch.arange(Kp1, device=dev)[None, :]).reshape(-1)
     glue_logits = decode_forward(
-        params, kv_cache, glue_ids.reshape(-1), upload(glue_pos.astype(np.int32)), bt,
-        upload((base_positions + Kp1).astype(np.int32)),
+        params, kv_cache, glue_ids.reshape(-1), glue_pos.int(), block_tables, base + Kp1,
         arch=arch, block_size=block_size, q_len=Kp1, s8=s8).reshape(B, Kp1, -1)
 
     # ---- fork: top-F per glue depth, excluding the returned token ----
-    fork = get_forked_recovery_tokens(glue_logits, upload(cache_hits), glue_ids,
-                                      fan_out_list, fan_out_list_miss)   # [B, MQ]
-    fan_rows = np.where(cache_hits.astype(bool)[:, None],
-                        fan_index(fan_out_list)[None, :],
-                        fan_index(fan_out_list_miss)[None, :]).astype(np.int32)
-    fan_t = upload(fan_rows)
+    fork = get_forked_recovery_tokens(glue_logits, cache_hits, glue_ids, fan)   # [B, MQ]
+    fan_rows = fan.rows(cache_hits)                                            # [B, MQ]
 
     # ---- K tree steps over N = B*MQ rows ----
-    b_flat = np.repeat(np.arange(B), MQ)
-    r_flat = np.tile(np.arange(MQ), B)
-    base_n = base_positions[b_flat]
-    fan_n = fan_rows.reshape(-1)
-    idx_n = upload(b_flat)
-    temps_n = temperatures[idx_n]
-    tp_n = None if top_ps is None else top_ps[idx_n]
-    tk_n = None if top_ks is None else top_ks[idx_n]
+    n_flat = torch.arange(B * MQ, device=dev)
+    b_flat, r_flat = n_flat // MQ, n_flat % MQ
+    base_n = base[b_flat]
+    fan_n = fan_rows.reshape(-1).long()
+    temps_n = temperatures[b_flat]
+    tp_n = None if top_ps is None else top_ps[b_flat]
+    tk_n = None if top_ks is None else top_ks[b_flat]
     tok = fork.reshape(-1)
-    toks, logits_all = [], []
+    toks, logits_all = [tok], []
     for s in range(K):
-        slots = slot_of(block_tables, base_n + Kp1 + s * MQ + r_flat, b_flat,
-                        block_size)
-        slots_t = upload(slots)
-        ctx = upload((base_positions + Kp1 + (s + 1) * MQ).astype(np.int32))
+        slots = device_slot_of(block_tables, base_n + Kp1 + s * MQ + r_flat, b_flat,
+                               block_size)
+        ctx = (base + Kp1 + (s + 1) * MQ).int()
 
-        def attn_call(li, q, k, v, s=s, slots_t=slots_t, ctx=ctx):
+        def attn_call(li, q, k, v, s=s, slots=slots, ctx=ctx):
             kv_layer = layer_of(kv_cache, li)
-            att.store_kv(kv_layer, k, v, slots_t)
+            att.store_kv(kv_layer, k, v, slots)
             qr = q.reshape(B, MQ, arch.num_heads, arch.head_dim)
-            o = att.tree_attention(qr, kv_layer, bt, ctx, fan_t, s, K, block_size,
-                                   scale, s8=s8)
+            o = att.tree_attention(qr, kv_layer, block_tables, ctx, fan_rows, s, K,
+                                   block_size, scale, s8=s8)
             return o.reshape(B * MQ, arch.num_heads, arch.head_dim)
 
-        rope = upload((base_n + fan_n + 1 + s).astype(np.int32))
+        rope = (base_n + fan_n + 1 + s).int()
         hidden = forward_hidden(params, tok, rope, attn_call, arch)
         logits = compute_logits(params, hidden, arch)                  # [N, V]
         tok = sample(logits, temps_n, generator, tp_n, tk_n,
                      sampler_x=sampler_x, fan_out=F, is_tree=True, greedy=greedy)
         toks.append(tok)
         logits_all.append(logits)
-    spec_tokens = torch.stack(toks, dim=1).reshape(B, MQ, K)
+    tree_tokens = torch.stack(toks, dim=1).reshape(B, MQ, Kp1)
     spec_logits = torch.stack(logits_all, dim=1)                       # [N, K, V]
-    return fork, spec_tokens, spec_logits, glue_logits
+    return tree_tokens, spec_logits, glue_logits
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +175,30 @@ class SpecResponse:
     activations: torch.Tensor | None = None  # [B, K, D_draft] prenorms (EAGLE)
 
 
+def spec_request(seqs, max_blocks: int, use_warp: bool, **eagle) -> SpecRequest:
+    """The request of one decode step over sequences that carry their
+    recovery token as their last token already: the cache keys, token
+    counts, draft tables and temperatures (and the warp's columns), plus an
+    EAGLE draft's conditioning payload."""
+    B = len(seqs)
+    keys = np.zeros((B, 3), dtype=np.int64)
+    num_tokens = np.zeros(B, dtype=np.int64)
+    temps = np.zeros(B, dtype=np.float32)
+    bt = np.full((B, max_blocks), -1, dtype=np.int32)
+    for i, seq in enumerate(seqs):
+        keys[i] = (seq.seq_id, seq.last_spec_step_accepted_len - 1, seq.recovery_token_id)
+        num_tokens[i] = seq.num_tokens
+        temps[i] = (seq.draft_temperature if seq.draft_temperature is not None
+                    else seq.temperature)
+        bt[i, :len(seq.draft_block_table)] = seq.draft_block_table
+    tp = tk = None
+    if use_warp:
+        tp = np.asarray([s.top_p for s in seqs], dtype=np.float32)
+        tk = np.asarray([s.top_k for s in seqs], dtype=np.int32)
+    return SpecRequest(cache_keys=keys, num_tokens=num_tokens, block_tables=bt,
+                       temperatures=temps, top_ps=tp, top_ks=tk, **eagle)
+
+
 class DraftRunner(ModelRunner):
     """Draft-model execution plus the speculation tree cache."""
 
@@ -188,6 +210,7 @@ class DraftRunner(ModelRunner):
         self.fan_out_list_miss = list(config.fan_out_list_miss)
         self.sampler_x = config.sampler_x
         self.jit_speculate = config.jit_speculate
+        self.fan = FanOut(self.fan_out_list, self.fan_out_list_miss, self.device)
         # Miss rows draw their tokens from the same numpy stream as the JAX
         # package, so hit and acceptance statistics compare row for row.
         self._rng = np.random.default_rng(config.seed + 17)
@@ -251,32 +274,66 @@ class DraftRunner(ModelRunner):
         tokens, logits_q = self.run_chain(
             req.cache_keys[:, 2].copy(), (req.num_tokens - 1).astype(np.int32),
             req.block_tables, req.temperatures, self.K, extra_write=True,
-            top_ps=req.top_ps, top_ks=req.top_ks, sampler_x=self.sampler_x,
-            fan_out=self.F, tree_sampling=True)
+            top_ps=req.top_ps, top_ks=req.top_ks, **self._tree_sampling())
         return tokens, logits_q, None
+
+    def _tree_sampling(self) -> dict:
+        """The chain's tree-mode sampler (the jit-speculate miss chain and
+        the superstep's prime)."""
+        return dict(sampler_x=self.sampler_x, fan_out=self.F, tree_sampling=True)
+
+    def tree_build_call(self, B_pad: int, glue_ids=None, base=(), bt=None, hits=(),
+                        temps=(), top_ps=None, top_ks=None):
+        """The tree build (tree_build_step) as a step call (model_runner.py:
+        key, fn, inputs, ghost) over rows whose glue is glue_ids[b] [K+1]
+        from position base[b]; no rows: ghost rows only (glue 0, base 0,
+        table -1, hits 0, temperature 0)."""
+        Kp1 = self.K + 1
+        temps = np.asarray(temps, np.float32)
+        greedy = not (temps > 0).any()
+
+        def inputs(glue_ids, base, bt, hits, temps, top_ps, top_ks):
+            return {**self._rows(B_pad, glue_ids=(np.asarray(glue_ids, np.int64).reshape(-1, Kp1), 0),
+                                 base_positions=(np.asarray(base, np.int32), 0),
+                                 block_tables=(bt, -1),
+                                 cache_hits=(np.asarray(hits, np.int32), 0)),
+                    **self._sampling_inputs(B_pad, temps, top_ps, top_ks)}
+
+        no_rows = np.zeros((0, self.max_blocks), np.int32)
+        fn = partial(tree_build_step, self.params, self.kv_cache, generator=self.generator,
+                     arch=self.arch, block_size=self.block_size, K=self.K, fan=self.fan,
+                     sampler_x=self.sampler_x, F=self.F, s8=self.s8, greedy=greedy)
+        return (("tree", B_pad, greedy), fn,
+                inputs(() if glue_ids is None else glue_ids, base,
+                       no_rows if bt is None else bt, hits, temps, top_ps, top_ks),
+                lambda: inputs((), (), no_rows, (), temps[:0], None, None))
+
+    def capture(self, batch_pads: list[int]):
+        """Capture the unfused draft's graphs per batch bucket: the tree
+        build and, with jit_speculate, the tree-sampled miss chain (greedy
+        forms; a sampled form is captured on its first use)."""
+        for B_pad in batch_pads:
+            self.capture_step(*self.tree_build_call(B_pad))
+            if self.jit_speculate:
+                self.capture_step(*self.chain_call(B_pad, self.K, True, **self._tree_sampling()))
 
     @torch.no_grad()
     def build_tree(self, req: SpecRequest, resp: SpecResponse):
         B = req.cache_keys.shape[0]
-        glue_ids = np.zeros((B, self.K + 1), dtype=np.int64)
-        glue_ids[:, 0] = req.cache_keys[:, 2]
-        glue_ids[:, 1:] = resp.tokens
-        tp, tk = self._warp_args(req.top_ps, req.top_ks)
-        fork, spec, spec_logits, _ = tree_build_step(
-            self.params, self.kv_cache, self._tensor(glue_ids),
-            (req.num_tokens - 1).astype(np.int64), req.block_tables,
-            resp.cache_hits, self._tensor(req.temperatures.astype(np.float32)),
-            self.generator, tp, tk,
-            arch=self.arch, block_size=self.block_size, K=self.K,
-            fan_out_list=self.fan_out_list, fan_out_list_miss=self.fan_out_list_miss,
-            sampler_x=self.sampler_x, F=self.F, s8=self.s8,
-            greedy=not (req.temperatures > 0).any())
+        glue_ids = np.concatenate([req.cache_keys[:, 2:3], resp.tokens], axis=1)
+        tree_tokens, spec_logits, _ = self.run_step(*self.tree_build_call(
+            next_pow2(B), glue_ids, req.num_tokens - 1, req.block_tables, resp.cache_hits,
+            req.temperatures, req.top_ps, req.top_ks))
+        tokens = tree_tokens[:B].cpu().numpy()       # one readback: fork and spec
         self.populate_tree_cache(req.cache_keys[:, 0], resp.cache_hits,
-                                 fork.cpu().numpy(), spec.cpu().numpy(), spec_logits)
+                                 tokens[..., 0], tokens[..., 1:], spec_logits)
 
     def populate_tree_cache(self, seq_ids_B, hits_B, fork_np, spec_np, spec_logits):
         """Install a freshly built tree: host keys (seq_id, fan_idx,
-        fork_token) and token matrix, device logits (row b*MQ + r)."""
+        fork_token) and token matrix, device logits (row b*MQ + r). Under a
+        graph the logits are the graph's own buffer, kept with no copy:
+        service() gathers from it on the stream that replays the next build,
+        before that replay overwrites it."""
         B, MQ = fork_np.shape
         fan = np.where(np.asarray(hits_B).astype(bool)[:, None],
                        fan_index(self.fan_out_list)[None, :],
@@ -290,9 +347,15 @@ class DraftRunner(ModelRunner):
 
 class DraftServer:
     """The controller thread owning the draft runner: a request queue and a
-    response queue stand in for the reference's separate draft process."""
+    response queue stand in for the reference's separate draft process. Its
+    graphs (the tree build, the miss chain) replay on the draft's stream."""
 
-    def __init__(self, draft_cfg: Config, init_random: bool = False):
+    def __init__(self, draft_cfg: Config, init_random: bool = False,
+                 batch_pads: list[int] | None = None):
+        """With batch_pads (a card engine that is not eager, and not EAGLE),
+        the draft's graphs are captured for those buckets into a StepGraphs
+        of its own, here, before the thread starts, so no capture of this
+        engine overlaps the thread's work."""
         if draft_cfg.use_eagle:
             from ssd_tpu_torch.engine.eagle_runner import EagleDraftRunner
 
@@ -305,6 +368,12 @@ class DraftServer:
             self.stream = torch.cuda.Stream(device=dev)
             # The weights and the zeroed cache were written on the current
             # stream; the draft stream starts after them.
+            self.stream.wait_stream(torch.cuda.current_stream(dev))
+        if batch_pads is not None:
+            from ssd_tpu_torch.engine.graphs import StepGraphs
+
+            self.runner.graphs = StepGraphs(dev, [self.runner.generator])
+            self.runner.capture(batch_pads)
             self.stream.wait_stream(torch.cuda.current_stream(dev))
         self._req_q: queue.Queue = queue.Queue()
         self._resp_q: queue.Queue = queue.Queue()

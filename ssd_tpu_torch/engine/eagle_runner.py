@@ -35,7 +35,7 @@ from ssd_tpu_torch.models.eagle3 import (
     EagleArch, eagle_forward, eagle_logits, init_eagle_params, project_target_acts)
 from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops.sampler import sample
-from ssd_tpu_torch.ops.spec_math import fan_index, get_forked_recovery_tokens
+from ssd_tpu_torch.ops.spec_math import FanOut, fan_index, get_forked_recovery_tokens
 from ssd_tpu_torch.utils.native import slot_of
 
 
@@ -175,7 +175,7 @@ def eagle_tree_build_step(
 
     # ---- fork ----
     fork = get_forked_recovery_tokens(glue_logits, _upload(cache_hits, dev), returned,
-                                      fan_out_list, fan_out_list_miss)   # [B, MQ]
+                                      FanOut(fan_out_list, fan_out_list_miss, dev))   # [B, MQ]
     fan_rows = np.where(cache_hits.astype(bool)[:, None],
                         fan_index(fan_out_list)[None, :],
                         fan_index(fan_out_list_miss)[None, :]).astype(np.int32)

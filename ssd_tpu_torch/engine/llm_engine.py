@@ -6,11 +6,13 @@ and `exit`, serving AR, sync SD (a draft ModelRunner on the target's thread)
 and async SSD (a DraftServer thread on its own CUDA stream of the same
 card), with a plain or an EAGLE-3 draft (Config.use_eagle; the target's KV
 pool is sized with the EAGLE head's bytes), AR multi-step, fused sync SD
-(spec_rounds > 1) and ngram speculation. The JAX package's warm-up, which
-compiles every decode-side shape bucket at init, becomes the capture of one
-CUDA graph per decode-side step and batch bucket (engine/graphs.py) on the
-card, for AR, sync SD and the fused modes unless Config.enforce_eager; async
-SSD and EAGLE run eagerly.
+(spec_rounds > 1), ngram speculation and the fused async forms
+(engine/async_fused.py: async_fused, with an inline draft runner and no
+thread). The JAX package's warm-up, which compiles every decode-side shape
+bucket at init, becomes the capture of one CUDA graph per decode-side step
+and batch bucket (engine/graphs.py) on the card, for every mode but EAGLE
+unless Config.enforce_eager; the unfused async draft captures its own
+graphs, into a StepGraphs of its thread, before the thread starts.
 """
 
 from __future__ import annotations
@@ -69,10 +71,18 @@ class LLMEngine:
             # Made after the target runner: it inherits the block count that
             # sized both pools together.
             self.draft_cfg = config.create_draft_config()
-            if config.draft_async:
+            if config.draft_async and config.async_fused:
+                # The fused forms run the draft inline, on the engine's
+                # thread, as the JAX engine does.
+                from ssd_tpu_torch.engine.draft_runner import DraftRunner
+
+                self.draft_runner = DraftRunner(self.draft_cfg, init_random=init_random)
+            elif config.draft_async:
                 from ssd_tpu_torch.engine.draft_runner import DraftServer
 
-                self.draft_server = DraftServer(self.draft_cfg, init_random=init_random)
+                self.draft_server = DraftServer(
+                    self.draft_cfg, init_random=init_random,
+                    batch_pads=self._batch_pads() if self._use_graphs() else None)
             else:
                 self.draft_runner = ModelRunner(self.draft_cfg, init_random=init_random,
                                                 is_draft=True)
@@ -83,24 +93,35 @@ class LLMEngine:
             config.eos = self.tokenizer.eos_token_id
         self.scheduler = Scheduler(config, draft_cfg=self.draft_cfg)
         self.graphs = None
-        if (self.model_runner.device.type == "cuda" and not config.enforce_eager
-                and not config.draft_async):
+        if self._use_graphs():
             self._capture_graphs()
 
-    def _capture_graphs(self):
-        """Capture the decode-side steps of this engine's mode for every
-        batch bucket up to next_pow2(max_num_seqs), greedy forms (a sampled
-        form is captured on its first use), all into one memory pool."""
-        from ssd_tpu_torch.engine.graphs import StepGraphs
+    def _use_graphs(self) -> bool:
+        """Every mode but EAGLE replays CUDA graphs on the card, unless
+        enforce_eager."""
+        c = self.config
+        return (self.model_runner.device.type == "cuda" and not c.enforce_eager
+                and not c.use_eagle)
+
+    def _batch_pads(self) -> list[int]:
+        """The batch buckets: the powers of two up to next_pow2(max_num_seqs)."""
         from ssd_tpu_torch.engine.model_runner import next_pow2
+
+        return [1 << i for i in range(next_pow2(self.config.max_num_seqs).bit_length())]
+
+    def _capture_graphs(self):
+        """Capture the decode-side steps of this engine's thread for every
+        batch bucket, greedy forms (a sampled form is captured on its first
+        use), into one memory pool; the unfused async draft's graphs are in
+        its own (DraftServer)."""
+        from ssd_tpu_torch.engine.graphs import StepGraphs
 
         runners = [r for r in (self.model_runner, self.draft_runner) if r is not None]
         self.graphs = StepGraphs(self.model_runner.device, [r.generator for r in runners])
         for r in runners:
             r.graphs = self.graphs
-        top = next_pow2(self.config.max_num_seqs)
         self._default_step = self.create_inference_step()
-        self._default_step.capture([1 << i for i in range(top.bit_length())])
+        self._default_step.capture(self._batch_pads())
 
     def exit(self):
         """Stop the async draft thread (idempotent)."""
@@ -211,6 +232,14 @@ class LLMEngine:
         if not config.speculate:
             return AutoRegressiveStep(self.scheduler, self.model_runner,
                                       multi_step=config.multi_step)
+        if config.draft_async and config.async_fused:
+            from ssd_tpu_torch.engine.async_fused import (
+                AsyncExchangeSpecDecodeStep, FusedAsyncSpecDecodeStep)
+
+            cls = (FusedAsyncSpecDecodeStep if config.spec_rounds > 1
+                   else AsyncExchangeSpecDecodeStep)
+            return cls(self.scheduler, self.model_runner, self.draft_runner, config,
+                       metrics=METRICS)
         if not config.draft_async and config.spec_rounds > 1:
             return FusedSpecDecodeStep(self.scheduler, self.model_runner, self.draft_runner,
                                        K=config.speculate_k, rounds=config.spec_rounds,

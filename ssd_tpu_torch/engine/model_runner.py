@@ -373,15 +373,17 @@ class ModelRunner:
     # --- fixed-shape steps (eager, or one CUDA graph per key) ---
     #
     # A step call is (key, fn, inputs, ghost): fn takes the numpy inputs as
-    # device tensors; ghost() gives inputs of ghost rows only, from which a
-    # graph is captured (engine/graphs.py).
+    # device tensors (an input that is a device tensor already passes as it
+    # is); ghost() gives inputs of ghost rows only, from which a graph is
+    # captured (engine/graphs.py).
 
     def run_step(self, key: tuple, fn, inputs: dict, ghost):
         """fn(**inputs as device tensors): eagerly, or through the CUDA graph
         of `key`, captured on first use. Returns fn's outputs; under a graph
         they are its own buffers, valid until the next replay of any graph."""
         if self.graphs is None:
-            return fn(**{k: self._tensor(np.ascontiguousarray(v)) for k, v in inputs.items()})
+            return fn(**{k: v if isinstance(v, torch.Tensor)
+                         else self._tensor(np.ascontiguousarray(v)) for k, v in inputs.items()})
         return self.graphs.run(key, fn, inputs, ghost)
 
     def capture_step(self, key: tuple, fn, inputs: dict, ghost):
@@ -455,12 +457,13 @@ class ModelRunner:
                 lambda: self._multi_query_inputs([], q_len, B_pad))
 
     def chain_call(self, B_pad: int, K: int, extra_write: bool, first=(), start_pos=(),
-                   bt=None, temps=(), top_ps=None, top_ks=None, **tree):
+                   bt=None, temps=(), top_ps=None, top_ks=None, sampler_x: float | None = None,
+                   fan_out: int = 3, tree_sampling: bool = False):
         """The chain (chain_decode_step) whose row b starts at token first[b]
         at position start_pos[b] (ghosts: token 0 at position 0, context 1);
-        no rows given: ghost rows only. The tree sampler of the async draft
-        (`tree`) runs eagerly: async engines hold no graphs, so the key
-        leaves it out."""
+        no rows given: ghost rows only. The key names the sampler, so the
+        sync draft's chain and the async draft's tree-sampled one (the
+        jit-speculate miss chain, sampler_x, fan_out) are separate graphs."""
         temps = np.asarray(temps, np.float32)
         greedy = not (temps > 0).any()
 
@@ -474,8 +477,10 @@ class ModelRunner:
         no_rows = np.zeros((0, self.max_blocks), np.int32)
         fn = partial(chain_decode_step, self.params, self.kv_cache, generator=self.generator,
                      arch=self.arch, block_size=self.block_size, K=K,
-                     extra_write=extra_write, s8=self.s8, greedy=greedy, **tree)
-        return (("chain", B_pad, K, extra_write, greedy), fn,
+                     extra_write=extra_write, sampler_x=sampler_x, fan_out=fan_out,
+                     tree_sampling=tree_sampling, s8=self.s8, greedy=greedy)
+        sampler = (sampler_x, fan_out) if tree_sampling else None
+        return (("chain", B_pad, K, extra_write, greedy, sampler), fn,
                 inputs(first, start_pos, no_rows if bt is None else bt, temps, top_ps, top_ks),
                 lambda: inputs((), (), no_rows, temps[:0], None, None))
 

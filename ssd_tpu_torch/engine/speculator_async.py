@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ssd_tpu_torch.engine.draft_runner import DraftServer, SpecRequest
+from ssd_tpu_torch.engine.draft_runner import DraftServer, spec_request
 from ssd_tpu_torch.engine.helpers.speculate_types import (
     SpeculateResult, SpeculatorBase, VerifyResult)
 from ssd_tpu_torch.engine.sequence import Sequence
@@ -56,15 +56,6 @@ class SpeculatorAsync(SpeculatorBase):
             assert seq.recovery_token_id is not None
             seq.append_token(seq.recovery_token_id)
 
-        keys = np.zeros((B, 3), dtype=np.int64)
-        num_tokens = np.zeros(B, dtype=np.int64)
-        temps = np.zeros(B, dtype=np.float32)
-        for i, seq in enumerate(seqs):
-            keys[i] = (seq.seq_id, seq.last_spec_step_accepted_len - 1,
-                       seq.recovery_token_id)
-            num_tokens[i] = seq.num_tokens
-            temps[i] = (seq.draft_temperature if seq.draft_temperature is not None
-                        else seq.temperature)
         eagle = {}
         if self.eagle:
             # The conditioning payload (ssd_tpu/engine/speculator_async.py),
@@ -81,14 +72,9 @@ class SpeculatorAsync(SpeculatorBase):
                 recovery_acts=rec_acts, extend_acts=ext_acts,
                 extend_counts=np.asarray([s.extend_count for s in seqs], np.int64),
                 extend_token_ids=ext_ids, acts_ready=self.draft_server.handoff())
-        tp = tk = None
-        if self.draft_server.runner.use_warp:
-            tp = np.asarray([s.top_p for s in seqs], dtype=np.float32)
-            tk = np.asarray([s.top_k for s in seqs], dtype=np.int32)
-        resp = self.draft_server.speculate(SpecRequest(
-            cache_keys=keys, num_tokens=num_tokens,
-            block_tables=self._block_tables(seqs), temperatures=temps,
-            top_ps=tp, top_ks=tk, **eagle))
+        req = spec_request(seqs, self.max_blocks, self.draft_server.runner.use_warp, **eagle)
+        keys = req.cache_keys
+        resp = self.draft_server.speculate(req)
 
         logits_q = resp.logits_q
         if resp.ready is not None:

@@ -8,10 +8,10 @@ state, speculate, verify, restore, postprocess_speculate. With an EAGLE-3
 draft the draft prefill follows the target's (it is conditioned on the
 target's taps) and the verify's taps flow to the scheduler.
 FusedSpecDecodeStep runs spec_rounds whole sync-SD rounds per engine step
-(engine/fused_sd.py), NgramSpecDecodeStep the model-free form. Each step's
-`capture` captures its CUDA graphs at engine init (engine/graphs.py). Not
-ported yet: the fused async (async_fused) and EAGLE (eagle_sd_superstep)
-steps.
+(engine/fused_sd.py), NgramSpecDecodeStep the model-free form; the fused
+async steps are in engine/async_fused.py. Each step's `capture` captures
+its CUDA graphs at engine init (engine/graphs.py). Not ported yet: EAGLE's
+fused sync step (eagle_sd_superstep).
 """
 
 from __future__ import annotations
@@ -216,12 +216,15 @@ class SpecDecodeStep(InferenceStep):
         self.eagle = eagle
 
     def capture(self, batch_pads: list[int]):
-        """Sync SD: the draft chain and the target's verify forward (async
-        SSD and EAGLE run eagerly)."""
+        """The target's verify forward, and the sync draft's chain (the
+        unfused async draft captures its own graphs, engine/draft_runner.py::
+        DraftServer; EAGLE runs eagerly)."""
         K = self.speculator.lookahead
-        draft, target = self.speculator.draft_model_runner, self.verifier.target_model_runner
+        target = self.verifier.target_model_runner
         for B_pad in batch_pads:
-            draft.capture_step(*draft.chain_call(B_pad, K, extra_write=True))
+            if not self.async_spec:
+                draft = self.speculator.draft_model_runner
+                draft.capture_step(*draft.chain_call(B_pad, K, extra_write=True))
             target.capture_step(*target.verify_call([], K + 1, B_pad))
 
     def prefill(self, seqs: list[Sequence]) -> int:

@@ -354,32 +354,40 @@ _SCRATCH = threading.local()
 
 class SplitScratch:
     """The split-KV workspace and counters of one captured step
-    (engine/graphs.py): held for the life of its CUDA graph, so every replay
-    finds them at the addresses the capture recorded, and shared by no other
-    graph or stream. They grow during the eager warm-up run that precedes
-    the capture; a capture that would need more raises."""
+    (engine/graphs.py), one pair per CUDA stream the step launches on (a
+    step with two branches, engine/async_fused.py, runs the verify's K2 and
+    the tree build's K3 at the same time, so they must not share counters
+    or workspace): held for the life of its CUDA graph, so every replay
+    finds them at the addresses the capture recorded, and shared by no
+    other graph. They grow during the eager warm-up run that precedes the
+    capture; a capture that would need more raises."""
 
     def __init__(self):
-        self.ws: torch.Tensor | None = None
-        self.counters: torch.Tensor | None = None
+        self.buffers: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    @property
+    def counters(self) -> torch.Tensor:
+        """Every stream's counters, concatenated (zero between calls)."""
+        return torch.cat([c for _, c in self.buffers.values()])
 
     def take(self, ws_elems: int, n_counters: int, device: torch.device):
-        if self.ws is None or self.ws.numel() < ws_elems \
-                or self.counters.numel() < n_counters:
+        stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else 0
+        ws, counters = self.buffers.get(stream, (None, None))
+        if ws is None or ws.numel() < ws_elems or counters.numel() < n_counters:
             if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
                 raise RuntimeError("split-KV scratch too small inside a CUDA graph "
                                    "capture: run the step eagerly under it first")
-            self.ws = torch.empty(max(ws_elems, 0 if self.ws is None else self.ws.numel()),
-                                  dtype=torch.float32, device=device)
-            self.counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32,
-                                        device=device)
-        return self.ws[:ws_elems], self.counters
+            ws = torch.empty(max(ws_elems, 0 if ws is None else ws.numel()),
+                             dtype=torch.float32, device=device)
+            counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32, device=device)
+            self.buffers[stream] = (ws, counters)
+        return ws[:ws_elems], counters
 
 
 @contextlib.contextmanager
 def split_scratch(scratch: SplitScratch):
     """Split-KV launches of this thread inside the block take `scratch`'s
-    workspace and counters."""
+    workspace and counters for the stream they launch on."""
     _SCRATCH.current = scratch
     try:
         yield scratch

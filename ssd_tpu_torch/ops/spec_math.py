@@ -39,46 +39,64 @@ def _small_topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     if k > 8:
         return stable_topk_indices(x, k)
     flat = x.reshape(-1, x.shape[-1]).clone()
-    rows = torch.arange(flat.shape[0], device=x.device)
     idxs = []
     for _ in range(k):
         i = flat.argmax(dim=-1)
         idxs.append(i)
-        flat[rows, i] = float("-inf")
+        # A scatter of a scalar: no host tensor to copy, so a CUDA graph
+        # can capture it (an indexed assignment of a Python float cannot).
+        flat.scatter_(1, i[:, None], float("-inf"))
     return torch.stack(idxs, dim=-1).reshape(x.shape[:-1] + (k,))
+
+
+class FanOut:
+    """The tree's fan-out lists as device buffers, built once by their owner
+    (the draft runner) so that a step uploads nothing: per glue depth the
+    fork counts of a hit row and of a miss row, and per tree row its glue
+    depth under each list (fan_index)."""
+
+    def __init__(self, fan_out_list, fan_out_list_miss, device):
+        self.hit_list, self.miss_list = tuple(fan_out_list), tuple(fan_out_list_miss)
+        self.MQ = sum(self.hit_list)
+        self.k_max = max(max(self.hit_list), max(self.miss_list))
+        self.hit_counts = torch.tensor(self.hit_list, device=device)
+        self.miss_counts = torch.tensor(self.miss_list, device=device)
+        self.hit_index = torch.from_numpy(fan_index(self.hit_list)).to(device)
+        self.miss_index = torch.from_numpy(fan_index(self.miss_list)).to(device)
+
+    def rows(self, cache_hits: torch.Tensor) -> torch.Tensor:
+        """Glue depth of each tree row [B, MQ] int32: the hit list's on hit
+        rows, the miss list's on the others."""
+        return torch.where(cache_hits.bool()[:, None], self.hit_index[None, :],
+                           self.miss_index[None, :])
 
 
 def get_forked_recovery_tokens(
     logits: torch.Tensor,           # [B, K+1, V] glue logits
     cache_hits: torch.Tensor,       # [B] {0,1}
     returned_tokens: torch.Tensor,  # [B, K+1] tokens already returned ([rec | spec])
-    fan_out_list: list[int],
-    fan_out_list_miss: list[int],
+    fan: FanOut,
 ) -> torch.Tensor:
     """Top-F fork tokens per glue depth, excluding the token already returned
-    at that depth. Depth j gets fan_out_list[j] forks on a hit row and
-    fan_out_list_miss[j] on a miss row. Returns [B, MQ_LEN] int64."""
+    at that depth. Depth j gets fan.hit_list[j] forks on a hit row and
+    fan.miss_list[j] on a miss row. Reads nothing back and uploads nothing.
+    Returns [B, MQ_LEN] int64."""
     B, Kp1, V = logits.shape
     K = Kp1 - 1
-    assert len(fan_out_list) == Kp1
+    assert len(fan.hit_list) == Kp1
     dev = logits.device
     logits = logits.clone()
-    b_idx = torch.arange(B, device=dev)[:, None]
-    d_idx = torch.arange(K, device=dev)[None, :]
-    logits[b_idx, d_idx, returned_tokens[:, 1:].long()] = float("-inf")
+    logits[:, :K].scatter_(2, returned_tokens[:, 1:, None].long(), float("-inf"))
 
-    k_max = max(max(fan_out_list), max(fan_out_list_miss))
+    k_max = fan.k_max
     topk_idx = _small_topk_indices(logits, k_max)                    # [B, K+1, k]
-    hit_counts = torch.tensor(fan_out_list, device=dev)
-    miss_counts = torch.tensor(fan_out_list_miss, device=dev)
-    counts = torch.where(cache_hits.bool()[:, None], hit_counts[None, :],
-                         miss_counts[None, :])                      # [B, K+1]
+    counts = torch.where(cache_hits.bool()[:, None], fan.hit_counts[None, :],
+                         fan.miss_counts[None, :])                  # [B, K+1]
     mask = torch.arange(k_max, device=dev)[None, None, :] < counts[:, :, None]
-    MQ_LEN = sum(fan_out_list)
     # A fixed count per row at varying places: stable-sort the "not
     # selected" flag so the selected entries come first, in order.
     order = torch.argsort((~mask).reshape(B, -1).to(torch.int8), dim=1,
-                          stable=True)[:, :MQ_LEN]
+                          stable=True)[:, :fan.MQ]
     return torch.gather(topk_idx.reshape(B, -1), 1, order)
 
 

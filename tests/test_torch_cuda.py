@@ -696,3 +696,180 @@ def test_sampled_graph_advances_its_generator_on_card(tmp_path):
     key, fn, inputs, ghost = _graph_case(runner, "decode", greedy=False)
     draws = {tuple(graphs.run(key, fn, inputs, ghost)[0][:3].tolist()) for _ in range(8)}
     assert len(draws) > 1
+
+
+# --- async SSD under graphs (engine/draft_runner.py, engine/async_fused.py) -----------
+
+def _async_pair(tmp_path):
+    """A random bf16 fused-async engine on the card that runs eagerly (the
+    target drafts for itself), with one StepGraphs of the test's attached
+    to both runners."""
+    import json
+
+    from ssd_tpu_torch import LLM
+    from ssd_tpu_torch.engine.graphs import StepGraphs
+
+    d = tmp_path / "async_llama"
+    d.mkdir(exist_ok=True)
+    (d / "config.json").write_text(json.dumps(TINY_LLAMA))
+    llm = LLM(str(d), init_random=True, device="cuda", dtype="bfloat16", enforce_eager=True,
+              max_model_len=256, kvcache_block_size=GRAPH_BS, num_kvcache_blocks=96,
+              max_num_seqs=4, draft=str(d), speculate=True, speculate_k=GRAPH_K,
+              draft_async=True, async_fused=True)
+    t, dr = llm.model_runner, llm.draft_runner
+    graphs = StepGraphs(t.device, [t.generator, dr.generator])
+    t.graphs = dr.graphs = graphs
+    return t, dr, graphs
+
+
+def _async_case(t, dr, kind, B_pad=4, B=3, branch=True, page0=33):
+    """(key, fn, inputs, ghost) of an async step at B rows in bucket B_pad:
+    the tree build (hit and miss rows), the tree-sampled miss chain, the
+    exchange (verify + tree build) and the superstep; disjoint tables of 10
+    blocks from page0 (past those of _graph_case), contexts 40-70."""
+    from ssd_tpu_torch.engine import async_fused as af
+
+    r = np.random.default_rng(9)
+    K, R, M = GRAPH_K, GRAPH_R, t.max_blocks
+    n = np.array([40, 57, 70, 33][:B], np.int32)
+    bt = np.full((B, M), -1, np.int32)
+    for b in range(B):
+        bt[b, :10] = np.arange(10) + page0 + 10 * b
+    temps = np.zeros(B, np.float32)
+    tok = r.integers(3, 512, size=B).astype(np.int32)
+    glue = r.integers(3, 512, size=(B, K + 1)).astype(np.int64)
+    hits = np.array([1, 0, 1, 0][:B], np.int32)
+    if kind == "tree":
+        return dr.tree_build_call(B_pad, glue, n - 1, bt, hits, temps)
+    if kind == "chain_tree":
+        return dr.chain_call(B_pad, K, True, tok, n - 1, bt, temps, **dr._tree_sampling())
+    if kind == "exchange":
+        key, fn, _, ghost = af.exchange_call(t, dr, B_pad, branch=branch)
+        pos = (n[:, None] - K - 1 + np.arange(K + 1)).astype(np.int32)
+        inp = t._rows(B_pad, input_ids=(glue.astype(np.int32), 0), positions=(pos, 0),
+                      block_tables=(bt, -1), context_lens=(n, 1), temps_t=(temps, 0.0),
+                      temps_q=(temps, 0.0), cache_hits=(hits, 0), bt_draft=(bt, -1))
+        inp["input_ids"] = inp["input_ids"].reshape(-1)
+        inp["positions"] = inp["positions"].reshape(-1)
+        inp["logits_q"] = torch.from_numpy(r.normal(size=(B_pad, K, TINY_LLAMA["vocab_size"]))
+                                           .astype(np.float32)).cuda()
+        return key, fn, inp, ghost
+    key, fn, _, ghost = af.superstep_call(t, dr, [], K, R, B_pad, branch=branch)
+    inp = t._rows(B_pad, rec0=(tok, 0), n0=(n, 1), bt_target=(bt, -1), temps_t=(temps, 0.0),
+                  bt_draft=(bt, -1), temps_d=(temps, 0.0))
+    return key, fn, inp, ghost
+
+
+def _dev(inputs):
+    return {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(v).cuda()
+            for k, v in inputs.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tree", "chain_tree", "exchange", "superstep"])
+def test_async_graph_replay_equals_eager_on_card(kind, tmp_path):
+    """Each async graph's replay against the same step run eagerly on the
+    same inputs (B = 3 in bucket 4): tokens exact, logits within close() in
+    bf16; the tree kernel K3 launches inside the tree build's graphs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    t, dr, graphs = _async_pair(tmp_path)
+    key, fn, inputs, ghost = _async_case(t, dr, kind)
+    eager = _cpu(fn(**_dev(inputs)))
+    replay = _cpu(graphs.run(key, fn, inputs, ghost))
+    for e, g in zip(eager, replay):
+        if e.is_floating_point():
+            assert close(g, e, torch.bfloat16), kind
+        else:
+            assert torch.equal(g, e), kind
+    if kind != "chain_tree":
+        assert graphs.steps[key].launches.get(att.tree_attention, 0) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["exchange", "superstep"])
+def test_branched_graph_equals_serial_graph_on_card(kind, tmp_path):
+    """The two-branch capture (tree build on the side stream) against the
+    serial capture of the same step: every output bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    t, dr, graphs = _async_pair(tmp_path)
+    outs = []
+    for branch in (True, False):
+        key, fn, inputs, ghost = _async_case(t, dr, kind, branch=branch)
+        outs.append(_cpu(graphs.run(key, fn, inputs, ghost)))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b), kind
+
+
+@pytest.mark.cuda
+def test_async_split_counters_read_zero_after_interleaved_replays_on_card(tmp_path):
+    """The target's verify graph and the draft's tree-build graph (each in
+    its own StepGraphs) replayed 100 times in turns on two streams, and the
+    two-branch exchange 100 times: every split-KV counter reads zero and the
+    outputs equal the first replays'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from ssd_tpu_torch.engine.graphs import StepGraphs
+
+    t, dr, graphs = _async_pair(tmp_path)
+    dr.graphs = StepGraphs(t.device, [dr.generator])
+    target_case = _graph_case(t, "verify")
+    tree_case = _async_case(t, dr, "tree")
+    exchange_case = _async_case(t, dr, "exchange", page0=63)   # pages of its own
+    s_t, s_d = torch.cuda.Stream(), torch.cuda.Stream()
+    runs = [(graphs, target_case, s_t), (dr.graphs, tree_case, s_d),
+            (graphs, exchange_case, s_t)]
+    first, last = [], []
+    for i in range(100):
+        for g, case, s in runs:
+            with torch.cuda.stream(s):
+                out = g.run(*case)
+                if i in (0, 99):
+                    (first if i == 0 else last).append(_cpu(out))
+    torch.cuda.synchronize()
+    for g, case, _ in runs:
+        assert not g.steps[case[0]].scratch.counters.any()
+    for a, b in zip(first, last):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_draft_thread_replay_beside_target_replay_on_card(tmp_path):
+    """A draft thread replaying its tree build on its stream while the main
+    thread replays the target's verify on another: each result equals its
+    serial replay's, bit for bit, at every one of 50 replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    import threading
+
+    from ssd_tpu_torch.engine.graphs import StepGraphs
+
+    t, dr, graphs = _async_pair(tmp_path)
+    dr.graphs = StepGraphs(t.device, [dr.generator])
+    target_case = _graph_case(t, "verify")
+    tree_case = _async_case(t, dr, "tree")
+    want_t = _cpu(graphs.run(*target_case))
+    want_d = _cpu(dr.graphs.run(*tree_case))
+    got_d, errors = [], []
+
+    def draft_loop():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for _ in range(50):
+                    got_d.append(_cpu(dr.graphs.run(*tree_case)))
+        except Exception as e:    # surfaced below
+            errors.append(e)
+
+    th = threading.Thread(target=draft_loop)
+    with torch.cuda.stream(torch.cuda.Stream()):
+        th.start()
+        got_t = [_cpu(graphs.run(*target_case)) for _ in range(50)]
+    th.join()
+    assert not errors, errors
+    for got, want in ((got_t, want_t), (got_d, want_d)):
+        assert len(got) == 50
+        for out in got:
+            for x, y in zip(out, want):
+                assert torch.equal(x, y)

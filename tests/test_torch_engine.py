@@ -197,8 +197,9 @@ def test_request_validation(llama_dir):
 # served since the EAGLE-3 slice: without speculate=True it is an ignored
 # knob, refused with a ValueError. ngram speculation and AR multi-step are
 # served since the CUDA-graph slice, and spec_rounds without speculate is an
-# ignored knob.
-UNPORTED = {"async_fused", "draft_dp"}
+# ignored knob; async_fused since the fused-async slice, so without
+# speculate=True it is an ignored knob too.
+UNPORTED = {"draft_dp"}
 SERVED = {"ngram_speculate", "multi_step"}
 
 
@@ -221,6 +222,23 @@ def test_unported_speculative_fields_refused(llama_dir, field, value):
     exc = NotImplementedError if field in UNPORTED else ValueError
     with pytest.raises(exc, match=field):
         port(llama_dir, **{field: value})
+
+
+FUSED = dict(speculate=True, speculate_k=2, draft_async=True)
+
+
+@pytest.mark.parametrize("kw,msg", [
+    (dict(speculate=True, async_fused=True, speculate_k=2), "requires draft_async"),
+    (dict(FUSED, spec_rounds=2), "needs async_fused"),
+    (dict(FUSED, async_fused=True, draft_dp=2), "excludes draft_dp"),
+    (dict(FUSED, async_fused=True, use_eagle=True, jit_speculate=True), "excludes use_eagle"),
+])
+def test_fused_async_rules(llama_dir, kw, msg):
+    """The JAX package's rules of the fused async forms, as ValueErrors:
+    async_fused needs draft_async and excludes EAGLE and draft_dp > 1;
+    spec_rounds > 1 with draft_async needs async_fused."""
+    with pytest.raises(ValueError, match=msg):
+        port(llama_dir, draft=llama_dir, kvcache_block_size=16, **kw)
 
 
 def test_sampled_generation_with_top_warp(llama_dir):

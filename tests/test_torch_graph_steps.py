@@ -6,12 +6,14 @@ graph per (step, batch bucket) replay them (engine/graphs.py).
 - a padded bucket (B = 3 run at B_pad = 4 with a ghost row) gives the
   unpadded step's tokens exactly, the real rows' cache slots within fp32
   rounding, and leaves every other cache slot bit for bit as it was: the
-  decode (Q = 1 and Q = K+1), the chain, and both supersteps;
+  decode (Q = 1 and Q = K+1), the chain, both sync supersteps, the draft's
+  tree build and the fused async superstep;
 - ghost rows alone (a capture's warm-up) write nothing, in the fp and the
-  int8 cache;
+  int8 cache: the decode and the draft's tree build;
 - the step functions read nothing back to the host: under a guard that
   makes Tensor.item / tolist / __bool__ / cpu / numpy raise they run
-  greedy and sampled;
+  greedy and sampled, the async tree build, exchange and superstep too;
+- the chain's graph key names its sampler;
 - the launch record of a capture (ops/cuda_lib.py), the split-KV scratch
   and the fused-SD round ladder.
 """
@@ -27,11 +29,12 @@ from ssd_tpu.llm import LLM as JaxLLM
 import ssd_tpu_torch
 from ssd_tpu_torch import SamplingParams
 from ssd_tpu_torch.config import Config
-from ssd_tpu_torch.engine import fused_sd
+from ssd_tpu_torch.engine import async_fused, fused_sd
 from ssd_tpu_torch.engine import model_runner as mr
 from ssd_tpu_torch.engine.step import round_choices
 from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops import cuda_lib
+from ssd_tpu_torch.ops.spec_math import FanOut
 from tests.utils_models import make_tiny_llama, random_prompt, rng
 
 
@@ -228,6 +231,57 @@ def test_padded_superstep_matches_unpadded(kind, model_dir):
     _check_bucket(run, [t] if kind == "ngram" else [t, d], 1)
 
 
+FAN = FanOut([2, 2, 1, 1], [1, 1, 2, 2], "cpu")   # MQ 6; hit and miss lists differ
+
+
+def _draft_tables(B_pad, R, shift):
+    """Tables that cover R rounds and the last tree build (K+1 + K*MQ
+    slots past the base)."""
+    bt = np.full((B_pad, 16), -1, np.int32)
+    for b, n in enumerate(N0):
+        pages = -(-(int(n) + R * (K + 1) + K + 1 + K * FAN.MQ) // BS)
+        bt[b, :pages] = np.arange(pages) + 1 + 8 * b + shift
+    return bt
+
+
+def test_padded_tree_build_matches_unpadded(model_dir):
+    """The draft's tree build (hit and miss rows) at B_pad 4 with a ghost
+    row (table -1, base 0, hits 0) against B = 3."""
+    d = _runner(model_dir, 9)
+    glue = np.random.default_rng(10).integers(3, 128, size=(3, K + 1)).astype(np.int64)
+    hits = np.array([1, 0, 1], np.int64)
+
+    def run(B_pad):
+        tree, spec_logits, glue_logits = async_fused.tree_build_step(
+            d.params, d.kv_cache, _pad(glue, B_pad, 0), _pad(N0, B_pad, 0),
+            _pad(_draft_tables(4, 1, 0)[:3], B_pad, -1), _pad(hits, B_pad, 0),
+            _pad(np.zeros(3, np.float32), B_pad, 0.0), None, arch=d.arch, block_size=BS,
+            K=K, fan=FAN, sampler_x=None, F=2, greedy=True)
+        return tree, spec_logits.reshape(B_pad, FAN.MQ, K, -1), glue_logits
+
+    _check_bucket(run, [d], 0)
+
+
+def test_padded_async_superstep_matches_unpadded(model_dir):
+    """The fused async superstep (R = 2, the target drafting for itself
+    over its own copy of the cache, so rounds hit) at B_pad 4 against B = 3:
+    every round's outputs exact, both caches as for the other steps."""
+    R = 2
+    t, d = _runner(model_dir, 11), _runner(model_dir, 11)
+    zeros = np.zeros(3, np.float32)
+
+    def run(B_pad):
+        bt = _pad(_draft_tables(4, R, 0)[:3], B_pad, -1)
+        return (async_fused.async_ssd_superstep(
+            t.params, t.kv_cache, d.params, d.kv_cache,
+            _pad(np.array([17, 99, 5], np.int32), B_pad, 0), _pad(N0, B_pad, 1), bt, bt,
+            _pad(zeros, B_pad, 0.0), _pad(zeros, B_pad, 0.0), None, None, t_arch=t.arch,
+            d_arch=d.arch, block_size=BS, K=K, R=R, fan=FAN, sampler_x=None, F=2,
+            greedy=True),)
+
+    _check_bucket(run, [t, d], 1)
+
+
 @pytest.mark.parametrize("kv_quant", [None, "int8"])
 def test_ghost_rows_write_nothing(kv_quant, model_dir):
     """A step of ghost rows only (what a capture's eager warm-up runs) leaves
@@ -247,6 +301,27 @@ def test_ghost_rows_write_nothing(kv_quant, model_dir):
     for a, b in zip(after, before if kv_quant else (before,)):
         assert torch.equal(a, b)
     assert tok.shape == (4,)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_ghost_tree_build_writes_nothing(kv_quant, model_dir):
+    """A tree build of ghost rows only (table -1, base 0, hits 0: a
+    capture's warm-up) leaves the draft cache bit for bit as it was, in the
+    fp cache and the int8 pair."""
+    d = _runner(model_dir, 15, kv_quant)
+    if kv_quant:
+        data, scales = d.kv_cache
+        data.copy_(torch.randint(-127, 128, data.shape, dtype=torch.int8))
+        scales.uniform_(0.01, 0.1)
+    before = _cache(d)
+    async_fused.tree_build_step(
+        d.params, d.kv_cache, torch.zeros(4, K + 1, dtype=torch.int64),
+        torch.zeros(4, dtype=torch.int32), torch.full((4, 16), -1, dtype=torch.int32),
+        torch.zeros(4, dtype=torch.int32), torch.zeros(4), None, arch=d.arch, block_size=BS,
+        K=K, fan=FAN, sampler_x=None, F=2, greedy=True)
+    after = d.kv_cache if kv_quant else (d.kv_cache,)
+    for a, b in zip(after, before if kv_quant else (before,)):
+        assert torch.equal(a, b)
 
 
 # --- no host reads ----------------------------------------------------------------
@@ -296,6 +371,45 @@ def test_steps_read_nothing_back(greedy, model_dir):
                                  greedy=greedy)
     with pytest.raises(AssertionError, match="host read"), no_host_reads():
         bool(temps.any())
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_async_steps_read_nothing_back(greedy, model_dir):
+    """The tree build, the fused exchange and the fused async superstep,
+    greedy and sampled (sampler_x in the tree), under the guard."""
+    t, d = _runner(model_dir, 12), _runner(model_dir, 13)
+    gen = torch.Generator().manual_seed(0)
+    B_pad, R = 4, 2
+    temps = torch.tensor([0.0, 0.7, 1.0, 0.0]) if not greedy else torch.zeros(B_pad)
+    bt = _pad(_draft_tables(4, R, 0)[:3], B_pad, -1)
+    n0 = _pad(N0, B_pad, 1)
+    rec0 = _pad(np.array([17, 99, 5], np.int32), B_pad, 0)
+    hits = torch.tensor([1, 0, 1, 0])
+    spec = torch.randint(3, 128, (B_pad, K + 1))
+    pos = n0[:, None].long() + torch.arange(K + 1)
+    geom = dict(block_size=BS, K=K, fan=FAN, sampler_x=1.5, F=2)
+    with no_host_reads():
+        async_fused.tree_build_step(d.params, d.kv_cache, spec, n0, bt, hits, temps, gen,
+                                    arch=d.arch, greedy=greedy, **geom)
+        async_fused.exchange_step(
+            t.params, t.kv_cache, d.params, d.kv_cache, spec.reshape(-1), pos.reshape(-1),
+            bt, n0 + K + 1, torch.randn(B_pad, K, t.arch.vocab_size), temps, temps, hits,
+            bt, gen, gen, t_arch=t.arch, d_arch=d.arch, greedy=greedy, greedy_tree=greedy,
+            **geom)
+        async_fused.async_ssd_superstep(
+            t.params, t.kv_cache, d.params, d.kv_cache, rec0, n0, bt, bt, temps, temps, gen,
+            gen, t_arch=t.arch, d_arch=d.arch, R=R, greedy=greedy, **geom)
+
+
+def test_chain_keys_name_the_sampler(model_dir):
+    """The sync draft's chain and the async draft's tree-sampled chain
+    (sampler_x, fan-out) are separate graphs."""
+    r = _runner(model_dir, 14)
+    keys = {r.chain_call(4, K, True)[0],
+            r.chain_call(4, K, True, sampler_x=None, fan_out=2, tree_sampling=True)[0],
+            r.chain_call(4, K, True, sampler_x=1.5, fan_out=2, tree_sampling=True)[0]}
+    assert len(keys) == 3
+    assert r.chain_call(4, K, True)[0] == r.chain_call(4, K, True, fan_out=2)[0]
 
 
 # --- capture bookkeeping ------------------------------------------------------------

@@ -31,6 +31,7 @@ from ssd_tpu_torch import SamplingParams
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.engine import draft_runner as dr
 from ssd_tpu_torch.engine.model_runner import ModelRunner
+from ssd_tpu_torch.ops.spec_math import FanOut
 from tests.utils_models import hf_greedy, make_tiny_llama, random_prompt, rng
 
 
@@ -282,10 +283,12 @@ def test_tree_build_step_matches_jax(target_dir):
     hits = np.array([1, 0], np.int64)
     hit_list, miss_list = [2, 2, 1, 1], [1, 1, 2, 2]
     runner.kv_cache = torch.from_numpy(cache.copy())
-    fork, spec, spec_logits, glue_logits = dr.tree_build_step(
-        runner.params, runner.kv_cache, torch.from_numpy(glue), bases, bt, hits,
-        torch.zeros(2), None, arch=runner.arch, block_size=16, K=K,
-        fan_out_list=hit_list, fan_out_list_miss=miss_list, sampler_x=None, F=F)
+    tree, spec_logits, glue_logits = dr.tree_build_step(
+        runner.params, runner.kv_cache, torch.from_numpy(glue), torch.from_numpy(bases),
+        torch.from_numpy(bt), torch.from_numpy(hits), torch.zeros(2), None,
+        arch=runner.arch, block_size=16, K=K,
+        fan=FanOut(hit_list, miss_list, "cpu"), sampler_x=None, F=F)
+    fork, spec = tree[..., 0], tree[..., 1:]
     host_out, jspec_logits, jglue_logits, jcache = jdr.tree_build_program(
         jparams, jnp.asarray(cache), jnp.asarray(glue.reshape(-1), jnp.int32),
         jnp.asarray(bases, jnp.int32), jnp.asarray(bt), jnp.asarray(hits, jnp.int32),

@@ -110,8 +110,8 @@ def test_forked_recovery_tokens_match_jax():
     returned = rng.integers(0, V, size=(B, K + 1)).astype(np.int32)
     hits = np.array([1, 0, 1, 0], np.int32)
     hit_list, miss_list = [3, 2, 2, 1], [1, 2, 2, 3]
-    got = spec_math.get_forked_recovery_tokens(t(logits), t(hits), t(returned),
-                                               hit_list, miss_list)
+    got = spec_math.get_forked_recovery_tokens(
+        t(logits), t(hits), t(returned), spec_math.FanOut(hit_list, miss_list, "cpu"))
     want = jsm.get_forked_recovery_tokens(jnp.asarray(logits), jnp.asarray(hits),
                                           jnp.asarray(returned), hit_list, miss_list)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
