@@ -132,20 +132,30 @@ the script exits non-zero:
               pool, if the pool holds fewer blocks than the cap of 1224, if
               K1, K2 or the grouped GEMM never launched (counts zeroed just
               before, read just after), or if graph and eager tokens differ.
-7. eagle    - EAGLE-3 async SSD (K=4, fan-out 2) at Llama-3.1-8B's
+7. eagle    - EAGLE-3 async SSD (K=4, fan-out 2) and the fused sync
+              superstep (K=4, 4 rounds a step) at Llama-3.1-8B's
               geometry (32 layers, rope theta 5e5 without the published
               rope scaling, which neither package reads) with its EAGLE-3
               head's (1 layer, draft vocab 32000, 2048 positions, which cap
               max_model_len; so serve's 1900-token prompt is cut to 1875),
-              random bf16 weights from a seed: AR b8/b1, EAGLE SSD b8/b1
-              over the fp cache and b8 over the int8 cache, 128 tokens. Then
-              the constructed pair of bench.py::build_eagle_checkpoints
-              (target cut to 8 layers): noise 0 must accept >= K tokens a
-              step with a hit rate above 0.9, and one noise level of a
-              fixed ladder must put the hit rate in [0.2, 0.8]. Per run as
-              in spec, plus TTFT and the pools; K1 (target and draft
-              prefill), K2 (verify, chain, glue) and K3 (tree), or over the
-              int8 cache their int8 kernels, must launch.
+              random bf16 weights from a seed, 128 tokens: AR b8/b1 under
+              graphs; EAGLE SSD and fused EAGLE b8/b1, and EAGLE SSD b8 over
+              the int8 cache, each with graphs and eagerly in turns on one
+              engine (graph, eager, graph; int8 graph, eager; an eager
+              turn serves 64 tokens, cut from 128 to hold the run's time):
+              decode tok/s min / median / max, hit rate, accepted length,
+              replays and launches a step, capture seconds and pool bytes;
+              an eager turn's tokens must equal the graph turns' first 64.
+              Then the constructed pair of
+              bench.py::build_eagle_checkpoints (target cut to 8 layers):
+              at noise 0 both forms must accept >= K tokens a step and
+              async SSD hit above 0.9, and one noise level of a fixed
+              ladder must put async SSD's hit rate in [0.2, 0.8]. Per run
+              as in spec, plus TTFT and the pools; every graph run must
+              replay graphs; K1 (target and draft prefill), K2 (verify,
+              chain, glue) and, async, K3 (tree), or over the int8 cache
+              their int8 kernels, must launch, and the fused form must not
+              launch K3.
 8. exact    - the same width in fp32 from random checkpoints (init scale
               0.4): AR at 2 layers, greedy tokens on the card equal those of
               device="cpu", with the smallest top-1/top-2 logit margin seen;
@@ -165,8 +175,10 @@ the script exits non-zero:
               the k-th and (k+1)-th expert (eager runs only: a graph's
               capture reads nothing back).
               Then the same width at 2 layers with the constructed EAGLE-3
-              head (noise 0.028): AR on the card equals the CPU's, and EAGLE
-              SSD on both devices equals the card's AR.
+              head (noise 0.028), over the fp32 and the int8 cache: the
+              CPU's AR and fused EAGLE, and on the card EAGLE SSD and fused
+              EAGLE (4 rounds) under graphs, equal the card's eager AR of
+              the same cache; over fp32 the CPU's EAGLE SSD too.
 9. profile  - (only when asked for) the device's busy share, kernels and
               graph replays a step and top kernels over a prefill step and
               a window of decode steps at b=8, with graphs and eagerly;
@@ -176,8 +188,8 @@ the script exits non-zero:
               b=8: per step, the device time of each CUDA stream, their
               union, the time two streams (or a graph's two branches) ran
               kernels at once, the host-device copies and the verify's host
-              time; eagle_profile the same for EAGLE SSD on the eagle
-              engine.
+              time; eagle_profile the same for EAGLE SSD and the fused EAGLE
+              superstep (4 rounds) under graphs on the eagle engine.
 11. spec_async - (only when asked for) the three async forms (SSD, the
               exchange, the superstep at R=4 and 8) at b8 and b1, noise 0
               and 0.04, graphs against eager in turns, three runs each:
@@ -2098,32 +2110,39 @@ def phase_spec_profile() -> dict:
 
 
 def phase_eagle_profile() -> dict:
-    """Not run by default: EAGLE-3 async SSD decode steps at b=8 on the eagle
-    phase's Llama-3.1-8B engine (full depth, random bf16 weights), timed
-    without and then with torch.profiler."""
+    """Not run by default: decode steps at b=8 of EAGLE-3 async SSD and of
+    the fused sync superstep (R = SPEC_R) on the eagle phase's Llama-3.1-8B
+    engine (full depth, random bf16 weights), under their graphs, timed
+    without and then with torch.profiler, per CUDA stream (a superstep's
+    step is R rounds)."""
     import torch
 
     from ssd_tpu_torch import SamplingParams
 
     p8, _ = _serving_prompts(LLAMA_8B["vocab_size"])
     sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
+    out = {}
     with tempfile.TemporaryDirectory() as d:
         tdir, edir = os.path.join(d, "t"), os.path.join(d, "e")
         os.makedirs(tdir)
         os.makedirs(edir)
         _write_config(tdir, LLAMA_8B)
         _eagle_config(edir)
-        llm = _eagle_llm(tdir, edir, init_random=True, dtype="bfloat16",
-                         max_model_len=EAGLE_MAX_LEN, kvcache_block_size=BLOCK, max_num_seqs=8)
-        for p in _eagle_prompts(p8, 128):
-            llm.add_request(p, sp)
-        for _ in range(4):   # the prefill, then warm decode steps
-            llm.step()
-        out = {"eagle": _profile_window(llm)}
-        llm.exit()
-        del llm
-        torch.cuda.empty_cache()
-    emit("eagle_profile", geometry=EAGLE_GEOMETRY + ", b8", **out)
+        for form in ("ssd", "fused"):
+            llm = _eagle_llm(tdir, edir, init_random=True, form=form, dtype="bfloat16",
+                             max_model_len=EAGLE_MAX_LEN, kvcache_block_size=BLOCK,
+                             max_num_seqs=8)
+            for p in _eagle_prompts(p8, 128):
+                llm.add_request(p, sp)
+            R = SPEC_R if form == "fused" else 1
+            for _ in range(4 if R == 1 else 2):   # the prefill, then warm decode steps
+                llm.step()
+            out[form] = dict(_profile_window(llm, steps=8 // R), rounds_per_step=R,
+                             graphs=_graph_facts(llm))
+            llm.exit()
+            del llm
+            torch.cuda.empty_cache()
+    emit("eagle_profile", geometry=EAGLE_GEOMETRY + ", b8, CUDA graphs", **out)
     return out
 
 
@@ -2315,7 +2334,7 @@ def _perturb_eagle(llm, noise: float, originals: dict):
     same). `originals` keeps the constructed values across calls."""
     import torch
 
-    params = llm.draft_server.runner.params
+    params = _draft_params(llm)
     for i, k in enumerate(EAGLE_NOISE):
         base = originals.setdefault(k, params[k].clone())
         nz = base.float()[base != 0]
@@ -2325,12 +2344,16 @@ def _perturb_eagle(llm, noise: float, originals: dict):
     torch.cuda.synchronize()
 
 
-def _eagle_llm(tdir, ddir, init_random=False, **kw):
+def _eagle_llm(tdir, ddir, init_random=False, form="ssd", **kw):
+    """An EAGLE-3 engine: async SSD ("ssd": K=SPEC_K, fan-out SPEC_F, the
+    head on the draft thread) or the fused sync superstep ("fused": SPEC_R
+    rounds a step)."""
     from ssd_tpu_torch import LLM
 
-    return LLM(tdir, draft=ddir, speculate=True, draft_async=True, use_eagle=True,
-               jit_speculate=True, speculate_k=SPEC_K, async_fan_out=SPEC_F,
-               init_random=init_random, **kw)
+    form_kw = (dict(draft_async=True, jit_speculate=True, async_fan_out=SPEC_F)
+               if form == "ssd" else dict(spec_rounds=SPEC_R))
+    return LLM(tdir, draft=ddir, speculate=True, use_eagle=True, speculate_k=SPEC_K,
+               init_random=init_random, **form_kw, **kw)
 
 
 def _eagle_room(n_new: int = 128) -> int:
@@ -2349,9 +2372,18 @@ def _eagle_prompts(prompts: list[list[int]], n_new: int) -> list[list[int]]:
     return [p[:_eagle_room(n_new)] for p in prompts]
 
 
+EAGLE_TURNS = ("graph", "eager", "graph")   # graph and eager in turns, one engine
+EAGLE_EAGER_NEW = 64   # tokens of an eager turn (cut from 128 to hold the run's time)
+# The eagle phase's engines: (path, kv_quant, form, {batch: turns}).
+EAGLE_PLAN = (("ar", None, None, {"b8": ("graph",), "b1": ("graph",)}),
+              ("eagle", None, "ssd", {"b8": EAGLE_TURNS, "b1": EAGLE_TURNS}),
+              ("eagle_fused", None, "fused", {"b8": EAGLE_TURNS, "b1": EAGLE_TURNS}),
+              ("eagle_int8", "int8", "ssd", {"b8": ("graph", "eager")}))
+
+
 def phase_eagle() -> dict:
-    """EAGLE-3 async SSD at the Llama-3.1-8B geometry (module docstring,
-    phase 7)."""
+    """EAGLE-3 async SSD and the fused sync superstep at the Llama-3.1-8B
+    geometry (module docstring, phase 7)."""
     import torch
 
     from ssd_tpu_torch import SamplingParams
@@ -2362,21 +2394,26 @@ def phase_eagle() -> dict:
     warm = SamplingParams(temperature=0.0, max_new_tokens=8, ignore_eos=True)
     engine = dict(dtype="bfloat16", max_model_len=EAGLE_MAX_LEN, kvcache_block_size=BLOCK,
                   max_num_seqs=8)
-    out = {"runs": {}}
+    out = {"runs": {}, "turns": {}, "graphs": {}}
     need = {"ar": ("paged_attention", "flat_prefill_attention"),
             "eagle": ("paged_attention", "flat_prefill_attention", "tree_attention"),
+            "eagle_fused": ("paged_attention", "flat_prefill_attention"),
             "eagle_int8": ("paged_attention_int8", "flat_prefill_attention_int8",
                            "tree_attention_int8")}
+    mode_of = {"ar": "ar", "eagle": "ssd", "eagle_int8": "ssd", "eagle_fused": f"fused{SPEC_R}"}
 
-    def measured(llm, key, path, mode, ps, n_new=128):
+    def measured(llm, key, path, ps, n_new=128, eager=False):
         t0 = time.perf_counter()
-        run, _ = _spec_run(llm, mode, ps, n_new, V=V)
+        run, toks = _spec_run(llm, mode_of[path], ps, n_new, V=V, eager=eager)
         run["wall_incl_checks_s"] = time.perf_counter() - t0
-        out["runs"][key] = run
-        emit("eagle", run=key, **run)
+        emit("eagle", run=key, eager=eager, **run)
         missing = [k for k in need[path] if run["launches"][k] <= 0]
         if missing:
             fail(f"eagle {key}: kernels of the path never launched {missing}: {run['launches']}")
+        if path == "eagle_fused" and run["launches"]["tree_attention"]:
+            fail(f"eagle {key}: the fused superstep launched the tree kernel")
+        if not eager and not run["graph_replays_per_decode_step"] > 0:
+            fail(f"eagle {key}: no graph replayed")
         if path != "ar":
             # Each prefill step launches K1 once per target layer and once
             # for the head's conditioned prefill.
@@ -2384,7 +2421,39 @@ def phase_eagle() -> dict:
             if run["launches"][need[path][1]] % per_step:
                 fail(f"eagle {key}: {run['launches'][need[path][1]]} prefill launches are "
                      f"not whole steps of {per_step} (target layers + the head)")
-        return run
+        return run, toks
+
+    def in_turns(llm, path, name, turns):
+        """The turns' runs on one engine: the first graph and eager runs
+        under their own keys, then decode tok/s (min / median / max), hit
+        rate and accepted length of every run. The EAGLE target recomputes
+        every prompt whole (its taps), so graph and eager tokens agree from
+        the first run on (an eager turn's EAGLE_EAGER_NEW tokens with the
+        graph turns' first ones)."""
+        runs, toks = {"graph": [], "eager": []}, []
+        for kind in turns:
+            key = f"{path}_{name}" + ("_eager" if kind == "eager" else "")
+            run, t = measured(llm, key, path, prompts[name], eager=kind == "eager",
+                              n_new=EAGLE_EAGER_NEW if kind == "eager" else 128)
+            if not runs[kind]:
+                out["runs"][key] = run
+            runs[kind].append(run)
+            toks.append(t)
+        g = runs["graph"][0]
+        summary = dict(
+            decode_tok_s={k: _spread([r["decode_tok_s"] for r in v]) for k, v in runs.items() if v},
+            cache_hit_rate={k: [r.get("cache_hit_rate") for r in v] for k, v in runs.items() if v},
+            mean_accepted_suffix_len={k: [r.get("mean_accepted_suffix_len") for r in v]
+                                      for k, v in runs.items() if v},
+            graph_replays_per_decode_step=g["graph_replays_per_decode_step"],
+            launches_per_decode_step={k: n / g["decode_steps"]
+                                      for k, n in g["launches"].items() if n},
+            tokens_equal=all(a[:len(b)] == b[:len(a)] for x in toks
+                             for a, b in zip(x, toks[0])))
+        out["turns"][f"{path}_{name}"] = summary
+        emit("eagle", turns=f"{path}_{name}", **summary)
+        if not summary["tokens_equal"]:
+            fail(f"eagle {path}_{name}: graph and eager greedy tokens differ")
 
     with tempfile.TemporaryDirectory() as d:
         tdir, edir = os.path.join(d, "t"), os.path.join(d, "e")
@@ -2392,49 +2461,61 @@ def phase_eagle() -> dict:
         os.makedirs(edir)
         _write_config(tdir, LLAMA_8B)
         _eagle_config(edir)
-        # Full depth, random bf16 weights: AR, then EAGLE SSD over the fp and
-        # the int8 cache (the same seeded target each time).
-        for path, kvq in (("ar", None), ("eagle", None), ("eagle_int8", "int8")):
+        # Full depth, random bf16 weights (the same seeded target each time).
+        for path, kvq, form, batches in EAGLE_PLAN:
             t0 = time.perf_counter()
-            if path == "ar":
+            if form is None:
                 from ssd_tpu_torch import LLM
 
                 llm = LLM(tdir, init_random=True, **engine)
             else:
-                llm = _eagle_llm(tdir, edir, init_random=True, kv_quant=kvq, **engine)
+                llm = _eagle_llm(tdir, edir, init_random=True, form=form, kv_quant=kvq,
+                                 **engine)
             torch.cuda.synchronize()
-            init_s = time.perf_counter() - t0
-            llm.generate([p[:40] for p in prompts["b8"][:2]], warm, use_tqdm=False)
-            for name in (("b8", "b1") if path != "eagle_int8" else ("b8",)):
-                run = measured(llm, f"{path}_{name}", path,
-                               "ar" if path == "ar" else "ssd", prompts[name])
-                run["init_s"] = init_s
+            out["graphs"][path] = dict(_graph_facts(llm), init_s=time.perf_counter() - t0)
+            emit("eagle", engine=path, **out["graphs"][path])
+            for eager in (False, True):
+                with _eager(llm) if eager else contextlib.nullcontext():
+                    llm.generate([p[:40] for p in prompts["b8"][:2]], warm, use_tqdm=False)
+            for name, turns in batches.items():
+                in_turns(llm, path, name, turns)
             out.setdefault("pools", {})[path] = llm.model_runner.pool_sizing
             out.setdefault("kv_blocks", {})[path] = llm.model_runner.num_kvcache_blocks
             llm.exit()
             del llm
             torch.cuda.empty_cache()
 
-    # The constructed pair (target cut to EAGLE_PAIR_LAYERS layers): noise 0
-    # must accept near K+1 and hit the tree cache; one level of a fixed
-    # ladder must land the hit rate in MISS_HIT_RATE.
+    # The constructed pair (target cut to EAGLE_PAIR_LAYERS layers): at
+    # noise 0 both forms must accept near K+1 and async SSD hit the tree
+    # cache; one level of a fixed ladder must land async SSD's hit rate in
+    # MISS_HIT_RATE.
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         tdir, edir = _eagle_pair(d, EAGLE_PAIR_LAYERS, torch.bfloat16)
         out["pair_checkpoints_s"] = time.perf_counter() - t0
-        llm = _eagle_llm(tdir, edir, **engine)
-        llm.generate([p[:40] for p in prompts["b8"][:2]], warm, use_tqdm=False)
-        run = measured(llm, "pair_noise0_b8", "eagle", "ssd", prompts["b8"])
-        if run["mean_accepted_suffix_len"] < SPEC_K or run["cache_hit_rate"] <= 0.9:
-            fail(f"eagle: the constructed pair at noise 0 accepted "
-                 f"{run['mean_accepted_suffix_len']} (K+1 = {SPEC_K + 1}) with hit rate "
-                 f"{run['cache_hit_rate']}")
+        for form, path in (("fused", "eagle_fused"), ("ssd", "eagle")):
+            llm = _eagle_llm(tdir, edir, form=form, **engine)
+            llm.generate([p[:40] for p in prompts["b8"][:2]], warm, use_tqdm=False)
+            key = "pair_fused_noise0_b8" if form == "fused" else "pair_noise0_b8"
+            run, _ = measured(llm, key, path, prompts["b8"])
+            out["runs"][key] = run
+            if run["mean_accepted_suffix_len"] < SPEC_K or \
+                    (form == "ssd" and run["cache_hit_rate"] <= 0.9):
+                fail(f"eagle {key}: the constructed pair at noise 0 accepted "
+                     f"{run['mean_accepted_suffix_len']} (K+1 = {SPEC_K + 1}) with hit rate "
+                     f"{run.get('cache_hit_rate')}")
+            if form == "fused":
+                llm.exit()
+                del llm
+                torch.cuda.empty_cache()
         originals, found = {}, None
         lo, hi = MISS_HIT_RATE
         for level in EAGLE_NOISE_LADDER:
             _perturb_eagle(llm, level, originals)
-            run = measured(llm, f"pair_noise{level:g}_b8", "eagle", "ssd", prompts["b8"], 64)
+            key = f"pair_noise{level:g}_b8"
+            run, _ = measured(llm, key, "eagle", prompts["b8"], 64)
             run["draft_noise"] = level
+            out["runs"][key] = run
             if lo <= run["cache_hit_rate"] <= hi:
                 found = level
                 break
@@ -2445,9 +2526,9 @@ def phase_eagle() -> dict:
         llm.exit()
         del llm
         torch.cuda.empty_cache()
-    emit("eagle", geometry=EAGLE_GEOMETRY, K=SPEC_K, async_fan_out=SPEC_F,
+    emit("eagle", geometry=EAGLE_GEOMETRY, K=SPEC_K, async_fan_out=SPEC_F, rounds=SPEC_R,
          max_model_len=EAGLE_MAX_LEN, pair_layers=EAGLE_PAIR_LAYERS, miss_noise=found,
-         pools=out["pools"], kv_blocks=out["kv_blocks"],
+         pools=out["pools"], kv_blocks=out["kv_blocks"], graphs=out["graphs"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     return out
 
@@ -2719,40 +2800,51 @@ def phase_exact() -> dict:
 
     # EAGLE-3 at the width of the checks above (Llama-3.2-1B), 2 layers,
     # fp32: the constructed pair (stored bf16, loaded fp32) with draft noise
-    # EXACT_EAGLE_NOISE, so steps both accept and reject. AR on the card equals the CPU's, and
-    # EAGLE SSD on both devices equals the card's AR. (EAGLE over the int8
-    # cache is held to the int8 AR by the CPU tests; `eagle` runs it on the
-    # card.)
+    # EXACT_EAGLE_NOISE, so steps both accept and reject. Over the fp32 and
+    # the int8 cache, async EAGLE SSD and the fused superstep (SPEC_R rounds)
+    # under the card's graphs, and the CPU's AR and fused EAGLE, equal the
+    # card's eager AR of the same cache; over fp32 the CPU's async EAGLE too.
     t_eagle = time.perf_counter()
     eprompts = [rng.integers(3, LLAMA_1B["vocab_size"], size=n).tolist() for n in (20, 77, 130)]
-    e_tokens, e_accepted, e_hits, e_margins = {}, {}, {}, []
+    e_tokens, e_accepted, e_hits, e_margins, e_seconds = {}, {}, {}, [], {}
     with tempfile.TemporaryDirectory() as d:
         tdir, edir = _eagle_pair(d, 2, torch.bfloat16, seed=13, base=LLAMA_1B)
-        for dev, mode in (("cuda", "ar"), ("cpu", "ar"), ("cuda", "eagle"), ("cpu", "eagle")):
-            if mode == "ar":
-                llm = LLM(tdir, device=dev, **engine)
-                _record_margins(llm, e_margins)
-            else:
-                # Taps of the 2-layer target (its layers pass the embedding
-                # through, so every tap is the embedding).
-                llm = _eagle_llm(tdir, edir, device=dev, eagle_layers=[0, 1, 1], **engine)
-                _perturb_eagle(llm, EXACT_EAGLE_NOISE, {})
-            outs, m = llm.generate(eprompts, sp, use_tqdm=False)
-            llm.exit()
-            key = f"{dev}_{mode}"
-            e_tokens[key] = [o["token_ids"] for o in outs]
-            lens = m["accepted_suffix_lens_with_recovery"]
-            e_accepted[key] = sum(lens) / len(lens) if lens else None
-            e_hits[key] = sum(m["cache_hits"]) / len(m["cache_hits"]) if m["cache_hits"] else None
-            del llm
-    eagle_equal = {k: toks == e_tokens["cuda_ar"] for k, toks in e_tokens.items()}
+        for kvq in (None, "int8"):
+            runs = (("cuda", "ar_eager"), ("cpu", "ar"), ("cuda", "ssd"), ("cuda", "fused"),
+                    ("cpu", "fused")) + ((("cpu", "ssd"),) if kvq is None else ())
+            for dev, mode in runs:
+                t0 = time.perf_counter()
+                if mode in ("ar", "ar_eager"):
+                    llm = LLM(tdir, device=dev, kv_quant=kvq, enforce_eager=mode == "ar_eager",
+                              **engine)
+                    _record_margins(llm, e_margins)
+                else:
+                    # Taps of the 2-layer target (its layers pass the
+                    # embedding through, so every tap is the embedding).
+                    llm = _eagle_llm(tdir, edir, device=dev, form=mode, kv_quant=kvq,
+                                     eagle_layers=[0, 1, 1], **engine)
+                    _perturb_eagle(llm, EXACT_EAGLE_NOISE, {})
+                outs, m = llm.generate(eprompts, sp, use_tqdm=False)
+                llm.exit()
+                if dev == "cuda" and mode != "ar_eager" and llm.graphs is None:
+                    fail(f"exact: the card's {kvq or 'fp32'} EAGLE {mode} engine holds no graphs")
+                key = f"{kvq or 'fp32'}_{dev}_{mode}"
+                e_tokens[key] = [o["token_ids"] for o in outs]
+                e_seconds[key] = time.perf_counter() - t0
+                lens = m["accepted_suffix_lens_with_recovery"]
+                e_accepted[key] = sum(lens) / len(lens) if lens else None
+                e_hits[key] = (sum(m["cache_hits"]) / len(m["cache_hits"])
+                               if m["cache_hits"] else None)
+                del llm
+    eagle_equal = {k: toks == e_tokens[f"{k.split('_')[0]}_cuda_ar_eager"]
+                   for k, toks in e_tokens.items()}
     emit("exact", geometry="Llama-3.2-1B width, 2 layers, + the constructed EAGLE-3 head "
-         f"(noise {EXACT_EAGLE_NOISE}), fp32", K=SPEC_K, async_fan_out=SPEC_F,
+         f"(noise {EXACT_EAGLE_NOISE}), fp32", K=SPEC_K, async_fan_out=SPEC_F, rounds=SPEC_R,
          equal_to_card_ar_of_same_cache=eagle_equal, mean_accepted_suffix_len=e_accepted,
-         cache_hit_rate=e_hits, min_top2_margin=min(e_margins),
-         seconds=time.perf_counter() - t_eagle)
+         cache_hit_rate=e_hits, min_top2_margin=min(e_margins), seconds=e_seconds,
+         total_seconds=time.perf_counter() - t_eagle)
     if not all(eagle_equal.values()):
-        fail(f"exact: EAGLE greedy tokens differ from the card's AR: {eagle_equal}")
+        fail(f"exact: EAGLE greedy tokens differ from the card's eager AR: {eagle_equal}")
     return {"equal": equal, "min_top2_margin": min(margins), "spec_equal": spec_equal,
             "moe_equal": moe_equal, "moe_launches": moe_launches, "eagle_equal": eagle_equal}
 
@@ -2808,7 +2900,8 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
     `kvq` for the int8 ones (its int8_mxu runs for the [s8] entries; the
     int8 prefill counts the runs of both modes), `moe` (Qwen3-30B-A3B AR)
     for K1, K2 and the grouped GEMM, `eagle` (Llama-3.1-8B AR, EAGLE SSD over
-    the fp and the int8 cache, the constructed pair's runs), `exact`'s
+    the fp and the int8 cache, the fused EAGLE superstep, the constructed
+    pair's runs in both forms; graph runs only), `exact`'s
     1-layer Qwen3-MoE SD and SSD card runs for the grouped GEMM, and the
     probes' bench entry points (path "probe") for rows #11 and #12."""
     by_path = {}
@@ -2839,8 +2932,12 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
             add(name, "moe_ar", moe_run["launches"][name])
     if eagle:
         for key, run in eagle["runs"].items():
+            if key.endswith("_eager"):
+                continue
             path = ("llama8b_ar" if key.startswith("ar_") else
                     "eagle_int8" if key.startswith("eagle_int8") else
+                    "eagle_fused" if key.startswith("eagle_fused") else
+                    "eagle_pair_fused" if key.startswith("pair_fused") else
                     "eagle_pair" if key.startswith("pair") else "eagle")
             for name, n in run["launches"].items():
                 if n:

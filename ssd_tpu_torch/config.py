@@ -16,11 +16,10 @@ speculation (SSD), each plain and fused. Differences from the JAX package:
   sparse), as the JAX package asserts; a non-uniform one is refused here;
 - `enforce_eager` is served: on "cuda" the decode-side steps of AR
   (multi_step included), sync SD (spec_rounds 1 and > 1), ngram
-  speculation and async SSD (unfused, the fused exchange and the fused
-  superstep) run as CUDA graphs captured at engine init (engine/graphs.py)
-  unless it is True; on "cpu" every step runs eagerly; EAGLE runs eagerly;
-- EAGLE-3 (use_eagle) is served in its async form only (draft_async with
-  jit_speculate); its fused sync form (spec_rounds > 1) is not ported;
+  speculation, async SSD (unfused, the fused exchange and the fused
+  superstep) and EAGLE-3 (async, and the fused sync superstep) run as CUDA
+  graphs captured at engine init (engine/graphs.py) unless it is True; on
+  "cpu" every step runs eagerly;
 - the modes not ported yet (draft data parallelism, int8 weights) are
   refused here, and so is a speculative knob on an engine that does not
   use it, where it would be ignored.
@@ -144,8 +143,9 @@ class Config:
     # (without speculate) proposes speculate_k tokens a round by matching
     # the last ngram_n tokens against the sequence's own history, in
     # spec_rounds fused rounds, with no draft model. use_eagle=True serves
-    # an EAGLE-3 draft in async SSD: it is conditioned on the target's
-    # residual stream entering the layers `eagle_layers` (default
+    # an EAGLE-3 draft in async SSD (draft_async with jit_speculate) or in
+    # the fused sync superstep (spec_rounds > 1): it is conditioned on the
+    # target's residual stream entering the layers `eagle_layers` (default
     # [2, L//2, L-3]); `d_model_target` is the target's width and
     # `tokenizer_path` the target checkpoint the draft borrows its
     # embeddings from when it ships none (both set by create_draft_config).
@@ -194,6 +194,9 @@ class Config:
             if self.draft_dp > 1:
                 raise ValueError("async_fused excludes draft_dp > 1 (the fused forms "
                                  "run one draft inline)")
+        if self.use_eagle and self.draft_async and self.spec_rounds > 1:
+            raise ValueError("spec_rounds > 1 with use_eagle runs the fused sync "
+                             "superstep; it excludes draft_async")
         if self.speculate and self.draft_async and self.spec_rounds > 1 \
                 and not self.async_fused:
             raise ValueError("spec_rounds > 1 with draft_async needs async_fused=True "
@@ -286,15 +289,14 @@ class Config:
 
     def _derive_eagle(self):
         """EAGLE-3 rules and defaults of ssd_tpu/config.py and
-        ssd_tpu/engine/llm_engine.py: the async form needs jit_speculate (a
-        cache miss needs the draft's activations); the draft takes the
-        target's rope and position limit."""
-        if not (self.speculate and self.draft_async):
-            raise NotImplementedError(
-                "use_eagle runs async (speculate=True, draft_async=True); its "
-                "fused sync form (spec_rounds > 1) is not ported to "
-                "ssd_tpu_torch yet")
-        if not self.jit_speculate:
+        ssd_tpu/engine/llm_engine.py: EAGLE runs async or in the fused sync
+        superstep; the async form needs jit_speculate (a cache miss needs
+        the draft's activations); the draft takes the target's rope and
+        position limit."""
+        if not (self.draft_async or self.spec_rounds > 1):
+            raise ValueError("use_eagle runs either async (draft_async=True) or in "
+                             "the fused sync superstep (spec_rounds > 1)")
+        if self.draft_async and not self.jit_speculate:
             raise ValueError("EAGLE requires jit_speculate=True (cache misses "
                              "need draft activations)")
         if self.model == self.draft:

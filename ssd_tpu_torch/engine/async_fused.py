@@ -240,13 +240,8 @@ def exchange_call(t: ModelRunner, d: DraftRunner, B_pad: int, seqs=(), req=None,
         if t.use_warp:
             w = t._sampling_inputs(B_pad, np.zeros(B, np.float32), *t._seq_warp(seqs))
             inp.update(top_ps=w["top_ps"], top_ks=w["top_ks"])
-        lq = (torch.zeros((0, K, V), dtype=torch.float32, device=t.device) if resp is None
-              else resp.logits_q)
-        if t.graphs is None or resp is None:
-            # Eager steps and captures take all B_pad rows; a replay copies
-            # the B real rows into its buffer.
-            lq = torch.cat([lq, lq.new_zeros((B_pad - B, K, V))])
-        inp["logits_q"] = lq
+        inp["logits_q"] = t._device_rows(B_pad, None if resp is None else resp.logits_q,
+                                         (K, V), torch.float32)
         return inp
 
     inp = inputs(seqs, req, resp)

@@ -16,9 +16,10 @@ the target verifies on its own. The reply's logits are made on the draft
 stream: the reply carries an event recorded after them, and the target
 waits on it and marks the tensor used by its stream before reading it. On
 a card that is not eager, the tree build (`tree_build_call`) and the
-jit-speculate miss chain replay CUDA graphs of the draft's own StepGraphs
-(engine/graphs.py), captured before the thread starts. The fused forms
-(engine/async_fused.py) run a DraftRunner inline, with no thread.
+jit-speculate miss chain, of a plain or an EAGLE-3 draft, replay CUDA graphs
+of the draft's own StepGraphs (engine/graphs.py), captured before the thread
+starts. The fused forms (engine/async_fused.py) run a DraftRunner inline,
+with no thread.
 
 A failure in the draft thread is parked in the response queue and raised in
 the target thread as RuntimeError("draft server died"); it is never
@@ -352,10 +353,10 @@ class DraftServer:
 
     def __init__(self, draft_cfg: Config, init_random: bool = False,
                  batch_pads: list[int] | None = None):
-        """With batch_pads (a card engine that is not eager, and not EAGLE),
-        the draft's graphs are captured for those buckets into a StepGraphs
-        of its own, here, before the thread starts, so no capture of this
-        engine overlaps the thread's work."""
+        """With batch_pads (a card engine that is not eager), the draft's
+        graphs are captured for those buckets into a StepGraphs of its own,
+        here, before the thread starts, so no capture of this engine
+        overlaps the thread's work."""
         if draft_cfg.use_eagle:
             from ssd_tpu_torch.engine.eagle_runner import EagleDraftRunner
 

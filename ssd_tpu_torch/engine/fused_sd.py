@@ -1,19 +1,19 @@
 """Fused multi-round synchronous speculative decoding, and ngram speculation.
 
-Counterpart of ssd_tpu/engine/fused_sd.py (sd_superstep, ngram_propose,
-ngram_superstep, _superstep_rows, _collect_rounds, run_sd_superstep,
+Counterpart of ssd_tpu/engine/fused_sd.py (sd_superstep,
+eagle_sd_superstep, ngram_propose, ngram_superstep, _superstep_rows,
+_collect_rounds, run_sd_superstep, run_eagle_sd_superstep,
 run_ngram_superstep). One round is [draft chain -> target verify forward ->
 verify() -> advance]; R rounds run back to back with both KV caches updated
-in place and the token history (ngram) on the device, and nothing is read
-back until the last round. The JAX package scans the rounds inside one
-program; here each (B_pad, R) is one CUDA graph on the card (engine/
-graphs.py) and an eager loop on the CPU. Token-level semantics are the
+in place, and the token history (ngram) or the EAGLE-3 head's conditioning
+taps on the device, and nothing is read back until the last round. The JAX
+package scans the rounds inside one program; here each (B_pad, R) is one
+CUDA graph on the card (engine/graphs.py) and an eager loop on the CPU. Token-level semantics are the
 unfused path's: greedy outputs are token-exact against it, and EOS /
 max-token overshoot is truncated on the host and rolled back by the
 scheduler, as for AR multi-step.
 
-Not ported: the `*_packed` variants (a TPU upload workaround) and
-eagle_sd_superstep (EAGLE's fused sync form).
+Not ported: the `*_packed` variants (a TPU upload workaround).
 """
 
 from __future__ import annotations
@@ -21,8 +21,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ssd_tpu_torch.engine.eagle_runner import eagle_chain_step
 from ssd_tpu_torch.engine.model_runner import (
     chain_decode_step, decode_forward, next_pow2)
+from ssd_tpu_torch.models.eagle3 import EagleArch
 from ssd_tpu_torch.models.transformer import Arch
 from ssd_tpu_torch.ops.verify import verify
 
@@ -82,6 +84,67 @@ def sd_superstep(
         accs.append(acc)
         recs.append(rec)
     return torch.stack(specs), torch.stack(accs), torch.stack(recs)
+
+
+def eagle_sd_superstep(
+    t_params, target_kv,
+    d_params, draft_kv,
+    rec0: torch.Tensor,        # [B] current recovery token per sequence
+    acts0: torch.Tensor,       # [B, n_taps*D_target] taps at the last committed position
+    n0: torch.Tensor,          # [B] committed tokens (rec sits at n0)
+    bt_target: torch.Tensor,   # [B, M]
+    bt_draft: torch.Tensor,    # [B, M]
+    temps_t: torch.Tensor,     # [B]
+    temps_d: torch.Tensor,     # [B]
+    t_generator: torch.Generator | None,
+    d_generator: torch.Generator | None,
+    top_ps: torch.Tensor | None = None,
+    top_ks: torch.Tensor | None = None,
+    *,
+    t_arch: Arch,
+    d_arch: EagleArch,
+    block_size: int,
+    K: int,
+    R: int,
+    eagle_layers: tuple[int, ...],
+    t_s8: bool = False,
+    d_s8: bool = False,
+    greedy: bool = False,
+):
+    """R rounds of [EAGLE chain -> verify forward with taps -> verify() ->
+    advance]. The chain is K+1 conditioned decodes (the last writes the K-th
+    token's KV): the first on fc of the carried taps, then each on the
+    previous step's prenorm, from draft position n - 1 (the EAGLE shift).
+    The taps at row accept_until of the verify (the last accepted token's)
+    condition the next round, in fp32. Returns as sd_superstep, plus the
+    final taps [B, n_taps*D_target]."""
+    B = rec0.shape[0]
+    Kp1 = K + 1
+    dev = rec0.device
+    ar = torch.arange(Kp1, device=dev)
+    b_idx = torch.arange(B, device=dev)
+    hits = torch.ones(B, dtype=torch.int64, device=dev)
+    rec, acts, n = rec0.long(), acts0.float(), n0.long()
+    specs, accs, recs = [], [], []
+    for _ in range(R):
+        d_tokens, logits_q, _ = eagle_chain_step(
+            d_params, draft_kv, rec, acts, n - 1, bt_draft, temps_d, d_generator, top_ps,
+            top_ks, arch=d_arch, block_size=block_size, K=K, extra_write=True,
+            tree_sampling=False, s8=d_s8, greedy=greedy)
+        spec = torch.cat([rec[:, None], d_tokens], dim=1)          # [B, K+1]
+        logits_p, taps = decode_forward(
+            t_params, target_kv, spec.reshape(-1), (n[:, None] + ar).reshape(-1),
+            bt_target, n + Kp1, arch=t_arch, block_size=block_size, q_len=Kp1,
+            s8=t_s8, eagle_layers=eagle_layers)
+        acc, rec = verify(logits_p.reshape(B, Kp1, -1), logits_q, spec, temps_t,
+                          temps_d, hits, t_generator, top_p=top_ps, top_k=top_ks,
+                          greedy=greedy)
+        acts = taps.reshape(B, Kp1, -1)[b_idx, acc].float()
+        n = n + acc + 1
+        specs.append(spec)
+        accs.append(acc)
+        recs.append(rec)
+    return torch.stack(specs), torch.stack(accs), torch.stack(recs), acts
 
 
 def ngram_propose(hist: torch.Tensor, n: torch.Tensor, rec: torch.Tensor, *,
@@ -230,6 +293,32 @@ def sd_call(target_runner, draft_runner, seqs, K: int, R: int, B_pad: int):
             lambda: _superstep_rows([], t, d, B_pad))
 
 
+def eagle_call(target_runner, draft_runner, seqs, K: int, R: int, B_pad: int):
+    """The fused EAGLE superstep as a step call over seqs at bucket B_pad,
+    conditioned on each sequence's last_target_hidden_state (ghost rows:
+    taps 0); no seqs: ghost rows only."""
+    t, d = target_runner, draft_runner
+    A = d.arch.act_dim
+
+    def rows(seqs):
+        inputs = _superstep_rows(seqs, t, d, B_pad)
+        acts = torch.stack([s.last_target_hidden_state for s in seqs]) if seqs else None
+        inputs["acts0"] = t._device_rows(B_pad, acts, (A,), torch.float32)
+        return inputs
+
+    inputs = rows(seqs)
+    greedy = _greedy(inputs)
+
+    def fn(rec0, acts0, n0, bt_target, bt_draft, temps_t, temps_d, top_ps=None, top_ks=None):
+        return eagle_sd_superstep(
+            t.params, t.kv_cache, d.params, d.kv_cache, rec0, acts0, n0, bt_target, bt_draft,
+            temps_t, temps_d, t.generator, d.generator, top_ps, top_ks, t_arch=t.arch,
+            d_arch=d.arch, block_size=t.block_size, K=K, R=R, eagle_layers=t.eagle_layers,
+            t_s8=t.s8, d_s8=d.s8, greedy=greedy)
+
+    return ("eagle_sd", B_pad, K, R, greedy), fn, inputs, lambda: rows([])
+
+
 def ngram_width(target_runner, K: int, R: int) -> int:
     """The history's width H: every slot a superstep can write (up to
     max_model_len + R * (K+1)), so the matcher sees the whole committed
@@ -278,6 +367,20 @@ def _run(target_runner, call, B: int, R: int):
 def run_sd_superstep(target_runner, draft_runner, seqs, K: int, R: int):
     return _run(target_runner, sd_call(target_runner, draft_runner, seqs, K, R,
                                        next_pow2(len(seqs))), len(seqs), R)
+
+
+def run_eagle_sd_superstep(target_runner, draft_runner, seqs, K: int, R: int):
+    """As run_sd_superstep; also sets each sequence's
+    last_target_hidden_state to its final taps (the next superstep's
+    conditioning), copied out of the step's output. A sequence truncated by
+    EOS or max_new_tokens is finished, so its taps are never read."""
+    B = len(seqs)
+    specs, accs, recs, acts = target_runner.run_step(*eagle_call(
+        target_runner, draft_runner, seqs, K, R, next_pow2(B)))
+    for seq, a in zip(seqs, acts[:B].clone()):
+        seq.last_target_hidden_state = a
+    specs, accs, recs = (x.cpu().numpy() for x in (specs, accs, recs))
+    return _collect_rounds(specs, accs, recs, B, R)
 
 
 def run_ngram_superstep(target_runner, seqs, N: int, K: int, R: int):

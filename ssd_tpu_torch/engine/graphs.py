@@ -5,8 +5,8 @@ bucket (ssd_tpu/engine/model_runner.py: jax.jit programs keyed by the batch
 bucket B_pad = next_pow2(B); ssd_tpu/engine/llm_engine.py::warmup compiles
 them at engine init, the analogue of the reference capturing its CUDA
 graphs). A step function of engine/model_runner.py, engine/draft_runner.py,
-engine/fused_sd.py or engine/async_fused.py takes fixed-shape device inputs
-and reads nothing back to the host, so its whole loop of launches is
+engine/eagle_runner.py, engine/fused_sd.py or engine/async_fused.py takes
+fixed-shape device inputs and reads nothing back to the host, so its whole loop of launches is
 captured once per key, (step kind, B_pad[, K or M, R], greedy), and
 replayed:
 
@@ -41,7 +41,6 @@ replayed:
   counts at every replay (ops/cuda_lib.py::add_launches).
 
 A failed capture or replay raises; nothing falls back to the eager step.
-EAGLE runs eagerly: its engines hold no graphs.
 """
 
 from __future__ import annotations

@@ -6,13 +6,14 @@ and `exit`, serving AR, sync SD (a draft ModelRunner on the target's thread)
 and async SSD (a DraftServer thread on its own CUDA stream of the same
 card), with a plain or an EAGLE-3 draft (Config.use_eagle; the target's KV
 pool is sized with the EAGLE head's bytes), AR multi-step, fused sync SD
-(spec_rounds > 1), ngram speculation and the fused async forms
-(engine/async_fused.py: async_fused, with an inline draft runner and no
-thread). The JAX package's warm-up, which compiles every decode-side shape
-bucket at init, becomes the capture of one CUDA graph per decode-side step
-and batch bucket (engine/graphs.py) on the card, for every mode but EAGLE
-unless Config.enforce_eager; the unfused async draft captures its own
-graphs, into a StepGraphs of its thread, before the thread starts.
+(spec_rounds > 1, with a plain draft or an EAGLE-3 head), ngram
+speculation and the fused async forms (engine/async_fused.py: async_fused,
+with an inline draft runner and no thread). The JAX package's warm-up,
+which compiles every decode-side shape bucket at init, becomes the capture
+of one CUDA graph per decode-side step and batch bucket (engine/graphs.py)
+on the card, for every mode unless Config.enforce_eager; the unfused async
+draft captures its own graphs, into a StepGraphs of its thread, before the
+thread starts.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from ssd_tpu_torch.engine.model_runner import ModelRunner
 from ssd_tpu_torch.engine.scheduler import Scheduler
 from ssd_tpu_torch.engine.sequence import Sequence
 from ssd_tpu_torch.engine.step import (
-    AutoRegressiveStep, FusedSpecDecodeStep, InferenceStep, NgramSpecDecodeStep, SpecDecodeStep)
+    AutoRegressiveStep, EagleFusedSpecDecodeStep, FusedSpecDecodeStep, InferenceStep,
+    NgramSpecDecodeStep, SpecDecodeStep)
 from ssd_tpu_torch.sampling_params import SamplingParams
 from ssd_tpu_torch.utils.misc import load_tokenizer
 
@@ -83,6 +85,10 @@ class LLMEngine:
                 self.draft_server = DraftServer(
                     self.draft_cfg, init_random=init_random,
                     batch_pads=self._batch_pads() if self._use_graphs() else None)
+            elif config.use_eagle:
+                from ssd_tpu_torch.engine.eagle_runner import EagleModelRunner
+
+                self.draft_runner = EagleModelRunner(self.draft_cfg, init_random=init_random)
             else:
                 self.draft_runner = ModelRunner(self.draft_cfg, init_random=init_random,
                                                 is_draft=True)
@@ -97,11 +103,8 @@ class LLMEngine:
             self._capture_graphs()
 
     def _use_graphs(self) -> bool:
-        """Every mode but EAGLE replays CUDA graphs on the card, unless
-        enforce_eager."""
-        c = self.config
-        return (self.model_runner.device.type == "cuda" and not c.enforce_eager
-                and not c.use_eagle)
+        """Every mode replays CUDA graphs on the card, unless enforce_eager."""
+        return self.model_runner.device.type == "cuda" and not self.config.enforce_eager
 
     def _batch_pads(self) -> list[int]:
         """The batch buckets: the powers of two up to next_pow2(max_num_seqs)."""
@@ -241,9 +244,9 @@ class LLMEngine:
             return cls(self.scheduler, self.model_runner, self.draft_runner, config,
                        metrics=METRICS)
         if not config.draft_async and config.spec_rounds > 1:
-            return FusedSpecDecodeStep(self.scheduler, self.model_runner, self.draft_runner,
-                                       K=config.speculate_k, rounds=config.spec_rounds,
-                                       metrics=METRICS)
+            cls = EagleFusedSpecDecodeStep if config.use_eagle else FusedSpecDecodeStep
+            return cls(self.scheduler, self.model_runner, self.draft_runner,
+                       K=config.speculate_k, rounds=config.spec_rounds, metrics=METRICS)
         from ssd_tpu_torch.engine.verifier import Verifier
 
         if config.draft_async:

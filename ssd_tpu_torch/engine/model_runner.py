@@ -412,6 +412,17 @@ class ModelRunner:
             cols["top_ks"] = (np.asarray([0] * n if top_ks is None else top_ks, np.int32), 0)
         return self._rows(B_pad, **cols)
 
+    def _device_rows(self, B_pad: int, x: torch.Tensor | None, shape: tuple,
+                     dtype: torch.dtype) -> torch.Tensor:
+        """A device-tensor input at B_pad rows: x's rows, then zeros (x None:
+        ghost rows only). A replay copies x's rows into the leading rows of
+        its buffer, so under graphs x passes as it is."""
+        if x is None:
+            return torch.zeros((B_pad,) + tuple(shape), dtype=dtype, device=self.device)
+        if self.graphs is not None or x.shape[0] == B_pad:
+            return x
+        return torch.cat([x, x.new_zeros((B_pad - x.shape[0],) + tuple(shape))])
+
     def _seq_warp(self, seqs):
         return [s.top_p for s in seqs], [s.top_k for s in seqs]
 

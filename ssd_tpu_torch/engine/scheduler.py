@@ -488,7 +488,10 @@ class Scheduler:
                 n_ext = min(accepted_len - 1, self.K)
                 seq.extend_count = n_ext
                 if n_ext > 0:
-                    seq.extend_eagle_acts = eagle_acts[i, :n_ext]
+                    # K rows, of which the first n_ext are the extend rows':
+                    # one shape for every sequence, so that the next
+                    # request stacks them in one launch.
+                    seq.extend_eagle_acts = eagle_acts[i, :self.K]
                     seq.extend_token_ids = np.asarray(new_suffix[1:1 + n_ext], dtype=np.int64)
                 else:
                     seq.extend_eagle_acts = None

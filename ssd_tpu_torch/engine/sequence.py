@@ -80,7 +80,7 @@ class Sequence:
         # --- EAGLE conditioning carries (taps: fp32 tensors on the target's
         # device; token ids: numpy) ---
         self.last_target_hidden_state = None  # [3*D_target]
-        self.extend_eagle_acts = None         # [n_ext, 3*D_target]
+        self.extend_eagle_acts = None         # [K, 3*D_target], rows < extend_count valid
         self.extend_token_ids = None          # [n_ext]
         self.extend_count = 0
 

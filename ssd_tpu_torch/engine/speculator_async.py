@@ -59,15 +59,17 @@ class SpeculatorAsync(SpeculatorBase):
         eagle = {}
         if self.eagle:
             # The conditioning payload (ssd_tpu/engine/speculator_async.py),
-            # made on the target's device.
+            # made on the target's device in a fixed number of launches: the
+            # recovery taps and the extend taps are one stack each (rows past
+            # a sequence's extend count are never read).
             rec_acts = torch.stack([s.last_target_hidden_state for s in seqs])
-            ext_acts = rec_acts.new_zeros((B, self.K, rec_acts.shape[-1]))
+            none = rec_acts.new_zeros((self.K, rec_acts.shape[-1]))
+            ext_acts = torch.stack([none if s.extend_eagle_acts is None
+                                    else s.extend_eagle_acts for s in seqs])
             ext_ids = np.zeros((B, self.K), dtype=np.int64)
             for i, seq in enumerate(seqs):
-                n = seq.extend_count
-                if n > 0 and seq.extend_eagle_acts is not None:
-                    ext_acts[i, :n] = seq.extend_eagle_acts[:n]
-                    ext_ids[i, :n] = seq.extend_token_ids[:n]
+                if seq.extend_token_ids is not None:
+                    ext_ids[i, :seq.extend_count] = seq.extend_token_ids[:seq.extend_count]
             eagle = dict(
                 recovery_acts=rec_acts, extend_acts=ext_acts,
                 extend_counts=np.asarray([s.extend_count for s in seqs], np.int64),

@@ -8,10 +8,10 @@ state, speculate, verify, restore, postprocess_speculate. With an EAGLE-3
 draft the draft prefill follows the target's (it is conditioned on the
 target's taps) and the verify's taps flow to the scheduler.
 FusedSpecDecodeStep runs spec_rounds whole sync-SD rounds per engine step
-(engine/fused_sd.py), NgramSpecDecodeStep the model-free form; the fused
-async steps are in engine/async_fused.py. Each step's `capture` captures
-its CUDA graphs at engine init (engine/graphs.py). Not ported yet: EAGLE's
-fused sync step (eagle_sd_superstep).
+(engine/fused_sd.py), EagleFusedSpecDecodeStep the same with an EAGLE-3
+head, NgramSpecDecodeStep the model-free form; the fused async steps are in
+engine/async_fused.py. Each step's `capture` captures its CUDA graphs at
+engine init (engine/graphs.py).
 """
 
 from __future__ import annotations
@@ -172,6 +172,43 @@ class FusedSpecDecodeStep(InferenceStep):
         return sum(s.num_tokens - b for s, b in zip(seqs, before_each))
 
 
+class EagleFusedSpecDecodeStep(FusedSpecDecodeStep):
+    """The EAGLE-3 head inside the fused sync superstep
+    (fused_sd.eagle_sd_superstep): its conditioning stays on the device
+    across the R rounds; the host seeds it at the prefill (the last prompt
+    token's taps in seq.last_target_hidden_state), which a preempted
+    sequence passes through again, and the superstep leaves its final taps
+    there."""
+
+    def capture(self, batch_pads: list[int]):
+        from ssd_tpu_torch.engine.fused_sd import eagle_call
+
+        for B_pad in batch_pads:
+            for R in self.round_set:
+                self.target_runner.capture_step(*eagle_call(
+                    self.target_runner, self.draft_runner, [], self.K, R, B_pad))
+
+    def prefill(self, seqs: list[Sequence]) -> int:
+        # The target's prefill with taps, then the draft's prefill
+        # conditioned on them (ssd_tpu/engine/step.py's EAGLE ordering).
+        token_ids, _, acts_rows = self.target_runner.run_prefill(seqs, return_acts=True)
+        for seq, token_id, acts in zip(seqs, token_ids, acts_rows):
+            seq.recovery_token_id = token_id
+            seq.last_target_hidden_state = acts[-1].float()
+            seq.num_cached_tokens = seq.num_prompt_tokens
+            seq.num_draft_cached_tokens = seq.num_prompt_tokens
+        self.draft_runner.prefill_from_payload(
+            [list(seq.token_ids) for seq in seqs],
+            self.draft_runner._block_table_array(seqs), acts_list=acts_rows)
+        return sum(len(s) for s in seqs)
+
+    def _run_superstep(self, seqs: list[Sequence], rounds: int):
+        from ssd_tpu_torch.engine.fused_sd import run_eagle_sd_superstep
+
+        return run_eagle_sd_superstep(self.target_runner, self.draft_runner, seqs, self.K,
+                                      rounds)
+
+
 class NgramSpecDecodeStep(FusedSpecDecodeStep):
     """Model-free speculation (Config.ngram_speculate): prompt-lookup n-gram
     proposals verified by the fused multi-round superstep
@@ -217,8 +254,8 @@ class SpecDecodeStep(InferenceStep):
 
     def capture(self, batch_pads: list[int]):
         """The target's verify forward, and the sync draft's chain (the
-        unfused async draft captures its own graphs, engine/draft_runner.py::
-        DraftServer; EAGLE runs eagerly)."""
+        unfused async draft, a plain or an EAGLE-3 one, captures its own
+        graphs, engine/draft_runner.py::DraftServer)."""
         K = self.speculator.lookahead
         target = self.verifier.target_model_runner
         for B_pad in batch_pads:

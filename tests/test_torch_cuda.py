@@ -873,3 +873,145 @@ def test_draft_thread_replay_beside_target_replay_on_card(tmp_path):
         for out in got:
             for x, y in zip(out, want):
                 assert torch.equal(x, y)
+
+
+# --- EAGLE-3 under graphs (engine/eagle_runner.py, engine/fused_sd.py) ---------------
+
+TINY_EAGLE = {"model_type": "llama", "vocab_size": 512, "hidden_size": 256,
+              "intermediate_size": 512, "num_hidden_layers": 1, "num_attention_heads": 4,
+              "num_key_value_heads": 2, "head_dim": 64, "max_position_embeddings": 512,
+              "rms_norm_eps": 1e-5, "rope_theta": 10000.0, "tie_word_embeddings": False}
+EAGLE_TAPS = [0, 1, 1]
+
+
+def _eagle_runners(tmp_path):
+    """Random bf16 runners on the card: the tapped target, the async form's
+    EAGLE-3 head (EagleDraftRunner, fan-out 2) and the fused form's
+    (EagleModelRunner), with one StepGraphs of the test's attached to all
+    three."""
+    import json
+
+    from ssd_tpu_torch.config import Config
+    from ssd_tpu_torch.engine.eagle_runner import EagleDraftRunner, EagleModelRunner
+    from ssd_tpu_torch.engine.graphs import StepGraphs
+    from ssd_tpu_torch.engine.model_runner import ModelRunner
+
+    dirs = []
+    for name, cfg in (("target", TINY_LLAMA), ("eagle", TINY_EAGLE)):
+        d = tmp_path / name
+        d.mkdir(exist_ok=True)
+        (d / "config.json").write_text(json.dumps(cfg))
+        dirs.append(str(d))
+    common = dict(device="cuda", dtype="bfloat16", max_model_len=256,
+                  kvcache_block_size=GRAPH_BS, num_kvcache_blocks=96, max_num_seqs=4,
+                  draft=dirs[1], speculate=True, use_eagle=True, speculate_k=GRAPH_K,
+                  eagle_layers=EAGLE_TAPS)
+    t = ModelRunner(Config(dirs[0], spec_rounds=GRAPH_R, **common), init_random=True)
+    fused = EagleModelRunner(Config(dirs[0], spec_rounds=GRAPH_R, **common)
+                             .create_draft_config(), init_random=True)
+    head = EagleDraftRunner(Config(dirs[0], draft_async=True, jit_speculate=True,
+                                   async_fan_out=2, **common).create_draft_config(),
+                            init_random=True)
+    graphs = StepGraphs(t.device, [t.generator, fused.generator, head.generator])
+    t.graphs = fused.graphs = head.graphs = graphs
+    return t, fused, head, graphs
+
+
+def _eagle_case(t, fused, head, kind, B_pad=4, B=3):
+    """(key, fn, inputs, ghost) of an EAGLE step at B rows in bucket B_pad,
+    device-tensor inputs at B_pad rows: the head's miss chain, its tree
+    build (hit and miss rows, 2, 0 and 1 extend rows) and the fused
+    superstep; disjoint tables of 10 blocks, contexts 33-70."""
+    from ssd_tpu_torch.engine import fused_sd
+
+    r = np.random.default_rng(13)
+    K, R, M = GRAPH_K, GRAPH_R, t.max_blocks
+    A, D = head.arch.act_dim, head.arch.hidden_size
+    n = np.array([40, 57, 70, 33][:B], np.int32)
+    bt = np.full((B, M), -1, np.int32)
+    for b in range(B):
+        bt[b, :10] = np.arange(10) + 1 + 10 * b
+    temps = np.zeros(B, np.float32)
+    tok = r.integers(3, 512, size=B).astype(np.int64)
+
+    def dev(*shape, dtype=torch.float32):
+        x = torch.zeros((B_pad,) + shape, dtype=dtype, device="cuda")
+        x[:B] = torch.from_numpy(r.normal(size=(B,) + shape).astype(np.float32)).to(dtype)
+        return x
+
+    rec = dev(A)
+    if kind == "eagle_chain":
+        return head.eagle_chain_call(B_pad, tok, n - 2, bt, temps, recovery_acts=rec)
+    if kind == "eagle_tree":
+        glue = r.integers(3, 512, size=(B, 2 * K + 1)).astype(np.int64)
+        return head.tree_build_call(B_pad, glue, rec, dev(K, A), dev(K, D, dtype=torch.bfloat16),
+                                    np.array([2, 0, 1, 0][:B]), n - 2, bt,
+                                    np.array([1, 0, 1, 0][:B]), temps)
+    key, fn, _, ghost = fused_sd.eagle_call(t, fused, [], K, R, B_pad)
+    inp = t._rows(B_pad, rec0=(tok.astype(np.int32), 0), n0=(n, 1), bt_target=(bt, -1),
+                  temps_t=(temps, 0.0), bt_draft=(bt, -1), temps_d=(temps, 0.0))
+    inp["acts0"] = rec
+    return key, fn, inp, ghost
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["eagle_chain", "eagle_tree", "eagle_sd"])
+def test_eagle_graph_replay_equals_eager_on_card(kind, tmp_path):
+    """Each EAGLE graph's replay against the same step run eagerly on the
+    same inputs (B = 3 in bucket 4): every output bit for bit; the tree
+    build launches K3, the fused superstep K2 and not K3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    t, fused, head, graphs = _eagle_runners(tmp_path)
+    key, fn, inputs, ghost = _eagle_case(t, fused, head, kind)
+    eager = _cpu(fn(**_dev(inputs)))
+    replay = _cpu(graphs.run(key, fn, inputs, ghost))
+    for e, g in zip(eager, replay):
+        assert torch.equal(g, e), kind
+    launches = graphs.steps[key].launches
+    assert launches.get(att.paged_attention, 0) > 0
+    assert (launches.get(att.tree_attention, 0) > 0) == (kind == "eagle_tree")
+
+
+@pytest.mark.cuda
+def test_eagle_graph_launches_counted_per_replay_on_card(tmp_path):
+    """The kernels' launch counts grow by their launches in the capture at
+    every replay: the miss chain K paged launches (one layer), the tree
+    build one (the glue) and K tree launches, the fused superstep R rounds
+    of K+1 chain steps and the verify's L layers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    t, fused, head, graphs = _eagle_runners(tmp_path)
+    K, R, L = GRAPH_K, GRAPH_R, TINY_LLAMA["num_hidden_layers"]
+    per = {"eagle_chain": {att.paged_attention: K},
+           "eagle_tree": {att.paged_attention: 1, att.tree_attention: K},
+           "eagle_sd": {att.paged_attention: R * (K + 1 + L)}}
+    for kind, want in per.items():
+        key, fn, inputs, ghost = _eagle_case(t, fused, head, kind)
+        graphs.capture(key, fn, ghost())
+        for w in want:
+            w.launches = 0
+        for _ in range(5):
+            graphs.run(key, fn, inputs, ghost)
+        assert graphs.steps[key].launches == want, kind
+        assert {w: w.launches for w in want} == {w: 5 * n for w, n in want.items()}, kind
+
+
+@pytest.mark.cuda
+def test_eagle_graph_counters_read_zero_after_replays_on_card(tmp_path):
+    """100 replays each of the head's tree build and the fused superstep:
+    every split-KV counter reads zero and the outputs equal the first
+    replay's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    t, fused, head, graphs = _eagle_runners(tmp_path)
+    for kind in ("eagle_tree", "eagle_sd"):
+        key, fn, inputs, ghost = _eagle_case(t, fused, head, kind)
+        first = _cpu(graphs.run(key, fn, inputs, ghost))
+        for _ in range(98):
+            graphs.run(key, fn, inputs, ghost)
+        last = _cpu(graphs.run(key, fn, inputs, ghost))
+        torch.cuda.synchronize()
+        assert not graphs.steps[key].scratch.counters.any(), kind
+        for a, b in zip(first, last):
+            assert torch.equal(a, b), kind

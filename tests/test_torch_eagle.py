@@ -16,10 +16,6 @@ fp32, stage by stage and end to end:
   the port's AR, and EAGLE over the int8 cache against the port's int8 AR.
 """
 
-import importlib.util
-import json
-import os
-
 import numpy as np
 import pytest
 import torch
@@ -47,6 +43,7 @@ from ssd_tpu_torch.engine.sequence import Sequence
 from ssd_tpu_torch.models import eagle3, transformer
 from ssd_tpu_torch.utils.loader import load_eagle_params, load_params
 from ssd_tpu_torch.weights import params_from_jax
+from tests.torch_cases import eagle_pair
 from tests.utils_models import (
     hf_greedy, make_tiny_eagle, make_tiny_llama, random_prompt, rng)
 
@@ -102,20 +99,7 @@ def pair(tmp_path_factory):
     """bench.py::build_eagle_checkpoints on a tiny 4-layer config: a target
     of pass-through layers and a head whose logits track the target's, with
     PAIR_NOISE on its projections."""
-    spec = importlib.util.spec_from_file_location(
-        "jax_bench", os.path.join(os.path.dirname(__file__), "..", "bench.py"))
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
-    d = str(tmp_path_factory.mktemp("torch_eagle_pair") / "cfg")
-    os.makedirs(d)
-    with open(os.path.join(d, "config.json"), "w") as f:
-        json.dump({"model_type": "llama", "vocab_size": 128, "hidden_size": 64,
-                   "intermediate_size": 128, "num_hidden_layers": 4,
-                   "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 16,
-                   "max_position_embeddings": 512, "rms_norm_eps": 1e-5,
-                   "rope_theta": 1e4, "tie_word_embeddings": False,
-                   "eos_token_id": 2}, f)
-    return bench.build_eagle_checkpoints(d, draft_noise=PAIR_NOISE)
+    return eagle_pair(str(tmp_path_factory.mktemp("torch_eagle_pair")), PAIR_NOISE)
 
 
 def t(a):
@@ -329,8 +313,8 @@ def test_chain_matches_jax(target_dir, eagle_dir):
     acts = np.random.default_rng(8).normal(size=(2, runner.arch.act_dim)).astype(np.float32)
     runner.kv_cache = t(cache)
     toks, logits, pre = er.eagle_chain_step(
-        runner.params, runner.kv_cache, t(first), t(acts), base, bt, torch.zeros(2), None,
-        arch=runner.arch, block_size=BS, K=K, sampler_x=None, F=F)
+        runner.params, runner.kv_cache, t(first), t(acts), t(base), t(bt), torch.zeros(2),
+        None, arch=runner.arch, block_size=BS, K=K, sampler_x=None, fan_out=F)
     jtoks, jlogits, jpre, jcache = jer.eagle_chain_program(
         jparams, jnp.asarray(cache), jnp.asarray(first, jnp.int32), jnp.asarray(acts),
         jnp.asarray(base, jnp.int32), jnp.asarray(bt), jnp.zeros(2, jnp.float32),
@@ -347,7 +331,11 @@ def test_tree_build_matches_jax(target_dir, eagle_dir):
     prenorms, padding rows writing nothing), fork and the K tree steps
     against eagle_tree_build_program: fork and tree tokens, spec logits and
     prenorms, the draft cache; a hit row with 2 extend rows and a miss row
-    with none."""
+    with none. The step takes the recovery and extend taps as they come
+    (extend rows past n_ext hold junk it must not read) and places them on
+    the device; the JAX program takes the glue rows placed by its host."""
+    from ssd_tpu_torch.ops.spec_math import FanOut
+
     runner = _draft_runner(target_dir, eagle_dir)
     jarch, jparams = jax_eagle_params(eagle_dir, target_dir)
     base = np.array([20, 9], np.int64)
@@ -356,21 +344,24 @@ def test_tree_build_matches_jax(target_dir, eagle_dir):
     W, A, D = 2 * K + 1, runner.arch.act_dim, runner.arch.hidden_size
     r = np.random.default_rng(6)
     glue = np.zeros((2, W), np.int64)
+    rec_acts = r.normal(size=(2, A)).astype(np.float32)
+    ext_acts = r.normal(size=(2, K, A)).astype(np.float32)
     fc_acts = np.zeros((2, W, A), np.float32)
     is_fc = np.zeros((2, W), np.int32)
     for b in range(2):
         n = n_ext[b] + 1 + K
         glue[b, :n] = r.integers(3, 128, n)
-        fc_acts[b, :n_ext[b] + 1] = r.normal(size=(n_ext[b] + 1, A))
+        fc_acts[b, :n_ext[b]] = ext_acts[b, :n_ext[b]]
+        fc_acts[b, n_ext[b]] = rec_acts[b]
         is_fc[b, :n_ext[b] + 1] = 1
     prev = r.normal(size=(2, K, D)).astype(np.float32)
     hits = np.array([1, 0], np.int64)
     hit_list, miss_list = [2, 2, 1, 1], [1, 1, 2, 2]
     runner.kv_cache = t(cache)
-    fork, spec, spec_logits, spec_acts = er.eagle_tree_build_step(
-        runner.params, runner.kv_cache, glue, t(fc_acts), t(prev), n_ext, base, bt, hits,
-        torch.zeros(2), None, arch=runner.arch, block_size=BS, K=K,
-        fan_out_list=hit_list, fan_out_list_miss=miss_list, sampler_x=None, F=F)
+    tree, spec_logits, spec_acts = er.eagle_tree_build_step(
+        runner.params, runner.kv_cache, t(glue), t(rec_acts), t(ext_acts), t(prev), t(n_ext),
+        t(base), t(bt), t(hits), torch.zeros(2), None, arch=runner.arch, block_size=BS, K=K,
+        fan=FanOut(hit_list, miss_list, "cpu"), sampler_x=None, F=F)
     host, jlogits, jacts, jcache = jer.eagle_tree_build_program(
         jparams, jnp.asarray(cache), jnp.asarray(glue, jnp.int32), jnp.asarray(fc_acts),
         jnp.asarray(prev), jnp.asarray(is_fc.astype(bool)), jnp.asarray(n_ext, jnp.int32),
@@ -380,8 +371,8 @@ def test_tree_build_matches_jax(target_dir, eagle_dir):
         fan_out_list_miss=tuple(miss_list), sampler_x=None, F=F, use_pallas=False)
     host = np.asarray(host)
     mq = sum(hit_list)
-    np.testing.assert_array_equal(fork.numpy(), host[:2 * mq].reshape(2, mq))
-    np.testing.assert_array_equal(spec.numpy(), host[2 * mq:].reshape(2, mq, K))
+    np.testing.assert_array_equal(tree[..., 0].numpy(), host[:2 * mq].reshape(2, mq))
+    np.testing.assert_array_equal(tree[..., 1:].numpy(), host[2 * mq:].reshape(2, mq, K))
     close(spec_logits, jlogits, dict(rtol=1e-4, atol=1e-4))
     close(spec_acts, jacts)
     close(runner.kv_cache, jcache)
@@ -529,8 +520,8 @@ def test_int8_cache_equal_int8_ar(kv_quant, pair):
 
 def test_eagle_config_rules(target_dir, eagle_dir):
     """Default taps [2, L//2, L-3], the head takes the target's rope and
-    position limit, and the async form needs jit_speculate; the fused sync
-    form is not ported."""
+    position limit, and the async form needs jit_speculate; sync EAGLE
+    runs only as the fused superstep (spec_rounds > 1)."""
     cfg = Config(target_dir, device="cpu", draft=eagle_dir, kvcache_block_size=BS, **EAGLE)
     assert cfg.eagle_layers == [2, 3, 3] and cfg.d_model_target == 64
     dcfg = cfg.create_draft_config()
@@ -539,7 +530,7 @@ def test_eagle_config_rules(target_dir, eagle_dir):
     with pytest.raises(ValueError, match="jit_speculate"):
         Config(target_dir, device="cpu", draft=eagle_dir, kvcache_block_size=BS,
                **{**EAGLE, "jit_speculate": False})
-    with pytest.raises(NotImplementedError, match="async"):
+    with pytest.raises(ValueError, match="spec_rounds > 1"):
         Config(target_dir, device="cpu", draft=eagle_dir, kvcache_block_size=BS,
                speculate=True, use_eagle=True, speculate_k=K)
     with pytest.raises(ValueError, match="eagle_layers"):

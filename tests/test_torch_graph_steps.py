@@ -13,6 +13,12 @@ graph per (step, batch bucket) replay them (engine/graphs.py).
 - the step functions read nothing back to the host: under a guard that
   makes Tensor.item / tolist / __bool__ / cpu / numpy raise they run
   greedy and sampled, the async tree build, exchange and superstep too;
+- the same for the EAGLE-3 head's steps (engine/eagle_runner.py,
+  engine/fused_sd.py): its chain, its tree build (hit and miss rows, with
+  and without extend rows) and the fused sync superstep at B_pad 4 with a
+  ghost row give the unpadded steps' outputs exactly and write nothing
+  else, a ghost-only tree build writes nothing in the fp and the int8
+  cache, and none of them reads back, greedy or sampled;
 - the chain's graph key names its sampler;
 - the launch record of a capture (ops/cuda_lib.py), the split-KV scratch
   and the fused-SD round ladder.
@@ -30,12 +36,13 @@ import ssd_tpu_torch
 from ssd_tpu_torch import SamplingParams
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.engine import async_fused, fused_sd
+from ssd_tpu_torch.engine import eagle_runner as er
 from ssd_tpu_torch.engine import model_runner as mr
 from ssd_tpu_torch.engine.step import round_choices
 from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops import cuda_lib
 from ssd_tpu_torch.ops.spec_math import FanOut
-from tests.utils_models import make_tiny_llama, random_prompt, rng
+from tests.utils_models import make_tiny_eagle, make_tiny_llama, random_prompt, rng
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -322,6 +329,118 @@ def test_ghost_tree_build_writes_nothing(kv_quant, model_dir):
     after = d.kv_cache if kv_quant else (d.kv_cache,)
     for a, b in zip(after, before if kv_quant else (before,)):
         assert torch.equal(a, b)
+
+
+# --- the EAGLE-3 head's steps ---------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def eagle_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("graph_steps_eagle")
+    make_tiny_eagle(d, seed=3)
+    return str(d)
+
+
+def _eagle_runners(model_dir, eagle_dir, seed, kv_quant=None):
+    """The target (tapping layers 0, 1, 1) and the fused form's EAGLE head,
+    each over a random cache (the fp cache)."""
+    cfg = Config(model_dir, device="cpu", dtype="float32", kvcache_block_size=BS,
+                 num_kvcache_blocks=32, max_model_len=256, kv_quant=kv_quant, draft=eagle_dir,
+                 speculate=True, use_eagle=True, speculate_k=K, spec_rounds=2,
+                 eagle_layers=[0, 1, 1])
+    t, d = mr.ModelRunner(cfg), er.EagleModelRunner(cfg.create_draft_config())
+    if kv_quant is None:
+        r = np.random.default_rng(seed)
+        for x in (t, d):
+            x.kv_cache = torch.from_numpy(r.normal(size=tuple(x.kv_cache.shape))
+                                          .astype(np.float32))
+    return t, d
+
+
+def _eagle_inputs(d, B_pad, seed=16):
+    """Seeded EAGLE inputs of 3 rows at B_pad (ghost rows 0): first tokens,
+    recovery and extend taps, spec prenorms, glue with 2, 0 and 1 extend
+    rows, hits 1, 0, 1, bases N0 - 2."""
+    r = np.random.default_rng(seed)
+    A, D, W = d.arch.act_dim, d.arch.hidden_size, 2 * K + 1
+    n_ext = np.array([2, 0, 1], np.int32)
+    return dict(
+        first=_pad(np.array([17, 99, 5], np.int64), B_pad, 0),
+        rec_acts=_pad(r.normal(size=(3, A)).astype(np.float32), B_pad, 0.0),
+        ext_acts=_pad(r.normal(size=(3, K, A)).astype(np.float32), B_pad, 0.0),
+        prev=_pad(r.normal(size=(3, K, D)).astype(np.float32), B_pad, 0.0),
+        glue=_pad(r.integers(3, 128, size=(3, W)).astype(np.int64), B_pad, 0),
+        n_ext=_pad(n_ext, B_pad, 0), base=_pad(N0 - 2, B_pad, 0),
+        hits=_pad(np.array([1, 0, 1], np.int64), B_pad, 0),
+        temps=_pad(np.zeros(3, np.float32), B_pad, 0.0))
+
+
+def _eagle_step(kind, t, d, x, bt, gen=None, greedy=True, temps=None):
+    """One EAGLE step of `kind` on the inputs x, outputs with the batch on
+    axis 1 (the superstep's) or 0."""
+    temps = x["temps"] if temps is None else temps
+    if kind == "chain":
+        return er.eagle_chain_step(d.params, d.kv_cache, x["first"], x["rec_acts"], x["base"],
+                                   bt, temps, gen, arch=d.arch, block_size=BS, K=K,
+                                   sampler_x=1.5, fan_out=2, greedy=greedy)
+    if kind == "tree":
+        B_pad = bt.shape[0]
+        tree, logits, acts = er.eagle_tree_build_step(
+            d.params, d.kv_cache, x["glue"], x["rec_acts"], x["ext_acts"], x["prev"],
+            x["n_ext"], x["base"], bt, x["hits"], temps, gen, arch=d.arch, block_size=BS, K=K,
+            fan=FAN, sampler_x=1.5, F=2, greedy=greedy)
+        return tree, logits.reshape(B_pad, FAN.MQ, K, -1), acts.reshape(B_pad, FAN.MQ, K, -1)
+    specs, accs, recs, acts = fused_sd.eagle_sd_superstep(
+        t.params, t.kv_cache, d.params, d.kv_cache, x["first"], x["rec_acts"], x["base"] + 2,
+        bt, torch.roll(bt, 1, dims=1), temps, temps, gen, gen, t_arch=t.arch, d_arch=d.arch,
+        block_size=BS, K=K, R=2, eagle_layers=(0, 1, 1), greedy=greedy)
+    return specs, accs, recs, acts.T
+
+
+@pytest.mark.parametrize("kind", ["chain", "tree", "superstep"])
+def test_padded_eagle_steps_match_unpadded(kind, model_dir, eagle_dir):
+    """The head's chain, its tree build and the fused superstep (R = 2; the
+    draft's table is the target's rolled by one page) at B_pad 4 with a
+    ghost row (table -1, base 0, n_ext 0, hits 0, taps 0) against B = 3."""
+    t, d = _eagle_runners(model_dir, eagle_dir, 17)
+
+    def run(B_pad):
+        x = {k: v[:B_pad] for k, v in _eagle_inputs(d, 4).items()}
+        return _eagle_step(kind, t, d, x, _pad(_draft_tables(4, 2, 0)[:3], B_pad, -1))
+
+    _check_bucket(run, [t, d] if kind == "superstep" else [d], 1 if kind == "superstep" else 0)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_ghost_eagle_tree_build_writes_nothing(kv_quant, model_dir, eagle_dir):
+    """The head's tree build over ghost rows only (a capture's warm-up)
+    leaves its cache bit for bit as it was, fp and int8."""
+    _, d = _eagle_runners(model_dir, eagle_dir, 18, kv_quant)
+    if kv_quant:
+        data, scales = d.kv_cache
+        data.copy_(torch.randint(-127, 128, data.shape, dtype=torch.int8))
+        scales.uniform_(0.01, 0.1)
+    before = _cache(d)
+    x = {k: torch.zeros_like(v) for k, v in _eagle_inputs(d, 4).items()}
+    for kind in ("chain", "tree"):
+        _eagle_step(kind, None, d, x, torch.full((4, 16), -1, dtype=torch.int32))
+    after = d.kv_cache if kv_quant else (d.kv_cache,)
+    for a, b in zip(after, before if kv_quant else (before,)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_eagle_steps_read_nothing_back(greedy, model_dir, eagle_dir):
+    """The head's chain and tree build and the fused superstep, greedy and
+    sampled (sampler_x in the chain and the tree), under the guard."""
+    t, d = _eagle_runners(model_dir, eagle_dir, 19)
+    gen = torch.Generator().manual_seed(0)
+    x = _eagle_inputs(d, 4)
+    temps = torch.zeros(4) if greedy else torch.tensor([0.0, 0.7, 1.0, 0.0])
+    bt = _pad(_draft_tables(4, 2, 0)[:3], 4, -1)
+    with no_host_reads():
+        for kind in ("chain", "tree", "superstep"):
+            _eagle_step(kind, t, d, x, bt, gen, greedy, temps)
 
 
 # --- no host reads ----------------------------------------------------------------

@@ -1,8 +1,33 @@
 """Numpy-only input cases shared by the port's tests: paged decode batches
-and flat prefill windows. Free of JAX, so the card tests can use them on a
-machine without it."""
+and flat prefill windows, and the constructed EAGLE-3 pair. Free of JAX, so
+the card tests can use them on a machine without it."""
+
+import importlib.util
+import json
+import os
 
 import numpy as np
+
+
+def eagle_pair(root: str, noise: float) -> tuple[str, str]:
+    """bench.py::build_eagle_checkpoints on a tiny 4-layer config under root:
+    a target of pass-through layers and an EAGLE-3 head whose logits track
+    the target's, with `noise` on its projections (0 accepts every token).
+    Returns (target dir, head dir); needs the safetensors package."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_bench", os.path.join(os.path.dirname(__file__), "..", "bench.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    d = os.path.join(root, "cfg")
+    os.makedirs(d)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"model_type": "llama", "vocab_size": 128, "hidden_size": 64,
+                   "intermediate_size": 128, "num_hidden_layers": 4,
+                   "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 16,
+                   "max_position_embeddings": 512, "rms_norm_eps": 1e-5,
+                   "rope_theta": 1e4, "tie_word_embeddings": False,
+                   "eos_token_id": 2}, f)
+    return bench.build_eagle_checkpoints(d, draft_noise=noise)
 
 
 def paged_case(seed, B, Q, Hq, Hkv, hd, block_size, max_blocks, ctx_lens,
