@@ -11,8 +11,9 @@ the script exits non-zero:
               versions, and the build of the CUDA kernels from the sources in
               ssd_tpu_torch/csrc (seconds, ptxas register/spill lines; for
               each instantiation of the split-KV paged kernels K2/K4 and
-              tree kernels K3/K5, and of K1's bf16 kernel and K6's two bf16
-              routes, its registers, spills and shared memory).
+              tree kernels K3/K5, of K1's bf16 kernel, K6's two bf16
+              routes and K9's three, its registers, spills and shared
+              memory).
 2. kernels  - each kernel against its plain PyTorch version on the card, at
               the Llama-3.2-1B geometry (Hq/Hkv 32/8, head_dim 64, 64-token
               pages; the paged kernels at decode Q=1 and at the SD/SSD verify
@@ -64,6 +65,16 @@ the script exits non-zero:
               timed, then run once through their bench entry points
               (python -m ssd_tpu_torch.bench.s8_probe / .kernel_diag), whose
               launches the kernels line reports as the path "probe".
+              K9, the W8A16 GEMM of int8 weights (csrc/int8_weight_gemm.cu),
+              against its plain version with bf16 x (bf16 output; the LM
+              head's fp32) and fp32 x, at Llama-3.2-1B's projections (q/o,
+              k/v, gate/up, down) at 8, 40 and 80 rows, its LM head at 8
+              and 80 rows, the serve prompts' prefill (5534 rows) at gate/up
+              and down, and Qwen3-30B-A3B's expert gate and down at a b8
+              decode dispatch (64 rows over 53 experts) and b1's 8 one-row
+              groups; timed there in bf16 beside its bound and a yardstick
+              (torch._weight_int8pack_mm where it runs on the card, else the
+              bf16 product on the dequantized weight, labelled).
 3. serve    - LLM(...).generate at the full Llama-3.2-1B width (16 layers,
               random bf16 weights from a seed): 128 greedy tokens for 8
               prompts of mixed length, then for 1 prompt (the AR path), each
@@ -132,7 +143,22 @@ the script exits non-zero:
               pool, if the pool holds fewer blocks than the cap of 1224, if
               K1, K2 or the grouped GEMM never launched (counts zeroed just
               before, read just after), or if graph and eager tokens differ.
-7. eagle    - EAGLE-3 async SSD (K=4, fan-out 2) and the fused sync
+7. quant    - int8 weights (quantization="int8": every projection, the
+              experts and the LM head in int8 with fp32 per-channel scales,
+              quantized at load from random bf16 weights) at full width and
+              depth: the Llama-3.2-1B AR engine (serve's) at b8 and b1,
+              graph and eager in turns (graph, eager, graph), 128 tokens
+              (an eager turn 64, held to the graph turns' first 64);
+              fused SD (4 rounds) and unfused SSD at b8 under graphs on
+              spec's pair at noise 0, target and draft both int8; and
+              Qwen3-30B-A3B AR b8/b1, graph and eager in turns. Per engine
+              decode tok/s, TTFT, replays a step, launches, each runner's
+              weight bytes, the KV pool beside the bf16 engine's (serve's,
+              moe's) and peak memory. It fails if K9 never launches, if K6
+              launches on the int8 MoE engine, if graph and eager tokens
+              differ, if a graph run replays no graph, or if a runner holds
+              an LM head that is not int8.
+8. eagle    - EAGLE-3 async SSD (K=4, fan-out 2) and the fused sync
               superstep (K=4, 4 rounds a step) at Llama-3.1-8B's
               geometry (32 layers, rope theta 5e5 without the published
               rope scaling, which neither package reads) with its EAGLE-3
@@ -156,7 +182,7 @@ the script exits non-zero:
               chain, glue) and, async, K3 (tree), or over the int8 cache
               their int8 kernels, must launch, and the fused form must not
               launch K3.
-8. exact    - the same width in fp32 from random checkpoints (init scale
+9. exact    - the same width in fp32 from random checkpoints (init scale
               0.4): AR at 2 layers, greedy tokens on the card equal those of
               device="cpu", with the smallest top-1/top-2 logit margin seen;
               then a target of 4 layers and a noisy 2-layer draft: AR, sync
@@ -178,19 +204,27 @@ the script exits non-zero:
               head (noise 0.028), over the fp32 and the int8 cache: the
               CPU's AR and fused EAGLE, and on the card EAGLE SSD and fused
               EAGLE (4 rounds) under graphs, equal the card's eager AR of
-              the same cache; over fp32 the CPU's EAGLE SSD too.
-9. profile  - (only when asked for) the device's busy share, kernels and
+              the same cache; over fp32 the CPU's EAGLE SSD too. With int8
+              weights (fp32 engines; a draft's or head's per-channel scales
+              perturbed in place of its weights): at the 1B width the card's
+              graph AR, SD and SSD and the CPU's AR, at Qwen3-30B-A3B's the
+              card's graph AR and the CPU's AR, and with the EAGLE head the
+              card's EAGLE SSD and fused EAGLE and the CPU's AR, each equal
+              the card's eager AR of the same weights, and K9 launches in
+              every card run.
+10. profile - (only when asked for) the device's busy share, kernels and
               graph replays a step and top kernels over a prefill step and
               a window of decode steps at b=8, with graphs and eagerly;
-              moe_profile the same on the `moe` engine.
-10. spec_profile - (only when asked for) the same for sync SD, unfused
+              moe_profile the same on the `moe` engine; quant_profile and
+              quant_moe_profile the same on their int8-weight engines.
+11. spec_profile - (only when asked for) the same for sync SD, unfused
               async SSD, the exchange and the R=4 superstep under graphs at
               b=8: per step, the device time of each CUDA stream, their
               union, the time two streams (or a graph's two branches) ran
               kernels at once, the host-device copies and the verify's host
               time; eagle_profile the same for EAGLE SSD and the fused EAGLE
               superstep (4 rounds) under graphs on the eagle engine.
-11. spec_async - (only when asked for) the three async forms (SSD, the
+12. spec_async - (only when asked for) the three async forms (SSD, the
               exchange, the superstep at R=4 and 8) at b8 and b1, noise 0
               and 0.04, graphs against eager in turns, three runs each:
               decode tok/s min / median / max, hit rate, accepted length,
@@ -213,8 +247,9 @@ import sys
 import tempfile
 import time
 
-PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "eagle", "exact")
-EXTRA_PHASES = ("profile", "moe_profile", "spec_profile", "eagle_profile", "spec_async")
+PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "quant", "eagle", "exact")
+EXTRA_PHASES = ("profile", "moe_profile", "quant_profile", "quant_moe_profile", "spec_profile",
+                "eagle_profile", "spec_async")
 
 # Llama-3.2-1B geometry (the JAX package's bench.py random-weight config).
 LLAMA_1B = {
@@ -360,15 +395,16 @@ def _kernel_resources(lib) -> dict:
     """Registers, spills and shared memory of each instantiation of the
     split-KV paged kernels (csrc/paged_split.cuh), the tree kernels
     (csrc/tree_split.cuh, shared memory at the port's TREE_CHUNK), K1's
-    bf16 kernel and K6's two bf16 routes, from ptxas's report of the build
-    and the kernels' own shared-memory layouts."""
+    bf16 kernel, K6's two bf16 routes and K9's three, from ptxas's report of
+    the build and the kernels' own shared-memory layouts."""
     import re
 
     from ssd_tpu_torch.ops import attention as att
 
     kinds = {0: "fp", 1: "int8", 2: "int8_mxu"}
     stages = {0: "full", 1: "loads", 2: "math", 3: "empty"}
-    out = {"paged_split": [], "tree_split": [], "flat_prefill_tc": [], "grouped_gemm_wgmma": []}
+    out = {"paged_split": [], "tree_split": [], "flat_prefill_tc": [], "grouped_gemm_wgmma": [],
+           "int8_linear": []}
     cur = None
     for ln in lib.build_log.splitlines():
         if "Compiling entry" in ln:
@@ -400,6 +436,18 @@ def _kernel_resources(lib) -> dict:
                 cur = {"route": "decode" if decode else "prefill",
                        "smem_bytes": lib.cdll.ssd_grouped_gemm_smem_bytes(int(decode))}
                 out["grouped_gemm_wgmma"].append(cur)
+            m = re.search(r"w8a16_mma_kernelI\w*?TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE"
+                          r"(f|13__nv_bfloat16)", ln)
+            if m:
+                bm, bn, bk, ring = (int(m.group(i)) for i in range(1, 5))
+                route = 0 if bm == 16 else 1
+                cur = {"route": ("small", "large")[route], "tile": f"{bm}x{bn}, K slice {bk}",
+                       "stages": ring, "out": "float32" if m.group(5) == "f" else "bfloat16",
+                       "smem_bytes": lib.cdll.ssd_int8_linear_smem_bytes(route)}
+                out["int8_linear"].append(cur)
+            if "w8_f32_kernel" in ln:
+                cur = {"route": "simt", "tile": "64x64, K slice 16", "smem_bytes": "static"}
+                out["int8_linear"].append(cur)
         elif cur is not None and "spill stores" in ln:
             cur["spill"] = ln.split("stack frame, ")[-1].strip()
         elif cur is not None and "Used" in ln and "registers" in ln:
@@ -673,6 +721,115 @@ def _bmm_yardstick(qb, kb, want):
     except (TypeError, RuntimeError):
         pass
     return (lambda: torch.bmm(qb, kt)), "torch.bmm(q, bf16 k^T), bf16 output"
+
+
+# K9's shapes: (case, M, N, K, groups or None, output dtype of a bf16 x).
+# Llama-3.2-1B's projections (q and o share 2048 x 2048; k and v 512 x 2048)
+# at the AR b8 decode (8 rows), the SD verify (40) and the SSD tree step
+# (80), its LM head at 8 and 80 rows (fp32 out), the serve prompts' prefill
+# (5534 rows) at gate/up and down; Qwen3-30B-A3B's expert gate and down at
+# a b8 decode dispatch (64 rows over 53 experts) and at b1 (8 one-row
+# groups), groups from _moe_offsets' seeded router.
+def _int8_linear_cases():
+    c1, cq = LLAMA_1B, QWEN3_30B_A3B
+    D, I, V = c1["hidden_size"], c1["intermediate_size"], c1["vocab_size"]
+    Hkv_hd = c1["num_key_value_heads"] * c1["head_dim"]
+    cases = []
+    for m in (8, 40, 80):
+        cases += [(f"qo_m{m}", m, D, D, None, "bfloat16"),
+                  (f"kv_m{m}", m, Hkv_hd, D, None, "bfloat16"),
+                  (f"gate_up_m{m}", m, I, D, None, "bfloat16"),
+                  (f"down_m{m}", m, D, I, None, "bfloat16")]
+    cases += [(f"lm_head_m{m}", m, V, D, None, "float32") for m in (8, 80)]
+    n = sum(SERVE_LENS8)
+    cases += [(f"prefill_gate_up_m{n}", n, I, D, None, "bfloat16"),
+              (f"prefill_down_m{n}", n, D, I, None, "bfloat16")]
+    Dq, Im = cq["hidden_size"], cq["moe_intermediate_size"]
+    for name, tokens, seed in (("moe_decode_b8", 8, 2), ("moe_decode_b1", 1, 3)):
+        cases += [(f"{name}_gate", None, Im, Dq, (tokens, seed), "bfloat16"),
+                  (f"{name}_down", None, Dq, Im, (tokens, seed), "bfloat16")]
+    return cases
+
+
+def _int8_linear_kernels(record) -> dict:
+    """K9 against its plain version at every _int8_linear_cases() shape,
+    bf16 x (the case's output dtype) and fp32 x (fp32 output), then timed
+    in bf16 beside its bound and a library yardstick: torch's
+    _weight_int8pack_mm where it runs on the card for the shape, else the
+    bf16 product on the dequantized weight that the int8 path replaces
+    (torch.matmul; torch._grouped_mm for the experts), labelled. Returns
+    {case: timing}."""
+    import torch
+
+    from ssd_tpu_torch.ops import linear
+
+    out = {}
+    for i, (case, M, N, K, groups, odt_name) in enumerate(_int8_linear_cases()):
+        offs = None if groups is None else _moe_offsets(*groups)
+        G = 1 if offs is None else offs.numel() - 1
+        M = M if offs is None else int(offs[-1])
+        g = torch.Generator(device="cuda").manual_seed(70 + i)
+        x32 = torch.randn(M, K, generator=g, device="cuda")
+        w = torch.randint(-127, 128, (G, N, K), generator=g, device="cuda", dtype=torch.int8)
+        s = torch.rand(G, N, generator=g, device="cuda") * (0.04 / 127) + 0.01 / 127
+        odt = getattr(torch, odt_name)
+        for xname, x, o in (("bf16", x32.to(torch.bfloat16), odt),
+                            ("fp32", x32, torch.float32)):
+            got = linear.int8_linear(x, w, s, out_dtype=o, group_offsets=offs)
+            torch.cuda.synchronize()
+            # The tolerance of the output's dtype: fp32 sums of exact
+            # products (an int8 value times a bf16 or fp32 one), rounded once.
+            record("int8_linear", f"{case}[x {xname}]", str(o).split(".")[-1], got,
+                   linear.int8_linear_plain(x, w, s, o, offs))
+        x = x32.to(torch.bfloat16)
+        del x32
+        active = G if offs is None else int((offs[1:] > offs[:-1]).sum())
+        bytes_ = (M * K * 2 + active * N * (K + 4) + M * N * odt.itemsize
+                  + (0 if offs is None else offs.numel() * 4))
+        library, label = _int8_library(x, w, s, offs, odt)
+        tm = _timing(f"{case}: M={M}" + ("" if offs is None else f" over {active} of {G} "
+                                           "experts") + f", K={K} -> N={N}, bf16 x, "
+                     f"{odt_name} out, route {linear.int8_linear_route(x.dtype, M, N, G)}",
+                     lambda: linear.int8_linear(x, w, s, out_dtype=odt, group_offsets=offs),
+                     lambda: linear.int8_linear_plain(x, w, s, odt, offs),
+                     library, bytes_, 2 * M * N * K, PEAK_FLOPS["bfloat16"],
+                     iters=10 if M > 1000 else 30, plain_iters=3)
+        tm["library"] = label
+        out[case] = tm
+        emit("kernels", kernel="int8_linear", case=case, timing=tm)
+        del x, w, s
+    return out
+
+
+def _int8_library(x, w, s, offs, odt):
+    """K9's library yardstick, never called by the port: one
+    torch._weight_int8pack_mm call (bf16 x, int8 [N, K], bf16 scales) where
+    it runs on the card for a dense shape, else the bf16 product over the
+    dequantized weight (torch.matmul; torch._grouped_mm or a dense matmul of
+    the same operations for the experts, as K6's yardstick). Returns
+    (callable, label)."""
+    import torch
+
+    if offs is None:
+        w0, s0 = w[0], s[0].to(torch.bfloat16)
+        try:
+            y = torch._weight_int8pack_mm(x, w0, s0)
+            torch.cuda.synchronize()
+            if y.shape == (x.shape[0], w0.shape[0]):
+                return (lambda: torch._weight_int8pack_mm(x, w0, s0)), \
+                    "torch._weight_int8pack_mm"
+            why = f"torch._weight_int8pack_mm gave shape {tuple(y.shape)}"
+        except (RuntimeError, NotImplementedError, AttributeError) as e:
+            why = f"torch._weight_int8pack_mm refused: {str(e)[:120]}"
+        wd = (w0.float() * s[0][:, None]).to(torch.bfloat16).T
+        return (lambda: torch.matmul(x, wd)), \
+            f"bf16 torch.matmul on the dequantized weight ({why})"
+    wd = (w.float() * s[..., None]).to(torch.bfloat16).transpose(1, 2).contiguous()
+    want = (torch.cat([x[a:b].float() @ wd[e].float() for e, (a, b) in
+                       enumerate(zip(offs[:-1].tolist(), offs[1:].tolist()))])
+            .to(torch.bfloat16))
+    fn, label = _grouped_mm_yardstick(x, wd, offs, want)
+    return fn, f"{label} on the dequantized bf16 experts"
 
 
 def _paged_batch_invariance(decode_ctx: list[int]):
@@ -1275,6 +1432,9 @@ def phase_kernels() -> dict:
     for name, tm in eagle_t.items():
         emit("kernels", kernel=name, llama31_8b_eagle=tm)
 
+    int8_t = _int8_linear_kernels(record)
+    timings["int8_linear"] = int8_t["gate_up_m8"]
+
     probes_out = _probe_kernels(record, serve8)
     timings.update(probes_out["timings"])
 
@@ -1284,7 +1444,8 @@ def phase_kernels() -> dict:
         w.launches = n
     return {"errors": results, "timings": timings, "at_verify": at_verify,
             "long_context": long_ctx, "qwen3_moe": qwen, "grouped_gemm": gmm_times,
-            "llama31_8b_eagle": eagle_t, "tree_b1": tree_b1, "probes": probes_out}
+            "llama31_8b_eagle": eagle_t, "tree_b1": tree_b1, "probes": probes_out,
+            "int8_linear": int8_t}
 
 
 # ---------------------------------------------------------------------------
@@ -1404,7 +1565,7 @@ def _spread(xs: list[float]) -> dict:
     return dict(min=ys[0], median=ys[len(ys) // 2], max=ys[-1], all=xs)
 
 
-def _graph_vs_eager(llm, runs_of, V, label, repeats=REPEATS) -> dict:
+def _graph_vs_eager(llm, runs_of, V, label, repeats=REPEATS, eager_new=None) -> dict:
     """Graph and eager generates of the same engine in turns, per batch:
     decode tok/s of each repeat with min / median / max, the first graph
     run's launch counts (and the first eager run's beside them) and
@@ -1412,13 +1573,22 @@ def _graph_vs_eager(llm, runs_of, V, label, repeats=REPEATS) -> dict:
     find them in the prefix cache and recompute only the last token, whose
     K/V and logits then come from GEMMs of other shapes: so the two modes'
     greedy tokens are held equal over the later runs (`tokens_equal`), and
-    the first run's against them is reported (`fresh_run_equal`)."""
+    the first run's against them is reported (`fresh_run_equal`). With
+    eager_new, an eager turn serves that many tokens, and the tokens are
+    compared over them."""
+    from ssd_tpu_torch import SamplingParams
+
     out = {}
     for name, (prompts, sp) in runs_of.items():
         runs = {"graph": [], "eager": []}
+        esp = sp if eager_new is None else SamplingParams(
+            temperature=0.0, max_new_tokens=eager_new, ignore_eos=True)
         for mode in repeats:
-            runs[mode].append(_decode_run(llm, prompts, sp, V, f"{label} {name} {mode}",
-                                          eager=mode == "eager"))
+            runs[mode].append(_decode_run(llm, prompts, esp if mode == "eager" else sp, V,
+                                          f"{label} {name} {mode}", eager=mode == "eager"))
+        n = eager_new or sp.max_new_tokens
+        for r in runs["graph"] + runs["eager"]:
+            r["tokens"] = [t[:n] for t in r["tokens"]]
         g0, e0 = runs["graph"][0], runs["eager"][0]
         out[name] = dict(
             decode_tok_s={k: _spread([r["decode_tok_s"] for r in v]) for k, v in runs.items()},
@@ -1482,12 +1652,13 @@ def phase_serve() -> dict:
     return out
 
 
-def phase_profile(moe: bool = False) -> dict:
+def phase_profile(moe: bool = False, quantization: str | None = None) -> dict:
     """Not run by default: where a serving step's time goes. The same engine
-    and prompts as `serve` (with moe=True, as `moe`); one prefill step of the
-    8 prompts, then a window of decode steps at b=8, each timed without and
-    then with torch.profiler, which gives the device's busy time (sum of
-    kernel times; one stream) and the kernels that take it."""
+    and prompts as `serve` (with moe=True, as `moe`; with quantization,
+    its int8-weight form, as `quant`); one prefill step of the 8 prompts,
+    then a window of decode steps at b=8, each timed without and then with
+    torch.profiler, which gives the device's busy time (sum of kernel
+    times; one stream) and the kernels that take it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1495,10 +1666,10 @@ def phase_profile(moe: bool = False) -> dict:
     from ssd_tpu_torch import SamplingParams
 
     if moe:
-        llm, _ = _moe_llm()
+        llm, _ = _moe_llm(quantization)
         prompts8, _ = _serving_prompts(QWEN3_30B_A3B["vocab_size"])
     else:
-        llm = _serving_llm()
+        llm = _serving_llm(quantization=quantization)
         prompts8, _ = _serving_prompts()
     llm.generate([p[:40] for p in prompts8[:2]],
                  SamplingParams(temperature=0.0, max_new_tokens=4, ignore_eos=True),
@@ -1539,8 +1710,9 @@ def phase_profile(moe: bool = False) -> dict:
             device_busy_share=busy_us / 1e6 / (plain_s or prof_s),
             top_kernels=[dict(name=e.key[:90], ms_per_step=e.self_device_time_total / 1e3 / steps,
                               calls=e.count) for e in top])
-    emit("moe_profile" if moe else "profile",
-         geometry=MOE_GEOMETRY if moe else "Llama-3.2-1B (16 layers, random bf16 weights)", **out)
+    emit(("moe_profile" if moe else "profile") + ("_int8" if quantization else ""),
+         geometry=MOE_GEOMETRY if moe else "Llama-3.2-1B (16 layers, random bf16 weights)",
+         quantization=quantization, **out)
     llm.exit()
     del llm
     torch.cuda.empty_cache()
@@ -1611,9 +1783,9 @@ def _spec_pair(d: str, layers: int, live: int, scale: float, dtype, seed: int):
 def _kernel_wrappers() -> tuple:
     """Every kernel wrapper whose `launches` a run zeroes and reads."""
     from ssd_tpu_torch.ops import attention as att
-    from ssd_tpu_torch.ops import moe
+    from ssd_tpu_torch.ops import linear, moe
 
-    return att.KERNEL_WRAPPERS + (moe.grouped_gemm,)
+    return att.KERNEL_WRAPPERS + (moe.grouped_gemm, linear.int8_linear)
 
 
 def _draft_params(llm) -> dict:
@@ -1624,7 +1796,8 @@ def _draft_params(llm) -> dict:
 def _perturb_draft(llm, noise: float, scale: float):
     """bench.py's draft_noise on the freshly loaded draft: every projection
     of the live layers becomes w + (scale * noise) * N(0, 1), drawn from a
-    host generator seeded 1000 + layer."""
+    host generator seeded 1000 + layer. An int8 projection's per-channel
+    scales become s * (1 + noise * N(0, 1)) instead (the int8 values stay)."""
     import torch
 
     params = _draft_params(llm)
@@ -1632,6 +1805,11 @@ def _perturb_draft(llm, noise: float, scale: float):
         # Drawn on the host, so the card's and the CPU's drafts are the same.
         g = torch.Generator().manual_seed(1000 + i)
         for k in PROJ:
+            if k + "_scale" in lp:
+                s = lp[k + "_scale"]
+                z = torch.randn(s.shape, generator=g) * noise
+                s.copy_(s * (1 + z.to(s.device)))
+                continue
             z = torch.randn(lp[k].shape, generator=g) * (scale * noise)
             lp[k].copy_(lp[k] + z.to(lp[k].device, lp[k].dtype))
     torch.cuda.synchronize()
@@ -2151,11 +2329,13 @@ def phase_eagle_profile() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _moe_llm():
-    """The full-depth Qwen3-30B-A3B engine with random bf16 weights, built
-    after checking that the card's free memory holds its weights and its
-    capped KV pool (less points to an earlier engine still alive), and
-    checked to hold the capped pool. Returns (llm, facts of its sizing)."""
+def _moe_llm(quantization: str | None = None):
+    """The full-depth Qwen3-30B-A3B engine with random bf16 weights (with
+    quantization="int8" quantized at load), built after checking that the
+    card's free memory holds its bf16 weights and its capped KV pool (less
+    points to an earlier engine still alive; the bf16 weights exist in full
+    before they are quantized), and checked to hold the capped pool.
+    Returns (llm, facts of its sizing)."""
     import torch
 
     from ssd_tpu_torch import LLM
@@ -2166,8 +2346,8 @@ def _moe_llm():
     arch = Arch.from_model_config(ModelConfig(**QWEN3_30B_A3B))
     max_len, seqs = 2048, 8
     cap = (seqs + 1) * (max_len // BLOCK + 2) * 4          # the engine's pool cap
-    weights = param_bytes(arch, torch.bfloat16)
-    need = weights + cap * kv_block_bytes(arch, BLOCK, torch.bfloat16)
+    need = param_bytes(arch, torch.bfloat16) + cap * kv_block_bytes(arch, BLOCK, torch.bfloat16)
+    weights = param_bytes(arch, torch.bfloat16, quantization)
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
     if free < need:
@@ -2178,7 +2358,8 @@ def _moe_llm():
     with tempfile.TemporaryDirectory() as d:
         _write_config(d, QWEN3_30B_A3B)
         llm = LLM(d, init_random=True, dtype="bfloat16", gpu_memory_utilization=MOE_UTIL,
-                  max_model_len=max_len, kvcache_block_size=BLOCK, max_num_seqs=seqs)
+                  max_model_len=max_len, kvcache_block_size=BLOCK, max_num_seqs=seqs,
+                  quantization=quantization)
     torch.cuda.synchronize()
     facts = dict(init_s=time.perf_counter() - t0, weights_gb=weights / 1e9,
                  free_at_start_gb=free / 1e9, total_gb=total / 1e9,
@@ -2227,7 +2408,129 @@ def phase_moe() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: EAGLE-3 async SSD at the Llama-3.1-8B geometry
+# Phase 7: int8 weights (quantization="int8") at full width
+# ---------------------------------------------------------------------------
+
+QUANT_TURNS = ("graph", "eager", "graph")   # graph and eager in turns, one engine
+QUANT_EAGER_NEW = 64   # tokens of an eager turn (half the graph turns', to hold the run's time)
+
+
+def _int8_engine_facts(llm, label: str, init_s: float) -> dict:
+    """Init seconds, each runner's weight bytes, the target's pool and
+    graphs; fails if a runner holds an LM head that is not int8 (an fp32
+    copy would mean the int8 head was widened at load)."""
+    import torch
+
+    heads = [r.params["lm_head"].dtype for r in _runners(llm)]
+    if any(h != torch.int8 for h in heads):
+        fail(f"quant {label}: the runners' LM heads are {heads}, not all int8")
+    mr = llm.model_runner
+    return dict(init_s=init_s, weight_bytes=[r.weight_bytes for r in _runners(llm)],
+                kv_blocks=mr.num_kvcache_blocks, pool=mr.pool_sizing, graphs=_graph_facts(llm))
+
+
+def _check_int8_run(label: str, run: dict, need: tuple, graph: bool = True):
+    """K9 and the path's attention kernels launched, K6 never (int8 experts
+    take K9), and a graph run replayed graphs."""
+    launches = run["launches"]
+    missing = [k for k in ("int8_linear",) + need if not launches[k] > 0]
+    if missing or launches["grouped_gemm"]:
+        fail(f"quant {label}: kernels that never launched {missing}, or K6 launched "
+             f"{launches['grouped_gemm']} times: {launches}")
+    if graph and not run["graph_replays_per_decode_step"] > 0:
+        fail(f"quant {label}: no graph replayed")
+
+
+def phase_quant(serve: dict | None, spec: dict | None, moe_run: dict | None) -> dict:
+    """int8 weights at full width and depth (module docstring, phase 7)."""
+    import torch
+
+    from ssd_tpu_torch import SamplingParams
+
+    sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
+    warm = SamplingParams(temperature=0.0, max_new_tokens=4, ignore_eos=True)
+    attn = ("paged_attention", "flat_prefill_attention")
+    out = {"engines": {}, "launches": {}}
+    prompts8, prompt1 = _serving_prompts()
+
+    def graph_vs_eager(llm, label, V, prompts8, prompt1):
+        for eager in (False, True):   # warm-up
+            with _eager(llm) if eager else contextlib.nullcontext():
+                llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
+        runs = _graph_vs_eager(llm, {"b8": (prompts8, sp), "b1": (prompt1, sp)}, V, label,
+                               QUANT_TURNS, eager_new=QUANT_EAGER_NEW)
+        for name, r in runs.items():
+            if not r["tokens_equal"]:
+                fail(f"{label} {name}: graph and eager greedy tokens differ")
+            _check_int8_run(f"{label} {name}", r, attn)
+            _check_int8_run(f"{label} {name} eager", {**r, "launches": r["launches_eager"]},
+                            attn, graph=False)
+        return runs
+
+    # Llama-3.2-1B AR, the serve engine's geometry.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = _serving_llm(quantization="int8")
+    torch.cuda.synchronize()
+    facts = _int8_engine_facts(llm, "ar", time.perf_counter() - t0)
+    runs = graph_vs_eager(llm, "quant_ar", LLAMA_1B["vocab_size"], prompts8, prompt1)
+    facts.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                 bf16_pool=(serve or {}).get("pool"))
+    out["engines"]["ar"] = dict(facts, runs=runs)
+    out["launches"]["quant_ar"] = {k: sum(r["launches"][k] for r in runs.values())
+                                   for k in ("int8_linear",) + attn}
+    emit("quant", engine="ar", geometry="Llama-3.2-1B (16 layers, random bf16 weights "
+         "quantized to int8 at load)", **facts)
+    del llm
+    torch.cuda.empty_cache()
+
+    # Fused sync SD (R = SPEC_R) and unfused async SSD at b8 under graphs,
+    # spec's pair at noise 0, target and draft both int8.
+    with tempfile.TemporaryDirectory() as d:
+        tdir, ddir = _spec_pair(d, layers=16, live=SPEC_LIVE, scale=0.02,
+                                dtype=torch.bfloat16, seed=0)
+        engine = dict(dtype="bfloat16", max_model_len=SPEC_MAX_LEN, kvcache_block_size=BLOCK,
+                      max_num_seqs=8, quantization="int8")
+        for mode in (f"fused{SPEC_R}", "ssd"):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            llm = _spec_llm(tdir, ddir, mode, **engine)
+            facts = _int8_engine_facts(llm, mode, time.perf_counter() - t0)
+            llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
+            run, _ = _spec_run(llm, mode, prompts8, 128)
+            _check_int8_run(f"{mode} b8", run, attn + (("tree_attention",) if mode == "ssd"
+                                                       else ()))
+            bf16 = ((spec or {}).get("runs") or {}).get(f"{mode}_b8_noise0", {})
+            facts.update(b8=run, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                         bf16_decode_tok_s=bf16.get("decode_tok_s"))
+            out["engines"][mode] = facts
+            out["launches"][f"quant_{mode}"] = {k: v for k, v in run["launches"].items() if v}
+            emit("quant", engine=mode, geometry="Llama-3.2-1B width, target 16 "
+                 "layers (4 live), draft 4 layers, int8 weights, noise 0", **facts)
+            llm.exit()
+            del llm
+            torch.cuda.empty_cache()
+
+    # Qwen3-30B-A3B at full depth, AR b8/b1: K9 over the experts, K6 never.
+    llm, facts = _moe_llm(quantization="int8")
+    facts.update(_int8_engine_facts(llm, "moe", facts["init_s"]))
+    runs = graph_vs_eager(llm, "quant_moe", QWEN3_30B_A3B["vocab_size"],
+                          *_serving_prompts(QWEN3_30B_A3B["vocab_size"]))
+    facts.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                 bf16_pool=(moe_run or {}).get("pool"), bf16_weights_gb=(moe_run or {}).get(
+                     "weights_gb"))
+    out["engines"]["moe"] = dict(facts, runs=runs)
+    out["launches"]["quant_moe"] = {k: sum(r["launches"][k] for r in runs.values())
+                                    for k in ("int8_linear", "grouped_gemm") + attn}
+    emit("quant", engine="moe", geometry=MOE_GEOMETRY + ", quantized to int8 at load", **facts)
+    llm.exit()
+    del llm
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: EAGLE-3 async SSD at the Llama-3.1-8B geometry
 # ---------------------------------------------------------------------------
 
 
@@ -2331,11 +2634,18 @@ def _perturb_eagle(llm, noise: float, originals: dict):
     each of fc, q, k, v, o becomes its constructed value plus noise times
     the rms of its nonzero entries times N(0, 1), drawn on the host from a
     generator seeded 2000 + index (so the card's and the CPU's heads are the
-    same). `originals` keeps the constructed values across calls."""
+    same); an int8 head's per-channel scales s become s * (1 + noise *
+    N(0, 1)). `originals` keeps the constructed values across calls."""
     import torch
 
     params = _draft_params(llm)
     for i, k in enumerate(EAGLE_NOISE):
+        if k + "_scale" in params:
+            # An int8 head: its per-channel scales times 1 + noise * N(0, 1).
+            base = originals.setdefault(k + "_scale", params[k + "_scale"].clone())
+            z = torch.randn(base.shape, generator=torch.Generator().manual_seed(2000 + i))
+            params[k + "_scale"].copy_(base * (1 + noise * z.to(base.device)))
+            continue
         base = originals.setdefault(k, params[k].clone())
         nz = base.float()[base != 0]
         rms = float(nz.pow(2).mean().sqrt()) if nz.numel() else 1.0
@@ -2383,7 +2693,7 @@ EAGLE_PLAN = (("ar", None, None, {"b8": ("graph",), "b1": ("graph",)}),
 
 def phase_eagle() -> dict:
     """EAGLE-3 async SSD and the fused sync superstep at the Llama-3.1-8B
-    geometry (module docstring, phase 7)."""
+    geometry (module docstring, phase 8)."""
     import torch
 
     from ssd_tpu_torch import SamplingParams
@@ -2534,7 +2844,7 @@ def phase_eagle() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 8
+# Phase 9
 # ---------------------------------------------------------------------------
 
 
@@ -2687,6 +2997,7 @@ def phase_exact() -> dict:
     # the card's int8 AR, which equals the CPU's). Then two card runs
     # of int8_mxu AR must agree.
     spec_tokens, accepted, hit_rates, int8_margins, seconds = {}, {}, {}, [], {}
+    k9_launches = {}   # K9's launches in the int8-weight runs, per run
     engine = dict(dtype="float32", max_model_len=512, kvcache_block_size=BLOCK,
                   max_num_seqs=4, num_kvcache_blocks=32)
     new_modes = ("multi", "fused4", "ngram")
@@ -2729,6 +3040,34 @@ def phase_exact() -> dict:
             llm = LLM(tdir, device="cuda", kv_quant="int8_mxu", **engine)
             mxu.append([o["token_ids"] for o in llm.generate(prompts, sp, use_tqdm=False)[0]])
             del llm
+        # int8 weights (quantization="int8", fp32 engines, the draft's
+        # scales perturbed): the card's graph AR, SD and SSD and the CPU's
+        # AR equal the card's eager AR of the same weights ("int8w").
+        for dev, mode in (("cuda", "ar_eager"), ("cuda", "ar"), ("cuda", "sd"),
+                          ("cuda", "ssd"), ("cpu", "ar")):
+            t0 = time.perf_counter()
+            if mode in ("ar", "ar_eager"):
+                llm = LLM(tdir, device=dev, quantization="int8",
+                          enforce_eager=mode == "ar_eager", **engine)
+            else:
+                llm = _spec_llm(tdir, ddir, mode, device=dev, quantization="int8", **engine)
+                _perturb_draft(llm, 0.01, 0.4)
+            for w in _kernel_wrappers():
+                w.launches = 0
+            outs, m = llm.generate(prompts, sp, use_tqdm=False)
+            if mode == "ssd":
+                llm.draft_server.drain()
+            if dev == "cuda":
+                k9_launches[f"1b_{mode}"] = _kernel_wrappers()[-1].launches
+            llm.exit()
+            spec_tokens[("int8w", dev, mode)] = [o["token_ids"] for o in outs]
+            run = f"int8w_{dev}_{mode}"
+            seconds[run] = time.perf_counter() - t0
+            lens = m["accepted_suffix_lens_with_recovery"]
+            accepted[run] = sum(lens) / len(lens) if lens else None
+            if m["cache_hits"]:
+                hit_rates[run] = sum(m["cache_hits"]) / len(m["cache_hits"])
+            del llm
     spec_equal = {f"{kvq}_{dev}_{mode}": toks == spec_tokens[(kvq, "cuda", "ar_eager")]
                   for (kvq, dev, mode), toks in spec_tokens.items()}
     int8_vs_fp32 = sum(a == b for x, y in zip(spec_tokens[("int8", "cuda", "ar_eager")],
@@ -2740,6 +3079,7 @@ def phase_exact() -> dict:
          cache_hit_rate=hit_rates, seconds=seconds,
          int8_min_top2_margin=min(int8_margins),
          int8_ar_tokens_equal_to_fp32_ar=int8_vs_fp32, tokens_per_run=16 * len(prompts),
+         int8_weights_k9_launches=k9_launches,
          int8_mxu_two_card_runs_equal=mxu[0] == mxu[1])
     if not all(spec_equal.values()):
         fail(f"exact: greedy tokens differ from the card's eager AR of the same cache: "
@@ -2758,15 +3098,21 @@ def phase_exact() -> dict:
     with tempfile.TemporaryDirectory() as d:
         # One layer (cut from two to hold the run's time).
         _moe_checkpoint(d, layers=1, scale=0.4, seed=5)
+        # "_int8w": int8 weights, held to the card's eager AR of the same
+        # weights.
         for dev, mode in (("cuda", "ar_eager"), ("cpu", "ar"), ("cuda", "ar"), ("cuda", "sd"),
-                          ("cuda", "ssd")):
+                          ("cuda", "ssd"), ("cuda", "ar_eager_int8w"), ("cpu", "ar_int8w"),
+                          ("cuda", "ar_int8w")):
+            quant = "int8" if mode.endswith("_int8w") else None
+            mode_q, mode = mode, mode.removesuffix("_int8w")
             # The margins are read on the host, so only the eager runs
             # record them (a graph's capture must read nothing back).
             eager = dev == "cpu" or mode == "ar_eager"
             undo = _record_router_margins(router_margins) if eager else (lambda: None)
             try:
                 if mode in ("ar", "ar_eager"):
-                    llm = LLM(d, device=dev, enforce_eager=mode == "ar_eager", **engine)
+                    llm = LLM(d, device=dev, enforce_eager=mode == "ar_eager",
+                              quantization=quant, **engine)
                     if eager:
                         _record_margins(llm, moe_margins)
                 else:
@@ -2776,16 +3122,17 @@ def phase_exact() -> dict:
                 outs, m = llm.generate(mprompts, sp, use_tqdm=False)
                 if mode == "ssd":
                     llm.draft_server.drain()
-                moe_launches[f"{dev}_{mode}"] = {w.__name__: w.launches for w in wrappers}
+                moe_launches[f"{dev}_{mode_q}"] = {w.__name__: w.launches for w in wrappers}
                 llm.exit()
             finally:
                 undo()
-            moe_tokens[(dev, mode)] = [o["token_ids"] for o in outs]
+            moe_tokens[(dev, mode_q)] = [o["token_ids"] for o in outs]
             lens = m["accepted_suffix_lens_with_recovery"]
-            moe_accepted[f"{dev}_{mode}"] = sum(lens) / len(lens) if lens else None
+            moe_accepted[f"{dev}_{mode_q}"] = sum(lens) / len(lens) if lens else None
             del llm
-    moe_equal = {f"{dev}_{mode}": toks == moe_tokens[("cuda", "ar_eager")]
-                 for (dev, mode), toks in moe_tokens.items()}
+    moe_equal = {f"{dev}_{mode}": toks == moe_tokens[
+        ("cuda", "ar_eager_int8w" if mode.endswith("_int8w") else "ar_eager")]
+        for (dev, mode), toks in moe_tokens.items()}
     emit("exact", geometry="Qwen3-30B-A3B width (128 experts, top-8, hd 128), 1 layer, "
          "fp32, init scale 0.4; SD/SSD self-draft", K=SPEC_K, async_fan_out=SPEC_F,
          equal_to_card_ar=moe_equal, mean_accepted_suffix_len=moe_accepted,
@@ -2795,8 +3142,12 @@ def phase_exact() -> dict:
          launches=moe_launches)
     if not all(moe_equal.values()):
         fail(f"exact: Qwen3-MoE greedy tokens differ from the card's AR: {moe_equal}")
-    if not all(v["grouped_gemm"] > 0 for k, v in moe_launches.items() if k.startswith("cuda")):
+    if not all(v["grouped_gemm"] > 0 and not v["int8_linear"]
+               for k, v in moe_launches.items() if k.startswith("cuda") and "int8w" not in k):
         fail(f"exact: the grouped GEMM did not launch in a card run: {moe_launches}")
+    if not all(v["int8_linear"] > 0 and not v["grouped_gemm"]
+               for k, v in moe_launches.items() if k.startswith("cuda") and "int8w" in k):
+        fail(f"exact: K9 did not launch, or K6 did, in an int8-weight card run: {moe_launches}")
 
     # EAGLE-3 at the width of the checks above (Llama-3.2-1B), 2 layers,
     # fp32: the constructed pair (stored bf16, loaded fp32) with draft noise
@@ -2809,26 +3160,36 @@ def phase_exact() -> dict:
     e_tokens, e_accepted, e_hits, e_margins, e_seconds = {}, {}, {}, [], {}
     with tempfile.TemporaryDirectory() as d:
         tdir, edir = _eagle_pair(d, 2, torch.bfloat16, seed=13, base=LLAMA_1B)
-        for kvq in (None, "int8"):
-            runs = (("cuda", "ar_eager"), ("cpu", "ar"), ("cuda", "ssd"), ("cuda", "fused"),
-                    ("cpu", "fused")) + ((("cpu", "ssd"),) if kvq is None else ())
+        # "int8w": int8 weights (target and head; the head computes in
+        # bf16), over the fp32 cache.
+        for kvq, quant in ((None, None), ("int8", None), (None, "int8")):
+            runs = ((("cuda", "ar_eager"), ("cpu", "ar"), ("cuda", "ssd"), ("cuda", "fused"))
+                    + ((("cpu", "fused"),) if quant is None else ())
+                    + ((("cpu", "ssd"),) if kvq is None and quant is None else ()))
+            tag = "int8w" if quant else kvq or "fp32"
             for dev, mode in runs:
                 t0 = time.perf_counter()
                 if mode in ("ar", "ar_eager"):
                     llm = LLM(tdir, device=dev, kv_quant=kvq, enforce_eager=mode == "ar_eager",
-                              **engine)
+                              quantization=quant, **engine)
                     _record_margins(llm, e_margins)
                 else:
                     # Taps of the 2-layer target (its layers pass the
                     # embedding through, so every tap is the embedding).
                     llm = _eagle_llm(tdir, edir, device=dev, form=mode, kv_quant=kvq,
-                                     eagle_layers=[0, 1, 1], **engine)
+                                     quantization=quant, eagle_layers=[0, 1, 1], **engine)
                     _perturb_eagle(llm, EXACT_EAGLE_NOISE, {})
+                for w in _kernel_wrappers():
+                    w.launches = 0
                 outs, m = llm.generate(eprompts, sp, use_tqdm=False)
+                if mode == "ssd":
+                    llm.draft_server.drain()
+                if quant and dev == "cuda":
+                    k9_launches[f"eagle_{mode}"] = _kernel_wrappers()[-1].launches
                 llm.exit()
                 if dev == "cuda" and mode != "ar_eager" and llm.graphs is None:
-                    fail(f"exact: the card's {kvq or 'fp32'} EAGLE {mode} engine holds no graphs")
-                key = f"{kvq or 'fp32'}_{dev}_{mode}"
+                    fail(f"exact: the card's {tag} EAGLE {mode} engine holds no graphs")
+                key = f"{tag}_{dev}_{mode}"
                 e_tokens[key] = [o["token_ids"] for o in outs]
                 e_seconds[key] = time.perf_counter() - t0
                 lens = m["accepted_suffix_lens_with_recovery"]
@@ -2845,8 +3206,14 @@ def phase_exact() -> dict:
          total_seconds=time.perf_counter() - t_eagle)
     if not all(eagle_equal.values()):
         fail(f"exact: EAGLE greedy tokens differ from the card's eager AR: {eagle_equal}")
+    k9_launches.update({f"moe_{k}": v["int8_linear"] for k, v in moe_launches.items()
+                        if "int8w" in k and k.startswith("cuda")})
+    emit("exact", int8_weights_k9_launches=k9_launches)
+    if not all(n > 0 for n in k9_launches.values()):
+        fail(f"exact: K9 did not launch in an int8-weight card run: {k9_launches}")
     return {"equal": equal, "min_top2_margin": min(margins), "spec_equal": spec_equal,
-            "moe_equal": moe_equal, "moe_launches": moe_launches, "eagle_equal": eagle_equal}
+            "moe_equal": moe_equal, "moe_launches": moe_launches, "eagle_equal": eagle_equal,
+            "k9_launches": k9_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2886,12 +3253,16 @@ KERNEL_ROWS = {
     "paged_attention_int8_diag": ("ssd_tpu_torch/csrc/paged_attention_int8.cu (stage variants)",
                                   "bench/kernel_diag.py:39 (_diag_kernel, pallas_call :171) "
                                   "over the int8 cache"),
+    "int8_linear": ("ssd_tpu_torch/csrc/int8_weight_gemm.cu",
+                    "none: XLA's convert fused into the dot under quantization='int8' "
+                    "(ssd_tpu/models/transformer.py:153-161 _mm, :224-233, :265-278, :290-293, "
+                    ":415-417; ssd_tpu/models/eagle3.py:93-104, :175-177)"),
 }
 
 
 def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
-                 kvq: dict | None, moe_run: dict | None, eagle: dict | None,
-                 exact: dict | None) -> dict:
+                 kvq: dict | None, moe_run: dict | None, quant: dict | None,
+                 eagle: dict | None, exact: dict | None) -> dict:
     """Launches per path, each read from runs whose counts were zeroed just
     before them: `serve` (AR, AR multi-step) and `spec` (SD, fused SD,
     ngram, SSD, the fused exchange and superstep) for the fp-cache
@@ -2902,8 +3273,10 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
     for K1, K2 and the grouped GEMM, `eagle` (Llama-3.1-8B AR, EAGLE SSD over
     the fp and the int8 cache, the fused EAGLE superstep, the constructed
     pair's runs in both forms; graph runs only), `exact`'s
-    1-layer Qwen3-MoE SD and SSD card runs for the grouped GEMM, and the
-    probes' bench entry points (path "probe") for rows #11 and #12."""
+    1-layer Qwen3-MoE SD and SSD card runs for the grouped GEMM, `quant`
+    (int8 weights: AR b8/b1 graph runs, fused SD and SSD b8, Qwen3-30B-A3B
+    AR) and `exact`'s int8-weight card runs for K9, and the probes' bench
+    entry points (path "probe") for rows #11 and #12."""
     by_path = {}
 
     def add(name, path, n):
@@ -2942,6 +3315,14 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
             for name, n in run["launches"].items():
                 if n:
                     add(name, path, n)
+    if quant:
+        for path, launches in quant["launches"].items():
+            for name, n in launches.items():
+                if n:
+                    add(name, path, n)
+    if exact and "k9_launches" in exact:
+        for path, n in exact["k9_launches"].items():
+            add("int8_linear", f"exact_{path}", n)
     for name, n in kern.get("probes", {}).get("launches", {}).items():
         add(name, "probe", n)
     if exact and "moe_launches" in exact:
@@ -2977,6 +3358,10 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                 entry[label] = {k: table[name][k] for k in
                                 ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
                                 + (("route",) if "route" in table[name] else ())}
+        if name == "int8_linear":
+            entry["at_shapes"] = {case: {k: t[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")}
+                for case, t in kern["int8_linear"].items()}
         if "library" in tm:
             entry["library"] = tm["library"]
         if "stages_ms" in tm:
@@ -3027,15 +3412,18 @@ def main(argv=None) -> int:
     spec = run("spec", phase_spec)
     kvq = run("kvq", phase_kvq, serve, spec)
     moe_run = run("moe", phase_moe)
+    quant = run("quant", phase_quant, serve, spec, moe_run)
     eagle = run("eagle", phase_eagle)
     exact = run("exact", phase_exact)
     run("profile", phase_profile)
     run("moe_profile", phase_profile, True)
+    run("quant_profile", phase_profile, False, "int8")
+    run("quant_moe_profile", phase_profile, True, "int8")
     run("spec_profile", phase_spec_profile)
     run("spec_async", phase_spec_async)
     run("eagle_profile", phase_eagle_profile)
     if kern is not None:
-        print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, eagle, exact)),
+        print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, quant, eagle, exact)),
               flush=True)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds, phases=phases)
     print(json.dumps({"ok": True, "device": {

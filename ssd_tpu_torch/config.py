@@ -20,9 +20,11 @@ speculation (SSD), each plain and fused. Differences from the JAX package:
   superstep) and EAGLE-3 (async, and the fused sync superstep) run as CUDA
   graphs captured at engine init (engine/graphs.py) unless it is True; on
   "cpu" every step runs eagerly;
-- the modes not ported yet (draft data parallelism, int8 weights) are
-  refused here, and so is a speculative knob on an engine that does not
-  use it, where it would be ignored.
+- `quantization="int8"` (weight-only int8, utils/quant.py) serves every
+  mode; the draft config inherits it, as in the JAX package;
+- the mode not ported yet (draft data parallelism) is refused here, and so
+  is a speculative knob on an engine that does not use it, where it would
+  be ignored.
 """
 
 from __future__ import annotations
@@ -122,6 +124,11 @@ class Config:
     #   against "int8" (csrc/paged_attention_int8.cu). Prefill is "int8"'s.
     # Both apply to the draft's cache too.
     kv_quant: str | None = None
+    # Weight-only int8: "int8" quantizes every matmul weight, the embedding
+    # and the LM head at load to int8 with fp32 scales per output channel
+    # (utils/quant.py), in the target and the draft; their products run the
+    # W8A16 kernel (ops/linear.py). None keeps the weights in `dtype`.
+    quantization: str | None = None
     verbose: bool = False
     # Run the decode-side steps eagerly on the card instead of replaying
     # their CUDA graphs (engine/graphs.py). The CPU always runs eagerly.
@@ -183,6 +190,8 @@ class Config:
         if self.kv_quant not in (None, "int8", "int8_mxu"):
             raise ValueError(f"unknown kv_quant {self.kv_quant!r} "
                              "(None, 'int8' or 'int8_mxu')")
+        if self.quantization not in (None, "int8"):
+            raise ValueError(f"unknown quantization {self.quantization!r} (None or 'int8')")
         if self.async_fused and self.speculate:
             # The JAX package's rules (ssd_tpu/config.py): the fused forms
             # run the draft inline beside the target, with one draft.

@@ -1,6 +1,8 @@
-// Shared helpers of the port's attention kernels: element conversion and
-// vector loads for the storage types the kernels take (fp32 and bf16 q and
-// caches, int8 caches). Float math accumulates in fp32, integer dots in int32.
+// Shared helpers of the port's kernels: element conversion and vector loads
+// for the storage types the kernels take (fp32 and bf16 q and caches, int8
+// caches and weights), tensor-core and async-copy wrappers, and the row
+// tiles of grouped products. Float math accumulates in fp32, integer dots in
+// int32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -211,6 +213,62 @@ __device__ __forceinline__ unsigned bf16x2(float x, float y) {
 // first: exact, since |x| <= 128.
 __device__ __forceinline__ unsigned s8x2_to_bf16x2(int w) {
   return bf16x2(static_cast<float>(sbyte(w, 0)), static_cast<float>(sbyte(w, 1)));
+}
+
+// --- Groups of rows (expert-sorted MoE dispatches), shared by the grouped
+// GEMM (K6) and the W8A16 GEMM (K9) ---
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// Row tile `target` of rows sorted by group, group g owning rows
+// [offs[g], offs[g+1]) cut into tiles of BM: group e_out, rows
+// [row0, row_end). The tiles are numbered group after group; one warp forms
+// their prefix sum with a shuffle scan, 32 groups a step. False when
+// `target` is past the last tile; every thread of the block gets the same
+// answer.
+template <int BM>
+__device__ __forceinline__ bool find_row_tile_at(const int* __restrict__ offs, int E,
+                                                 int target, int& e_out, int& row0,
+                                                 int& row_end) {
+  __shared__ int tile[3];
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int carry = 0, found = -1, beg = 0, end = 0;
+    for (int base = 0; base < E; base += 32) {
+      const int e = base + lane;
+      int lo = 0, hi = 0;
+      if (e < E) {
+        lo = offs[e];
+        hi = offs[e + 1];
+      }
+      const int tiles = (hi - lo + BM - 1) / BM;
+      int incl = tiles;  // inclusive prefix sum over the 32 lanes
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      const int start = carry + incl - tiles;
+      if (e < E && target >= start && target < start + tiles) {
+        found = e;
+        beg = lo + (target - start) * BM;
+        end = min(beg + BM, hi);
+      }
+      carry += __shfl_sync(kFull, incl, 31);
+    }
+    if (lane == 0) tile[0] = -1;
+    __syncwarp();
+    if (found >= 0) {  // at most one lane
+      tile[0] = found;
+      tile[1] = beg;
+      tile[2] = end;
+    }
+  }
+  __syncthreads();
+  e_out = tile[0];
+  row0 = tile[1];
+  row_end = tile[2];
+  return e_out >= 0;
 }
 
 }  // namespace ssd

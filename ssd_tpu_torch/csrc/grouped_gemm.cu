@@ -71,56 +71,6 @@
 namespace ssd {
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-
-// Row tile `target`: expert e_out, rows [row0, row_end) of x. False when
-// `target` is past the last tile; every thread of the block gets the same
-// answer.
-template <int BM>
-__device__ __forceinline__ bool find_row_tile_at(const int* __restrict__ offs, int E,
-                                                 int target, int& e_out, int& row0,
-                                                 int& row_end) {
-  __shared__ int tile[3];
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int carry = 0, found = -1, beg = 0, end = 0;
-    for (int base = 0; base < E; base += 32) {
-      const int e = base + lane;
-      int lo = 0, hi = 0;
-      if (e < E) {
-        lo = offs[e];
-        hi = offs[e + 1];
-      }
-      const int tiles = (hi - lo + BM - 1) / BM;
-      int incl = tiles;  // inclusive prefix sum over the 32 lanes
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += y;
-      }
-      const int start = carry + incl - tiles;
-      if (e < E && target >= start && target < start + tiles) {
-        found = e;
-        beg = lo + (target - start) * BM;
-        end = min(beg + BM, hi);
-      }
-      carry += __shfl_sync(kFull, incl, 31);
-    }
-    if (lane == 0) tile[0] = -1;
-    __syncwarp();
-    if (found >= 0) {  // at most one lane
-      tile[0] = found;
-      tile[1] = beg;
-      tile[2] = end;
-    }
-  }
-  __syncthreads();
-  e_out = tile[0];
-  row0 = tile[1];
-  row_end = tile[2];
-  return e_out >= 0;
-}
-
 // This block's row tile, blockIdx.x.
 template <int BM>
 __device__ __forceinline__ bool find_row_tile(const int* __restrict__ offs, int E,

@@ -41,10 +41,23 @@ from ssd_tpu_torch.engine.draft_runner import DraftRunner, SpecRequest, SpecResp
 from ssd_tpu_torch.engine.model_runner import (
     KVCache, ModelRunner, device_slot_of, layer_of, next_pow2)
 from ssd_tpu_torch.models.eagle3 import (
-    EagleArch, eagle_forward, eagle_logits, init_eagle_params, project_target_acts)
+    EagleArch, compute_dtype, eagle_forward, eagle_logits, init_eagle_params,
+    project_target_acts)
 from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops.sampler import sample
 from ssd_tpu_torch.ops.spec_math import FanOut, get_forked_recovery_tokens
+
+
+def _attend(fn, q, kv_layer, *args, **kwargs):
+    """fn(q, kv_layer, ...) with q in the dtype of an fp cache: an int8 head
+    computes in bf16 (models/eagle3.py::compute_dtype) over the engine's
+    cache, fp32 in an fp32 engine, and the fp kernels take q in the cache's
+    dtype. bf16 -> fp32 is exact, and the output returns to q's dtype, as
+    the plain version computes it (fp32 arithmetic, the output in q's
+    dtype)."""
+    if isinstance(kv_layer, torch.Tensor) and kv_layer.dtype != q.dtype:
+        return fn(q.to(kv_layer.dtype), kv_layer, *args, **kwargs).to(q.dtype)
+    return fn(q, kv_layer, *args, **kwargs)
 
 
 def _paged_call(kv_cache, slots, bt, ctx, qeff, q_len, arch, block_size, s8):
@@ -56,8 +69,9 @@ def _paged_call(kv_cache, slots, bt, ctx, qeff, q_len, arch, block_size, s8):
         kv_layer = layer_of(kv_cache, li)
         att.store_kv(kv_layer, k, v, slots)
         B = bt.shape[0]
-        o = att.paged_attention(q.reshape(B, q_len, arch.num_heads, arch.head_dim),
-                                kv_layer, bt, ctx, qeff, block_size, scale, s8=s8)
+        o = _attend(att.paged_attention,
+                    q.reshape(B, q_len, arch.num_heads, arch.head_dim),
+                    kv_layer, bt, ctx, qeff, block_size, scale, s8=s8)
         return o.reshape(B * q_len, arch.num_heads, arch.head_dim)
 
     return attn_call
@@ -160,7 +174,7 @@ def eagle_tree_build_step(
     MQ = fan.MQ
     D = arch.hidden_size
     A = recovery_acts.shape[-1]
-    cdt = params["fc"].dtype
+    cdt = compute_dtype(params)
     base = base_positions.long()
     ne = n_ext.long()[:, None]                                        # [B, 1]
     j = torch.arange(W, device=dev)[None, :]                          # [1, W]
@@ -219,9 +233,8 @@ def eagle_tree_build_step(
         def tree_call(li, q, k, v, s=s, slots_s=slots_s, ctx=ctx):
             kv_layer = layer_of(kv_cache, li)
             att.store_kv(kv_layer, k, v, slots_s)
-            o = att.tree_attention(q.reshape(B, MQ, arch.num_heads, arch.head_dim),
-                                   kv_layer, block_tables, ctx, fan_rows, s, K, block_size,
-                                   scale, s8=s8)
+            o = _attend(att.tree_attention, q.reshape(B, MQ, arch.num_heads, arch.head_dim),
+                        kv_layer, block_tables, ctx, fan_rows, s, K, block_size, scale, s8=s8)
             return o.reshape(B * MQ, arch.num_heads, arch.head_dim)
 
         tcond = eagle_forward(params, tok, tcond, (base_n + fan_n + 1 + s).int(), tree_call,
@@ -278,9 +291,8 @@ class EagleRunnerMixin:
         def attn_call(li, q, k, v):
             kv_layer = layer_of(self.kv_cache, li)
             att.store_kv(kv_layer, k, v, inp["slot_map"])
-            return att.flat_prefill_attention(q, kv_layer, inp["flat_pages"],
-                                              inp["row_lo"], inp["row_hi"],
-                                              self.block_size, scale)
+            return _attend(att.flat_prefill_attention, q, kv_layer, inp["flat_pages"],
+                           inp["row_lo"], inp["row_hi"], self.block_size, scale)
 
         eagle_forward(self.params, inp["input_ids"], cond, inp["positions"],
                       attn_call, self.arch)

@@ -45,6 +45,7 @@ from ssd_tpu_torch.models.transformer import (
 from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops.sampler import sample
 from ssd_tpu_torch.utils.native import prepare_prefill, slot_of  # noqa: F401 (the host copy)
+from ssd_tpu_torch.utils.quant import quantize_eagle_params, quantize_params
 
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -241,6 +242,28 @@ def chain_decode_step(
     return torch.stack(toks[:K], dim=1), torch.stack(logits[:K], dim=1)
 
 
+def tensor_bytes(params: dict) -> int:
+    """Bytes of the distinct tensors of a parameter dict (a tied head and
+    embedding count once)."""
+    seen, total = set(), 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            if x.data_ptr() not in seen:
+                seen.add(x.data_ptr())
+                total += x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, list):
+            for v in x:
+                walk(v)
+
+    walk(params)
+    return total
+
+
 def kv_block_bytes(arch: Arch, block_size: int, dtype: torch.dtype,
                    kv_quant: str | None = None) -> int:
     """Bytes of one KV block across all layers ([K|V] rows of every head):
@@ -278,9 +301,21 @@ class ModelRunner:
 
         with torch.no_grad():
             self.params = self._make_params(init_random)
-        # The LM head runs in fp32, as in the JAX package; keeping an fp32
-        # copy costs its memory once instead of a conversion every step.
-        self.params["lm_head"] = self.params["lm_head"].float()
+            if config.quantization == "int8":
+                # Weight-only int8 at load, as ssd_tpu/engine/model_runner.py
+                # does: a model's dict (it has `layers`) or an EAGLE head's
+                # (it has `fc`), leaf by leaf. The freed float weights go
+                # back to the driver before mem_get_info sizes the pool.
+                quantize = quantize_params if "layers" in self.params else quantize_eagle_params
+                self.params = quantize(self.params)
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+            else:
+                # The LM head runs in fp32, as in the JAX package; keeping an
+                # fp32 copy costs its memory once instead of a conversion
+                # every step (an int8 head takes K9 with fp32 output).
+                self.params["lm_head"] = self.params["lm_head"].float()
+        self.weight_bytes = tensor_bytes(self.params)
 
         self.pool_sizing = None   # set when the pool is sized from free memory
         self.num_kvcache_blocks = self._decide_num_blocks(partner)
@@ -331,18 +366,19 @@ class ModelRunner:
             d_arch = EagleArch.from_model_config(partner, cfg.d_model_target,
                                                  len(cfg.eagle_layers))
             block_bytes += kv_block_bytes(d_arch, self.block_size, self.dtype, self.kv_quant)
-            reserve = eagle_param_bytes(d_arch, self.dtype)
+            reserve = eagle_param_bytes(d_arch, self.dtype, cfg.quantization)
         elif partner is not None:
             d_arch = Arch.from_model_config(partner)
             block_bytes += kv_block_bytes(d_arch, self.block_size, self.dtype, self.kv_quant)
-            reserve = param_bytes(d_arch, self.dtype)
+            reserve = param_bytes(d_arch, self.dtype, cfg.quantization)
         free, total = torch.cuda.mem_get_info(self.device)
         avail = int(total * cfg.gpu_memory_utilization) - (total - free) - reserve
         num = max(16, avail // block_bytes)
         # No point exceeding what max_num_seqs full-length sequences can use.
         cap = (cfg.max_num_seqs + 1) * (cfg.max_blocks + 2) * 4
         self.pool_sizing = dict(block_bytes=block_bytes, avail_bytes=avail,
-                                uncapped_blocks=num, cap_blocks=cap)
+                                uncapped_blocks=num, cap_blocks=cap, blocks=min(num, cap),
+                                weight_bytes=self.weight_bytes, partner_reserve_bytes=reserve)
         return min(num, cap)
 
     # --- host-side input prep ---

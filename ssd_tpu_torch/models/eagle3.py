@@ -16,7 +16,11 @@ position shift (canonical token p sits at draft position p - 1).
 
 Parameter dict: embed [V, D], fc [n_taps*D_target, D], input_ln, cond_ln,
 post_ln [D], wq [2D, Hq*hd], wk / wv [2D, Hkv*hd], wo [Hq*hd, D], gate / up
-[D, I], down [I, D], final_ln [D], lm_head [Vd, D], d2t [Vd] int.
+[D, I], down [I, D], final_ln [D], lm_head [Vd, D], d2t [Vd] int. With int8
+weights (utils/quant.py::quantize_eagle_params) the projections, fc, the
+embedding and the head are int8 [out, in] beside their scales, run through
+ops/linear.py, and the head computes in bf16 whatever the engine's dtype
+(compute_dtype), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from ssd_tpu_torch.config import ModelConfig
 from ssd_tpu_torch.models.transformer import AttnCall
 from ssd_tpu_torch.ops.layers import apply_rope, rms_norm, rope_cos_sin, silu_mul
+from ssd_tpu_torch.ops.linear import head_logits, mm
 
 
 @dataclass(frozen=True)
@@ -97,19 +102,35 @@ def init_eagle_params(arch: EagleArch, seed: int, dtype: torch.dtype,
     }
 
 
-def eagle_param_bytes(arch: EagleArch, dtype: torch.dtype) -> int:
+def eagle_param_bytes(arch: EagleArch, dtype: torch.dtype,
+                      quantization: str | None = None) -> int:
     """Device bytes of the draft's parameters as the runner holds them: the
-    weights in `dtype`, the LM head as its fp32 copy, and d2t."""
+    weights in `dtype`, the LM head as its fp32 copy, and d2t; with
+    quantization="int8" every matrix in int8 with an fp32 scale per output
+    channel, and no fp32 copy."""
     D, I = arch.hidden_size, arch.intermediate_size
     Hq, Hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
-    n = (arch.vocab_size * D + arch.act_dim * D + 2 * D * (Hq + 2 * Hkv) * hd
-         + Hq * hd * D + 3 * D * I + 4 * D)
-    return n * (torch.finfo(dtype).bits // 8) + arch.draft_vocab_size * (D * 4 + 8)
+    V, Vd = arch.vocab_size, arch.draft_vocab_size
+    elem = torch.finfo(dtype).bits // 8
+    # (elements, output channels): embed, fc, wq, wk + wv, wo, gate + up, down
+    mats = [(V * D, V), (arch.act_dim * D, D), (2 * D * Hq * hd, Hq * hd),
+            (4 * D * Hkv * hd, 2 * Hkv * hd), (Hq * hd * D, D), (2 * D * I, 2 * I),
+            (I * D, D)]
+    if quantization is None:
+        return (sum(n for n, _ in mats) + 4 * D) * elem + Vd * (D * 4 + 8)
+    return sum(n + 4 * c for n, c in mats + [(Vd * D, Vd)]) + 4 * D * elem + Vd * 8
+
+
+def compute_dtype(params: dict) -> torch.dtype:
+    """The head's compute dtype: bf16 for an int8 head (its fc is int8),
+    else its weights' (ssd_tpu/models/eagle3.py::_compute_dtype)."""
+    fc = params["fc"]
+    return torch.bfloat16 if fc.dtype == torch.int8 else fc.dtype
 
 
 def project_target_acts(params: dict, acts: torch.Tensor) -> torch.Tensor:
     """fc: [T, n_taps * D_target] -> [T, D]."""
-    return acts.to(params["fc"].dtype) @ params["fc"]
+    return mm(acts.to(compute_dtype(params)), params, "fc")
 
 
 def eagle_forward(
@@ -125,20 +146,22 @@ def eagle_forward(
     T = input_ids.shape[0]
     Hq, Hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
     eps = arch.rms_norm_eps
-    tok = params["embed"][input_ids]
+    tok = params["embed"][input_ids].to(compute_dtype(params))
+    if "embed_scale" in params:
+        tok = tok * params["embed_scale"][input_ids][:, None].to(tok.dtype)
     cond = conditioning.to(tok.dtype)
     x = torch.cat([rms_norm(tok, params["input_ln"], eps),
                    rms_norm(cond, params["cond_ln"], eps)], dim=-1)      # [T, 2D]
     cos, sin = rope_cos_sin(positions, hd, arch.rope_theta)
-    q = apply_rope((x @ params["wq"]).reshape(T, Hq, hd), cos, sin)
-    k = apply_rope((x @ params["wk"]).reshape(T, Hkv, hd), cos, sin)
-    v = (x @ params["wv"]).reshape(T, Hkv, hd)
+    q = apply_rope(mm(x, params, "wq").reshape(T, Hq, hd), cos, sin)
+    k = apply_rope(mm(x, params, "wk").reshape(T, Hkv, hd), cos, sin)
+    v = mm(x, params, "wv").reshape(T, Hkv, hd)
     o = attn_call(0, q, k, v)
-    attn_out = o.reshape(T, Hq * hd) @ params["wo"]
+    attn_out = mm(o.reshape(T, Hq * hd), params, "wo")
     # The conditioning is the residual stream.
     resid = (attn_out.float() + cond.float()).to(tok.dtype)
     h = rms_norm(resid, params["post_ln"], eps)
-    mlp = silu_mul(h @ params["gate"], h @ params["up"]) @ params["down"]
+    mlp = mm(silu_mul(mm(h, params, "gate"), mm(h, params, "up")), params, "down")
     return (mlp.float() + resid.float()).to(tok.dtype)
 
 
@@ -146,8 +169,7 @@ def eagle_logits(params: dict, prenorm: torch.Tensor, arch: EagleArch) -> torch.
     """Final norm -> draft LM head in fp32 -> the d2t scatter into the full
     target vocabulary with -inf elsewhere. Returns [T, vocab_size] fp32. A
     full-vocabulary head (d2t the identity) skips the scatter."""
-    h = rms_norm(prenorm, params["final_ln"], arch.rms_norm_eps)
-    logits = h.float() @ params["lm_head"].float().T
+    logits = head_logits(rms_norm(prenorm, params["final_ln"], arch.rms_norm_eps), params)
     if arch.draft_vocab_size == arch.vocab_size:
         return logits
     target_idx = torch.arange(arch.draft_vocab_size, device=logits.device) \

@@ -17,8 +17,12 @@ Parameter dict:
   moe_gate / moe_up [E, D, Im] and moe_down [E, Im, D] of the layer (the JAX
   package stacks them [L, E, ...]), run by ops/moe.py::moe_mlp.
 With `eagle_layers`, forward_hidden also returns the EAGLE-3 taps: the
-residual stream entering each tapped layer, concatenated. Not ported yet:
-int8 weights, the reduced vocabulary of a plain (non-EAGLE) draft (d2t).
+residual stream entering each tapped layer, concatenated. With int8 weights
+(utils/quant.py) every projection, expert stack, the embedding and the head
+are int8 [out, in] beside their fp32 scales `name + "_scale"`, and run
+through the W8A16 kernel (ops/linear.py); the router and the norms stay in
+the model's dtype. Not ported yet: the reduced vocabulary of a plain
+(non-EAGLE) draft (d2t).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from ssd_tpu_torch.config import ModelConfig
 from ssd_tpu_torch.ops.layers import (
     apply_rope, rms_norm, rms_norm_residual, rope_cos_sin, silu_mul)
+from ssd_tpu_torch.ops.linear import head_logits, mm
 from ssd_tpu_torch.ops.moe import moe_mlp
 
 # attn_call(layer index, q [T,Hq,hd], k [T,Hkv,hd], v [T,Hkv,hd]) -> [T,Hq,hd]
@@ -120,17 +125,28 @@ def init_params(arch: Arch, seed: int, dtype: torch.dtype,
     return params
 
 
-def param_bytes(arch: Arch, dtype: torch.dtype) -> int:
+def param_bytes(arch: Arch, dtype: torch.dtype, quantization: str | None = None) -> int:
     """Device bytes of a model's parameters as the runner holds them: the
-    weights in `dtype` plus the fp32 copy of the LM head."""
+    weights in `dtype` plus the fp32 copy of the LM head; with
+    quantization="int8" every matrix (the embedding and the head too) in
+    int8 with an fp32 scale per output channel, a tied head shared with the
+    embedding, and no fp32 copy."""
     D, I = arch.hidden_size, arch.intermediate_size
     E, Im = arch.num_experts, arch.moe_intermediate_size
     Hq, Hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
-    mlp = D * E + 3 * E * D * Im if E else 3 * D * I
-    per_layer = 2 * D * Hq * hd + 2 * D * Hkv * hd + mlp + 2 * D + 2 * hd
+    V, L = arch.vocab_size, arch.num_layers
     elem = torch.finfo(dtype).bits // 8
-    return (arch.vocab_size * D + arch.num_layers * per_layer + D) * elem \
-        + arch.vocab_size * D * 4
+    # (elements, output channels) of a layer's matrices; the router and the
+    # norms stay in dtype.
+    mats = [(D * Hq * hd, Hq * hd), (2 * D * Hkv * hd, 2 * Hkv * hd), (Hq * hd * D, D)]
+    mats += [(3 * E * D * Im, E * (2 * Im + D))] if E else [(3 * D * I, 2 * I + D)]
+    other = (D * E if E else 0) + 2 * D + (2 * hd if arch.use_qk_norm else 0)
+    if quantization is None:
+        per_layer = sum(n for n, _ in mats) + other
+        return (V * D + L * per_layer + D) * elem + V * D * 4
+    per_layer = sum(n + 4 * c for n, c in mats) + other * elem
+    heads = 1 if arch.tie_embeddings else 2
+    return L * per_layer + heads * (V * D + 4 * V) + D * elem
 
 
 def forward_hidden(
@@ -151,6 +167,10 @@ def forward_hidden(
     eps = arch.rms_norm_eps
 
     hidden = params["embed"][input_ids]
+    if "embed_scale" in params:
+        # An int8 row times its scale, in the compute dtype (final_ln's).
+        cdt = params["final_ln"].dtype
+        hidden = hidden.to(cdt) * params["embed_scale"][input_ids].to(cdt)[:, None]
     cos, sin = rope_cos_sin(positions, hd, arch.rope_theta)
     residual = torch.zeros_like(hidden)
     taps = sorted(eagle_layers) if eagle_layers else []
@@ -160,22 +180,22 @@ def forward_hidden(
             pre = (hidden.float() + residual.float()).to(hidden.dtype)
             acts += [pre] * taps.count(li)
         x, residual = rms_norm_residual(hidden, residual, lp["input_ln"], eps)
-        q = (x @ lp["wq"]).reshape(T, Hq, hd)
-        k = (x @ lp["wk"]).reshape(T, Hkv, hd)
-        v = (x @ lp["wv"]).reshape(T, Hkv, hd)
+        q = mm(x, lp, "wq").reshape(T, Hq, hd)
+        k = mm(x, lp, "wk").reshape(T, Hkv, hd)
+        v = mm(x, lp, "wv").reshape(T, Hkv, hd)
         if arch.use_qk_norm:
             q = rms_norm(q, lp["q_norm"], eps)
             k = rms_norm(k, lp["k_norm"], eps)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         o = attn_call(li, q, k, v)
-        hidden = o.reshape(T, Hq * hd) @ lp["wo"]
+        hidden = mm(o.reshape(T, Hq * hd), lp, "wo")
 
         x, residual = rms_norm_residual(hidden, residual, lp["post_ln"], eps)
         if arch.num_experts:
             hidden = moe_mlp(x, lp, arch.num_experts_per_tok, arch.norm_topk_prob)
         else:
-            hidden = silu_mul(x @ lp["gate"], x @ lp["up"]) @ lp["down"]
+            hidden = mm(silu_mul(mm(x, lp, "gate"), mm(x, lp, "up")), lp, "down")
     hidden = (hidden.float() + residual.float()).to(hidden.dtype)
     if eagle_layers:
         return hidden, torch.cat(acts, dim=-1)
@@ -192,5 +212,4 @@ def compute_logits(
     rows (prefill projects only each sequence's last token)."""
     if gather_idx is not None:
         hidden = hidden[gather_idx]
-    hidden = rms_norm(hidden, params["final_ln"], arch.rms_norm_eps)
-    return hidden.float() @ params["lm_head"].float().T
+    return head_logits(rms_norm(hidden, params["final_ln"], arch.rms_norm_eps), params)

@@ -6,8 +6,8 @@ Each source compiles with its own `nvcc` process, all started together, for
 `csrc/build/libssd_tpu_torch_<hash>.so`, where `<hash>` covers the sources and
 flags, so an edited source rebuilds. The library has a plain C interface:
 pointers and the CUDA stream pass as `c_void_p`, and every entry point returns
-a `cudaError_t`, on which the wrappers in ops/attention.py and ops/moe.py
-raise. A failed build raises; nothing falls back to the plain versions.
+a `cudaError_t`, on which the wrappers in ops/attention.py, ops/moe.py and
+ops/linear.py raise. A failed build raises; nothing falls back to the plain versions.
 """
 
 from __future__ import annotations
@@ -233,6 +233,15 @@ def _bind(cdll: ctypes.CDLL):
     cdll.ssd_grouped_gemm_smem_bytes.argtypes = [i]
     cdll.ssd_flat_prefill_smem_bytes.restype = i
     cdll.ssd_flat_prefill_smem_bytes.argtypes = [i, i]
+    # W8A16 GEMM (int8 weights, csrc/int8_weight_gemm.cu): offsets may be
+    # NULL (one group).
+    cdll.ssd_int8_linear.restype = i
+    cdll.ssd_int8_linear.argtypes = [
+        i, i, i, p, p, p, p, p,  # dtype, out_fp32, route, x, w, scale, group_offsets, out
+        i, i, i, i, p,           # M, N, K, G, stream
+    ]
+    cdll.ssd_int8_linear_smem_bytes.restype = i
+    cdll.ssd_int8_linear_smem_bytes.argtypes = [i]
 
 
 def load() -> KernelLibrary:

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ssd_tpu_torch.ops import cuda_lib
 from ssd_tpu_torch.ops.layers import silu_mul
+from ssd_tpu_torch.ops.linear import int8_linear
 from ssd_tpu_torch.ops.spec_math import stable_topk_indices
 
 
@@ -67,7 +68,11 @@ def moe_mlp(x: torch.Tensor, lp: dict, top_k: int, norm_topk_prob: bool) -> torc
     T*k (token, expert) pairs are stable-sorted by expert (each token's rows
     stay in expert-index order), run through three grouped GEMMs with
     silu_mul between (bf16 rounds g, u and the product, as JAX's rdot), then
-    put back in token order and summed over k in expert-index order."""
+    put back in token order and summed over k in expert-index order. Int8
+    expert stacks ([E, out, in] with scales [E, out], utils/quant.py) take
+    the W8A16 kernel over the same groups (ops/linear.py; a sorted row
+    takes its expert's scales, as JAX's int8 `rdot`), float ones the
+    grouped GEMM."""
     T, D = x.shape
     E = lp["router"].shape[1]
     top_i, top_w = route(x, lp["router"], top_k, norm_topk_prob)
@@ -75,11 +80,18 @@ def moe_mlp(x: torch.Tensor, lp: dict, top_k: int, norm_topk_prob: bool) -> torc
     order = torch.argsort(flat_e, stable=True)
     xs = x.index_select(0, order // top_k)                       # [T*k, D]
     offsets = expert_offsets(flat_e, E)
-    g = grouped_gemm(xs, lp["moe_gate"], offsets)
-    u = grouped_gemm(xs, lp["moe_up"], offsets)
-    d = grouped_gemm(silu_mul(g, u), lp["moe_down"], offsets)   # [T*k, D]
+    g = _experts(xs, lp, "moe_gate", offsets)
+    u = _experts(xs, lp, "moe_up", offsets)
+    d = _experts(silu_mul(g, u), lp, "moe_down", offsets)        # [T*k, D]
     eo = torch.empty_like(d).index_copy_(0, order, d).reshape(T, top_k, D)
     return torch.einsum("tkd,tk->td", eo, top_w)
+
+
+def _experts(x: torch.Tensor, lp: dict, name: str, offsets: torch.Tensor) -> torch.Tensor:
+    scale = lp.get(name + "_scale")
+    if scale is None:
+        return grouped_gemm(x, lp[name], offsets)
+    return int8_linear(x, lp[name], scale, group_offsets=offsets)
 
 
 # ---------------------------------------------------------------------------

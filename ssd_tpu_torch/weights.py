@@ -5,7 +5,9 @@ ssd_tpu/models/transformer.py, already brought to the host as numpy arrays
 (the caller runs `jax.device_get`; this module imports no JAX), and returns
 the port's per-layer parameter dict, so both packages compute the same
 function from the same weights. An EAGLE-3 head's flat dict
-(ssd_tpu/models/eagle3.py) converts key for key.
+(ssd_tpu/models/eagle3.py) converts key for key. A tree quantized by
+ssd_tpu/utils/quant.py carries its int8 weights and `_scale` keys across,
+each int8 matrix transposed to the port's [out, in] (utils/quant.py).
 """
 
 from __future__ import annotations
@@ -13,14 +15,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ssd_tpu_torch.utils.quant import EAGLE_WEIGHTS, LAYER_WEIGHTS
+
 _LAYER_KEYS = ("input_ln", "wq", "wk", "wv", "wo", "post_ln", "gate", "up",
                "down", "q_norm", "k_norm",
                # Qwen3-MoE: router [L, D, E], expert stacks [L, E, in, out]
-               "router", "moe_gate", "moe_up", "moe_down")
+               "router", "moe_gate", "moe_up", "moe_down",
+               # int8 weights' per-output-channel scales
+               *(name + "_scale" for name in LAYER_WEIGHTS))
 
 
 _EAGLE_KEYS = ("embed", "fc", "input_ln", "cond_ln", "post_ln", "wq", "wk",
-               "wv", "wo", "gate", "up", "down", "final_ln", "lm_head", "d2t")
+               "wv", "wo", "gate", "up", "down", "final_ln", "lm_head", "d2t",
+               *(name + "_scale" for name in EAGLE_WEIGHTS + ("embed", "lm_head")))
+_TOP_KEYS = ("embed", "layers", "final_ln", "lm_head", "embed_scale", "lm_head_scale")
 
 
 def params_from_jax(np_params: dict) -> dict:
@@ -29,11 +37,14 @@ def params_from_jax(np_params: dict) -> dict:
     keeps its experts stacked, [E, ...]), CPU tensors of
     the arrays' dtype (float32, float16 or ml_dtypes' bfloat16); a tied head
     (the same array as embed) stays one tensor. An EAGLE head's dict (it has
-    `fc`) keeps its keys, with d2t as int64."""
-    def conv(a) -> torch.Tensor:
+    `fc`) keeps its keys, with d2t as int64. Int8 matrices (not the
+    embedding or the head, already [V, D]) become [.., out, in]."""
+    def conv(a, transpose=False) -> torch.Tensor:
         a = np.array(a)  # a copy: device_get arrays are read-only
         if a.dtype.name == "bfloat16":
             return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        if transpose and a.dtype == np.int8:
+            return torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, -1, -2)))
         return torch.from_numpy(a)
 
     if "fc" in np_params:
@@ -42,18 +53,20 @@ def params_from_jax(np_params: dict) -> dict:
         unknown = set(np_params) - set(_EAGLE_KEYS)
         if unknown:
             raise NotImplementedError(f"EAGLE parameters not ported yet: {sorted(unknown)}")
-        params = {k: conv(v) for k, v in np_params.items()}
+        params = {k: conv(v, k in EAGLE_WEIGHTS) for k, v in np_params.items()}
         params["d2t"] = params["d2t"].long()
         return params
-    stacked = np_params["layers"]
-    unknown = set(stacked) - set(_LAYER_KEYS)
+    unknown = (set(np_params) - set(_TOP_KEYS)) | (set(np_params["layers"]) - set(_LAYER_KEYS))
     if unknown:
-        raise NotImplementedError(f"layer parameters not ported yet: {sorted(unknown)}")
+        raise NotImplementedError(f"parameters not ported yet: {sorted(unknown)}")
+    stacked = np_params["layers"]
     L = next(iter(stacked.values())).shape[0]
-    layers = [{k: conv(v[i]) for k, v in stacked.items()} for i in range(L)]
-    params = {"embed": conv(np_params["embed"]), "layers": layers,
-              "final_ln": conv(np_params["final_ln"])}
-    head = np_params["lm_head"]
-    params["lm_head"] = (params["embed"] if head is np_params["embed"]
-                         else conv(head))
+    layers = [{k: conv(v[i], k in LAYER_WEIGHTS) for k, v in stacked.items()}
+              for i in range(L)]
+    params = {"layers": layers, **{k: conv(np_params[k]) for k in
+                                   ("embed", "final_ln", "embed_scale") if k in np_params}}
+    tied = np_params["lm_head"] is np_params["embed"]
+    for k in ("lm_head", "lm_head_scale"):
+        if k in np_params:
+            params[k] = params[k.replace("lm_head", "embed")] if tied else conv(np_params[k])
     return params

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over the fp cache and over the int8 cache (kv_quant "int8" and "int8_mxu"),
-the MoE grouped GEMM, and the two bench probes (the s8 dot paths and the
-paged kernels' stage variants).
+the MoE grouped GEMM, the W8A16 GEMM of int8 weights, and the two bench
+probes (the s8 dot paths and the paged kernels' stage variants).
 
 Needs an NVIDIA GPU (the kernels have no CPU mode) and skips without one.
 The file imports neither JAX nor the JAX package, so on a GPU machine
@@ -16,7 +16,7 @@ import torch
 
 from ssd_tpu_torch.bench import kernel_diag, s8_probe
 from ssd_tpu_torch.ops import attention as att
-from ssd_tpu_torch.ops import moe, probes
+from ssd_tpu_torch.ops import linear, moe, probes
 from tests.torch_cases import flat_batch, flat_meta, paged_case, tree_case
 
 
@@ -884,11 +884,11 @@ TINY_EAGLE = {"model_type": "llama", "vocab_size": 512, "hidden_size": 256,
 EAGLE_TAPS = [0, 1, 1]
 
 
-def _eagle_runners(tmp_path):
+def _eagle_runners(tmp_path, **kw):
     """Random bf16 runners on the card: the tapped target, the async form's
     EAGLE-3 head (EagleDraftRunner, fan-out 2) and the fused form's
     (EagleModelRunner), with one StepGraphs of the test's attached to all
-    three."""
+    three; `kw` adds to their config."""
     import json
 
     from ssd_tpu_torch.config import Config
@@ -905,7 +905,7 @@ def _eagle_runners(tmp_path):
     common = dict(device="cuda", dtype="bfloat16", max_model_len=256,
                   kvcache_block_size=GRAPH_BS, num_kvcache_blocks=96, max_num_seqs=4,
                   draft=dirs[1], speculate=True, use_eagle=True, speculate_k=GRAPH_K,
-                  eagle_layers=EAGLE_TAPS)
+                  eagle_layers=EAGLE_TAPS, **kw)
     t = ModelRunner(Config(dirs[0], spec_rounds=GRAPH_R, **common), init_random=True)
     fused = EagleModelRunner(Config(dirs[0], spec_rounds=GRAPH_R, **common)
                              .create_draft_config(), init_random=True)
@@ -1015,3 +1015,112 @@ def test_eagle_graph_counters_read_zero_after_replays_on_card(tmp_path):
         assert not graphs.steps[key].scratch.counters.any(), kind
         for a, b in zip(first, last):
             assert torch.equal(a, b), kind
+
+
+# --- int8 weights: the W8A16 GEMM (K9, csrc/int8_weight_gemm.cu) ---------------
+
+# (M, N, K, group sizes or None): the chip_smoke kernels phase's shapes
+# (Llama-3.2-1B's qkv, o, gate/up and down at 8, 40 and 80 rows; its LM head
+# at 8 and 80 rows; prefill at 5534 rows; Qwen3-30B-A3B's expert gate and
+# down at a b8 decode dispatch, 64 rows over 53 of 128 experts, and at b1's
+# 8 one-row groups) and edge cases: one row, N not a multiple of the 64-wide
+# column tile, K not a multiple of a K slice, empty groups first, inside
+# and last, a group larger than a tile.
+K9_DECODE = np.zeros(128, np.int64)
+_r = np.random.default_rng(34)
+K9_DECODE[_r.choice(128, 53, replace=False)] = 1
+K9_DECODE[_r.choice(np.flatnonzero(K9_DECODE), 11, replace=False)] += 1     # 64 rows
+K9_B1 = np.zeros(128, np.int64)
+K9_B1[_r.choice(128, 8, replace=False)] = 1
+K9_CASES = ([(m, n, k, None) for m in (8, 40, 80)
+             for n, k in ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192))]
+            + [(m, 128256, 2048, None) for m in (8, 80)]
+            + [(5534, 2048, 2048, None), (1, 72, 48, None), (37, 200, 784, None)]
+            + [(None, 768, 2048, K9_DECODE), (None, 2048, 768, K9_DECODE),
+               (None, 768, 2048, K9_B1), (None, 136, 96, [0, 130, 1, 0, 64, 3, 0])])
+
+
+def _k9_case(M, N, K, sizes, dtype, seed):
+    r = np.random.default_rng(seed)
+    if sizes is not None:
+        M = int(sum(sizes))
+    G = 1 if sizes is None else len(sizes)
+    x = torch.from_numpy(r.normal(size=(M, K)).astype(np.float32)).to("cuda", dtype)
+    w = torch.from_numpy(r.integers(-127, 128, size=(G, N, K)).astype(np.int8)).cuda()
+    s = torch.from_numpy((r.uniform(0.5, 2.0, size=(G, N)) * 0.02 / 127).astype(np.float32)).cuda()
+    offs = None if sizes is None else t(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)).cuda()
+    return x, w, s, offs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["small", "large", "simt"])
+def test_int8_linear_matches_plain_on_card(route, monkeypatch):
+    """K9 against its plain version at every case of K9_CASES, each bf16
+    route forced on every case (bf16 x, bf16 and fp32 output), and the fp32
+    route (fp32 x, fp32 output): within close() of the output dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    dtype = torch.float32 if route == "simt" else torch.bfloat16
+    monkeypatch.setattr(linear, "int8_linear_route", lambda *shape: route)
+    for i, (M, N, K, sizes) in enumerate(K9_CASES):
+        x, w, s, offs = _k9_case(M, N, K, sizes, dtype, seed=40 + i)
+        for out in {dtype, torch.float32}:
+            got = linear.int8_linear(x, w, s, out_dtype=out, group_offsets=offs)
+            torch.cuda.synchronize()
+            want = linear.int8_linear_plain(x, w, s, out, offs)
+            assert got.dtype == out and got.shape == want.shape
+            assert close(got, want, out), (route, M, N, K, out)
+
+
+@pytest.mark.cuda
+def test_int8_linear_arguments_on_card():
+    """CPU tensors take the plain version; on the card a wrong dtype, a
+    tensor on another device, a misaligned view and K off a multiple of 16
+    raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    x, w, s, _ = _k9_case(8, 64, 64, None, torch.bfloat16, seed=3)
+    cpu = [a.cpu() for a in (x, w, s)]
+    assert torch.equal(linear.int8_linear(*cpu), linear.int8_linear_plain(*cpu))
+    launches = linear.int8_linear.launches
+    with pytest.raises(TypeError):
+        linear.int8_linear(x.half(), w, s)
+    with pytest.raises(TypeError):
+        linear.int8_linear(x, w.to(torch.bfloat16), s)
+    with pytest.raises(RuntimeError, match="is on"):
+        linear.int8_linear(x, w.cpu(), s)
+    with pytest.raises(ValueError, match="aligned"):
+        linear.int8_linear(x.view(-1)[4:4 + 7 * 64].view(7, 64), w, s)
+    x2, w2, s2, _ = _k9_case(8, 64, 40, None, torch.bfloat16, seed=4)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        linear.int8_linear(x2, w2, s2)
+    assert linear.int8_linear.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "moe", "eagle_chain"])
+def test_int8_weight_graph_replay_equals_eager_on_card(kind, tmp_path):
+    """An int8-weight step's graph replay against the same step run eagerly
+    (B = 3 in bucket 4), every output bit for bit: the AR decode, the
+    Qwen3-MoE decode (K9 over the experts, K6 never) and the int8 EAGLE
+    head's chain; K9 launches in each capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    if kind == "eagle_chain":
+        tr, fused, head, graphs = _eagle_runners(tmp_path, quantization="int8")
+        assert head.params["fc"].dtype == torch.int8
+        key, fn, inputs, ghost = _eagle_case(tr, fused, head, kind)
+        eager = _cpu(fn(**_dev(inputs)))
+    else:
+        runner, graphs = _tiny_engine(tmp_path, TINY_MOE if kind == "moe" else TINY_LLAMA,
+                                      quantization="int8")
+        assert runner.params["lm_head"].dtype == torch.int8
+        runner.graphs = graphs
+        key, fn, inputs, ghost = _graph_case(runner, "decode")
+        eager = _cpu(fn(**{k: torch.from_numpy(v).cuda() for k, v in inputs.items()}))
+    replay = _cpu(graphs.run(key, fn, inputs, ghost))
+    for e, g in zip(eager, replay):
+        assert torch.equal(g, e), kind
+    launches = graphs.steps[key].launches
+    assert launches.get(linear.int8_linear, 0) > 0
+    assert moe.grouped_gemm not in launches

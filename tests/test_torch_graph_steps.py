@@ -128,9 +128,10 @@ def test_device_slot_of_matches_jax():
 # --- padded buckets ----------------------------------------------------------------
 
 
-def _runner(path, seed, kv_quant=None):
+def _runner(path, seed, kv_quant=None, quantization=None):
     cfg = Config(path, device="cpu", dtype="float32", kvcache_block_size=BS,
-                 num_kvcache_blocks=32, max_model_len=256, kv_quant=kv_quant)
+                 num_kvcache_blocks=32, max_model_len=256, kv_quant=kv_quant,
+                 quantization=quantization)
     runner = mr.ModelRunner(cfg)
     if kv_quant is None:
         runner.kv_cache = torch.from_numpy(np.random.default_rng(seed).normal(
@@ -193,6 +194,26 @@ def test_padded_decode_matches_unpadded(q_len, model_dir):
             _pad(n, B_pad, 1), _pad(np.zeros(3, np.float32), B_pad, 0.0), None,
             arch=r.arch, block_size=BS, q_len=q_len, greedy=True)
         return tok, logits.reshape(B_pad, q_len, -1)
+
+    _check_bucket(run, [r], 0)
+
+
+def test_int8_weight_padded_decode_matches_unpadded(model_dir):
+    """The decode over int8 weights (quantization="int8": every projection
+    and the head through ops/linear.py) at B_pad 4 with a ghost row against
+    B = 3."""
+    r = _runner(model_dir, 1, quantization="int8")
+    assert r.params["lm_head"].dtype == torch.int8
+    n = N0 + 1
+    ids = np.random.default_rng(2).integers(3, 128, size=(3, 1)).astype(np.int32)
+
+    def run(B_pad):
+        tok, logits = mr.decode_step(
+            r.params, r.kv_cache, _pad(ids, B_pad, 0).reshape(-1),
+            _pad(n - 1, B_pad, 0), _pad(_tables(4)[:3], B_pad, -1), _pad(n, B_pad, 1),
+            _pad(np.zeros(3, np.float32), B_pad, 0.0), None,
+            arch=r.arch, block_size=BS, q_len=1, greedy=True)
+        return tok, logits
 
     _check_bucket(run, [r], 0)
 
@@ -341,13 +362,13 @@ def eagle_dir(tmp_path_factory):
     return str(d)
 
 
-def _eagle_runners(model_dir, eagle_dir, seed, kv_quant=None):
+def _eagle_runners(model_dir, eagle_dir, seed, kv_quant=None, quantization=None):
     """The target (tapping layers 0, 1, 1) and the fused form's EAGLE head,
     each over a random cache (the fp cache)."""
     cfg = Config(model_dir, device="cpu", dtype="float32", kvcache_block_size=BS,
                  num_kvcache_blocks=32, max_model_len=256, kv_quant=kv_quant, draft=eagle_dir,
                  speculate=True, use_eagle=True, speculate_k=K, spec_rounds=2,
-                 eagle_layers=[0, 1, 1])
+                 eagle_layers=[0, 1, 1], quantization=quantization)
     t, d = mr.ModelRunner(cfg), er.EagleModelRunner(cfg.create_draft_config())
     if kv_quant is None:
         r = np.random.default_rng(seed)
@@ -443,6 +464,26 @@ def test_eagle_steps_read_nothing_back(greedy, model_dir, eagle_dir):
             _eagle_step(kind, t, d, x, bt, gen, greedy, temps)
 
 
+def test_int8_weight_eagle_steps_read_nothing_back(model_dir, eagle_dir):
+    """Over an int8 target and an int8 head (bf16 compute in the fp32
+    engine), the head's chain and tree build and the fused superstep read
+    nothing back, and the padded bucket gives the unpadded chain's
+    outputs."""
+    t, d = _eagle_runners(model_dir, eagle_dir, 20, quantization="int8")
+    assert d.params["fc"].dtype == t.params["lm_head"].dtype == torch.int8
+    x = _eagle_inputs(d, 4)
+    bt = _pad(_draft_tables(4, 2, 0)[:3], 4, -1)
+    with no_host_reads():
+        for kind in ("chain", "tree", "superstep"):
+            _eagle_step(kind, t, d, x, bt)
+
+    def run(B_pad):
+        xb = {k: v[:B_pad] for k, v in x.items()}
+        return _eagle_step("chain", t, d, xb, _pad(_draft_tables(4, 2, 0)[:3], B_pad, -1))
+
+    _check_bucket(run, [d], 0)
+
+
 # --- no host reads ----------------------------------------------------------------
 
 
@@ -490,6 +531,31 @@ def test_steps_read_nothing_back(greedy, model_dir):
                                  greedy=greedy)
     with pytest.raises(AssertionError, match="host read"), no_host_reads():
         bool(temps.any())
+
+
+def test_int8_weight_steps_read_nothing_back(model_dir):
+    """The decode, the chain and both sync supersteps over int8 weights,
+    sampled, under the guard."""
+    r = _runner(model_dir, 9, quantization="int8")
+    d = _runner(model_dir, 10, quantization="int8")
+    gen = torch.Generator().manual_seed(0)
+    B_pad, R = 4, 2
+    temps = torch.tensor([0.0, 0.7, 1.0, 0.0])
+    bt = _pad(_tables(4, R)[:3], B_pad, -1)
+    n0 = _pad(N0, B_pad, 1)
+    rec0 = _pad(np.array([17, 99, 5], np.int32), B_pad, 0)
+    hist = torch.zeros(B_pad, fused_sd.ngram_width(r, K, R), dtype=torch.int32)
+    with no_host_reads():
+        mr.decode_step(r.params, r.kv_cache, rec0, n0, bt, n0 + 1, temps, gen,
+                       arch=r.arch, block_size=BS, q_len=1)
+        mr.chain_decode_step(r.params, r.kv_cache, rec0, n0, bt, n0 + 1, temps, gen,
+                             arch=r.arch, block_size=BS, K=K)
+        fused_sd.sd_superstep(r.params, r.kv_cache, d.params, d.kv_cache, rec0, n0, bt,
+                              _pad(_tables(4, R, shift=4)[:3], B_pad, -1), temps, temps,
+                              gen, gen, t_arch=r.arch, d_arch=d.arch, block_size=BS,
+                              K=K, R=R)
+        fused_sd.ngram_superstep(r.params, r.kv_cache, hist, rec0, n0, bt, temps, gen,
+                                 t_arch=r.arch, block_size=BS, N=2, K=K, R=R)
 
 
 @pytest.mark.parametrize("greedy", [True, False])
