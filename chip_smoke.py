@@ -12,7 +12,7 @@ the script exits non-zero:
               ssd_tpu_torch/csrc (seconds, ptxas register/spill lines; for
               each instantiation of the split-KV paged kernels K2/K4 and
               tree kernels K3/K5, of K1's bf16 kernel, K6's two bf16
-              routes and K9's three, its registers, spills and shared
+              routes and K9's kernels, its registers, spills and shared
               memory).
 2. kernels  - each kernel against its plain PyTorch version on the card, at
               the Llama-3.2-1B geometry (Hq/Hkv 32/8, head_dim 64, 64-token
@@ -67,14 +67,22 @@ the script exits non-zero:
               launches the kernels line reports as the path "probe".
               K9, the W8A16 GEMM of int8 weights (csrc/int8_weight_gemm.cu),
               against its plain version with bf16 x (bf16 output; the LM
-              head's fp32) and fp32 x, at Llama-3.2-1B's projections (q/o,
-              k/v, gate/up, down) at 8, 40 and 80 rows, its LM head at 8
-              and 80 rows, the serve prompts' prefill (5534 rows) at gate/up
-              and down, and Qwen3-30B-A3B's expert gate and down at a b8
-              decode dispatch (64 rows over 53 experts) and b1's 8 one-row
-              groups; timed there in bf16 beside its bound and a yardstick
-              (torch._weight_int8pack_mm where it runs on the card, else the
-              bf16 product on the dequantized weight, labelled).
+              head's fp32) on each wgmma route forced in turn (decode,
+              prefill; two calls bit-equal) and fp32 x (the SIMT route), at
+              Llama-3.2-1B's projections (q/o, k/v, gate/up, down) at 8, 40,
+              80 and 128 rows, its LM head at 8 and 80 rows, the serve
+              prompts' prefill (5534 rows) at gate/up and down, and
+              Qwen3-30B-A3B's expert gate and down at a b8 decode dispatch
+              (64 rows over 53 experts) and b1's 8 one-row groups; timed
+              there in bf16 on the route rule's route beside its bound and
+              two yardsticks the port never calls
+              (torch._weight_int8pack_mm where it runs on the card, and the
+              bf16 product on the dequantized weight, labelled: what the
+              int8 path must beat). The shared-x launch (q/k/v, gate/up,
+              the experts' gate/up in one launch) bit for bit the separate
+              calls, within tolerance of the plain version, timed against
+              them; a CUDA graph replay of it and of a split-K call bit for
+              bit their eager calls.
 3. serve    - LLM(...).generate at the full Llama-3.2-1B width (16 layers,
               random bf16 weights from a seed): 128 greedy tokens for 8
               prompts of mixed length, then for 1 prompt (the AR path), each
@@ -395,7 +403,7 @@ def _kernel_resources(lib) -> dict:
     """Registers, spills and shared memory of each instantiation of the
     split-KV paged kernels (csrc/paged_split.cuh), the tree kernels
     (csrc/tree_split.cuh, shared memory at the port's TREE_CHUNK), K1's
-    bf16 kernel, K6's two bf16 routes and K9's three, from ptxas's report of
+    bf16 kernel, K6's two bf16 routes and K9's, from ptxas's report of
     the build and the kernels' own shared-memory layouts."""
     import re
 
@@ -436,14 +444,18 @@ def _kernel_resources(lib) -> dict:
                 cur = {"route": "decode" if decode else "prefill",
                        "smem_bytes": lib.cdll.ssd_grouped_gemm_smem_bytes(int(decode))}
                 out["grouped_gemm_wgmma"].append(cur)
-            m = re.search(r"w8a16_mma_kernelI\w*?TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE"
-                          r"(f|13__nv_bfloat16)", ln)
+            m = re.search(r"w8a16_wgmma_kernelI\w*?CfgILi(\d+)ELi(\d+)ELb([01])ELi(\d+)"
+                          r"ELb([01])ELi(\d+)E", ln)
             if m:
-                bm, bn, bk, ring = (int(m.group(i)) for i in range(1, 5))
-                route = 0 if bm == 16 else 1
-                cur = {"route": ("small", "large")[route], "tile": f"{bm}x{bn}, K slice {bk}",
-                       "stages": ring, "out": "float32" if m.group(5) == "f" else "bfloat16",
-                       "smem_bytes": lib.cdll.ssd_int8_linear_smem_bytes(route)}
+                bn, wg, alt, ring, split, blocks = (int(m.group(i)) for i in range(1, 7))
+                route = 1 if split else 2
+                cur = {"route": ("decode", "prefill")[route - 1],
+                       "tile": f"{64 if alt else 64 * wg} columns x {bn} rows, K stage 64",
+                       "warpgroups": f"{wg}" + (", alternate stages" if alt else ""),
+                       "stages": ring, "min_blocks_per_sm": blocks,
+                       "groups": "several" if bn == 192 else "one or several" if split else "one",
+                       "smem_bytes": lib.cdll.ssd_int8_linear_smem_bytes(
+                           route, bn, 2 if bn == 192 else 1)}
                 out["int8_linear"].append(cur)
             if "w8_f32_kernel" in ln:
                 cur = {"route": "simt", "tile": "64x64, K slice 16", "smem_bytes": "static"}
@@ -599,14 +611,15 @@ def _check(name, dtype, got, want, case):
 
 
 def _timing(shape, fn, plain_fn, library_fn, bytes_, ops, peak, iters=50,
-            plain_iters=10):
+            plain_iters=10, library_iters=None):
     """One kernel's times at one shape: the kernel, its plain version, the
     library yardstick, and the bound (bytes over the HBM rate or operations
     over `peak`, whichever is larger)."""
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / peak
     return dict(shape=shape, ms=time_ms(fn, iters),
                 plain_ms=time_ms(plain_fn, plain_iters, warmup=1),
-                library_ms=time_ms(library_fn, iters) if library_fn else None,
+                library_ms=(time_ms(library_fn, library_iters or iters, warmup=1)
+                            if library_fn else None),
                 bytes=bytes_, flops=ops,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -725,17 +738,18 @@ def _bmm_yardstick(qb, kb, want):
 
 # K9's shapes: (case, M, N, K, groups or None, output dtype of a bf16 x).
 # Llama-3.2-1B's projections (q and o share 2048 x 2048; k and v 512 x 2048)
-# at the AR b8 decode (8 rows), the SD verify (40) and the SSD tree step
-# (80), its LM head at 8 and 80 rows (fp32 out), the serve prompts' prefill
-# (5534 rows) at gate/up and down; Qwen3-30B-A3B's expert gate and down at
-# a b8 decode dispatch (64 rows over 53 experts) and at b1 (8 one-row
-# groups), groups from _moe_offsets' seeded router.
+# at the AR b8 decode (8 rows), the SD verify (40), the SSD tree step (80)
+# and the decode route's widest x tile (128), its LM head at 8 and 80 rows
+# (fp32 out), the serve prompts' prefill (5534 rows) at gate/up and down;
+# Qwen3-30B-A3B's expert gate and down at a b8 decode dispatch (64 rows over
+# 53 experts) and at b1 (8 one-row groups), groups from _moe_offsets'
+# seeded router.
 def _int8_linear_cases():
     c1, cq = LLAMA_1B, QWEN3_30B_A3B
     D, I, V = c1["hidden_size"], c1["intermediate_size"], c1["vocab_size"]
     Hkv_hd = c1["num_key_value_heads"] * c1["head_dim"]
     cases = []
-    for m in (8, 40, 80):
+    for m in (8, 40, 80, 128):
         cases += [(f"qo_m{m}", m, D, D, None, "bfloat16"),
                   (f"kv_m{m}", m, Hkv_hd, D, None, "bfloat16"),
                   (f"gate_up_m{m}", m, I, D, None, "bfloat16"),
@@ -751,85 +765,218 @@ def _int8_linear_cases():
     return cases
 
 
+# The shared-x launch's products (ops/linear.py::int8_linear_shared): case,
+# M, the outputs' widths, K, groups. q/k/v and gate/up over the same x at
+# the dense cases' row counts and the prefill, the experts' gate/up at the
+# b8 and b1 dispatches.
+def _int8_shared_cases():
+    c1, cq = LLAMA_1B, QWEN3_30B_A3B
+    D, I = c1["hidden_size"], c1["intermediate_size"]
+    Hkv_hd = c1["num_key_value_heads"] * c1["head_dim"]
+    cases = []
+    for m in (8, 40, 80, 128):
+        cases += [(f"qkv_m{m}", m, (D, Hkv_hd, Hkv_hd), D, None),
+                  (f"gate_up_pair_m{m}", m, (I, I), D, None)]
+    cases += [(f"prefill_qkv_m{sum(SERVE_LENS8)}", sum(SERVE_LENS8), (D, Hkv_hd, Hkv_hd), D, None)]
+    Dq, Im = cq["hidden_size"], cq["moe_intermediate_size"]
+    cases += [(f"{name}_gate_up", None, (Im, Im), Dq, (tokens, seed))
+              for name, tokens, seed in (("moe_decode_b8", 8, 2), ("moe_decode_b1", 1, 3))]
+    return cases
+
+
+def _int8_weights(g, G, N, K):
+    import torch
+
+    w = torch.randint(-127, 128, (G, N, K), generator=g, device="cuda", dtype=torch.int8)
+    s = torch.rand(G, N, generator=g, device="cuda") * (0.04 / 127) + 0.01 / 127
+    return w, s
+
+
+def _replay_equals_eager(fn) -> bool:
+    """fn()'s outputs from a CUDA graph replay against an eager call, bit for
+    bit (the split-K sum order)."""
+    import torch
+
+    eager = fn()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = eager if isinstance(eager, list) else [eager]
+    captured = captured if isinstance(captured, list) else [captured]
+    return all(torch.equal(a, b) for a, b in zip(eager, captured))
+
+
 def _int8_linear_kernels(record) -> dict:
-    """K9 against its plain version at every _int8_linear_cases() shape,
-    bf16 x (the case's output dtype) and fp32 x (fp32 output), then timed
-    in bf16 beside its bound and a library yardstick: torch's
-    _weight_int8pack_mm where it runs on the card for the shape, else the
-    bf16 product on the dequantized weight that the int8 path replaces
-    (torch.matmul; torch._grouped_mm for the experts), labelled. Returns
-    {case: timing}."""
+    """K9 against its plain version at every _int8_linear_cases() shape: bf16
+    x (the case's output dtype) on each wgmma route forced in turn (decode,
+    prefill), two calls bit-equal, and fp32 x (fp32 output, the SIMT route);
+    then timed in bf16 on the rule's route beside its bound, the plain
+    version, torch._weight_int8pack_mm (where it runs on the card for the
+    shape) and, labelled, the bf16 product on the dequantized weight that
+    the int8 path must beat (torch.matmul; torch._grouped_mm for the
+    experts), neither of which the port calls. Then the shared-x launch at
+    _int8_shared_cases(): one launch, each output bit for bit its own
+    int8_linear call on the launch's route and within tolerance of the
+    plain version, timed against those calls; and a CUDA graph replay of a
+    split-K call, of the shared-x launch and of an expert call bit for bit
+    their eager calls. Returns {case: timing}."""
     import torch
 
     from ssd_tpu_torch.ops import linear
 
     out = {}
+    rule = linear.int8_linear_route
     for i, (case, M, N, K, groups, odt_name) in enumerate(_int8_linear_cases()):
         offs = None if groups is None else _moe_offsets(*groups)
         G = 1 if offs is None else offs.numel() - 1
         M = M if offs is None else int(offs[-1])
         g = torch.Generator(device="cuda").manual_seed(70 + i)
         x32 = torch.randn(M, K, generator=g, device="cuda")
-        w = torch.randint(-127, 128, (G, N, K), generator=g, device="cuda", dtype=torch.int8)
-        s = torch.rand(G, N, generator=g, device="cuda") * (0.04 / 127) + 0.01 / 127
+        w, s = _int8_weights(g, G, N, K)
         odt = getattr(torch, odt_name)
-        for xname, x, o in (("bf16", x32.to(torch.bfloat16), odt),
-                            ("fp32", x32, torch.float32)):
-            got = linear.int8_linear(x, w, s, out_dtype=o, group_offsets=offs)
-            torch.cuda.synchronize()
+        x = x32.to(torch.bfloat16)
+        want = linear.int8_linear_plain(x, w, s, odt, offs)
+        for route in ("decode", "prefill"):
+            linear.int8_linear_route = lambda *shape, r=route: r
+            try:
+                got = linear.int8_linear(x, w, s, out_dtype=odt, group_offsets=offs)
+                again = linear.int8_linear(x, w, s, out_dtype=odt, group_offsets=offs)
+                torch.cuda.synchronize()
+            finally:
+                linear.int8_linear_route = rule
             # The tolerance of the output's dtype: fp32 sums of exact
             # products (an int8 value times a bf16 or fp32 one), rounded once.
-            record("int8_linear", f"{case}[x {xname}]", str(o).split(".")[-1], got,
-                   linear.int8_linear_plain(x, w, s, o, offs))
-        x = x32.to(torch.bfloat16)
-        del x32
+            record("int8_linear", f"{case}[x bf16, {route}]", odt_name, got, want)
+            if not torch.equal(got, again):
+                fail(f"int8_linear {case} {route}: two calls differ")
+        del got, again, want
+        got = linear.int8_linear(x32, w, s, out_dtype=torch.float32, group_offsets=offs)
+        torch.cuda.synchronize()
+        record("int8_linear", f"{case}[x fp32]", "float32", got,
+               linear.int8_linear_plain(x32, w, s, torch.float32, offs))
+        del x32, got
         active = G if offs is None else int((offs[1:] > offs[:-1]).sum())
         bytes_ = (M * K * 2 + active * N * (K + 4) + M * N * odt.itemsize
                   + (0 if offs is None else offs.numel() * 4))
-        library, label = _int8_library(x, w, s, offs, odt)
+        library, label, bf16_fn, bf16_label = _int8_library(x, w, s, offs, odt)
         tm = _timing(f"{case}: M={M}" + ("" if offs is None else f" over {active} of {G} "
                                            "experts") + f", K={K} -> N={N}, bf16 x, "
-                     f"{odt_name} out, route {linear.int8_linear_route(x.dtype, M, N, G)}",
+                     f"{odt_name} out, route {rule(x.dtype, M, N, G)}",
                      lambda: linear.int8_linear(x, w, s, out_dtype=odt, group_offsets=offs),
                      lambda: linear.int8_linear_plain(x, w, s, odt, offs),
                      library, bytes_, 2 * M * N * K, PEAK_FLOPS["bfloat16"],
-                     iters=10 if M > 1000 else 30, plain_iters=3)
+                     iters=10 if M > 1000 else 30, plain_iters=3,
+                     # torch._weight_int8pack_mm takes 5-200 ms at the head and prefill
+                     library_iters=3 if N * M > 2 ** 22 else None)
         tm["library"] = label
+        tm["route"] = rule(x.dtype, M, N, G)
+        tm["bf16_ms"] = time_ms(bf16_fn, 10 if M > 1000 else 30)
+        tm["bf16"] = bf16_label
         out[case] = tm
         emit("kernels", kernel="int8_linear", case=case, timing=tm)
-        del x, w, s
+        del x, w, s, library, bf16_fn
+    out.update(_int8_shared_kernels(record))
+    return out
+
+
+def _int8_shared_kernels(record) -> dict:
+    """The shared-x launch and the graph replays of _int8_linear_kernels."""
+    import torch
+
+    from ssd_tpu_torch.ops import linear
+
+    out = {}
+    for i, (case, M, Ns, K, groups) in enumerate(_int8_shared_cases()):
+        offs = None if groups is None else _moe_offsets(*groups)
+        G = 1 if offs is None else offs.numel() - 1
+        M = M if offs is None else int(offs[-1])
+        g = torch.Generator(device="cuda").manual_seed(90 + i)
+        x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+        pairs = [_int8_weights(g, G, N, K) for N in Ns]
+        ws, ss = [p[0] for p in pairs], [p[1] for p in pairs]
+        shared = lambda: linear.int8_linear_shared(x, ws, ss, group_offsets=offs)
+        route = linear.int8_linear_route(x.dtype, M, Ns[0], G)   # the first product's
+
+        def separate():   # each product alone, on the shared launch's route
+            rule, linear.int8_linear_route = linear.int8_linear_route, lambda *shape: route
+            try:
+                return [linear.int8_linear(x, w, s, group_offsets=offs) for w, s in zip(ws, ss)]
+            finally:
+                linear.int8_linear_route = rule
+
+        n0 = linear.int8_linear.launches
+        got = shared()
+        launches = linear.int8_linear.launches - n0
+        sep = separate()
+        torch.cuda.synchronize()
+        if launches != 1:
+            fail(f"int8_linear_shared {case}: {launches} launches, not 1")
+        for j, (a, b, w, s) in enumerate(zip(got, sep, ws, ss)):
+            record("int8_linear", f"{case}[shared {j}]", "bfloat16", a,
+                   linear.int8_linear_plain(x, w, s, torch.bfloat16, offs))
+            if not torch.equal(a, b):
+                fail(f"int8_linear_shared {case}: output {j} differs from its own call")
+        del got, sep
+        tm = {"shape": f"{case}: M={M}, K={K} -> N={list(Ns)}" + ("" if offs is None else
+                                                                 f" over the experts of {G}"),
+              "route": route,
+              "shared_ms": time_ms(shared, 10 if M > 1000 else 30),
+              "separate_ms": time_ms(separate, 10 if M > 1000 else 30)}
+        if case in ("qkv_m8", "moe_decode_b8_gate_up"):
+            tm["replay_equals_eager"] = _replay_equals_eager(shared)
+            if not tm["replay_equals_eager"]:
+                fail(f"int8_linear_shared {case}: graph replay differs from eager")
+        out[case] = tm
+        emit("kernels", kernel="int8_linear", shared_case=case, timing=tm)
+        del x, ws, ss
+    # A split-K call on its own (down: K 8192 in 8 splits at 80 rows).
+    g = torch.Generator(device="cuda").manual_seed(99)
+    x = torch.randn(80, LLAMA_1B["intermediate_size"], generator=g,
+                    device="cuda").to(torch.bfloat16)
+    w, s = _int8_weights(g, 1, LLAMA_1B["hidden_size"], LLAMA_1B["intermediate_size"])
+    if not _replay_equals_eager(lambda: linear.int8_linear(x, w, s)):
+        fail("int8_linear down_m80: graph replay differs from eager")
     return out
 
 
 def _int8_library(x, w, s, offs, odt):
-    """K9's library yardstick, never called by the port: one
+    """K9's yardsticks, never called by the port: one
     torch._weight_int8pack_mm call (bf16 x, int8 [N, K], bf16 scales) where
-    it runs on the card for a dense shape, else the bf16 product over the
-    dequantized weight (torch.matmul; torch._grouped_mm or a dense matmul of
-    the same operations for the experts, as K6's yardstick). Returns
-    (callable, label)."""
+    it runs on the card for a dense shape (else the bf16 product below), and
+    the bf16 product over the dequantized weight (torch.matmul;
+    torch._grouped_mm, or a dense matmul of the same operations, for the
+    experts): what the int8 path must beat to pay. Returns (library,
+    label, bf16 product, label)."""
     import torch
 
     if offs is None:
         w0, s0 = w[0], s[0].to(torch.bfloat16)
+        wd = (w0.float() * s[0][:, None]).to(torch.bfloat16).T
+        bf16 = (lambda: torch.matmul(x, wd)), "bf16 torch.matmul on the dequantized weight"
         try:
             y = torch._weight_int8pack_mm(x, w0, s0)
             torch.cuda.synchronize()
             if y.shape == (x.shape[0], w0.shape[0]):
                 return (lambda: torch._weight_int8pack_mm(x, w0, s0)), \
-                    "torch._weight_int8pack_mm"
+                    "torch._weight_int8pack_mm", *bf16
             why = f"torch._weight_int8pack_mm gave shape {tuple(y.shape)}"
         except (RuntimeError, NotImplementedError, AttributeError) as e:
             why = f"torch._weight_int8pack_mm refused: {str(e)[:120]}"
-        wd = (w0.float() * s[0][:, None]).to(torch.bfloat16).T
-        return (lambda: torch.matmul(x, wd)), \
-            f"bf16 torch.matmul on the dequantized weight ({why})"
+        return bf16[0], f"{bf16[1]} ({why})", *bf16
     wd = (w.float() * s[..., None]).to(torch.bfloat16).transpose(1, 2).contiguous()
     want = (torch.cat([x[a:b].float() @ wd[e].float() for e, (a, b) in
                        enumerate(zip(offs[:-1].tolist(), offs[1:].tolist()))])
             .to(torch.bfloat16))
     fn, label = _grouped_mm_yardstick(x, wd, offs, want)
-    return fn, f"{label} on the dequantized bf16 experts"
+    label = f"{label} on the dequantized bf16 experts"
+    return fn, label, fn, label
 
 
 def _paged_batch_invariance(decode_ctx: list[int]):
@@ -1658,7 +1805,8 @@ def phase_profile(moe: bool = False, quantization: str | None = None) -> dict:
     its int8-weight form, as `quant`); one prefill step of the 8 prompts,
     then a window of decode steps at b=8, each timed without and then with
     torch.profiler, which gives the device's busy time (sum of kernel
-    times; one stream) and the kernels that take it."""
+    times; one stream) and the kernels that take it, K9's summed over its
+    kernels under int8 weights."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1710,6 +1858,11 @@ def phase_profile(moe: bool = False, quantization: str | None = None) -> dict:
             device_busy_share=busy_us / 1e6 / (plain_s or prof_s),
             top_kernels=[dict(name=e.key[:90], ms_per_step=e.self_device_time_total / 1e3 / steps,
                               calls=e.count) for e in top])
+        k9 = [e for e in kernels if "w8a16" in e.key or "w8_f32" in e.key]
+        if k9:   # K9 (int8 weights): all its kernels, every route
+            out[label].update(
+                k9_ms_per_step=sum(e.self_device_time_total for e in k9) / 1e3 / steps,
+                k9_calls_per_step=sum(e.count for e in k9) / steps)
     emit(("moe_profile" if moe else "profile") + ("_int8" if quantization else ""),
          geometry=MOE_GEOMETRY if moe else "Llama-3.2-1B (16 layers, random bf16 weights)",
          quantization=quantization, **out)
@@ -3360,8 +3513,11 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                                 + (("route",) if "route" in table[name] else ())}
         if name == "int8_linear":
             entry["at_shapes"] = {case: {k: t[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")}
-                for case, t in kern["int8_linear"].items()}
+                "shape", "route", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library", "bf16_ms", "bf16")}
+                for case, t in kern["int8_linear"].items() if "ms" in t}
+            entry["shared_x"] = {case: t for case, t in kern["int8_linear"].items()
+                                 if "shared_ms" in t}
         if "library" in tm:
             entry["library"] = tm["library"]
         if "stages_ms" in tm:

@@ -223,9 +223,10 @@ constexpr unsigned kFull = 0xffffffffu;
 // Row tile `target` of rows sorted by group, group g owning rows
 // [offs[g], offs[g+1]) cut into tiles of BM: group e_out, rows
 // [row0, row_end). The tiles are numbered group after group; one warp forms
-// their prefix sum with a shuffle scan, 32 groups a step. False when
-// `target` is past the last tile; every thread of the block gets the same
-// answer.
+// their prefix sum with a shuffle scan, 32 groups a step, the first 256
+// groups' offsets loaded before the scan so that their latencies overlap.
+// False when `target` is past the last tile; every thread of the block gets
+// the same answer.
 template <int BM>
 __device__ __forceinline__ bool find_row_tile_at(const int* __restrict__ offs, int E,
                                                  int target, int& e_out, int& row0,
@@ -233,14 +234,35 @@ __device__ __forceinline__ bool find_row_tile_at(const int* __restrict__ offs, i
   __shared__ int tile[3];
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
+    constexpr int kPre = 8;  // steps whose offsets are loaded up front
+    int pre[kPre + 1];
+#pragma unroll
+    for (int i = 0; i <= kPre; ++i) pre[i] = 32 * i + lane <= E ? offs[32 * i + lane] : 0;
     int carry = 0, found = -1, beg = 0, end = 0;
+#pragma unroll 1
     for (int base = 0; base < E; base += 32) {
       const int e = base + lane;
-      int lo = 0, hi = 0;
-      if (e < E) {
-        lo = offs[e];
-        hi = offs[e + 1];
+      int lo, hi;
+      if (base < 32 * kPre) {
+        // offs[e] and offs[e + 1]: this lane's preload and the next lane's
+        // (lane 31 takes the next step's lane 0).
+        const int step = base / 32;
+        int cur = 0, next = 0;
+#pragma unroll
+        for (int i = 0; i < kPre; ++i)
+          if (i == step) {
+            cur = pre[i];
+            next = pre[i + 1];
+          }
+        const int up = __shfl_down_sync(kFull, cur, 1);
+        const int wrap = __shfl_sync(kFull, next, 0);
+        lo = cur;
+        hi = lane == 31 ? wrap : up;
+      } else {
+        lo = e < E ? offs[e] : 0;
+        hi = e < E ? offs[e + 1] : 0;
       }
+      if (e >= E) lo = hi = 0;
       const int tiles = (hi - lo + BM - 1) / BM;
       int incl = tiles;  // inclusive prefix sum over the 32 lanes
 #pragma unroll

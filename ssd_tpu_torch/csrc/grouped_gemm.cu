@@ -105,10 +105,6 @@ static_assert(kStageBytes % 1024 == 0 && kDStageBytes % 1024 == 0 && kDWBytes % 
               "TMA tiles with the 128-byte swizzle start 1024-byte aligned");
 }  // namespace gmm
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (hopper::smem_addr(p) & 1023)) & 1023);
-}
-
 // Prefill route. Block b computes row tile b / col_tiles (find_row_tile_at)
 // times columns [n0, n0 + 256), n0 = 256 (b % col_tiles): consecutive blocks
 // share the tile's x rows and its expert's weights in L2. Warp 8 is the
@@ -128,7 +124,7 @@ __global__ void __launch_bounds__(gmm::kWgThreads, 1)
   int e, row0, row_end;
   if (!find_row_tile_at<kBM>(offs, E, blockIdx.x / col_tiles, e, row0, row_end)) return;
   const int n0 = (blockIdx.x % col_tiles) * kBN;
-  unsigned char* smem = align1024(smem_raw);
+  unsigned char* smem = hopper::align1024(smem_raw);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -219,7 +215,7 @@ __global__ void __launch_bounds__(gmm::kDThreads)
   int e, row0, row_end;
   if (!find_row_tile_at<kDR>(offs, E, blockIdx.x / col_tiles, e, row0, row_end)) return;
   const int n0 = (blockIdx.x % col_tiles) * kDM;
-  unsigned char* smem = align1024(smem_raw);
+  unsigned char* smem = hopper::align1024(smem_raw);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kDStages; ++s) {
@@ -354,41 +350,11 @@ __global__ void __launch_bounds__(kThreads)
 namespace ssd {
 namespace {
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 tensor map with the 128-byte swizzle: dims and box innermost first,
-// strides in bytes for dims 1.. (multiples of 16: K and Nout are multiples of
-// 8); parts of a box outside the tensor read as zeros.
+// A bf16 tensor map with the 128-byte swizzle (hopper::encode_map).
 bool encode_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                  const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B,
+                            base, rank, dims, strides, box);
 }
 
 // x [N, K] in boxes of 64 K x `rows` rows; w [E, K, Nout] in boxes of 64

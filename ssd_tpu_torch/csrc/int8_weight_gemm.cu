@@ -1,8 +1,9 @@
 // W8A16 GEMM: y = (x @ q^T) * s over int8 weights with per-output-channel
 // scales, optionally grouped (the experts of a Qwen3-MoE layer). K9.
 //
-// Replaces no Pallas kernel. Under quantization="int8" the JAX package
-// computes every linear layer as (x @ q.astype(x.dtype)) * s
+// Replaces no Pallas kernel: it stands for XLA's fused convert. Under
+// quantization="int8" the JAX package computes every linear layer as
+// (x @ q.astype(x.dtype)) * s
 // (ssd_tpu/models/transformer.py:153-161 `_mm`, :224-233 `row_mm`,
 // :265-278 `rdot`, :290-293 `emm`, :415-417 the LM head;
 // ssd_tpu/models/eagle3.py:93-104, :175-177), and XLA fuses the int8 -> bf16
@@ -20,31 +21,57 @@
 // gives fp32). K is a multiple of 16; M and N are any; an empty group writes
 // nothing.
 //
-// What bounds it on an H100. At decode (M = 8 rows of the Llama-3.2-1B
-// geometry) it streams the weights, ~1 byte a weight for 2 operations each:
-// bytes bound it, and the int8 weights halve them against bf16. At prefill
-// (M = 5534) it is ~5534 operations a byte: the tensor cores bound it.
+// What bounds it on an H100. At decode (8-128 rows of the Llama-3.2-1B
+// geometry; a b8 dispatch of Qwen3-30B-A3B's experts) it streams the
+// weights, ~1 byte a weight for 2 to 256 operations: bytes bound it (a q/o
+// projection's 4.2 MB take 1.3 us at 3.35 TB/s), and int8 halves them
+// against bf16, but a call's fixed cost (launch, first TMA round trip,
+// the K splits' reduction) is several microseconds, as large as the
+// stream of a small product. At prefill (5534 rows) it does ~5,500
+// operations a weight byte: the tensor cores bound it (gate/up, 186
+// GFLOP, 0.188 ms at 989 TFLOP/s), and each 256-row x tile is re-read from
+// L2 for every 128 output columns.
 //
-// Design, bf16 x: mma.sync m16n8k16 (bf16 in, fp32 sums) on tiles fed by a
-// cp.async ring. A block of four warps computes BM x BN outputs over the
-// whole of K; each stage holds a K slice of BK of x (bf16) and of the BN
-// weight rows (int8), and each warp takes a quarter of every slice, so the
-// four warps stream the weights together and sum partial tiles that a
-// shared-memory pass adds in a fixed order at the end (no atomics: the same
-// inputs give the same bits, eager or replayed in a graph). A weight
-// fragment is one 32-bit shared load of four int8 values, widened in
-// registers to two bf16 pairs exactly (|q| <= 127 needs 8 significant
-// bits): the bytes are biased into the mantissa of 2^23 and the bias
-// subtracted in fp32, with no int-to-float conversion instructions. The four
-// values are four consecutive k, which m16n8k16's fragment expects at k
-// 2t, 2t+1, 2t+8, 2t+9: x's fragment is loaded with the same permutation of
-// k, and a sum over k does not depend on it. Two tile shapes, picked by the
-// wrapper from M, N and G alone (ops/linear.py::int8_linear_route): 16 x
-// 16 tiles with 256-wide K slices and a four-stage ring for decode-sized
-// groups (narrow tiles, so that even N = 512 makes 32 blocks to stream the
-// weights), 64 x 64 tiles with 64-wide slices and three stages for prefill
-// and for wide outputs (the LM head, gate/up) past 16 rows.
-// The scale is applied in the epilogue, once per output.
+// Design, bf16 x (routes 1 and 2, w8a16_wgmma_kernel): the product turned
+// around, out^T = q . x^T, so that 64 weight rows (int8, K-major, as the
+// port stores them) are wgmma's M operand and a tile of x rows its N.
+// wgmma has no bf16 x s8 form, so A comes from registers: each warp loads
+// its 16 rows' int8 bytes of a k16 step from shared memory (two 16-bit
+// loads a row, the bytes m16n8k16's A fragment wants) and widens them
+// exactly to bf16 (s8x4_to_bf16x4); B is x's tile in shared memory. One
+// producer warp keeps a ring of stages full with TMA (cp.async.bulk.tensor:
+// x's box bf16 with the 128-byte swizzle, the weights' box int8 with the
+// 64-byte swizzle, so the fragment loads hit 32 banks), through full/empty
+// mbarriers; each stage's wgmmas are waited for before the stage is
+// released (ptxas serializes register-A wgmmas whose A is written while
+// one is in flight, so one warp cannot overlap its widening with its
+// products: two consumer warpgroups that take alternate stages do).
+//  - decode (route 1): x tiles of 8, 16, 32, 64 or 128 rows, from the rows
+//    a group (one tile holds a whole decode batch, so the weights are read
+//    once, and x once per 64 or 128 output columns); at up to 64 rows the
+//    two warpgroups share 64 weight rows and take alternate stages, at 128
+//    each takes 64 of 128 rows (8 rows: one warpgroup, five blocks an SM).
+//    Outputs too narrow to fill the SMs split K across the blocks of a
+//    thread-block cluster (split_of: the largest power of two up to K / 512
+//    and 8, halved while the grid would exceed two blocks an SM). Each block
+//    writes its fp32 partial of every output into the shared memory of the
+//    block that owns the output (distributed shared memory), one cluster
+//    barrier later each owner adds the S partials in rank order: no
+//    atomics, the same order on every call, so a graph replay equals the
+//    eager call bit for bit.
+//  - prefill (route 2): 128 output columns by 256 x rows (192 over groups,
+//    whose few hundred rows an expert fill 256-row tiles poorly), two
+//    warpgroups of 64 weight rows each on m64n256k16 (m64n192k16), no
+//    split. Pairs of blocks sharing x by TMA multicast, and two warpgroups
+//    taking alternate stages of 128 weight rows over 128-row x tiles,
+//    measured slower and were left out.
+// The scale is applied once per output in the epilogue, which stages the
+// tile in shared memory and stores four outputs a thread (8 or 16 bytes).
+// Up to three products over the same x (q/k/v, gate/up; the experts'
+// gate/up) share one launch (ssd_int8_linear_multi): their column tiles
+// follow each other in the grid, each with its own tensor map, scales and
+// output, and each output is computed as its own call on that route
+// computes it.
 //
 // Design, fp32 x: fp32 FMAs on 64 x 64 tiles with 16-wide K slices, the int8
 // values widened exactly to fp32 as they are staged; x is never rounded.
@@ -52,35 +79,13 @@
 // Groups without a host read: the row tiles of all groups are numbered
 // group after group (find_row_tile_at, shared with the grouped GEMM K6);
 // the grid is the static bound ceil(M / BM) + min(G, M) row tiles times the
-// column tiles, and a block past the last tile returns at once. So a
-// captured CUDA graph serves any routing.
+// column tiles (times the K splits), and a block (a cluster) past the last
+// tile returns at once. So a captured CUDA graph serves any routing.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace ssd {
 namespace {
-
-namespace w8 {
-constexpr int kThreads = 128;  // four warps, each a quarter of every K slice
-
-// A block's BM x BN outputs, K slices of BK a stage, STAGES stages.
-template <int BM_, int BN_, int BK_, int STAGES_>
-struct Tile {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_;
-  static_assert(BM % 16 == 0 && BN % 8 == 0 && BK % 64 == 0,
-                "m16 row tiles, n8 column tiles, a k16 step per warp");
-  static constexpr int kWRow = BK + 16;        // bytes of a weight row in shared memory
-  static constexpr int kXRow = 2 * BK + 32;    // bytes of an x row
-  static constexpr int kStage = BN * kWRow + BM * kXRow;
-  static constexpr int kRedRow = BN + 8;       // floats of a row of a warp's partial tile
-  static constexpr int kRed = 4 * BM * kRedRow * 4;
-  static constexpr int kSmem = STAGES * kStage > kRed ? STAGES * kStage : kRed;
-};
-// The two routes (ops/linear.py::INT8_ROUTES): 0 decode-sized groups, where
-// the weights' bytes bound the product and narrow column tiles give enough
-// blocks to stream them (N = 2048 makes 128); 1 prefill.
-using Small = Tile<16, 16, 256, 4>;
-using Large = Tile<64, 64, 64, 3>;
-}  // namespace w8
 
 // Four int8 values (one 32-bit word) as two bf16 pairs, exactly: byte b,
 // biased to b + 128 in [0, 255], becomes the low mantissa byte of 2^23, and
@@ -109,118 +114,6 @@ __device__ __forceinline__ bool w8_rows(const int* __restrict__ offs, int M, int
     return row0 < M;
   }
   return find_row_tile_at<BM>(offs, G, blockIdx.x, g, row0, row_end);
-}
-
-// bf16 x: block (row tile blockIdx.x, columns [BN blockIdx.y, + BN)).
-template <typename Tl, typename OutT>
-__global__ void __launch_bounds__(w8::kThreads)
-    w8a16_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                     const float* __restrict__ scale, const int* __restrict__ offs,
-                     OutT* __restrict__ out, int M, int N, int K, int G) {
-  using namespace w8;
-  constexpr int BM = Tl::BM, BN = Tl::BN, BK = Tl::BK, STAGES = Tl::STAGES;
-  extern __shared__ __align__(16) unsigned char smem[];
-  int g, row0, row_end;
-  if (!w8_rows<BM>(offs, M, G, g, row0, row_end)) return;
-  const int rows = row_end - row0;
-  const int n0 = blockIdx.y * BN;
-  const int8_t* wg = w + (size_t)g * N * K;
-  const __nv_bfloat16* xr = x + (size_t)row0 * K;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gr = lane / 4, t4 = lane % 4;
-
-  // One stage: the BN weight rows' and the tile's x rows' K slice
-  // [k0, k0 + BK), 16 bytes a copy; rows past N or the group, and k past K,
-  // read as zeros.
-  auto load_stage = [&](int buf, int k0) {
-    unsigned char* ws = smem + buf * Tl::kStage;
-    unsigned char* xs = ws + BN * Tl::kWRow;
-    for (int c = tid; c < BN * BK / 16; c += kThreads) {
-      const int r = c / (BK / 16), kc = (c % (BK / 16)) * 16;
-      const bool ok = n0 + r < N && k0 + kc < K;
-      cp_async16(ws + r * Tl::kWRow + kc, ok ? wg + (size_t)(n0 + r) * K + k0 + kc : w, ok);
-    }
-    for (int c = tid; c < BM * BK / 8; c += kThreads) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const bool ok = r < rows && k0 + kc < K;
-      cp_async16(xs + r * Tl::kXRow + 2 * kc, ok ? xr + (size_t)r * K + k0 + kc : x, ok);
-    }
-  };
-
-  constexpr int MT = BM / 16, NT = BN / 8;
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
-
-  const int KT = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s * BK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt is in; every warp is done with stage kt - 1
-    if (kt + STAGES - 1 < KT) load_stage((kt + STAGES - 1) % STAGES, (kt + STAGES - 1) * BK);
-    cp_async_commit();
-    const unsigned char* ws = smem + (kt % STAGES) * Tl::kStage;
-    const unsigned char* xs = ws + BN * Tl::kWRow;
-#pragma unroll
-    for (int ks = 0; ks < BK / 64; ++ks) {
-      const int kb = warp * (BK / 4) + ks * 16;   // this warp's k16 step
-      unsigned a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        // x[row][kb + 4t .. 4t+3] as (2t, 2t+1) and (2t+8, 2t+9).
-        const uint2 lo = *reinterpret_cast<const uint2*>(
-            xs + (mt * 16 + gr) * Tl::kXRow + 2 * (kb + 4 * t4));
-        const uint2 hi = *reinterpret_cast<const uint2*>(
-            xs + (mt * 16 + gr + 8) * Tl::kXRow + 2 * (kb + 4 * t4));
-        a[mt][0] = lo.x;
-        a[mt][1] = hi.x;
-        a[mt][2] = lo.y;
-        a[mt][3] = hi.y;
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const unsigned q = *reinterpret_cast<const unsigned*>(
-            ws + (nt * 8 + gr) * Tl::kWRow + kb + 4 * t4);
-        unsigned b0, b1;
-        s8x4_to_bf16x4(q, b0, b1);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // The four warps' partial tiles, added in warp order, scaled, stored.
-  float* red = reinterpret_cast<float*>(smem);
-  float* mine = red + warp * BM * Tl::kRedRow;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int r = mt * 16 + gr, c = nt * 8 + 2 * t4;
-      *reinterpret_cast<float2*>(mine + r * Tl::kRedRow + c) =
-          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<float2*>(mine + (r + 8) * Tl::kRedRow + c) =
-          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-    }
-  __syncthreads();
-  const float* sg = scale + (size_t)g * N;
-  for (int i = tid; i < BM * BN; i += kThreads) {
-    const int r = i / BN, c = i % BN;
-    if (r >= rows || n0 + c >= N) continue;
-    const int o = r * Tl::kRedRow + c, stride = BM * Tl::kRedRow;
-    const float sum = ((red[o] + red[o + stride]) + red[o + 2 * stride]) + red[o + 3 * stride];
-    out[(size_t)(row0 + r) * N + n0 + c] = from_float<OutT>(sum * sg[n0 + c]);
-  }
 }
 
 // fp32 x: 64 x 64 output tiles, 16 x 16 threads of 4 x 4 outputs.
@@ -290,29 +183,391 @@ __global__ void __launch_bounds__(kFThreads)
   }
 }
 
-template <typename Tl, typename OutT>
-cudaError_t launch_mma(const void* x, const void* w, const float* scale, const int* offs,
-                       void* out, int M, int N, int K, int G, cudaStream_t st) {
-  constexpr int BM = Tl::BM, BN = Tl::BN;
-  auto kernel = w8a16_mma_kernel<Tl, OutT>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
+// --- bf16 x on wgmma: the decode and prefill routes ---
+
+namespace w8h {
+constexpr int kBK = 64;  // K a stage: a 128-byte row of bf16 x, a 64-byte row of int8
+
+// A tile of BM output columns (weight rows; wgmma's M) by BN rows of x
+// (wgmma's N), K in stages of kBK through a STAGES-deep ring: x's BN x 64
+// box (bf16, 128-byte swizzle), then the weights' BM x 64 box (int8,
+// 64-byte swizzle). WG consumer warpgroups: with ALT they share the tile's
+// 64 weight rows and take alternate stages (one widens while the other's
+// wgmma runs; their sums are added in warpgroup order); without, each
+// takes 64 of BM = 64 WG rows of every stage. SPLIT: K may be split across
+// a cluster. MIN_BLOCKS is the residency the registers are held to.
+template <int BN_, int WG_, bool ALT_, int STAGES_, bool SPLIT_, int MIN_BLOCKS_>
+struct Cfg {
+  static constexpr int BN = BN_, WG = WG_, STAGES = STAGES_, MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr bool ALT = ALT_, SPLIT = SPLIT_;
+  static constexpr int BM = ALT ? 64 : 64 * WG;
+  static constexpr int kThreads = 128 * WG + 32;   // + the producer warp
+  static constexpr int kXBytes = BN * 128;         // x's BN rows x 64 K
+  static constexpr int kWBytes = BM * kBK;
+  static constexpr int kStage = kXBytes + kWBytes;
+  static constexpr int kRing = STAGES * kStage;
+  static constexpr int kPStride = BM + 4;          // floats a row of the fp32 tile
+  static constexpr int kPart = BN * kPStride * 4;
+  static constexpr int kQuads = BN * BM / 4;       // the tile's outputs in fours
+  // The K splits' partial quads, at their owner: written by the cluster's
+  // other blocks while this one may still read its ring, so apart from it.
+  static constexpr int kSlotOff = kRing > kPart ? kRing : kPart;
+  static constexpr int kSmem = kSlotOff + (SPLIT ? kQuads * 16 : 0) + 1024;  // + the alignment
+  static_assert(kXBytes % 1024 == 0 && kWBytes % 1024 == 0 && kPart % 16 == 0,
+                "TMA boxes with the 128-byte swizzle start 1024-byte aligned");
+  static_assert(kQuads % 8 == 0, "K splits of 1, 2, 4 or 8 share the quads evenly");
+};
+// Decode and verify (route 1): x tiles of 8 to 128 rows, picked from the
+// rows a group.
+using D8 = Cfg<8, 1, false, 8, true, 5>;
+using D16 = Cfg<16, 2, true, 8, true, 3>;
+using D32 = Cfg<32, 2, true, 8, true, 3>;
+using D64 = Cfg<64, 2, true, 6, true, 2>;
+using D128 = Cfg<128, 2, false, 4, true, 1>;
+// Prefill (route 2): 128 output columns by 256 rows, m64n256k16, no split;
+// by 192 rows over groups (an expert's few hundred rows fill 256-row tiles
+// poorly: ~346 rows take 2 x 192, not 2 x 256).
+using P256 = Cfg<256, 2, false, 4, false, 1>;
+using P192 = Cfg<192, 2, false, 5, false, 1>;
+
+// One product over the shared x: its weights' tensor map is the kernel's
+// wmap<i>, its scales, its output and its width, and its first column tile.
+struct Seg {
+  const float* scale;  // [G, N]
+  void* out;           // [M, N]
+  int N;
+  int tile0;
+};
+
+struct Args {
+  Seg seg[3];
+  const int* offs;  // [G+1] or nullptr
+  int nseg, M, K, G;
+  int col_tiles;    // of all segments
+  int split;        // K splits: the cluster's blocks
+  int krange;       // K a split (a multiple of the stage's K)
+  int out_f32;
+};
+}  // namespace w8h
+
+__device__ __forceinline__ uint32_t lds_u16(const unsigned char* p) {
+  return *reinterpret_cast<const unsigned short*>(p);
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Block b: split b % S of tile b / S, tile = (row tile, column tile) with
+// the column tiles of one row tile consecutive. Warp 4 WG is the producer:
+// one lane keeps the ring full. A consumer warpgroup loads its int8
+// fragments of a stage from shared memory, widens them exactly to bf16 in
+// registers, runs register-A wgmmas on x's box, waits for them and
+// releases the stage. The fp32 tile then goes to shared memory [x row][out
+// column]. With S > 1 the S blocks of the cluster (one per K split) each
+// own a share of the tile's outputs: every block writes its partial of each
+// share into the owner's slot for its rank (distributed shared memory),
+// and after one cluster barrier each owner adds its S slots in rank order.
+// The sum is scaled once per output and rounded once.
+template <typename C>
+__global__ void __launch_bounds__(C::kThreads, C::MIN_BLOCKS)
+    w8a16_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap0,
+                       const __grid_constant__ CUtensorMap wmap1,
+                       const __grid_constant__ CUtensorMap wmap2,
+                       const __grid_constant__ w8h::Args a) {
+  using namespace hopper;
+  constexpr int BN = C::BN, BM = C::BM, BK = w8h::kBK, STAGES = C::STAGES, WG = C::WG;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  __shared__ float sscale[BM];
+  const int S = C::SPLIT ? a.split : 1;
+  const int tile = blockIdx.x / S, split = blockIdx.x % S;
+  const int rt = tile / a.col_tiles, ct = tile % a.col_tiles;
+  const int si = a.nseg > 2 && ct >= a.seg[2].tile0   ? 2
+                 : a.nseg > 1 && ct >= a.seg[1].tile0 ? 1
+                                                      : 0;  // the product of this column tile
+  const CUtensorMap* wmap = si == 0 ? &wmap0 : si == 1 ? &wmap1 : &wmap2;
+  if (threadIdx.x == 4 * WG * 32) {
+    prefetch_map(&xmap);
+    prefetch_map(wmap);
+  }
+  int g, row0, row_end;
+  if (a.offs == nullptr) {
+    g = 0;
+    row0 = rt * BN;
+    row_end = min(row0 + BN, a.M);
+    if (row0 >= a.M) return;
+  } else if (!find_row_tile_at<BN>(a.offs, a.G, rt, g, row0, row_end)) {
+    return;  // every block of the cluster has this tile, so all return
+  }
+  const int N = si == 0 ? a.seg[0].N : si == 1 ? a.seg[1].N : a.seg[2].N;
+  const float* scale = si == 0 ? a.seg[0].scale : si == 1 ? a.seg[1].scale : a.seg[2].scale;
+  void* out = si == 0 ? a.seg[0].out : si == 1 ? a.seg[1].out : a.seg[2].out;
+  const int n0 = (ct - (si == 0 ? 0 : si == 1 ? a.seg[1].tile0 : a.seg[2].tile0)) * BM;
+  const int kb = split * a.krange;
+  const int nk = max(0, (min(a.K, kb + a.krange) - kb + BK - 1) / BK);
+
+  unsigned char* smem = align1024(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::ALT ? 4 : 4 * WG);  // its consumer warps
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (S > 1) cluster_arrive_relaxed();  // this block has started (waited on before the slots)
+
+  const int wg = warp / 4;
+  const int gr = lane / 4, t = lane % 4;
+  // a[0]/a[2]'s weight row in the tile; a[1]/a[3]'s is r0 + 8.
+  const int r0 = (C::ALT ? 0 : wg * 64) + (warp % 4) * 16 + gr;
+  float* P = reinterpret_cast<float*>(smem);
+  if (warp == 4 * WG) {
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        unsigned char* st = smem + s * C::kStage;
+        mbar_arrive_expect_tx(&full[s], C::kStage);
+        const int k = kb + kt * BK;
+        tma_load_2d(st, &xmap, &full[s], k, row0);
+        tma_load_3d(st + C::kXBytes, wmap, &full[s], k, n0, g);
+      }
+    }
+    __syncwarp();
+  } else {
+    // The scales of the tile's columns, read now and used after the loop.
+    const int tid = threadIdx.x;
+    const float sc = tid < BM && n0 + tid < N ? scale[(size_t)g * N + n0 + tid] : 0.f;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    // Row r's 16-byte chunk c of the 64-byte-swizzled weight box sits at
+    // r * 64 + ((c ^ ((r >> 1) & 3)) << 4); rows r0 and r0 + 8 share the
+    // phase. A k16 step j is chunk j: this thread's bytes 2t, 2t+1 and
+    // 2t+8, 2t+9 of it are a[0]/a[2] (row r0) and a[1]/a[3] (row r0 + 8).
+    const int phase = (r0 >> 1) & 3;
+    for (int kt = C::ALT ? wg : 0; kt < nk; kt += C::ALT ? WG : 1) {
+      const int s = kt % STAGES;
+      mbar_wait(&full[s], (kt / STAGES) & 1);
+      const unsigned char* xs = smem + s * C::kStage;
+      const unsigned char* w0 = xs + C::kXBytes + r0 * BK + 2 * t;
+      uint32_t af[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned char* p0 = w0 + ((j ^ phase) << 4);
+        const unsigned char* p1 = p0 + 8 * BK;
+        s8x4_to_bf16x4(lds_u16(p0) | (lds_u16(p0 + 8) << 16), af[j][0], af[j][2]);
+        s8x4_to_bf16x4(lds_u16(p1) | (lds_u16(p1 + 8) << 16), af[j][1], af[j][3]);
+      }
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_rs<BN>(acc, af[j], gmma_desc(xs + 32 * j, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    // Every consumer warp is done with the ring before the tile overwrites
+    // it; with ALT the warpgroups add their sums in order.
+    asm volatile("bar.sync 1, %0;\n" ::"n"(128 * WG) : "memory");
+    if (tid < BM) sscale[tid] = sc;
+    // acc[4j + 2h + u]: weight row r0 + 8h, x row 8j + 2t + u.
+#pragma unroll
+    for (int w = 0; w < (C::ALT ? WG : 1); ++w) {
+      if (!C::ALT || wg == w) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              float& p = P[(8 * j + 2 * t + u) * C::kPStride + r0 + 8 * h];
+              p = (C::ALT && w > 0 ? p : 0.f) + acc[4 * j + 2 * h + u];
+            }
+      }
+      if (C::ALT && w + 1 < WG) asm volatile("bar.sync 1, %0;\n" ::"n"(128 * WG) : "memory");
+    }
+  }
+  __syncthreads();
+
+  // Quad q (four outputs) of the tile: x row q / (BM/4), columns 4 (q %
+  // (BM/4)) ..; kept where its row is the group's and its first column is
+  // below N.
+  const int share = (C::kQuads + S - 1) / S;
+  auto quad = [&](int q, int& row, int& col) {
+    row = row0 + q / (BM / 4);
+    col = n0 + 4 * (q % (BM / 4));
+    return row < row_end && col < N;
+  };
+  const float4* P4 = reinterpret_cast<const float4*>(P);
+  auto local = [&](int q) {
+    return P4[(q / (BM / 4)) * (C::kPStride / 4) + q % (BM / 4)];
+  };
+  float4* slots = reinterpret_cast<float4*>(smem + C::kSlotOff);
+  if (S > 1) {
+    cluster_wait();  // every block of the cluster has started
+    for (int q = threadIdx.x; q < C::kQuads; q += C::kThreads) {
+      int row, col;
+      if (!quad(q, row, col)) continue;
+      const int owner = q / share;
+      st_cluster_f4(cluster_addr(slots + split * share + (q - owner * share), owner), local(q));
+    }
+    cluster_sync();
+  }
+  const bool vec = N % 4 == 0;
+  const int q_hi = min(C::kQuads, (split + 1) * share);
+  for (int q = split * share + threadIdx.x; q < q_hi; q += C::kThreads) {
+    int row, col;
+    if (!quad(q, row, col)) continue;
+    float4 v;
+    if (S > 1) {
+      const int i = q - split * share;
+      v = slots[i];
+      for (int r = 1; r < S; ++r) {
+        const float4 p = slots[r * share + i];
+        v.x += p.x;
+        v.y += p.y;
+        v.z += p.z;
+        v.w += p.w;
+      }
+    } else {
+      v = local(q);
+    }
+    const int c = col - n0;
+    const float y[4] = {v.x * sscale[c], v.y * sscale[c + 1], v.z * sscale[c + 2],
+                        v.w * sscale[c + 3]};
+    const size_t o = (size_t)row * N + col;
+    if (a.out_f32) {
+      float* dst = static_cast<float*>(out) + o;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
+      } else {
+        for (int u = 0; u < 4 && col + u < N; ++u) dst[u] = y[u];
+      }
+    } else {
+      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + o;
+      if (vec) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(bf16x2(y[0], y[1]), bf16x2(y[2], y[3]));
+      } else {
+        for (int u = 0; u < 4 && col + u < N; ++u) dst[u] = __float2bfloat16(y[u]);
+      }
+    }
+  }
+}
+
+// K splits of route C's tiles for M rows over G groups into N columns and
+// K: the largest power of two up to K / 512 and 8, then halved while the
+// grid would hold more than two blocks an SM (132 SMs) for the groups'
+// rows that can be live. A power of two divides the tile's quads, so the S
+// shares of the slots fill them exactly.
+template <typename C>
+int split_of(int M, int N, int K, int G) {
+  const long long live = G == 1 ? (M + C::BN - 1) / C::BN : (G < M ? G : M);
+  const long long tiles = live * ((N + C::BM - 1) / C::BM);
+  int s = 1;
+  while (s < 8 && 2 * s * 512 <= K) s *= 2;
+  while (s > 1 && tiles * s > 2 * 132) s /= 2;
+  return s;
+}
+
+// The tensor maps and the launch of route C over nseg products that share
+// x: segment i multiplies x by w[i] [G, N[i], K] into out[i], all with the
+// split of the first.
+template <typename C>
+cudaError_t launch_wgmma(const void* x, int nseg, const void* const* w, const float* const* scale,
+                         void* const* out, const int* N, const int* offs, int M, int K, int G,
+                         bool decode, int out_f32, cudaStream_t st) {
+  using namespace hopper;
+  const int split = decode ? split_of<C>(M, N[0], K, G) : 1;
+  for (int i = 1; i < nseg; ++i)
+    if (decode && split_of<C>(M, N[i], K, G) != split) return cudaErrorInvalidValue;
+  w8h::Args a{};
+  CUtensorMap xmap, wmap[3];
+  const cuuint64_t xd[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t xs[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t xb[2] = {w8h::kBK, (cuuint32_t)C::BN};
+  if (!encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, x, 2, xd,
+                  xs, xb))
+    return cudaErrorInvalidValue;
+  int tiles = 0;
+  for (int i = 0; i < 3; ++i) {
+    if (i >= nseg) {
+      wmap[i] = wmap[0];
+      continue;
+    }
+    const cuuint64_t wd[3] = {(cuuint64_t)K, (cuuint64_t)N[i], (cuuint64_t)G};
+    const cuuint64_t ws[2] = {(cuuint64_t)K, (cuuint64_t)N[i] * K};
+    const cuuint32_t wb[3] = {w8h::kBK, (cuuint32_t)C::BM, 1};
+    if (!encode_map(&wmap[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_64B, w[i], 3,
+                    wd, ws, wb))
+      return cudaErrorInvalidValue;
+    a.seg[i] = w8h::Seg{scale[i], out[i], N[i], tiles};
+    tiles += (N[i] + C::BM - 1) / C::BM;
+  }
+  a.offs = offs;
+  a.nseg = nseg;
+  a.M = M;
+  a.K = K;
+  a.G = G;
+  a.col_tiles = tiles;
+  a.split = split;
+  a.krange = ((K + split - 1) / split + w8h::kBK - 1) / w8h::kBK * w8h::kBK;
+  a.out_f32 = out_f32;
+  const long long row_tiles = (M + C::BN - 1) / C::BN + (offs != nullptr ? (G < M ? G : M) : 0);
+  const long long blocks = row_tiles * tiles * split;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  auto kernel = w8a16_wgmma_kernel<C>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return err;
-  const long long row_tiles =
-      (M + BM - 1) / BM + (offs != nullptr ? (G < M ? G : M) : 0);
-  const dim3 grid((unsigned)row_tiles, (N + BN - 1) / BN);
-  kernel<<<grid, w8::kThreads, Tl::kSmem, st>>>(static_cast<const __nv_bfloat16*>(x),
-                                                 static_cast<const int8_t*>(w), scale, offs,
-                                                 static_cast<OutT*>(out), M, N, K, G);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(C::kThreads);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  if (split > 1) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, xmap, wmap[0], wmap[1], wmap[2], a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename OutT>
-cudaError_t launch_route(int route, const void* x, const void* w, const float* scale,
-                         const int* offs, void* out, int M, int N, int K, int G,
-                         cudaStream_t st) {
-  if (route == 0) return launch_mma<w8::Small, OutT>(x, w, scale, offs, out, M, N, K, G, st);
-  return launch_mma<w8::Large, OutT>(x, w, scale, offs, out, M, N, K, G, st);
+// Route 1 (decode: x tiles of 8-128 rows from the rows a group, K split
+// by split_of) or 2 (prefill: 256-row tiles, 192 over groups, no split);
+// F(config) is applied to the route's configuration.
+template <typename F>
+auto with_config(int route, int M, int G, F f) {
+  if (route == 2) {
+    if (G > 1) return f(w8h::P192{});
+    return f(w8h::P256{});
+  }
+  const int rows = (M + G - 1) / G;
+  if (rows <= 8) return f(w8h::D8{});
+  if (rows <= 16) return f(w8h::D16{});
+  if (rows <= 32) return f(w8h::D32{});
+  if (rows <= 64) return f(w8h::D64{});
+  return f(w8h::D128{});
+}
+
+cudaError_t launch_hopper(int route, const void* x, int nseg, const void* const* w,
+                          const float* const* scale, void* const* out, const int* N,
+                          const int* offs, int M, int K, int G, int out_f32, cudaStream_t st) {
+  return with_config(route, M, G, [&](auto c) {
+    return launch_wgmma<decltype(c)>(x, nseg, w, scale, out, N, offs, M, K, G, route == 1,
+                                     out_f32, st);
+  });
 }
 
 }  // namespace
@@ -321,20 +576,18 @@ cudaError_t launch_route(int route, const void* x, const void* w, const float* s
 // out [M, N] = (x [M, K] @ w[g]^T) * scale[g] per group g of rows (offs
 // [G+1], or nullptr for one group). dtype: x's type (kFloat32 or
 // kBFloat16); out_fp32: the output type for bf16 x (fp32 x writes fp32);
-// route: 0 or 1, the bf16 tile shape (w8::Small, w8::Large).
+// route, bf16 x only: 1 decode or 2 prefill, the wgmma routes (w8h).
 extern "C" int ssd_int8_linear(int dtype, int out_fp32, int route, const void* x,
                                const void* w, const float* scale, const int* offs, void* out,
                                int M, int N, int K, int G, void* stream) {
   using namespace ssd;
   if (M == 0 || N == 0) return cudaSuccess;
   if (M < 0 || N < 0 || K <= 0 || K % 16 != 0 || G <= 0 || (offs == nullptr && G != 1) ||
-      (route != 0 && route != 1))
+      (dtype == kBFloat16 && route != 1 && route != 2))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16) {
-    return out_fp32 ? launch_route<float>(route, x, w, scale, offs, out, M, N, K, G, st)
-                    : launch_route<__nv_bfloat16>(route, x, w, scale, offs, out, M, N, K, G, st);
-  }
+  if (dtype == kBFloat16)
+    return launch_hopper(route, x, 1, &w, &scale, &out, &N, offs, M, K, G, out_fp32, st);
   if (dtype == kFloat32 && out_fp32) {
     const long long row_tiles = (M + kFBM - 1) / kFBM + (offs != nullptr ? (G < M ? G : M) : 0);
     const dim3 grid((unsigned)row_tiles, (N + kFBN - 1) / kFBN);
@@ -346,8 +599,43 @@ extern "C" int ssd_int8_linear(int dtype, int out_fp32, int route, const void* x
   return cudaErrorInvalidValue;
 }
 
+// Up to three products over one bf16 x in one launch of wgmma route 1 or
+// 2: out_i [M, N_i] = (x @ w_i[g]^T) * scale_i[g], each output computed as
+// ssd_int8_linear computes it on that route (the same tiles and K splits),
+// so bit for bit the separate calls' results. Unused segments' pointers
+// may be null.
+extern "C" int ssd_int8_linear_multi(int out_fp32, int route, const void* x, int nseg,
+                                     const void* w0, const void* w1, const void* w2,
+                                     const float* s0, const float* s1, const float* s2,
+                                     void* o0, void* o1, void* o2, int N0, int N1, int N2,
+                                     const int* offs, int M, int K, int G, void* stream) {
+  using namespace ssd;
+  const void* w[3] = {w0, w1, w2};
+  const float* scale[3] = {s0, s1, s2};
+  void* out[3] = {o0, o1, o2};
+  const int N[3] = {N0, N1, N2};
+  if (nseg < 1 || nseg > 3 || M < 0 || K <= 0 || K % 16 != 0 || G <= 0 ||
+      (offs == nullptr && G != 1) || (route != 1 && route != 2))
+    return cudaErrorInvalidValue;
+  for (int i = 0; i < nseg; ++i)
+    if (N[i] <= 0) return cudaErrorInvalidValue;
+  if (M == 0) return cudaSuccess;
+  return launch_hopper(route, x, nseg, w, scale, out, N, offs, M, K, G, out_fp32,
+                       static_cast<cudaStream_t>(stream));
+}
+
+
+// The K splits route 1 or 2 takes for M rows over G groups into N
+// outputs (1 on route 2): products whose splits agree can share a launch.
+extern "C" int ssd_int8_linear_split(int route, int M, int N, int K, int G) {
+  using namespace ssd;
+  if (route != 1 || M <= 0 || N <= 0 || K <= 0 || G <= 0) return 1;
+  return with_config(route, M, G, [&](auto c) { return split_of<decltype(c)>(M, N, K, G); });
+}
+
 // Dynamic shared memory of a bf16 route's kernel (for the smoke run's
-// resource report).
-extern "C" int ssd_int8_linear_smem_bytes(int route) {
-  return route == 0 ? ssd::w8::Small::kSmem : ssd::w8::Large::kSmem;
+// resource report): route 1 at `rows` rows a group, 2 over G groups.
+extern "C" int ssd_int8_linear_smem_bytes(int route, int rows, int G) {
+  using namespace ssd;
+  return with_config(route, rows * G, G, [](auto c) { return decltype(c)::kSmem; });
 }

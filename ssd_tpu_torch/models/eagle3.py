@@ -32,7 +32,7 @@ import torch
 from ssd_tpu_torch.config import ModelConfig
 from ssd_tpu_torch.models.transformer import AttnCall
 from ssd_tpu_torch.ops.layers import apply_rope, rms_norm, rope_cos_sin, silu_mul
-from ssd_tpu_torch.ops.linear import head_logits, mm
+from ssd_tpu_torch.ops.linear import head_logits, mm, mm_shared
 
 
 @dataclass(frozen=True)
@@ -153,15 +153,16 @@ def eagle_forward(
     x = torch.cat([rms_norm(tok, params["input_ln"], eps),
                    rms_norm(cond, params["cond_ln"], eps)], dim=-1)      # [T, 2D]
     cos, sin = rope_cos_sin(positions, hd, arch.rope_theta)
-    q = apply_rope(mm(x, params, "wq").reshape(T, Hq, hd), cos, sin)
-    k = apply_rope(mm(x, params, "wk").reshape(T, Hkv, hd), cos, sin)
-    v = mm(x, params, "wv").reshape(T, Hkv, hd)
+    q, k, v = mm_shared(x, params, ("wq", "wk", "wv"))
+    q = apply_rope(q.reshape(T, Hq, hd), cos, sin)
+    k = apply_rope(k.reshape(T, Hkv, hd), cos, sin)
+    v = v.reshape(T, Hkv, hd)
     o = attn_call(0, q, k, v)
     attn_out = mm(o.reshape(T, Hq * hd), params, "wo")
     # The conditioning is the residual stream.
     resid = (attn_out.float() + cond.float()).to(tok.dtype)
     h = rms_norm(resid, params["post_ln"], eps)
-    mlp = mm(silu_mul(mm(h, params, "gate"), mm(h, params, "up")), params, "down")
+    mlp = mm(silu_mul(*mm_shared(h, params, ("gate", "up"))), params, "down")
     return (mlp.float() + resid.float()).to(tok.dtype)
 
 

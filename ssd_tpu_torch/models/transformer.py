@@ -35,7 +35,7 @@ import torch
 from ssd_tpu_torch.config import ModelConfig
 from ssd_tpu_torch.ops.layers import (
     apply_rope, rms_norm, rms_norm_residual, rope_cos_sin, silu_mul)
-from ssd_tpu_torch.ops.linear import head_logits, mm
+from ssd_tpu_torch.ops.linear import head_logits, mm, mm_shared
 from ssd_tpu_torch.ops.moe import moe_mlp
 
 # attn_call(layer index, q [T,Hq,hd], k [T,Hkv,hd], v [T,Hkv,hd]) -> [T,Hq,hd]
@@ -180,9 +180,8 @@ def forward_hidden(
             pre = (hidden.float() + residual.float()).to(hidden.dtype)
             acts += [pre] * taps.count(li)
         x, residual = rms_norm_residual(hidden, residual, lp["input_ln"], eps)
-        q = mm(x, lp, "wq").reshape(T, Hq, hd)
-        k = mm(x, lp, "wk").reshape(T, Hkv, hd)
-        v = mm(x, lp, "wv").reshape(T, Hkv, hd)
+        q, k, v = mm_shared(x, lp, ("wq", "wk", "wv"))
+        q, k, v = q.reshape(T, Hq, hd), k.reshape(T, Hkv, hd), v.reshape(T, Hkv, hd)
         if arch.use_qk_norm:
             q = rms_norm(q, lp["q_norm"], eps)
             k = rms_norm(k, lp["k_norm"], eps)
@@ -195,7 +194,7 @@ def forward_hidden(
         if arch.num_experts:
             hidden = moe_mlp(x, lp, arch.num_experts_per_tok, arch.norm_topk_prob)
         else:
-            hidden = mm(silu_mul(mm(x, lp, "gate"), mm(x, lp, "up")), lp, "down")
+            hidden = mm(silu_mul(*mm_shared(x, lp, ("gate", "up"))), lp, "down")
     hidden = (hidden.float() + residual.float()).to(hidden.dtype)
     if eagle_layers:
         return hidden, torch.cat(acts, dim=-1)

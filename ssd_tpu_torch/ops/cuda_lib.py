@@ -240,8 +240,18 @@ def _bind(cdll: ctypes.CDLL):
         i, i, i, p, p, p, p, p,  # dtype, out_fp32, route, x, w, scale, group_offsets, out
         i, i, i, i, p,           # M, N, K, G, stream
     ]
+    # Up to three products over one bf16 x in one launch (wgmma routes).
+    cdll.ssd_int8_linear_multi.restype = i
+    cdll.ssd_int8_linear_multi.argtypes = [
+        i, i, p, i,              # out_fp32, route, x, segments
+        p, p, p, p, p, p, p, p, p,  # w0..2, scale0..2, out0..2
+        i, i, i, p,              # N0..2, group_offsets
+        i, i, i, p,              # M, K, G, stream
+    ]
+    cdll.ssd_int8_linear_split.restype = i
+    cdll.ssd_int8_linear_split.argtypes = [i, i, i, i, i]  # route, M, N, K, G
     cdll.ssd_int8_linear_smem_bytes.restype = i
-    cdll.ssd_int8_linear_smem_bytes.argtypes = [i]
+    cdll.ssd_int8_linear_smem_bytes.argtypes = [i, i, i]   # route, rows a group, groups
 
 
 def load() -> KernelLibrary:

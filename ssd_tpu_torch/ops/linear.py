@@ -18,9 +18,15 @@ round once, so the two can differ by a bf16 ulp. In fp32 both round the
 product and then its scaled value to fp32, and differ by summation order
 only.
 
+`int8_linear_shared` runs up to three products over one x (q/k/v,
+gate/up, the experts' gate/up) in one launch, each output as int8_linear
+computes it on that launch's route.
+
 `mm(x, params, name)` is the projection of models/transformer.py and
 models/eagle3.py: through `int8_linear` when params holds `name + "_scale"`,
-else x @ params[name]; `head_logits` their LM head, in fp32.
+else x @ params[name]; `mm_shared` the same for products that share x, in
+one launch when their weights are int8; `head_logits` their LM head, in
+fp32.
 """
 
 from __future__ import annotations
@@ -29,33 +35,40 @@ import torch
 
 from ssd_tpu_torch.ops import cuda_lib
 
-# The bf16 kernel's two tile shapes (csrc/int8_weight_gemm.cu, w8::Small
-# and w8::Large). The 16 x 16 tiles read the weights once per 16 rows; the
-# 64 x 64 tiles once per 64, but make N/64 blocks a row tile, too few to
-# stream narrow weights. ssd_tpu_torch/bench/int8_routes.py put the
-# crossover (NVIDIA H100 80GB HBM3, 700 W): 64 x 64 wins from 24 rows at N
-# = 8192 (gate/up 31.6 against 32.2 µs) and at the 128,256-wide LM head
-# (269.4 against 347.1; at 80 rows 523.0 against 962.4), but at N = 2048
-# only from 128 rows (q/o 32.4 against 34.0; at 80 rows 32.0 against
-# 27.5), and never below 256 rows at N = 512 or over Qwen3-30B-A3B's
-# expert groups (at 64 tokens 131.8 against 205.0).
-INT8_ROUTES = {"small": 0, "large": 1}
-INT8_SMALL_ROWS = 16          # rows per group that always take 16 x 16 tiles
-INT8_NARROW_ROWS = 128        # ... and below INT8_WIDE_N outputs
-INT8_WIDE_N = 8192
+# The bf16 kernel's routes (csrc/int8_weight_gemm.cu). Both run wgmma with
+# the int8 weights as its A operand, widened to bf16 in registers, and x as
+# its B: "decode" on x tiles of 8 to 128 rows (picked from the rows a group)
+# with K split across a thread-block cluster, "prefill" on 128 x 256 tiles
+# (128 x 192 over groups). ssd_tpu_torch/bench/int8_routes.py --baseline put
+# the rule (NVIDIA H100 80GB HBM3, 700 W; ms): decode up to 128 rows a group,
+# where it beats the first kernel's mma.sync routes (gate/up at 8 rows
+# 0.0177 against 0.0196; down at 80 rows 0.0333 against 0.0841; the LM head
+# at 80 rows 0.1780 against 0.5227) or comes within 2% of them (q/o at 1
+# row 0.0119 against 0.0117, at 8 rows 0.0116 against 0.0118; a b1 expert
+# gate 0.0170 both), except a lone k/v product past 64 rows (80 rows 0.0153
+# against 0.0127), which no engine issues: k/v share q's launch (q/k/v at
+# 80 rows 0.0165 against 0.0475); past 128 rows prefill from N = 8192
+# (gate/up at 512 rows 0.0406 against decode's 0.0470; the LM head at 160
+# rows 0.2866 against 0.3856) and decode below it up to 512 rows (down at
+# 512 rows 0.0708 against 0.1187).
+INT8_ROUTES = {"decode": 1, "prefill": 2}
+INT8_DECODE_ROWS = 128        # rows a group up to which "decode" runs
+INT8_WIDE_N = 8192            # past them, "decode" below this N up to:
+INT8_DECODE_ROWS_NARROW = 512
 
 
 def int8_linear_route(dtype: torch.dtype, M: int, N: int, G: int) -> str:
     """K9's route for M rows over G groups into N outputs, from the shapes
-    alone (no device read): "simt" for fp32 x; for bf16 "small" at up to
-    INT8_SMALL_ROWS rows a group on average, or up to INT8_NARROW_ROWS
-    when N < INT8_WIDE_N; else "large"."""
+    alone (no device read): "simt" for fp32 x; for bf16 "decode" up to
+    INT8_DECODE_ROWS rows a group, and for one group below INT8_WIDE_N
+    outputs up to INT8_DECODE_ROWS_NARROW rows; else "prefill"."""
     if dtype == torch.float32:
         return "simt"
-    rows = M / G
-    if rows <= INT8_SMALL_ROWS or (rows <= INT8_NARROW_ROWS and N < INT8_WIDE_N):
-        return "small"
-    return "large"
+    if M <= INT8_DECODE_ROWS * G:
+        return "decode"
+    if G == 1 and N < INT8_WIDE_N and M <= INT8_DECODE_ROWS_NARROW:
+        return "decode"
+    return "prefill"
 
 
 def int8_linear_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -104,6 +117,17 @@ def _check_args(x, w, scale, out_dtype, group_offsets):
             raise ValueError(f"int8_linear: {label} must be contiguous")
 
 
+def _launch_checks(x: torch.Tensor, ws):
+    if x.device.type != "cuda":
+        raise RuntimeError(f"int8_linear: tensors must be on a CUDA device or the CPU, "
+                           f"got {x.device}")
+    for label, t in [("x", x)] + [("w", w) for w in ws]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"int8_linear: {label} must be 16-byte aligned")
+    if x.shape[1] % 16:
+        raise ValueError(f"int8_linear: the kernel takes K in multiples of 16, got {x.shape[1]}")
+
+
 def int8_linear(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                 out_dtype: torch.dtype | None = None,
                 group_offsets: torch.Tensor | None = None) -> torch.Tensor:
@@ -116,16 +140,9 @@ def int8_linear(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     _check_args(x, w, scale, out_dtype, group_offsets)
     if x.device.type == "cpu":
         return int8_linear_plain(x, w, scale, out_dtype, group_offsets)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"int8_linear: tensors must be on a CUDA device or the CPU, "
-                           f"got {x.device}")
-    for label, t in (("x", x), ("w", w)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"int8_linear: {label} must be 16-byte aligned")
+    _launch_checks(x, [w])
     M, K = x.shape
     G, N, _ = w.shape
-    if K % 16:
-        raise ValueError(f"int8_linear: the kernel takes K in multiples of 16, got {K}")
     route = int8_linear_route(x.dtype, M, N, G)
     out = torch.empty(M, N, dtype=out_dtype, device=x.device)
     lib = cuda_lib.load()
@@ -140,6 +157,53 @@ def int8_linear(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def int8_linear_shared_plain(x: torch.Tensor, ws, scales, out_dtype=None,
+                             group_offsets=None) -> list[torch.Tensor]:
+    """The plain version of int8_linear_shared: one int8_linear_plain per
+    (w, scale) pair."""
+    return [int8_linear_plain(x, w, s, out_dtype, group_offsets) for w, s in zip(ws, scales)]
+
+
+def int8_linear_shared(x: torch.Tensor, ws, scales, out_dtype: torch.dtype | None = None,
+                       group_offsets: torch.Tensor | None = None) -> list[torch.Tensor]:
+    """int8_linear of x by each of up to three int8 weights ws[i] [G, N_i,
+    K] with scales[i] [G, N_i], over the same groups: on the card in ONE
+    launch of K9 when the route rule sends the first product to a wgmma
+    route and every product takes the same K split there (each output is
+    computed as int8_linear computes it on that route, bit for bit), else
+    one int8_linear call each (the fp32 SIMT route, or splits that
+    differ); the plain version for CPU tensors."""
+    if not 1 <= len(ws) <= 3 or len(scales) != len(ws):
+        raise ValueError(f"int8_linear_shared: 1-3 (w, scale) pairs, got {len(ws)} "
+                         f"and {len(scales)}")
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    for w, s in zip(ws, scales):
+        _check_args(x, w, s, out_dtype, group_offsets)
+    if x.device.type == "cpu":
+        return int8_linear_shared_plain(x, ws, scales, out_dtype, group_offsets)
+    M, K = x.shape
+    G = ws[0].shape[0]
+    lib = cuda_lib.load()
+    route = int8_linear_route(x.dtype, M, ws[0].shape[1], G)
+    if route not in ("decode", "prefill") or len(
+            {lib.cdll.ssd_int8_linear_split(INT8_ROUTES[route], M, w.shape[1], K, G)
+             for w in ws}) > 1:
+        return [int8_linear(x, w, s, out_dtype, group_offsets) for w, s in zip(ws, scales)]
+    _launch_checks(x, ws)
+    outs = [torch.empty(M, w.shape[1], dtype=out_dtype, device=x.device) for w in ws]
+    pad = [None] * (3 - len(ws))
+    with torch.cuda.device(x.device):
+        err = lib.cdll.ssd_int8_linear_multi(
+            int(out_dtype == torch.float32), INT8_ROUTES[route], x.data_ptr(), len(ws),
+            *[w.data_ptr() for w in ws], *pad, *[s.data_ptr() for s in scales], *pad,
+            *[o.data_ptr() for o in outs], *pad, *[w.shape[1] for w in ws], *[0] * len(pad),
+            None if group_offsets is None else group_offsets.data_ptr(), M, K, G,
+            torch.cuda.current_stream().cuda_stream)
+    lib.check(err, "int8_linear_shared kernel launch")
+    cuda_lib.count_launch(int8_linear)
+    return outs
+
+
 int8_linear.launches = 0
 
 
@@ -152,6 +216,16 @@ def head_logits(h: torch.Tensor, params: dict) -> torch.Tensor:
     if scale is None:
         return h.float() @ params["lm_head"].float().T
     return int8_linear(h, params["lm_head"][None], scale[None], out_dtype=torch.float32)
+
+
+def mm_shared(x: torch.Tensor, params: dict, names) -> list[torch.Tensor]:
+    """[mm(x, params, name) for name in names]: int8 weights in one launch
+    through int8_linear_shared (q/k/v, gate/up), float ones as their own
+    x @ W."""
+    scales = [params.get(n + "_scale") for n in names]
+    if any(s is None for s in scales):
+        return [mm(x, params, n) for n in names]
+    return int8_linear_shared(x, [params[n][None] for n in names], [s[None] for s in scales])
 
 
 def mm(x: torch.Tensor, params: dict, name: str) -> torch.Tensor:

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from ssd_tpu_torch.ops import cuda_lib
 from ssd_tpu_torch.ops.layers import silu_mul
-from ssd_tpu_torch.ops.linear import int8_linear
+from ssd_tpu_torch.ops.linear import int8_linear, int8_linear_shared
 from ssd_tpu_torch.ops.spec_math import stable_topk_indices
 
 
@@ -80,8 +80,12 @@ def moe_mlp(x: torch.Tensor, lp: dict, top_k: int, norm_topk_prob: bool) -> torc
     order = torch.argsort(flat_e, stable=True)
     xs = x.index_select(0, order // top_k)                       # [T*k, D]
     offsets = expert_offsets(flat_e, E)
-    g = _experts(xs, lp, "moe_gate", offsets)
-    u = _experts(xs, lp, "moe_up", offsets)
+    if "moe_gate_scale" in lp:   # int8: gate and up in one launch over the same rows
+        g, u = int8_linear_shared(xs, [lp["moe_gate"], lp["moe_up"]],
+                                  [lp["moe_gate_scale"], lp["moe_up_scale"]],
+                                  group_offsets=offsets)
+    else:
+        g, u = _experts(xs, lp, "moe_gate", offsets), _experts(xs, lp, "moe_up", offsets)
     d = _experts(silu_mul(g, u), lp, "moe_down", offsets)        # [T*k, D]
     eo = torch.empty_like(d).index_copy_(0, order, d).reshape(T, top_k, D)
     return torch.einsum("tkd,tk->td", eo, top_w)

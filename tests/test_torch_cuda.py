@@ -1019,33 +1019,45 @@ def test_eagle_graph_counters_read_zero_after_replays_on_card(tmp_path):
 
 # --- int8 weights: the W8A16 GEMM (K9, csrc/int8_weight_gemm.cu) ---------------
 
-# (M, N, K, group sizes or None): the chip_smoke kernels phase's shapes
-# (Llama-3.2-1B's qkv, o, gate/up and down at 8, 40 and 80 rows; its LM head
-# at 8 and 80 rows; prefill at 5534 rows; Qwen3-30B-A3B's expert gate and
-# down at a b8 decode dispatch, 64 rows over 53 of 128 experts, and at b1's
-# 8 one-row groups) and edge cases: one row, N not a multiple of the 64-wide
-# column tile, K not a multiple of a K slice, empty groups first, inside
-# and last, a group larger than a tile.
+# (M, N, K, group sizes, "ghost" or None): the chip_smoke kernels phase's
+# shapes (Llama-3.2-1B's qkv, o, gate/up and down at 8, 40, 80 and 128 rows;
+# its LM head at 8 and 80 rows; prefill at 5534 rows; Qwen3-30B-A3B's expert
+# gate and down at a b8 decode dispatch, 64 rows over 53 of 128 experts, and
+# at b1's 8 one-row groups) and edge cases: one row, 16 rows, a batch whose
+# last row is a ghost (zeros, as a padded graph bucket holds), K = 768 (the
+# experts' down) on one group, N not a multiple of the 64-wide column tile,
+# K not a multiple of a K stage, empty groups first, inside and last, a
+# group larger than a tile, and K = 3072 (Llama-3.2-3B's q/o and k/v, whose
+# K / 512 = 6 splits are cut to a power of two).
 K9_DECODE = np.zeros(128, np.int64)
 _r = np.random.default_rng(34)
 K9_DECODE[_r.choice(128, 53, replace=False)] = 1
 K9_DECODE[_r.choice(np.flatnonzero(K9_DECODE), 11, replace=False)] += 1     # 64 rows
 K9_B1 = np.zeros(128, np.int64)
 K9_B1[_r.choice(128, 8, replace=False)] = 1
-K9_CASES = ([(m, n, k, None) for m in (8, 40, 80)
+K9_CASES = ([(m, n, k, None) for m in (8, 40, 80, 128)
              for n, k in ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192))]
             + [(m, 128256, 2048, None) for m in (8, 80)]
-            + [(5534, 2048, 2048, None), (1, 72, 48, None), (37, 200, 784, None)]
+            + [(5534, 2048, 2048, None), (5534, 8192, 2048, None), (1, 2048, 2048, None),
+               (16, 512, 2048, None), (8, 2048, 2048, "ghost"), (8, 2048, 768, None),
+               (1, 72, 48, None), (37, 200, 784, None), (8, 3072, 3072, None),
+               (8, 1024, 3072, None)]
             + [(None, 768, 2048, K9_DECODE), (None, 2048, 768, K9_DECODE),
                (None, 768, 2048, K9_B1), (None, 136, 96, [0, 130, 1, 0, 64, 3, 0])])
 
 
 def _k9_case(M, N, K, sizes, dtype, seed):
     r = np.random.default_rng(seed)
+    ghost = isinstance(sizes, str)
+    if ghost:
+        sizes = None
     if sizes is not None:
         M = int(sum(sizes))
     G = 1 if sizes is None else len(sizes)
-    x = torch.from_numpy(r.normal(size=(M, K)).astype(np.float32)).to("cuda", dtype)
+    xn = r.normal(size=(M, K)).astype(np.float32)
+    if ghost:
+        xn[-1] = 0.0
+    x = torch.from_numpy(xn).to("cuda", dtype)
     w = torch.from_numpy(r.integers(-127, 128, size=(G, N, K)).astype(np.int8)).cuda()
     s = torch.from_numpy((r.uniform(0.5, 2.0, size=(G, N)) * 0.02 / 127).astype(np.float32)).cuda()
     offs = None if sizes is None else t(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)).cuda()
@@ -1053,11 +1065,12 @@ def _k9_case(M, N, K, sizes, dtype, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["small", "large", "simt"])
+@pytest.mark.parametrize("route", ["decode", "prefill", "simt"])
 def test_int8_linear_matches_plain_on_card(route, monkeypatch):
     """K9 against its plain version at every case of K9_CASES, each bf16
     route forced on every case (bf16 x, bf16 and fp32 output), and the fp32
-    route (fp32 x, fp32 output): within close() of the output dtype."""
+    route (fp32 x, fp32 output): within close() of the output dtype; a
+    ghost row's outputs are zeros."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
     dtype = torch.float32 if route == "simt" else torch.bfloat16
@@ -1070,6 +1083,70 @@ def test_int8_linear_matches_plain_on_card(route, monkeypatch):
             want = linear.int8_linear_plain(x, w, s, out, offs)
             assert got.dtype == out and got.shape == want.shape
             assert close(got, want, out), (route, M, N, K, out)
+            if isinstance(sizes, str):
+                assert not got[-1].any()
+
+
+# (M, widths, K, group sizes): products over one x that the engines launch
+# together (q/k/v, gate/up, the experts' gate/up), at decode, verify, tree
+# and prefill rows, Llama-3.2-3B's q/k/v at K = 3072, and the split-K
+# products on their own.
+K9_SHARED = [(m, (2048, 512, 512), 2048, None) for m in (1, 8, 40, 80, 128)] + [
+    (8, (8192, 8192), 2048, None), (80, (8192, 8192), 2048, None),
+    (8, (3072, 1024, 1024), 3072, None),
+    (5534, (2048, 512, 512), 2048, None), (None, (768, 768), 2048, K9_DECODE),
+    (None, (768, 768), 2048, K9_B1)]
+
+
+@pytest.mark.cuda
+def test_int8_linear_bits_repeat_on_card(monkeypatch):
+    """K9's sums add K splits in a fixed order: two calls, and a CUDA graph
+    replay against eager, give equal bits (q/o and down at 8 and 80 rows,
+    and Llama-3.2-3B's q/o at K = 3072, split across a cluster; an expert
+    dispatch); the shared-x launch
+    (int8_linear_shared: one launch, on its first product's route) equals
+    the separate int8_linear calls on that route bit for bit at every
+    K9_SHARED case, and its graph replay its eager call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+
+    def replayed(fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        return out
+
+    for i, (M, N, K, sizes) in enumerate([(8, 2048, 2048, None), (80, 2048, 8192, None),
+                                          (8, 2048, 8192, None), (8, 3072, 3072, None),
+                                          (None, 768, 2048, K9_DECODE)]):
+        x, w, s, offs = _k9_case(M, N, K, sizes, torch.bfloat16, seed=80 + i)
+        fn = lambda: linear.int8_linear(x, w, s, group_offsets=offs)
+        first, second = fn(), fn()
+        assert torch.equal(first, second), (M, N, K)
+        assert torch.equal(replayed(fn), first), (M, N, K)
+    for i, (M, Ns, K, sizes) in enumerate(K9_SHARED):
+        cases = [_k9_case(M, N, K, sizes, torch.bfloat16, seed=90 + 3 * i + j)
+                 for j, N in enumerate(Ns)]
+        x, offs = cases[0][0], cases[0][3]
+        ws, ss = [c[1] for c in cases], [c[2] for c in cases]
+        launches = linear.int8_linear.launches
+        got = linear.int8_linear_shared(x, ws, ss, group_offsets=offs)
+        assert linear.int8_linear.launches == launches + 1, (M, Ns)
+        route = linear.int8_linear_route(x.dtype, x.shape[0], Ns[0], ws[0].shape[0])
+        with monkeypatch.context() as m:
+            m.setattr(linear, "int8_linear_route", lambda *shape: route)
+            sep = [linear.int8_linear(x, w, s, group_offsets=offs) for w, s in zip(ws, ss)]
+        assert all(torch.equal(a, b) for a, b in zip(got, sep)), (M, Ns, K)
+        if i in (1, len(K9_SHARED) - 2):
+            again = replayed(lambda: linear.int8_linear_shared(x, ws, ss, group_offsets=offs))
+            assert all(torch.equal(a, b) for a, b in zip(again, got)), (M, Ns, K)
 
 
 @pytest.mark.cuda

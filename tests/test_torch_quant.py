@@ -233,19 +233,49 @@ def test_int8_linear_refuses_bad_arguments():
 
 
 def test_int8_linear_route():
-    """The route rule at the main path's shapes: decode rows take 16 x 16
-    tiles; 40-80 verify and tree rows do too into narrow outputs, and take
-    64 x 64 into the LM head and gate/up; prefill takes 64 x 64."""
+    """The route rule at the main path's shapes: fp32 x takes the SIMT
+    kernel; bf16 x the wgmma decode route up to INT8_DECODE_ROWS rows a
+    group (AR, verify and tree rows at every width, the experts' decode
+    dispatches), and up to 512 rows below N = 8192, and the prefill route
+    past them."""
     route = linear.int8_linear_route
     assert route(torch.float32, 5000, 2048, 1) == "simt"
-    assert route(torch.bfloat16, 8, 128256, 1) == "small"
-    assert route(torch.bfloat16, 16, 8192, 1) == "small"
-    assert route(torch.bfloat16, 80, 2048, 1) == "small"
-    assert route(torch.bfloat16, 40, 8192, 1) == "large"
-    assert route(torch.bfloat16, 80, 128256, 1) == "large"
-    assert route(torch.bfloat16, 5534, 512, 1) == "large"
-    assert route(torch.bfloat16, 64, 768, 128) == "small"
-    assert route(torch.bfloat16, 44272, 768, 128) == "large"
+    for M, N, G in ((1, 2048, 1), (8, 128256, 1), (40, 8192, 1), (80, 2048, 1),
+                    (64, 512, 1), (128, 8192, 1), (64, 768, 128), (320, 2048, 128),
+                    (200, 2048, 1), (512, 512, 1), (80, 512, 1), (128, 512, 1),
+                    (65, 136, 1)):
+        assert route(torch.bfloat16, M, N, G) == "decode", (M, N, G)
+    for M, N, G in ((129, 8192, 1), (513, 2048, 1), (5534, 512, 1), (5534, 128256, 1),
+                    (44272, 768, 128)):
+        assert route(torch.bfloat16, M, N, G) == "prefill", (M, N, G)
+
+
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_int8_linear_shared_plain_equals_separate_calls(xdt):
+    """int8_linear_shared's plain version (CPU tensors) over three weights of
+    different widths, one group and three groups with an empty one: each
+    output equals its own int8_linear_plain call bit for bit; mm_shared over
+    int8 params does too, and over float params equals x @ W; 0 or 4 pairs
+    raise."""
+    dt = getattr(torch, xdt)
+    for G, offs in ((1, None), (3, [0, 4, 4, 9])):
+        go = None if offs is None else torch.tensor(offs, dtype=torch.int32)
+        cases = [_k9_case(60 + i, 9, N, 32, G) for i, N in enumerate((24, 8, 40))]
+        x = cases[0][0].to(dt)
+        ws, ss = [c[1] for c in cases], [c[2] for c in cases]
+        for odt in {dt, torch.float32}:
+            got = linear.int8_linear_shared(x, ws, ss, out_dtype=odt, group_offsets=go)
+            for g, w, s in zip(got, ws, ss):
+                assert torch.equal(g, linear.int8_linear_plain(x, w, s, odt, go))
+    params = {n: w[0] for n, w in zip("abc", ws)} | {n + "_scale": s[0] for n, s in zip("abc", ss)}
+    for g, n in zip(linear.mm_shared(x, params, "abc"), "abc"):
+        assert torch.equal(g, linear.mm(x, params, n))
+    fparams = {n: torch.randn(32, 16, dtype=dt) for n in "ab"}
+    for g, n in zip(linear.mm_shared(x, fparams, "ab"), "ab"):
+        assert torch.equal(g, x @ fparams[n])
+    for bad in ([], ws + ws[:1]):
+        with pytest.raises(ValueError, match="pairs"):
+            linear.int8_linear_shared(x, bad, ss[:1] * len(bad))
 
 
 # ---------------------------------------------------------------------------
