@@ -83,6 +83,15 @@ the script exits non-zero:
               calls, within tolerance of the plain version, timed against
               them; a CUDA graph replay of it and of a split-K call bit for
               bit their eager calls.
+              The shapes of one tensor-parallel rank: K1, K2/K4 and K3/K5
+              at Llama-3.1-70B's per-rank heads (16/2 at tp 4, 8/1 at tp 8,
+              hd 128) in both dtypes and every cache mode against their
+              plain versions, timed at tp 4 (at_llama31_70b_tp4); K9 at its
+              tp-4 projections (q 8192 -> 2048, k/v -> 256, o 2048 -> 8192,
+              gate/up -> 7168, down 7168 -> 8192, the LM head's vocabulary
+              slice -> 32,064) at 8 and 40 rows; K6 and K9 over one
+              expert-parallel rank's groups (Qwen3-30B-A3B at tp 2), whose
+              offsets end before the other rank's rows.
 3. serve    - LLM(...).generate at the full Llama-3.2-1B width (16 layers,
               random bf16 weights from a seed): 128 greedy tokens for 8
               prompts of mixed length, then for 1 prompt (the AR path), each
@@ -196,8 +205,8 @@ the script exits non-zero:
               then a target of 4 layers and a noisy 2-layer draft: AR, sync
               SD, async SSD, the fused exchange and the fused superstep
               (4 rounds) on the card under graphs, over the fp32 and the
-              int8 cache, AR, SD and SSD on the CPU over fp32 and AR over
-              int8, and on the card AR multi-step, fused SD
+              int8 cache, AR on the CPU over each (its SD and SSD were cut
+              to hold the run's time), and on the card AR multi-step, fused SD
               (4 rounds) and ngram under graphs over the fp32 cache, all
               equal the card's eager AR of the same cache (seconds per
               engine reported); and two card runs of int8_mxu AR give the
@@ -210,9 +219,10 @@ the script exits non-zero:
               capture reads nothing back).
               Then the same width at 2 layers with the constructed EAGLE-3
               head (noise 0.028), over the fp32 and the int8 cache: the
-              CPU's AR and fused EAGLE, and on the card EAGLE SSD and fused
-              EAGLE (4 rounds) under graphs, equal the card's eager AR of
-              the same cache; over fp32 the CPU's EAGLE SSD too. With int8
+              CPU's AR, and on the card EAGLE SSD and fused EAGLE (4
+              rounds) under graphs, equal the card's eager AR of the same
+              cache (the CPU's EAGLE runs were cut to hold the run's
+              time). With int8
               weights (fp32 engines; a draft's or head's per-channel scales
               perturbed in place of its weights): at the 1B width the card's
               graph AR, SD and SSD and the CPU's AR, at Qwen3-30B-A3B's the
@@ -239,6 +249,27 @@ the script exits non-zero:
               replays and launches a decode step, capture seconds and pool
               bytes.
 
+13. tp     - tensor and expert parallelism (num_devices > 1,
+              ssd_tpu_torch/parallel) on one card, random weights from a
+              seed, the target its own draft. The full-width, full-depth
+              Llama-3.2-1B AR and fused SD (R=4) engines (bf16, b8, 64
+              tokens) built over a one-rank NCCL group that this script
+              initialises equal the same engines without a group bit for
+              bit under graphs: greedy tokens, and the logits of a decode
+              (AR) or verify (fused SD) forward over the 8 prefilled serve
+              prompts; the collectives run inside the replays (counted
+              through them), none without the group. Then two processes
+              share the card over a gloo group (NCCL refuses two ranks on
+              one card), eagerly: the 1B geometry at 4 layers (fp32 AR,
+              fused SD R=4 and the fused exchange; bf16 AR) and
+              Qwen3-30B-A3B's at 2 layers (expert parallel; fp32 AR and
+              fused SD, bf16 AR), 4 prompts of 40-600 tokens, 32 tokens
+              each: fp32 greedy tokens equal the card's tp-1 engine's (bf16:
+              tokens agreeing and the first differing step), the kernels of
+              each path and the all-reduce launch at the per-rank heads
+              (16/4 and 16/2). With two cards or more, the engine also
+              spawns its second rank on cuda:1 over NCCL under graphs.
+
 Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -255,7 +286,7 @@ import sys
 import tempfile
 import time
 
-PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "quant", "eagle", "exact")
+PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "quant", "eagle", "exact", "tp")
 EXTRA_PHASES = ("profile", "moe_profile", "quant_profile", "quant_moe_profile", "spec_profile",
                 "eagle_profile", "spec_async")
 
@@ -324,6 +355,15 @@ EAGLE_PAIR_LAYERS = 8               # the constructed pair's target depth (cut f
 EAGLE_NOISE_LADDER = (0.028, 0.032, 0.036, 0.04, 0.045)   # searched for the miss path
 EXACT_EAGLE_NOISE = 0.028           # the exact phase's EAGLE head noise: the eagle phase's miss level on an H100
 QWEN_HEADS = (32, 4, 128)
+# Llama-3.1-70B (huggingface.co/meta-llama/Llama-3.1-70B, config.json: 64
+# query and 8 k/v heads of 128, width 8192, MLP 28672, vocabulary 128256) as
+# one rank of a tensor-parallel engine holds it (ssd_tpu_torch/parallel/
+# mesh.py): at tp 4 16/2 heads, at tp 8 8/1; its tp-4 projections.
+L70B_TP_HEADS = {"tp4": (16, 2, 128), "tp8": (8, 1, 128)}
+L70B_TP4 = {"D": 8192, "q": 2048, "kv": 256, "ffn": 7168, "vocab": 128256 // 4}
+TP_RANKS = 2                        # the tp phase's ranks on one card (gloo)
+TP_LENS = [40, 130, 300, 600]       # its prompts
+TP_NEW = 32                         # and tokens each
 MOE_UTIL = 0.92   # gpu_memory_utilization: 0.7 of the card is less than the weights
 BLOCK = 64
 SERVE_M = 4                         # AR multi-step tokens a step (serve_multi_step)
@@ -762,6 +802,16 @@ def _int8_linear_cases():
     for name, tokens, seed in (("moe_decode_b8", 8, 2), ("moe_decode_b1", 1, 3)):
         cases += [(f"{name}_gate", None, Im, Dq, (tokens, seed), "bfloat16"),
                   (f"{name}_down", None, Dq, Im, (tokens, seed), "bfloat16")]
+    # One rank of Llama-3.1-70B at tp 4: the b8 decode (8 rows) and verify
+    # (40), and the rank's vocabulary slice of the LM head.
+    t = L70B_TP4
+    for m in (8, 40):
+        cases += [(f"l70b_tp4_q_m{m}", m, t["q"], t["D"], None, "bfloat16"),
+                  (f"l70b_tp4_kv_m{m}", m, t["kv"], t["D"], None, "bfloat16"),
+                  (f"l70b_tp4_o_m{m}", m, t["D"], t["q"], None, "bfloat16"),
+                  (f"l70b_tp4_gate_up_m{m}", m, t["ffn"], t["D"], None, "bfloat16"),
+                  (f"l70b_tp4_down_m{m}", m, t["D"], t["ffn"], None, "bfloat16"),
+                  (f"l70b_tp4_lm_head_m{m}", m, t["vocab"], t["D"], None, "float32")]
     return cases
 
 
@@ -1191,6 +1241,121 @@ def _tree_timings(q, kv, bt, ctx, fan, label, heads) -> dict:
     return out
 
 
+def _tp_kernels(record) -> dict:
+    """The kernels at the shapes one rank of a tensor-parallel engine gives
+    them: K1 (fp and int8 pages), K2 / K4 (both int8 modes) at the b8
+    decode and verify, and K3 / K5 at the last tree step, at Llama-3.1-70B's
+    per-rank heads (tp 4: 16/2, tp 8: 8/1, hd 128), in fp32 and bf16 against
+    their plain versions, then timed in bf16 at tp 4 beside SDPA and their
+    bounds; K6 and K9 over one expert-parallel rank's groups (Qwen3-30B-A3B
+    at tp 2: rank 0's 64 experts of a b8 decode dispatch, the offsets ending
+    at its rows, the other rank's rows past them not computed), the rows
+    they own against the plain versions. Returns {kernel: timing}."""
+    import torch
+
+    from ssd_tpu_torch.ops import attention as att
+    from ssd_tpu_torch.ops import linear, moe
+
+    M, M_spec = 2048 // BLOCK, SPEC_MAX_LEN // BLOCK
+    serve8 = [n + 64 for n in SERVE_LENS8]
+    verify_ctx = [n + SPEC_K + 1 for n in serve8]
+    flat_lens = [17, 100, 300, 600, 900, 1200, 1600, 2048]
+    flat_cached = [0, 0, 0, 0, 512, 0, 0, 1024]
+    modes = (("paged_attention", False, False), ("paged_attention_int8", True, False),
+             ("paged_attention_int8[s8]", True, True))
+    for label, heads in L70B_TP_HEADS.items():
+        sc = heads[2] ** -0.5
+        for dn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for i, (case, args) in enumerate((("decode_b8", (8, 1, serve8, M, 0)),
+                                              ("verify_b8", (8, SPEC_K + 1, verify_ctx,
+                                                             M_spec, 0)))):
+                q, kv, bt, ctx, qeff = _paged_case(*args, dt, seed=110 + i, heads=heads)
+                pair = _int8_pair(kv)
+                for name, int8, s8 in modes:
+                    layer = pair if int8 else kv
+                    got = att.paged_attention(q, layer, bt, ctx, qeff, BLOCK, sc, s8=s8)
+                    torch.cuda.synchronize()
+                    record(name, f"l70b_{label}_{case}", dn, got,
+                           att.paged_attention_plain(q, layer, bt, ctx, qeff, BLOCK, sc, s8=s8))
+            q, kv, pages, lo, hi, T = _flat_case(flat_lens, flat_cached, dt, seed=112,
+                                                 pad_rows=13, pad_pages=3, heads=heads)
+            for name, layer in (("flat_prefill_attention", kv),
+                                ("flat_prefill_attention_int8", _int8_pair(kv))):
+                got = att.flat_prefill_attention(q, layer, pages, lo, hi, BLOCK, sc)
+                torch.cuda.synchronize()
+                record(name, f"l70b_{label}_mixed8_cached2", dn, got,
+                       att.flat_prefill_attention_plain(q, layer, pages, lo, hi, BLOCK, sc))
+            q, kv, bt, ctx, fan = _tree_case(8, SPEC_K - 1, serve8, 1, dt, seed=113, heads=heads)
+            pair = _int8_pair(kv)
+            for name, int8, s8 in modes:
+                layer = pair if int8 else kv
+                args = (bt, ctx, fan, SPEC_K - 1, SPEC_K, BLOCK, sc)
+                got = att.tree_attention(q, layer, *args, s8=s8)
+                torch.cuda.synchronize()
+                record(name.replace("paged", "tree"), f"l70b_{label}_tree_b8", dn, got,
+                       att.tree_attention_plain(q, layer, *args, s8=s8))
+            del q, kv, pair
+
+    # Times at tp 4 in bf16.
+    out = {}
+    Hq, Hkv, hd = heads = L70B_TP_HEADS["tp4"]
+    dt, sc, elem = torch.bfloat16, hd ** -0.5, 2
+    fp_pos = 2 * hd * elem
+    q, kv, bt, ctx, qeff = _paged_case(8, 1, serve8, M, 0, dt, seed=114, heads=heads)
+    bytes_, ops = _paged_work(q, ctx, bt, 1, M * BLOCK, Hkv, fp_pos, elem)
+    out["paged_attention"] = _timing(
+        f"decode B=8 (ctx {serve8}) Q=1 Hq/Hkv {Hq}/{Hkv} hd {hd} bf16 (Llama-3.1-70B, tp 4)",
+        lambda: att.paged_attention(q, kv, bt, ctx, qeff, BLOCK, sc),
+        lambda: att.paged_attention_plain(q, kv, bt, ctx, qeff, BLOCK, sc),
+        _sdpa_paged(q, kv, bt, ctx, 1, M * BLOCK, dt), bytes_, ops, PEAK_FLOPS["bfloat16"])
+    q, kv, pages, lo, hi, T = _flat_case(SERVE_LENS8, [0] * 8, dt, seed=115, heads=heads)
+    n_pages = sum(-(-n // BLOCK) for n in SERVE_LENS8)
+    bytes_ = n_pages * BLOCK * Hkv * fp_pos + 2 * T * Hq * hd * elem + pages.numel() * 4 + 2 * T * 4
+    ops = int(4 * Hq * hd * (hi - lo).long().sum())
+    dense = att.dense_pages(kv, pages, BLOCK)
+    kd, vd = dense[..., :hd][None].contiguous(), dense[..., hd:][None].contiguous()
+    qs = q.permute(1, 0, 2)[None].contiguous()
+    col = torch.arange(dense.shape[1], device="cuda")
+    mask = ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None]))[None, None]
+    out["flat_prefill_attention"] = _timing(
+        f"prefill 8 prompts {SERVE_LENS8}, nothing cached, T={T} Hq/Hkv {Hq}/{Hkv} hd {hd} "
+        "bf16 (Llama-3.1-70B, tp 4)",
+        lambda: att.flat_prefill_attention(q, kv, pages, lo, hi, BLOCK, sc),
+        lambda: att.flat_prefill_attention_plain(q, kv, pages, lo, hi, BLOCK, sc),
+        lambda: sdpa(qs, kd, vd, mask), bytes_, ops, PEAK_FLOPS["bfloat16"], iters=10,
+        plain_iters=3)
+    del kd, vd, dense
+    q, kv, bt, ctx, fan = _tree_case(8, SPEC_K - 1, serve8, 0, dt, seed=116, heads=heads)
+    out.update(_tree_timings(q, kv, bt, ctx, fan, "B=8 (Llama-3.1-70B, tp 4)", heads))
+    del q, kv
+    for name, tm in out.items():
+        emit("kernels", kernel=name, llama31_70b_tp4=tm)
+
+    # One expert-parallel rank's dispatch (rank 0 of 2 over Qwen3-30B-A3B's
+    # 128 experts): K6 in both dtypes, K9 over int8 experts.
+    c = QWEN3_30B_A3B
+    D, Im, E = c["hidden_size"], c["moe_intermediate_size"], c["num_experts"]
+    full = _moe_offsets(8, seed=2)                 # 64 rows over the 128 experts
+    offs = full[:E // 2 + 1].contiguous()          # rank 0's groups, ending at its rows
+    n = int(offs[-1])
+    for dn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for case, K, Nout in (("gate", D, Im), ("down", Im, D)):
+            g = torch.Generator(device="cuda").manual_seed(117)
+            x = torch.randn(int(full[-1]), K, generator=g, device="cuda").to(dt)
+            w = (torch.randn(E // 2, K, Nout, generator=g, device="cuda") * 0.02).to(dt)
+            got = moe.grouped_gemm(x, w, offs)
+            torch.cuda.synchronize()
+            record("grouped_gemm", f"ep_rank0_of2_decode_b8_{case}", dn, got[:n],
+                   moe.grouped_gemm_plain(x, w, offs)[:n])
+            wq, s = _int8_weights(g, E // 2, Nout, K)
+            got = linear.int8_linear(x, wq, s, group_offsets=offs)
+            torch.cuda.synchronize()
+            record("int8_linear", f"ep_rank0_of2_decode_b8_{case}", dn, got[:n],
+                   linear.int8_linear_plain(x, wq, s, dt, offs)[:n])
+    return out
+
+
+
 def phase_kernels() -> dict:
     import torch
 
@@ -1581,6 +1746,7 @@ def phase_kernels() -> dict:
 
     int8_t = _int8_linear_kernels(record)
     timings["int8_linear"] = int8_t["gate_up_m8"]
+    tp_t = _tp_kernels(record)
 
     probes_out = _probe_kernels(record, serve8)
     timings.update(probes_out["timings"])
@@ -1592,7 +1758,7 @@ def phase_kernels() -> dict:
     return {"errors": results, "timings": timings, "at_verify": at_verify,
             "long_context": long_ctx, "qwen3_moe": qwen, "grouped_gemm": gmm_times,
             "llama31_8b_eagle": eagle_t, "tree_b1": tree_b1, "probes": probes_out,
-            "int8_linear": int8_t}
+            "int8_linear": int8_t, "llama31_70b_tp4": tp_t}
 
 
 # ---------------------------------------------------------------------------
@@ -3145,10 +3311,9 @@ def phase_exact() -> dict:
     # tokens, over the fp32 cache and over the int8 cache (whose AR is the
     # reference of its own modes; its AR runs record their top-1/top-2
     # margins). On the card every mode but ar_eager runs its CUDA graphs;
-    # the CPU runs AR, SD and SSD over fp32 and AR over int8 (its int8 SD
-    # and SSD were cut to hold the run's time: the card's int8 modes equal
-    # the card's int8 AR, which equals the CPU's). Then two card runs
-    # of int8_mxu AR must agree.
+    # the CPU runs AR over each cache (its SD and SSD were cut to hold the
+    # run's time: the card's modes equal the card's eager AR, which equals
+    # the CPU's). Then two card runs of int8_mxu AR must agree.
     spec_tokens, accepted, hit_rates, int8_margins, seconds = {}, {}, {}, [], {}
     k9_launches = {}   # K9's launches in the int8-weight runs, per run
     engine = dict(dtype="float32", max_model_len=512, kvcache_block_size=BLOCK,
@@ -3163,7 +3328,7 @@ def phase_exact() -> dict:
                 # modes are held to the card's eager AR, itself held to the
                 # CPU's.
                 modes = (("ar_eager", "ar") + (() if kvq else new_modes) + ("sd",) + async_modes
-                         if dev == "cuda" else ("ar",) if kvq else ("ar", "sd", "ssd"))
+                         if dev == "cuda" else ("ar",))
                 for mode in modes:
                     t0 = time.perf_counter()
                     if mode in ("ar", "ar_eager", "multi"):
@@ -3306,8 +3471,8 @@ def phase_exact() -> dict:
     # fp32: the constructed pair (stored bf16, loaded fp32) with draft noise
     # EXACT_EAGLE_NOISE, so steps both accept and reject. Over the fp32 and
     # the int8 cache, async EAGLE SSD and the fused superstep (SPEC_R rounds)
-    # under the card's graphs, and the CPU's AR and fused EAGLE, equal the
-    # card's eager AR of the same cache; over fp32 the CPU's async EAGLE too.
+    # under the card's graphs, and the CPU's AR, equal the card's eager AR of
+    # the same cache (the CPU's EAGLE runs were cut to hold the run's time).
     t_eagle = time.perf_counter()
     eprompts = [rng.integers(3, LLAMA_1B["vocab_size"], size=n).tolist() for n in (20, 77, 130)]
     e_tokens, e_accepted, e_hits, e_margins, e_seconds = {}, {}, {}, [], {}
@@ -3316,9 +3481,7 @@ def phase_exact() -> dict:
         # "int8w": int8 weights (target and head; the head computes in
         # bf16), over the fp32 cache.
         for kvq, quant in ((None, None), ("int8", None), (None, "int8")):
-            runs = ((("cuda", "ar_eager"), ("cpu", "ar"), ("cuda", "ssd"), ("cuda", "fused"))
-                    + ((("cpu", "fused"),) if quant is None else ())
-                    + ((("cpu", "ssd"),) if kvq is None and quant is None else ()))
+            runs = (("cuda", "ar_eager"), ("cpu", "ar"), ("cuda", "ssd"), ("cuda", "fused"))
             tag = "int8w" if quant else kvq or "fp32"
             for dev, mode in runs:
                 t0 = time.perf_counter()
@@ -3370,6 +3533,292 @@ def phase_exact() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase tp
+# ---------------------------------------------------------------------------
+
+
+def _tp_prompts(V: int) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(4)
+    return [rng.integers(3, V, size=n).tolist() for n in TP_LENS]
+
+
+def _tp_mode_kw(mode: str, path: str) -> dict:
+    """The engine arguments of a tp-phase mode, the target its own draft."""
+    if mode == "ar":
+        return {}
+    spec = dict(draft=path, speculate=True, speculate_k=SPEC_K)
+    if mode == f"fused{SPEC_R}":
+        return dict(spec, spec_rounds=SPEC_R)
+    return dict(spec, draft_async=True, async_fused=True, async_fan_out=SPEC_F)
+
+
+def _tp_comm_counts() -> dict:
+    from ssd_tpu_torch.parallel import comm
+
+    return {"all_reduce_sum": comm.all_reduce_sum.launches,
+            "gather_vocab": comm.gather_vocab.launches}
+
+
+def _tp_zero_counts():
+    from ssd_tpu_torch.parallel import comm
+
+    for w in _kernel_wrappers() + (comm.all_reduce_sum, comm.gather_vocab):
+        w.launches = 0
+
+
+def _tp_serve(llm, prompts, n_new: int) -> dict:
+    """One greedy generate with every count zeroed just before and read
+    just after: tokens, seconds, kernel launches, collectives, replays,
+    the runner's heads."""
+    import torch
+
+    from ssd_tpu_torch import SamplingParams
+
+    _tp_zero_counts()
+    replays0 = _replays(llm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, m = llm.generate(prompts, SamplingParams(temperature=0.0, max_new_tokens=n_new,
+                                                   ignore_eos=True), use_tqdm=False)
+    torch.cuda.synchronize()
+    steps = max(1, len(m["target_step_times"]) - 1)
+    a = llm.model_runner.arch
+    return dict(tokens=[o["token_ids"] for o in outs], seconds=time.perf_counter() - t0,
+                decode_steps=steps, graph_replays=_replays(llm) - replays0,
+                launches={w.__name__: w.launches for w in _kernel_wrappers()},
+                collectives=_tp_comm_counts(), heads=[a.num_heads, a.num_kv_heads])
+
+
+def _tp_rank(rank: int, size: int, store: str, cases: list, out_path: str):
+    """One rank of the tp phase's gloo group on the card (cuda:0, shared):
+    every case's engine over the group, eagerly, each rank's generate
+    identical; rank 0 writes what it served to out_path."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=size)
+    try:
+        from ssd_tpu_torch import LLM
+
+        results = {}
+        for key, path, V, kw in cases:
+            t0 = time.perf_counter()
+            llm = LLM(path, num_devices=size, device="cuda", enforce_eager=True, **kw)
+            init_s = time.perf_counter() - t0
+            results[key] = dict(_tp_serve(llm, _tp_prompts(V), TP_NEW), init_s=init_s)
+            llm.exit()
+            del llm
+            gc.collect()
+            torch.cuda.empty_cache()
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_one_rank_nccl() -> dict:
+    """The TP code on the card at world size 1 under graphs: the full-width,
+    full-depth Llama-3.2-1B engines of AR and fused SD (random bf16 weights
+    from a seed, the target its own draft) built over a one-rank NCCL group
+    equal the same engines without a group bit for bit: greedy tokens at
+    b8, and the logits of a decode (AR) or a verify (fused SD) forward over
+    the 8 prefilled serve prompts. The collectives run inside the graph
+    replays (counted through them); the engine without a group runs
+    none."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from ssd_tpu_torch import LLM, SamplingParams
+
+    prompts8, _ = _serving_prompts()
+    engine = dict(dtype="bfloat16", max_model_len=SPEC_MAX_LEN, kvcache_block_size=BLOCK,
+                  max_num_seqs=8)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        _write_config(d)
+        for mode in ("ar", f"fused{SPEC_R}"):
+            res = {}
+            for group in (False, True):
+                if group:
+                    dist.init_process_group("nccl", init_method=f"file://{d}/store_{mode}",
+                                            rank=0, world_size=1)
+                try:
+                    t0 = time.perf_counter()
+                    llm = LLM(d, init_random=True, **engine, **_tp_mode_kw(mode, d))
+                    init_s = time.perf_counter() - t0
+                    if (llm.comm is not None) != group or llm.graphs is None:
+                        fail(f"tp: the {mode} engine's group or graphs are not as asked")
+                    run = dict(_tp_serve(llm, prompts8, 64), init_s=init_s)
+                    # A decode (AR) or verify (fused SD) forward of the target
+                    # over the 8 prompts just prefilled, through its graph.
+                    ids = [llm.add_request(p, SamplingParams(temperature=0.0, max_new_tokens=8,
+                                                              ignore_eos=True))
+                           for p in prompts8]
+                    llm.step()
+                    seqs = sorted(llm.scheduler.running, key=lambda s: s.seq_id)
+                    if mode == "ar":
+                        logits = llm.model_runner.run_decode(seqs)[1]
+                    else:
+                        logits = llm.model_runner.verify_forward(seqs, SPEC_K + 1)[0]
+                    run["logits"] = logits.float().cpu()
+                    for i in ids:
+                        llm.abort_request(i)
+                    llm.exit()
+                    del llm
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                finally:
+                    if group:
+                        dist.destroy_process_group()
+                res[group] = run
+            plain, grp = res[False], res[True]
+            out[mode] = dict(
+                tokens_equal=plain["tokens"] == grp["tokens"],
+                logits_equal=bool(torch.equal(plain["logits"], grp["logits"])),
+                logits_shape=list(grp["logits"].shape),
+                collectives_per_decode_step={k: v / grp["decode_steps"]
+                                             for k, v in grp["collectives"].items()},
+                collectives_without_group=plain["collectives"],
+                graph_replays=grp["graph_replays"], decode_steps=grp["decode_steps"],
+                seconds={"no_group": plain["seconds"], "group": grp["seconds"]},
+                init_s={"no_group": plain["init_s"], "group": grp["init_s"]},
+                launches=grp["launches"], launches_without_group=plain["launches"])
+            emit("tp", part="nccl_world_size_1", mode=mode, **out[mode])
+            if not (out[mode]["tokens_equal"] and out[mode]["logits_equal"]):
+                fail(f"tp: the {mode} engine over a one-rank NCCL group differs from the "
+                     "engine without a group")
+            if grp["collectives"]["all_reduce_sum"] == 0 or grp["graph_replays"] == 0 \
+                    or any(plain["collectives"].values()):
+                fail(f"tp: {mode}: collectives {grp['collectives']} in "
+                     f"{grp['graph_replays']} replays with the group, "
+                     f"{plain['collectives']} without")
+    return out
+
+
+def phase_tp() -> dict:
+    """Tensor and expert parallelism on one card (module docstring, phase
+    tp)."""
+    import gc
+    import multiprocessing as mp
+
+    import torch
+
+    from ssd_tpu_torch import LLM
+
+    out = {"nccl_world_size_1": _tp_one_rank_nccl(), "runs": {}}
+    with tempfile.TemporaryDirectory() as d:
+        ldir, qdir = os.path.join(d, "llama"), os.path.join(d, "qwen")
+        os.makedirs(ldir)
+        os.makedirs(qdir)
+        _write_config(ldir, num_hidden_layers=4)
+        _write_config(qdir, QWEN3_30B_A3B, num_hidden_layers=2)
+        base = dict(init_random=True, max_model_len=1024, kvcache_block_size=BLOCK,
+                    max_num_seqs=len(TP_LENS), num_kvcache_blocks=160)
+        cases = []
+        for model, path, V, plan in (
+                ("llama1b_4l", ldir, LLAMA_1B["vocab_size"],
+                 [("float32", "ar"), ("float32", f"fused{SPEC_R}"), ("float32", "fasync1"),
+                  ("bfloat16", "ar")]),
+                ("qwen3_30b_a3b_2l", qdir, QWEN3_30B_A3B["vocab_size"],
+                 [("float32", "ar"), ("float32", f"fused{SPEC_R}"), ("bfloat16", "ar")])):
+            for dt, mode in plan:
+                cases.append((f"{model}_{dt}_{mode}", path, V,
+                              dict(base, dtype=dt, **_tp_mode_kw(mode, path))))
+        # TP = 1 on the card: the same engines, one process, eagerly.
+        tp1 = {}
+        for key, path, V, kw in cases:
+            llm = LLM(path, enforce_eager=True, **kw)
+            tp1[key] = _tp_serve(llm, _tp_prompts(V), TP_NEW)
+            llm.exit()
+            del llm
+            gc.collect()
+            torch.cuda.empty_cache()
+        # TP = 2: two processes sharing the card over gloo, eagerly.
+        t0 = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        result = os.path.join(d, "tp2.json")
+        procs = [ctx.Process(target=_tp_rank, args=(r, TP_RANKS, os.path.join(d, "store"),
+                                                    cases, result))
+                 for r in range(TP_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=900)
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        if codes != [0] * TP_RANKS:
+            fail(f"tp: the gloo ranks exited with {codes}")
+        with open(result) as f:
+            tp2 = json.load(f)
+        out["tp2_seconds"] = time.perf_counter() - t0
+        out["multi_card"] = torch.cuda.device_count() >= 2
+        if out["multi_card"]:
+            out["nccl_tp2"] = _tp_two_cards_nccl(cases, tp1)
+    for key, _, _, kw in cases:
+        a, b = tp1[key], tp2[key]
+        steps = [next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y), None)
+                 for ta, tb in zip(a["tokens"], b["tokens"])]
+        agree = sum(x == y for ta, tb in zip(a["tokens"], b["tokens"]) for x, y in zip(ta, tb))
+        run = dict(dtype=kw["dtype"], tokens_equal=a["tokens"] == b["tokens"],
+                   tokens_agreeing=agree, tokens=TP_NEW * len(TP_LENS),
+                   first_differing_step=steps, heads_tp1=a["heads"], heads_tp2=b["heads"],
+                   launches_tp2_rank0=b["launches"], collectives_tp2_rank0=b["collectives"],
+                   seconds_tp1=a["seconds"], seconds_tp2=b["seconds"], init_s_tp2=b["init_s"])
+        out["runs"][key] = run
+        emit("tp", part="gloo_tp2_one_card", case=key, **run)
+        if kw["dtype"] == "float32" and not run["tokens_equal"]:
+            fail(f"tp: {key}: fp32 greedy tokens at tp 2 differ from tp 1")
+        need = ["flat_prefill_attention", "paged_attention"] + (
+            ["tree_attention"] if key.endswith("fasync1") else []) + (
+            ["grouped_gemm"] if key.startswith("qwen") else [])
+        if not all(b["launches"][n] > 0 for n in need) or b["collectives"]["all_reduce_sum"] == 0:
+            fail(f"tp: {key}: a kernel of the path or the all-reduce never ran at tp 2: "
+                 f"{b['launches']}, {b['collectives']}")
+    emit("tp", part="cards", device_count=torch.cuda.device_count(),
+         ran=("NCCL world size 1 under graphs; gloo tp 2 on one card, eagerly"
+              + ("; NCCL tp 2 on two cards under graphs" if out["multi_card"] else
+                 "; one card: NCCL tp 2 under graphs not run")))
+    return out
+
+
+def _tp_two_cards_nccl(cases, tp1) -> dict:
+    """With two cards or more: the engine spawns its second rank on cuda:1
+    (NCCL, graphs); the fp32 cases' greedy tokens equal tp 1's."""
+    import gc
+
+    import torch
+
+    from ssd_tpu_torch import LLM
+
+    out = {}
+    for key, path, V, kw in cases:
+        llm = LLM(path, num_devices=2, **{k: v for k, v in kw.items()
+                                          if k != "num_kvcache_blocks"})
+        run = _tp_serve(llm, _tp_prompts(V), TP_NEW)
+        llm.exit()
+        del llm
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[key] = dict(tokens_equal=run["tokens"] == tp1[key]["tokens"],
+                        graph_replays=run["graph_replays"], collectives=run["collectives"])
+        emit("tp", part="nccl_tp2_two_cards", case=key, **out[key])
+        if kw["dtype"] == "float32" and not out[key]["tokens_equal"]:
+            fail(f"tp: {key}: NCCL tp 2 tokens differ from tp 1")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 PALLAS = "ssd_tpu/ops/pallas_attention.py"
@@ -3415,7 +3864,7 @@ KERNEL_ROWS = {
 
 def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                  kvq: dict | None, moe_run: dict | None, quant: dict | None,
-                 eagle: dict | None, exact: dict | None) -> dict:
+                 eagle: dict | None, exact: dict | None, tp: dict | None = None) -> dict:
     """Launches per path, each read from runs whose counts were zeroed just
     before them: `serve` (AR, AR multi-step) and `spec` (SD, fused SD,
     ngram, SSD, the fused exchange and superstep) for the fp-cache
@@ -3428,8 +3877,10 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
     pair's runs in both forms; graph runs only), `exact`'s
     1-layer Qwen3-MoE SD and SSD card runs for the grouped GEMM, `quant`
     (int8 weights: AR b8/b1 graph runs, fused SD and SSD b8, Qwen3-30B-A3B
-    AR) and `exact`'s int8-weight card runs for K9, and the probes' bench
-    entry points (path "probe") for rows #11 and #12."""
+    AR) and `exact`'s int8-weight card runs for K9, the probes' bench
+    entry points (path "probe") for rows #11 and #12, and `tp`: the
+    one-rank NCCL engines' graph runs ("tp1_nccl_<mode>") and rank 0 of the
+    gloo tp-2 runs on one card ("tp2_<case>", per-rank heads)."""
     by_path = {}
 
     def add(name, path, n):
@@ -3481,6 +3932,15 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
     if exact and "moe_launches" in exact:
         for mode in ("sd", "ssd"):
             add("grouped_gemm", f"moe_{mode}_1layer", exact["moe_launches"][f"cuda_{mode}"]["grouped_gemm"])
+    if tp:
+        for mode, run in tp["nccl_world_size_1"].items():
+            for name, n in run["launches"].items():
+                if n:
+                    add(name, f"tp1_nccl_{mode}", n)
+        for case, run in tp["runs"].items():
+            for name, n in run["launches_tp2_rank0"].items():
+                if n:
+                    add(name, f"tp2_{case}", n)
     out = []
     for name, tm in kern["timings"].items():
         err = max(v["max_abs_err"] for (k, _, _), v in kern["errors"].items() if k == name)
@@ -3501,6 +3961,7 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                              ("at_long_context", kern["long_context"]),
                              ("at_qwen3_moe_geometry", kern["qwen3_moe"]),
                              ("at_llama31_8b_eagle", kern["llama31_8b_eagle"]),
+                             ("at_llama31_70b_tp4", kern["llama31_70b_tp4"]),
                              ("at_tree_b1", kern["tree_b1"]),
                              ("at_prefill_down", {"grouped_gemm": gmm["prefill_down"]}),
                              ("at_decode_b8_gate", {"grouped_gemm": gmm["decode_b8_gate"]}),
@@ -3571,6 +4032,7 @@ def main(argv=None) -> int:
     quant = run("quant", phase_quant, serve, spec, moe_run)
     eagle = run("eagle", phase_eagle)
     exact = run("exact", phase_exact)
+    tp = run("tp", phase_tp)
     run("profile", phase_profile)
     run("moe_profile", phase_profile, True)
     run("quant_profile", phase_profile, False, "int8")
@@ -3579,7 +4041,7 @@ def main(argv=None) -> int:
     run("spec_async", phase_spec_async)
     run("eagle_profile", phase_eagle_profile)
     if kern is not None:
-        print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, quant, eagle, exact)),
+        print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, quant, eagle, exact, tp)),
               flush=True)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds, phases=phases)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,10 @@ caching, continuous batching, preemption and chunked prefill; attention and
 the MoE experts' grouped GEMM run in hand-written CUDA kernels on the GPU
 (ops/attention.py, ops/moe.py, csrc/) and in their plain PyTorch versions on
 the CPU, and the sync modes' decode-side steps replay CUDA graphs
-(engine/graphs.py). The engine runs on "cuda" unless the caller passes
-device="cpu".
+(engine/graphs.py). num_devices=N shards one model over N processes, one
+per card (parallel/: tensor parallelism, expert parallelism of Qwen3-MoE,
+a vocabulary-parallel embedding and head). The engine runs on "cuda"
+unless the caller passes device="cpu".
 """
 
 from ssd_tpu_torch.config import Config, ModelConfig

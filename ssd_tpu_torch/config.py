@@ -22,9 +22,16 @@ speculation (SSD), each plain and fused. Differences from the JAX package:
   "cpu" every step runs eagerly;
 - `quantization="int8"` (weight-only int8, utils/quant.py) serves every
   mode; the draft config inherits it, as in the JAX package;
-- the mode not ported yet (draft data parallelism) is refused here, and so
-  is a speculative knob on an engine that does not use it, where it would
-  be ignored.
+- `num_devices` > 1 serves one model sharded over that many processes,
+  one per card (parallel/: tensor parallelism of the attention and the
+  MLP, expert parallelism of Qwen3-MoE, a vocabulary-parallel embedding
+  and head), with the sync draft or the fused forms' inline draft sharded
+  over the same ranks; `tp_size` is num_devices in every mode ported;
+- not ported yet, and refused here with the ROADMAP item: the unfused async
+  draft on dedicated devices under num_devices > 1, draft data parallelism
+  (`draft_dp` > 1), EAGLE-3 under tensor parallelism and `num_hosts` > 1;
+  so is a speculative knob on an engine that does not use it, where it
+  would be ignored.
 """
 
 from __future__ import annotations
@@ -102,6 +109,10 @@ class Config:
     max_model_len: int = 4096
     gpu_memory_utilization: float = 0.7
     device: str = "cuda"
+    # Tensor (and expert) parallelism: the model sharded over this many
+    # processes, one per card (parallel/comm.py); 1 makes no process group.
+    num_devices: int = 1
+    num_hosts: int = 1
     hf_config: ModelConfig | None = None
     eos: int = -1
     kvcache_block_size: int = 256
@@ -182,6 +193,14 @@ class Config:
     def max_blocks(self) -> int:
         return (self.max_model_len + self.kvcache_block_size - 1) // self.kvcache_block_size
 
+    @property
+    def tp_size(self) -> int:
+        """Ranks the target is sharded over. In the JAX package the unfused
+        async draft takes the last draft_dp devices (ssd_tpu/config.py);
+        that form is refused under num_devices > 1 here, so every rank
+        holds a shard of the target, and of the draft beside it."""
+        return self.num_devices
+
     def __post_init__(self):
         if not os.path.isdir(self.model):
             raise ValueError(f"model path does not exist: {self.model}")
@@ -210,8 +229,7 @@ class Config:
                 and not self.async_fused:
             raise ValueError("spec_rounds > 1 with draft_async needs async_fused=True "
                              "(the async superstep)")
-        if self.draft_dp > 1:
-            raise NotImplementedError("not ported to ssd_tpu_torch yet: draft_dp > 1")
+        self._refuse_unported_parallelism()
         for name in ("multi_step", "spec_rounds", "speculate_k", "ngram_n"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
@@ -263,6 +281,25 @@ class Config:
                 or self.max_num_batched_tokens >= self.max_model_len):
             raise ValueError(
                 "max_num_batched_tokens < max_model_len requires chunked_prefill")
+
+    def _refuse_unported_parallelism(self):
+        """The parallel forms of ROADMAP Queue 1 item 1 not ported yet."""
+        if self.num_devices < 1 or self.num_hosts < 1:
+            raise ValueError(f"num_devices and num_hosts must be >= 1, got "
+                             f"{self.num_devices} and {self.num_hosts}")
+        todo = "not ported to ssd_tpu_torch yet (ROADMAP Queue 1 item 1, Parallelism: {})"
+        if self.draft_dp > 1:
+            raise NotImplementedError(todo.format(
+                "the unfused async draft on dedicated devices, with draft_dp > 1"))
+        if self.num_devices > 1 and self.speculate and self.draft_async \
+                and not self.async_fused:
+            raise NotImplementedError(todo.format(
+                "the unfused async draft on dedicated devices under num_devices > 1; "
+                "async_fused=True keeps the draft on the target's ranks"))
+        if self.num_devices > 1 and self.use_eagle:
+            raise NotImplementedError(todo.format("EAGLE-3 under tensor parallelism"))
+        if self.num_hosts > 1:
+            raise NotImplementedError(todo.format("num_hosts > 1"))
 
     def _derive_speculative(self):
         """Draft config and tree geometry, as ssd_tpu/config.py derives them,
@@ -324,9 +361,10 @@ class Config:
 
     def create_draft_config(self) -> "Config":
         """Config of the draft model runner. Unlike the JAX package, which
-        gives the draft its own chip and memory share, both runners share one
-        card: the draft keeps the target's block count (the engine sizes the
-        two pools together, engine/model_runner.py::kv_block_bytes). An
+        gives the unfused async draft its own chip and memory share, both
+        runners share each card (and, under num_devices > 1, its rank):
+        the draft keeps the target's block count (the engine sizes the two
+        pools together, engine/model_runner.py::kv_block_bytes). An
         EAGLE draft's model config is the one derived here (the target's
         rope), and it borrows the target's embeddings when it has none."""
         if not self.use_eagle:

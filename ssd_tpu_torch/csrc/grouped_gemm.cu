@@ -6,11 +6,13 @@
 // same function, below 256 rows and off the TPU).
 //
 // Contract. x [N, K] holds rows sorted by expert: expert e owns rows
-// [offs[e], offs[e+1]) of x, with offs [E+1] int32 running from 0 to N; w is
-// [E, K, Nout]. out[r] = x[r] @ w[e(r)], accumulated in fp32 and rounded
-// once to x's dtype, as gmm(..., preferred_element_type=f32).astype(x.dtype)
-// does. K and Nout are multiples of 8 (16-byte rows); N, K and Nout need not
-// be multiples of a tile, and any group may be empty.
+// [offs[e], offs[e+1]) of x, with offs [E+1] int32 rising from 0 to at most
+// N (rows from offs[E] on belong to no expert and are not written: another
+// rank's rows under expert parallelism); w is [E, K, Nout]. out[r] =
+// x[r] @ w[e(r)], accumulated in fp32 and rounded once to x's dtype, as
+// gmm(..., preferred_element_type=f32).astype(x.dtype) does. K and Nout are
+// multiples of 8 (16-byte rows); N, K and Nout need not be multiples of a
+// tile, and any group may be empty.
 //
 // Tiles without a host read. The row tiles of all experts are numbered
 // expert after expert, ceil(n_e / BM) of them for expert e. Their total is at

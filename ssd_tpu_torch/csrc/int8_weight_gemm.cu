@@ -14,8 +14,9 @@
 //
 // Contract. x [M, K] (bf16 or fp32), q int8 [G, N, K] (K-contiguous: the
 // port stores int8 weights [out, in], utils/quant.py), s fp32 [G, N]. With
-// group offsets offs [G+1] (int32, on the device, from 0 to M), group g owns
-// rows [offs[g], offs[g+1]) of x; without them G = 1 and every row is group
+// group offsets offs [G+1] (int32, on the device, rising from 0 to at most
+// M; rows from offs[G] on are not written), group g owns rows [offs[g],
+// offs[g+1]) of x; without them G = 1 and every row is group
 // 0. out[m, n] = s[g(m), n] * sum_k x[m, k] q[g(m), n, k], summed in fp32,
 // scaled once and rounded once to the output type (bf16 or fp32; fp32 x
 // gives fp32). K is a multiple of 16; M and N are any; an empty group writes

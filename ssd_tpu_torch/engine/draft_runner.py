@@ -203,8 +203,8 @@ def spec_request(seqs, max_blocks: int, use_warp: bool, **eagle) -> SpecRequest:
 class DraftRunner(ModelRunner):
     """Draft-model execution plus the speculation tree cache."""
 
-    def __init__(self, config: Config, init_random: bool = False):
-        super().__init__(config, init_random=init_random, is_draft=True)
+    def __init__(self, config: Config, init_random: bool = False, comm=None):
+        super().__init__(config, init_random=init_random, is_draft=True, comm=comm)
         self.K = config.speculate_k
         self.F = config.async_fan_out
         self.fan_out_list = list(config.fan_out_list)

@@ -38,7 +38,12 @@ replayed:
 - the runners' generators are registered with each graph, so sampled draws
   advance from replay to replay;
 - the kernel launches the capture recorded are added to the wrappers'
-  counts at every replay (ops/cuda_lib.py::add_launches).
+  counts at every replay (ops/cuda_lib.py::add_launches), and so are the
+  collectives of a tensor-parallel step (parallel/comm.py), captured inside
+  its graph: a StepGraphs over a Comm runs one collective before its first
+  capture (NCCL makes its communicator at the first call), and every rank
+  captures the same steps in the same order (the engine's warm-up, and a
+  sampled form at the same step of the same replicated schedule).
 
 A failed capture or replay raises; nothing falls back to the eager step.
 """
@@ -80,7 +85,10 @@ class CapturedStep:
 class StepGraphs:
     """One thread's captured steps, keyed by (step kind, B_pad, ...)."""
 
-    def __init__(self, device: torch.device, generators: list[torch.Generator]):
+    def __init__(self, device: torch.device, generators: list[torch.Generator],
+                 comm=None):
+        if comm is not None:
+            comm.warm_up()
         self.device = device
         self.generators = generators
         self.pool = torch.cuda.graph_pool_handle()

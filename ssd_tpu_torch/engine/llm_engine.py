@@ -14,11 +14,22 @@ of one CUDA graph per decode-side step and batch bucket (engine/graphs.py)
 on the card, for every mode unless Config.enforce_eager; the unfused async
 draft captures its own graphs, into a StepGraphs of its thread, before the
 thread starts.
+
+Config.num_devices > 1 (or a caller's torch.distributed group) serves one
+model sharded over that many processes (parallel/comm.py): every rank builds
+this engine over its shard and runs the same scheduler on the same inputs,
+the sync draft and the fused forms' inline draft sharded over the same
+ranks (ssd_tpu/engine/llm_engine.py puts them on the target's mesh). When
+the engine spawned its ranks, the caller's process is rank 0: it relays
+add_request, step, generate, abort_request and exit to the others and is
+the only one that returns outputs and METRICS. exit() checks that every
+rank emitted the same tokens, then tears the group down.
 """
 
 from __future__ import annotations
 
 import atexit
+import functools
 import weakref
 from dataclasses import fields
 from time import perf_counter
@@ -30,6 +41,7 @@ from ssd_tpu_torch.engine.sequence import Sequence
 from ssd_tpu_torch.engine.step import (
     AutoRegressiveStep, EagleFusedSpecDecodeStep, FusedSpecDecodeStep, InferenceStep,
     NgramSpecDecodeStep, SpecDecodeStep)
+from ssd_tpu_torch.parallel import comm as tp_comm
 from ssd_tpu_torch.sampling_params import SamplingParams
 from ssd_tpu_torch.utils.misc import load_tokenizer
 
@@ -48,6 +60,24 @@ METRICS = {
 }
 
 
+def _relayed(method):
+    """A public call that rank 0 of a spawned group runs on every rank
+    (parallel/comm.py::Comm.relay); nested calls (generate's steps) and
+    engines without spawned ranks run it here only."""
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        comm = self.comm
+        if comm is None or not comm.workers or self._relaying:
+            return method(self, *args, **kwargs)
+        self._relaying = True
+        try:
+            return comm.relay(method.__name__, args, kwargs,
+                              lambda: method(self, *args, **kwargs))
+        finally:
+            self._relaying = False
+    return call
+
+
 class LLMEngine:
 
     def __init__(self, model: str, init_random: bool = False, **kwargs):
@@ -61,14 +91,32 @@ class LLMEngine:
             raise TypeError(f"unknown engine arguments: {sorted(unknown)}")
         config = Config(model, **kwargs)
         self.config = config
-        Sequence.block_size = config.kvcache_block_size
+        self._exiting = False
+        self._relaying = False
+        # Sequence ids of a tensor-parallel engine's own, alike on every
+        # rank whatever each process served before.
+        self._next_seq_id = 0
+        self.comm = tp_comm.connect(config, model, init_random, kwargs)
+        if self.comm is None or not self.comm.workers:
+            self._build(init_random)
+            return
+        # Rank 0 of a spawned group: the other ranks build theirs meanwhile
+        # (the collectives of the build pair them up), then reply.
+        try:
+            self.comm.relay(None, (), {}, lambda: self._build(init_random))
+        except BaseException:
+            self.comm.close()
+            raise
+        atexit.register(lambda ref=weakref.ref(self): ref() and ref().exit())
 
+    def _build(self, init_random: bool):
+        config = self.config
+        Sequence.block_size = config.kvcache_block_size
         self.model_runner = ModelRunner(config, init_random=init_random,
-                                        partner=config.draft_hf_config)
+                                        partner=config.draft_hf_config, comm=self.comm)
         self.draft_runner = None
         self.draft_server = None
         self.draft_cfg = None
-        self._exiting = False
         if config.speculate:
             # Made after the target runner: it inherits the block count that
             # sized both pools together.
@@ -78,7 +126,8 @@ class LLMEngine:
                 # thread, as the JAX engine does.
                 from ssd_tpu_torch.engine.draft_runner import DraftRunner
 
-                self.draft_runner = DraftRunner(self.draft_cfg, init_random=init_random)
+                self.draft_runner = DraftRunner(self.draft_cfg, init_random=init_random,
+                                                comm=self.comm)
             elif config.draft_async:
                 from ssd_tpu_torch.engine.draft_runner import DraftServer
 
@@ -91,7 +140,7 @@ class LLMEngine:
                 self.draft_runner = EagleModelRunner(self.draft_cfg, init_random=init_random)
             else:
                 self.draft_runner = ModelRunner(self.draft_cfg, init_random=init_random,
-                                                is_draft=True)
+                                                is_draft=True, comm=self.comm)
             # Stop the draft thread at interpreter exit if the caller did not.
             atexit.register(lambda ref=weakref.ref(self): ref() and ref().exit())
         self.tokenizer = load_tokenizer(config.model)
@@ -120,25 +169,42 @@ class LLMEngine:
         from ssd_tpu_torch.engine.graphs import StepGraphs
 
         runners = [r for r in (self.model_runner, self.draft_runner) if r is not None]
-        self.graphs = StepGraphs(self.model_runner.device, [r.generator for r in runners])
+        self.graphs = StepGraphs(self.model_runner.device, [r.generator for r in runners],
+                                 comm=self.comm)
         for r in runners:
             r.graphs = self.graphs
         self._default_step = self.create_inference_step()
         self._default_step.capture(self._batch_pads())
 
     def exit(self):
-        """Stop the async draft thread (idempotent)."""
+        """Stop the async draft thread; under tensor parallelism check that
+        every rank emitted the same tokens (raising if not) and, at rank 0
+        of a spawned group, tear the group down and join the ranks
+        (idempotent). A caller's group stays the caller's."""
         if self._exiting:
             return
         self._exiting = True
         if self.draft_server is not None:
             self.draft_server.shutdown()
+        comm = self.comm
+        if comm is None:
+            return
+        try:
+            if comm.workers:
+                comm.relay("exit", (), {}, comm.check_tokens)
+            else:
+                comm.check_tokens()
+        finally:
+            if comm.owned:
+                comm.close()
 
+    @_relayed
     def abort_request(self, seq_id: int) -> bool:
         """Cancel an in-flight or queued request by its seq_id; frees its KV
         blocks at once."""
         return self.scheduler.abort(seq_id)
 
+    @_relayed
     def add_request(self, prompt: str | list[int], sampling_params: SamplingParams):
         if isinstance(prompt, str):
             if self.tokenizer is None:
@@ -168,6 +234,9 @@ class LLMEngine:
                 f"(set chunked_prefill=True to admit it in chunks)"
             )
         seq = Sequence(prompt, sampling_params)
+        if self.comm is not None:
+            seq.seq_id = self._next_seq_id
+            self._next_seq_id += 1
         self.scheduler.add(seq)
         return seq.seq_id
 
@@ -196,7 +265,16 @@ class LLMEngine:
                                               seq.draft_block_table)
             seq.defer_publish = False
 
+    @_relayed
     def step(self, step: InferenceStep | None = None):
+        """One engine step: a prefill or a decode of the scheduled batch.
+        Returns the sequences that finished, [(seq_id, completion token
+        ids)]. A caller's own `step` object is not relayed to other ranks:
+        rank 0 of a spawned group takes the default step only."""
+        if step is not None and self.comm is not None and self.comm.workers \
+                and not self._relaying:
+            raise ValueError("a spawned tensor-parallel engine relays step() without "
+                             "a step object only")
         if step is None:
             if not hasattr(self, "_default_step"):
                 self._default_step = self.create_inference_step()
@@ -221,7 +299,10 @@ class LLMEngine:
         finished = [seq for seq in seqs if seq.is_finished]
         finished.extend(self.scheduler.newly_finished)
         self.scheduler.newly_finished = []
-        return [(seq.seq_id, seq.completion_token_ids) for seq in finished]
+        outputs = [(seq.seq_id, seq.completion_token_ids) for seq in finished]
+        if self.comm is not None:
+            self.comm.record_tokens(outputs)
+        return outputs
 
     def is_finished(self):
         return self.scheduler.is_finished()
@@ -266,6 +347,8 @@ class LLMEngine:
                               async_spec=config.draft_async, eagle=config.use_eagle)
 
     def log_metrics(self):
+        if self.comm is not None and self.comm.rank != 0:
+            return
         if METRICS["prefill_total_time"] > 0:
             print(
                 f"Final Prefill Throughput: "
@@ -294,6 +377,7 @@ class LLMEngine:
             if self.config.draft_async and hits:
                 print(f"[metrics] Avg Cache Hits: {sum(hits) / len(hits):.2f}", flush=True)
 
+    @_relayed
     def generate(
         self,
         prompts: list[str] | list[list[int]],

@@ -24,6 +24,10 @@ Counterpart of ssd_tpu/engine/model_runner.py:
 - host input prep stays in numpy; the JAX package's packed int32 payloads (a
   TPU transfer workaround) are not ported, each input is its own tensor.
 A runner built with is_draft=True reads the sequences' draft block tables.
+Under tensor parallelism (a parallel/comm.py::Comm) the runner holds its
+rank's shard (parallel/mesh.py: weights quantized whole, then sliced, one
+tensor at a time), its Arch the rank's heads, and its KV pool the rank's
+k/v heads; the pool's block count is the smallest over the ranks.
 The target of an EAGLE engine taps its residual stream (Config.eagle_layers)
 in the prefill and the verify. The JAX package prefills EAGLE batches through
 its grouped, power-of-two padded prefill because it needs per-sequence
@@ -44,8 +48,9 @@ from ssd_tpu_torch.models.transformer import (
     Arch, compute_logits, forward_hidden, init_params, param_bytes)
 from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops.sampler import sample
+from ssd_tpu_torch.parallel.mesh import Sharding
 from ssd_tpu_torch.utils.native import prepare_prefill, slot_of  # noqa: F401 (the host copy)
-from ssd_tpu_torch.utils.quant import quantize_eagle_params, quantize_params
+from ssd_tpu_torch.utils.quant import quantize_eagle_params, quantize_leaf
 
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -278,14 +283,18 @@ class ModelRunner:
     """Owns one model's weights and KV cache and serves the step functions
     to the engine. `partner` is the draft's model config when this is the
     target of a speculative engine: the two KV pools share one card and are
-    sized together (see _decide_num_blocks)."""
+    sized together (see _decide_num_blocks). `comm` is the engine's
+    parallel/comm.py::Comm under tensor parallelism (None: one process)."""
 
     def __init__(self, config: Config, init_random: bool = False,
-                 is_draft: bool = False, partner: ModelConfig | None = None):
+                 is_draft: bool = False, partner: ModelConfig | None = None,
+                 comm=None):
         self.config = config
         self.is_draft = is_draft
-        self.device = resolve_device(config.device)
+        self.comm = comm
+        self.device = comm.device if comm is not None else resolve_device(config.device)
         self.hf_config = config.hf_config
+        self.sharding = None
         self.arch = self._make_arch()
         self.eagle_layers = (tuple(config.eagle_layers)
                              if config.use_eagle and not is_draft else None)
@@ -303,11 +312,12 @@ class ModelRunner:
             self.params = self._make_params(init_random)
             if config.quantization == "int8":
                 # Weight-only int8 at load, as ssd_tpu/engine/model_runner.py
-                # does: a model's dict (it has `layers`) or an EAGLE head's
-                # (it has `fc`), leaf by leaf. The freed float weights go
-                # back to the driver before mem_get_info sizes the pool.
-                quantize = quantize_params if "layers" in self.params else quantize_eagle_params
-                self.params = quantize(self.params)
+                # does: a model's leaves as they load (_place), an EAGLE
+                # head's dict (it has `fc`) leaf by leaf. The freed float
+                # weights return to the card's free memory before
+                # mem_get_info sizes the pool.
+                if "fc" in self.params:
+                    self.params = quantize_eagle_params(self.params)
                 if self.device.type == "cuda":
                     torch.cuda.empty_cache()
             else:
@@ -334,14 +344,30 @@ class ModelRunner:
                            dtype=torch.float32, device=self.device))
 
     def _make_arch(self):
-        return Arch.from_model_config(self.hf_config)
+        arch = Arch.from_model_config(self.hf_config)
+        if self.comm is None:
+            return arch
+        self.sharding = Sharding(arch, self.comm.rank, self.comm.size)
+        return self.sharding.rank_arch(self.comm)
+
+    def _place(self, name: str, x: torch.Tensor) -> dict:
+        """The leaves the runner keeps of the whole tensor `name`: int8 and
+        its scales under quantization="int8", then the rank's slices."""
+        leaves = quantize_leaf(name, x) if self.config.quantization == "int8" else {name: x}
+        if self.sharding is None:
+            return leaves
+        return {k: self.sharding.leaf(k, v) for k, v in leaves.items()}
 
     def _make_params(self, init_random: bool) -> dict:
+        arch = self.sharding.arch if self.sharding is not None else self.arch
         if init_random:
-            return init_params(self.arch, self.config.seed, self.dtype, self.device)
+            return init_params(arch, self.config.seed, self.dtype, self.device,
+                               place=self._place)
         from ssd_tpu_torch.utils.loader import load_params
 
-        return load_params(self.config.model, self.hf_config, self.dtype, self.device)
+        return load_params(self.config.model, self.hf_config, self.dtype, self.device,
+                           place=self._place,
+                           expert_span=self.sharding and self.sharding.span("moe_gate"))
 
     # --- memory sizing ---
 
@@ -368,7 +394,10 @@ class ModelRunner:
             block_bytes += kv_block_bytes(d_arch, self.block_size, self.dtype, self.kv_quant)
             reserve = eagle_param_bytes(d_arch, self.dtype, cfg.quantization)
         elif partner is not None:
+            # The draft's rank shard: its heads, MLP width and vocabulary rows.
             d_arch = Arch.from_model_config(partner)
+            if self.comm is not None:
+                d_arch = Sharding(d_arch, self.comm.rank, self.comm.size).rank_arch()
             block_bytes += kv_block_bytes(d_arch, self.block_size, self.dtype, self.kv_quant)
             reserve = param_bytes(d_arch, self.dtype, cfg.quantization)
         free, total = torch.cuda.mem_get_info(self.device)
@@ -376,10 +405,14 @@ class ModelRunner:
         num = max(16, avail // block_bytes)
         # No point exceeding what max_num_seqs full-length sequences can use.
         cap = (cfg.max_num_seqs + 1) * (cfg.max_blocks + 2) * 4
+        blocks = min(num, cap)
+        if self.comm is not None:
+            # Every rank's scheduler runs on the same pool: the smallest.
+            blocks = self.comm.min_over_ranks(blocks)
         self.pool_sizing = dict(block_bytes=block_bytes, avail_bytes=avail,
-                                uncapped_blocks=num, cap_blocks=cap, blocks=min(num, cap),
+                                uncapped_blocks=num, cap_blocks=cap, blocks=blocks,
                                 weight_bytes=self.weight_bytes, partner_reserve_bytes=reserve)
-        return min(num, cap)
+        return blocks
 
     # --- host-side input prep ---
 

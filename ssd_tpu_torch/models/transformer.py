@@ -23,11 +23,22 @@ are int8 [out, in] beside their fp32 scales `name + "_scale"`, and run
 through the W8A16 kernel (ops/linear.py); the router and the norms stay in
 the model's dtype. Not ported yet: the reduced vocabulary of a plain
 (non-EAGLE) draft (d2t).
+
+Tensor parallelism (parallel/): a rank's dict holds its shard
+(parallel/mesh.py) and its Arch its own query and k/v heads and MLP width,
+with the rank's Comm (parallel/comm.py). The forward then sums wo's and
+the MLP's partial outputs over the ranks (all_reduce_sum: down, or the
+experts' combine), looks a token up in the rank's vocabulary rows of the
+embedding (zeros elsewhere, exact under the sum) and all-reduces it, and
+gathers the head's fp32 vocabulary slices into the full [T, V] logits on
+every rank, so sampling and verify see what one card computes. A
+replicated embedding or head (tp does not divide V) needs neither. With a
+Comm of one rank only the two all-reduces a layer run.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
@@ -37,6 +48,7 @@ from ssd_tpu_torch.ops.layers import (
     apply_rope, rms_norm, rms_norm_residual, rope_cos_sin, silu_mul)
 from ssd_tpu_torch.ops.linear import head_logits, mm, mm_shared
 from ssd_tpu_torch.ops.moe import moe_mlp
+from ssd_tpu_torch.parallel.comm import all_reduce_sum, gather_vocab
 
 # attn_call(layer index, q [T,Hq,hd], k [T,Hkv,hd], v [T,Hkv,hd]) -> [T,Hq,hd]
 AttnCall = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -63,6 +75,13 @@ class Arch:
     num_experts_per_tok: int = 0
     moe_intermediate_size: int = 0
     norm_topk_prob: bool = False
+    # Tensor parallelism (parallel/mesh.py::Sharding.rank_arch): the heads
+    # and MLP width above are then the rank's; the vocabulary, the width
+    # and the router's experts stay the model's. comm: the rank's
+    # parallel/comm.py::Comm, or None (no collective).
+    tp_size: int = 1
+    tp_rank: int = 0
+    comm: object = field(default=None, compare=False, repr=False)
 
     @classmethod
     def from_model_config(cls, mc: ModelConfig) -> "Arch":
@@ -86,10 +105,13 @@ class Arch:
 
 
 def init_params(arch: Arch, seed: int, dtype: torch.dtype,
-                device: torch.device, scale: float = 0.02) -> dict:
+                device: torch.device, scale: float = 0.02, place=None) -> dict:
     """Random-normal weights (norms at one) from a generator seeded with
     `seed` on `device`, one tensor at a time (an expert stack's fp32 draw is
-    the largest temporary)."""
+    the largest temporary). arch is the whole model's: every tensor is
+    drawn whole, in the same order on every rank, and `place(name, x)` (the
+    runner's: quantize, then keep the rank's slice) turns it into the
+    leaves it keeps, so a random model is the same model at any tp."""
     D, I = arch.hidden_size, arch.intermediate_size
     E, Im = arch.num_experts, arch.moe_intermediate_size
     Hq, Hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
@@ -103,26 +125,35 @@ def init_params(arch: Arch, seed: int, dtype: torch.dtype,
     def ones(*shape):
         return torch.ones(*shape, dtype=dtype, device=device)
 
+    place = place or (lambda name, x: {name: x})
+    attn = (("wq", (D, Hq * hd)), ("wk", (D, Hkv * hd)), ("wv", (D, Hkv * hd)),
+            ("wo", (Hq * hd, D)))
+    mlp = ((("router", (D, E)), ("moe_gate", (E, D, Im)), ("moe_up", (E, D, Im)),
+            ("moe_down", (E, Im, D))) if E else
+           (("gate", (D, I)), ("up", (D, I)), ("down", (I, D))))
     layers = []
     for _ in range(arch.num_layers):
-        lp = {
-            "input_ln": ones(D), "wq": w(D, Hq * hd), "wk": w(D, Hkv * hd),
-            "wv": w(D, Hkv * hd), "wo": w(Hq * hd, D), "post_ln": ones(D),
-        }
-        if E:
-            lp.update(router=w(D, E), moe_gate=w(E, D, Im), moe_up=w(E, D, Im),
-                      moe_down=w(E, Im, D))
-        else:
-            lp.update(gate=w(D, I), up=w(D, I), down=w(I, D))
+        lp = {"input_ln": ones(D), "post_ln": ones(D)}
+        for name, shape in attn + mlp:
+            lp.update(place(name, w(*shape)))
         if arch.use_qk_norm:
             lp["q_norm"] = ones(hd)
             lp["k_norm"] = ones(hd)
         layers.append(lp)
-    params = {"embed": w(arch.vocab_size, D), "layers": layers,
+    params = {**place("embed", w(arch.vocab_size, D)), "layers": layers,
               "final_ln": ones(D)}
-    params["lm_head"] = (params["embed"] if arch.tie_embeddings
-                         else w(arch.vocab_size, D))
+    if arch.tie_embeddings:
+        tie_head(params)
+    else:
+        params.update(place("lm_head", w(arch.vocab_size, D)))
     return params
+
+
+def tie_head(params: dict):
+    """A tied LM head: the embedding's tensor (and its int8 scales)."""
+    params["lm_head"] = params["embed"]
+    if "embed_scale" in params:
+        params["lm_head_scale"] = params["embed_scale"]
 
 
 def param_bytes(arch: Arch, dtype: torch.dtype, quantization: str | None = None) -> int:
@@ -130,16 +161,21 @@ def param_bytes(arch: Arch, dtype: torch.dtype, quantization: str | None = None)
     weights in `dtype` plus the fp32 copy of the LM head; with
     quantization="int8" every matrix (the embedding and the head too) in
     int8 with an fp32 scale per output channel, a tied head shared with the
-    embedding, and no fp32 copy."""
+    embedding, and no fp32 copy. A rank's Arch gives the rank's bytes: its
+    heads and MLP width, its experts, its vocabulary rows when tp divides
+    the vocabulary (parallel/mesh.py)."""
     D, I = arch.hidden_size, arch.intermediate_size
     E, Im = arch.num_experts, arch.moe_intermediate_size
+    El = E // arch.tp_size
     Hq, Hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
     V, L = arch.vocab_size, arch.num_layers
+    if V % arch.tp_size == 0:
+        V //= arch.tp_size
     elem = torch.finfo(dtype).bits // 8
     # (elements, output channels) of a layer's matrices; the router and the
     # norms stay in dtype.
     mats = [(D * Hq * hd, Hq * hd), (2 * D * Hkv * hd, 2 * Hkv * hd), (Hq * hd * D, D)]
-    mats += [(3 * E * D * Im, E * (2 * Im + D))] if E else [(3 * D * I, 2 * I + D)]
+    mats += [(3 * El * D * Im, El * (2 * Im + D))] if E else [(3 * D * I, 2 * I + D)]
     other = (D * E if E else 0) + 2 * D + (2 * hd if arch.use_qk_norm else 0)
     if quantization is None:
         per_layer = sum(n for n, _ in mats) + other
@@ -166,11 +202,7 @@ def forward_hidden(
     Hq, Hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
     eps = arch.rms_norm_eps
 
-    hidden = params["embed"][input_ids]
-    if "embed_scale" in params:
-        # An int8 row times its scale, in the compute dtype (final_ln's).
-        cdt = params["final_ln"].dtype
-        hidden = hidden.to(cdt) * params["embed_scale"][input_ids].to(cdt)[:, None]
+    hidden = embed(params, input_ids, arch)
     cos, sin = rope_cos_sin(positions, hd, arch.rope_theta)
     residual = torch.zeros_like(hidden)
     taps = sorted(eagle_layers) if eagle_layers else []
@@ -188,13 +220,15 @@ def forward_hidden(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         o = attn_call(li, q, k, v)
-        hidden = mm(o.reshape(T, Hq * hd), lp, "wo")
+        hidden = _reduce(mm(o.reshape(T, Hq * hd), lp, "wo"), arch)
 
         x, residual = rms_norm_residual(hidden, residual, lp["post_ln"], eps)
         if arch.num_experts:
-            hidden = moe_mlp(x, lp, arch.num_experts_per_tok, arch.norm_topk_prob)
+            hidden = moe_mlp(x, lp, arch.num_experts_per_tok, arch.norm_topk_prob,
+                             rank=arch.tp_rank)
         else:
             hidden = mm(silu_mul(*mm_shared(x, lp, ("gate", "up"))), lp, "down")
+        hidden = _reduce(hidden, arch)
     hidden = (hidden.float() + residual.float()).to(hidden.dtype)
     if eagle_layers:
         return hidden, torch.cat(acts, dim=-1)
@@ -211,4 +245,33 @@ def compute_logits(
     rows (prefill projects only each sequence's last token)."""
     if gather_idx is not None:
         hidden = hidden[gather_idx]
-    return head_logits(rms_norm(hidden, params["final_ln"], arch.rms_norm_eps), params)
+    logits = head_logits(rms_norm(hidden, params["final_ln"], arch.rms_norm_eps), params)
+    if logits.shape[1] != arch.vocab_size:   # the rank's vocabulary slice
+        logits = gather_vocab(arch.comm, logits)
+    return logits
+
+
+def _reduce(x: torch.Tensor, arch: Arch) -> torch.Tensor:
+    """A row-parallel product's partial sums added over the ranks."""
+    return x if arch.comm is None else all_reduce_sum(arch.comm, x)
+
+
+def embed(params: dict, input_ids: torch.Tensor, arch: Arch) -> torch.Tensor:
+    """The embedding rows of input_ids [T] in the compute dtype (final_ln's;
+    an int8 row times its scale). A vocabulary-parallel table holds rows
+    [tp_rank * Vl, (tp_rank + 1) * Vl): a token outside them looks up zeros,
+    and the sum over the ranks gives every rank the row."""
+    table, scale = params["embed"], params.get("embed_scale")
+    Vl = table.shape[0]
+    sharded = Vl != arch.vocab_size
+    if sharded:
+        local = input_ids.long() - arch.tp_rank * Vl
+        mine = (local >= 0) & (local < Vl)
+        input_ids = local.clamp(0, Vl - 1)
+    hidden = table[input_ids]
+    if scale is not None:
+        cdt = params["final_ln"].dtype
+        hidden = hidden.to(cdt) * scale[input_ids].to(cdt)[:, None]
+    if sharded:
+        hidden = all_reduce_sum(arch.comm, torch.where(mine[:, None], hidden, 0))
+    return hidden

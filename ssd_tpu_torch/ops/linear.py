@@ -75,14 +75,16 @@ def int8_linear_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                       out_dtype: torch.dtype | None = None,
                       group_offsets: torch.Tensor | None = None) -> torch.Tensor:
     """out[rows of group g] = ((x.float() @ w[g].float().T) * scale[g])
-    rounded once to out_dtype (default x's). Reads the offsets on the host:
-    the plain version of csrc/int8_weight_gemm.cu."""
+    rounded once to out_dtype (default x's); rows from the last offset on
+    belong to no group and are left unwritten. Reads the offsets on the
+    host: the plain version of csrc/int8_weight_gemm.cu."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if group_offsets is None:
         return ((x.float() @ w[0].float().T) * scale[0]).to(out_dtype)
     offs = group_offsets.tolist()
-    if offs[0] != 0 or offs[-1] != x.shape[0] or any(b < a for a, b in zip(offs, offs[1:])):
-        raise ValueError(f"int8_linear: offsets must rise from 0 to M={x.shape[0]}, got {offs}")
+    if offs[0] != 0 or offs[-1] > x.shape[0] or any(b < a for a, b in zip(offs, offs[1:])):
+        raise ValueError(f"int8_linear: offsets must rise from 0 to at most M={x.shape[0]}, "
+                         f"got {offs}")
     out = torch.empty(x.shape[0], w.shape[1], dtype=out_dtype, device=x.device)
     for g, (lo, hi) in enumerate(zip(offs, offs[1:])):
         if hi > lo:
@@ -132,10 +134,11 @@ def int8_linear(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                 out_dtype: torch.dtype | None = None,
                 group_offsets: torch.Tensor | None = None) -> torch.Tensor:
     """(x [M, K] @ w[g] [N, K]^T) * scale[g] [N] for the rows of each group
-    g (group_offsets [G+1] int32 on the device, running from 0 to M; None:
-    G = 1), in out_dtype (x's, or float32): the plain version for CPU
-    tensors, K9 (csrc/int8_weight_gemm.cu) for CUDA tensors, on
-    int8_linear_route's route."""
+    g (group_offsets [G+1] int32 on the device, rising from 0 to at most M,
+    rows past the last offset not written; None: G = 1), in out_dtype (x's,
+    or float32): the plain version for CPU tensors, K9
+    (csrc/int8_weight_gemm.cu) for CUDA tensors, on int8_linear_route's
+    route."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     _check_args(x, w, scale, out_dtype, group_offsets)
     if x.device.type == "cpu":

@@ -21,6 +21,16 @@ Nothing in moe_mlp reads a device value on the host: group sizes come from
 scatter_add_ and their prefix sum stays on the device, and the sorted rows
 are gathered by index arithmetic (row r of the sorted list is token
 order[r] // k), so a layer launches its kernels without a sync.
+
+Expert parallelism (parallel/mesh.py): a rank holds E/tp consecutive
+experts of every stack and the whole router, so its top-k is the global
+one. Its own (token, expert) pairs sort first, by expert, the others after
+them; the grouped GEMMs run over the rank's groups, whose offsets end at
+its pair count (rows past it are not written, and are masked), and the
+rank's partial sum of each token's experts goes to the all-reduce of
+models/transformer.py. JAX keeps the dense all-expert einsum under a
+sharded mesh (ssd_tpu/engine/model_runner.py); the grouped form does k/E
+of its work here as on one card.
 """
 
 from __future__ import annotations
@@ -62,7 +72,8 @@ def expert_offsets(flat_e: torch.Tensor, num_experts: int) -> torch.Tensor:
     return F.pad(torch.cumsum(sizes, 0, dtype=torch.int32), (1, 0))
 
 
-def moe_mlp(x: torch.Tensor, lp: dict, top_k: int, norm_topk_prob: bool) -> torch.Tensor:
+def moe_mlp(x: torch.Tensor, lp: dict, top_k: int, norm_topk_prob: bool,
+            rank: int = 0) -> torch.Tensor:
     """Sparse MoE feed-forward of x [T, D] with the layer's router [D, E] and
     expert stacks moe_gate / moe_up [E, D, Im], moe_down [E, Im, D]. The
     T*k (token, expert) pairs are stable-sorted by expert (each token's rows
@@ -72,14 +83,22 @@ def moe_mlp(x: torch.Tensor, lp: dict, top_k: int, norm_topk_prob: bool) -> torc
     expert stacks ([E, out, in] with scales [E, out], utils/quant.py) take
     the W8A16 kernel over the same groups (ops/linear.py; a sorted row
     takes its expert's scales, as JAX's int8 `rdot`), float ones the
-    grouped GEMM."""
+    grouped GEMM. With a rank's share of the experts (rank `rank` holding
+    El = moe_gate.shape[0] of the router's E), the rank's partial sum over
+    its own experts (see the module's notes)."""
     T, D = x.shape
-    E = lp["router"].shape[1]
+    E, El = lp["router"].shape[1], lp["moe_gate"].shape[0]
     top_i, top_w = route(x, lp["router"], top_k, norm_topk_prob)
     flat_e = top_i.reshape(-1)                                   # [T*k]
+    if El != E:
+        # Local expert ids; another rank's pairs take group El, sorted last
+        # and never computed.
+        flat_e = flat_e - rank * El
+        mine = (flat_e >= 0) & (flat_e < El)
+        flat_e = torch.where(mine, flat_e, El)
     order = torch.argsort(flat_e, stable=True)
     xs = x.index_select(0, order // top_k)                       # [T*k, D]
-    offsets = expert_offsets(flat_e, E)
+    offsets = expert_offsets(flat_e, El + (El != E))[:El + 1]
     if "moe_gate_scale" in lp:   # int8: gate and up in one launch over the same rows
         g, u = int8_linear_shared(xs, [lp["moe_gate"], lp["moe_up"]],
                                   [lp["moe_gate_scale"], lp["moe_up_scale"]],
@@ -87,6 +106,8 @@ def moe_mlp(x: torch.Tensor, lp: dict, top_k: int, norm_topk_prob: bool) -> torc
     else:
         g, u = _experts(xs, lp, "moe_gate", offsets), _experts(xs, lp, "moe_up", offsets)
     d = _experts(silu_mul(g, u), lp, "moe_down", offsets)        # [T*k, D]
+    if El != E:
+        d = torch.where(mine.index_select(0, order)[:, None], d, 0)
     eo = torch.empty_like(d).index_copy_(0, order, d).reshape(T, top_k, D)
     return torch.einsum("tkd,tk->td", eo, top_w)
 
@@ -110,11 +131,13 @@ def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
     (megablox gmm(..., preferred_element_type=f32).astype(x.dtype)). x
     [N, K] with rows sorted by expert, w [E, K, Nout], group_offsets [E+1]
     from 0 to N. Reads the offsets on the host: the plain version of
-    csrc/grouped_gemm.cu."""
+    csrc/grouped_gemm.cu. Rows from group_offsets[E] on belong to no group
+    and are left unwritten (expert parallelism's other ranks' rows)."""
     offs = group_offsets.tolist()
-    if len(offs) != w.shape[0] + 1 or offs[0] != 0 or offs[-1] != x.shape[0]:
-        raise ValueError(f"grouped_gemm: offsets must run from 0 to N={x.shape[0]} "
-                         f"over {w.shape[0]} groups, got {offs}")
+    if len(offs) != w.shape[0] + 1 or offs[0] != 0 or offs[-1] > x.shape[0] \
+            or any(b < a for a, b in zip(offs, offs[1:])):
+        raise ValueError(f"grouped_gemm: offsets must rise from 0 to at most "
+                         f"N={x.shape[0]} over {w.shape[0]} groups, got {offs}")
     out = torch.empty(x.shape[0], w.shape[2], dtype=x.dtype, device=x.device)
     for e in range(w.shape[0]):
         lo, hi = offs[e], offs[e + 1]
@@ -177,7 +200,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor) 
     """Grouped GEMM over expert-sorted rows: the plain version for CPU
     tensors, the CUDA kernel (csrc/grouped_gemm.cu) for CUDA tensors, on
     grouped_gemm_route's route. The kernel reads the offsets on the
-    device; group_offsets[E] must equal N."""
+    device; rows from group_offsets[E] (at most N) on are not written."""
     if x.device.type == "cpu":
         return grouped_gemm_plain(x, w, group_offsets)
     _check_cuda_args(x, w, group_offsets)

@@ -1,9 +1,9 @@
 """Checkpoint loading: HF safetensors -> the port's parameter dict.
 
-Counterpart of ssd_tpu/utils/loader.py::load_params and load_eagle_params. The safetensors format
-is read directly (an 8-byte little-endian header length, a JSON header, then
-raw little-endian bytes), so the port does not need the `safetensors`
-package. Tensors are staged one at a time: read into host memory, converted
+Counterpart of ssd_tpu/utils/loader.py::load_params and load_eagle_params.
+The safetensors format is read directly (an 8-byte little-endian header
+length, a JSON header, then raw little-endian bytes), so the port does not
+need the `safetensors` package. Tensors are staged one at a time: read into host memory, converted
 to the target dtype, copied to the device and dropped, so the device never
 holds the source-dtype checkpoint beside the converted weights.
 """
@@ -18,7 +18,7 @@ from glob import glob
 import torch
 
 from ssd_tpu_torch.config import ModelConfig
-from ssd_tpu_torch.models.transformer import Arch
+from ssd_tpu_torch.models.transformer import Arch, tie_head
 
 _DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
@@ -63,16 +63,22 @@ class SafetensorsIndex:
 
 
 def load_params(model_path: str, mc: ModelConfig, dtype: torch.dtype,
-                device: torch.device) -> dict:
+                device: torch.device, place=None,
+                expert_span: tuple[int, int] | None = None) -> dict:
     """Load a Llama-3 / Qwen-3 / Qwen3-MoE checkpoint into the parameter dict
     of models/transformer.py. HF stores linear weights as [out, in]; the
     forward computes x @ W, so they are transposed to [in, out]. A Qwen3-MoE
     layer's router mlp.gate [E, D] becomes router [D, E], and its experts'
     projections mlp.experts.{e}.{gate,up,down}_proj are transposed into one
     [E, in, out] stack per projection, filled on the device expert by
-    expert."""
+    expert. One tensor at a time goes whole to the device and through
+    `place(name, x)` (the runner's: quantize it, keep the rank's slice;
+    default: keep it), so host memory holds one tensor and the device one
+    whole tensor beyond the rank's weights. expert_span [lo, hi): the
+    experts a rank keeps, the only ones read (default all)."""
     arch = Arch.from_model_config(mc)
     t = SafetensorsIndex(model_path)
+    place = place or (lambda name, x: {name: x})
 
     def get(name: str, transpose: bool = False) -> torch.Tensor:
         w = t.get(name).to(dtype)
@@ -81,47 +87,44 @@ def load_params(model_path: str, mc: ModelConfig, dtype: torch.dtype,
         return w.contiguous().to(device)
 
     def experts(prefix: str, proj: str) -> torch.Tensor:
-        first = t.get(f"{prefix}0.{proj}.weight")
+        lo, hi = expert_span or (0, arch.num_experts)
+        first = t.get(f"{prefix}{lo}.{proj}.weight")
         out_f, in_f = first.shape
-        stack = torch.empty(arch.num_experts, in_f, out_f, dtype=dtype, device=device)
-        for e in range(arch.num_experts):
-            w = first if e == 0 else t.get(f"{prefix}{e}.{proj}.weight")
-            stack[e].copy_(w.to(dtype).T)
+        stack = torch.empty(hi - lo, in_f, out_f, dtype=dtype, device=device)
+        for e in range(lo, hi):
+            w = first if e == lo else t.get(f"{prefix}{e}.{proj}.weight")
+            stack[e - lo].copy_(w.to(dtype).T)
         return stack
 
     layers = []
     for i in range(arch.num_layers):
         p = f"model.layers.{i}."
-        lp = {
-            "input_ln": get(p + "input_layernorm.weight"),
-            "wq": get(p + "self_attn.q_proj.weight", True),
-            "wk": get(p + "self_attn.k_proj.weight", True),
-            "wv": get(p + "self_attn.v_proj.weight", True),
-            "wo": get(p + "self_attn.o_proj.weight", True),
-            "post_ln": get(p + "post_attention_layernorm.weight"),
-        }
+        lp = {}
+        for name, key, tr in (("input_ln", "input_layernorm", False),
+                              ("wq", "self_attn.q_proj", True),
+                              ("wk", "self_attn.k_proj", True),
+                              ("wv", "self_attn.v_proj", True),
+                              ("wo", "self_attn.o_proj", True),
+                              ("post_ln", "post_attention_layernorm", False)):
+            lp.update(place(name, get(p + key + ".weight", tr)))
         if arch.num_experts:
             lp["router"] = get(p + "mlp.gate.weight", True)
             for proj in ("gate", "up", "down"):
-                lp["moe_" + proj] = experts(p + "mlp.experts.", proj + "_proj")
+                lp.update(place("moe_" + proj, experts(p + "mlp.experts.", proj + "_proj")))
         else:
-            lp.update(gate=get(p + "mlp.gate_proj.weight", True),
-                      up=get(p + "mlp.up_proj.weight", True),
-                      down=get(p + "mlp.down_proj.weight", True))
+            for proj in ("gate", "up", "down"):
+                lp.update(place(proj, get(p + f"mlp.{proj}_proj.weight", True)))
         if arch.use_qk_norm:
             lp["q_norm"] = get(p + "self_attn.q_norm.weight")
             lp["k_norm"] = get(p + "self_attn.k_norm.weight")
         layers.append(lp)
 
-    params = {
-        "embed": get("model.embed_tokens.weight"),
-        "layers": layers,
-        "final_ln": get("model.norm.weight"),
-    }
+    params = {**place("embed", get("model.embed_tokens.weight")), "layers": layers,
+              "final_ln": get("model.norm.weight")}
     if arch.tie_embeddings or "lm_head.weight" not in t:
-        params["lm_head"] = params["embed"]
+        tie_head(params)
     else:
-        params["lm_head"] = get("lm_head.weight")
+        params.update(place("lm_head", get("lm_head.weight")))
     return params
 
 

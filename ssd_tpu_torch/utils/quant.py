@@ -15,6 +15,11 @@ embedding and the head are [V, D] with one scale per vocabulary row; a tied
 head stays one tensor, shared with the embedding. Keys: the int8 weight
 under `name`, its scales under `name + "_scale"`, with the weight's leading
 stack dimensions (an expert stack's scales are [E, out]).
+
+Under tensor parallelism a tensor is quantized whole and then sharded
+(`quantize_leaf`, then parallel/mesh.py), as the JAX package quantizes
+before it shards: a row-parallel wo or down keeps the scales of its full
+input axis, which a shard's own amax would change.
 """
 
 from __future__ import annotations
@@ -39,15 +44,28 @@ def _quantize_leaf(w: torch.Tensor, axis: int) -> tuple[torch.Tensor, torch.Tens
     return q, s.squeeze(-1)
 
 
+def quantize_leaf(name: str, w: torch.Tensor) -> dict:
+    """A model leaf as the int8 path holds it: {name: q, name_scale: s}
+    for a layer's matmul weight, the embedding or the head, else {name: w}."""
+    if name in LAYER_WEIGHTS:
+        axis = w.dim() - 2
+    elif name in ("embed", "lm_head"):
+        axis = 1
+    else:
+        return {name: w}
+    q, s = _quantize_leaf(w, axis)
+    return {name: q, name + "_scale": s}
+
+
 def _quantize_head(params: dict):
     """The embedding and the LM head, one scale per vocabulary row; a tied
     head (the same tensor as the embedding) stays shared."""
     tied = params["lm_head"] is params["embed"]
-    params["embed"], params["embed_scale"] = _quantize_leaf(params["embed"], 1)
+    params.update(quantize_leaf("embed", params["embed"]))
     if tied:
         params["lm_head"], params["lm_head_scale"] = params["embed"], params["embed_scale"]
     else:
-        params["lm_head"], params["lm_head_scale"] = _quantize_leaf(params["lm_head"], 1)
+        params.update(quantize_leaf("lm_head", params["lm_head"]))
 
 
 def quantize_params(params: dict) -> dict:
@@ -58,7 +76,7 @@ def quantize_params(params: dict) -> dict:
     for lp in params["layers"]:
         for name in LAYER_WEIGHTS:
             if name in lp:
-                lp[name], lp[name + "_scale"] = _quantize_leaf(lp[name], lp[name].dim() - 2)
+                lp.update(quantize_leaf(name, lp[name]))
     _quantize_head(params)
     return params
 

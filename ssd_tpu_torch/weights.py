@@ -8,6 +8,9 @@ function from the same weights. An EAGLE-3 head's flat dict
 (ssd_tpu/models/eagle3.py) converts key for key. A tree quantized by
 ssd_tpu/utils/quant.py carries its int8 weights and `_scale` keys across,
 each int8 matrix transposed to the port's [out, in] (utils/quant.py).
+Given a parallel/mesh.py::Sharding, it returns that rank's shard of the
+whole tree (quantized whole on the JAX side, then sliced, as ssd_tpu
+quantizes before it shards).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ssd_tpu_torch.parallel.mesh import shard_params
 from ssd_tpu_torch.utils.quant import EAGLE_WEIGHTS, LAYER_WEIGHTS
 
 _LAYER_KEYS = ("input_ln", "wq", "wk", "wv", "wo", "post_ln", "gate", "up",
@@ -31,14 +35,15 @@ _EAGLE_KEYS = ("embed", "fc", "input_ln", "cond_ln", "post_ln", "wq", "wk",
 _TOP_KEYS = ("embed", "layers", "final_ln", "lm_head", "embed_scale", "lm_head_scale")
 
 
-def params_from_jax(np_params: dict) -> dict:
+def params_from_jax(np_params: dict, sharding=None) -> dict:
     """{embed, layers: {name: [L, ...]}, final_ln, lm_head} as numpy arrays ->
     {embed, layers: [{name: tensor}] * L, final_ln, lm_head} (an MoE layer
     keeps its experts stacked, [E, ...]), CPU tensors of
     the arrays' dtype (float32, float16 or ml_dtypes' bfloat16); a tied head
     (the same array as embed) stays one tensor. An EAGLE head's dict (it has
     `fc`) keeps its keys, with d2t as int64. Int8 matrices (not the
-    embedding or the head, already [V, D]) become [.., out, in]."""
+    embedding or the head, already [V, D]) become [.., out, in]. With a
+    Sharding, the rank's slices of a model's tree (parallel/mesh.py)."""
     def conv(a, transpose=False) -> torch.Tensor:
         a = np.array(a)  # a copy: device_get arrays are read-only
         if a.dtype.name == "bfloat16":
@@ -69,4 +74,4 @@ def params_from_jax(np_params: dict) -> dict:
     for k in ("lm_head", "lm_head_scale"):
         if k in np_params:
             params[k] = params[k.replace("lm_head", "embed")] if tied else conv(np_params[k])
-    return params
+    return params if sharding is None else shard_params(params, sharding)

@@ -1201,3 +1201,58 @@ def test_int8_weight_graph_replay_equals_eager_on_card(kind, tmp_path):
     launches = graphs.steps[key].launches
     assert launches.get(linear.int8_linear, 0) > 0
     assert moe.grouped_gemm not in launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["simt", "prefill", "decode"])
+def test_expert_parallel_groups_match_plain_on_card(route, monkeypatch):
+    """One expert-parallel rank's dispatch (ops/moe.py): the offsets end
+    before N, at the rank's own rows, and the rows past them (another
+    rank's pairs) are not computed. K6 and K9 (int8 experts) on every
+    route (simt: fp32 x) against their plain versions over the rows the
+    groups own; close() as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    monkeypatch.setattr(moe, "grouped_gemm_route", lambda *shape: route)
+    dtype = torch.float32 if route == "simt" else torch.bfloat16
+    r = np.random.default_rng(41)
+    for sizes, tail, K, Nout in [([0, 3, 1, 0, 2], 7, 64, 72), ([1] * 32 + [2] * 16, 64, 2048, 768),
+                                 ([0, 130, 0, 5], 40, 96, 136)]:
+        n, E = sum(sizes), len(sizes)
+        x = torch.from_numpy(r.normal(size=(n + tail, K))).float().to("cuda", dtype)
+        w = (torch.from_numpy(r.normal(size=(E, K, Nout))).float() * 0.05).to("cuda", dtype)
+        offs = t(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)).cuda()
+        got = moe.grouped_gemm(x, w, offs)
+        torch.cuda.synchronize()
+        assert close(got[:n], moe.grouped_gemm_plain(x, w, offs)[:n], dtype), (sizes[:6], K)
+        wq = torch.from_numpy(r.integers(-127, 128, size=(E, Nout, K))).to("cuda", torch.int8)
+        # Scales of a 0.02-scale weight, so outputs are O(1) as in a model.
+        s = (torch.from_numpy(r.random((E, Nout))).float() * (0.04 / 127) + 0.01 / 127).cuda()
+        monkeypatch.setattr(linear, "int8_linear_route",
+                            lambda *shape: "simt" if route == "simt" else route)
+        got = linear.int8_linear(x, wq, s, group_offsets=offs)
+        torch.cuda.synchronize()
+        assert close(got[:n], linear.int8_linear_plain(x, wq, s, dtype, offs)[:n], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_moe_mlp_expert_parallel_shards_sum_on_card(tp):
+    """moe_mlp over each rank's experts (the router whole) summed over the
+    ranks gives the whole layer's output on the card: bf16 within 2^-6
+    |ref| + 2e-3 (each rank rounds its partial sum to bf16 once more)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    T, D, E, Im, k = 24, 256, 16, 128, 4
+    lp = {"router": torch.randn(D, E, generator=g, device="cuda").bfloat16() * 0.1,
+          "moe_gate": torch.randn(E, D, Im, generator=g, device="cuda").bfloat16() * 0.05,
+          "moe_up": torch.randn(E, D, Im, generator=g, device="cuda").bfloat16() * 0.05,
+          "moe_down": torch.randn(E, Im, D, generator=g, device="cuda").bfloat16() * 0.05}
+    x = torch.randn(T, D, generator=g, device="cuda").bfloat16()
+    want = moe.moe_mlp(x, lp, k, True).float()
+    El = E // tp
+    got = sum(moe.moe_mlp(x, {**lp, **{n: lp[n][r * El:(r + 1) * El].contiguous()
+                                       for n in ("moe_gate", "moe_up", "moe_down")}},
+                          k, True, rank=r).float() for r in range(tp))
+    assert ((got - want).abs() <= 2e-3 + 2.0 ** -6 * want.abs()).all()

@@ -113,11 +113,15 @@ def test_grouped_gemm_plain_matches_ragged_dot_and_gmm(sizes):
 
 
 def test_grouped_gemm_wrapper_refuses_bad_input():
-    """Offsets that do not run from 0 to N are refused on the CPU; a tensor
-    on any device other than the CPU launches the kernel or raises."""
+    """Offsets that do not rise from 0 to at most N are refused on the CPU
+    (offsets ending below N are expert parallelism's, whose rows past them
+    belong to other ranks); a tensor on any device other than the CPU
+    launches the kernel or raises."""
     x, w = torch.zeros(5, 16), torch.zeros(2, 16, 8)
     with pytest.raises(ValueError, match="offsets"):
-        moe.grouped_gemm(x, w, torch.tensor([0, 2, 4], dtype=torch.int32))
+        moe.grouped_gemm(x, w, torch.tensor([0, 2, 6], dtype=torch.int32))
+    with pytest.raises(ValueError, match="offsets"):
+        moe.grouped_gemm(x, w, torch.tensor([0, 3, 2], dtype=torch.int32))
     xm, wm = x.to("meta"), w.to("meta")
     with pytest.raises(RuntimeError, match="CUDA"):
         moe.grouped_gemm(xm, wm, torch.zeros(3, dtype=torch.int32, device="meta"))
