@@ -109,7 +109,8 @@ the script exits non-zero:
               first: a cached prompt recomputes only its last token, through
               GEMMs of other shapes, which can flip a near tie).
 4. spec     - sync SD, async SSD (unfused: a draft thread on its own
-              stream; the fused exchange, async_fused; the fused async
+              stream, with one draft or two draft_dp replicas on the card;
+              the fused exchange, async_fused; the fused async
               superstep, async_fused with spec_rounds 4 and 8), fused sync
               SD (spec_rounds 4 and 8) and ngram speculation (no draft: the
               last 3 tokens matched against the sequence's history, 4
@@ -126,7 +127,11 @@ the script exits non-zero:
               Every mode runs graphs (the unfused SSD draft its own, on its
               thread's stream), and SD, SSD, the exchange, the R=4
               superstep, fused SD and ngram eagerly beside them in turns
-              (graph, eager, graph) at b8 noise 0 (SD at b1 too);
+              (graph, eager, graph) at b8 noise 0 (SD at b1 too), and
+              unfused SSD with draft_dp 1 and 2 at b8 in four turns (graph,
+              eager, graph, graph) and at b1 in three: decode tok/s
+              min / median / max, hit rates, accepted lengths and the rows
+              each replica served; both replicas must serve rows at b8;
               their tokens (and the async forms' hits and accepted lengths)
               must agree over the runs that find the prompts in the prefix
               cache (all but the first; see serve); every graph run must
@@ -202,15 +207,17 @@ the script exits non-zero:
 9. exact    - the same width in fp32 from random checkpoints (init scale
               0.4): AR at 2 layers, greedy tokens on the card equal those of
               device="cpu", with the smallest top-1/top-2 logit margin seen;
-              then a target of 4 layers and a noisy 2-layer draft: AR, sync
+              then a target of 3 layers and a noisy 2-layer draft: AR, sync
               SD, async SSD, the fused exchange and the fused superstep
               (4 rounds) on the card under graphs, over the fp32 and the
               int8 cache, AR on the CPU over each (its SD and SSD were cut
               to hold the run's time), and on the card AR multi-step, fused SD
-              (4 rounds) and ngram under graphs over the fp32 cache, all
-              equal the card's eager AR of the same cache (seconds per
-              engine reported); and two card runs of int8_mxu AR give the
-              same tokens. Then
+              (4 rounds), ngram and async SSD with draft_dp=2 under graphs
+              over the fp32 cache, all equal the card's eager AR of the same
+              cache (seconds per engine reported); so do sync SD, fused SD
+              and async SSD with the draft as a reduced-vocabulary draft
+              (an explicit head of 16384 rows and d2t, FR-Spec style); and
+              two card runs of int8_mxu AR give the same tokens. Then
               Qwen3-30B-A3B's width at 1 layer: the CPU's AR, the card's
               graph AR, sync SD and async SSD (graphs;
               self-draft) equal the card's eager AR, with the smallest
@@ -247,7 +254,12 @@ the script exits non-zero:
               and 0.04, graphs against eager in turns, three runs each:
               decode tok/s min / median / max, hit rate, accepted length,
               replays and launches a decode step, capture seconds and pool
-              bytes.
+              bytes. spec_draft_rank (only when asked for, two cards or
+              more): the NCCL draft rank's fp32 check of tp, then unfused
+              SSD on spec's pair at b8 and b1 with the draft beside the
+              target against the draft on cuda:1, in turns, three runs
+              each: decode tok/s, hit rate, accepted length, the
+              exchange's ms a step.
 
 13. tp     - tensor and expert parallelism (num_devices > 1,
               ssd_tpu_torch/parallel) on one card, random weights from a
@@ -269,6 +281,15 @@ the script exits non-zero:
               each path and the all-reduce launch at the per-rank heads
               (16/4 and 16/2). With two cards or more, the engine also
               spawns its second rank on cuda:1 over NCCL under graphs.
+              Then the unfused async draft on a rank of its own
+              (ssd_tpu_torch/parallel/draft_rank.py): two processes share
+              the card over gloo, the target and its draft rank, eagerly;
+              the 1B geometry at 4 layers, fp32 async SSD, 4 prompts, 32
+              tokens each: tokens equal the card's single-process SSD, K1
+              and K2 launch in the target, K1, K2 and K3 in the draft rank
+              (which reports its counts), with the exchange's ms a step.
+              With two cards or more, the same with the draft rank on
+              cuda:1 over NCCL under graphs.
 
 Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -279,6 +300,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -288,7 +310,7 @@ import time
 
 PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "quant", "eagle", "exact", "tp")
 EXTRA_PHASES = ("profile", "moe_profile", "quant_profile", "quant_moe_profile", "spec_profile",
-                "eagle_profile", "spec_async")
+                "eagle_profile", "spec_async", "spec_draft_rank")
 
 # Llama-3.2-1B geometry (the JAX package's bench.py random-weight config).
 LLAMA_1B = {
@@ -1809,28 +1831,34 @@ def _eager(llm):
             r.graphs = g
 
 
+def _draft_replicas(llm) -> list:
+    """The runners of the unfused async draft server on this card (one per
+    draft_dp replica); none for a draft on ranks of its own."""
+    return list(getattr(llm.draft_server, "runners", []))
+
+
 def _runners(llm) -> list:
     """The engine's model runners: the target, and the draft (inline, or
-    the unfused async draft server's)."""
-    rs = [llm.model_runner, llm.draft_runner,
-          llm.draft_server.runner if llm.draft_server is not None else None]
+    the unfused async draft server's replicas)."""
+    rs = [llm.model_runner, llm.draft_runner] + _draft_replicas(llm)
     return [r for r in rs if r is not None]
 
 
 def _step_graphs(llm) -> list:
-    """The engine's StepGraphs: its own, and the unfused async draft's."""
-    gs = [llm.graphs, llm.draft_server.runner.graphs if llm.draft_server else None]
+    """The engine's StepGraphs: its own, and each async draft replica's."""
+    gs = [llm.graphs] + [r.graphs for r in _draft_replicas(llm)]
     return [g for g in gs if g is not None]
 
 
 def _graph_facts(llm) -> dict | None:
     """Graphs, capture seconds and reserved bytes of an engine's captures
-    (its own StepGraphs, and the unfused async draft's under "draft")."""
+    (its own StepGraphs, and the unfused async draft's under "draft", a
+    second replica's under "draft1")."""
     if llm.graphs is None:
         return None
     facts = llm.graphs.summary()
-    for g in _step_graphs(llm)[1:]:
-        facts["draft"] = g.summary()
+    for i, g in enumerate(_step_graphs(llm)[1:]):
+        facts["draft" + (str(i) if i else "")] = g.summary()
     return facts
 
 
@@ -2107,8 +2135,9 @@ def _kernel_wrappers() -> tuple:
     return att.KERNEL_WRAPPERS + (moe.grouped_gemm, linear.int8_linear)
 
 
-def _draft_params(llm) -> dict:
-    runner = llm.draft_server.runner if llm.draft_server is not None else llm.draft_runner
+def _draft_params(llm, replica: int = 0) -> dict:
+    runner = (_draft_replicas(llm)[replica] if llm.draft_server is not None
+              else llm.draft_runner)
     return runner.params
 
 
@@ -2116,22 +2145,41 @@ def _perturb_draft(llm, noise: float, scale: float):
     """bench.py's draft_noise on the freshly loaded draft: every projection
     of the live layers becomes w + (scale * noise) * N(0, 1), drawn from a
     host generator seeded 1000 + layer. An int8 projection's per-channel
-    scales become s * (1 + noise * N(0, 1)) instead (the int8 values stay)."""
+    scales become s * (1 + noise * N(0, 1)) instead (the int8 values stay).
+    Every draft_dp replica takes the same noise."""
     import torch
 
-    params = _draft_params(llm)
+    for r in range(max(1, len(_draft_replicas(llm)))):
+        _perturb_layers(_draft_params(llm, r), noise, scale)
+    torch.cuda.synchronize()
+
+
+_UNIT_NOISE: dict = {}   # (layer, the shapes it draws) -> its unit normals
+
+
+def _layer_noise(i: int, shapes: tuple) -> list:
+    """Layer i's unit normals, one tensor per shape in order, from a host
+    generator seeded 1000 + i. Drawn once and kept: the runs perturb drafts
+    of the same shapes again and again, and the draws cost seconds."""
+    import torch
+
+    key = (i, shapes)
+    if key not in _UNIT_NOISE:
+        g = torch.Generator().manual_seed(1000 + i)
+        _UNIT_NOISE[key] = [torch.randn(s, generator=g) for s in shapes]
+    return _UNIT_NOISE[key]
+
+
+def _perturb_layers(params: dict, noise: float, scale: float):
     for i, lp in enumerate(params["layers"]):
         # Drawn on the host, so the card's and the CPU's drafts are the same.
-        g = torch.Generator().manual_seed(1000 + i)
-        for k in PROJ:
+        leaves = [lp[k + "_scale"] if k + "_scale" in lp else lp[k] for k in PROJ]
+        units = _layer_noise(i, tuple(tuple(x.shape) for x in leaves))
+        for k, x, u in zip(PROJ, leaves, units):
             if k + "_scale" in lp:
-                s = lp[k + "_scale"]
-                z = torch.randn(s.shape, generator=g) * noise
-                s.copy_(s * (1 + z.to(s.device)))
-                continue
-            z = torch.randn(lp[k].shape, generator=g) * (scale * noise)
-            lp[k].copy_(lp[k] + z.to(lp[k].device, lp[k].dtype))
-    torch.cuda.synchronize()
+                x.copy_(x * (1 + (u * noise).to(x.device)))
+            else:
+                x.copy_(x + (u * (scale * noise)).to(x.device, x.dtype))
 
 
 class _Spans:
@@ -2164,6 +2212,30 @@ class _Spans:
         return [(ref.elapsed_time(a), ref.elapsed_time(b)) for a, b in self.pairs]
 
 
+class _RowsServed:
+    """The request rows each of an engine's async draft replicas answered
+    (DraftRunner.service calls) while it is installed."""
+
+    def __init__(self, llm):
+        from ssd_tpu_torch.engine.draft_runner import DraftRunner
+
+        replicas = {id(r): i for i, r in enumerate(_draft_replicas(llm))}
+        self.rows = [0] * len(replicas)
+        self.orig = DraftRunner.service
+        orig, rows = self.orig, self.rows
+
+        def counted(runner, req):
+            rows[replicas[id(runner)]] += req.cache_keys.shape[0]
+            return orig(runner, req)
+
+        DraftRunner.service = counted
+
+    def restore(self):
+        from ssd_tpu_torch.engine.draft_runner import DraftRunner
+
+        DraftRunner.service = self.orig
+
+
 def _overlap(builds, verifies) -> dict:
     """How much of the draft's tree-build time on the card fell inside the
     target's verify windows."""
@@ -2185,16 +2257,17 @@ def _forget_prefixes(llm):
 
 def _spec_llm(tdir, ddir, mode, **kw):
     """The engine of a speculative mode: "sd", "ssd" (unfused async SSD),
-    "fasync1" (the fused exchange), "fasync<R>" (the fused async superstep,
-    R rounds a step), "fused<R>" (sync SD with R rounds a step) or "ngram"
-    (no draft; K tokens from the last NGRAM_N, SPEC_R rounds a step)."""
+    "ssd_dp2" (its draft as two draft_dp replicas on the card), "fasync1"
+    (the fused exchange), "fasync<R>" (the fused async superstep, R rounds
+    a step), "fused<R>" (sync SD with R rounds a step) or "ngram" (no
+    draft; K tokens from the last NGRAM_N, SPEC_R rounds a step)."""
     from ssd_tpu_torch import LLM
 
     if mode == "ngram":
         return LLM(tdir, ngram_speculate=True, ngram_n=NGRAM_N, speculate_k=SPEC_K,
                    spec_rounds=SPEC_R, **kw)
     async_ = dict(draft_async=True, async_fan_out=SPEC_F)
-    extra = (async_ if mode == "ssd" else
+    extra = (async_ if mode == "ssd" else dict(async_, draft_dp=2) if mode == "ssd_dp2" else
              dict(async_, async_fused=True, spec_rounds=int(mode[6:]))
              if mode.startswith("fasync") else
              dict(spec_rounds=int(mode[5:])) if mode.startswith("fused") else {})
@@ -2203,11 +2276,12 @@ def _spec_llm(tdir, ddir, mode, **kw):
 
 def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"], eager=False):
     """One measured generate of a main path ("ar", "sd", "ssd" (a plain or
-    an EAGLE draft), "fasync<R>", "fused<R>" or "ngram"), with eager the
+    an EAGLE draft), "ssd_dp2", "fasync<R>", "fused<R>" or "ngram"), with eager the
     engine's graphs detached: launch counts zeroed just before and read just
     after; for the speculative modes the accepted lengths and, async, the
     cache-hit rate; for SD and SSD tree-build/verify spans on the card, the
-    draft's step and chain times; for the fused modes the superstep's time
+    draft's step and chain times (SSD: the rows each draft_dp replica
+    served); for the fused modes the superstep's time
     (the exchange's verify + tree time); graph replays a decode step."""
     import torch
 
@@ -2218,15 +2292,17 @@ def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"], eager=
 
     sp = SamplingParams(temperature=0.0, max_new_tokens=n_new, ignore_eos=True)
     n_steps0 = 0
-    if mode == "ssd":
+    unfused = mode in ("ssd", "ssd_dp2")
+    if unfused:
         # A tree build left running by an earlier generate (the warm-up)
         # must not launch into this run's counts or spans.
         llm.draft_server.drain()
         n_steps0 = len(llm.draft_server._step_times)
     verify_spans = _Spans(Verifier, "verify")
-    build_spans = _Spans(type(llm.draft_server.runner) if mode == "ssd" else DraftRunner,
+    build_spans = _Spans(type(llm.draft_server.runner) if unfused else DraftRunner,
                          "build_tree")
     chain_spans = _Spans(SpeculatorSync, "speculate")
+    served = _RowsServed(llm) if unfused else None
     torch.cuda.synchronize()
     ref = torch.cuda.Event(enable_timing=True)
     ref.record()
@@ -2238,15 +2314,16 @@ def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"], eager=
     try:
         with _eager(llm) if eager else contextlib.nullcontext():
             outs, m = llm.generate(prompts, sp, use_tqdm=False)
-            if mode == "ssd":
+            if unfused:
                 # The tree build answering the last step runs on after
                 # generate returns; it belongs to this run, so its
                 # launches count.
                 llm.draft_server.drain()
     finally:
         launches = {w.__name__: w.launches for w in wrappers}
-        for spans in (verify_spans, build_spans, chain_spans):
-            spans.restore()
+        for spans in (verify_spans, build_spans, chain_spans, served):
+            if spans is not None:
+                spans.restore()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     for o in outs:
@@ -2272,10 +2349,11 @@ def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"], eager=
         return run, [o["token_ids"] for o in outs]
     run.update(spec_steps=len(m["target_verify_times"]),
                target_verify_ms=1e3 * sum(m["target_verify_times"]) / len(m["target_verify_times"]))
-    if mode == "ssd":
+    if unfused:
         steps = llm.draft_server._step_times[n_steps0:]
         run.update(draft_step_ms=1e3 * sum(steps) / len(steps),
-                   overlap=_overlap(build_spans.intervals(ref), verify_spans.intervals(ref)))
+                   overlap=_overlap(build_spans.intervals(ref), verify_spans.intervals(ref)),
+                   rows_per_replica=served.rows)
     elif mode == "sd":
         chain = chain_spans.intervals(ref)
         run.update(draft_chain_ms=sum(e - s for s, e in chain) / len(chain))
@@ -2288,12 +2366,18 @@ def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"], eager=
 # between them, so each level starts as a fresh engine would.
 SPEC_PLAN = (
     ("sd", ((0.0, ("b8", "b1")), (MISS_NOISE, ("b8",)))),
-    ("ssd", ((0.0, ("b8",)), (MISS_NOISE, ()))),
+    ("ssd", ((0.0, ("b8", "b1")), (MISS_NOISE, ()))),
+    ("ssd_dp2", ((0.0, ("b8", "b1")), (MISS_NOISE, ()))),
     ("fasync1", ((0.0, ("b8",)), (MISS_NOISE, ()))),
     ("fasync4", ((0.0, ("b8",)), (MISS_NOISE, ()))),
     ("fasync8", ((0.0, ()), (MISS_NOISE, ()))),
     ("fused4", ((0.0, ("b8",)),)), ("fused8", ((0.0, ()),)), ("ngram", ((0.0, ("b8",)),)))
-ASYNC_MODES = ("ssd", "fasync1", "fasync4", "fasync8")
+ASYNC_MODES = ("ssd", "ssd_dp2", "fasync1", "fasync4", "fasync8")
+# Turns (eager or not) of a batch run eagerly beside graphs; draft_dp's
+# comparison (ssd against ssd_dp2 at noise 0) takes three graph turns at b8
+# (and one eager turn, cut from two to hold the run's time).
+TURNS = (False, True, False)
+DP_TURNS = (False, True, False, False)
 
 
 def phase_spec() -> dict:
@@ -2305,7 +2389,7 @@ def phase_spec() -> dict:
 
     prompts8, prompt1 = _serving_prompts()
     warm = SamplingParams(temperature=0.0, max_new_tokens=8, ignore_eos=True)
-    out = {"runs": {}, "tokens": {}, "graphs": {}, "noise": MISS_NOISE}
+    out = {"runs": {}, "tokens": {}, "graphs": {}, "noise": MISS_NOISE, "turns": {}}
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         tdir, ddir = _spec_pair(d, layers=16, live=SPEC_LIVE, scale=0.02,
@@ -2317,7 +2401,8 @@ def phase_spec() -> dict:
         for mode, levels in SPEC_PLAN:
             t0 = time.perf_counter()
             llm = _spec_llm(tdir, ddir, mode, **engine)
-            out["graphs"][mode] = dict(_graph_facts(llm), init_s=time.perf_counter() - t0)
+            out["graphs"][mode] = dict(_graph_facts(llm), init_s=time.perf_counter() - t0,
+                                       pool=llm.model_runner.pool_sizing)
             for eager in (False, True):
                 with _eager(llm) if eager else contextlib.nullcontext():
                     llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
@@ -2327,11 +2412,14 @@ def phase_spec() -> dict:
                     _forget_prefixes(llm)
                 for name, prompts in (("b8", prompts8), ("b1", prompt1)):
                     base = f"{mode}_{name}_noise{level:g}"
-                    for i, eager in enumerate((False, True, False)
-                                              if name in eager_batches else (False,)):
+                    turns = (DP_TURNS if mode.startswith("ssd") and not level and name == "b8"
+                             else TURNS) if name in eager_batches else (False,)
+                    for i, eager in enumerate(turns):
                         run, toks = _spec_run(llm, mode, prompts, 128, eager=eager)
                         key = base + ("_eager" if eager else "")
-                        if key in out["runs"]:   # the second run in turns
+                        out["turns"].setdefault(base, {"graph": [], "eager": []})[
+                            "eager" if eager else "graph"].append(run)
+                        if key in out["runs"]:   # a later run in turns
                             out["runs"][key]["decode_tok_s_again"] = run["decode_tok_s"]
                         else:
                             out["runs"][key] = run
@@ -2357,16 +2445,45 @@ def phase_spec() -> dict:
                                 not lo <= run["cache_hit_rate"] <= hi:
                             fail(f"spec {key}: the miss path's cache-hit rate "
                                  f"{run['cache_hit_rate']} is outside [{lo}, {hi}]")
+                        if mode == "ssd_dp2" and name == "b8" and \
+                                not all(run["rows_per_replica"]):
+                            fail(f"spec {key}: a draft replica served no rows: "
+                                 f"{run['rows_per_replica']}")
             blocks = llm.model_runner.num_kvcache_blocks
             out["pool"] = llm.model_runner.pool_sizing
             llm.exit()
             del llm
             torch.cuda.empty_cache()
     out.pop("tokens")
+    out["draft_dp"] = _draft_dp_summary(out.pop("turns"))
+    emit("spec", part="draft_dp", **out["draft_dp"])
     emit("spec", geometry="Llama-3.2-1B width, target 16 layers (4 live), draft 4 layers, bf16",
          K=SPEC_K, async_fan_out=SPEC_F, ngram_n=NGRAM_N, ngram_rounds=SPEC_R,
          graphs=out["graphs"], kv_blocks_each_pool=blocks, pool=out["pool"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def _draft_dp_summary(turns: dict) -> dict:
+    """draft_dp=2 beside draft_dp=1 (unfused SSD, noise 0) at b8 and b1:
+    decode tok/s min / median / max of the graph and the eager turns (b8
+    three graph turns, b1 two), hit rates, accepted lengths and the rows
+    each replica served, per turn."""
+    out = {}
+    for mode in ("ssd", "ssd_dp2"):
+        for name in ("b8", "b1"):
+            runs = turns[f"{mode}_{name}_noise0"]
+            out[f"{mode}_{name}"] = dict(
+                decode_tok_s={k: _spread([r["decode_tok_s"] for r in v])
+                              for k, v in runs.items()},
+                cache_hit_rate=[r["cache_hit_rate"] for r in runs["graph"]],
+                mean_accepted_suffix_len=[r["mean_accepted_suffix_len"]
+                                          for r in runs["graph"]],
+                rows_per_replica=[r["rows_per_replica"] for r in runs["graph"]])
+    for name in ("b8", "b1"):
+        one, two = (out[f"{m}_{name}"]["decode_tok_s"]["graph"]["median"]
+                    for m in ("ssd", "ssd_dp2"))
+        out[f"dp2_over_dp1_graph_median_{name}"] = two / one
     return out
 
 
@@ -3167,6 +3284,38 @@ def phase_eagle() -> dict:
 # ---------------------------------------------------------------------------
 
 
+REDUCED_ROWS = 16384   # the exact phase's reduced draft head (1/8 of Llama-3's vocabulary)
+
+
+def _reduced_draft(d: str, ddir: str, emitted: list[list[int]]) -> str:
+    """A reduced-vocabulary copy of the draft checkpoint ddir under d: an
+    explicit lm_head of REDUCED_ROWS rows of the (tied) embedding, the
+    tokens in `emitted` and a seeded fill (FR-Spec keeps the frequent
+    tokens), and d2t (row i scores token i + d2t[i])."""
+    import numpy as np
+    import torch
+
+    from ssd_tpu_torch.utils.loader import SafetensorsIndex, save_safetensors
+
+    index = SafetensorsIndex(ddir)
+    t = {name: index.get(name) for name in index.names()}
+    V = t["model.embed_tokens.weight"].shape[0]
+    keep = np.unique(np.concatenate([np.asarray(x, np.int64) for x in emitted]))
+    rest = np.setdiff1d(np.arange(V), keep)
+    fill = np.random.default_rng(6).choice(rest, REDUCED_ROWS - len(keep), replace=False)
+    sub = np.sort(np.concatenate([keep, fill]))
+    t["lm_head.weight"] = t["model.embed_tokens.weight"][torch.from_numpy(sub)].contiguous()
+    t["d2t"] = torch.from_numpy((sub - np.arange(len(sub))).astype(np.int32))
+    out = os.path.join(d, "reduced")
+    os.makedirs(out)
+    save_safetensors(os.path.join(out, "model.safetensors"), t)
+    with open(os.path.join(ddir, "config.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(out, "config.json"), "w") as f:
+        json.dump(dict(cfg, tie_word_embeddings=False), f)
+    return out
+
+
 def _random_checkpoint(d: str, layers: int, scale: float, seed: int):
     import torch
 
@@ -3305,8 +3454,9 @@ def phase_exact() -> dict:
     if not equal:
         fail("exact: greedy tokens on the card differ from the CPU's")
 
-    # Speculative modes: target 4 layers (2 live; cut from 8 to hold the
-    # run's time), a 2-layer draft with noise, so steps both accept and
+    # Speculative modes: target 3 layers (2 live; cut from 8, then 4, to
+    # hold the run's time: a dead layer is an exact pass-through), a
+    # 2-layer draft with noise, so steps both accept and
     # reject; every mode on both devices must give the card's eager AR
     # tokens, over the fp32 cache and over the int8 cache (whose AR is the
     # reference of its own modes; its AR runs record their top-1/top-2
@@ -3321,14 +3471,14 @@ def phase_exact() -> dict:
     new_modes = ("multi", "fused4", "ngram")
     async_modes = ("ssd", "fasync1", "fasync4")
     with tempfile.TemporaryDirectory() as d:
-        tdir, ddir = _spec_pair(d, layers=4, live=2, scale=0.4, dtype=torch.float32, seed=3)
+        tdir, ddir = _spec_pair(d, layers=3, live=2, scale=0.4, dtype=torch.float32, seed=3)
         for kvq in (None, "int8"):
             for dev in ("cuda", "cpu"):
                 # The CPU runs the modes it ran before graphs; the card's new
                 # modes are held to the card's eager AR, itself held to the
                 # CPU's.
                 modes = (("ar_eager", "ar") + (() if kvq else new_modes) + ("sd",) + async_modes
-                         if dev == "cuda" else ("ar",))
+                         + (() if kvq else ("ssd_dp2",)) if dev == "cuda" else ("ar",))
                 for mode in modes:
                     t0 = time.perf_counter()
                     if mode in ("ar", "ar_eager", "multi"):
@@ -3353,6 +3503,29 @@ def phase_exact() -> dict:
                     if m["cache_hits"]:
                         hit_rates[run] = sum(m["cache_hits"]) / len(m["cache_hits"])
                     del llm
+        # The reduced-vocabulary draft (FR-Spec style): the draft with an
+        # explicit head of REDUCED_ROWS rows (the card's fp32 AR tokens and
+        # a seeded fill) and d2t; sync SD, fused SD and unfused SSD under
+        # graphs equal the card's eager AR ("reduced").
+        rdir = _reduced_draft(d, ddir, spec_tokens[("fp32", "cuda", "ar_eager")])
+        for mode in ("sd", "fused4", "ssd"):
+            t0 = time.perf_counter()
+            llm = _spec_llm(tdir, rdir, mode, device="cuda", **engine)
+            _perturb_draft(llm, 0.01, 0.4)
+            rows = _draft_params(llm)["lm_head"].shape[0]
+            outs, m = llm.generate(prompts, sp, use_tqdm=False)
+            llm.exit()
+            if llm.graphs is None or rows != REDUCED_ROWS:
+                fail(f"exact: the reduced-vocabulary {mode} engine holds no graphs, or "
+                     f"a head of {rows} rows")
+            spec_tokens[("reduced", "cuda", mode)] = [o["token_ids"] for o in outs]
+            run = f"reduced_cuda_{mode}"
+            seconds[run] = time.perf_counter() - t0
+            lens = m["accepted_suffix_lens_with_recovery"]
+            accepted[run] = sum(lens) / len(lens) if lens else None
+            if m["cache_hits"]:
+                hit_rates[run] = sum(m["cache_hits"]) / len(m["cache_hits"])
+            del llm
         mxu = []
         for _ in range(2):
             llm = LLM(tdir, device="cuda", kv_quant="int8_mxu", **engine)
@@ -3386,12 +3559,13 @@ def phase_exact() -> dict:
             if m["cache_hits"]:
                 hit_rates[run] = sum(m["cache_hits"]) / len(m["cache_hits"])
             del llm
-    spec_equal = {f"{kvq}_{dev}_{mode}": toks == spec_tokens[(kvq, "cuda", "ar_eager")]
+    spec_equal = {f"{kvq}_{dev}_{mode}": toks == spec_tokens[
+        ("fp32" if kvq == "reduced" else kvq, "cuda", "ar_eager")]
                   for (kvq, dev, mode), toks in spec_tokens.items()}
     int8_vs_fp32 = sum(a == b for x, y in zip(spec_tokens[("int8", "cuda", "ar_eager")],
                                               spec_tokens[("fp32", "cuda", "ar_eager")])
                        for a, b in zip(x, y))
-    emit("exact", geometry="Llama-3.2-1B width, target 4 layers (2 live), draft 2 layers "
+    emit("exact", geometry="Llama-3.2-1B width, target 3 layers (2 live), draft 2 layers "
          "(noise 0.01), fp32, init scale 0.4", K=SPEC_K, async_fan_out=SPEC_F,
          equal_to_card_ar_of_same_cache=spec_equal, mean_accepted_suffix_len=accepted,
          cache_hit_rate=hit_rates, seconds=seconds,
@@ -3765,6 +3939,7 @@ def phase_tp() -> dict:
         out["multi_card"] = torch.cuda.device_count() >= 2
         if out["multi_card"]:
             out["nccl_tp2"] = _tp_two_cards_nccl(cases, tp1)
+        out["draft_rank"] = _tp_draft_rank(d, ldir)
     for key, _, _, kw in cases:
         a, b = tp1[key], tp2[key]
         steps = [next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y), None)
@@ -3786,9 +3961,228 @@ def phase_tp() -> dict:
             fail(f"tp: {key}: a kernel of the path or the all-reduce never ran at tp 2: "
                  f"{b['launches']}, {b['collectives']}")
     emit("tp", part="cards", device_count=torch.cuda.device_count(),
-         ran=("NCCL world size 1 under graphs; gloo tp 2 on one card, eagerly"
-              + ("; NCCL tp 2 on two cards under graphs" if out["multi_card"] else
-                 "; one card: NCCL tp 2 under graphs not run")))
+         ran=("NCCL world size 1 under graphs; gloo tp 2 on one card, eagerly; a draft "
+              "rank beside the target on one card over gloo, eagerly"
+              + ("; NCCL tp 2 and a draft rank on cuda:1 under graphs" if out["multi_card"]
+                 else "; one card: NCCL tp 2 and the NCCL draft rank not run")))
+    return out
+
+
+def _draft_rank_case(ldir: str) -> dict:
+    """The draft-rank part's engine: the 1B geometry at 4 layers, fp32
+    async SSD, the target its own draft (random weights from a seed)."""
+    return dict(init_random=True, max_model_len=1024, kvcache_block_size=BLOCK,
+                max_num_seqs=len(TP_LENS), num_kvcache_blocks=160, dtype="float32",
+                draft=ldir, speculate=True, speculate_k=SPEC_K, draft_async=True,
+                async_fan_out=SPEC_F)
+
+
+def _draft_rank_serve(llm) -> dict:
+    """_tp_serve of a target whose draft runs on ranks of its own, with the
+    draft ranks' launches (drained before and after: counts since the
+    previous drain) and the exchange's seconds a decode step."""
+    llm.draft_server.drain()
+    n0 = len(llm.draft_server.exchange_s)
+    run = _tp_serve(llm, _tp_prompts(LLAMA_1B["vocab_size"]), TP_NEW)
+    run["draft_rank_launches"] = llm.draft_server.drain()
+    ex = llm.draft_server.exchange_s[n0:]
+    run["exchange_ms_per_step"] = 1e3 * sum(ex) / len(ex)
+    run["ms_per_decode_step"] = 1e3 * run["seconds"] / run["decode_steps"]
+    return run
+
+
+def _draft_rank_proc(rank: int, store: str, ldir: str, out_path: str):
+    """One process of the draft-rank part's gloo group on the card (cuda:0,
+    shared): rank 0 the target, rank 1 its draft rank, each building the
+    same engine over the group (rank 1's returns at the target's exit)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    try:
+        from ssd_tpu_torch import LLM
+
+        t0 = time.perf_counter()
+        llm = LLM(ldir, num_devices=2, device="cuda", enforce_eager=True,
+                  **_draft_rank_case(ldir))
+        if rank == 1:
+            return
+        run = dict(_draft_rank_serve(llm), init_s=time.perf_counter() - t0,
+                   tp_size=llm.config.tp_size, draft_ranks=llm.config.draft_ranks)
+        llm.exit()
+        with open(out_path, "w") as f:
+            json.dump(run, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_draft_rank(d: str, ldir: str) -> dict:
+    """The unfused async draft on a rank of its own: two processes on the
+    one card over gloo (the target on cuda:0, its draft rank on cuda:0),
+    eagerly; the greedy fp32 tokens equal the card's single-process SSD
+    (eager), K1 and K2 launch in the target and K1, K2 and K3 in the draft
+    rank. With two cards or more the engine spawns the draft rank on
+    cuda:1 over NCCL under graphs, with the same tokens."""
+    import gc
+    import multiprocessing as mp
+
+    import torch
+
+    from ssd_tpu_torch import LLM
+
+    llm = LLM(ldir, enforce_eager=True, **_draft_rank_case(ldir))
+    one = _tp_serve(llm, _tp_prompts(LLAMA_1B["vocab_size"]), TP_NEW)
+    llm.exit()
+    del llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    result = os.path.join(d, "draft_rank.json")
+    procs = [ctx.Process(target=_draft_rank_proc,
+                         args=(r, os.path.join(d, "store_draft"), ldir, result))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    codes = [p.exitcode for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    if codes != [0, 0]:
+        fail(f"tp: the draft-rank processes exited with {codes}")
+    with open(result) as f:
+        run = json.load(f)
+    out = {"gloo_one_card": dict(
+        {k: v for k, v in run.items() if k != "tokens"},
+        tokens_equal=run["tokens"] == one["tokens"], seconds_one_process=one["seconds"],
+        ms_per_decode_step_one_process=1e3 * one["seconds"] / one["decode_steps"])}
+    emit("tp", part="draft_rank", form="gloo, target and draft rank on cuda:0",
+         **out["gloo_one_card"])
+    if not out["gloo_one_card"]["tokens_equal"]:
+        fail("tp: draft_rank: fp32 tokens with the draft on its own rank differ from the "
+             "single-process SSD's")
+    need_target, need_draft = ("flat_prefill_attention", "paged_attention"), \
+        ("flat_prefill_attention", "paged_attention", "tree_attention")
+    if not (all(run["launches"][k] > 0 for k in need_target)
+            and all(run["draft_rank_launches"][k] > 0 for k in need_draft)
+            and not run["launches"]["tree_attention"]):
+        fail(f"tp: draft_rank: a kernel of the path did not launch where it runs: target "
+             f"{run['launches']}, draft rank {run['draft_rank_launches']}")
+    if torch.cuda.device_count() >= 2:
+        out["nccl_two_cards"] = _draft_rank_nccl(ldir, one["tokens"])
+    return out
+
+
+def _draft_rank_nccl(ldir: str, want: list) -> dict:
+    """With two cards: the engine spawns its draft rank on cuda:1 over NCCL,
+    under graphs; the tokens must equal `want` (the single-process SSD's)."""
+    import gc
+
+    import torch
+
+    from ssd_tpu_torch import LLM
+
+    llm = LLM(ldir, num_devices=2, **_draft_rank_case(ldir))
+    nccl = _draft_rank_serve(llm)
+    llm.exit()
+    del llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict({k: v for k, v in nccl.items() if k != "tokens"},
+               tokens_equal=nccl["tokens"] == want)
+    emit("tp", part="draft_rank", form="NCCL, draft rank on cuda:1, graphs", **out)
+    if not out["tokens_equal"] or not nccl["graph_replays"]:
+        fail("tp: draft_rank: the NCCL draft rank's tokens differ, or no graph replayed")
+    return out
+
+
+DRAFT_RANK_TURNS = ("beside", "rank", "rank", "beside", "beside", "rank")   # in turns
+
+
+def phase_spec_draft_rank() -> dict:
+    """Not run by default; needs two cards. The unfused async draft beside
+    the target (one process, the draft thread on its own stream) against
+    the draft on a rank of its own on cuda:1 (NCCL; both under graphs):
+    first the tp phase's fp32 4-layer check of the NCCL draft rank (tokens
+    equal the single-process SSD's), then spec's pair (bf16, the 1B width,
+    a 16-layer target with 4 live layers, the 4-layer draft, K 4, fan-out
+    2) at b8 and b1, noise 0, 128 tokens, both engines alive and run in
+    turns (DRAFT_RANK_TURNS, three runs each): decode tok/s min / median /
+    max, accepted length, hit rate, the exchange's ms a decode step, the
+    draft rank's kernel launches; greedy tokens must agree across the
+    forms over the runs that find the prompts in the prefix cache."""
+    import gc
+
+    import torch
+
+    from ssd_tpu_torch import LLM, SamplingParams
+
+    if torch.cuda.device_count() < 2:
+        emit("spec_draft_rank", skipped="needs two cards",
+             device_count=torch.cuda.device_count())
+        return {}
+    out = {"runs": {}}
+    with tempfile.TemporaryDirectory() as d:
+        ldir = os.path.join(d, "llama")
+        os.makedirs(ldir)
+        _write_config(ldir, num_hidden_layers=4)
+        llm = LLM(ldir, **_draft_rank_case(ldir))
+        one = _tp_serve(llm, _tp_prompts(LLAMA_1B["vocab_size"]), TP_NEW)
+        llm.exit()
+        del llm
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["nccl_exact"] = _draft_rank_nccl(ldir, one["tokens"])
+
+        prompts8, prompt1 = _serving_prompts()
+        tdir, ddir = _spec_pair(d, layers=16, live=SPEC_LIVE, scale=0.02,
+                                dtype=torch.bfloat16, seed=0)
+        engine = dict(dtype="bfloat16", max_model_len=SPEC_MAX_LEN, kvcache_block_size=BLOCK,
+                      max_num_seqs=8, num_kvcache_blocks=400, draft=ddir, speculate=True,
+                      speculate_k=SPEC_K, draft_async=True, async_fan_out=SPEC_F)
+        llms = {"beside": LLM(tdir, **engine), "rank": LLM(tdir, num_devices=2, **engine)}
+        warm = SamplingParams(temperature=0.0, max_new_tokens=8, ignore_eos=True)
+        sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
+        for llm in llms.values():
+            llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
+        tokens = {}
+        for name, prompts in (("b8", prompts8), ("b1", prompt1)):
+            runs = {"beside": [], "rank": []}
+            for i, form in enumerate(DRAFT_RANK_TURNS):
+                llm = llms[form]
+                llm.draft_server.drain()
+                n0 = len(getattr(llm.draft_server, "exchange_s", []))
+                replays0 = _replays(llm)
+                torch.cuda.synchronize()
+                outs, m = llm.generate(prompts, sp, use_tqdm=False)
+                counts = llm.draft_server.drain() if form == "rank" else None
+                steps = max(1, len(m["target_step_times"]) - 1)
+                run = dict(decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
+                           graph_replays_per_decode_step=(_replays(llm) - replays0) / steps,
+                           mean_accepted_suffix_len=sum(m["accepted_suffix_lens_with_recovery"])
+                           / len(m["accepted_suffix_lens_with_recovery"]),
+                           cache_hit_rate=sum(m["cache_hits"]) / len(m["cache_hits"]))
+                if form == "rank":
+                    ex = llm.draft_server.exchange_s[n0:]
+                    run.update(exchange_ms_per_step=1e3 * sum(ex) / len(ex),
+                               draft_rank_launches=counts)
+                runs[form].append(run)
+                toks = [o["token_ids"] for o in outs]
+                if i >= 2 and toks != tokens.setdefault(name, toks):
+                    fail(f"spec_draft_rank {name}: greedy tokens differ between the forms")
+            out["runs"][name] = {form: dict(
+                decode_tok_s=_spread([r["decode_tok_s"] for r in rs]),
+                mean_accepted_suffix_len=[r["mean_accepted_suffix_len"] for r in rs],
+                cache_hit_rate=[r["cache_hit_rate"] for r in rs],
+                **({"exchange_ms_per_step": [r["exchange_ms_per_step"] for r in rs],
+                    "draft_rank_launches": rs[0]["draft_rank_launches"]} if form == "rank" else {}),
+                graph_replays_per_decode_step=rs[0]["graph_replays_per_decode_step"])
+                for form, rs in runs.items()}
+            emit("spec_draft_rank", batch=name, turns=DRAFT_RANK_TURNS, **out["runs"][name])
+        for llm in llms.values():
+            llm.exit()
     return out
 
 
@@ -3896,7 +4290,7 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
             if key.endswith("_eager"):
                 continue
             for name in ("paged_attention", "flat_prefill_attention", "tree_attention"):
-                add(name, key.split("_")[0], run["launches"][name])
+                add(name, key.split("_b")[0], run["launches"][name])
     if kvq:
         for key, run in kvq["runs"].items():
             mxu, path = key.startswith("int8_mxu"), key.split("_")[-2]
@@ -3941,6 +4335,12 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
             for name, n in run["launches_tp2_rank0"].items():
                 if n:
                     add(name, f"tp2_{case}", n)
+        run = tp["draft_rank"]["gloo_one_card"]
+        for label, launches in (("draft_rank_target", run["launches"]),
+                                ("draft_rank", run["draft_rank_launches"])):
+            for name, n in launches.items():
+                if n:
+                    add(name, label, n)
     out = []
     for name, tm in kern["timings"].items():
         err = max(v["max_abs_err"] for (k, _, _), v in kern["errors"].items() if k == name)
@@ -4011,6 +4411,9 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Every CUDA graph capture runs a full collection (engine/graphs.py and
+    # torch.cuda.graph); the imported modules' objects need none.
+    gc.freeze()
 
     t0 = time.perf_counter()
     seconds = {}
@@ -4039,6 +4442,7 @@ def main(argv=None) -> int:
     run("quant_moe_profile", phase_profile, True, "int8")
     run("spec_profile", phase_spec_profile)
     run("spec_async", phase_spec_async)
+    run("spec_draft_rank", phase_spec_draft_rank)
     run("eagle_profile", phase_eagle_profile)
     if kern is not None:
         print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, quant, eagle, exact, tp)),

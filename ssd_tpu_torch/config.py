@@ -26,12 +26,15 @@ speculation (SSD), each plain and fused. Differences from the JAX package:
   one per card (parallel/: tensor parallelism of the attention and the
   MLP, expert parallelism of Qwen3-MoE, a vocabulary-parallel embedding
   and head), with the sync draft or the fused forms' inline draft sharded
-  over the same ranks; `tp_size` is num_devices in every mode ported;
-- not ported yet, and refused here with the ROADMAP item: the unfused async
-  draft on dedicated devices under num_devices > 1, draft data parallelism
-  (`draft_dp` > 1), EAGLE-3 under tensor parallelism and `num_hosts` > 1;
-  so is a speculative knob on an engine that does not use it, where it
-  would be ignored.
+  over the same ranks. The unfused async draft takes the last `draft_dp`
+  devices, as in the JAX package: `tp_size` = max(1, num_devices -
+  draft_dp) ranks hold the target and, when num_devices >= tp_size +
+  draft_dp, each draft replica runs in a process of its own on a card of
+  its own (parallel/draft_rank.py); with fewer devices the replicas share
+  the target's card (engine/draft_runner.py::DraftServer);
+- not ported yet, and refused here with the ROADMAP item: EAGLE-3 under
+  tensor parallelism and `num_hosts` > 1; so is a speculative knob on an
+  engine that does not use it, where it would be ignored.
 """
 
 from __future__ import annotations
@@ -156,8 +159,9 @@ class Config:
     # draft_async with async_fused=True runs the draft inline, verify and the
     # next tree build in one step (engine/async_fused.py): one exchange a
     # step, or with spec_rounds > 1 that many exchanges and the tree-cache
-    # match in one superstep. draft_dp > 1 is not ported yet and is
-    # refused. ngram_speculate=True
+    # match in one superstep. draft_dp > 1 splits the unfused async
+    # draft's rows by seq_id % draft_dp over that many replicas, each with
+    # its own KV pool and tree cache. ngram_speculate=True
     # (without speculate) proposes speculate_k tokens a round by matching
     # the last ngram_n tokens against the sequence's own history, in
     # spec_rounds fused rounds, with no draft model. use_eagle=True serves
@@ -195,11 +199,42 @@ class Config:
 
     @property
     def tp_size(self) -> int:
-        """Ranks the target is sharded over. In the JAX package the unfused
-        async draft takes the last draft_dp devices (ssd_tpu/config.py);
-        that form is refused under num_devices > 1 here, so every rank
-        holds a shard of the target, and of the draft beside it."""
-        return self.num_devices
+        """Ranks the target is sharded over: the unfused async draft takes
+        the last draft_dp devices (ssd_tpu/config.py::tp_size); every other
+        mode shards its draft beside the target on all of them."""
+        if not self._unfused_async:
+            return self.num_devices
+        return max(1, self.num_devices - self.draft_dp)
+
+    @property
+    def draft_ranks(self) -> int:
+        """Processes that each run one draft replica on a card of their own
+        (ranks tp_size..tp_size + draft_dp - 1): draft_dp when num_devices
+        holds the target's ranks and the replicas, else 0 (the replicas
+        share the target's card, as ssd_tpu/engine/draft_runner.py puts
+        them on the target's device)."""
+        if not self._unfused_async:
+            return 0
+        return self.draft_dp if self.num_devices >= self.tp_size + self.draft_dp else 0
+
+    @property
+    def world_size(self) -> int:
+        """Processes of the engine: the target's ranks and the draft ranks."""
+        return self.tp_size + self.draft_ranks
+
+    @property
+    def draft_replicas_here(self) -> int:
+        """Draft models beside the target on each of its cards: the
+        unfused async draft's draft_dp replicas when they share it, none
+        when they run on ranks of their own, else the one draft."""
+        if self._unfused_async:
+            return 0 if self.draft_ranks else self.draft_dp
+        return 1
+
+    @property
+    def _unfused_async(self) -> bool:
+        """The async draft with a server of its own (draft_dp replicas)."""
+        return self.speculate and self.draft_async and not self.async_fused
 
     def __post_init__(self):
         if not os.path.isdir(self.model):
@@ -251,6 +286,7 @@ class Config:
             "jit_speculate": self.jit_speculate,
             "async_fused": self.async_fused,
             "use_eagle": self.use_eagle,
+            "draft_dp": self.draft_dp != 1,
         }
         if not self.speculate:
             # ngram speculation takes speculate_k and spec_rounds.
@@ -261,7 +297,7 @@ class Config:
         elif not self.draft_async:
             ignored = [k for k in ("async_fan_out", "fan_out_list",
                                    "fan_out_list_miss", "sampler_x",
-                                   "jit_speculate") if spec_only[k]]
+                                   "jit_speculate", "draft_dp") if spec_only[k]]
             if ignored:
                 raise ValueError(f"{', '.join(ignored)} need draft_async=True")
         if self.ngram_n != 3 and not self.ngram_speculate:
@@ -283,23 +319,16 @@ class Config:
                 "max_num_batched_tokens < max_model_len requires chunked_prefill")
 
     def _refuse_unported_parallelism(self):
-        """The parallel forms of ROADMAP Queue 1 item 1 not ported yet."""
-        if self.num_devices < 1 or self.num_hosts < 1:
-            raise ValueError(f"num_devices and num_hosts must be >= 1, got "
-                             f"{self.num_devices} and {self.num_hosts}")
-        todo = "not ported to ssd_tpu_torch yet (ROADMAP Queue 1 item 1, Parallelism: {})"
-        if self.draft_dp > 1:
-            raise NotImplementedError(todo.format(
-                "the unfused async draft on dedicated devices, with draft_dp > 1"))
-        if self.num_devices > 1 and self.speculate and self.draft_async \
-                and not self.async_fused:
-            raise NotImplementedError(todo.format(
-                "the unfused async draft on dedicated devices under num_devices > 1; "
-                "async_fused=True keeps the draft on the target's ranks"))
+        """The parallel forms of ROADMAP Queue 1 not ported yet."""
+        if self.num_devices < 1 or self.num_hosts < 1 or self.draft_dp < 1:
+            raise ValueError(f"num_devices, num_hosts and draft_dp must be >= 1, got "
+                             f"{self.num_devices}, {self.num_hosts} and {self.draft_dp}")
+        todo = "not ported to ssd_tpu_torch yet (ROADMAP Queue 1 item {}, Parallelism: {})"
         if self.num_devices > 1 and self.use_eagle:
-            raise NotImplementedError(todo.format("EAGLE-3 under tensor parallelism"))
+            raise NotImplementedError(todo.format(1, "EAGLE-3 under tensor parallelism"))
         if self.num_hosts > 1:
-            raise NotImplementedError(todo.format("num_hosts > 1"))
+            raise NotImplementedError(todo.format(
+                3, "num_hosts > 1, and the multi-host union of draft replies"))
 
     def _derive_speculative(self):
         """Draft config and tree geometry, as ssd_tpu/config.py derives them,
@@ -360,13 +389,17 @@ class Config:
             self.hf_config.max_position_embeddings
 
     def create_draft_config(self) -> "Config":
-        """Config of the draft model runner. Unlike the JAX package, which
-        gives the unfused async draft its own chip and memory share, both
-        runners share each card (and, under num_devices > 1, its rank):
-        the draft keeps the target's block count (the engine sizes the two
-        pools together, engine/model_runner.py::kv_block_bytes). An
-        EAGLE draft's model config is the one derived here (the target's
-        rope), and it borrows the target's embeddings when it has none."""
+        """Config of a draft model runner. Beside the target on its card
+        (the sync and fused drafts, on every rank under num_devices > 1,
+        and the unfused async draft's draft_dp replicas when they share the
+        card) each draft pool keeps the target's block count: the engine
+        sizes the pools together (engine/model_runner.py::
+        _decide_num_blocks). A draft rank of its own sizes its pool from
+        its card, as the JAX package's replica does on its chip, and the
+        scheduler takes the smallest count over the ranks
+        (parallel/draft_rank.py). An EAGLE draft's model config is the one
+        derived here (the target's rope), and it borrows the target's
+        embeddings when it has none."""
         if not self.use_eagle:
             return replace(self, model=self.draft)
         cfg = replace(self, model=self.draft, tokenizer_path=self.model)

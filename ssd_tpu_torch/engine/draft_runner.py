@@ -1,10 +1,10 @@
 """Asynchronous draft server: tree speculation off the target's critical path.
 
-Counterpart of ssd_tpu/engine/draft_runner.py (unfused async SSD, one draft
-replica). The draft pre-speculates one K-token continuation for every likely
-verification outcome (accepted depth x top-F recovery token), keyed
-(seq_id, accepted_len - 1, recovery_token), so a cache hit costs the target
-one queue round trip instead of K draft forwards.
+Counterpart of ssd_tpu/engine/draft_runner.py (unfused async SSD). The draft
+pre-speculates one K-token continuation for every likely verification
+outcome (accepted depth x top-F recovery token), keyed (seq_id,
+accepted_len - 1, recovery_token), so a cache hit costs the target one
+queue round trip instead of K draft forwards.
 
 Placement on one card: the draft shares the target's device and runs on its
 own CUDA stream, driven by a controller thread (the `torch.cuda.stream`
@@ -21,10 +21,17 @@ of the draft's own StepGraphs (engine/graphs.py), captured before the thread
 starts. The fused forms (engine/async_fused.py) run a DraftRunner inline,
 with no thread.
 
+Draft data parallelism (Config.draft_dp > 1) on the target's card: the
+server owns draft_dp runners, each with its own KV pool, generator, tree
+cache and StepGraphs, driven by the one thread on the one draft stream.
+Rows route to replica max(seq_id, 0) % draft_dp; each replica answers its
+rows, the server replies with every part, and only then builds each
+replica's next tree. On cards of their own the replicas run in processes
+of their own instead (parallel/draft_rank.py).
+
 A failure in the draft thread is parked in the response queue and raised in
 the target thread as RuntimeError("draft server died"); it is never
-swallowed. Not ported: draft data parallelism (draft_dp > 1) and the
-multi-host union of replies.
+swallowed. Not ported: the multi-host union of replies.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ import contextlib
 import queue
 import threading
 import traceback
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from functools import partial
 from time import perf_counter
 
@@ -347,22 +354,24 @@ class DraftRunner(ModelRunner):
 
 
 class DraftServer:
-    """The controller thread owning the draft runner: a request queue and a
-    response queue stand in for the reference's separate draft process. Its
-    graphs (the tree build, the miss chain) replay on the draft's stream."""
+    """The controller thread owning the draft runners (draft_dp replicas on
+    the target's card): a request queue and a response queue stand in for
+    the reference's separate draft process. Its graphs (the tree build, the
+    miss chain) replay on the draft's stream."""
 
     def __init__(self, draft_cfg: Config, init_random: bool = False,
                  batch_pads: list[int] | None = None):
-        """With batch_pads (a card engine that is not eager), the draft's
+        """With batch_pads (a card engine that is not eager), each replica's
         graphs are captured for those buckets into a StepGraphs of its own,
         here, before the thread starts, so no capture of this engine
         overlaps the thread's work."""
         if draft_cfg.use_eagle:
-            from ssd_tpu_torch.engine.eagle_runner import EagleDraftRunner
-
-            self.runner = EagleDraftRunner(draft_cfg, init_random=init_random)
+            from ssd_tpu_torch.engine.eagle_runner import EagleDraftRunner as cls
         else:
-            self.runner = DraftRunner(draft_cfg, init_random=init_random)
+            cls = DraftRunner
+        self.dp = draft_cfg.draft_dp
+        self.runners = [cls(draft_cfg, init_random=init_random) for _ in range(self.dp)]
+        self.runner = self.runners[0]
         dev = self.runner.device
         self.stream = None
         if dev.type == "cuda":
@@ -373,8 +382,9 @@ class DraftServer:
         if batch_pads is not None:
             from ssd_tpu_torch.engine.graphs import StepGraphs
 
-            self.runner.graphs = StepGraphs(dev, [self.runner.generator])
-            self.runner.capture(batch_pads)
+            for runner in self.runners:
+                runner.graphs = StepGraphs(dev, [runner.generator])
+                runner.capture(batch_pads)
             self.stream.wait_stream(torch.cuda.current_stream(dev))
         self._req_q: queue.Queue = queue.Queue()
         self._resp_q: queue.Queue = queue.Queue()
@@ -383,6 +393,33 @@ class DraftServer:
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="ssd-draft-server")
         self._thread.start()
+
+    @property
+    def max_blocks(self) -> int:
+        return self.runner.max_blocks
+
+    @property
+    def use_warp(self) -> bool:
+        return self.runner.use_warp
+
+    def _slice_req(self, req: SpecRequest, idx: np.ndarray) -> SpecRequest:
+        """The rows idx of a request; the EAGLE payload is gathered on the
+        card, on the draft's stream (after it waited for the payload)."""
+        if len(idx) == req.cache_keys.shape[0] and (idx == np.arange(len(idx))).all():
+            return req
+        dev_idx = None
+
+        def take(a):
+            nonlocal dev_idx
+            if a is None or isinstance(a, torch.cuda.Event):
+                return a
+            if isinstance(a, torch.Tensor):
+                if dev_idx is None:
+                    dev_idx = torch.from_numpy(idx).to(a.device)
+                return a.index_select(0, dev_idx)
+            return a[idx]
+
+        return SpecRequest(**{f.name: take(getattr(req, f.name)) for f in fields(SpecRequest)})
 
     def _loop(self):
         on_stream = (torch.cuda.stream(self.stream) if self.stream is not None
@@ -397,22 +434,35 @@ class DraftServer:
                     continue
                 try:
                     if cmd == "prefill":
-                        args, ready = payload
-                        self._receive(ready, args[2:])
-                        self.runner.prefill_from_payload(*args)
+                        (ids, bt, seq_ids, acts), ready = payload
+                        self._receive(ready, [acts])
+                        for r, idx in enumerate(replica_rows(seq_ids, self.dp)):
+                            if len(idx):
+                                args = ([ids[i] for i in idx], bt[idx])
+                                if acts is not None:
+                                    args += ([acts[i] for i in idx],)
+                                self.runners[r].prefill_from_payload(*args)
                     elif cmd == "spec":
                         t0 = perf_counter()
                         self._receive(payload.acts_ready,
                                       (payload.recovery_acts, payload.extend_acts))
-                        resp = self.runner.service(payload)
+                        parts = []
+                        for r, idx in enumerate(replica_rows(payload.cache_keys[:, 0], self.dp)):
+                            if len(idx):
+                                sub = self._slice_req(payload, idx)
+                                parts.append((r, idx, sub, self.runners[r].service(sub)))
+                        ready = None
                         if self.stream is not None:
-                            resp.ready = torch.cuda.Event()
-                            resp.ready.record(self.stream)
-                        # Unblock the target before building the next tree:
-                        # the build overlaps the target's verify.
-                        self._resp_q.put(resp)
-                        self.runner.reset_tree_cache()
-                        self.runner.build_tree(payload, resp)
+                            ready = torch.cuda.Event()
+                            ready.record(self.stream)
+                        for *_, resp in parts:
+                            resp.ready = ready
+                        # Unblock the target before building the next trees:
+                        # the builds overlap the target's verify.
+                        self._resp_q.put([(idx, resp) for _, idx, _, resp in parts])
+                        for r, _, sub, resp in parts:
+                            self.runners[r].reset_tree_cache()
+                            self.runners[r].build_tree(sub, resp)
                         self._step_times.append(perf_counter() - t0)
                 except Exception as e:  # surfaced to the waiting target
                     traceback.print_exc()
@@ -445,15 +495,15 @@ class DraftServer:
                     x.record_stream(self.stream)
 
     def prefill(self, input_id_lists: list[list[int]], block_tables: np.ndarray,
-                acts_list: list[torch.Tensor] | None = None):
-        """Queue the draft prefill; an EAGLE draft takes the target's
-        per-sequence taps (tensors on the target's device)."""
+                seq_ids: np.ndarray, acts_list: list[torch.Tensor] | None = None):
+        """Queue the draft prefill of sequences seq_ids; an EAGLE draft
+        takes the target's per-sequence taps (tensors on the target's
+        device)."""
         if self._dead:
             self._raise_dead()
-        args = (input_id_lists, block_tables)
-        if acts_list is not None:
-            args += (acts_list,)
-        self._req_q.put(("prefill", (args, self.handoff() if acts_list is not None else None)))
+        self._req_q.put(("prefill", ((input_id_lists, block_tables, np.asarray(seq_ids),
+                                      acts_list),
+                                     self.handoff() if acts_list is not None else None)))
 
     def _raise_dead(self):
         try:
@@ -464,7 +514,9 @@ class DraftServer:
             raise RuntimeError("draft server died") from resp
         raise RuntimeError("draft server died without replying")
 
-    def speculate(self, req: SpecRequest) -> SpecResponse:
+    def speculate(self, req: SpecRequest) -> list[tuple[np.ndarray, SpecResponse]]:
+        """The replies of the replicas that hold rows of req: [(the rows,
+        in request order, its SpecResponse)]."""
         if self._dead:
             self._raise_dead()
         self._req_q.put(("spec", req))
@@ -498,3 +550,10 @@ class DraftServer:
         if self._thread.is_alive():
             self._req_q.put(("exit", None))
             self._thread.join(timeout=30)
+
+
+def replica_rows(seq_ids: np.ndarray, dp: int) -> list[np.ndarray]:
+    """Row indices of each of dp draft replicas: seq_id % dp, ghost ids
+    (negative) to replica 0 (ssd_tpu/engine/draft_runner.py::_replica_rows)."""
+    g = np.maximum(np.asarray(seq_ids, np.int64), 0) % dp
+    return [np.nonzero(g == r)[0] for r in range(dp)]

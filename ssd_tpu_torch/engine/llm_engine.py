@@ -24,6 +24,15 @@ the engine spawned its ranks, the caller's process is rank 0: it relays
 add_request, step, generate, abort_request and exit to the others and is
 the only one that returns outputs and METRICS. exit() checks that every
 rank emitted the same tokens, then tears the group down.
+
+The unfused async draft (draft_async without async_fused) serves draft_dp
+replicas (Config.draft_dp): beside the target on its card
+(engine/draft_runner.py::DraftServer, the target's pool sized with theirs),
+or, when num_devices >= tp_size + draft_dp, each in a process of its own,
+ranks tp_size.. of the engine's group (parallel/draft_rank.py): the target
+then shards over tp_size ranks and talks to them through DraftRanks. At a
+draft rank of a caller's group the constructor serves the draft replica
+until the target's exit() and then returns an engine that serves nothing.
 """
 
 from __future__ import annotations
@@ -66,6 +75,9 @@ def _relayed(method):
     engines without spawned ranks run it here only."""
     @functools.wraps(method)
     def call(self, *args, **kwargs):
+        if self.draft_rank_launches is not None:
+            raise RuntimeError("this process served a draft rank; its engine serves "
+                               "no requests")
         comm = self.comm
         if comm is None or not comm.workers or self._relaying:
             return method(self, *args, **kwargs)
@@ -96,8 +108,17 @@ class LLMEngine:
         # Sequence ids of a tensor-parallel engine's own, alike on every
         # rank whatever each process served before.
         self._next_seq_id = 0
+        # A draft rank's kernel launches since its last drain, reported at
+        # exit (an engine built at a draft rank of a caller's group).
+        self.draft_rank_launches = None
         self.comm = tp_comm.connect(config, model, init_random, kwargs)
-        if self.comm is None or not self.comm.workers:
+        if self.comm is not None and self.comm.is_draft:
+            from ssd_tpu_torch.parallel.draft_rank import serve
+
+            self.draft_rank_launches = serve(self.comm, config, init_random)
+            self._exiting = True
+            return
+        if self.comm is None or not self.comm.owned:
             self._build(init_random)
             return
         # Rank 0 of a spawned group: the other ranks build theirs meanwhile
@@ -105,6 +126,8 @@ class LLMEngine:
         try:
             self.comm.relay(None, (), {}, lambda: self._build(init_random))
         except BaseException:
+            if getattr(self, "draft_server", None) is not None:
+                self.draft_server.shutdown()
             self.comm.close()
             raise
         atexit.register(lambda ref=weakref.ref(self): ref() and ref().exit())
@@ -112,11 +135,17 @@ class LLMEngine:
     def _build(self, init_random: bool):
         config = self.config
         Sequence.block_size = config.kvcache_block_size
-        self.model_runner = ModelRunner(config, init_random=init_random,
-                                        partner=config.draft_hf_config, comm=self.comm)
+        # The comm of the models' collectives: none for a one-rank target
+        # whose group exists for its draft ranks.
+        comm = self.comm
+        self.model_comm = None if comm is not None and comm.size == 1 and comm.draft_ranks \
+            else comm
         self.draft_runner = None
         self.draft_server = None
         self.draft_cfg = None
+        self.model_runner = ModelRunner(
+            config, init_random=init_random, comm=self.model_comm,
+            partner=config.draft_hf_config if config.draft_replicas_here else None)
         if config.speculate:
             # Made after the target runner: it inherits the block count that
             # sized both pools together.
@@ -127,7 +156,12 @@ class LLMEngine:
                 from ssd_tpu_torch.engine.draft_runner import DraftRunner
 
                 self.draft_runner = DraftRunner(self.draft_cfg, init_random=init_random,
-                                                comm=self.comm)
+                                                comm=self.model_comm)
+            elif config.draft_ranks:
+                from ssd_tpu_torch.parallel.draft_rank import DraftRanks
+
+                self.draft_server = DraftRanks(comm, self.draft_cfg)
+                self.draft_cfg.num_kvcache_blocks = self.draft_server.num_kvcache_blocks
             elif config.draft_async:
                 from ssd_tpu_torch.engine.draft_runner import DraftServer
 
@@ -140,7 +174,7 @@ class LLMEngine:
                 self.draft_runner = EagleModelRunner(self.draft_cfg, init_random=init_random)
             else:
                 self.draft_runner = ModelRunner(self.draft_cfg, init_random=init_random,
-                                                is_draft=True, comm=self.comm)
+                                                is_draft=True, comm=self.model_comm)
             # Stop the draft thread at interpreter exit if the caller did not.
             atexit.register(lambda ref=weakref.ref(self): ref() and ref().exit())
         self.tokenizer = load_tokenizer(config.model)
@@ -170,17 +204,17 @@ class LLMEngine:
 
         runners = [r for r in (self.model_runner, self.draft_runner) if r is not None]
         self.graphs = StepGraphs(self.model_runner.device, [r.generator for r in runners],
-                                 comm=self.comm)
+                                 comm=self.model_comm)
         for r in runners:
             r.graphs = self.graphs
         self._default_step = self.create_inference_step()
         self._default_step.capture(self._batch_pads())
 
     def exit(self):
-        """Stop the async draft thread; under tensor parallelism check that
-        every rank emitted the same tokens (raising if not) and, at rank 0
-        of a spawned group, tear the group down and join the ranks
-        (idempotent). A caller's group stays the caller's."""
+        """Stop the async draft thread or the draft ranks; under tensor
+        parallelism check that every rank emitted the same tokens (raising
+        if not) and, at rank 0 of a spawned group, tear the group down and
+        join the ranks (idempotent). A caller's group stays the caller's."""
         if self._exiting:
             return
         self._exiting = True

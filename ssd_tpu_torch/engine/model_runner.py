@@ -295,6 +295,7 @@ class ModelRunner:
         self.device = comm.device if comm is not None else resolve_device(config.device)
         self.hf_config = config.hf_config
         self.sharding = None
+        self._init_random = init_random
         self.arch = self._make_arch()
         self.eagle_layers = (tuple(config.eagle_layers)
                              if config.use_eagle and not is_draft else None)
@@ -344,7 +345,12 @@ class ModelRunner:
                            dtype=torch.float32, device=self.device))
 
     def _make_arch(self):
-        arch = Arch.from_model_config(self.hf_config)
+        # A reduced-vocabulary draft's head rows (its checkpoint's d2t) shape
+        # the head's sharding and bytes.
+        from ssd_tpu_torch.utils.loader import reduced_head_rows
+
+        head_vocab = None if self._init_random else reduced_head_rows(self.config.model)
+        arch = Arch.from_model_config(self.hf_config, head_vocab)
         if self.comm is None:
             return arch
         self.sharding = Sharding(arch, self.comm.rank, self.comm.size)
@@ -377,7 +383,10 @@ class ModelRunner:
         of a speculative engine, built after this runner on the same card),
         its weights are set aside first and every block is counted together
         with one partner block: the draft config then inherits the same
-        block count, so both pools fit and neither starves the other."""
+        block count, so both pools fit and neither starves the other. The
+        unfused async draft's draft_dp replicas on this card
+        (Config.draft_replicas_here) are that many partners, each with its
+        weights and its pool of the same count."""
         cfg = self.config
         if cfg.num_kvcache_blocks != -1:
             return cfg.num_kvcache_blocks
@@ -391,15 +400,19 @@ class ModelRunner:
 
             d_arch = EagleArch.from_model_config(partner, cfg.d_model_target,
                                                  len(cfg.eagle_layers))
-            block_bytes += kv_block_bytes(d_arch, self.block_size, self.dtype, self.kv_quant)
             reserve = eagle_param_bytes(d_arch, self.dtype, cfg.quantization)
         elif partner is not None:
-            # The draft's rank shard: its heads, MLP width and vocabulary rows.
+            # The draft's rank shard: its heads, MLP width and vocabulary rows
+            # (a reduced head counted at the full vocabulary's rows).
             d_arch = Arch.from_model_config(partner)
             if self.comm is not None:
                 d_arch = Sharding(d_arch, self.comm.rank, self.comm.size).rank_arch()
-            block_bytes += kv_block_bytes(d_arch, self.block_size, self.dtype, self.kv_quant)
             reserve = param_bytes(d_arch, self.dtype, cfg.quantization)
+        if partner is not None:
+            n = cfg.draft_replicas_here
+            block_bytes += n * kv_block_bytes(d_arch, self.block_size, self.dtype,
+                                              self.kv_quant)
+            reserve *= n
         free, total = torch.cuda.mem_get_info(self.device)
         avail = int(total * cfg.gpu_memory_utilization) - (total - free) - reserve
         num = max(16, avail // block_bytes)

@@ -58,9 +58,10 @@ class Scheduler:
         )
         if self.speculate:
             assert draft_cfg is not None
-            # One allocator per draft replica; draft data parallelism
-            # (`draft_dp` > 1 replicas) is not ported, so there is one.
-            self.draft_dp = 1
+            # One allocator per draft replica: draft data parallelism splits
+            # the batch by seq_id across the unfused async draft's replicas,
+            # each with its own KV pool.
+            self.draft_dp = config.draft_dp if config.draft_async else 1
             self.draft_block_managers = [
                 BlockManager(
                     draft_cfg.num_kvcache_blocks,

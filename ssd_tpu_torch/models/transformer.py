@@ -21,8 +21,12 @@ residual stream entering each tapped layer, concatenated. With int8 weights
 (utils/quant.py) every projection, expert stack, the embedding and the head
 are int8 [out, in] beside their fp32 scales `name + "_scale"`, and run
 through the W8A16 kernel (ops/linear.py); the router and the norms stay in
-the model's dtype. Not ported yet: the reduced vocabulary of a plain
-(non-EAGLE) draft (d2t).
+the model's dtype. A reduced-vocabulary draft (FR-Spec style, the
+checkpoint's `d2t`) has lm_head [Vd, D] over a subset of the vocabulary,
+d2t [Vd] (the offset of head row i's token from i) and head_ids [Vd] (its
+token, arange(Vd) + d2t, made once at load by `set_reduced_head`);
+compute_logits scatters its logits into the full vocabulary, -inf
+elsewhere, as ssd_tpu/models/transformer.py::compute_logits does.
 
 Tensor parallelism (parallel/): a rank's dict holds its shard
 (parallel/mesh.py) and its Arch its own query and k/v heads and MLP width,
@@ -32,8 +36,9 @@ experts' combine), looks a token up in the rank's vocabulary rows of the
 embedding (zeros elsewhere, exact under the sum) and all-reduces it, and
 gathers the head's fp32 vocabulary slices into the full [T, V] logits on
 every rank, so sampling and verify see what one card computes. A
-replicated embedding or head (tp does not divide V) needs neither. With a
-Comm of one rank only the two all-reduces a layer run.
+replicated embedding or head (tp does not divide its rows: V, or Vd for a
+reduced head) needs neither. With a Comm of one rank only the two
+all-reduces a layer run.
 """
 
 from __future__ import annotations
@@ -82,9 +87,22 @@ class Arch:
     tp_size: int = 1
     tp_rank: int = 0
     comm: object = field(default=None, compare=False, repr=False)
+    # Rows of a reduced LM head (a draft's d2t map; utils/loader.py), or
+    # None: the head spans the vocabulary.
+    head_vocab: int | None = None
+
+    @property
+    def head_rows(self) -> int:
+        return self.head_vocab or self.vocab_size
+
+    @property
+    def head_parallel(self) -> bool:
+        """The LM head is split over the ranks by rows (parallel/mesh.py):
+        tp > 1 and tp divides its rows."""
+        return self.tp_size > 1 and self.head_rows % self.tp_size == 0
 
     @classmethod
-    def from_model_config(cls, mc: ModelConfig) -> "Arch":
+    def from_model_config(cls, mc: ModelConfig, head_vocab: int | None = None) -> "Arch":
         return cls(
             vocab_size=mc.vocab_size,
             hidden_size=mc.hidden_size,
@@ -101,6 +119,7 @@ class Arch:
             num_experts_per_tok=mc.num_experts_per_tok,
             moe_intermediate_size=mc.moe_intermediate_size,
             norm_topk_prob=mc.norm_topk_prob,
+            head_vocab=head_vocab,
         )
 
 
@@ -156,6 +175,15 @@ def tie_head(params: dict):
         params["lm_head_scale"] = params["embed_scale"]
 
 
+def set_reduced_head(params: dict, d2t: torch.Tensor):
+    """Install a reduced head's map: d2t [Vd] (head row i scores token
+    i + d2t[i]) and head_ids, the token of each row, on the head's device,
+    which compute_logits scatters into with no host work."""
+    d2t = d2t.long().to(params["lm_head"].device)
+    params["d2t"] = d2t
+    params["head_ids"] = torch.arange(d2t.shape[0], device=d2t.device) + d2t
+
+
 def param_bytes(arch: Arch, dtype: torch.dtype, quantization: str | None = None) -> int:
     """Device bytes of a model's parameters as the runner holds them: the
     weights in `dtype` plus the fp32 copy of the LM head; with
@@ -171,6 +199,7 @@ def param_bytes(arch: Arch, dtype: torch.dtype, quantization: str | None = None)
     V, L = arch.vocab_size, arch.num_layers
     if V % arch.tp_size == 0:
         V //= arch.tp_size
+    Vh = arch.head_rows // arch.tp_size if arch.head_parallel else arch.head_rows
     elem = torch.finfo(dtype).bits // 8
     # (elements, output channels) of a layer's matrices; the router and the
     # norms stay in dtype.
@@ -179,10 +208,10 @@ def param_bytes(arch: Arch, dtype: torch.dtype, quantization: str | None = None)
     other = (D * E if E else 0) + 2 * D + (2 * hd if arch.use_qk_norm else 0)
     if quantization is None:
         per_layer = sum(n for n, _ in mats) + other
-        return (V * D + L * per_layer + D) * elem + V * D * 4
+        return (V * D + L * per_layer + D) * elem + Vh * D * 4
     per_layer = sum(n + 4 * c for n, c in mats) + other * elem
-    heads = 1 if arch.tie_embeddings else 2
-    return L * per_layer + heads * (V * D + 4 * V) + D * elem
+    head = 0 if arch.tie_embeddings else Vh * D + 4 * Vh
+    return L * per_layer + V * D + 4 * V + head + D * elem
 
 
 def forward_hidden(
@@ -242,12 +271,19 @@ def compute_logits(
     gather_idx: torch.Tensor | None = None,  # [B] token rows to project
 ) -> torch.Tensor:
     """Final RMSNorm + LM head in fp32, optionally on a gathered subset of
-    rows (prefill projects only each sequence's last token)."""
+    rows (prefill projects only each sequence's last token). A
+    vocabulary-parallel head's rank slices are gathered first; a reduced
+    head's [T, Vd] logits (int8 scales applied) are then scattered into
+    [T, V] at head_ids, -inf elsewhere: a fixed-shape copy with no host
+    work, so it runs inside the step graphs."""
     if gather_idx is not None:
         hidden = hidden[gather_idx]
     logits = head_logits(rms_norm(hidden, params["final_ln"], arch.rms_norm_eps), params)
-    if logits.shape[1] != arch.vocab_size:   # the rank's vocabulary slice
+    if arch.head_parallel:
         logits = gather_vocab(arch.comm, logits)
+    if "head_ids" in params:
+        full = logits.new_full((logits.shape[0], arch.vocab_size), float("-inf"))
+        logits = full.index_copy_(1, params["head_ids"], logits)
     return logits
 
 

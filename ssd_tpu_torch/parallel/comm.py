@@ -35,6 +35,13 @@ clock or a per-process quantity.
 - `all_reduce_sum` and `gather_vocab` count their calls in `.launches`
   (through ops/cuda_lib.py::count_launch, so a CUDA graph's replays count
   the collectives it captured).
+- With the unfused async draft on ranks of its own (Config.draft_ranks),
+  the group has Config.world_size ranks: the target's tp_size first, then
+  one rank per draft replica, spawned like the others (worker_main runs
+  parallel/draft_rank.py::serve there, with its pipe as the message link)
+  or taken from a caller's group. Every collective of the target then runs
+  over a group of the target's ranks only (Comm.group, made by every
+  process in the same order), so that no draft rank takes part in one.
 """
 
 from __future__ import annotations
@@ -63,27 +70,38 @@ _spawned = None
 
 
 class Comm:
-    """One rank's view of the engine's process group (the default group)."""
+    """One rank's view of the engine's process group: `size` target ranks
+    (the default group, or `group` when draft ranks follow them), and the
+    global ranks of the draft replicas."""
 
     def __init__(self, rank: int, size: int, backend: str, device: torch.device,
-                 owned: bool = False, workers=(), store_dir: str | None = None):
-        self.rank = rank
-        self.size = size
+                 owned: bool = False, workers=(), store_dir: str | None = None,
+                 group=None, draft_ranks=(), draft_procs=()):
+        self.rank = rank              # the global rank (the target's rank below size)
+        self.size = size              # the target's ranks
         self.backend = backend
         self.device = device
         self.owned = owned            # made by this engine: destroyed at close
         self.workers = list(workers)  # rank 0 of a spawned group: [(process, pipe)]
         self.store_dir = store_dir
+        self.group = group            # the target's ranks, when draft ranks exist
+        self.draft_ranks = list(draft_ranks)
+        self.draft_procs = list(draft_procs)   # rank 0 of a spawned group
         self.stage = backend == "gloo" and device.type == "cuda"
         self._hash = hashlib.blake2b(digest_size=8)
         self.closed = False
 
-    # --- collectives ---
+    @property
+    def is_draft(self) -> bool:
+        """This process runs a draft replica, not a shard of the target."""
+        return self.rank >= self.size
+
+    # --- collectives (over the target's ranks) ---
 
     def min_over_ranks(self, n: int) -> int:
         t = torch.tensor([n], dtype=torch.int64,
                          device="cpu" if self.backend == "gloo" else self.device)
-        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.group)
         return int(t.item())
 
     def warm_up(self):
@@ -151,7 +169,9 @@ class Comm:
         self.closed = True
         if self.owned and dist.is_initialized():
             dist.destroy_process_group()
-        for proc, conn in self.workers:
+        for _, conn in self.draft_procs:
+            conn.close()   # a draft rank still waiting for a message ends
+        for proc, conn in self.workers + self.draft_procs:
             proc.join(timeout=60)
             if proc.is_alive():
                 proc.kill()
@@ -169,10 +189,10 @@ def all_reduce_sum(comm: Comm, x: torch.Tensor) -> torch.Tensor:
     and rounded once, as NCCL rounds a two-rank sum)."""
     if comm.stage or (comm.backend == "gloo" and x.dtype == torch.bfloat16):
         t = x.float().cpu()
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=comm.group)
         x.copy_(t)
     else:
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=comm.group)
     cuda_lib.count_launch(all_reduce_sum)
     return x
 
@@ -184,14 +204,26 @@ def gather_vocab(comm: Comm, x: torch.Tensor) -> torch.Tensor:
     if comm.backend == "gloo":
         t = x.cpu().contiguous()
         parts = [torch.empty_like(t) for _ in range(comm.size)]
-        dist.all_gather(parts, t)
+        dist.all_gather(parts, t, group=comm.group)
         out = torch.cat(parts, dim=1).to(x.device)
     else:
         buf = torch.empty(comm.size * T, Vl, dtype=x.dtype, device=x.device)
-        dist.all_gather_into_tensor(buf, x.contiguous())
+        dist.all_gather_into_tensor(buf, x.contiguous(), group=comm.group)
         out = buf.view(comm.size, T, Vl).permute(1, 0, 2).reshape(T, comm.size * Vl)
     cuda_lib.count_launch(gather_vocab)
     return out
+
+
+def broadcast(comm: Comm, x: torch.Tensor) -> torch.Tensor:
+    """Target rank 0's x on every target rank, in x's memory (a CUDA
+    tensor goes through host memory under gloo)."""
+    if comm.stage:
+        t = x.cpu()
+        dist.broadcast(t, 0, group=comm.group)
+        x.copy_(t)
+    else:
+        dist.broadcast(x, 0, group=comm.group)
+    return x
 
 
 all_reduce_sum.launches = 0
@@ -213,11 +245,20 @@ def _check_graphs(config, backend: str, device: torch.device):
         raise ValueError(f"an NCCL group needs device='cuda', got {config.device!r}")
 
 
+def _make_comm(config, rank: int, backend: str, device: torch.device, **kw) -> Comm:
+    """The Comm of global rank `rank`; with draft ranks, every process makes
+    the target's group here, in the same order."""
+    tp = config.tp_size
+    draft = list(range(tp, config.world_size))
+    group = dist.new_group(list(range(tp))) if draft else None
+    return Comm(rank, tp, backend, device, group=group, draft_ranks=draft, **kw)
+
+
 def connect(config, model: str, init_random: bool, kwargs: dict) -> Comm | None:
-    """The engine's Comm (see the module's notes), or None: num_devices=1
-    and no group of one rank from the caller."""
+    """The engine's Comm (see the module's notes), or None: one process
+    (Config.world_size 1) and no group of one rank from the caller."""
     global _spawned
-    n = config.num_devices
+    n = config.world_size
     if dist.is_available() and dist.is_initialized():
         if _spawned is not None:
             if n > 1:
@@ -228,11 +269,11 @@ def connect(config, model: str, init_random: bool, kwargs: dict) -> Comm | None:
         if size != n:
             if n == 1:
                 return None
-            raise ValueError(f"num_devices={n}, but the caller's process group has "
-                             f"{size} ranks")
+            raise ValueError(f"the engine runs {n} ranks (num_devices={config.num_devices}), "
+                             f"but the caller's process group has {size}")
         backend, device = dist.get_backend(), _device_of(config)
         _check_graphs(config, backend, device)
-        return Comm(dist.get_rank(), size, backend, device)
+        return _make_comm(config, dist.get_rank(), backend, device)
     if n == 1:
         return None
     device = torch.device(config.device)
@@ -248,19 +289,23 @@ def connect(config, model: str, init_random: bool, kwargs: dict) -> Comm | None:
     store = os.path.join(store_dir, "store")
     ctx = mp.get_context("spawn")
     threads = min(WORKER_THREADS, torch.get_num_threads())
-    workers = []
+    workers, drafts = [], []
     for r in range(1, n):
         parent, child = ctx.Pipe()
-        proc = ctx.Process(target=worker_main, daemon=True, name=f"ssd-tp-rank{r}",
+        kind = "tp" if r < config.tp_size else "draft"
+        proc = ctx.Process(target=worker_main, daemon=True, name=f"ssd-{kind}-rank{r}",
                            args=(r, n, store, backend, model, init_random, kwargs,
                                  child, threads))
         proc.start()
         child.close()
-        workers.append((proc, parent))
-    comm = Comm(0, n, backend, device, owned=True, workers=workers, store_dir=store_dir)
+        (workers if kind == "tp" else drafts).append((proc, parent))
+    comm = Comm(0, n, backend, device, owned=True, workers=workers + drafts,
+                store_dir=store_dir)
     try:
         dist.init_process_group(backend, init_method=f"file://{store}", rank=0,
                                 world_size=n, timeout=TIMEOUT)
+        comm = _make_comm(config, 0, backend, device, owned=True, workers=workers,
+                          draft_procs=drafts, store_dir=store_dir)
     except BaseException:
         comm.close()
         raise
@@ -270,15 +315,25 @@ def connect(config, model: str, init_random: bool, kwargs: dict) -> Comm | None:
 
 def worker_main(rank: int, size: int, store: str, backend: str, model: str,
                 init_random: bool, kwargs: dict, conn, threads: int):
-    """Entry of a spawned rank: join the group, build the engine over it,
-    reply to the engine's construction, then serve the relayed calls until
-    exit (or until rank 0's pipe closes)."""
+    """Entry of a spawned rank: join the group; a target rank builds the
+    engine over it, replies to the engine's construction, then serves the
+    relayed calls until exit (or until rank 0's pipe closes); a draft rank
+    serves its draft replica (parallel/draft_rank.py) through its pipe."""
     torch.set_num_threads(threads)
     if backend == "nccl":
         torch.cuda.set_device(rank)
     dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
                             world_size=size, timeout=TIMEOUT)
     try:
+        from ssd_tpu_torch.config import Config
+
+        config = Config(model, **kwargs)
+        if rank >= config.tp_size:
+            from ssd_tpu_torch.parallel import draft_rank
+
+            comm = _make_comm(config, rank, backend, _device_of(config))
+            draft_rank.serve(comm, config, init_random, conn)
+            return
         from ssd_tpu_torch.engine.llm_engine import LLMEngine
 
         try:

@@ -11,8 +11,9 @@ models/transformer.py). The rules are `_PARAM_SPECS`'s:
 - the experts' stacks moe_gate / moe_up / moe_down: the expert axis (expert
   parallelism); the router stays whole, so top-k is global;
 - embed, lm_head: vocabulary-parallel (rows), when tp divides the
-  vocabulary; otherwise replicated with no gather, as `_compatible_spec`
-  falls back;
+  vocabulary (a reduced draft head's Vd rows, for lm_head); otherwise
+  replicated with no gather, as `_compatible_spec` falls back;
+- a reduced head's d2t map and head_ids: replicated (JAX's P(None));
 - the norms and the router: replicated;
 - int8 scales: with their weight's output channels, so wo's and down's
   (their output is the model width) stay whole, computed over the full
@@ -86,7 +87,14 @@ class Sharding:
 
     @property
     def vocab_sharded(self) -> bool:
-        return self.tp > 1 and self.arch.vocab_size % self.tp == 0
+        """The embedding is split over the ranks by rows."""
+        return self.vocab_rows("embed") is not None
+
+    def vocab_rows(self, base: str) -> int | None:
+        """Rows of the rank's slice of the embedding or the LM head (a
+        reduced head's Vd / tp), or None when that table is replicated."""
+        rows = self.arch.head_rows if base == "lm_head" else self.arch.vocab_size
+        return rows // self.tp if self.tp > 1 and rows % self.tp == 0 else None
 
     def span(self, name: str) -> tuple[int, int] | None:
         """[lo, hi) of the rank's slice of `name`'s sharded axis (a weight's
@@ -108,8 +116,8 @@ class Sharding:
         if base in _EXPERTS:
             e = a.num_experts // self.tp
             return r * e, (r + 1) * e
-        if base in _VOCAB and self.vocab_sharded:
-            v = a.vocab_size // self.tp
+        if base in _VOCAB and self.vocab_rows(base):
+            v = self.vocab_rows(base)
             return r * v, (r + 1) * v
         return None
 

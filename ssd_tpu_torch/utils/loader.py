@@ -3,9 +3,11 @@
 Counterpart of ssd_tpu/utils/loader.py::load_params and load_eagle_params.
 The safetensors format is read directly (an 8-byte little-endian header
 length, a JSON header, then raw little-endian bytes), so the port does not
-need the `safetensors` package. Tensors are staged one at a time: read into host memory, converted
-to the target dtype, copied to the device and dropped, so the device never
-holds the source-dtype checkpoint beside the converted weights.
+need the `safetensors` package. Tensors are staged one at a time, in
+their stored dtype, onto the device (for a card, streamed from the file
+through one small page-locked buffer), then converted and transposed there
+and dropped, so the device never holds the source-dtype checkpoint beside
+the converted weights (only the one tensor in flight).
 """
 
 from __future__ import annotations
@@ -13,12 +15,13 @@ from __future__ import annotations
 import json
 import os
 import struct
+import threading
 from glob import glob
 
 import torch
 
 from ssd_tpu_torch.config import ModelConfig
-from ssd_tpu_torch.models.transformer import Arch, tie_head
+from ssd_tpu_torch.models.transformer import Arch, set_reduced_head, tie_head
 
 _DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
@@ -49,17 +52,62 @@ class SafetensorsIndex:
     def names(self) -> list[str]:
         return list(self.entries)
 
-    def get(self, name: str) -> torch.Tensor:
-        """One tensor, read into host memory in its stored dtype."""
+    def get(self, name: str, device: torch.device | str = "cpu") -> torch.Tensor:
+        """One tensor in its stored dtype on `device`: read straight into
+        its own buffer on the host, or for a card streamed through the
+        page-locked staging buffer (one copy out of the file either way)."""
         fn, base, meta = self.entries[name]
         begin, end = meta["data_offsets"]
-        with open(fn, "rb") as f:
-            f.seek(base + begin)
-            buf = bytearray(f.read(end - begin))
         dtype = _DTYPES[meta["dtype"]]
-        if not buf:
-            return torch.empty(meta["shape"], dtype=dtype)
-        return torch.frombuffer(buf, dtype=dtype).reshape(meta["shape"])
+        device = torch.device(device)
+        buf = torch.empty(end - begin, dtype=torch.uint8, device=device)
+        if end > begin:
+            with open(fn, "rb") as f:
+                f.seek(base + begin)
+                got = (f.readinto(buf.numpy()) if device.type == "cpu"
+                       else _read_to_device(f, buf))
+            if got != end - begin:
+                raise ValueError(f"{fn}: tensor {name} is cut short")
+        return buf.view(dtype).reshape(meta["shape"])
+
+
+_STAGING_BYTES = 64 << 20   # the page-locked buffer a card's loads stream through
+_staging: list[torch.Tensor] = []
+_staging_lock = threading.Lock()
+
+
+def _read_to_device(f, buf: torch.Tensor) -> int:
+    """Fill the device tensor `buf` (uint8) from the file's position, through
+    one page-locked buffer made at the first load and kept (allocating
+    page-locked memory a tensor at a time costs more than the copies).
+    Returns the bytes read."""
+    with _staging_lock:
+        if not _staging:
+            _staging.append(torch.empty(_STAGING_BYTES, dtype=torch.uint8, pin_memory=True))
+        stage = _staging[0]
+        done, n = 0, buf.numel()
+        while done < n:
+            k = f.readinto(stage[:min(_STAGING_BYTES, n - done)].numpy())
+            if not k:
+                break
+            buf[done:done + k].copy_(stage[:k])   # waits for the copy: stage is reused
+            done += k
+        return done
+
+
+def _stage(w: torch.Tensor, dtype: torch.dtype, transpose: bool) -> torch.Tensor:
+    """A tensor on its device as a contiguous weight of `dtype`: converted
+    (and transposed) where it lies, so a card does that work, not the
+    host."""
+    w = w.to(dtype)
+    return (w.T if transpose else w).contiguous()
+
+
+def reduced_head_rows(model_path: str) -> int | None:
+    """Rows of a reduced-vocabulary draft's LM head (the length of its
+    checkpoint's d2t), or None when it has none (read from the headers)."""
+    t = SafetensorsIndex(model_path)
+    return t.entries["d2t"][2]["shape"][0] if "d2t" in t else None
 
 
 def load_params(model_path: str, mc: ModelConfig, dtype: torch.dtype,
@@ -75,24 +123,25 @@ def load_params(model_path: str, mc: ModelConfig, dtype: torch.dtype,
     `place(name, x)` (the runner's: quantize it, keep the rank's slice;
     default: keep it), so host memory holds one tensor and the device one
     whole tensor beyond the rank's weights. expert_span [lo, hi): the
-    experts a rank keeps, the only ones read (default all)."""
+    experts a rank keeps, the only ones read (default all). A checkpoint
+    with `d2t` is a reduced-vocabulary draft (FR-Spec style, as
+    ssd_tpu/utils/loader.py::load_params reads it): its explicit lm_head
+    has len(d2t) rows, and the map is kept whole on every rank
+    (models/transformer.py::set_reduced_head)."""
     arch = Arch.from_model_config(mc)
     t = SafetensorsIndex(model_path)
     place = place or (lambda name, x: {name: x})
 
     def get(name: str, transpose: bool = False) -> torch.Tensor:
-        w = t.get(name).to(dtype)
-        if transpose:
-            w = w.T
-        return w.contiguous().to(device)
+        return _stage(t.get(name, device), dtype, transpose)
 
     def experts(prefix: str, proj: str) -> torch.Tensor:
         lo, hi = expert_span or (0, arch.num_experts)
-        first = t.get(f"{prefix}{lo}.{proj}.weight")
+        first = t.get(f"{prefix}{lo}.{proj}.weight", device)
         out_f, in_f = first.shape
         stack = torch.empty(hi - lo, in_f, out_f, dtype=dtype, device=device)
         for e in range(lo, hi):
-            w = first if e == lo else t.get(f"{prefix}{e}.{proj}.weight")
+            w = first if e == lo else t.get(f"{prefix}{e}.{proj}.weight", device)
             stack[e - lo].copy_(w.to(dtype).T)
         return stack
 
@@ -121,7 +170,15 @@ def load_params(model_path: str, mc: ModelConfig, dtype: torch.dtype,
 
     params = {**place("embed", get("model.embed_tokens.weight")), "layers": layers,
               "final_ln": get("model.norm.weight")}
-    if arch.tie_embeddings or "lm_head.weight" not in t:
+    if "d2t" in t:
+        if "lm_head.weight" not in t:
+            raise ValueError("d2t requires an untied explicit lm_head")
+        d2t = t.get("d2t")
+        if t.entries["lm_head.weight"][2]["shape"][0] != d2t.shape[0]:
+            raise ValueError("lm_head rows must match d2t length")
+        params.update(place("lm_head", get("lm_head.weight")))
+        set_reduced_head(params, d2t.to(device))
+    elif arch.tie_embeddings or "lm_head.weight" not in t:
         tie_head(params)
     else:
         params.update(place("lm_head", get("lm_head.weight")))
@@ -149,8 +206,7 @@ def load_eagle_params(model_path: str, mc: ModelConfig, d_model_target: int,
         raise KeyError(f"none of {cands} in EAGLE checkpoint {model_path}")
 
     def get(name: str, transpose: bool = False, index: SafetensorsIndex = t):
-        w = index.get(name).to(dtype)
-        return (w.T if transpose else w).contiguous().to(device)
+        return _stage(index.get(name, device), dtype, transpose)
 
     mid = "midlayer." if any(k.startswith("midlayer.") for k in t.names()) \
         else "model.midlayer."
@@ -199,18 +255,19 @@ def save_safetensors(path: str, tensors: dict[str, torch.Tensor]):
     """Write CPU tensors as one safetensors file (for random-weight
     checkpoints made at run time)."""
     names = {v: k for k, v in _DTYPES.items()}
-    header, offset, blobs = {}, 0, []
+    header, offset, flat = {}, 0, []
     for name, x in tensors.items():
         x = x.detach().contiguous().cpu()
-        blob = x.reshape(-1).view(torch.uint8).numpy().tobytes() if x.numel() else b""
+        n = x.numel() * x.element_size()
         header[name] = {"dtype": names[x.dtype], "shape": list(x.shape),
-                        "data_offsets": [offset, offset + len(blob)]}
-        offset += len(blob)
-        blobs.append(blob)
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+        flat.append(x.reshape(-1).view(torch.uint8))
     raw = json.dumps(header).encode()
     raw += b" " * (-len(raw) % 8)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(raw)))
         f.write(raw)
-        for blob in blobs:
-            f.write(blob)
+        for x in flat:
+            if x.numel():
+                f.write(x.numpy().data)   # the tensor's own bytes, not a copy

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ssd_tpu_torch.models.transformer import set_reduced_head
 from ssd_tpu_torch.parallel.mesh import shard_params
 from ssd_tpu_torch.utils.quant import EAGLE_WEIGHTS, LAYER_WEIGHTS
 
@@ -32,7 +33,7 @@ _LAYER_KEYS = ("input_ln", "wq", "wk", "wv", "wo", "post_ln", "gate", "up",
 _EAGLE_KEYS = ("embed", "fc", "input_ln", "cond_ln", "post_ln", "wq", "wk",
                "wv", "wo", "gate", "up", "down", "final_ln", "lm_head", "d2t",
                *(name + "_scale" for name in EAGLE_WEIGHTS + ("embed", "lm_head")))
-_TOP_KEYS = ("embed", "layers", "final_ln", "lm_head", "embed_scale", "lm_head_scale")
+_TOP_KEYS = ("embed", "layers", "final_ln", "lm_head", "embed_scale", "lm_head_scale", "d2t")
 
 
 def params_from_jax(np_params: dict, sharding=None) -> dict:
@@ -42,8 +43,11 @@ def params_from_jax(np_params: dict, sharding=None) -> dict:
     the arrays' dtype (float32, float16 or ml_dtypes' bfloat16); a tied head
     (the same array as embed) stays one tensor. An EAGLE head's dict (it has
     `fc`) keeps its keys, with d2t as int64. Int8 matrices (not the
-    embedding or the head, already [V, D]) become [.., out, in]. With a
-    Sharding, the rank's slices of a model's tree (parallel/mesh.py)."""
+    embedding or the head, already [V, D]) become [.., out, in]. A reduced-
+    vocabulary draft's d2t (int32) becomes the port's int64 map and its
+    head_ids (models/transformer.py::set_reduced_head). With a Sharding,
+    the rank's slices of a model's tree (parallel/mesh.py; the Sharding's
+    Arch carries the reduced head's rows)."""
     def conv(a, transpose=False) -> torch.Tensor:
         a = np.array(a)  # a copy: device_get arrays are read-only
         if a.dtype.name == "bfloat16":
@@ -74,4 +78,6 @@ def params_from_jax(np_params: dict, sharding=None) -> dict:
     for k in ("lm_head", "lm_head_scale"):
         if k in np_params:
             params[k] = params[k.replace("lm_head", "embed")] if tied else conv(np_params[k])
+    if "d2t" in np_params:
+        set_reduced_head(params, conv(np_params["d2t"]))
     return params if sharding is None else shard_params(params, sharding)

@@ -1256,3 +1256,87 @@ def test_moe_mlp_expert_parallel_shards_sum_on_card(tp):
                                        for n in ("moe_gate", "moe_up", "moe_down")}},
                           k, True, rank=r).float() for r in range(tp))
     assert ((got - want).abs() <= 2e-3 + 2.0 ** -6 * want.abs()).all()
+
+
+def _write_checkpoint(d: str, experts: int):
+    """A tiny HF-layout checkpoint of fp32 N(0, 0.1) weights (a Llama, or
+    with experts a Qwen3-MoE), written by the port's own writer."""
+    import json
+    import os
+
+    from ssd_tpu_torch.utils.loader import save_safetensors
+
+    g = torch.Generator().manual_seed(11)
+    D, V, H, Hkv, hd, I, Im = 64, 96, 4, 2, 16, 128, 48
+
+    def w(*shape):
+        return torch.randn(*shape, generator=g) * 0.1
+
+    t = {"model.embed_tokens.weight": w(V, D), "model.norm.weight": 1 + w(D),
+         "lm_head.weight": w(V, D)}
+    for i in range(2):
+        p = f"model.layers.{i}."
+        t.update({p + "input_layernorm.weight": 1 + w(D),
+                  p + "post_attention_layernorm.weight": 1 + w(D),
+                  p + "self_attn.q_proj.weight": w(H * hd, D),
+                  p + "self_attn.k_proj.weight": w(Hkv * hd, D),
+                  p + "self_attn.v_proj.weight": w(Hkv * hd, D),
+                  p + "self_attn.o_proj.weight": w(D, H * hd)})
+        if experts:
+            t.update({p + "self_attn.q_norm.weight": 1 + w(hd),
+                      p + "self_attn.k_norm.weight": 1 + w(hd),
+                      p + "mlp.gate.weight": w(experts, D)})
+            for e in range(experts):
+                q = f"{p}mlp.experts.{e}."
+                t.update({q + "gate_proj.weight": w(Im, D), q + "up_proj.weight": w(Im, D),
+                          q + "down_proj.weight": w(D, Im)})
+        else:
+            t.update({p + "mlp.gate_proj.weight": w(I, D), p + "mlp.up_proj.weight": w(I, D),
+                      p + "mlp.down_proj.weight": w(D, I)})
+    save_safetensors(os.path.join(d, "model.safetensors"), t)
+    cfg = {"model_type": "qwen3_moe" if experts else "llama", "vocab_size": V,
+           "hidden_size": D, "intermediate_size": I, "num_hidden_layers": 2,
+           "num_attention_heads": H, "num_key_value_heads": Hkv, "head_dim": hd,
+           "rms_norm_eps": 1e-5, "rope_theta": 10000.0, "max_position_embeddings": 256,
+           "tie_word_embeddings": False, "eos_token_id": 2, "bos_token_id": 1}
+    if experts:
+        cfg.update(num_experts=experts, num_experts_per_tok=2, moe_intermediate_size=Im,
+                   norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[])
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(cfg, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("experts", [0, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_load_params_on_card_equal_host(tmp_path, dtype, experts):
+    """utils/loader.py stages each tensor through page-locked memory and
+    converts and transposes it on the card: the card's parameters equal the
+    host's bit for bit (fp32 stored, loaded as fp32 and as bf16; a Llama
+    and a Qwen3-MoE with its expert stacks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from ssd_tpu_torch.config import ModelConfig
+    from ssd_tpu_torch.utils.loader import load_params
+
+    _write_checkpoint(str(tmp_path), experts)
+    mc = ModelConfig.from_pretrained(str(tmp_path))
+    host = load_params(str(tmp_path), mc, dtype, torch.device("cpu"))
+    card = load_params(str(tmp_path), mc, dtype, torch.device("cuda"))
+
+    def leaves(p, prefix=""):
+        if isinstance(p, dict):
+            for k, v in p.items():
+                yield from leaves(v, f"{prefix}.{k}")
+        elif isinstance(p, list):
+            for i, v in enumerate(p):
+                yield from leaves(v, f"{prefix}.{i}")
+        else:
+            yield prefix, p
+
+    a, b = dict(leaves(host)), dict(leaves(card))
+    assert a.keys() == b.keys() and any("moe_gate" in k for k in a) == bool(experts)
+    for k, x in a.items():
+        y = b[k]
+        assert y.is_cuda and y.is_contiguous() and y.dtype == x.dtype, k
+        assert torch.equal(y.cpu(), x), k

@@ -476,9 +476,9 @@ def test_taps_reach_the_draft_as_device_tensors(pair, monkeypatch):
     seen = {"prefill": [], "spec": []}
     orig_prefill, orig_spec = DraftServer.prefill, DraftServer.speculate
 
-    def prefill(self, ids, bt, acts_list=None):
+    def prefill(self, ids, bt, seq_ids, acts_list=None):
         seen["prefill"].append(acts_list)
-        return orig_prefill(self, ids, bt, acts_list)
+        return orig_prefill(self, ids, bt, seq_ids, acts_list)
 
     def speculate(self, req):
         seen["spec"].append(req)

@@ -161,6 +161,28 @@ def test_safetensors_writer_round_trips(tmp_path):
     np.testing.assert_array_equal(ref["c"], tensors["c"].numpy())
 
 
+def test_safetensors_reader_dtypes_empty_and_short_file(tmp_path):
+    """The reader gives every stored dtype back bit for bit, an empty
+    tensor at its shape, and refuses a file cut inside a tensor."""
+    tensors = {"f16": torch.arange(6, dtype=torch.float16).reshape(3, 2) / 3,
+               "i8": torch.tensor([-128, 0, 127], dtype=torch.int8),
+               "i64": torch.tensor([[1 << 40, -5]], dtype=torch.int64),
+               "bool": torch.tensor([True, False, True]),
+               "empty": torch.zeros(0, 4, dtype=torch.float32),
+               "last": torch.arange(64, dtype=torch.float32)}
+    path = os.path.join(tmp_path, "model.safetensors")
+    save_safetensors(path, tensors)
+    idx = SafetensorsIndex(str(tmp_path))
+    for k, v in tensors.items():
+        got = idx.get(k)
+        assert got.dtype == v.dtype and got.shape == v.shape
+        assert torch.equal(got, v)
+    with open(path, "r+b") as f:
+        f.truncate(os.path.getsize(path) - 8)
+    with pytest.raises(ValueError, match="cut short"):
+        SafetensorsIndex(str(tmp_path)).get("last")
+
+
 def test_init_params_seeded_and_tied(model):
     _, _, _, arch, _ = model
     tied = Arch(**{**arch.__dict__, "tie_embeddings": True})

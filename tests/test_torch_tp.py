@@ -384,15 +384,12 @@ def test_llama_tp2_greedy_sampled_and_relayed_calls(ckpts, tp1_tokens):
 def test_refusals(ckpts):
     """The parallel forms not ported yet raise NotImplementedError naming
     their ROADMAP item, before any rank is spawned; num_devices above the
-    visible cards raises."""
+    visible cards raises. (The unfused async draft on ranks of its own and
+    draft_dp are served: tests/test_torch_draft_dp.py.)"""
     d, dd = ckpts["llama"], ckpts["draft"]
     cases = [
-        (dict(num_devices=2, draft=dd, speculate=True, draft_async=True, speculate_k=2),
-         "dedicated devices"),
         (dict(num_devices=2, draft=dd, speculate=True, use_eagle=True, spec_rounds=2,
               speculate_k=2), "EAGLE-3 under tensor parallelism"),
-        (dict(draft=dd, speculate=True, draft_async=True, draft_dp=2, speculate_k=2),
-         "draft_dp"),
         (dict(num_hosts=2), "num_hosts"),
     ]
     for kw, msg in cases:
