@@ -98,10 +98,11 @@ the script exits non-zero:
               run with the engine's CUDA graphs (the default on the card:
               one graph per decode step and batch bucket, captured at init)
               and with them detached (what enforce_eager=True runs), in turns
-              (graph, eager, eager, graph, graph, eager): decode tok/s of
-              every repeat with min / median / max, graph replays a decode
-              step, capture seconds and the memory the captures reserved.
-              Then the same with AR multi-step (multi_step=4; four repeats).
+              (graph, eager, eager, graph; six turns until the eagle_tp
+              phase came): decode tok/s of every repeat with min / median /
+              max, graph replays a decode step, capture seconds and the
+              memory the captures reserved. Then the same with AR
+              multi-step (multi_step=4).
               The kernels' launch counts are zeroed just before each run and
               read just after; a graph run's must be above zero and equal
               the eager run's, and both modes' tokens must agree over the
@@ -187,10 +188,12 @@ the script exits non-zero:
               head's (1 layer, draft vocab 32000, 2048 positions, which cap
               max_model_len; so serve's 1900-token prompt is cut to 1875),
               random bf16 weights from a seed, 128 tokens: AR b8/b1 under
-              graphs; EAGLE SSD and fused EAGLE b8/b1, and EAGLE SSD b8 over
+              graphs; EAGLE SSD and fused EAGLE b8, and EAGLE SSD b8 over
               the int8 cache, each with graphs and eagerly in turns on one
-              engine (graph, eager, graph; int8 graph, eager; an eager
-              turn serves 64 tokens, cut from 128 to hold the run's time):
+              engine (graph, eager; an eager turn serves 64 tokens, cut
+              from 128 to hold the run's time; b8 and b1 ran graph, eager,
+              graph until the eagle_tp phase came), and both forms b1
+              under graphs:
               decode tok/s min / median / max, hit rate, accepted length,
               replays and launches a step, capture seconds and pool bytes;
               an eager turn's tokens must equal the graph turns' first 64.
@@ -290,6 +293,31 @@ the script exits non-zero:
               (which reports its counts), with the exchange's ms a step.
               With two cards or more, the same with the draft rank on
               cuda:1 over NCCL under graphs.
+14. eagle_tp - EAGLE-3 under tensor parallelism on one card over gloo,
+              eagerly (NCCL refuses two ranks on one card): Llama-3.1-8B's
+              width cut to 8 layers with its EAGLE-3 head (1 layer, draft
+              vocab 32000), random fp32 weights from a seed, 4 prompts of
+              40-600 tokens, 32 tokens each. The fused sync superstep (K=4,
+              4 rounds) at tp 2 (two processes, the head sharded beside
+              the target) and async EAGLE (K=4, fan-out 2) at tp 2 with the
+              head on a draft rank of its own (three processes): greedy
+              tokens of every target rank equal the card's tp-1 engine's
+              (eager); K1 and K2 launch in every target rank and, async,
+              K1, K2 and K3 in the draft rank, with the all-reduce; the
+              exchange's ms a step.
+15. eagle_tp_cards - (only when asked for, four cards; it prints a line
+              saying it skipped with fewer) Llama-3.1-70B's geometry (80
+              layers) with its EAGLE-3 head, random bf16 weights, NCCL,
+              under graphs: the fused superstep (4 rounds) at tp 4, and
+              async EAGLE at tp 2 with int8 weights (the target's 70 GB
+              over two cards) and the head on a draft rank on the third
+              card; 128 greedy tokens at b8 (serve's prompts, the longest
+              cut to the head's 2048 positions) and b1: decode tok/s, hit
+              rate, accepted length, the exchange's ms a step, launches
+              and collectives a run, each engine's exit seconds; then K1,
+              K2 and K3/K5 timed at the per-rank heads (16/2 at tp 4) and
+              at the async head's whole heads (64/8, G 8) beside SDPA and
+              their bounds.
 
 Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -308,9 +336,10 @@ import sys
 import tempfile
 import time
 
-PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "quant", "eagle", "exact", "tp")
+PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "quant", "eagle", "exact", "tp",
+          "eagle_tp")
 EXTRA_PHASES = ("profile", "moe_profile", "quant_profile", "quant_moe_profile", "spec_profile",
-                "eagle_profile", "spec_async", "spec_draft_rank")
+                "eagle_profile", "spec_async", "spec_draft_rank", "eagle_tp_cards")
 
 # Llama-3.2-1B geometry (the JAX package's bench.py random-weight config).
 LLAMA_1B = {
@@ -1263,6 +1292,51 @@ def _tree_timings(q, kv, bt, ctx, fan, label, heads) -> dict:
     return out
 
 
+def _attention_times(heads: tuple, label: str) -> dict:
+    """K2 at the b8 decode (Q=1), K1 at the prefill of the 8 serve prompts
+    and K3/K5 (both int8 modes) at the b8 tree step, timed in bf16 at the
+    heads (Hq, Hkv, hd) beside SDPA and their bounds. Returns {kernel:
+    timing}."""
+    import torch
+
+    from ssd_tpu_torch.ops import attention as att
+
+    M = 2048 // BLOCK
+    serve8 = [n + 64 for n in SERVE_LENS8]
+    out = {}
+    Hq, Hkv, hd = heads
+    dt, sc, elem = torch.bfloat16, hd ** -0.5, 2
+    fp_pos = 2 * hd * elem
+    q, kv, bt, ctx, qeff = _paged_case(8, 1, serve8, M, 0, dt, seed=114, heads=heads)
+    bytes_, ops = _paged_work(q, ctx, bt, 1, M * BLOCK, Hkv, fp_pos, elem)
+    out["paged_attention"] = _timing(
+        f"decode B=8 (ctx {serve8}) Q=1 Hq/Hkv {Hq}/{Hkv} hd {hd} bf16 ({label})",
+        lambda: att.paged_attention(q, kv, bt, ctx, qeff, BLOCK, sc),
+        lambda: att.paged_attention_plain(q, kv, bt, ctx, qeff, BLOCK, sc),
+        _sdpa_paged(q, kv, bt, ctx, 1, M * BLOCK, dt), bytes_, ops, PEAK_FLOPS["bfloat16"])
+    q, kv, pages, lo, hi, T = _flat_case(SERVE_LENS8, [0] * 8, dt, seed=115, heads=heads)
+    n_pages = sum(-(-n // BLOCK) for n in SERVE_LENS8)
+    bytes_ = n_pages * BLOCK * Hkv * fp_pos + 2 * T * Hq * hd * elem + pages.numel() * 4 + 2 * T * 4
+    ops = int(4 * Hq * hd * (hi - lo).long().sum())
+    dense = att.dense_pages(kv, pages, BLOCK)
+    kd, vd = dense[..., :hd][None].contiguous(), dense[..., hd:][None].contiguous()
+    qs = q.permute(1, 0, 2)[None].contiguous()
+    col = torch.arange(dense.shape[1], device="cuda")
+    mask = ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None]))[None, None]
+    out["flat_prefill_attention"] = _timing(
+        f"prefill 8 prompts {SERVE_LENS8}, nothing cached, T={T} Hq/Hkv {Hq}/{Hkv} hd {hd} "
+        f"bf16 ({label})",
+        lambda: att.flat_prefill_attention(q, kv, pages, lo, hi, BLOCK, sc),
+        lambda: att.flat_prefill_attention_plain(q, kv, pages, lo, hi, BLOCK, sc),
+        lambda: sdpa(qs, kd, vd, mask), bytes_, ops, PEAK_FLOPS["bfloat16"], iters=10,
+        plain_iters=3)
+    del kd, vd, dense
+    q, kv, bt, ctx, fan = _tree_case(8, SPEC_K - 1, serve8, 0, dt, seed=116, heads=heads)
+    out.update(_tree_timings(q, kv, bt, ctx, fan, f"B=8 ({label})", heads))
+    del q, kv
+    return out
+
+
 def _tp_kernels(record) -> dict:
     """The kernels at the shapes one rank of a tensor-parallel engine gives
     them: K1 (fp and int8 pages), K2 / K4 (both int8 modes) at the b8
@@ -1319,37 +1393,7 @@ def _tp_kernels(record) -> dict:
             del q, kv, pair
 
     # Times at tp 4 in bf16.
-    out = {}
-    Hq, Hkv, hd = heads = L70B_TP_HEADS["tp4"]
-    dt, sc, elem = torch.bfloat16, hd ** -0.5, 2
-    fp_pos = 2 * hd * elem
-    q, kv, bt, ctx, qeff = _paged_case(8, 1, serve8, M, 0, dt, seed=114, heads=heads)
-    bytes_, ops = _paged_work(q, ctx, bt, 1, M * BLOCK, Hkv, fp_pos, elem)
-    out["paged_attention"] = _timing(
-        f"decode B=8 (ctx {serve8}) Q=1 Hq/Hkv {Hq}/{Hkv} hd {hd} bf16 (Llama-3.1-70B, tp 4)",
-        lambda: att.paged_attention(q, kv, bt, ctx, qeff, BLOCK, sc),
-        lambda: att.paged_attention_plain(q, kv, bt, ctx, qeff, BLOCK, sc),
-        _sdpa_paged(q, kv, bt, ctx, 1, M * BLOCK, dt), bytes_, ops, PEAK_FLOPS["bfloat16"])
-    q, kv, pages, lo, hi, T = _flat_case(SERVE_LENS8, [0] * 8, dt, seed=115, heads=heads)
-    n_pages = sum(-(-n // BLOCK) for n in SERVE_LENS8)
-    bytes_ = n_pages * BLOCK * Hkv * fp_pos + 2 * T * Hq * hd * elem + pages.numel() * 4 + 2 * T * 4
-    ops = int(4 * Hq * hd * (hi - lo).long().sum())
-    dense = att.dense_pages(kv, pages, BLOCK)
-    kd, vd = dense[..., :hd][None].contiguous(), dense[..., hd:][None].contiguous()
-    qs = q.permute(1, 0, 2)[None].contiguous()
-    col = torch.arange(dense.shape[1], device="cuda")
-    mask = ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None]))[None, None]
-    out["flat_prefill_attention"] = _timing(
-        f"prefill 8 prompts {SERVE_LENS8}, nothing cached, T={T} Hq/Hkv {Hq}/{Hkv} hd {hd} "
-        "bf16 (Llama-3.1-70B, tp 4)",
-        lambda: att.flat_prefill_attention(q, kv, pages, lo, hi, BLOCK, sc),
-        lambda: att.flat_prefill_attention_plain(q, kv, pages, lo, hi, BLOCK, sc),
-        lambda: sdpa(qs, kd, vd, mask), bytes_, ops, PEAK_FLOPS["bfloat16"], iters=10,
-        plain_iters=3)
-    del kd, vd, dense
-    q, kv, bt, ctx, fan = _tree_case(8, SPEC_K - 1, serve8, 0, dt, seed=116, heads=heads)
-    out.update(_tree_timings(q, kv, bt, ctx, fan, "B=8 (Llama-3.1-70B, tp 4)", heads))
-    del q, kv
+    out = _attention_times(L70B_TP_HEADS["tp4"], "Llama-3.1-70B, tp 4")
     for name, tm in out.items():
         emit("kernels", kernel=name, llama31_70b_tp4=tm)
 
@@ -1967,7 +2011,7 @@ def phase_serve() -> dict:
             with _eager(llm) if eager else contextlib.nullcontext():
                 llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
         runs = _graph_vs_eager(llm, {"b8": (prompts8, sp), "b1": (prompt1, sp)}, V, label,
-                               REPEATS if label == "serve" else REPEATS[:4])
+                               REPEATS[:4])
         launches = {k: sum(r["launches"][k] for r in runs.values())
                     for k in ("paged_attention", "flat_prefill_attention")}
         emit(label, geometry="Llama-3.2-1B (16 layers, random bf16 weights)", **kw,
@@ -3118,12 +3162,12 @@ def _eagle_prompts(prompts: list[list[int]], n_new: int) -> list[list[int]]:
     return [p[:_eagle_room(n_new)] for p in prompts]
 
 
-EAGLE_TURNS = ("graph", "eager", "graph")   # graph and eager in turns, one engine
+EAGLE_TURNS = ("graph", "eager")   # graph and eager in turns, one engine
 EAGLE_EAGER_NEW = 64   # tokens of an eager turn (cut from 128 to hold the run's time)
 # The eagle phase's engines: (path, kv_quant, form, {batch: turns}).
 EAGLE_PLAN = (("ar", None, None, {"b8": ("graph",), "b1": ("graph",)}),
-              ("eagle", None, "ssd", {"b8": EAGLE_TURNS, "b1": EAGLE_TURNS}),
-              ("eagle_fused", None, "fused", {"b8": EAGLE_TURNS, "b1": EAGLE_TURNS}),
+              ("eagle", None, "ssd", {"b8": EAGLE_TURNS, "b1": ("graph",)}),
+              ("eagle_fused", None, "fused", {"b8": EAGLE_TURNS, "b1": ("graph",)}),
               ("eagle_int8", "int8", "ssd", {"b8": ("graph", "eager")}))
 
 
@@ -3882,7 +3926,6 @@ def phase_tp() -> dict:
     """Tensor and expert parallelism on one card (module docstring, phase
     tp)."""
     import gc
-    import multiprocessing as mp
 
     import torch
 
@@ -3918,19 +3961,9 @@ def phase_tp() -> dict:
             torch.cuda.empty_cache()
         # TP = 2: two processes sharing the card over gloo, eagerly.
         t0 = time.perf_counter()
-        ctx = mp.get_context("spawn")
         result = os.path.join(d, "tp2.json")
-        procs = [ctx.Process(target=_tp_rank, args=(r, TP_RANKS, os.path.join(d, "store"),
-                                                    cases, result))
-                 for r in range(TP_RANKS)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=900)
-        codes = [p.exitcode for p in procs]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
+        codes = _spawn_group(_tp_rank, TP_RANKS, (os.path.join(d, "store"), cases, result),
+                             timeout=900)
         if codes != [0] * TP_RANKS:
             fail(f"tp: the gloo ranks exited with {codes}")
         with open(result) as f:
@@ -4213,6 +4246,278 @@ def _tp_two_cards_nccl(cases, tp1) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases eagle_tp and eagle_tp_cards
+# ---------------------------------------------------------------------------
+
+
+def _eagle_tp_kw(ddir: str, form: str, **over) -> dict:
+    """An EAGLE-3 engine of the eagle_tp phases: the fused sync superstep
+    ("fused": SPEC_R rounds) or async ("async": the head on a draft rank
+    of its own once num_devices > 1), K=SPEC_K, random weights from a
+    seed."""
+    form_kw = (dict(spec_rounds=SPEC_R) if form == "fused" else
+               dict(draft_async=True, jit_speculate=True, async_fan_out=SPEC_F))
+    return dict(init_random=True, kvcache_block_size=BLOCK, draft=ddir, speculate=True,
+                use_eagle=True, speculate_k=SPEC_K, **form_kw, **over)
+
+
+def _eagle_tp_serve(llm) -> dict:
+    """_tp_serve of the eagle_tp prompts (TP_LENS, TP_NEW tokens each); with
+    the head on a draft rank, _draft_rank_serve (the draft rank's launches
+    and the exchange's ms a step)."""
+    if llm.config.draft_ranks:
+        return _draft_rank_serve(llm)
+    return _tp_serve(llm, _tp_prompts(LLAMA_8B["vocab_size"]), TP_NEW)
+
+
+def _eagle_tp_proc(rank: int, size: int, store: str, tdir: str, kw: dict, out_path: str):
+    """One process of the eagle_tp phase's gloo group on the card (cuda:0,
+    shared): every process builds the same engine over the group, eagerly;
+    a draft rank's call serves the head until the target's exit. Each
+    target rank writes what it served to out_path + rank."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=size)
+    try:
+        from ssd_tpu_torch import LLM
+
+        t0 = time.perf_counter()
+        llm = LLM(tdir, num_devices=size, device="cuda", enforce_eager=True, **kw)
+        if llm.draft_rank_launches is not None:
+            return
+        run = dict(_eagle_tp_serve(llm), init_s=time.perf_counter() - t0,
+                   tp_size=llm.config.tp_size, draft_ranks=llm.config.draft_ranks,
+                   head_heads=[llm.draft_runner.arch.num_heads, llm.draft_runner.arch.num_kv_heads]
+                   if llm.draft_runner is not None else None)
+        llm.exit()
+        with open(f"{out_path}{rank}", "w") as f:
+            json.dump(run, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_group(target, size: int, args: tuple, timeout: int) -> list:
+    """Start `size` processes target(rank, size, *args) (spawn), wait for
+    them and return their exit codes; any still alive at the timeout is
+    killed."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, size) + args) for r in range(size)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.perf_counter()))
+    codes = [p.exitcode for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    return codes
+
+
+# Which kernels each rank of an eagle_tp form must launch: K1 (the target's
+# and the head's prefill) and K2 (verify, the head's chain; async: glue
+# too) everywhere; K3 (the tree) only where the async head runs.
+EAGLE_TP_NEED = {"target": ("flat_prefill_attention", "paged_attention"),
+                 "async_head": ("flat_prefill_attention", "paged_attention", "tree_attention")}
+
+
+def phase_eagle_tp() -> dict:
+    """EAGLE-3 under tensor parallelism on one card over gloo (module
+    docstring, phase eagle_tp)."""
+    import gc
+
+    import torch
+
+    from ssd_tpu_torch import LLM
+
+    out = {"runs": {}}
+    with tempfile.TemporaryDirectory() as d:
+        tdir, ddir = os.path.join(d, "target"), os.path.join(d, "head")
+        os.makedirs(tdir)
+        os.makedirs(ddir)
+        _write_config(tdir, LLAMA_8B, num_hidden_layers=EAGLE_PAIR_LAYERS)
+        _eagle_config(ddir)
+        base = dict(dtype="float32", max_model_len=1024, max_num_seqs=len(TP_LENS),
+                    num_kvcache_blocks=160)
+        for form, size in (("fused", TP_RANKS), ("async", TP_RANKS + 1)):
+            kw = _eagle_tp_kw(ddir, form, **base)
+            llm = LLM(tdir, enforce_eager=True, **kw)
+            one = _eagle_tp_serve(llm)
+            llm.exit()
+            del llm
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            result = os.path.join(d, f"{form}.json")
+            codes = _spawn_group(_eagle_tp_proc, size, (os.path.join(d, f"store_{form}"), tdir,
+                                                        kw, result), timeout=300)
+            if codes != [0] * size:
+                fail(f"eagle_tp: the {form} engine's gloo processes exited with {codes}")
+            ranks = []
+            for r in range(TP_RANKS):
+                with open(f"{result}{r}") as f:
+                    ranks.append(json.load(f))
+            run = dict(
+                tokens_equal=all(x["tokens"] == one["tokens"] for x in ranks),
+                tp_size=ranks[0]["tp_size"], draft_ranks=ranks[0]["draft_ranks"],
+                head_heads_rank0=ranks[0]["head_heads"],
+                launches_by_rank={str(r): x["launches"] for r, x in enumerate(ranks)},
+                collectives_rank0=ranks[0]["collectives"],
+                launches_tp1=one["launches"], seconds_tp1=one["seconds"],
+                seconds=ranks[0]["seconds"], init_s=ranks[0]["init_s"],
+                processes_s=time.perf_counter() - t0,
+                ms_per_decode_step=1e3 * ranks[0]["seconds"] / ranks[0]["decode_steps"],
+                ms_per_decode_step_tp1=1e3 * one["seconds"] / one["decode_steps"])
+            if form == "async":
+                run.update(draft_rank_launches=ranks[0]["draft_rank_launches"],
+                           exchange_ms_per_step=ranks[0]["exchange_ms_per_step"])
+            out["runs"][form] = run
+            emit("eagle_tp", form=form, geometry=f"Llama-3.1-8B cut to {EAGLE_PAIR_LAYERS} "
+                 "layers + EAGLE-3 head (1 layer, draft vocab 32000), random fp32 weights",
+                 processes=size, **run)
+            if not run["tokens_equal"]:
+                fail(f"eagle_tp: {form}: fp32 greedy tokens at tp {TP_RANKS} differ from tp 1")
+            missing = {r: [k for k in EAGLE_TP_NEED["target"] if not launches[k]]
+                       for r, launches in run["launches_by_rank"].items()}
+            if form == "async":
+                missing["draft_rank"] = [k for k in EAGLE_TP_NEED["async_head"]
+                                         if not run["draft_rank_launches"][k]]
+            if any(missing.values()) or not run["collectives_rank0"]["all_reduce_sum"]:
+                fail(f"eagle_tp: {form}: kernels of the path did not launch where they run: "
+                     f"{missing}, collectives {run['collectives_rank0']}")
+    return out
+
+
+# Llama-3.1-70B (huggingface.co/meta-llama/Llama-3.1-70B, config.json: width
+# 8192, 64/8 heads of 128, MLP 28672, vocabulary 128256, 80 layers) as both
+# packages compute it (rope theta 5e5 unscaled), and its EAGLE-3 head
+# (huggingface.co/yuhuili/EAGLE3-LLaMA3.3-Instruct-70B: one layer at the
+# target's width and heads, fc from 3 x 8192). The head's 2048 positions and
+# its 32000-token draft vocabulary are assumed from EAGLE3_8B: no config can
+# be read here.
+LLAMA_70B = {**LLAMA_8B, "hidden_size": 8192, "intermediate_size": 28672,
+             "num_hidden_layers": 80, "num_attention_heads": 64, "num_key_value_heads": 8}
+EAGLE3_70B = {**EAGLE3_8B, "hidden_size": 8192, "intermediate_size": 28672,
+              "num_attention_heads": 64, "num_key_value_heads": 8}
+EAGLE_TP_CARDS_NEW = 128            # tokens a sequence, b8 and b1
+
+
+def _eagle_tp_cards_run(llm, prompts: list[list[int]], n_new: int = EAGLE_TP_CARDS_NEW) -> dict:
+    """One greedy generate of n_new tokens a prompt with rank 0's counts
+    zeroed just before and read just after (the draft rank's since the last
+    drain): decode tok/s, accepted length, hit rate, exchange ms a step,
+    launches, collectives, replays."""
+    import torch
+
+    from ssd_tpu_torch import SamplingParams
+
+    ranks = llm.draft_server if llm.config.draft_ranks else None
+    if ranks is not None:
+        ranks.drain()
+        n0 = len(ranks.exchange_s)
+    _tp_zero_counts()
+    replays0 = _replays(llm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, m = llm.generate(prompts, SamplingParams(temperature=0.0, max_new_tokens=n_new,
+                                                   ignore_eos=True), use_tqdm=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for o in outs:
+        if len(o["token_ids"]) != n_new:
+            fail(f"eagle_tp_cards: bad output of {len(o['token_ids'])} tokens")
+    lens = m["accepted_suffix_lens_with_recovery"]
+    steps = max(1, len(m["target_step_times"]) - 1)
+    run = dict(prompts=len(prompts), wall_s=wall, ttft_s=m["target_step_times"][0],
+               decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
+               decode_steps=steps, mean_accepted_suffix_len=sum(lens) / len(lens),
+               graph_replays_per_decode_step=(_replays(llm) - replays0) / steps,
+               launches={w.__name__: w.launches for w in _kernel_wrappers()},
+               collectives=_tp_comm_counts())
+    if m["cache_hits"]:
+        run["cache_hit_rate"] = sum(m["cache_hits"]) / len(m["cache_hits"])
+    if m["sd_superstep_times"]:
+        t = m["sd_superstep_times"]
+        run["superstep_ms"] = 1e3 * sum(t) / len(t)
+    if ranks is not None:
+        run["draft_rank_launches"] = ranks.drain()
+        ex = ranks.exchange_s[n0:]
+        run["exchange_ms_per_step"] = 1e3 * sum(ex) / len(ex)
+    return run
+
+
+def phase_eagle_tp_cards() -> dict | None:
+    """EAGLE-3 under tensor parallelism at Llama-3.1-70B's geometry over
+    four cards (module docstring, phase eagle_tp_cards)."""
+    import gc
+
+    import torch
+
+    from ssd_tpu_torch import LLM
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        emit("eagle_tp_cards", skipped=f"{n} card(s) visible; this phase needs 4")
+        return None
+    out = {"kernels": {}, "runs": {}}
+    prompts8, prompt1 = _serving_prompts()
+    prompts8 = _eagle_prompts(prompts8, EAGLE_TP_CARDS_NEW)
+    with tempfile.TemporaryDirectory() as d:
+        tdir, ddir = os.path.join(d, "target"), os.path.join(d, "head")
+        os.makedirs(tdir)
+        os.makedirs(ddir)
+        _write_config(tdir, LLAMA_70B)
+        _eagle_config(ddir, **{k: EAGLE3_70B[k] for k in (
+            "hidden_size", "intermediate_size", "num_attention_heads", "num_key_value_heads")})
+        for form, devices, over in (("async", 3, {"quantization": "int8"}),
+                                    ("fused", 4, {})):
+            t0 = time.perf_counter()
+            llm = LLM(tdir, num_devices=devices, dtype="bfloat16", max_model_len=EAGLE_MAX_LEN,
+                      max_num_seqs=8, **_eagle_tp_kw(ddir, form, **over))
+            init_s = time.perf_counter() - t0
+            if llm.graphs is None or llm.comm.backend != "nccl":
+                fail(f"eagle_tp_cards: the {form} engine runs no graphs or no NCCL")
+            # A short warm-up generate on a prompt of its own (no prefix
+            # shared with the measured ones), not reported.
+            _eagle_tp_cards_run(llm, _tp_prompts(LLAMA_70B["vocab_size"])[:1], n_new=8)
+            res = dict(init_s=init_s, tp_size=llm.config.tp_size,
+                       draft_ranks=llm.config.draft_ranks, graphs=_graph_facts(llm),
+                       b8=_eagle_tp_cards_run(llm, prompts8),
+                       b1=_eagle_tp_cards_run(llm, prompt1))
+            out["runs"][form] = res
+            emit("eagle_tp_cards", form=form, num_devices=devices,
+                 geometry="Llama-3.1-70B (80 layers) + EAGLE-3 head (1 layer, draft vocab "
+                          "32000 and 2048 positions assumed), random weights, bf16"
+                          + (", int8 weights" if over else ""), **res)
+            t0 = time.perf_counter()
+            llm.exit()
+            emit("eagle_tp_cards", form=form, exit_s=time.perf_counter() - t0)
+            del llm
+            gc.collect()
+            torch.cuda.empty_cache()
+            need = ("flat_prefill_attention", "paged_attention")
+            for b in ("b8", "b1"):
+                r = res[b]
+                if not all(r["launches"][k] for k in need) or not r["collectives"]["all_reduce_sum"] \
+                        or not r["graph_replays_per_decode_step"] \
+                        or (form == "async" and not r["draft_rank_launches"]["tree_attention"]):
+                    fail(f"eagle_tp_cards: {form} {b}: a kernel, collective or graph of the path "
+                         f"did not run: {r['launches']}, {r['collectives']}, "
+                         f"{r.get('draft_rank_launches')}")
+    for label, heads in (("tp4_rank", L70B_TP_HEADS["tp4"]),
+                         ("async_head_whole", (64, 8, 128))):
+        out["kernels"][label] = _attention_times(heads, f"Llama-3.1-70B {label}")
+        for name, tm in out["kernels"][label].items():
+            emit("eagle_tp_cards", kernel=name, heads=list(heads), **{label: tm})
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 PALLAS = "ssd_tpu/ops/pallas_attention.py"
@@ -4258,7 +4563,8 @@ KERNEL_ROWS = {
 
 def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                  kvq: dict | None, moe_run: dict | None, quant: dict | None,
-                 eagle: dict | None, exact: dict | None, tp: dict | None = None) -> dict:
+                 eagle: dict | None, exact: dict | None, tp: dict | None = None,
+                 eagle_tp: dict | None = None, eagle_tp_cards: dict | None = None) -> dict:
     """Launches per path, each read from runs whose counts were zeroed just
     before them: `serve` (AR, AR multi-step) and `spec` (SD, fused SD,
     ngram, SSD, the fused exchange and superstep) for the fp-cache
@@ -4274,7 +4580,12 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
     AR) and `exact`'s int8-weight card runs for K9, the probes' bench
     entry points (path "probe") for rows #11 and #12, and `tp`: the
     one-rank NCCL engines' graph runs ("tp1_nccl_<mode>") and rank 0 of the
-    gloo tp-2 runs on one card ("tp2_<case>", per-rank heads)."""
+    gloo tp-2 runs on one card ("tp2_<case>", per-rank heads), `eagle_tp`:
+    every target rank of the gloo EAGLE engines ("eagle_tp2_<form>_rank<r>")
+    and the async head's draft rank ("eagle_tp2_async_draft_rank"), and
+    `eagle_tp_cards` when it ran: rank 0 of the NCCL engines and the draft
+    rank ("eagle_tp_cards_<form>_<batch>[_draft_rank]"), with the kernels'
+    times at their per-rank heads ("at_eagle_tp_cards_<label>")."""
     by_path = {}
 
     def add(name, path, n):
@@ -4341,6 +4652,23 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
             for name, n in launches.items():
                 if n:
                     add(name, label, n)
+    if eagle_tp:
+        for form, run in eagle_tp["runs"].items():
+            for r, launches in run["launches_by_rank"].items():
+                for name, n in launches.items():
+                    if n:
+                        add(name, f"eagle_tp2_{form}_rank{r}", n)
+            for name, n in run.get("draft_rank_launches", {}).items():
+                if n:
+                    add(name, f"eagle_tp2_{form}_draft_rank", n)
+    if eagle_tp_cards:
+        for form, res in eagle_tp_cards["runs"].items():
+            for b in ("b8", "b1"):
+                for label, launches in (("", res[b]["launches"]),
+                                        ("_draft_rank", res[b].get("draft_rank_launches", {}))):
+                    for name, n in launches.items():
+                        if n:
+                            add(name, f"eagle_tp_cards_{form}_{b}{label}", n)
     out = []
     for name, tm in kern["timings"].items():
         err = max(v["max_abs_err"] for (k, _, _), v in kern["errors"].items() if k == name)
@@ -4372,6 +4700,10 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                 entry[label] = {k: table[name][k] for k in
                                 ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
                                 + (("route",) if "route" in table[name] else ())}
+        for label, table in (eagle_tp_cards or {}).get("kernels", {}).items():
+            if name in table:
+                entry[f"at_eagle_tp_cards_{label}"] = {k: table[name][k] for k in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if name == "int8_linear":
             entry["at_shapes"] = {case: {k: t[k] for k in (
                 "shape", "route", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -4436,6 +4768,8 @@ def main(argv=None) -> int:
     eagle = run("eagle", phase_eagle)
     exact = run("exact", phase_exact)
     tp = run("tp", phase_tp)
+    eagle_tp = run("eagle_tp", phase_eagle_tp)
+    eagle_tp_cards = run("eagle_tp_cards", phase_eagle_tp_cards)
     run("profile", phase_profile)
     run("moe_profile", phase_profile, True)
     run("quant_profile", phase_profile, False, "int8")
@@ -4445,8 +4779,8 @@ def main(argv=None) -> int:
     run("spec_draft_rank", phase_spec_draft_rank)
     run("eagle_profile", phase_eagle_profile)
     if kern is not None:
-        print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, quant, eagle, exact, tp)),
-              flush=True)
+        print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, quant, eagle, exact, tp,
+                                      eagle_tp, eagle_tp_cards)), flush=True)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds, phases=phases)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,16 +25,20 @@ speculation (SSD), each plain and fused. Differences from the JAX package:
 - `num_devices` > 1 serves one model sharded over that many processes,
   one per card (parallel/: tensor parallelism of the attention and the
   MLP, expert parallelism of Qwen3-MoE, a vocabulary-parallel embedding
-  and head), with the sync draft or the fused forms' inline draft sharded
-  over the same ranks. The unfused async draft takes the last `draft_dp`
-  devices, as in the JAX package: `tp_size` = max(1, num_devices -
-  draft_dp) ranks hold the target and, when num_devices >= tp_size +
-  draft_dp, each draft replica runs in a process of its own on a card of
-  its own (parallel/draft_rank.py); with fewer devices the replicas share
-  the target's card (engine/draft_runner.py::DraftServer);
-- not ported yet, and refused here with the ROADMAP item: EAGLE-3 under
-  tensor parallelism and `num_hosts` > 1; so is a speculative knob on an
-  engine that does not use it, where it would be ignored.
+  and head), with the sync draft, the fused forms' inline draft and the
+  fused superstep's EAGLE-3 head sharded over the same ranks. The unfused
+  async draft takes the last `draft_dp` devices, as in the JAX package:
+  `tp_size` = max(1, num_devices - draft_dp) ranks hold the target and,
+  when num_devices >= tp_size + draft_dp, each draft replica runs in a
+  process of its own on a card of its own (parallel/draft_rank.py), an
+  async EAGLE-3 head too; with fewer devices the replicas share the
+  target's card (engine/draft_runner.py::DraftServer);
+- `max_steps` ends generate() after that many engine steps, and
+  `debug_mode` saves the EAGLE-3 head's first conditioned prefill inputs
+  (engine/eagle_runner.py), as in the JAX package;
+- not ported yet, and refused here with the ROADMAP item: `num_hosts` > 1;
+  so is a speculative knob on an engine that does not use it, where it
+  would be ignored.
 """
 
 from __future__ import annotations
@@ -144,6 +148,11 @@ class Config:
     # W8A16 kernel (ops/linear.py). None keeps the weights in `dtype`.
     quantization: str | None = None
     verbose: bool = False
+    # Debugging: debug_mode saves the EAGLE-3 head's first conditioned
+    # prefill inputs to debug_outputs/draft_prefill_inputs.npz; max_steps
+    # ends generate() after that many engine steps (None: until done).
+    debug_mode: bool = False
+    max_steps: int | None = None
     # Run the decode-side steps eagerly on the card instead of replaying
     # their CUDA graphs (engine/graphs.py). The CPU always runs eagerly.
     enforce_eager: bool = False
@@ -323,12 +332,10 @@ class Config:
         if self.num_devices < 1 or self.num_hosts < 1 or self.draft_dp < 1:
             raise ValueError(f"num_devices, num_hosts and draft_dp must be >= 1, got "
                              f"{self.num_devices}, {self.num_hosts} and {self.draft_dp}")
-        todo = "not ported to ssd_tpu_torch yet (ROADMAP Queue 1 item {}, Parallelism: {})"
-        if self.num_devices > 1 and self.use_eagle:
-            raise NotImplementedError(todo.format(1, "EAGLE-3 under tensor parallelism"))
         if self.num_hosts > 1:
-            raise NotImplementedError(todo.format(
-                3, "num_hosts > 1, and the multi-host union of draft replies"))
+            raise NotImplementedError(
+                "not ported to ssd_tpu_torch yet (ROADMAP Queue 1, Parallelism: "
+                "num_hosts > 1, and the multi-host union of draft replies)")
 
     def _derive_speculative(self):
         """Draft config and tree geometry, as ssd_tpu/config.py derives them,

@@ -46,6 +46,8 @@ from ssd_tpu_torch.models.eagle3 import (
 from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops.sampler import sample
 from ssd_tpu_torch.ops.spec_math import FanOut, get_forked_recovery_tokens
+from ssd_tpu_torch.parallel.mesh import Sharding, shard_params
+from ssd_tpu_torch.utils.quant import quantize_eagle_params
 
 
 def _attend(fn, q, kv_layer, *args, **kwargs):
@@ -251,22 +253,55 @@ def eagle_tree_build_step(
 
 class EagleRunnerMixin:
     """The EAGLE-3 head's construction and its conditioned prefill, shared by
-    the async draft's runner and the fused superstep's sync runner."""
+    the async draft's runner and the fused superstep's sync runner. Under
+    tensor parallelism (a Comm, the fused superstep's head on the target's
+    ranks) the runner holds its rank's shard (parallel/mesh.py: the head
+    made or loaded whole, quantized whole under quantization="int8", then
+    sliced), its EagleArch the rank's heads and MLP width, and its KV pool
+    the rank's k/v heads."""
 
     def _make_arch(self):
-        return EagleArch.from_model_config(
+        arch = EagleArch.from_model_config(
             self.hf_config, self.config.d_model_target, len(self.config.eagle_layers))
+        if self.comm is None:
+            return arch
+        self.sharding = Sharding(arch, self.comm.rank, self.comm.size)
+        return self.sharding.rank_arch(self.comm)
 
     def _make_params(self, init_random: bool) -> dict:
         if init_random:
-            return init_eagle_params(self.arch, self.config.seed + 7, self.dtype,
-                                     self.device)
-        from ssd_tpu_torch.utils.loader import load_eagle_params
+            arch = self.sharding.arch if self.sharding is not None else self.arch
+            params = init_eagle_params(arch, self.config.seed + 7, self.dtype, self.device)
+        else:
+            from ssd_tpu_torch.utils.loader import load_eagle_params
 
-        return load_eagle_params(
-            self.config.model, self.hf_config, self.arch.d_model_target,
-            self.arch.num_eagle_layers, self.dtype, self.device,
-            target_path=self.config.tokenizer_path)
+            params = load_eagle_params(
+                self.config.model, self.hf_config, self.arch.d_model_target,
+                self.arch.num_eagle_layers, self.dtype, self.device,
+                target_path=self.config.tokenizer_path)
+        if self.config.quantization == "int8":
+            params = quantize_eagle_params(params)
+        if self.sharding is not None:
+            params = shard_params(params, self.sharding)
+        return params
+
+    def _save_debug_inputs(self, input_id_lists, acts_list):
+        """Config.debug_mode: the first conditioned prefill's inputs, once,
+        to debug_outputs/draft_prefill_inputs.npz under the working
+        directory (ssd_tpu/engine/eagle_runner.py's capture, its keys and
+        dtypes); under tensor parallelism from rank 0 only."""
+        self._debug_saved = True
+        if self.comm is not None and self.comm.rank != 0:
+            return
+        import os
+
+        os.makedirs("debug_outputs", exist_ok=True)
+        np.savez("debug_outputs/draft_prefill_inputs.npz",
+                 input_ids=np.asarray(input_id_lists[0], dtype=np.int64),
+                 target_hidden_states=acts_list[0].float().cpu().numpy(),
+                 d_model_target=self.arch.d_model_target,
+                 eagle_layers=np.asarray(self.config.eagle_layers))
+        print("[DEBUG] saved debug_outputs/draft_prefill_inputs.npz", flush=True)
 
     @torch.no_grad()
     def prefill_from_payload(self, input_id_lists: list[list[int]],
@@ -277,6 +312,8 @@ class EagleRunnerMixin:
         the taps of token j)."""
         if acts_list is None:
             raise ValueError("the EAGLE draft prefill needs the target's taps")
+        if self.config.debug_mode and not getattr(self, "_debug_saved", False):
+            self._save_debug_inputs(input_id_lists, acts_list)
         rows, acts = [], []
         for i, ids in enumerate(input_id_lists):
             if len(ids) > 1:
@@ -303,10 +340,12 @@ class EagleModelRunner(EagleRunnerMixin, ModelRunner):
     spec_rounds > 1): its weights, its paged KV (sized with the target's,
     engine/model_runner.py::_decide_num_blocks) and the conditioned prefill,
     with no tree cache and no thread; engine/fused_sd.py::eagle_sd_superstep
-    runs its chain."""
+    runs its chain. Under tensor parallelism (comm) it is the rank's shard
+    of the head, on the target's ranks, as ssd_tpu/engine/llm_engine.py
+    puts the head on the target's mesh."""
 
-    def __init__(self, config: Config, init_random: bool = False):
-        super().__init__(config, init_random=init_random, is_draft=True)
+    def __init__(self, config: Config, init_random: bool = False, comm=None):
+        super().__init__(config, init_random=init_random, is_draft=True, comm=comm)
 
 
 class EagleDraftRunner(EagleRunnerMixin, DraftRunner):

@@ -158,6 +158,14 @@ class StepGraphs:
         self.replays += 1
         return step.outputs
 
+    def release(self):
+        """Destroy every captured graph (the engine's exit). A graph that
+        captured NCCL collectives keeps its communicator in use, and the
+        process group's teardown waits for it, so a tensor-parallel
+        engine's graphs go before its group."""
+        torch.cuda.synchronize(self.device)
+        self.steps.clear()
+
     def summary(self) -> dict:
         """What the captures cost: graphs, seconds, reserved bytes, replays."""
         return dict(graphs=len(self.steps), capture_s=self.capture_s,

@@ -18,21 +18,27 @@ thread starts.
 Config.num_devices > 1 (or a caller's torch.distributed group) serves one
 model sharded over that many processes (parallel/comm.py): every rank builds
 this engine over its shard and runs the same scheduler on the same inputs,
-the sync draft and the fused forms' inline draft sharded over the same
-ranks (ssd_tpu/engine/llm_engine.py puts them on the target's mesh). When
-the engine spawned its ranks, the caller's process is rank 0: it relays
-add_request, step, generate, abort_request and exit to the others and is
-the only one that returns outputs and METRICS. exit() checks that every
-rank emitted the same tokens, then tears the group down.
+the sync draft, the fused forms' inline draft and the fused superstep's
+EAGLE-3 head sharded over the same ranks (ssd_tpu/engine/llm_engine.py puts
+them on the target's mesh). When the engine spawned its ranks, the caller's
+process is rank 0: it relays add_request, step, generate, abort_request and
+exit to the others and is the only one that returns outputs and METRICS.
+exit() checks that every rank emitted the same tokens, then tears the
+group down.
 
 The unfused async draft (draft_async without async_fused) serves draft_dp
 replicas (Config.draft_dp): beside the target on its card
 (engine/draft_runner.py::DraftServer, the target's pool sized with theirs),
 or, when num_devices >= tp_size + draft_dp, each in a process of its own,
-ranks tp_size.. of the engine's group (parallel/draft_rank.py): the target
-then shards over tp_size ranks and talks to them through DraftRanks. At a
-draft rank of a caller's group the constructor serves the draft replica
-until the target's exit() and then returns an engine that serves nothing.
+ranks tp_size.. of the engine's group (parallel/draft_rank.py; a plain
+draft or an EAGLE-3 head): the target then shards over tp_size ranks and
+talks to them through DraftRanks. At a draft rank of a caller's group the
+constructor serves the draft replica until the target's exit() and then
+returns an engine that serves nothing.
+
+generate() takes the JAX package's stream_callback(seq_id, new token ids)
+and ends after Config.max_steps engine steps; under tensor parallelism the
+callback runs on rank 0 only, while every rank steps.
 """
 
 from __future__ import annotations
@@ -171,7 +177,8 @@ class LLMEngine:
             elif config.use_eagle:
                 from ssd_tpu_torch.engine.eagle_runner import EagleModelRunner
 
-                self.draft_runner = EagleModelRunner(self.draft_cfg, init_random=init_random)
+                self.draft_runner = EagleModelRunner(self.draft_cfg, init_random=init_random,
+                                                     comm=self.model_comm)
             else:
                 self.draft_runner = ModelRunner(self.draft_cfg, init_random=init_random,
                                                 is_draft=True, comm=self.model_comm)
@@ -213,8 +220,11 @@ class LLMEngine:
     def exit(self):
         """Stop the async draft thread or the draft ranks; under tensor
         parallelism check that every rank emitted the same tokens (raising
-        if not) and, at rank 0 of a spawned group, tear the group down and
-        join the ranks (idempotent). A caller's group stays the caller's."""
+        if not), destroy the engine's CUDA graphs (they hold the group's
+        NCCL communicator, which the group's teardown waits on while any
+        graph that captured its collectives lives) and, at rank 0 of a
+        spawned group, tear the group down and join the ranks (idempotent).
+        A caller's group stays the caller's."""
         if self._exiting:
             return
         self._exiting = True
@@ -229,6 +239,8 @@ class LLMEngine:
             else:
                 comm.check_tokens()
         finally:
+            if getattr(self, "graphs", None) is not None:
+                self.graphs.release()
             if comm.owned:
                 comm.close()
 
@@ -417,9 +429,18 @@ class LLMEngine:
         prompts: list[str] | list[list[int]],
         sampling_params: SamplingParams | list[SamplingParams],
         use_tqdm: bool = True,
+        stream_callback=None,
     ):
-        """Serve the prompts to completion. Returns (outputs in submission
-        order, each {"text", "token_ids"}; METRICS)."""
+        """Serve the prompts to completion, or for Config.max_steps engine
+        steps. Returns (outputs in submission order, each {"text",
+        "token_ids"}; METRICS); a sequence unfinished at max_steps returns
+        nothing. stream_callback(seq_id, token ids), when given, receives
+        after each step every running sequence's new tokens, then each
+        finished sequence's tokens not streamed yet, in the JAX package's
+        order (ssd_tpu/engine/llm_engine.py::generate), and the metrics are
+        not printed. Under tensor parallelism it runs on rank 0 only."""
+        if self.comm is not None and self.comm.rank != 0:
+            stream_callback = None
         for k in METRICS:
             METRICS[k] = [] if isinstance(METRICS[k], list) else 0
 
@@ -438,11 +459,23 @@ class LLMEngine:
 
         outputs = {}
         inference_step = self.create_inference_step()
-        while not self.is_finished():
+        max_steps = self.config.max_steps if self.config.max_steps is not None else float("inf")
+        steps = 0
+        streamed: dict[int, int] = {}
+        while not self.is_finished() and steps < max_steps:
+            steps += 1
             t = perf_counter()
             output = self.step(inference_step)
             METRICS["target_step_times"].append(perf_counter() - t)
+            if stream_callback:
+                for seq in self.scheduler.running:
+                    cur, prev = seq.num_completion_tokens, streamed.get(seq.seq_id, 0)
+                    if cur > prev:
+                        stream_callback(seq.seq_id, seq.completion_token_ids[prev:cur])
+                        streamed[seq.seq_id] = cur
             for seq_id, token_ids in output:
+                if stream_callback and len(token_ids) > streamed.get(seq_id, 0):
+                    stream_callback(seq_id, token_ids[streamed.get(seq_id, 0):])
                 outputs[seq_id] = token_ids
                 if pbar:
                     pbar.update(1)
@@ -457,5 +490,6 @@ class LLMEngine:
         ]
         if pbar:
             pbar.close()
-        self.log_metrics()
+        if not stream_callback:
+            self.log_metrics()
         return outputs, METRICS

@@ -50,7 +50,7 @@ from ssd_tpu_torch.ops import attention as att
 from ssd_tpu_torch.ops.sampler import sample
 from ssd_tpu_torch.parallel.mesh import Sharding
 from ssd_tpu_torch.utils.native import prepare_prefill, slot_of  # noqa: F401 (the host copy)
-from ssd_tpu_torch.utils.quant import quantize_eagle_params, quantize_leaf
+from ssd_tpu_torch.utils.quant import quantize_leaf
 
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -314,11 +314,9 @@ class ModelRunner:
             if config.quantization == "int8":
                 # Weight-only int8 at load, as ssd_tpu/engine/model_runner.py
                 # does: a model's leaves as they load (_place), an EAGLE
-                # head's dict (it has `fc`) leaf by leaf. The freed float
-                # weights return to the card's free memory before
-                # mem_get_info sizes the pool.
-                if "fc" in self.params:
-                    self.params = quantize_eagle_params(self.params)
+                # head's dict leaf by leaf (engine/eagle_runner.py). The
+                # freed float weights return to the card's free memory
+                # before mem_get_info sizes the pool.
                 if self.device.type == "cuda":
                     torch.cuda.empty_cache()
             else:
@@ -395,20 +393,20 @@ class ModelRunner:
             return max(64, cfg.max_num_seqs * cfg.max_blocks * 2)
         block_bytes = kv_block_bytes(self.arch, self.block_size, self.dtype, self.kv_quant)
         reserve = 0
-        if partner is not None and cfg.use_eagle:
-            from ssd_tpu_torch.models.eagle3 import EagleArch, eagle_param_bytes
-
-            d_arch = EagleArch.from_model_config(partner, cfg.d_model_target,
-                                                 len(cfg.eagle_layers))
-            reserve = eagle_param_bytes(d_arch, self.dtype, cfg.quantization)
-        elif partner is not None:
+        if partner is not None:
             # The draft's rank shard: its heads, MLP width and vocabulary rows
-            # (a reduced head counted at the full vocabulary's rows).
-            d_arch = Arch.from_model_config(partner)
+            # (a plain draft's reduced head counted at the full vocabulary's
+            # rows; an EAGLE head's at its draft vocabulary's).
+            if cfg.use_eagle:
+                from ssd_tpu_torch.models.eagle3 import EagleArch, eagle_param_bytes
+
+                d_arch, nbytes = EagleArch.from_model_config(
+                    partner, cfg.d_model_target, len(cfg.eagle_layers)), eagle_param_bytes
+            else:
+                d_arch, nbytes = Arch.from_model_config(partner), param_bytes
             if self.comm is not None:
                 d_arch = Sharding(d_arch, self.comm.rank, self.comm.size).rank_arch()
-            reserve = param_bytes(d_arch, self.dtype, cfg.quantization)
-        if partner is not None:
+            reserve = nbytes(d_arch, self.dtype, cfg.quantization)
             n = cfg.draft_replicas_here
             block_bytes += n * kv_block_bytes(d_arch, self.block_size, self.dtype,
                                               self.kv_quant)

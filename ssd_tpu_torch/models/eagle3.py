@@ -21,18 +21,27 @@ weights (utils/quant.py::quantize_eagle_params) the projections, fc, the
 embedding and the head are int8 [out, in] beside their scales, run through
 ops/linear.py, and the head computes in bf16 whatever the engine's dtype
 (compute_dtype), as the JAX package does.
+
+Tensor parallelism (parallel/mesh.py, as models/transformer.py): a rank's
+dict holds its shard and its EagleArch its own heads and MLP width, with the
+rank's Comm. The token lookup is then vocabulary-parallel (zeros outside the
+rank's rows, summed over the ranks), wo's and down's partial outputs are
+summed over the ranks, and a vocabulary-parallel head gathers its fp32
+slices into [T, Vd] before the d2t scatter. fc stays whole: the taps are
+the target's residual stream after its all-reduces, whole on every rank.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
 from ssd_tpu_torch.config import ModelConfig
-from ssd_tpu_torch.models.transformer import AttnCall
+from ssd_tpu_torch.models.transformer import AttnCall, _reduce, embed
 from ssd_tpu_torch.ops.layers import apply_rope, rms_norm, rope_cos_sin, silu_mul
 from ssd_tpu_torch.ops.linear import head_logits, mm, mm_shared
+from ssd_tpu_torch.parallel.comm import gather_vocab
 
 
 @dataclass(frozen=True)
@@ -48,6 +57,11 @@ class EagleArch:
     rope_theta: float
     d_model_target: int
     num_eagle_layers: int    # taps of the target feeding fc
+    # Tensor parallelism (parallel/mesh.py::Sharding.rank_arch): the heads
+    # and MLP width above are then the rank's; comm the rank's Comm.
+    tp_size: int = 1
+    tp_rank: int = 0
+    comm: object = field(default=None, compare=False, repr=False)
 
     @classmethod
     def from_model_config(cls, mc: ModelConfig, d_model_target: int,
@@ -74,6 +88,19 @@ class EagleArch:
     @property
     def act_dim(self) -> int:
         return self.num_eagle_layers * self.d_model_target
+
+    # What parallel/mesh.py::Sharding reads of an Arch: no experts, and the
+    # LM head's rows are the draft vocabulary.
+    num_experts = 0
+
+    @property
+    def head_rows(self) -> int:
+        return self.draft_vocab_size
+
+    @property
+    def head_parallel(self) -> bool:
+        """The LM head is split over the ranks by rows: tp > 1 divides Vd."""
+        return self.tp_size > 1 and self.draft_vocab_size % self.tp_size == 0
 
 
 def init_eagle_params(arch: EagleArch, seed: int, dtype: torch.dtype,
@@ -107,18 +134,23 @@ def eagle_param_bytes(arch: EagleArch, dtype: torch.dtype,
     """Device bytes of the draft's parameters as the runner holds them: the
     weights in `dtype`, the LM head as its fp32 copy, and d2t; with
     quantization="int8" every matrix in int8 with an fp32 scale per output
-    channel, and no fp32 copy."""
+    channel, and no fp32 copy. A rank's EagleArch gives the rank's bytes:
+    its heads and MLP width, its rows of the embedding and of the head
+    where tp divides them (parallel/mesh.py); d2t stays whole."""
     D, I = arch.hidden_size, arch.intermediate_size
     Hq, Hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
-    V, Vd = arch.vocab_size, arch.draft_vocab_size
+    V, Vd_all = arch.vocab_size, arch.draft_vocab_size
+    if V % arch.tp_size == 0:
+        V //= arch.tp_size
+    Vd = Vd_all // arch.tp_size if arch.head_parallel else Vd_all
     elem = torch.finfo(dtype).bits // 8
     # (elements, output channels): embed, fc, wq, wk + wv, wo, gate + up, down
     mats = [(V * D, V), (arch.act_dim * D, D), (2 * D * Hq * hd, Hq * hd),
             (4 * D * Hkv * hd, 2 * Hkv * hd), (Hq * hd * D, D), (2 * D * I, 2 * I),
             (I * D, D)]
     if quantization is None:
-        return (sum(n for n, _ in mats) + 4 * D) * elem + Vd * (D * 4 + 8)
-    return sum(n + 4 * c for n, c in mats + [(Vd * D, Vd)]) + 4 * D * elem + Vd * 8
+        return (sum(n for n, _ in mats) + 4 * D) * elem + Vd * D * 4 + Vd_all * 8
+    return sum(n + 4 * c for n, c in mats + [(Vd * D, Vd)]) + 4 * D * elem + Vd_all * 8
 
 
 def compute_dtype(params: dict) -> torch.dtype:
@@ -146,9 +178,7 @@ def eagle_forward(
     T = input_ids.shape[0]
     Hq, Hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
     eps = arch.rms_norm_eps
-    tok = params["embed"][input_ids].to(compute_dtype(params))
-    if "embed_scale" in params:
-        tok = tok * params["embed_scale"][input_ids][:, None].to(tok.dtype)
+    tok = embed(params, input_ids, arch, compute_dtype(params))
     cond = conditioning.to(tok.dtype)
     x = torch.cat([rms_norm(tok, params["input_ln"], eps),
                    rms_norm(cond, params["cond_ln"], eps)], dim=-1)      # [T, 2D]
@@ -158,19 +188,22 @@ def eagle_forward(
     k = apply_rope(k.reshape(T, Hkv, hd), cos, sin)
     v = v.reshape(T, Hkv, hd)
     o = attn_call(0, q, k, v)
-    attn_out = mm(o.reshape(T, Hq * hd), params, "wo")
+    attn_out = _reduce(mm(o.reshape(T, Hq * hd), params, "wo"), arch)
     # The conditioning is the residual stream.
     resid = (attn_out.float() + cond.float()).to(tok.dtype)
     h = rms_norm(resid, params["post_ln"], eps)
-    mlp = mm(silu_mul(*mm_shared(h, params, ("gate", "up"))), params, "down")
+    mlp = _reduce(mm(silu_mul(*mm_shared(h, params, ("gate", "up"))), params, "down"), arch)
     return (mlp.float() + resid.float()).to(tok.dtype)
 
 
 def eagle_logits(params: dict, prenorm: torch.Tensor, arch: EagleArch) -> torch.Tensor:
     """Final norm -> draft LM head in fp32 -> the d2t scatter into the full
     target vocabulary with -inf elsewhere. Returns [T, vocab_size] fp32. A
-    full-vocabulary head (d2t the identity) skips the scatter."""
+    full-vocabulary head (d2t the identity) skips the scatter. A
+    vocabulary-parallel head's rank slices are gathered first."""
     logits = head_logits(rms_norm(prenorm, params["final_ln"], arch.rms_norm_eps), params)
+    if arch.head_parallel:
+        logits = gather_vocab(arch.comm, logits)
     if arch.draft_vocab_size == arch.vocab_size:
         return logits
     target_idx = torch.arange(arch.draft_vocab_size, device=logits.device) \
@@ -179,3 +212,4 @@ def eagle_logits(params: dict, prenorm: torch.Tensor, arch: EagleArch) -> torch.
                       dtype=torch.float32, device=logits.device)
     full[:, target_idx] = logits
     return full
+

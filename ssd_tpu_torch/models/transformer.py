@@ -292,11 +292,13 @@ def _reduce(x: torch.Tensor, arch: Arch) -> torch.Tensor:
     return x if arch.comm is None else all_reduce_sum(arch.comm, x)
 
 
-def embed(params: dict, input_ids: torch.Tensor, arch: Arch) -> torch.Tensor:
-    """The embedding rows of input_ids [T] in the compute dtype (final_ln's;
-    an int8 row times its scale). A vocabulary-parallel table holds rows
-    [tp_rank * Vl, (tp_rank + 1) * Vl): a token outside them looks up zeros,
-    and the sum over the ranks gives every rank the row."""
+def embed(params: dict, input_ids: torch.Tensor, arch: Arch,
+          dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The embedding rows of input_ids [T] in the compute dtype (`dtype`,
+    else final_ln's; an int8 row times its scale). A vocabulary-parallel
+    table holds rows [tp_rank * Vl, (tp_rank + 1) * Vl): a token outside
+    them looks up zeros, and the sum over the ranks gives every rank the
+    row. An EAGLE-3 head's EagleArch serves as the Arch."""
     table, scale = params["embed"], params.get("embed_scale")
     Vl = table.shape[0]
     sharded = Vl != arch.vocab_size
@@ -304,10 +306,10 @@ def embed(params: dict, input_ids: torch.Tensor, arch: Arch) -> torch.Tensor:
         local = input_ids.long() - arch.tp_rank * Vl
         mine = (local >= 0) & (local < Vl)
         input_ids = local.clamp(0, Vl - 1)
-    hidden = table[input_ids]
+    cdt = dtype or params["final_ln"].dtype
+    hidden = table[input_ids].to(cdt)
     if scale is not None:
-        cdt = params["final_ln"].dtype
-        hidden = hidden.to(cdt) * scale[input_ids].to(cdt)[:, None]
+        hidden = hidden * scale[input_ids].to(cdt)[:, None]
     if sharded:
         hidden = all_reduce_sum(arch.comm, torch.where(mine[:, None], hidden, 0))
     return hidden

@@ -135,7 +135,8 @@ class Comm:
         sends nothing and waits for the replies to the engine's
         construction."""
         if name == "generate":
-            kwargs = {**kwargs, "use_tqdm": False}
+            # The other ranks neither show progress nor stream.
+            kwargs = {**kwargs, "use_tqdm": False, "stream_callback": None}
         for _, conn in self.workers if name is not None else ():
             conn.send((name, args, kwargs))
         try:

@@ -16,6 +16,14 @@ Exchange, target rank 0 <-> each draft rank:
 - a request carries the rows seq_id % draft_dp == r: the cache keys,
   num_tokens, draft block tables, temperatures and the warp's columns, or
   a prefill's prompts and tables;
+- with an EAGLE-3 head (engine/eagle_runner.py::EagleDraftRunner) a
+  prefill also carries its prompts' taps, and a request its rows'
+  extend counts and tokens and, after the header, the recovery taps
+  [rows, A] and the extend taps [rows, K, A] (A = n_taps * D_target,
+  fp32; the prefill's in the target's dtype), as point-to-point tensors
+  like the reply's logits, never inside the pickled header. Every target
+  rank holds the taps whole (the residual stream after the all-reduces);
+  rank 0 sends them;
 - the reply carries hits and tokens, then the logits [rows, K, V] fp32 as
   one point-to-point tensor (NCCL between cards, with no host copy; gloo
   through host memory on the CPU and on one card);
@@ -101,21 +109,35 @@ def _send_tensor(comm, x: torch.Tensor, dst: int):
     dist.send(x.cpu() if comm.backend == "gloo" else x, dst=dst)
 
 
-def _recv_tensor(comm, shape, src: int, device: torch.device) -> torch.Tensor:
+def _recv_tensor(comm, shape, src: int, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     if comm.backend == "gloo":
-        buf = torch.empty(shape, dtype=torch.float32)
+        buf = torch.empty(shape, dtype=dtype)
         dist.recv(buf, src=src)
         return buf.to(device)
-    buf = torch.empty(shape, dtype=torch.float32, device=device)
+    buf = torch.empty(shape, dtype=dtype, device=device)
     dist.recv(buf, src=src)
     return buf
+
+
+_HOST_FIELDS = ("cache_keys", "num_tokens", "block_tables", "temperatures", "top_ps",
+                "top_ks", "extend_counts", "extend_token_ids")
 
 
 def _request_payload(req: SpecRequest, idx: np.ndarray) -> dict:
     """The host fields of a request's rows idx (a draft rank's request)."""
     return {k: None if getattr(req, k) is None else getattr(req, k)[idx]
-            for k in ("cache_keys", "num_tokens", "block_tables", "temperatures",
-                      "top_ps", "top_ks")}
+            for k in _HOST_FIELDS}
+
+
+def _request_taps(req: SpecRequest, idx: np.ndarray) -> list[torch.Tensor]:
+    """An EAGLE request's taps of rows idx, in the order the draft rank
+    receives them: recovery [rows, A], extend [rows, K, A], fp32."""
+    if req.recovery_acts is None:
+        return []
+    rows = torch.from_numpy(idx).to(req.recovery_acts.device)
+    return [req.recovery_acts.index_select(0, rows).float(),
+            req.extend_acts.index_select(0, rows).float()]
 
 
 class DraftRanks:
@@ -134,6 +156,7 @@ class DraftRanks:
             [_Link(g, conn, proc) for g, (proc, conn) in zip(comm.draft_ranks, comm.draft_procs)]
             or [_Link(g) for g in comm.draft_ranks])
         self.dp = len(comm.draft_ranks)
+        self.eagle = draft_cfg.use_eagle
         self.K = draft_cfg.speculate_k
         self.V = draft_cfg.hf_config.vocab_size
         self.max_blocks = draft_cfg.max_blocks
@@ -160,16 +183,28 @@ class DraftRanks:
     def _raise_dead(self):
         raise RuntimeError("draft server died") from self._dead
 
+    def handoff(self) -> None:
+        """No event: rank 0 sends the taps on its current stream (NCCL's
+        stream waits for it; gloo copies them to the host first)."""
+        return None
+
     def prefill(self, input_id_lists: list[list[int]], block_tables: np.ndarray,
                 seq_ids: np.ndarray, acts_list=None):
-        """Send each draft rank the prompts of its rows (no reply)."""
+        """Send each draft rank the prompts of its rows (no reply); an EAGLE
+        head's, with their taps after the header, as one [rows, A] tensor
+        of the prompts' rows in order."""
         if self._dead is not None:
             self._raise_dead()
         try:
             for link, idx in zip(self.links, replica_rows(seq_ids, self.dp)):
-                if len(idx):
-                    link.send(("prefill", ([input_id_lists[i] for i in idx],
-                                           block_tables[idx])))
+                if not len(idx):
+                    continue
+                taps = None if acts_list is None else [acts_list[i] for i in idx]
+                link.send(("prefill", ([input_id_lists[i] for i in idx], block_tables[idx],
+                                       None if taps is None else
+                                       ([t.shape[0] for t in taps], str(taps[0].dtype)))))
+                if taps is not None:
+                    _send_tensor(self.comm, torch.cat(taps), link.peer)
         except Exception as e:
             self._dead = e
             self._raise_dead()
@@ -198,6 +233,8 @@ class DraftRanks:
         for link, idx in zip(self.links, rows):
             if len(idx):
                 link.send(("spec", _request_payload(req, idx)))
+                for x in _request_taps(req, idx):
+                    _send_tensor(self.comm, x, link.peer)
         parts = []
         for link, idx in zip(self.links, rows):
             if len(idx):
@@ -269,22 +306,29 @@ class DraftRanks:
 
 
 def serve(comm, config, init_random: bool, conn=None) -> dict:
-    """A draft rank: build the draft's runner on this rank's device (its
-    pool sized from its card unless num_kvcache_blocks is given, its
-    graphs captured on a card that is not eager), report the pool's block
-    count to target rank 0, then serve its requests until exit. Messages go
-    through conn (the spawn pipe) or, without one, point to point. Returns
-    the kernel launches since the last drain, as reported at exit. A
-    failure after start-up is answered to every later request; one at
-    start-up is reported, then raised here."""
+    """A draft rank: build the draft's runner (a DraftRunner, or an
+    EagleDraftRunner for an EAGLE-3 head) on this rank's device (its pool
+    sized from its card unless num_kvcache_blocks is given, its graphs
+    captured on a card that is not eager), report the pool's block count
+    to target rank 0, then serve its requests until exit. Messages go
+    through conn (the spawn pipe) or, without one, point to point; an
+    EAGLE request's taps follow its header as tensors, received whatever
+    the rank's state so that the exchange stays in step. Returns the
+    kernel launches since the last drain, as reported at exit. A failure
+    after start-up is answered to every later request; one at start-up is
+    reported, then raised here."""
     from ssd_tpu_torch.engine.draft_runner import DraftRunner
+    from ssd_tpu_torch.engine.eagle_runner import EagleDraftRunner
     from ssd_tpu_torch.engine.model_runner import next_pow2
 
     link = _Link(0, conn)
     draft_cfg = config.create_draft_config()
     draft_cfg.device = str(comm.device)
+    # The head's debug capture comes from the first draft rank only.
+    draft_cfg.debug_mode = config.debug_mode and comm.rank == comm.size
     try:
-        runner = DraftRunner(draft_cfg, init_random=init_random)
+        cls = EagleDraftRunner if draft_cfg.use_eagle else DraftRunner
+        runner = cls(draft_cfg, init_random=init_random)
         if runner.device.type == "cuda" and not config.enforce_eager:
             from ssd_tpu_torch.engine.graphs import StepGraphs
 
@@ -305,14 +349,27 @@ def serve(comm, config, init_random: bool, conn=None) -> dict:
                 if cmd == "exit":
                     return counts
             elif cmd == "prefill":
+                ids, bt, taps = payload
+                args = (ids, bt)
+                if taps is not None:
+                    lens, dtype = taps
+                    acts = _recv_tensor(comm, (sum(lens), runner.arch.act_dim), 0,
+                                        runner.device, getattr(torch, dtype.split(".")[-1]))
+                    args += (list(acts.split(lens)),)
                 if failure is None:
                     try:
-                        runner.prefill_from_payload(*payload)
+                        runner.prefill_from_payload(*args)
                     except Exception:
                         failure = traceback.format_exc()
-            elif failure is not None:
-                link.send(("error", failure))
             else:
+                if draft_cfg.use_eagle:
+                    rows, A = payload["cache_keys"].shape[0], runner.arch.act_dim
+                    payload["recovery_acts"] = _recv_tensor(comm, (rows, A), 0, runner.device)
+                    payload["extend_acts"] = _recv_tensor(comm, (rows, runner.K, A), 0,
+                                                          runner.device)
+                if failure is not None:
+                    link.send(("error", failure))
+                    continue
                 req = SpecRequest(**payload)
                 try:
                     resp = runner.service(req)

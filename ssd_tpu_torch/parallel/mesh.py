@@ -28,6 +28,13 @@ the query heads and, for a mixture of experts, the experts (a replicated
 expert would be summed tp times by the all-reduce), and a rank's query heads
 must be whole groups of one k/v head or lie inside one.
 
+An EAGLE-3 head's flat dict (models/eagle3.py; ssd_tpu/parallel/mesh.py::
+_EAGLE_PARAM_SPECS) takes the same rules through the same names: its
+projections column- and row-parallel, its embedding and its reduced head
+(Vd rows) vocabulary-parallel, and fc, the norms and d2t replicated (fc
+contracts the taps, which are whole on every rank). Its EagleArch gives
+the Sharding what a model's Arch does.
+
 Layouts are the port's: float weights [in, out] (expert stacks [E, in,
 out]), int8 weights [out, in] ([E, out, in]) beside fp32 scales [out]
 ([E, out]), embed and lm_head [V, D] in both.
@@ -50,7 +57,8 @@ _VOCAB = ("embed", "lm_head")
 @dataclass(frozen=True)
 class Sharding:
     """Rank `rank` of `tp` over a model of the full architecture `arch`
-    (models/transformer.py::Arch)."""
+    (models/transformer.py::Arch, or an EAGLE-3 head's
+    models/eagle3.py::EagleArch)."""
 
     arch: object
     rank: int
@@ -151,9 +159,9 @@ class Sharding:
         return x.narrow(dim, lo, hi - lo).contiguous().clone()
 
     def rank_arch(self, comm=None):
-        """The Arch of the rank's forward: its query and k/v heads and MLP
-        width; the vocabulary, the experts (the router's width) and the
-        model width stay the model's."""
+        """The Arch (or EagleArch) of the rank's forward: its query and k/v
+        heads and MLP width; the vocabulary, the experts (the router's
+        width) and the model width stay the model's."""
         a = self.arch
         over = dict(num_heads=self.heads, num_kv_heads=self.kv_heads[1],
                     tp_size=self.tp, tp_rank=self.rank, comm=comm)
@@ -164,7 +172,10 @@ class Sharding:
 
 def shard_params(params: dict, sharding: Sharding) -> dict:
     """The rank's parameter dict from a whole one (models/transformer.py
-    layout, float or int8); a tied head stays the embedding's tensor."""
+    layout, or an EAGLE-3 head's flat dict, float or int8); a tied head
+    stays the embedding's tensor."""
+    if "layers" not in params:
+        return {k: sharding.leaf(k, v) for k, v in params.items()}
     tied = params["lm_head"] is params["embed"]
     head = ("lm_head", "lm_head_scale") if tied else ()
     out = {k: sharding.leaf(k, v) for k, v in params.items()

@@ -5,7 +5,8 @@ ssd_tpu/models/transformer.py, already brought to the host as numpy arrays
 (the caller runs `jax.device_get`; this module imports no JAX), and returns
 the port's per-layer parameter dict, so both packages compute the same
 function from the same weights. An EAGLE-3 head's flat dict
-(ssd_tpu/models/eagle3.py) converts key for key. A tree quantized by
+(ssd_tpu/models/eagle3.py) converts key for key, and shards as a model's
+tree does. A tree quantized by
 ssd_tpu/utils/quant.py carries its int8 weights and `_scale` keys across,
 each int8 matrix transposed to the port's [out, in] (utils/quant.py).
 Given a parallel/mesh.py::Sharding, it returns that rank's shard of the
@@ -46,8 +47,9 @@ def params_from_jax(np_params: dict, sharding=None) -> dict:
     embedding or the head, already [V, D]) become [.., out, in]. A reduced-
     vocabulary draft's d2t (int32) becomes the port's int64 map and its
     head_ids (models/transformer.py::set_reduced_head). With a Sharding,
-    the rank's slices of a model's tree (parallel/mesh.py; the Sharding's
-    Arch carries the reduced head's rows)."""
+    the rank's slices of a model's tree or of an EAGLE head's dict
+    (parallel/mesh.py; the Sharding's Arch or EagleArch carries the reduced
+    head's rows)."""
     def conv(a, transpose=False) -> torch.Tensor:
         a = np.array(a)  # a copy: device_get arrays are read-only
         if a.dtype.name == "bfloat16":
@@ -64,7 +66,7 @@ def params_from_jax(np_params: dict, sharding=None) -> dict:
             raise NotImplementedError(f"EAGLE parameters not ported yet: {sorted(unknown)}")
         params = {k: conv(v, k in EAGLE_WEIGHTS) for k, v in np_params.items()}
         params["d2t"] = params["d2t"].long()
-        return params
+        return params if sharding is None else shard_params(params, sharding)
     unknown = (set(np_params) - set(_TOP_KEYS)) | (set(np_params["layers"]) - set(_LAYER_KEYS))
     if unknown:
         raise NotImplementedError(f"parameters not ported yet: {sorted(unknown)}")

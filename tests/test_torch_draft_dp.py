@@ -183,8 +183,6 @@ def test_refusals(pair):
     rule), before any rank is spawned."""
     target, draft = pair
     cases = [
-        (dict(num_devices=2, use_eagle=True, spec_rounds=2, speculate=True, speculate_k=2),
-         NotImplementedError, "EAGLE-3 under tensor parallelism"),
         (dict(num_hosts=2, **SSD), NotImplementedError, "num_hosts"),
         (dict(async_fused=True, draft_dp=2, **SSD), ValueError, "draft_dp"),
         (dict(draft_dp=2, speculate=True, speculate_k=2), ValueError, "draft_dp"),

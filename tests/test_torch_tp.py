@@ -385,11 +385,10 @@ def test_refusals(ckpts):
     """The parallel forms not ported yet raise NotImplementedError naming
     their ROADMAP item, before any rank is spawned; num_devices above the
     visible cards raises. (The unfused async draft on ranks of its own and
-    draft_dp are served: tests/test_torch_draft_dp.py.)"""
-    d, dd = ckpts["llama"], ckpts["draft"]
+    draft_dp are served: tests/test_torch_draft_dp.py; EAGLE-3 under tensor
+    parallelism: tests/test_torch_eagle_tp.py.)"""
+    d = ckpts["llama"]
     cases = [
-        (dict(num_devices=2, draft=dd, speculate=True, use_eagle=True, spec_rounds=2,
-              speculate_k=2), "EAGLE-3 under tensor parallelism"),
         (dict(num_hosts=2), "num_hosts"),
     ]
     for kw, msg in cases:
