@@ -92,14 +92,23 @@ the script exits non-zero:
               slice -> 32,064) at 8 and 40 rows; K6 and K9 over one
               expert-parallel rank's groups (Qwen3-30B-A3B at tp 2), whose
               offsets end before the other rank's rows.
+              Every head width: K1-K5 at hd 32, 48, 80, 96, 100, 192 and
+              256 (heads 8/8, G = 1, at 32, 80, 100 and 256; 8/2 at the
+              others) against their plain versions in fp32 and bf16: K2/K4
+              at a decode and a verify of 4 sequences with a ghost row, K1
+              over a mixed prefill with cached prompts and padding, K3/K5
+              at the last tree step; the "int8" mode everywhere, int8_mxu's
+              s8 arithmetic where JAX's router takes it (hd 192, 256); then
+              K1 (fp and int8 pages), K2, K4 and K3/K5 timed in bf16 at
+              OpenLLaMA-3B's heads (32/32, hd 100; at_open_llama_3b_hd100).
 3. serve    - LLM(...).generate at the full Llama-3.2-1B width (16 layers,
               random bf16 weights from a seed): 128 greedy tokens for 8
               prompts of mixed length, then for 1 prompt (the AR path), each
               run with the engine's CUDA graphs (the default on the card:
               one graph per decode step and batch bucket, captured at init)
               and with them detached (what enforce_eager=True runs), in turns
-              (graph, eager, eager, graph; six turns until the eagle_tp
-              phase came): decode tok/s of every repeat with min / median /
+              (graph, eager, graph; six turns until the eagle_tp phase
+              came, four until the head_dims phase did): decode tok/s of every repeat with min / median /
               max, graph replays a decode step, capture seconds and the
               memory the captures reserved. Then the same with AR
               multi-step (multi_step=4).
@@ -319,6 +328,25 @@ the script exits non-zero:
               at the async head's whole heads (64/8, G 8) beside SDPA and
               their bounds.
 
+16. head_dims - OpenLLaMA-3B (openlm-research/open_llama_3b_v2's
+              config.json, num_key_value_heads and rope_theta stated: 26
+              layers, width 3200, 32/32 heads of 100, so G = 1, MLP 8640,
+              vocabulary 32000, 2048 positions) at full width and depth,
+              random bf16 weights from a seed, every engine under graphs,
+              64 greedy tokens: AR b8 and b1, sync SD and async SSD b8
+              (K=4, fan-out 2; the target's layers >= 4 pass-through and
+              its first 4 the draft, as bench.py::build_spec_checkpoints
+              builds them), AR and SSD b8 over the int8 cache and over
+              int8_mxu's: decode tok/s, accepted length, hit rate,
+              launches. It fails if a run replays no graph, if a kernel of
+              the run's path never launched or one of the other cache did,
+              if K1-K5 never launched, or if int8_mxu's tokens differ from
+              int8's (at hd 100 JAX's router takes no s8 kernel, so the
+              arithmetic is the same); then fp32 at the same width cut to
+              3 layers with a noisy 2-layer draft: AR, SD and SSD under
+              graphs over the fp32 cache, AR and SSD over the int8 cache,
+              each equal to the card's eager AR of its cache.
+
 Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -337,7 +365,7 @@ import tempfile
 import time
 
 PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "quant", "eagle", "exact", "tp",
-          "eagle_tp")
+          "eagle_tp", "head_dims")
 EXTRA_PHASES = ("profile", "moe_profile", "quant_profile", "quant_moe_profile", "spec_profile",
                 "eagle_profile", "spec_async", "spec_draft_rank", "eagle_tp_cards")
 
@@ -411,6 +439,22 @@ QWEN_HEADS = (32, 4, 128)
 # one rank of a tensor-parallel engine holds it (ssd_tpu_torch/parallel/
 # mesh.py): at tp 4 16/2 heads, at tp 8 8/1; its tp-4 projections.
 L70B_TP_HEADS = {"tp4": (16, 2, 128), "tp8": (8, 1, 128)}
+# OpenLLaMA-3B (huggingface.co/openlm-research/open_llama_3b_v2, config.json:
+# LlamaForCausalLM, 26 layers, width 3200, 32 heads of 100, MLP 8640,
+# vocabulary 32000, eps 1e-6, 2048 positions, untied head). Its config.json
+# omits num_key_value_heads and rope_theta, for which both packages default
+# to 8 and 5e5 where HF takes 32 and 1e4: stated here. The head_dims phase's
+# model, at full width and depth: hd 100 (no multiple of 16; a bf16 V half
+# 200 bytes into the slot row) and G = 1.
+OPEN_LLAMA_3B = {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+                 "vocab_size": 32000, "hidden_size": 3200, "intermediate_size": 8640,
+                 "num_hidden_layers": 26, "num_attention_heads": 32, "num_key_value_heads": 32,
+                 "max_position_embeddings": 2048, "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+                 "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2}
+OPEN_LLAMA_HEADS = (32, 32, 100)
+HEAD_DIM_WIDTHS = (32, 48, 80, 96, 100, 192, 256)   # K1-K5 held to their plain versions at each
+HD_NEW = 64                         # tokens a head_dims run serves (serve's 1900-token
+                                    # prompt + 64 + the tree lookahead fit 2048 positions)
 L70B_TP4 = {"D": 8192, "q": 2048, "kv": 256, "ffn": 7168, "vocab": 128256 // 4}
 TP_RANKS = 2                        # the tp phase's ranks on one card (gloo)
 TP_LENS = [40, 130, 300, 600]       # its prompts
@@ -508,7 +552,7 @@ def _kernel_resources(lib) -> dict:
     for ln in lib.build_log.splitlines():
         if "Compiling entry" in ln:
             cur = None
-            m = re.search(r"(paged|tree)_split_kernelI(13__nv_bfloat16|f)((?:Li\d+E)+)", ln)
+            m = re.search(r"(paged|tree)_split_kernelI(13__nv_bfloat16|f)((?:Li\d+E)+)Lb([01])E", ln)
             if m:
                 dt = "bfloat16" if m.group(2) != "f" else "float32"
                 ints = [int(x) for x in re.findall(r"Li(\d+)E", m.group(3))]
@@ -521,12 +565,14 @@ def _kernel_resources(lib) -> dict:
                     chunk = att.TREE_CHUNK[(hd, kind != 0)]
                     cur = {"chunk": chunk, "smem_bytes": lib.cdll.ssd_tree_smem_bytes(
                         kind, int(dt == "bfloat16"), hd, chunk)}
-                cur = {"dtype": dt, "hd": hd, "cache": kinds[kind], **cur}
+                cur = {"dtype": dt, "hd": hd, "padded": m.group(4) == "1", "cache": kinds[kind],
+                       **cur}
                 out[f"{m.group(1)}_split"].append(cur)
-            m = re.search(r"flat_prefill_tc_kernelI(13__nv_bfloat16|a)Li(\d+)E", ln)
+            m = re.search(r"flat_prefill_tc_kernelI(13__nv_bfloat16|a)Li(\d+)ELb([01])E", ln)
             if m:
                 int8, hd = m.group(1) == "a", int(m.group(2))
-                cur = {"dtype": "bfloat16", "hd": hd, "cache": "int8" if int8 else "fp",
+                cur = {"dtype": "bfloat16", "hd": hd, "padded": m.group(3) == "1",
+                       "cache": "int8" if int8 else "fp",
                        "smem_bytes": lib.cdll.ssd_flat_prefill_smem_bytes(int(int8), hd)}
                 out["flat_prefill_tc"].append(cur)
             m = re.search(r"grouped_gemm_wgmma_(decode_)?kernel", ln)
@@ -574,6 +620,20 @@ def phase_env() -> dict:
     lib = cuda_lib.load()
     ptxas = [ln.strip() for ln in lib.build_log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    # The wrappers pick the tree kernels' chunk from a mirror of their
+    # shared-memory layout (ops/attention.py::tree_smem_bytes): it must
+    # agree with the kernels' own at every padded width.
+    from ssd_tpu_torch.ops import attention as att
+
+    for hp in (64, 128, 192, 256):
+        for kind in (0, 1, 2):
+            for dtype, q_bytes in ((0, 4), (1, 2)):
+                for chunk in (64, 128, 256):
+                    mine = att.tree_smem_bytes(hp, kind, q_bytes, chunk)
+                    theirs = lib.cdll.ssd_tree_smem_bytes(kind, dtype, hp, chunk)
+                    if mine != theirs:
+                        fail(f"env: tree_smem_bytes(hd {hp}, kind {kind}, q {q_bytes} bytes, "
+                             f"chunk {chunk}) = {mine}, the kernel's layout {theirs}")
     emit("env", card=card, device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], build_seconds=lib.build_seconds,
@@ -1249,8 +1309,9 @@ def _probe_kernels(record, decode_ctx: list[int]) -> dict:
 
 
 def _tree_timings(q, kv, bt, ctx, fan, label, heads) -> dict:
-    """K3 and K5 (both int8 modes) timed in bf16 at one tree step (the last,
-    s = K-1) of the async draft: each attended K|V position read once (and
+    """K3 and K5 (both int8 modes; the s8 one where JAX's router takes it)
+    timed in bf16 at one tree step (the last, s = K-1) of the async draft:
+    each attended K|V position read once (and
     its two scales for the int8 cache), q read and the output written once,
     the tables, contexts and fan rows read once; 4 * hd operations per
     (query head, attended position). The yardstick: SDPA over the gathered
@@ -1274,6 +1335,8 @@ def _tree_timings(q, kv, bt, ctx, fan, label, heads) -> dict:
                        ("tree_attention_int8[s8]", "int8_mxu")):
         layer = kv if mode is None else pair
         s8 = mode == "int8_mxu"
+        if s8 and not att.takes_s8(hd, Hkv, SPEC_MQ * Hq // Hkv):
+            continue   # int8_mxu runs the int8 kernel here, as JAX's router does
         pos_bytes = 2 * hd * elem if mode is None else 2 * hd + 8
         bytes_ = (kv_len * Hkv * pos_bytes + 2 * q.numel() * elem
                   + bt.numel() * 4 + ctx.numel() * 4 + fan.numel() * 4)
@@ -1292,11 +1355,11 @@ def _tree_timings(q, kv, bt, ctx, fan, label, heads) -> dict:
     return out
 
 
-def _attention_times(heads: tuple, label: str) -> dict:
+def _attention_times(heads: tuple, label: str, int8: bool = False) -> dict:
     """K2 at the b8 decode (Q=1), K1 at the prefill of the 8 serve prompts
     and K3/K5 (both int8 modes) at the b8 tree step, timed in bf16 at the
-    heads (Hq, Hkv, hd) beside SDPA and their bounds. Returns {kernel:
-    timing}."""
+    heads (Hq, Hkv, hd) beside SDPA and their bounds; with int8, K4 at the
+    decode and K1 over int8 pages too. Returns {kernel: timing}."""
     import torch
 
     from ssd_tpu_torch.ops import attention as att
@@ -1314,23 +1377,38 @@ def _attention_times(heads: tuple, label: str) -> dict:
         lambda: att.paged_attention(q, kv, bt, ctx, qeff, BLOCK, sc),
         lambda: att.paged_attention_plain(q, kv, bt, ctx, qeff, BLOCK, sc),
         _sdpa_paged(q, kv, bt, ctx, 1, M * BLOCK, dt), bytes_, ops, PEAK_FLOPS["bfloat16"])
+    if int8:
+        pair = _int8_pair(kv)
+        bytes_, ops = _paged_work(q, ctx, bt, 1, M * BLOCK, Hkv, 2 * hd + 8, elem)
+        out["paged_attention_int8"] = _timing(
+            f"decode B=8 (ctx {serve8}) Q=1 Hq/Hkv {Hq}/{Hkv} hd {hd} bf16, int8 cache ({label})",
+            lambda: att.paged_attention(q, pair, bt, ctx, qeff, BLOCK, sc),
+            lambda: att.paged_attention_plain(q, pair, bt, ctx, qeff, BLOCK, sc),
+            _sdpa_paged(q, pair, bt, ctx, 1, M * BLOCK, dt), bytes_, ops, PEAK_FLOPS["bfloat16"])
+        del pair
     q, kv, pages, lo, hi, T = _flat_case(SERVE_LENS8, [0] * 8, dt, seed=115, heads=heads)
     n_pages = sum(-(-n // BLOCK) for n in SERVE_LENS8)
-    bytes_ = n_pages * BLOCK * Hkv * fp_pos + 2 * T * Hq * hd * elem + pages.numel() * 4 + 2 * T * 4
     ops = int(4 * Hq * hd * (hi - lo).long().sum())
-    dense = att.dense_pages(kv, pages, BLOCK)
-    kd, vd = dense[..., :hd][None].contiguous(), dense[..., hd:][None].contiguous()
-    qs = q.permute(1, 0, 2)[None].contiguous()
-    col = torch.arange(dense.shape[1], device="cuda")
+    col = torch.arange(n_pages * BLOCK, device="cuda")
     mask = ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None]))[None, None]
-    out["flat_prefill_attention"] = _timing(
-        f"prefill 8 prompts {SERVE_LENS8}, nothing cached, T={T} Hq/Hkv {Hq}/{Hkv} hd {hd} "
-        f"bf16 ({label})",
-        lambda: att.flat_prefill_attention(q, kv, pages, lo, hi, BLOCK, sc),
-        lambda: att.flat_prefill_attention_plain(q, kv, pages, lo, hi, BLOCK, sc),
-        lambda: sdpa(qs, kd, vd, mask), bytes_, ops, PEAK_FLOPS["bfloat16"], iters=10,
-        plain_iters=3)
-    del kd, vd, dense
+    qs = q.permute(1, 0, 2)[None].contiguous()
+    for name, layer, pos_bytes in (("flat_prefill_attention", kv, fp_pos),
+                                   ("flat_prefill_attention_int8", _int8_pair(kv) if int8 else None,
+                                    2 * hd + 8)):
+        if layer is None:
+            continue
+        bytes_ = (n_pages * BLOCK * Hkv * pos_bytes + 2 * T * Hq * hd * elem
+                  + pages.numel() * 4 + 2 * T * 4)
+        dense = att.dense_pages(layer, pages, BLOCK).to(dt)
+        kd, vd = dense[..., :hd][None].contiguous(), dense[..., hd:][None].contiguous()
+        out[name] = _timing(
+            f"prefill 8 prompts {SERVE_LENS8}, nothing cached, T={T} Hq/Hkv {Hq}/{Hkv} hd {hd} "
+            f"bf16{', int8 pages' if layer is not kv else ''} ({label})",
+            lambda: att.flat_prefill_attention(q, layer, pages, lo, hi, BLOCK, sc),
+            lambda: att.flat_prefill_attention_plain(q, layer, pages, lo, hi, BLOCK, sc),
+            lambda: sdpa(qs, kd, vd, mask), bytes_, ops, PEAK_FLOPS["bfloat16"], iters=10,
+            plain_iters=3)
+        del kd, vd, dense
     q, kv, bt, ctx, fan = _tree_case(8, SPEC_K - 1, serve8, 0, dt, seed=116, heads=heads)
     out.update(_tree_timings(q, kv, bt, ctx, fan, f"B=8 ({label})", heads))
     del q, kv
@@ -1420,6 +1498,72 @@ def _tp_kernels(record) -> dict:
                    linear.int8_linear_plain(x, wq, s, dt, offs)[:n])
     return out
 
+
+
+def _head_dim_kernels(record) -> dict:
+    """K1-K5 at every width of HEAD_DIM_WIDTHS against their plain versions,
+    in fp32 and bf16: K2 and K4 at a decode and a verify (Q = K+1) of 4
+    sequences with a ghost row, K1 over a mixed prefill with two cached
+    prompts and padding rows and pages, K3 and K5 at the last tree step
+    with a ghost row; the int8 cache's "int8" mode everywhere and its s8
+    mode where JAX's router takes it (hd 192 and 256 here). Heads 8/8
+    (G = 1) at hd 32, 80, 100 and 256, 8/2 (G = 4) at 48, 96 and 192.
+    Then K1-K5 timed in bf16 at OpenLLaMA-3B's heads (32/32, hd 100) beside
+    SDPA and their bounds. Returns {kernel: timing at hd 100}."""
+    import torch
+
+    from ssd_tpu_torch.ops import attention as att
+
+    M = 1024 // BLOCK
+    modes = (("paged_attention", False, False), ("paged_attention_int8", True, False),
+             ("paged_attention_int8[s8]", True, True))
+    for i, hd in enumerate(HEAD_DIM_WIDTHS):
+        heads = (8, 8, hd) if hd in (32, 80, 100, 256) else (8, 2, hd)
+        Hq, Hkv, _ = heads
+        sc, tag = hd ** -0.5, f"hd{hd}_g{Hq // Hkv}"
+        for dn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for j, (case, args) in enumerate((("decode_b4", (4, 1, [1000, 1, 333], M, 1)),
+                                              ("verify_b4", (4, SPEC_K + 1, [1024, SPEC_K + 1, 517],
+                                                             M, 1)))):
+                q, kv, bt, ctx, qeff = _paged_case(*args, dt, seed=200 + 10 * i + j, heads=heads)
+                pair = _int8_pair(kv)
+                for name, int8, s8 in modes:
+                    if s8 and not att.takes_s8(hd, Hkv, q.shape[1] * Hq // Hkv):
+                        continue
+                    layer = pair if int8 else kv
+                    got = att.paged_attention(q, layer, bt, ctx, qeff, BLOCK, sc, s8=s8)
+                    torch.cuda.synchronize()
+                    record(name, f"{tag}_{case}", dn, got,
+                           att.paged_attention_plain(q, layer, bt, ctx, qeff, BLOCK, sc, s8=s8))
+            q, kv, pages, lo, hi, T = _flat_case([17, 300, 650, 129], [0, 0, 256, 64], dt,
+                                                 seed=202 + 10 * i, pad_rows=5, pad_pages=2,
+                                                 heads=heads)
+            for name, layer in (("flat_prefill_attention", kv),
+                                ("flat_prefill_attention_int8", _int8_pair(kv))):
+                got = att.flat_prefill_attention(q, layer, pages, lo, hi, BLOCK, sc)
+                torch.cuda.synchronize()
+                record(name, f"{tag}_mixed4_cached2", dn, got,
+                       att.flat_prefill_attention_plain(q, layer, pages, lo, hi, BLOCK, sc))
+                if got[T:].abs().max().item() != 0.0:
+                    fail(f"{name} hd {hd}: padding rows are not zero")
+            q, kv, bt, ctx, fan = _tree_case(4, SPEC_K - 1, [700, 0, 300], 1, dt,
+                                             seed=203 + 10 * i, heads=heads)
+            pair = _int8_pair(kv)
+            for name, int8, s8 in modes:
+                if s8 and not att.takes_s8(hd, Hkv, SPEC_MQ * Hq // Hkv):
+                    continue
+                name = name.replace("paged", "tree")
+                layer = pair if int8 else kv
+                args = (bt, ctx, fan, SPEC_K - 1, SPEC_K, BLOCK, sc)
+                got = att.tree_attention(q, layer, *args, s8=s8)
+                torch.cuda.synchronize()
+                record(name, f"{tag}_tree_b4_step{SPEC_K - 1}", dn, got,
+                       att.tree_attention_plain(q, layer, *args, s8=s8))
+            del q, kv, pair
+    out = _attention_times(OPEN_LLAMA_HEADS, "OpenLLaMA-3B", int8=True)
+    for name, tm in out.items():
+        emit("kernels", kernel=name, open_llama_3b_hd100=tm)
+    return out
 
 
 def phase_kernels() -> dict:
@@ -1813,6 +1957,7 @@ def phase_kernels() -> dict:
     int8_t = _int8_linear_kernels(record)
     timings["int8_linear"] = int8_t["gate_up_m8"]
     tp_t = _tp_kernels(record)
+    open_llama = _head_dim_kernels(record)
 
     probes_out = _probe_kernels(record, serve8)
     timings.update(probes_out["timings"])
@@ -1824,7 +1969,7 @@ def phase_kernels() -> dict:
     return {"errors": results, "timings": timings, "at_verify": at_verify,
             "long_context": long_ctx, "qwen3_moe": qwen, "grouped_gemm": gmm_times,
             "llama31_8b_eagle": eagle_t, "tree_b1": tree_b1, "probes": probes_out,
-            "int8_linear": int8_t, "llama31_70b_tp4": tp_t}
+            "int8_linear": int8_t, "llama31_70b_tp4": tp_t, "open_llama_3b": open_llama}
 
 
 # ---------------------------------------------------------------------------
@@ -2011,7 +2156,7 @@ def phase_serve() -> dict:
             with _eager(llm) if eager else contextlib.nullcontext():
                 llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
         runs = _graph_vs_eager(llm, {"b8": (prompts8, sp), "b1": (prompt1, sp)}, V, label,
-                               REPEATS[:4])
+                               ("graph", "eager", "graph"))
         launches = {k: sum(r["launches"][k] for r in runs.values())
                     for k in ("paged_attention", "flat_prefill_attention")}
         emit(label, geometry="Llama-3.2-1B (16 layers, random bf16 weights)", **kw,
@@ -2117,21 +2262,24 @@ def phase_profile(moe: bool = False, quantization: str | None = None) -> dict:
 PROJ = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
 
-def _spec_pair(d: str, layers: int, live: int, scale: float, dtype, seed: int):
+def _spec_pair(d: str, layers: int, live: int, scale: float, dtype, seed: int,
+               base: dict = LLAMA_1B):
     """Write a target/draft checkpoint pair with the construction of the JAX
     package's bench.py::build_spec_checkpoints: the target's layers >= live
     have o_proj = down = 0 (an exact residual pass-through) and the draft is
-    the target's `live` layers with the same embeddings, so greedy tokens
-    agree while the draft costs live/layers of the target. Random normal
-    weights times `scale` from a generator seeded with `seed`, drawn on the
-    card. Returns (target dir, draft dir)."""
+    the target's `live` layers with the same embeddings (and LM head), so
+    greedy tokens agree while the draft costs live/layers of the target.
+    Random normal weights times `scale` from a generator seeded with `seed`,
+    drawn on the card, at the geometry of the config `base`. Returns
+    (target dir, draft dir)."""
     import torch
 
     from ssd_tpu_torch.utils.loader import save_safetensors
 
-    c = LLAMA_1B
-    D, I, hd = c["hidden_size"], c["intermediate_size"], c["head_dim"]
+    c = base
     Hq, Hkv = c["num_attention_heads"], c["num_key_value_heads"]
+    D, I = c["hidden_size"], c["intermediate_size"]
+    hd = c.get("head_dim") or D // Hq
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def w(*shape, zero=False):
@@ -2143,6 +2291,8 @@ def _spec_pair(d: str, layers: int, live: int, scale: float, dtype, seed: int):
 
     target = {"model.embed_tokens.weight": w(c["vocab_size"], D),
               "model.norm.weight": ones(D)}
+    if not c["tie_word_embeddings"]:
+        target["lm_head.weight"] = w(c["vocab_size"], D)
     draft = dict(target)
     for i in range(layers):
         p = f"model.layers.{i}."
@@ -2166,7 +2316,7 @@ def _spec_pair(d: str, layers: int, live: int, scale: float, dtype, seed: int):
         sub = os.path.join(d, name)
         os.makedirs(sub)
         save_safetensors(os.path.join(sub, "model.safetensors"), tensors)
-        _write_config(sub, num_hidden_layers=n)
+        _write_config(sub, base, num_hidden_layers=n)
         dirs.append(sub)
     return tuple(dirs)
 
@@ -4520,6 +4670,142 @@ def phase_eagle_tp_cards() -> dict | None:
 # ---------------------------------------------------------------------------
 
 
+# The head_dims phase's engines at full width and depth: (mode, kv_quant,
+# batches), every one under graphs.
+HD_PLAN = (("ar", None, ("b8", "b1")), ("sd", None, ("b8",)), ("ssd", None, ("b8",)),
+           ("ar", "int8", ("b8",)), ("ssd", "int8", ("b8",)),
+           ("ar", "int8_mxu", ("b8",)), ("ssd", "int8_mxu", ("b8",)))
+HD_NEED = {None: {"ar": ("flat_prefill_attention", "paged_attention"),
+                  "sd": ("flat_prefill_attention", "paged_attention"),
+                  "ssd": ("flat_prefill_attention", "paged_attention", "tree_attention")},
+           "int8": {"ar": ("flat_prefill_attention_int8", "paged_attention_int8"),
+                    "ssd": ("flat_prefill_attention_int8", "paged_attention_int8",
+                            "tree_attention_int8")}}
+
+
+def _head_dims_exact(d: str) -> dict:
+    """fp32 at OpenLLaMA-3B's width cut to 3 layers (2 live) with a noisy
+    2-layer draft: AR, sync SD and async SSD under graphs over the fp32
+    cache, and AR and SSD over the int8 cache, each equal to the card's
+    eager AR of the same cache."""
+    import numpy as np
+    import torch
+
+    from ssd_tpu_torch import LLM, SamplingParams
+
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(3, OPEN_LLAMA_3B["vocab_size"], size=n).tolist()
+               for n in (20, 77, 130)]
+    sp = SamplingParams(temperature=0.0, max_new_tokens=16, ignore_eos=True)
+    engine = dict(dtype="float32", max_model_len=512, kvcache_block_size=BLOCK,
+                  max_num_seqs=4, num_kvcache_blocks=32)
+    os.makedirs(d)
+    tdir, ddir = _spec_pair(d, layers=3, live=2, scale=0.4, dtype=torch.float32, seed=3,
+                            base=OPEN_LLAMA_3B)
+    tokens, seconds, accepted = {}, {}, {}
+    for kvq, modes in ((None, ("ar_eager", "ar", "sd", "ssd")), ("int8", ("ar_eager", "ssd"))):
+        for mode in modes:
+            t0 = time.perf_counter()
+            if mode.startswith("ar"):
+                llm = LLM(tdir, kv_quant=kvq, enforce_eager=mode == "ar_eager", **engine)
+            else:
+                llm = _spec_llm(tdir, ddir, mode, kv_quant=kvq, **engine)
+                _perturb_draft(llm, 0.01, 0.4)
+            outs, m = llm.generate(prompts, sp, use_tqdm=False)
+            llm.exit()
+            if mode != "ar_eager" and llm.graphs is None:
+                fail(f"head_dims exact: the {kvq or 'fp32'} {mode} engine holds no graphs")
+            run = f"{kvq or 'fp32'}_{mode}"
+            tokens[run] = [o["token_ids"] for o in outs]
+            seconds[run] = time.perf_counter() - t0
+            lens = m["accepted_suffix_lens_with_recovery"]
+            accepted[run] = sum(lens) / len(lens) if lens else None
+            del llm
+    equal = {run: toks == tokens[run.rsplit("_", 1)[0] + "_ar_eager"]
+             for run, toks in tokens.items() if not run.endswith("ar_eager")}
+    out = dict(geometry="OpenLLaMA-3B width, 3 layers (2 live), fp32, init scale 0.4; "
+               "2-layer draft, noise 0.01", equal=equal, accepted=accepted, seconds=seconds)
+    emit("head_dims", exact=out)
+    if not all(equal.values()):
+        fail(f"head_dims exact: runs whose fp32 tokens differ from the card's eager AR: "
+             f"{[r for r, ok in equal.items() if not ok]}")
+    return out
+
+
+def phase_head_dims() -> dict:
+    """OpenLLaMA-3B at hd 100 through AR, SD and SSD (module docstring,
+    phase head_dims)."""
+    import torch
+
+    from ssd_tpu_torch import LLM, SamplingParams
+
+    V = OPEN_LLAMA_3B["vocab_size"]
+    prompts8, prompt1 = _serving_prompts(V)
+    warm = SamplingParams(temperature=0.0, max_new_tokens=4, ignore_eos=True)
+    engine = dict(dtype="bfloat16", max_model_len=OPEN_LLAMA_3B["max_position_embeddings"],
+                  kvcache_block_size=BLOCK, max_num_seqs=8)
+    out = {"runs": {}, "init_s": {}}
+    tokens = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        tdir, ddir = _spec_pair(d, layers=OPEN_LLAMA_3B["num_hidden_layers"], live=SPEC_LIVE,
+                                scale=0.02, dtype=torch.bfloat16, seed=5, base=OPEN_LLAMA_3B)
+        out["checkpoint_s"] = time.perf_counter() - t0
+        for mode, kvq, batches in HD_PLAN:
+            t0 = time.perf_counter()
+            llm = (LLM(tdir, kv_quant=kvq, **engine) if mode == "ar"
+                   else _spec_llm(tdir, ddir, mode, kv_quant=kvq, **engine))
+            torch.cuda.synchronize()
+            label = f"{kvq or 'bf16'}_{mode}"
+            out["init_s"][label] = time.perf_counter() - t0
+            arch = llm.model_runner.arch
+            if (arch.head_dim, arch.num_heads, arch.num_kv_heads) != (100, 32, 32) or llm.graphs is None:
+                fail(f"head_dims {label}: hd {arch.head_dim}, heads {arch.num_heads}/"
+                     f"{arch.num_kv_heads}, graphs {llm.graphs is not None}")
+            llm.generate([p[:40] for p in prompts8[:2]], warm, use_tqdm=False)
+            for b in batches:
+                run, toks = _spec_run(llm, mode, prompts8 if b == "b8" else prompt1, HD_NEW, V)
+                key = f"{label}_{b}"
+                tokens[key] = toks
+                out["runs"][key] = run
+                emit("head_dims", run=key, kv_quant=kvq, **run)
+                if not run["graph_replays_per_decode_step"] > 0:
+                    fail(f"head_dims {key}: no graph replayed")
+                need = HD_NEED[kvq and "int8"][mode]
+                other = [k for k, n in run["launches"].items()
+                         if n and k.endswith("_int8") != bool(kvq) and "attention" in k]
+                missing = [k for k in need if run["launches"][k] <= 0]
+                if missing or other:
+                    fail(f"head_dims {key}: kernels of the path that never launched {missing}, "
+                         f"of the other cache that did {other}: {run['launches']}")
+            llm.exit()
+            del llm
+            torch.cuda.empty_cache()
+        out["exact"] = _head_dims_exact(os.path.join(d, "exact"))
+    # At hd 100 int8_mxu runs int8's kernels (JAX's router takes no s8
+    # kernel there), so its tokens are int8's bit for bit.
+    for mode in ("ar", "ssd"):
+        if tokens[f"int8_mxu_{mode}_b8"] != tokens[f"int8_{mode}_b8"]:
+            fail(f"head_dims: int8_mxu {mode} tokens differ from int8's at hd 100")
+    agree = {key: sum(a == b for x, y in zip(toks, tokens["bf16_ar_b8"]) for a, b in zip(x, y))
+             / sum(map(len, toks)) for key, toks in tokens.items()
+             if key.endswith("_b8") and key.startswith("bf16_") and key != "bf16_ar_b8"}
+    out["bf16_agreement_with_ar"] = agree
+    launched = {}
+    for run in out["runs"].values():
+        for k, n in run["launches"].items():
+            launched[k] = launched.get(k, 0) + n
+    kernels = [w.__name__ for w in _kernel_wrappers()[:6]]
+    if not all(launched[k] > 0 for k in kernels):
+        fail(f"head_dims: a kernel of K1-K5 never launched at hd 100: {launched}")
+    emit("head_dims", geometry="OpenLLaMA-3B (26 layers, width 3200, 32/32 heads of 100, "
+         "random bf16 weights; SD/SSD: layers >= 4 pass-through, the first 4 as the draft)",
+         prompts=[len(p) for p in prompts8], new_tokens=HD_NEW, init_s=out["init_s"],
+         checkpoint_s=out["checkpoint_s"], bf16_agreement_with_ar=agree, launches=launched,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
 PALLAS = "ssd_tpu/ops/pallas_attention.py"
 # name in the kernels line -> (source, the TPU kernel it replaces)
 KERNEL_ROWS = {
@@ -4564,7 +4850,8 @@ KERNEL_ROWS = {
 def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                  kvq: dict | None, moe_run: dict | None, quant: dict | None,
                  eagle: dict | None, exact: dict | None, tp: dict | None = None,
-                 eagle_tp: dict | None = None, eagle_tp_cards: dict | None = None) -> dict:
+                 eagle_tp: dict | None = None, eagle_tp_cards: dict | None = None,
+                 head_dims: dict | None = None) -> dict:
     """Launches per path, each read from runs whose counts were zeroed just
     before them: `serve` (AR, AR multi-step) and `spec` (SD, fused SD,
     ngram, SSD, the fused exchange and superstep) for the fp-cache
@@ -4585,7 +4872,10 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
     and the async head's draft rank ("eagle_tp2_async_draft_rank"), and
     `eagle_tp_cards` when it ran: rank 0 of the NCCL engines and the draft
     rank ("eagle_tp_cards_<form>_<batch>[_draft_rank]"), with the kernels'
-    times at their per-rank heads ("at_eagle_tp_cards_<label>")."""
+    times at their per-rank heads ("at_eagle_tp_cards_<label>"), and
+    `head_dims`: OpenLLaMA-3B's graph runs at hd 100
+    ("open_llama_3b_<cache>_<mode>_<batch>"), with the kernels' times at
+    its heads ("at_open_llama_3b_hd100")."""
     by_path = {}
 
     def add(name, path, n):
@@ -4669,6 +4959,11 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                     for name, n in launches.items():
                         if n:
                             add(name, f"eagle_tp_cards_{form}_{b}{label}", n)
+    if head_dims:
+        for key, run in head_dims["runs"].items():
+            for name, n in run["launches"].items():
+                if n:
+                    add(name, f"open_llama_3b_{key}", n)
     out = []
     for name, tm in kern["timings"].items():
         err = max(v["max_abs_err"] for (k, _, _), v in kern["errors"].items() if k == name)
@@ -4682,6 +4977,15 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
         }
+        # The head widths held against the plain version (_head_dim_kernels'
+        # cases "hd<width>_..."), each with its largest error.
+        by_hd = {}
+        for (k, case, _), v in kern["errors"].items():
+            if k == name and case.startswith("hd") and case[2].isdigit():
+                hd = int(case[2:].split("_")[0])
+                by_hd[hd] = max(by_hd.get(hd, 0.0), v["max_abs_err"])
+        if by_hd:
+            entry["max_abs_err_by_head_dim"] = {str(h): by_hd[h] for h in sorted(by_hd)}
         # The paged kernels also run the SD/SSD verify and glue at Q = K+1,
         # and are timed at a long context.
         gmm = kern["grouped_gemm"]
@@ -4690,6 +4994,7 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                              ("at_qwen3_moe_geometry", kern["qwen3_moe"]),
                              ("at_llama31_8b_eagle", kern["llama31_8b_eagle"]),
                              ("at_llama31_70b_tp4", kern["llama31_70b_tp4"]),
+                             ("at_open_llama_3b_hd100", kern["open_llama_3b"]),
                              ("at_tree_b1", kern["tree_b1"]),
                              ("at_prefill_down", {"grouped_gemm": gmm["prefill_down"]}),
                              ("at_decode_b8_gate", {"grouped_gemm": gmm["decode_b8_gate"]}),
@@ -4770,6 +5075,7 @@ def main(argv=None) -> int:
     tp = run("tp", phase_tp)
     eagle_tp = run("eagle_tp", phase_eagle_tp)
     eagle_tp_cards = run("eagle_tp_cards", phase_eagle_tp_cards)
+    head_dims = run("head_dims", phase_head_dims)
     run("profile", phase_profile)
     run("moe_profile", phase_profile, True)
     run("quant_profile", phase_profile, False, "int8")
@@ -4780,7 +5086,7 @@ def main(argv=None) -> int:
     run("eagle_profile", phase_eagle_profile)
     if kern is not None:
         print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, quant, eagle, exact, tp,
-                                      eagle_tp, eagle_tp_cards)), flush=True)
+                                      eagle_tp, eagle_tp_cards, head_dims)), flush=True)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds, phases=phases)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace ssd {
 
@@ -151,10 +152,96 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
                ::"r"(smem_u32(smem)), "l"(gmem), "r"(pred ? 16 : 0));
 }
 
+// 8 bytes global -> shared, asynchronously; zeros where !pred.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               ::"r"(smem_u32(smem)), "l"(gmem), "r"(pred ? 8 : 0));
+}
+
 // 4 bytes global -> shared, asynchronously; zeros where !pred.
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                ::"r"(smem_u32(smem)), "l"(gmem), "r"(pred ? 4 : 0));
+}
+
+// --- Head widths of the attention kernels (K1-K5) ---
+//
+// A kernel instantiates a padded width HP (64, 128, 192 or 256) and takes
+// any even head dim hd in [16, HP] at run time: in shared memory each query
+// row and each K|V slot row sits at the padded width (a slot row as a K half
+// [0, HP) and a V half [HP, 2 HP)), lanes [hd, HP) zero, so the dots over HP
+// lanes are the dots over hd (adding exact zeros changes no sum), and only
+// hd columns are written out. Rows move from device memory in the widest
+// piece that divides hd * (element size): 16 bytes at hd 64 or 128, 8 for a
+// bf16 row at hd 100 (its V half starts 200 bytes into the slot row), 4 for
+// an int8 row at hd 100, 2 where hd * 1 is 2 mod 4. The wrappers'
+// ops/attention.py::kernel_width mirrors padded_head_dim.
+__host__ __device__ constexpr int padded_head_dim(int hd) {
+  return hd < 16 || hd > 256 || hd % 2 ? 0 : hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 192 ? 192 : 256;
+}
+
+// The widest copy piece (16, 8, 4 or 2 bytes) that tiles rows of `bytes`
+// bytes laid end to end from a 16-byte-aligned base.
+__host__ __device__ constexpr int copy_granule(int bytes) {
+  return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : 2;
+}
+
+// One GR-byte piece global -> shared, zeros where !live: cp.async for 4, 8
+// and 16 bytes; a 2-byte piece (which cp.async does not take) by a plain
+// load and store, visible after the barrier that precedes its use.
+template <int GR>
+__device__ __forceinline__ void copy_piece(void* smem, const void* gmem, bool live) {
+  if constexpr (GR == 16) {
+    cp_async16(smem, gmem, live);
+  } else if constexpr (GR == 8) {
+    cp_async8(smem, gmem, live);
+  } else if constexpr (GR == 4) {
+    cp_async4(smem, gmem, live);
+  } else {
+    static_assert(GR == 2, "copy pieces are 2, 4, 8 or 16 bytes");
+    *reinterpret_cast<unsigned short*>(smem) =
+        live ? *reinterpret_cast<const unsigned short*>(gmem) : static_cast<unsigned short>(0);
+  }
+}
+
+// f(std::integral_constant<int, GR>) with the run-time granule `gran` of
+// rows of ESIZE-byte elements as a compile-time piece size. An even hd makes
+// rows a multiple of 2 * ESIZE bytes, so only pieces of at least that size
+// are built (16 and 8 bytes for fp32 rows, down to 2 for int8): each piece
+// size is one more loop in every padded instantiation, and the callers keep
+// those loops rolled (`#pragma unroll 1`) to hold their build time.
+template <int ESIZE, class F>
+__device__ __forceinline__ void with_granule(int gran, F&& f) {
+  constexpr int kMin = 2 * ESIZE < 16 ? 2 * ESIZE : 16;
+  if (gran >= 16) {
+    f(std::integral_constant<int, 16>{});
+  } else if constexpr (kMin <= 8) {
+    if (gran == 8) {
+      f(std::integral_constant<int, 8>{});
+    } else if constexpr (kMin <= 4) {
+      if (gran == 4) {
+        f(std::integral_constant<int, 4>{});
+      } else if constexpr (kMin <= 2) {
+        f(std::integral_constant<int, 2>{});
+      }
+    }
+  }
+}
+
+// Piece j of a K|V slot row at padded width (module note above): each half
+// holds HB = HP * esize bytes in shared memory, of which the first
+// hb = hd * esize come from the global row (K at [0, hb), V at [hb, 2 hb)).
+// dst: its byte offset in the shared row; src: in the global row; data:
+// whether it carries data (else it is a zero-filled pad).
+struct RowPiece {
+  int dst, src;
+  bool data;
+};
+template <int GR, int HB>
+__device__ __forceinline__ RowPiece kv_row_piece(int j, int hb) {
+  constexpr int PH = HB / GR;  // pieces per half
+  const int half = j >= PH ? 1 : 0, in = (j - half * PH) * GR;
+  return {half * HB + in, half * hb + in, in < hb};
 }
 
 __device__ __forceinline__ void cp_async_commit() {

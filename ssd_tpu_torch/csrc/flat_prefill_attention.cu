@@ -12,6 +12,9 @@
 // and causality, prefix-cached pages included. Padding tokens carry
 // lo == hi and give zeros. Unlike the TPU wrapper, which first gathers the
 // pages into a dense copy, this kernel resolves each column's page itself.
+// Any even hd in [16, 256]: each kernel instantiates a padded width (64,
+// 128, 192 or 256, common.cuh::padded_head_dim) with the lanes past hd zero
+// in shared memory, and writes hd columns out.
 //
 // What bounds it on an H100: operations. Each K/V column is reused by all
 // query rows of its sequence, so a call does 4 Hq hd sum(hi - lo) flops
@@ -64,7 +67,9 @@ constexpr size_t smem_bytes() {
          sizeof(int) * 2 * kBR;
 }
 
-template <typename T, typename KV, int HD>
+// PAD: the instantiation for hd < HD (the lanes past hd zero); without it
+// hd = HD and every offset a constant (both kernels below).
+template <typename T, typename KV, int HD, bool PAD>
 __global__ void __launch_bounds__(kThreads)
     flat_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ kv,
                         const float* __restrict__ scales,  // int8 KV only
@@ -72,8 +77,9 @@ __global__ void __launch_bounds__(kThreads)
                         const int* __restrict__ row_lo,
                         const int* __restrict__ row_hi, T* __restrict__ out,
                         int T_tokens, int Hq, int Hkv, long long S, int P,
-                        int bs, float scale) {
-  constexpr int KD = HD / 16;  // output dims per thread
+                        int bs, float scale, int hd_arg) {
+  constexpr int KD = HD / 16;  // output dims per thread (HD the padded width)
+  const int hd = PAD ? hd_arg : HD;
   extern __shared__ float smem[];
   float* Qs = smem;                    // [kBR][HD + 1]
   float* Ks = Qs + kBR * (HD + 1);     // [kBC][HD + 1]
@@ -88,8 +94,11 @@ __global__ void __launch_bounds__(kThreads)
   const int tokens = kBR / G;  // tokens per block
   const int t0 = blockIdx.x * tokens;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const KV* kv_h = kv + (size_t)h * S * (2 * HD);
+  const KV* kv_h = kv + (size_t)h * S * (2 * hd);
 
+  // The K and V tiles' lanes past hd stay zero; the tiles write lanes < hd.
+  if constexpr (PAD)
+    for (int e = tid; e < kBC * (HD + 1) + kBC * HD; e += kThreads) Ks[e] = 0.f;
   // Row r = (token t0 + r / G, query head h * G + r % G).
   if (tid < kBR) {
     const int t = t0 + tid / G;
@@ -101,8 +110,8 @@ __global__ void __launch_bounds__(kThreads)
     const int r = e / HD, d = e % HD;
     const int t = t0 + r / G;
     float val = 0.f;
-    if (r < tokens * G && t < T_tokens)
-      val = to_float(q[((size_t)t * Hq + h * G + r % G) * HD + d]);
+    if (r < tokens * G && t < T_tokens && d < hd)
+      val = to_float(q[((size_t)t * Hq + h * G + r % G) * hd + d]);
     Qs[r * (HD + 1) + d] = val;
   }
   __syncthreads();
@@ -142,28 +151,48 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   for (int c0 = c_begin; c0 < c_end; c0 += kBC) {
-    // K/V tile: each column's slot row, resolved through its page.
-    constexpr int kChunks = 2 * HD / 8;  // 8-element chunks per slot row
-    for (int e = tid; e < kBC * kChunks; e += kThreads) {
-      const int cc = e / kChunks, d8 = (e % kChunks) * 8;
-      const int col = c0 + cc;
-      float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (col < n_cols) {
-        const int page = max(flat_pages[col / bs], 0);
-        const size_t slot = (size_t)page * bs + col % bs;
-        load8(kv_h + slot * (2 * HD) + d8, v8);
-        if constexpr (std::is_same_v<KV, int8_t>) {
-          const float sc = scales[((size_t)h * 2 + (d8 < HD ? 0 : 1)) * S + slot];
+    // K/V tile: each column's slot row, resolved through its page; 8-element
+    // loads where hd is a multiple of 8, else one element at a time.
+    if (hd % 8 == 0) {
+      const int chunks = 2 * hd / 8;  // 8-element chunks per slot row
+      for (int e = tid; e < kBC * chunks; e += kThreads) {
+        const int cc = e / chunks, d8 = (e % chunks) * 8;
+        const int col = c0 + cc;
+        float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (col < n_cols) {
+          const int page = max(flat_pages[col / bs], 0);
+          const size_t slot = (size_t)page * bs + col % bs;
+          load8(kv_h + slot * (2 * hd) + d8, v8);
+          if constexpr (std::is_same_v<KV, int8_t>) {
+            const float sc = scales[((size_t)h * 2 + (d8 < hd ? 0 : 1)) * S + slot];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) v8[j] *= sc;
+            for (int j = 0; j < 8; ++j) v8[j] *= sc;
+          }
+        }
+        if (d8 < hd) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) Ks[cc * (HD + 1) + d8 + j] = v8[j];
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) Vs[cc * HD + d8 - hd + j] = v8[j];
         }
       }
-      if (d8 < HD) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) Ks[cc * (HD + 1) + d8 + j] = v8[j];
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) Vs[cc * HD + d8 - HD + j] = v8[j];
+    } else {
+      for (int e = tid; e < kBC * 2 * hd; e += kThreads) {
+        const int cc = e / (2 * hd), d = e % (2 * hd);
+        const int col = c0 + cc;
+        float v = 0.f;
+        if (col < n_cols) {
+          const int page = max(flat_pages[col / bs], 0);
+          const size_t slot = (size_t)page * bs + col % bs;
+          v = static_cast<float>(kv_h[slot * (2 * hd) + d]);  // fp32 or int8 pages
+          if constexpr (std::is_same_v<KV, int8_t>)
+            v *= scales[((size_t)h * 2 + (d < hd ? 0 : 1)) * S + slot];
+        }
+        if (d < hd)
+          Ks[cc * (HD + 1) + d] = v;
+        else
+          Vs[cc * HD + d - hd] = v;
       }
     }
     __syncthreads();
@@ -242,28 +271,28 @@ __global__ void __launch_bounds__(kThreads)
     const int r = ty * 4 + i;
     const int t = t0 + r / G;
     if (r >= tokens * G || t >= T_tokens) continue;
-    T* orow = out + ((size_t)t * Hq + h * G + r % G) * HD;
+    T* orow = out + ((size_t)t * Hq + h * G + r % G) * hd;
 #pragma unroll
     for (int k = 0; k < KD; ++k)
-      orow[tx + 16 * k] = from_float<T>(l[i] > 0.f ? o[i][k] / l[i] : 0.f);
+      if (tx + 16 * k < hd) orow[tx + 16 * k] = from_float<T>(l[i] > 0.f ? o[i][k] / l[i] : 0.f);
   }
 }
 
-template <typename T, typename KV, int HD>
+template <typename T, typename KV, int HD, bool PAD>
 cudaError_t launch(const void* q, const void* kv, const float* scales,
                    const int* pages, const int* lo, const int* hi, void* out,
-                   int T_tokens, int Hq, int Hkv, long long S, int P, int bs,
+                   int T_tokens, int Hq, int Hkv, int hd, long long S, int P, int bs,
                    float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flat_prefill_kernel<T, KV, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flat_prefill_kernel<T, KV, HD, PAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int tokens = kBR / (Hq / Hkv);
   const dim3 grid((T_tokens + tokens - 1) / tokens, Hkv);
-  flat_prefill_kernel<T, KV, HD><<<grid, kThreads, smem, stream>>>(
+  flat_prefill_kernel<T, KV, HD, PAD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(kv), scales, pages, lo,
-      hi, static_cast<T*>(out), T_tokens, Hq, Hkv, S, P, bs, scale);
+      hi, static_cast<T*>(out), T_tokens, Hq, Hkv, S, P, bs, scale, hd);
   return cudaGetLastError();
 }
 
@@ -307,14 +336,15 @@ struct Layout {
 // A tile outside a row's interval leaves its (m, l, acc) bit for bit as they
 // were, so a row's result depends only on its own columns and on where the
 // 64-column tiles fall in the flat stream.
-template <typename KV, int HD>
+template <typename KV, int HD, bool PAD>
 __global__ void __launch_bounds__(tc::kThreads)
     flat_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kv,
                            const float* __restrict__ scales,  // int8 KV only
                            const int* __restrict__ flat_pages,
                            const int* __restrict__ row_lo, const int* __restrict__ row_hi,
                            __nv_bfloat16* __restrict__ out, int T_tokens, int Hq, int Hkv,
-                           long long S, int P, int bs, float scale, int n_qtiles) {
+                           long long S, int P, int bs, float scale, int n_qtiles, int hd_arg) {
+  const int hd = PAD ? hd_arg : HD;
   using L = tc::Layout<KV, HD>;
   constexpr int TP = tc::kTile, NS = tc::kStages;
   constexpr bool kI8 = L::kI8;
@@ -329,9 +359,10 @@ __global__ void __launch_bounds__(tc::kThreads)
   const int n_rows = tokens * G;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const KV* kv_h = kv + (size_t)h * S * (2 * HD);
+  const KV* kv_h = kv + (size_t)h * S * (2 * hd);
   const float* sk_h = scales + (size_t)h * 2 * S;  // int8: K scales; V scales at + S
   const int n_cols = P * bs;
+  const int hb = hd * (int)sizeof(KV);  // bytes of a K or V half in device memory
 
   // This warp's rows: lane l takes row 16 warp + (l & 15). Rows past the
   // block's tokens or past T are empty (lo = hi = 0).
@@ -364,9 +395,10 @@ __global__ void __launch_bounds__(tc::kThreads)
     hull_s[warp][1] = hull_hi;
   }
 
-  // The query rows, into the last ring stage (zeros for empty rows).
+  // The query rows, into the last ring stage (zeros for empty rows and
+  // past hd).
   unsigned char* q_s = smem_tc + (NS - 1) * L::kStage;
-  {
+  if constexpr (!PAD) {  // 16-byte pieces at fixed offsets
     constexpr int QP = HD * 2 / 16;  // 16-byte pieces per row
     for (int e = tid; e < tc::kRows * QP; e += tc::kThreads) {
       const int r = e / QP, piece = e % QP, tok = t0 + r / G;
@@ -375,8 +407,22 @@ __global__ void __launch_bounds__(tc::kThreads)
           live ? q + ((size_t)tok * Hq + h * G + r % G) * HD + piece * 8 : q;
       cp_async16(q_s + r * L::kQStride + piece * 16, src, live);
     }
-    cp_async_commit();
+  } else {
+    with_granule<2>(copy_granule(2 * hd), [&](auto gc) {
+      constexpr int GR = decltype(gc)::value;
+      constexpr int QP = HD * 2 / GR;  // pieces per padded row
+#pragma unroll 1
+      for (int e = tid; e < tc::kRows * QP; e += tc::kThreads) {
+        const int r = e / QP, off = (e % QP) * GR, tok = t0 + r / G;
+        const bool live = r < n_rows && tok < T_tokens && off < 2 * hd;
+        const unsigned char* src =
+            live ? reinterpret_cast<const unsigned char*>(q + ((size_t)tok * Hq + h * G + r % G) * hd) + off
+                 : reinterpret_cast<const unsigned char*>(q);
+        copy_piece<GR>(q_s + r * L::kQStride + off, src, live);
+      }
+    });
   }
+  cp_async_commit();
   __syncthreads();  // the warps' hulls are in
   int blo = INT_MAX, bhi = 0;
 #pragma unroll
@@ -388,22 +434,41 @@ __global__ void __launch_bounds__(tc::kThreads)
   const int nt = blo < bhi ? (bhi - c_begin + TP - 1) / TP : 0;
 
   // Tile loads: warp w copies slot rows 16w .. 16w + 15 of the tile, lane
-  // (l & 15) resolving row 16w + (l & 15)'s slot once.
+  // (l & 15) resolving row 16w + (l & 15)'s slot once; pieces as wide as hd
+  // allows, the pad lanes zero-filled (common.cuh).
+  const int gran_kv = copy_granule(hb);
   auto load_tile = [&](int s, int c0) {
     const int col = c0 + warp * 16 + (lane & 15);
     const bool live_i = col < n_cols;
     const int slot_i = live_i ? max(flat_pages[col / bs], 0) * bs + col % bs : 0;
-    constexpr int CPR = L::kRowBytes / 16;  // pieces per slot row
-    constexpr int RPI = 32 / CPR;           // rows per warp step
     unsigned char* dst = smem_tc + s * L::kStage;
+    constexpr int CPR16 = L::kRowBytes / 16;  // 16-byte pieces per unpadded slot row
+    if constexpr (!PAD && 32 % CPR16 == 0) {  // hd 64, 128: 16-byte pieces at fixed offsets
+      constexpr int RPI = 32 / CPR16;         // rows per warp step
 #pragma unroll
-    for (int i = 0; i < 16 / RPI; ++i) {
-      const int rr = i * RPI + lane / CPR, piece = lane % CPR;
-      const int slot = __shfl_sync(0xffffffffu, slot_i, rr);
-      const bool live = __shfl_sync(0xffffffffu, live_i ? 1 : 0, rr) != 0;
-      const unsigned char* src = reinterpret_cast<const unsigned char*>(kv_h + (size_t)slot * (2 * HD));
-      cp_async16(dst + (warp * 16 + rr) * L::kKvStride + piece * 16,
-                 live ? src + piece * 16 : reinterpret_cast<const unsigned char*>(kv_h), live);
+      for (int i = 0; i < 16 / RPI; ++i) {
+        const int rr = i * RPI + lane / CPR16, piece = lane % CPR16;
+        const int slot = __shfl_sync(0xffffffffu, slot_i, rr);
+        const bool live = __shfl_sync(0xffffffffu, live_i ? 1 : 0, rr) != 0;
+        const unsigned char* src = reinterpret_cast<const unsigned char*>(kv_h + (size_t)slot * (2 * HD));
+        cp_async16(dst + (warp * 16 + rr) * L::kKvStride + piece * 16,
+                   live ? src + piece * 16 : reinterpret_cast<const unsigned char*>(kv_h), live);
+      }
+    } else {
+      with_granule<(int)sizeof(KV)>(gran_kv, [&](auto gc) {
+        constexpr int GR = decltype(gc)::value;
+        constexpr int CPR = L::kRowBytes / GR;  // pieces per padded slot row (a multiple of 8)
+#pragma unroll 1
+        for (int i = 0; i < 16 * CPR / 32; ++i) {
+          const int e = 32 * i + lane, rr = e / CPR;
+          const RowPiece pc = kv_row_piece<GR, HD * (int)sizeof(KV)>(e % CPR, hb);
+          const int slot = __shfl_sync(0xffffffffu, slot_i, rr);
+          const bool live = __shfl_sync(0xffffffffu, live_i ? 1 : 0, rr) != 0 && pc.data;
+          const unsigned char* src = reinterpret_cast<const unsigned char*>(kv_h + (size_t)slot * (2 * hd));
+          copy_piece<GR>(dst + (warp * 16 + rr) * L::kKvStride + pc.dst,
+                         live ? src + pc.src : reinterpret_cast<const unsigned char*>(kv_h), live);
+        }
+      });
     }
     if constexpr (kI8) {
       const int which = lane >> 4;  // lanes 0-15: K scales, 16-31: V scales
@@ -555,28 +620,29 @@ __global__ void __launch_bounds__(tc::kThreads)
   for (int hf = 0; hf < 2; ++hf) {
     const int r = warp * 16 + g + 8 * hf, tok = t0 + r / G;
     if (r >= n_rows || tok >= T_tokens) continue;
-    __nv_bfloat16* orow = out + ((size_t)tok * Hq + h * G + r % G) * HD;
+    __nv_bfloat16* orow = out + ((size_t)tok * Hq + h * G + r % G) * hd;
     const float l = l_r[hf];
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<unsigned*>(orow + 8 * n + 2 * t) =
-          bf16x2(l > 0.f ? acc[n][2 * hf] / l : 0.f, l > 0.f ? acc[n][2 * hf + 1] / l : 0.f);
+      if (8 * n + 2 * t < hd)  // hd is even: both columns or neither
+        *reinterpret_cast<unsigned*>(orow + 8 * n + 2 * t) =
+            bf16x2(l > 0.f ? acc[n][2 * hf] / l : 0.f, l > 0.f ? acc[n][2 * hf + 1] / l : 0.f);
   }
 }
 
-template <typename KV, int HD>
+template <typename KV, int HD, bool PAD>
 cudaError_t launch_tc(const void* q, const void* kv, const float* scales, const int* pages,
                       const int* lo, const int* hi, void* out, int T_tokens, int Hq, int Hkv,
-                      long long S, int P, int bs, float scale, cudaStream_t stream) {
+                      int hd, long long S, int P, int bs, float scale, cudaStream_t stream) {
   constexpr int smem = tc::Layout<KV, HD>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flat_prefill_tc_kernel<KV, HD>,
+  cudaError_t err = cudaFuncSetAttribute(flat_prefill_tc_kernel<KV, HD, PAD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int tokens = tc::kRows / (Hq / Hkv);
   const int n_qtiles = (T_tokens + tokens - 1) / tokens;
-  flat_prefill_tc_kernel<KV, HD><<<n_qtiles * Hkv, tc::kThreads, smem, stream>>>(
+  flat_prefill_tc_kernel<KV, HD, PAD><<<n_qtiles * Hkv, tc::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kv), scales, pages, lo, hi,
-      static_cast<__nv_bfloat16*>(out), T_tokens, Hq, Hkv, S, P, bs, scale, n_qtiles);
+      static_cast<__nv_bfloat16*>(out), T_tokens, Hq, Hkv, S, P, bs, scale, n_qtiles, hd);
   return cudaGetLastError();
 }
 
@@ -588,14 +654,29 @@ cudaError_t dispatch(int dtype, const void* q, const void* kv,
                      long long S, int P, int bs, float scale, cudaStream_t st) {
   using KVf = std::conditional_t<KV8, int8_t, float>;
   using KVb = std::conditional_t<KV8, int8_t, __nv_bfloat16>;
-  if (dtype == kFloat32 && hd == 64)
-    return launch<float, KVf, 64>(q, kv, scales, pages, lo, hi, out, T, Hq, Hkv, S, P, bs, scale, st);
-  if (dtype == kFloat32 && hd == 128)
-    return launch<float, KVf, 128>(q, kv, scales, pages, lo, hi, out, T, Hq, Hkv, S, P, bs, scale, st);
-  if (dtype == kBFloat16 && hd == 64)
-    return launch_tc<KVb, 64>(q, kv, scales, pages, lo, hi, out, T, Hq, Hkv, S, P, bs, scale, st);
-  if (dtype == kBFloat16 && hd == 128)
-    return launch_tc<KVb, 128>(q, kv, scales, pages, lo, hi, out, T, Hq, Hkv, S, P, bs, scale, st);
+  auto at = [&](auto w) -> cudaError_t {  // padded width HP, unpadded (hd = HP) or padded
+    constexpr int HP = decltype(w)::value;
+    const bool pad = hd != HP;
+    if (dtype == kFloat32 && pad)
+      return launch<float, KVf, HP, true>(q, kv, scales, pages, lo, hi, out, T, Hq, Hkv, hd, S, P,
+                                          bs, scale, st);
+    if (dtype == kFloat32)
+      return launch<float, KVf, HP, false>(q, kv, scales, pages, lo, hi, out, T, Hq, Hkv, hd, S,
+                                           P, bs, scale, st);
+    if (dtype == kBFloat16 && pad)
+      return launch_tc<KVb, HP, true>(q, kv, scales, pages, lo, hi, out, T, Hq, Hkv, hd, S, P, bs,
+                                      scale, st);
+    if (dtype == kBFloat16)
+      return launch_tc<KVb, HP, false>(q, kv, scales, pages, lo, hi, out, T, Hq, Hkv, hd, S, P,
+                                       bs, scale, st);
+    return cudaErrorInvalidValue;
+  };
+  switch (padded_head_dim(hd)) {
+    case 64: return at(std::integral_constant<int, 64>{});
+    case 128: return at(std::integral_constant<int, 128>{});
+    case 192: return at(std::integral_constant<int, 192>{});
+    case 256: return at(std::integral_constant<int, 256>{});
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -632,11 +713,20 @@ extern "C" int ssd_flat_prefill_attention_int8(int dtype, const void* q,
                              static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory of the bf16 kernel's instantiation (for the smoke
-// run's resource report); 0 for a head size it does not take.
-extern "C" int ssd_flat_prefill_smem_bytes(int int8, int hd) {
+// Dynamic shared memory of the bf16 kernel's instantiation for hd (for the
+// smoke run's resource report); 0 for a head size it does not take.
+template <int HP>
+int tc_smem(int int8) {
   using namespace ssd;
-  if (hd == 64) return int8 ? tc::Layout<int8_t, 64>::kBytes : tc::Layout<__nv_bfloat16, 64>::kBytes;
-  if (hd == 128) return int8 ? tc::Layout<int8_t, 128>::kBytes : tc::Layout<__nv_bfloat16, 128>::kBytes;
+  return int8 ? tc::Layout<int8_t, HP>::kBytes : tc::Layout<__nv_bfloat16, HP>::kBytes;
+}
+
+extern "C" int ssd_flat_prefill_smem_bytes(int int8, int hd) {
+  switch (ssd::padded_head_dim(hd)) {
+    case 64: return tc_smem<64>(int8);
+    case 128: return tc_smem<128>(int8);
+    case 192: return tc_smem<192>(int8);
+    case 256: return tc_smem<256>(int8);
+  }
   return 0;
 }

@@ -10,13 +10,14 @@
 // page), context_lens [B], qeff [B]. Query i of sequence b attends positions p
 // with p <= ctx_b - qeff_b + i and p < min(ctx_b, M * block_size). A -1 table
 // entry reads page 0, as the gather oracle does; rows that attend nothing give
-// zeros. Any block size; hd 64 or 128.
+// zeros. Any block size; any even hd in [16, 256].
 //
 // Beside them the caller passes the chunk length (a multiple of 64: the
 // positions of one partial softmax state), the number of consecutive chunks
 // each block takes (chunk * per_block <= 512; it changes no result), a
 // workspace of
-// B * Hkv * ceil(M * block_size / chunk) * Q * (Hq / Hkv) * (hd + 2) floats
+// B * Hkv * ceil(M * block_size / chunk) * Q * (Hq / Hkv) * (HP + 2) floats,
+// HP the padded width (common.cuh::padded_head_dim),
 // for the blocks' partial softmax states, and B * Hkv int counters that are
 // zero before the call and zero again after it; neither may be shared with a
 // call running on another stream.
@@ -34,10 +35,10 @@ namespace {
 
 ssd::paged::Args make_args(const void* q, const void* kv, const int* bt, const int* ctx,
                            const int* qeff, void* out, void* ws, void* counters, int Q,
-                           int Hq, int Hkv, long long S, int M, int bs, int chunk,
+                           int Hq, int Hkv, int hd, long long S, int M, int bs, int chunk,
                            int per_block, float scale) {
   return {q, kv, nullptr, bt, ctx, qeff, out, static_cast<float*>(ws),
-          static_cast<int*>(counters), Q, Hq, Hkv, S, M, bs, chunk, per_block, scale};
+          static_cast<int*>(counters), Q, Hq, Hkv, S, M, bs, chunk, per_block, scale, hd};
 }
 
 }  // namespace
@@ -51,13 +52,13 @@ extern "C" int ssd_paged_attention(int dtype, const void* q, const void* kv,
   if (B == 0 || Q == 0) return cudaSuccess;
   if (!ssd::paged::valid(B, Q, Hq, Hkv, M, bs, chunk, per_block)) return cudaErrorInvalidValue;
   const auto a = make_args(q, kv, block_tables, context_lens, qeff, out, ws, counters, Q, Hq,
-                           Hkv, S, M, bs, chunk, per_block, scale);
+                           Hkv, hd, S, M, bs, chunk, per_block, scale);
   return ssd::paged::dispatch<ssd::paged::kFp, ssd::kStageFull>(
       dtype, hd, a, B, static_cast<cudaStream_t>(stream));
 }
 
 // The stage variants (bench probe; see paged_split.cuh). stage: 0 full,
-// 1 loads, 2 math, 3 empty; stages 1-3 take bf16 q.
+// 1 loads, 2 math, 3 empty; stages 1-3 take bf16 q at hd <= 128.
 extern "C" int ssd_paged_attention_diag(int stage, int dtype, const void* q, const void* kv,
                                         const int* block_tables, const int* context_lens,
                                         const int* qeff, void* out, void* ws, void* counters,
@@ -67,7 +68,7 @@ extern "C" int ssd_paged_attention_diag(int stage, int dtype, const void* q, con
   if (B == 0 || Q == 0) return cudaSuccess;
   if (!ssd::paged::valid(B, Q, Hq, Hkv, M, bs, chunk, per_block)) return cudaErrorInvalidValue;
   const auto a = make_args(q, kv, block_tables, context_lens, qeff, out, ws, counters, Q, Hq,
-                           Hkv, S, M, bs, chunk, per_block, scale);
+                           Hkv, hd, S, M, bs, chunk, per_block, scale);
   const auto st = static_cast<cudaStream_t>(stream);
   using ssd::paged::dispatch;
   using ssd::paged::kFp;
@@ -81,8 +82,9 @@ extern "C" int ssd_paged_attention_diag(int stage, int dtype, const void* q, con
 }
 
 // Dynamic shared memory of one instantiation of the paged kernels (kind 0
-// fp, 1 int8, 2 int8_mxu; dtype 0 fp32, 1 bf16; mt row tiles), for the
-// resource report of chip_smoke.py; -1 for a combination not built.
+// fp, 1 int8, 2 int8_mxu; dtype 0 fp32, 1 bf16; mt row tiles; hd's padded
+// width), for the resource report of chip_smoke.py; -1 for a combination
+// not built.
 template <typename T, int HD>
 int smem_of(int kind, int mt) {
   using namespace ssd::paged;
@@ -97,11 +99,18 @@ int smem_of(int kind, int mt) {
        : kind == kS8 ? pick(std::integral_constant<int, kS8>{}) : -1;
 }
 
+template <typename T>
+int smem_at(int kind, int hp, int mt) {
+  return hp == 64 ? smem_of<T, 64>(kind, mt)
+       : hp == 128 ? smem_of<T, 128>(kind, mt)
+       : hp == 192 ? smem_of<T, 192>(kind, mt)
+       : hp == 256 ? smem_of<T, 256>(kind, mt) : -1;
+}
+
 extern "C" int ssd_paged_smem_bytes(int kind, int dtype, int hd, int mt) {
-  if (dtype == ssd::kFloat32 && hd == 64) return smem_of<float, 64>(kind, mt);
-  if (dtype == ssd::kFloat32 && hd == 128) return smem_of<float, 128>(kind, mt);
-  if (dtype == ssd::kBFloat16 && hd == 64) return smem_of<__nv_bfloat16, 64>(kind, mt);
-  if (dtype == ssd::kBFloat16 && hd == 128) return smem_of<__nv_bfloat16, 128>(kind, mt);
+  const int hp = ssd::padded_head_dim(hd);
+  if (dtype == ssd::kFloat32) return smem_at<float>(kind, hp, mt);
+  if (dtype == ssd::kBFloat16) return smem_at<__nv_bfloat16>(kind, hp, mt);
   return -1;
 }
 

@@ -7,7 +7,8 @@
 // TPU router paged_attention_best sends every int8 decode/verify to, B = 1
 // included.
 //
-// Contract: that of csrc/paged_attention.cu (q [B, Q, Hq, hd], block_tables
+// Contract: that of csrc/paged_attention.cu (q [B, Q, Hq, hd] at any even hd
+// in [16, 256], the s8 mode at hd 64, 128, 192 or 256 only, block_tables
 // [B, M] with -1 read as page 0, context_lens and qeff [B]; query i attends
 // p <= ctx - qeff + i below min(ctx, M * block_size); rows that attend
 // nothing give zeros; the chunk, workspace and counters) over an int8 layer
@@ -44,14 +45,28 @@
 // csrc/paged_attention.cu.
 #include "paged_split.cuh"
 
+// The build compiles this file twice (ops/cuda_lib.py::SPLIT_SOURCES), the
+// second time with SSD_S8_PART, which holds only the int8_mxu kernels: the
+// two halves of the instantiations build in parallel.
+namespace ssd {
+namespace paged {
+cudaError_t dispatch_s8(int dtype, int hd, const Args& a, int B, cudaStream_t st);
+}  // namespace paged
+}  // namespace ssd
+
+#ifdef SSD_S8_PART
+cudaError_t ssd::paged::dispatch_s8(int dtype, int hd, const Args& a, int B, cudaStream_t st) {
+  return dispatch<kS8, kStageFull>(dtype, hd, a, B, st);
+}
+#else
 namespace {
 
 ssd::paged::Args make_args(const void* q, const void* kv, const float* scales, const int* bt,
                            const int* ctx, const int* qeff, void* out, void* ws,
-                           void* counters, int Q, int Hq, int Hkv, long long S, int M, int bs,
-                           int chunk, int per_block, float scale) {
+                           void* counters, int Q, int Hq, int Hkv, int hd, long long S, int M,
+                           int bs, int chunk, int per_block, float scale) {
   return {q, kv, scales, bt, ctx, qeff, out, static_cast<float*>(ws),
-          static_cast<int*>(counters), Q, Hq, Hkv, S, M, bs, chunk, per_block, scale};
+          static_cast<int*>(counters), Q, Hq, Hkv, S, M, bs, chunk, per_block, scale, hd};
 }
 
 }  // namespace
@@ -66,11 +81,10 @@ extern "C" int ssd_paged_attention_int8(int dtype, int s8, const void* q, const 
   if (B == 0 || Q == 0) return cudaSuccess;
   if (!ssd::paged::valid(B, Q, Hq, Hkv, M, bs, chunk, per_block)) return cudaErrorInvalidValue;
   const auto a = make_args(q, kv, scales, block_tables, context_lens, qeff, out, ws, counters,
-                           Q, Hq, Hkv, S, M, bs, chunk, per_block, scale);
+                           Q, Hq, Hkv, hd, S, M, bs, chunk, per_block, scale);
   const auto st = static_cast<cudaStream_t>(stream);
   using namespace ssd::paged;
-  return s8 ? dispatch<kS8, ssd::kStageFull>(dtype, hd, a, B, st)
-            : dispatch<kI8, ssd::kStageFull>(dtype, hd, a, B, st);
+  return s8 ? dispatch_s8(dtype, hd, a, B, st) : dispatch<kI8, ssd::kStageFull>(dtype, hd, a, B, st);
 }
 
 // The stage variants of the "int8" mode (bench probe). stage: 0 full,
@@ -86,7 +100,7 @@ extern "C" int ssd_paged_attention_int8_diag(int stage, int dtype, const void* q
   if (B == 0 || Q == 0) return cudaSuccess;
   if (!ssd::paged::valid(B, Q, Hq, Hkv, M, bs, chunk, per_block)) return cudaErrorInvalidValue;
   const auto a = make_args(q, kv, scales, block_tables, context_lens, qeff, out, ws, counters,
-                           Q, Hq, Hkv, S, M, bs, chunk, per_block, scale);
+                           Q, Hq, Hkv, hd, S, M, bs, chunk, per_block, scale);
   const auto st = static_cast<cudaStream_t>(stream);
   using ssd::paged::dispatch;
   using ssd::paged::kI8;
@@ -98,3 +112,4 @@ extern "C" int ssd_paged_attention_int8_diag(int stage, int dtype, const void* q
   }
   return cudaErrorInvalidValue;
 }
+#endif  // SSD_S8_PART

@@ -8,7 +8,9 @@
 // row (f32 scales [Hkv, 2, S] beside an int8 layer); block_tables [B, M],
 // where -1 reads page 0; query i of sequence b attends p <= ctx - qeff + i
 // with p < min(ctx, M * block_size); rows that attend nothing give zeros;
-// any block size.
+// any block size; any even hd in [16, 256] (the template's HD is the padded
+// width, 64, 128, 192 or 256, common.cuh::padded_head_dim; the s8 kind only
+// at hd = HD).
 //
 // What bounds it on an H100: bytes. Every attended K|V row is read once per
 // call; at decode each byte feeds Q * G query rows (4-72 here), far below
@@ -21,10 +23,12 @@
 //     result depends on neither the batch, nor Q, nor the other rows.
 //  2. The chunk's K|V goes through a cp.async ring of page tiles: each
 //     slot's K|V row is 2 * hd contiguous elements, copied as 16-byte pieces
-//     by neighbouring threads (and, for int8, its two scales as 4-byte
-//     copies), gathered through the page table (the chunk's slots resolved
-//     once, into shared memory). The next tiles stay in flight while one is
-//     used; the query rows' copies go out with the first tiles'.
+//     by neighbouring threads (narrower where hd * esize is no multiple of
+//     16, and the pad lanes of a padded width zero-filled: common.cuh), and,
+//     for int8, its two scales as 4-byte copies, gathered through the page
+//     table (the chunk's slots resolved once, into shared memory). The next
+//     tiles stay in flight while one is used; the query rows' copies go out
+//     with the first tiles'.
 //  3. bf16 q over the fp cache or the "int8" mode ("warp-split"): 64-position
 //     tiles, three stages (two at bf16 hd 128). Each warp owns 16 of every 64
 //     positions, all columns and 16 query rows, and keeps its own online
@@ -97,7 +101,10 @@ struct Args {
   int M, bs, chunk;
   int per_block;  // consecutive chunks each block takes
   float scale;
+  int hd;         // the head dim, even, at most the instantiation's padded width
 };
+
+constexpr int kMaxSmem = 232448;  // an H100 block's shared memory (227 KB)
 
 // Shared-memory layout of one instantiation (byte offsets, 16-aligned).
 template <typename T, int HD, int MT, int KIND>
@@ -115,25 +122,38 @@ struct Layout {
   // 64 positions with its own online softmax (see the kernel), 16 rows a pass.
   static constexpr bool kWarpSplit = kBf16 && KIND != kS8;
   static constexpr int kTileL = kWarpSplit ? 2 * kTile : kTile;  // positions per stage
-  // Ring depth: three stages; two for bf16 hd 128 warp-split, where a third
-  // 33 KB stage would cost a block per SM.
-  static constexpr int kStagesL = kWarpSplit && KIND == kFp && HD == 128 ? 2 : 3;
-  static constexpr int kRing = kStagesL * kTileL * kKvStride;
   // The warps' partial states, merged at the end of a pass (over the ring).
   static constexpr int kWarpMerge = kWarpSplit ? kWarps * 16 * (HD + 2) * 4 : 0;
+  static constexpr int kPBytes = KIND == kS8 ? kRows * kPStride : kMma ? 2 * kRows * kPStride * 2 : 0;
+  // Bytes of the layout below past the ring and its scales, and in all at
+  // three stages.
+  static constexpr int kRest = kRows * kQStride + kRows * kSStride * 4 + kPBytes +
+                               5 * kRows * 4 + kMaxChunk * 4 + 16;
+  static constexpr int kRing3 = 3 * kTileL * kKvStride;
+  static constexpr int kBytes3 = (kRing3 > kWarpMerge ? kRing3 : kWarpMerge) +
+                                 (KIND == kFp ? 0 : 3 * 2 * kTileL * 4) + kRest;
+  // Ring depth: three stages; two for bf16 warp-split over the fp cache from
+  // hd 128 up, where a third 33 KB stage (hd 128) would cost a block per SM,
+  // and wherever three would not fit (fp32 at HD 256, four row tiles).
+  static constexpr int kStagesL =
+      (kWarpSplit && KIND == kFp && HD >= 128) || kBytes3 > kMaxSmem ? 2 : 3;
+  static constexpr int kRing = kStagesL * kTileL * kKvStride;
   static constexpr int kKv = 0;
   static constexpr int kSc = kKv + (kRing > kWarpMerge ? kRing : kWarpMerge);
   static_assert((2 + 32 + HD) * kMergeRows * 4 <= kSc, "the merge's scratch must fit the ring");
   static constexpr int kQ = kSc + (KIND == kFp ? 0 : kStagesL * 2 * kTileL * 4);
   static constexpr int kS = kQ + kRows * kQStride;
   static constexpr int kP = kS + kRows * kSStride * 4;
-  static constexpr int kPBytes = KIND == kS8 ? kRows * kPStride : kMma ? 2 * kRows * kPStride * 2 : 0;
   static constexpr int kRowF = kP + kPBytes;                   // alpha, f, qsc, m, l per row
   static constexpr int kSlots = kRowF + 5 * kRows * 4;
   static constexpr int kBytes = kSlots + kMaxChunk * 4 + 16;   // + the last-block flag
+  static_assert(kBytes <= kMaxSmem, "the layout must fit a block's shared memory");
 };
 
-template <typename T, int HD, int MT, int KIND, int STAGE>
+// PAD: the instantiation for hd < HD (the lanes past hd zero, rows copied in
+// pieces as wide as hd allows); without it hd = HD, every offset a constant,
+// so the padded path costs the unpadded one no registers.
+template <typename T, int HD, int MT, int KIND, int STAGE, bool PAD>
 __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
   using L = Layout<T, HD, MT, KIND>;
   using CT = typename L::CT;
@@ -174,7 +194,10 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
   const int c_last = min(c_first + a.per_block, max(n_live, 1));
   const int span0 = c_first * a.chunk;
   const int bh = b * Hkv + h;
-  const CT* kv_h = static_cast<const CT*>(a.kv) + (size_t)h * a.S * (2 * HD);
+  const int hd = PAD ? a.hd : HD;
+  const int hb = hd * (int)sizeof(CT);  // bytes of a K or V half in device memory
+  const int gran_kv = copy_granule(hb), gran_q = copy_granule(hd * (int)sizeof(T));
+  const CT* kv_h = static_cast<const CT*>(a.kv) + (size_t)h * a.S * (2 * hd);
   const float* sk_h = a.scales + (size_t)h * 2 * a.S;  // int8: K scales; V scales at + S
   const T* qg = static_cast<const T*>(a.q);
   T* og = static_cast<T*>(a.out);
@@ -182,17 +205,34 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
   float2* ws_ml = reinterpret_cast<float2*>(a.ws + (size_t)gridDim.z * Hkv * NC * R * HD) +
                   (size_t)bh * NC * R;
 
-  // Warp-split kinds: a pass's 16 query rows by cp.async (zeros past R),
-  // one commit group ahead of its first tiles', so their latencies overlap;
-  // pass 0's go out before the page-table reads.
+  // Warp-split kinds: a pass's 16 query rows by cp.async (zeros past R and
+  // past hd), one commit group ahead of its first tiles', so their latencies
+  // overlap; pass 0's go out before the page-table reads.
   auto load_q = [&](int r0, int nr) {
-    constexpr int QP = HD * 2 / 16;  // 16-byte pieces per row
-    for (int e = tid; e < 16 * QP; e += kThreads) {
-      const int rr = e / QP, piece = e % QP, r = r0 + rr;
-      const bool live = rr < nr;
-      const T* src = live ? qg + (((size_t)b * a.Q + r / G) * a.Hq + h * G + r % G) * HD + piece * 8
-                          : qg;
-      cp_async16(q_s + rr * L::kQStride + piece * 16, src, live);
+    if constexpr (!PAD) {  // 16-byte pieces at fixed offsets
+      constexpr int QP = HD * 2 / 16;  // 16-byte pieces per row
+      for (int e = tid; e < 16 * QP; e += kThreads) {
+        const int rr = e / QP, piece = e % QP, r = r0 + rr;
+        const bool live = rr < nr;
+        const T* src = live ? qg + (((size_t)b * a.Q + r / G) * a.Hq + h * G + r % G) * HD + piece * 8
+                            : qg;
+        cp_async16(q_s + rr * L::kQStride + piece * 16, src, live);
+      }
+    } else {
+      with_granule<(int)sizeof(T)>(gran_q, [&](auto gc) {
+        constexpr int GR = decltype(gc)::value;
+        constexpr int QP = HD * (int)sizeof(T) / GR;  // pieces per padded row
+#pragma unroll 1
+        for (int e = tid; e < 16 * QP; e += kThreads) {
+          const int rr = e / QP, off = (e % QP) * GR, r = r0 + rr;
+          const bool live = rr < nr && off < hd * (int)sizeof(T);
+          const unsigned char* src =
+              live ? reinterpret_cast<const unsigned char*>(
+                         qg + (((size_t)b * a.Q + r / G) * a.Hq + h * G + r % G) * hd) + off
+                   : reinterpret_cast<const unsigned char*>(qg);
+          copy_piece<GR>(q_s + rr * L::kQStride + off, src, live);
+        }
+      });
     }
     cp_async_commit();
   };
@@ -223,10 +263,11 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
       }
       // The P.V accumulators: with tensor cores warp w owns output columns
       // [w * HD/4, (w+1) * HD/4) of every row tile (NT 8-column tiles); on
-      // fp32 FMAs thread tid owns column tid % HD of rows tid / HD + k * RS.
+      // fp32 FMAs thread tid owns the (row, column) pairs e = tid + k *
+      // kThreads of the pass, row e / HD, column e % HD.
       constexpr int NT = HD / 32;
-      constexpr int RS = kThreads / HD;
-      constexpr int NACC = L::kMma ? MT * NT * 4 : ROWS / RS;
+      constexpr int NACC = L::kMma ? MT * NT * 4 : ROWS * HD / kThreads;
+      static_assert(L::kMma || ROWS * HD % kThreads == 0, "whole (row, column) pairs a thread");
       float acc[NACC];
 #pragma unroll
       for (int k = 0; k < NACC; ++k) acc[k] = 0.f;
@@ -234,14 +275,32 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
 
       auto stage_kv = [&](int s) { return kv_s + s * TP * L::kKvStride; };
       auto load_tile = [&](int s, int t0) {
-        constexpr int CPR = L::kRowBytes / 16;  // 16-byte pieces per slot row
         unsigned char* dst = stage_kv(s);
-        for (int e = tid; e < TP * CPR; e += kThreads) {
-          const int row = e / CPR, piece = e % CPR, p = t0 + row;
-          const bool live = p < p_end;
-          const CT* src = live ? kv_h + (size_t)slot_s[p - span0] * (2 * HD) : kv_h;
-          cp_async16(dst + row * L::kKvStride + piece * 16,
-                     reinterpret_cast<const unsigned char*>(src) + (live ? piece * 16 : 0), live);
+        if constexpr (!PAD) {  // 16-byte pieces at fixed offsets
+          constexpr int CPR = L::kRowBytes / 16;  // 16-byte pieces per slot row
+          for (int e = tid; e < TP * CPR; e += kThreads) {
+            const int row = e / CPR, piece = e % CPR, p = t0 + row;
+            const bool live = p < p_end;
+            const CT* src = live ? kv_h + (size_t)slot_s[p - span0] * (2 * HD) : kv_h;
+            cp_async16(dst + row * L::kKvStride + piece * 16,
+                       reinterpret_cast<const unsigned char*>(src) + (live ? piece * 16 : 0), live);
+          }
+        } else {
+          with_granule<(int)sizeof(CT)>(gran_kv, [&](auto gc) {
+            constexpr int GR = decltype(gc)::value;
+            constexpr int CPR = L::kRowBytes / GR;  // pieces per padded slot row
+#pragma unroll 1
+            for (int e = tid; e < TP * CPR; e += kThreads) {
+              const int row = e / CPR, p = t0 + row;
+              const RowPiece pc = kv_row_piece<GR, HD * (int)sizeof(CT)>(e % CPR, hb);
+              const bool live = p < p_end && pc.data;
+              const unsigned char* src =
+                  live ? reinterpret_cast<const unsigned char*>(kv_h + (size_t)slot_s[p - span0] * (2 * hd)) +
+                             pc.src
+                       : reinterpret_cast<const unsigned char*>(kv_h);
+              copy_piece<GR>(dst + row * L::kKvStride + pc.dst, src, live);
+            }
+          });
         }
         if constexpr (KIND != kFp) {
           for (int e = tid; e < 2 * TP; e += kThreads) {
@@ -279,7 +338,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
         // Each row quantized once: qs = max(max|q|, 1e-30) / 127, q8 = round(q / qs).
         for (int rr = warp; rr < ROWS; rr += kWarps) {
           int8_t* q8 = reinterpret_cast<int8_t*>(q_s + rr * L::kQStride);
-          if (rr < nr) {
+          if (rr < nr) {  // the s8 kind runs at hd = HD only
             const int r = r0 + rr, i = r / G, gg = r % G;
             const T* qrow = qg + (((size_t)b * a.Q + i) * a.Hq + h * G + gg) * HD;
             float amax = 0.f;
@@ -298,9 +357,9 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
         for (int e = tid; e < ROWS * HD; e += kThreads) {
           const int rr = e / HD, d = e % HD;
           float val = 0.f;
-          if (rr < nr) {
+          if (rr < nr && (!PAD || d < hd)) {
             const int r = r0 + rr, i = r / G, gg = r % G;
-            val = to_float(qg[(((size_t)b * a.Q + i) * a.Hq + h * G + gg) * HD + d]);
+            val = to_float(qg[(((size_t)b * a.Q + i) * a.Hq + h * G + gg) * hd + d]);
           }
           if constexpr (L::kMma)
             reinterpret_cast<__nv_bfloat16*>(q_s + rr * L::kQStride)[d] = __float2bfloat16(val);
@@ -720,7 +779,8 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
               }
             }
           }
-        } else {
+        } else if constexpr (kThreads % HD == 0) {  // one column a thread
+          constexpr int RS = kThreads / HD;
           const int cc = tid % HD;
           const CT* vcol = reinterpret_cast<const CT*>(kt) + HD + cc;
 #pragma unroll
@@ -731,6 +791,19 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
 #pragma unroll
             for (int k = 0; k < NACC; ++k)
               acc[k] = fmaf(s_s[(tid / HD + RS * k) * L::kSStride + j], v, acc[k]);
+          }
+        } else {  // HD 192: each pair its own column
+          const CT* vrow = reinterpret_cast<const CT*>(kt) + HD;
+#pragma unroll
+          for (int k = 0; k < NACC; ++k) acc[k] *= alpha_s[(tid + kThreads * k) / HD];
+#pragma unroll 2
+          for (int j = 0; j < kTile; ++j) {
+#pragma unroll
+            for (int k = 0; k < NACC; ++k) {
+              const int e = tid + kThreads * k;
+              const float v = static_cast<float>(vrow[j * (L::kKvStride / (int)sizeof(CT)) + e % HD]);
+              acc[k] = fmaf(s_s[(e / HD) * L::kSStride + j], v, acc[k]);
+            }
           }
         }
       }
@@ -776,8 +849,9 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
           const int r = r0 + rr;
           if (n_live <= 1) {
             const int i = r / G, gg = r % G;
-            og[(((size_t)b * a.Q + i) * a.Hq + h * G + gg) * HD + cc] =
-                from_float<T>(Lb > 0.f ? Ab / Lb : 0.f);
+            if (cc < hd)
+              og[(((size_t)b * a.Q + i) * a.Hq + h * G + gg) * hd + cc] =
+                  from_float<T>(Lb > 0.f ? Ab / Lb : 0.f);
           } else {
             ws_acc[((size_t)c * R + r) * HD + cc] = Ab;
             if (cc == 0) ws_ml[(size_t)c * R + r] = make_float2(mx, Lb);
@@ -809,7 +883,8 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
         if (n_live <= 1) {
           const int i = r / G, gg = r % G;
           const float l = l_s[rr];
-          og[(((size_t)b * a.Q + i) * a.Hq + h * G + gg) * HD + cc] = from_float<T>(l > 0.f ? v / l : 0.f);
+          if (cc < hd)
+            og[(((size_t)b * a.Q + i) * a.Hq + h * G + gg) * hd + cc] = from_float<T>(l > 0.f ? v / l : 0.f);
         } else {
           ws_acc[((size_t)c * R + r) * HD + cc] = v;
         }
@@ -822,9 +897,13 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
 #pragma unroll
             for (int j = 0; j < 4; ++j)
               put(16 * m + g + 8 * (j >> 1), col0 + 8 * n + 2 * t + (j & 1), acc[(m * NT + n) * 4 + j]);
-      } else {
+      } else if constexpr (kThreads % HD == 0) {
+        constexpr int RS = kThreads / HD;
 #pragma unroll
         for (int k = 0; k < NACC; ++k) put(tid / HD + RS * k, tid % HD, acc[k]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < NACC; ++k) put((tid + kThreads * k) / HD, (tid + kThreads * k) % HD, acc[k]);
       }
       if (n_live > 1)
         for (int rr = tid; rr < nr; rr += kThreads)
@@ -903,18 +982,19 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
       const int rr = e / HD, cc = e % HD;
       const int r = g0 + rr, i = r / G, gg = r % G;
       const float Ls = L_s[rr];
-      og[(((size_t)b * a.Q + i) * a.Hq + h * G + gg) * HD + cc] =
-          from_float<T>(Ls > 0.f ? As[e] / Ls : 0.f);
+      if (cc < hd)
+        og[(((size_t)b * a.Q + i) * a.Hq + h * G + gg) * hd + cc] =
+            from_float<T>(Ls > 0.f ? As[e] / Ls : 0.f);
     }
     __syncthreads();  // the next group reuses mx_s, L_s
   }
   if (tid == 0) a.counters[bh] = 0;  // ready for the stream's next call
 }
 
-template <typename T, int HD, int MT, int KIND, int STAGE>
+template <typename T, int HD, int MT, int KIND, int STAGE, bool PAD>
 cudaError_t launch_mt(const Args& a, int B, cudaStream_t st) {
   using L = Layout<T, HD, MT, KIND>;
-  auto* kern = paged_split_kernel<T, HD, MT, KIND, STAGE>;
+  auto* kern = paged_split_kernel<T, HD, MT, KIND, STAGE, PAD>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != cudaSuccess) return attr;
@@ -925,30 +1005,55 @@ cudaError_t launch_mt(const Args& a, int B, cudaStream_t st) {
 
 // Row tiles per pass: one for the warp-split kinds (bf16 q over the fp
 // cache or the "int8" mode: 16 rows a pass); otherwise by Q * G, 1 (<= 16
-// rows), 2 (<= 32) or 4 (64 rows a pass). The stage variants exist for the
-// warp-split kinds only.
-template <typename T, int HD, int KIND, int STAGE>
+// rows), 2 (<= 32) or 4 (64 rows a pass), and one at widths 192 and 256 or
+// for a padded hd (more passes over the chunk, whose re-reads hit L2; a
+// row's arithmetic is the same in any tile count). The stage variants exist
+// for the warp-split kinds, unpadded, only.
+template <typename T, int HD, int KIND, int STAGE, bool PAD>
 cudaError_t launch(const Args& a, int B, cudaStream_t st) {
-  if constexpr (Layout<T, HD, 1, KIND>::kWarpSplit) {
-    return launch_mt<T, HD, 1, KIND, STAGE>(a, B, st);
-  } else if constexpr (STAGE != kStageFull) {
+  constexpr bool kWS = Layout<T, HD, 1, KIND>::kWarpSplit;
+  if constexpr (STAGE != kStageFull && (!kWS || PAD)) {
     return cudaErrorInvalidValue;
+  } else if constexpr (kWS || HD > 128 || PAD) {
+    return launch_mt<T, HD, 1, KIND, STAGE, PAD>(a, B, st);
   } else {
     const int R = a.Q * (a.Hq / a.Hkv);
-    if (R <= 16) return launch_mt<T, HD, 1, KIND, STAGE>(a, B, st);
-    if (R <= 32) return launch_mt<T, HD, 2, KIND, STAGE>(a, B, st);
-    return launch_mt<T, HD, 4, KIND, STAGE>(a, B, st);
+    if (R <= 16) return launch_mt<T, HD, 1, KIND, STAGE, PAD>(a, B, st);
+    if (R <= 32) return launch_mt<T, HD, 2, KIND, STAGE, PAD>(a, B, st);
+    return launch_mt<T, HD, 4, KIND, STAGE, PAD>(a, B, st);
   }
+}
+
+// An instantiation by padded width: unpadded (hd = HP) or padded.
+template <typename T, int HP, int KIND, int STAGE>
+cudaError_t launch_width(int hd, const Args& a, int B, cudaStream_t st) {
+  if (hd == HP) return launch<T, HP, KIND, STAGE, false>(a, B, st);
+  if constexpr (KIND == kS8 || STAGE != kStageFull) return cudaErrorInvalidValue;
+  else return launch<T, HP, KIND, STAGE, true>(a, B, st);
+}
+
+// By padded width (common.cuh::padded_head_dim). The s8 kind takes hd 64,
+// 128, 192 and 256 unpadded (the JAX router's s8 kernel needs (2 hd) % 128
+// == 0, and the wrappers send it nothing else); the stage variants take
+// bf16 q at the widths 64 and 128.
+template <typename T, int KIND, int STAGE>
+cudaError_t dispatch_width(int hd, const Args& a, int B, cudaStream_t st) {
+  const int hp = padded_head_dim(hd);
+  if (hp == 64) return launch_width<T, 64, KIND, STAGE>(hd, a, B, st);
+  if (hp == 128) return launch_width<T, 128, KIND, STAGE>(hd, a, B, st);
+  if constexpr (STAGE == kStageFull) {
+    if (hp == 192) return launch_width<T, 192, KIND, STAGE>(hd, a, B, st);
+    if (hp == 256) return launch_width<T, 256, KIND, STAGE>(hd, a, B, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <int KIND, int STAGE>
 cudaError_t dispatch(int dtype, int hd, const Args& a, int B, cudaStream_t st) {
   if constexpr (STAGE == kStageFull) {
-    if (dtype == kFloat32 && hd == 64) return launch<float, 64, KIND, STAGE>(a, B, st);
-    if (dtype == kFloat32 && hd == 128) return launch<float, 128, KIND, STAGE>(a, B, st);
+    if (dtype == kFloat32) return dispatch_width<float, KIND, STAGE>(hd, a, B, st);
   }
-  if (dtype == kBFloat16 && hd == 64) return launch<__nv_bfloat16, 64, KIND, STAGE>(a, B, st);
-  if (dtype == kBFloat16 && hd == 128) return launch<__nv_bfloat16, 128, KIND, STAGE>(a, B, st);
+  if (dtype == kBFloat16) return dispatch_width<__nv_bfloat16, KIND, STAGE>(hd, a, B, st);
   return cudaErrorInvalidValue;
 }
 

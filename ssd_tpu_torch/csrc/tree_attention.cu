@@ -18,13 +18,14 @@
 // 0 <= t < (s+1)*MQ and t % MQ == r (its own column of each step). Rows that
 // attend nothing (ghost rows with a negative prefix included) give zeros.
 // The mask is evaluated from these integers per position; no bitmask exists.
-// Any block size and any MQ; hd 64 or 128.
+// Any block size and any MQ; any even hd in [16, 256].
 //
 // Beside them the caller passes the chunk length (a multiple of 64: the
 // positions of one partial softmax state), the number of consecutive chunks
 // each block takes (chunk * per_block <= 512; it changes no result), a
 // workspace of
-// B * Hkv * ceil(M * block_size / chunk) * MQ * (Hq / Hkv) * (hd + 2) floats
+// B * Hkv * ceil(M * block_size / chunk) * MQ * (Hq / Hkv) * (HP + 2) floats,
+// HP the padded width (common.cuh::padded_head_dim),
 // for the blocks' partial softmax states, and B * Hkv int counters that are
 // zero before the call and zero again after it; neither may be shared with a
 // call running on another stream.
@@ -47,7 +48,7 @@ extern "C" int ssd_tree_attention(int dtype, const void* q, const void* kv,
     return cudaErrorInvalidValue;
   const ssd::tree::Args a{q, kv, nullptr, block_tables, context_lens, fan_idx_rows, out,
                           static_cast<float*>(ws), static_cast<int*>(counters), MQ, Hq, Hkv,
-                          S, M, bs, step, K, chunk, per_block, scale};
+                          S, M, bs, step, K, chunk, per_block, scale, hd};
   return ssd::tree::dispatch<ssd::tree::kFp>(dtype, hd, a, B, static_cast<cudaStream_t>(stream));
 }
 

@@ -6,7 +6,8 @@
 // TPU router tree_attention_best sends every int8 tree step to, B = 1
 // included.
 //
-// Contract: that of csrc/tree_attention.cu (q [B, MQ, Hq, hd], tables with
+// Contract: that of csrc/tree_attention.cu (q [B, MQ, Hq, hd] at any even
+// hd in [16, 256], the s8 mode at hd 64, 128, 192 or 256 only, tables with
 // -1 read as page 0, context_lens, fan_idx_rows [B, MQ], step s, depth K;
 // with prefix = ctx - (K+1) - (s+1)*MQ, tree row r attends p below
 // min(ctx, M * block_size) when p < prefix, or 0 <= p - prefix <= fan_idx[r],
@@ -38,6 +39,21 @@
 // runs both dots on s8 tensor cores.
 #include "tree_split.cuh"
 
+// The build compiles this file twice (ops/cuda_lib.py::SPLIT_SOURCES), the
+// second time with SSD_S8_PART, which holds only the int8_mxu kernels: the
+// two halves of the instantiations build in parallel.
+namespace ssd {
+namespace tree {
+cudaError_t dispatch_s8(int dtype, int hd, const Args& a, int B, cudaStream_t st);
+}  // namespace tree
+}  // namespace ssd
+
+#ifdef SSD_S8_PART
+cudaError_t ssd::tree::dispatch_s8(int dtype, int hd, const Args& a, int B, cudaStream_t st) {
+  return dispatch<kS8>(dtype, hd, a, B, st);
+}
+#else
+
 extern "C" int ssd_tree_attention_int8(int dtype, int s8, const void* q, const void* kv,
                                        const float* scales, const int* block_tables,
                                        const int* context_lens, const int* fan_idx_rows,
@@ -50,8 +66,9 @@ extern "C" int ssd_tree_attention_int8(int dtype, int s8, const void* q, const v
     return cudaErrorInvalidValue;
   const ssd::tree::Args a{q, kv, scales, block_tables, context_lens, fan_idx_rows, out,
                           static_cast<float*>(ws), static_cast<int*>(counters), MQ, Hq, Hkv,
-                          S, M, bs, step, K, chunk, per_block, scale};
+                          S, M, bs, step, K, chunk, per_block, scale, hd};
   const auto st = static_cast<cudaStream_t>(stream);
   using namespace ssd::tree;
-  return s8 ? dispatch<kS8>(dtype, hd, a, B, st) : dispatch<kI8>(dtype, hd, a, B, st);
+  return s8 ? dispatch_s8(dtype, hd, a, B, st) : dispatch<kI8>(dtype, hd, a, B, st);
 }
+#endif  // SSD_S8_PART

@@ -9,7 +9,9 @@
 // attends p below min(ctx, M * block_size) when p < prefix, or
 // 0 <= p - prefix <= fan[r], or t = p - prefix - (K+1) has
 // 0 <= t < (s+1)*MQ and t % MQ == r; rows that attend nothing give zeros;
-// any block size and any MQ; hd 64 and 128.
+// any block size and any MQ; any even hd in [16, 256] (the template's HD is
+// the padded width, 64, 128, 192 or 256, common.cuh::padded_head_dim; the s8
+// kind only at hd = HD).
 //
 // What bounds it on an H100: bytes. Every row of a sequence attends its
 // whole prefix, so each K|V byte serves R = MQ * G query rows of its KV head
@@ -26,8 +28,10 @@
 //     chunks, which changes no result.
 //  2. The whole chunk stays resident in shared memory. Its 64-position
 //     tiles go out at once through cp.async, each slot's K|V row as 16-byte
-//     pieces copied by neighbouring threads (for int8 its two scales as
-//     4-byte copies beside it), gathered through the page table (the
+//     pieces copied by neighbouring threads (narrower where hd * esize is no
+//     multiple of 16, and the pad lanes of a padded width zero-filled:
+//     common.cuh; for int8 its two scales as 4-byte copies beside it),
+//     gathered through the page table (the
 //     block's slots resolved once, into shared memory); the query rows'
 //     copies go out first. The math on tile 0 starts while the later tiles
 //     are in flight.
@@ -106,6 +110,7 @@ struct Args {
   int M, bs, step, K, chunk;
   int per_block;  // consecutive chunks each block takes
   float scale;
+  int hd;         // the head dim, even, at most the instantiation's padded width
 };
 
 // Shared-memory layout of one instantiation for a chunk of `chunk`
@@ -158,7 +163,10 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
   }
 }
 
-template <typename T, int HD, int KIND>
+// PAD: the instantiation for hd < HD (the lanes past hd zero, rows copied in
+// pieces as wide as hd allows); without it hd = HD, every offset a constant,
+// so the padded path costs the unpadded one no registers.
+template <typename T, int HD, int KIND, bool PAD>
 __global__ void __launch_bounds__(kThreads) tree_split_kernel(const Args a) {
   using L = Layout<T, HD, KIND>;
   using CT = typename L::CT;
@@ -191,7 +199,10 @@ __global__ void __launch_bounds__(kThreads) tree_split_kernel(const Args a) {
   const int tree_end = (a.step + 1) * a.MQ;
   const int full_end = max(0, min(prefix, n_pos));  // every row attends [0, full_end)
   const int bh = b * Hkv + h;
-  const CT* kv_h = static_cast<const CT*>(a.kv) + (size_t)h * a.S * (2 * HD);
+  const int hd = PAD ? a.hd : HD;
+  const int hb = hd * (int)sizeof(CT);  // bytes of a K or V half in device memory
+  const int gran_kv = copy_granule(hb), gran_q = copy_granule(hd * (int)sizeof(T));
+  const CT* kv_h = static_cast<const CT*>(a.kv) + (size_t)h * a.S * (2 * hd);
   const float* sk_h = a.scales + (size_t)h * 2 * a.S;  // int8: K scales; V scales at + S
   const T* qg = static_cast<const T*>(a.q);
   T* og = static_cast<T*>(a.out);
@@ -200,7 +211,7 @@ __global__ void __launch_bounds__(kThreads) tree_split_kernel(const Args a) {
   float2* ws_ml = reinterpret_cast<float2*>(a.ws + (size_t)gridDim.z * Hkv * NC * R * HD) +
                   (size_t)bh * NC * R;
   auto q_at = [&](int r) {  // row r of the head: tree row r / G, query head h * G + r % G
-    return (((size_t)b * a.MQ + r / G) * a.Hq + h * G + r % G) * HD;
+    return (((size_t)b * a.MQ + r / G) * a.Hq + h * G + r % G) * hd;
   };
   // Tree row and glue depth of row r (-1, -1 for a padding row).
   auto row_of = [&](int r) { return r < R ? r / G : -1; };
@@ -209,9 +220,9 @@ __global__ void __launch_bounds__(kThreads) tree_split_kernel(const Args a) {
     return p < n_pos && attends(p, row, fan, prefix, a.K, a.MQ, tree_end);
   };
 
-  // The query rows [r0, r0 + 64) (zeros past R): bf16/fp32 copies by
-  // cp.async in one commit group; int8_mxu rows quantized once by the warps,
-  // qs = max(max|q|, 1e-30) / 127, q8 = round(q / qs).
+  // The query rows [r0, r0 + 64) (zeros past R and past hd): bf16/fp32
+  // copies by cp.async in one commit group; int8_mxu rows (hd = HD) quantized
+  // once by the warps, qs = max(max|q|, 1e-30) / 127, q8 = round(q / qs).
   auto load_q = [&](int r0) {
     if constexpr (KIND == kS8) {
       for (int rr = warp; rr < kGroupRows; rr += kWarps) {
@@ -230,7 +241,7 @@ __global__ void __launch_bounds__(kThreads) tree_split_kernel(const Args a) {
           if (lane == 0) qsc_s[rr] = 0.f;
         }
       }
-    } else {
+    } else if constexpr (!PAD) {  // 16-byte pieces at fixed offsets
       constexpr int QP = HD * (int)sizeof(T) / 16;  // 16-byte pieces per row
       for (int e = tid; e < kGroupRows * QP; e += kThreads) {
         const int rr = e / QP, piece = e % QP, r = r0 + rr;
@@ -239,21 +250,52 @@ __global__ void __launch_bounds__(kThreads) tree_split_kernel(const Args a) {
         cp_async16(q_s + rr * L::kQStride + piece * 16, src, live);
       }
       cp_async_commit();
+    } else {
+      with_granule<(int)sizeof(T)>(gran_q, [&](auto gc) {
+        constexpr int GR = decltype(gc)::value;
+        constexpr int QP = HD * (int)sizeof(T) / GR;  // pieces per padded row
+#pragma unroll 1
+        for (int e = tid; e < kGroupRows * QP; e += kThreads) {
+          const int rr = e / QP, off = (e % QP) * GR, r = r0 + rr;
+          const bool live = r < R && off < hd * (int)sizeof(T);
+          const unsigned char* src = live ? reinterpret_cast<const unsigned char*>(qg + q_at(r)) + off
+                                          : reinterpret_cast<const unsigned char*>(qg);
+          copy_piece<GR>(q_s + rr * L::kQStride + off, src, live);
+        }
+      });
+      cp_async_commit();
     }
   };
 
   // Tile `it` of the chunk starting at p_begin (zeros at and past c_end),
   // one commit group.
   auto load_tile = [&](int p_begin, int c_end, int it) {
-    constexpr int CPR = L::kRowBytes / 16;  // 16-byte pieces per slot row
     unsigned char* dst = kv_s + it * kTile * L::kKvStride;
     const int t0 = p_begin + it * kTile;
-    for (int e = tid; e < kTile * CPR; e += kThreads) {
-      const int row = e / CPR, piece = e % CPR, p = t0 + row;
-      const bool live = p < c_end;
-      const CT* src = live ? kv_h + (size_t)slot_s[p - span0] * (2 * HD) : kv_h;
-      cp_async16(dst + row * L::kKvStride + piece * 16,
-                 reinterpret_cast<const unsigned char*>(src) + (live ? piece * 16 : 0), live);
+    if constexpr (!PAD) {  // 16-byte pieces at fixed offsets
+      constexpr int CPR = L::kRowBytes / 16;  // 16-byte pieces per slot row
+      for (int e = tid; e < kTile * CPR; e += kThreads) {
+        const int row = e / CPR, piece = e % CPR, p = t0 + row;
+        const bool live = p < c_end;
+        const CT* src = live ? kv_h + (size_t)slot_s[p - span0] * (2 * HD) : kv_h;
+        cp_async16(dst + row * L::kKvStride + piece * 16,
+                   reinterpret_cast<const unsigned char*>(src) + (live ? piece * 16 : 0), live);
+      }
+    } else {
+      with_granule<(int)sizeof(CT)>(gran_kv, [&](auto gc) {
+        constexpr int GR = decltype(gc)::value;
+        constexpr int CPR = L::kRowBytes / GR;  // pieces per padded slot row
+#pragma unroll 1
+        for (int e = tid; e < kTile * CPR; e += kThreads) {
+          const int row = e / CPR, p = t0 + row;
+          const RowPiece pc = kv_row_piece<GR, HD * (int)sizeof(CT)>(e % CPR, hb);
+          const bool live = p < c_end && pc.data;
+          const unsigned char* src =
+              live ? reinterpret_cast<const unsigned char*>(kv_h + (size_t)slot_s[p - span0] * (2 * hd)) + pc.src
+                   : reinterpret_cast<const unsigned char*>(kv_h);
+          copy_piece<GR>(dst + row * L::kKvStride + pc.dst, src, live);
+        }
+      });
     }
     if constexpr (KIND != kFp) {
       for (int e = tid; e < 2 * kTile; e += kThreads) {
@@ -314,8 +356,9 @@ __global__ void __launch_bounds__(kThreads) tree_split_kernel(const Args a) {
             for (int n = 0; n < NT; ++n)
 #pragma unroll
               for (int u = 0; u < 2; ++u)
-                orow[8 * n + 2 * t + u] =
-                    from_float<T>(lw[hf] > 0.f ? acc[n][2 * hf + u] / lw[hf] : 0.f);
+                if (8 * n + 2 * t + u < hd)
+                  orow[8 * n + 2 * t + u] =
+                      from_float<T>(lw[hf] > 0.f ? acc[n][2 * hf + u] / lw[hf] : 0.f);
           } else {
             float* wrow = ws_acc + ((size_t)c * R + r) * HD;
 #pragma unroll
@@ -690,7 +733,8 @@ __global__ void __launch_bounds__(kThreads) tree_split_kernel(const Args a) {
               T* orow = og + q_at(r);
 #pragma unroll
               for (int n = 0; n < NCL; ++n)
-                orow[lane + 32 * n] = from_float<T>(lr[k] > 0.f ? acc[k][n] / lr[k] : 0.f);
+                if (lane + 32 * n < hd)
+                  orow[lane + 32 * n] = from_float<T>(lr[k] > 0.f ? acc[k][n] / lr[k] : 0.f);
             } else {
               float* wrow = ws_acc + ((size_t)c * R + r) * HD;
 #pragma unroll
@@ -800,17 +844,18 @@ __global__ void __launch_bounds__(kThreads) tree_split_kernel(const Args a) {
       T* o = og + q_at(g0 + rr) + 4 * c4;
       const float v[4] = {acc[k].x, acc[k].y, acc[k].z, acc[k].w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[e] = from_float<T>(Lr > 0.f ? v[e] / Lr : 0.f);
+      for (int e = 0; e < 4; ++e)
+        if (4 * c4 + e < hd) o[e] = from_float<T>(Lr > 0.f ? v[e] / Lr : 0.f);
     }
   }
   if (tid == 0) a.counters[bh] = 0;  // ready for the stream's next call
 }
 
-template <typename T, int HD, int KIND>
+template <typename T, int HD, int KIND, bool PAD>
 cudaError_t launch(const Args& a, int B, cudaStream_t st) {
   const Layout<T, HD, KIND> lay(a.chunk);
   if (lay.bytes > kMaxSmem) return cudaErrorInvalidValue;
-  auto* kern = tree_split_kernel<T, HD, KIND>;
+  auto* kern = tree_split_kernel<T, HD, KIND, PAD>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return attr;
@@ -819,24 +864,49 @@ cudaError_t launch(const Args& a, int B, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// By padded width (common.cuh::padded_head_dim), unpadded (hd = HP) or
+// padded; the s8 kind takes hd 64, 128, 192 and 256 unpadded (the wrappers
+// send it nothing else).
+template <typename T, int HP, int KIND>
+cudaError_t launch_width(int hd, const Args& a, int B, cudaStream_t st) {
+  if (hd == HP) return launch<T, HP, KIND, false>(a, B, st);
+  if constexpr (KIND == kS8) return cudaErrorInvalidValue;
+  else return launch<T, HP, KIND, true>(a, B, st);
+}
+
+template <typename T, int KIND>
+cudaError_t dispatch_width(int hd, const Args& a, int B, cudaStream_t st) {
+  const int hp = padded_head_dim(hd);
+  if (hp == 64) return launch_width<T, 64, KIND>(hd, a, B, st);
+  if (hp == 128) return launch_width<T, 128, KIND>(hd, a, B, st);
+  if (hp == 192) return launch_width<T, 192, KIND>(hd, a, B, st);
+  if (hp == 256) return launch_width<T, 256, KIND>(hd, a, B, st);
+  return cudaErrorInvalidValue;
+}
+
 template <int KIND>
 cudaError_t dispatch(int dtype, int hd, const Args& a, int B, cudaStream_t st) {
-  if (dtype == kFloat32 && hd == 64) return launch<float, 64, KIND>(a, B, st);
-  if (dtype == kFloat32 && hd == 128) return launch<float, 128, KIND>(a, B, st);
-  if (dtype == kBFloat16 && hd == 64) return launch<__nv_bfloat16, 64, KIND>(a, B, st);
-  if (dtype == kBFloat16 && hd == 128) return launch<__nv_bfloat16, 128, KIND>(a, B, st);
+  if (dtype == kFloat32) return dispatch_width<float, KIND>(hd, a, B, st);
+  if (dtype == kBFloat16) return dispatch_width<__nv_bfloat16, KIND>(hd, a, B, st);
   return cudaErrorInvalidValue;
 }
 
 // Shared memory of one instantiation at `chunk` (the resource report of
-// chip_smoke.py); -1 for a combination not built.
+// chip_smoke.py, and the check of the wrappers' TREE_CHUNK); -1 for a
+// combination not built.
 inline int smem_bytes(int kind, int dtype, int hd, int chunk) {
+  const int hp = padded_head_dim(hd);
   auto pick = [&](auto k) -> int {
     constexpr int K = decltype(k)::value;
-    if (dtype == kFloat32 && hd == 64) return Layout<float, 64, K>(chunk).bytes;
-    if (dtype == kFloat32 && hd == 128) return Layout<float, 128, K>(chunk).bytes;
-    if (dtype == kBFloat16 && hd == 64) return Layout<__nv_bfloat16, 64, K>(chunk).bytes;
-    if (dtype == kBFloat16 && hd == 128) return Layout<__nv_bfloat16, 128, K>(chunk).bytes;
+    auto at = [&](auto t) -> int {
+      using T = decltype(t);
+      return hp == 64 ? Layout<T, 64, K>(chunk).bytes
+           : hp == 128 ? Layout<T, 128, K>(chunk).bytes
+           : hp == 192 ? Layout<T, 192, K>(chunk).bytes
+           : hp == 256 ? Layout<T, 256, K>(chunk).bytes : -1;
+    };
+    if (dtype == kFloat32) return at(0.f);
+    if (dtype == kBFloat16) return at(__nv_bfloat16{});
     return -1;
   };
   return kind == kFp ? pick(std::integral_constant<int, kFp>{})

@@ -36,7 +36,14 @@ scale (amax / 127) per (slot, head, K|V). Every function here takes either
 form of a layer. `s8=True` (kv_quant "int8_mxu") selects the integer-dot
 arithmetic of the TPU's s8 kernels: q quantized per row, the softmax weights
 per row and per tile of positions (PAGED_S8_TILE, TREE_S8_TILE: the kernels'
-tiles, which their plain versions share).
+tiles, which their plain versions share), at the shapes where the JAX router
+takes its s8 kernel (takes_s8); elsewhere "int8_mxu" computes the
+dequantized int8 result, as JAX does.
+
+Head dims: the kernels take every even hd in [16, 256] (kernel_width), each
+at a padded width of 64, 128, 192 or 256 whose lanes past hd stay zero in
+shared memory; the s8 arithmetic needs hd a multiple of 64 and so runs
+unpadded. An odd hd or one above 256 raises on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -49,22 +56,82 @@ import torch
 from ssd_tpu_torch.ops import cuda_lib
 from ssd_tpu_torch.ops.spec_math import tree_attention_mask
 
-KERNEL_HEAD_DIMS = (64, 128)
 PAGED_S8_TILE = 32   # csrc/paged_split.cuh: one ring tile of the paged kernels
 TREE_S8_TILE = 64    # csrc/tree_split.cuh: one tile of the tree kernels
+SPLIT_MAX_SPAN = 512  # positions one block may walk (kMaxChunk of both headers)
+SMEM_MAX = 232448     # an H100 block's shared memory (227 KB), kMaxSmem of the headers
+
+
+def kernel_width(hd: int) -> int:
+    """The padded width the kernels instantiate for head dim hd (64, 128,
+    192 or 256; csrc/common.cuh::padded_head_dim), or ValueError for a head
+    dim they do not take: hd must be even and in [16, 256] (mma.sync steps
+    over pairs of lanes; 256 bounds the accumulators and shared memory)."""
+    if hd % 2 or not 16 <= hd <= 256:
+        raise ValueError(f"the attention kernels take an even head_dim in [16, 256], "
+                         f"got {hd}")
+    return next(w for w in (64, 128, 192, 256) if hd <= w)
+
+
+def copy_granule(row_bytes: int) -> int:
+    """Bytes a kernel moves in one copy of rows of row_bytes bytes laid end to
+    end (hd * element size: a K or V half, a query row): the widest of 16, 8,
+    4 and 2 that divides them (csrc/common.cuh::copy_granule)."""
+    return next(g for g in (16, 8, 4, 2) if row_bytes % g == 0)
+
+
+KERNEL_HEAD_DIMS = tuple(hd for hd in range(16, 257, 2))   # every hd kernel_width takes
+
+
+def tree_smem_bytes(hd: int, kind: int, q_bytes: int, chunk: int) -> int:
+    """Shared memory of the tree kernels' instantiation at hd's padded width
+    for a chunk of `chunk` positions (csrc/tree_split.cuh::Layout): kind 0
+    the fp cache (elements of q's size), 1 int8, 2 int8_mxu; q_bytes 4 (fp32
+    q) or 2 (bf16)."""
+    hp = kernel_width(hd)
+    kv_stride = 2 * hp * (q_bytes if kind == 0 else 1) + 16
+    q_stride = hp + 16 if kind == 2 else 2 * (hp + 8) if q_bytes == 2 else 4 * (hp + 4)
+    ring = max(chunk * kv_stride, 64 * (32 * 12 + 4))     # or the merge's scratch
+    scales = 0 if kind == 0 else 2 * chunk * 4
+    qsc = 64 * 4 if kind == 2 else 0
+    fma_weights = 4 * 16 * (TREE_S8_TILE + 4) * 4 if q_bytes == 4 and kind != 2 else 0
+    return ring + scales + 64 * q_stride + qsc + fma_weights + SPLIT_MAX_SPAN * 4 + 16
+
+
+def _tree_chunk(hd: int, int8: bool) -> int:
+    """The longest of 256, 128 and 64 positions whose chunk every q dtype and
+    mode of the cache holds in a block's shared memory (fp32 q needs the
+    most): 256 at hd 64, 128 for the fp cache at hd 128 (a position's fp32
+    K|V takes 1040 bytes), 64 for the fp cache from hd 130."""
+    kinds = (1, 2) if int8 else (0,)
+    return next(c for c in (256, 128, 64)
+                if all(tree_smem_bytes(hd, k, qb, c) <= SMEM_MAX for k in kinds for qb in (4, 2)))
+
+
 # Positions one block of the paged kernels (K2, K4) walks, by (head_dim, int8
 # cache): fixed absolute chunks [c * chunk, (c + 1) * chunk), multiples of
 # the kernels' 64-position ring tile (two PAGED_S8_TILEs), so a row's result
-# does not depend on the batch or on Q. Chosen on the card with
-# `python -m ssd_tpu_torch.bench.kernel_diag --chunks` (times in PERF.md).
-PAGED_CHUNK = {(64, False): 128, (64, True): 128, (128, False): 128, (128, True): 128}
+# does not depend on the batch or on Q. Chosen on the card at hd 64 and 128
+# with `python -m ssd_tpu_torch.bench.kernel_diag --chunks` (times in
+# PERF.md); a ring of page tiles holds the chunk, so the same 128 serves
+# every width.
+PAGED_CHUNK = {(hd, q8): 128 for hd in KERNEL_HEAD_DIMS for q8 in (False, True)}
 # The same for the tree kernels (K3, K5; csrc/tree_split.cuh): multiples of
-# TREE_S8_TILE, each held whole in a block's shared memory. Chosen on the
-# card with `python -m ssd_tpu_torch.bench.kernel_diag --tree --chunks`
-# (PERF.md); the fp cache at hd 128 stays at 128 because in fp32 a
-# position's K|V there takes 1040 bytes and 256 positions would not fit.
-TREE_CHUNK = {(64, False): 256, (64, True): 256, (128, False): 128, (128, True): 256}
-SPLIT_MAX_SPAN = 512  # positions one block may walk (kMaxChunk of both headers)
+# TREE_S8_TILE, each held whole in a block's shared memory, so by the padded
+# width (_tree_chunk). At hd 64 and 128 chosen on the card with
+# `python -m ssd_tpu_torch.bench.kernel_diag --tree --chunks` (PERF.md).
+TREE_CHUNK = {(hd, q8): _tree_chunk(hd, q8) for hd in KERNEL_HEAD_DIMS for q8 in (False, True)}
+
+
+def takes_s8(hd: int, Hkv: int, rows: int) -> bool:
+    """Whether kv_quant="int8_mxu" runs the s8 arithmetic for a call of
+    `rows` query rows a KV head (Q * G, or MQ * G for a tree step): where
+    ssd_tpu/ops/pallas_attention.py::paged_attention_best and
+    ::tree_attention_best send it to the s8 kernel (v3), which needs the
+    128-lane row (2 hd) % 128 == 0 and Hkv * rows <= 512. Elsewhere JAX
+    computes the dequantized int8 result (its prefill kernel or its jnp
+    oracle), and so does the port."""
+    return (2 * hd) % 128 == 0 and Hkv * rows <= 512
 
 KVLayer = torch.Tensor | tuple[torch.Tensor, torch.Tensor]
 
@@ -273,8 +340,8 @@ def paged_attention_plain(
     inside the table (p < M * block_size). The plain version of
     csrc/paged_attention.cu and, over the int8 pair, of
     csrc/paged_attention_int8.cu (dequantized, or with s8 the integer-dot
-    arithmetic at tile PAGED_S8_TILE); ssd_tpu/ops/attention.py::
-    paged_attention with ctx_pad = M * block_size."""
+    arithmetic at tile PAGED_S8_TILE where takes_s8); ssd_tpu/ops/
+    attention.py::paged_attention with ctx_pad = M * block_size."""
     B, Q, Hq, hd = q.shape
     M = block_tables.shape[1]
     C = M * block_size
@@ -282,7 +349,7 @@ def paged_attention_plain(
     pos = torch.arange(C, device=q.device)[None, None, :]
     limit = ctx[:, None] - qeff.long()[:, None] + torch.arange(Q, device=q.device)[None, :]
     mask = (pos <= limit[:, :, None]) & (pos < ctx[:, None, None])  # [B, Q, C]
-    if s8:
+    if s8 and takes_s8(hd, kv_layer[0].shape[0], Q * Hq // kv_layer[0].shape[0]):
         return _s8_attention_plain(q, kv_layer, block_tables, block_size, mask,
                                    scale, PAGED_S8_TILE)
     k, v = gather_pages(kv_layer, block_tables, block_size, C)
@@ -330,9 +397,12 @@ def _check_cuda_args(name: str, q: torch.Tensor, kv_layer: KVLayer,
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {label} must be 16-byte aligned")
     hd = q.shape[-1]
-    if hd not in KERNEL_HEAD_DIMS or data.shape[-1] != 2 * hd:
-        raise ValueError(f"{name}: the kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS} with a [Hkv, S, 2*hd] layer, got "
+    try:
+        kernel_width(hd)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    if data.shape[-1] != 2 * hd:
+        raise ValueError(f"{name}: the kernel takes a [Hkv, S, 2*hd] layer, got "
                          f"hd={hd}, layer {tuple(data.shape)}")
 
 
@@ -399,7 +469,8 @@ def split_buffers(q: torch.Tensor, Hkv: int, M: int, block_size: int, chunk: int
     """What a split-KV kernel launch (paged or tree) needs beside its
     operands, on q's device and the current stream: (chunk, chunks per
     block, workspace, counters, stream handle). The workspace holds the
-    blocks' partial softmax states (fp32 acc and (m, l) per row and chunk),
+    blocks' partial softmax states (fp32 acc at the padded width
+    kernel_width(hd) and (m, l) per row and chunk),
     fresh from the caching allocator on this stream, so no other stream can
     touch it while the call runs. The counters (B * Hkv ints) find the last
     block of each (sequence, KV head); they are zero between calls, since
@@ -407,12 +478,13 @@ def split_buffers(q: torch.Tensor, Hkv: int, M: int, block_size: int, chunk: int
     draft's streams run these kernels at the same time. Inside
     `split_scratch` (a captured step), both come from its SplitScratch."""
     B, Q, Hq, hd = q.shape
+    hp = kernel_width(hd)
     n_chunks = -(-M * block_size // chunk)
     # Chunks per block: one, unless the table holds over 1024 chunks in all
     # (long contexts), where a block takes up to SPLIT_MAX_SPAN positions
     # and pays its fixed costs once; the chunks and results are the same.
     per_block = max(1, min(SPLIT_MAX_SPAN // chunk, B * Hkv * n_chunks // 1024))
-    ws_elems = B * Hkv * n_chunks * Q * (Hq // Hkv) * (hd + 2)
+    ws_elems = B * Hkv * n_chunks * Q * (Hq // Hkv) * (hp + 2)   # at the padded width
     stream = torch.cuda.current_stream(q.device)
     scratch = getattr(_SCRATCH, "current", None)
     if scratch is not None:
@@ -485,12 +557,13 @@ def paged_attention_int8(
 ) -> torch.Tensor:
     """Causal paged attention over the int8 cache: the plain version for CPU
     tensors, the CUDA kernel (csrc/paged_attention_int8.cu) for CUDA
-    tensors; s8 selects kv_quant="int8_mxu"'s integer dots."""
+    tensors; s8 selects kv_quant="int8_mxu"'s integer dots where takes_s8."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, kv_layer, block_tables, context_lens,
                                      qeff, block_size, scale, s8=s8)
     B, Q, Hq, hd = q.shape
     data, scales = kv_layer
+    s8 = s8 and takes_s8(hd, data.shape[0], Q * Hq // data.shape[0])
     _check_cuda_args("paged_attention_int8", q, kv_layer, {
         "block_tables": block_tables, "context_lens": context_lens, "qeff": qeff})
     _check_paged_shapes("paged_attention_int8", q, data, block_tables,
@@ -669,12 +742,12 @@ def tree_attention_plain(
     (positions below M * block_size). The plain version of
     csrc/tree_attention.cu and, over the int8 pair, of
     csrc/tree_attention_int8.cu (dequantized, or with s8 the integer-dot
-    arithmetic at tile TREE_S8_TILE); ssd_tpu/ops/attention.py::
-    tree_attention with ctx_pad = M * block_size."""
+    arithmetic at tile TREE_S8_TILE where takes_s8); ssd_tpu/ops/
+    attention.py::tree_attention with ctx_pad = M * block_size."""
     B, MQ, Hq, hd = q.shape
     C = block_tables.shape[1] * block_size
     mask = tree_attention_mask(context_lens, step, fan_idx_rows, K, MQ, C)
-    if s8:
+    if s8 and takes_s8(hd, kv_layer[0].shape[0], MQ * Hq // kv_layer[0].shape[0]):
         return _s8_attention_plain(q, kv_layer, block_tables, block_size, mask,
                                    scale, TREE_S8_TILE)
     k, v = gather_pages(kv_layer, block_tables, block_size, C)
@@ -764,12 +837,13 @@ def tree_attention_int8(
 ) -> torch.Tensor:
     """Tree-decode attention over the int8 cache: the plain version for CPU
     tensors, the CUDA kernel (csrc/tree_attention_int8.cu) for CUDA
-    tensors; s8 selects kv_quant="int8_mxu"'s integer dots."""
+    tensors; s8 selects kv_quant="int8_mxu"'s integer dots where takes_s8."""
     if q.device.type == "cpu":
         return tree_attention_plain(q, kv_layer, block_tables, context_lens,
                                     fan_idx_rows, step, K, block_size, scale, s8=s8)
     B, MQ, Hq, hd = q.shape
     data, scales = kv_layer
+    s8 = s8 and takes_s8(hd, data.shape[0], MQ * Hq // data.shape[0])
     _check_cuda_args("tree_attention_int8", q, kv_layer, {
         "block_tables": block_tables, "context_lens": context_lens,
         "fan_idx_rows": fan_idx_rows})

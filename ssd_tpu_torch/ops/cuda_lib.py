@@ -2,7 +2,9 @@
 library at first use and loads it with ctypes.
 
 Each source compiles with its own `nvcc` process, all started together, for
-`sm_90a` (Hopper); the objects then link into
+`sm_90a` (Hopper), and each of SPLIT_SOURCES with two, the second with
+`-DSSD_S8_PART` (the file's int8_mxu kernels, the first takes the rest); the
+objects then link into
 `csrc/build/libssd_tpu_torch_<hash>.so`, where `<hash>` covers the sources and
 flags, so an edited source rebuilds. The library has a plain C interface:
 pointers and the CUDA stream pass as `c_void_p`, and every entry point returns
@@ -30,6 +32,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
 ]
+# The sources whose instantiations build in two processes (the longest
+# compiles of the library).
+SPLIT_SOURCES = ("paged_attention_int8.cu", "tree_attention_int8.cu")
 
 
 class KernelLibrary:
@@ -103,7 +108,7 @@ def _nvcc() -> str:
 
 
 def _digest(files: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(SPLIT_SOURCES)).encode())
     for f in files:
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -115,18 +120,29 @@ def _build(sources: list[Path], so: Path) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
     objs, procs = [], []
+    t0 = time.perf_counter()
     for src in sources:
-        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        objs.append(obj)
-        procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        for part in ([], ["-DSSD_S8_PART"]) if src.name in SPLIT_SOURCES else ([],):
+            obj = BUILD_DIR / f"{src.stem}{'.s8' if part else ''}.{tag}.o"
+            objs.append(obj)
+            procs.append((src.name + (" (s8 part)" if part else ""), subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *part, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    outs: dict[int, tuple[str, float]] = {}
+
+    def wait(i, proc):   # each source's output, and its seconds from the start
+        outs[i] = (proc.communicate()[0], time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=wait, args=(i, proc)) for i, (_, proc) in enumerate(procs)]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     log, failed = [], []
-    for src, proc in procs:
-        out, _ = proc.communicate()
-        log.append(f"== {src.name}\n{out}")
+    for i, (name, proc) in enumerate(procs):
+        log.append(f"== {name} ({outs[i][1]:.1f} s)\n{outs[i][0]}")
         if proc.returncode != 0:
-            failed.append(src.name)
+            failed.append(name)
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
     tmp = BUILD_DIR / f"{tag}.so.tmp"

@@ -93,6 +93,69 @@ def test_tree_kernel_matches_plain_on_card(dtype, Hq, Hkv, hd):
             assert close(got, want, dtype), (K, B, step)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 50, 100, 160, 192, 226, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_every_head_width_on_card(dtype, hd):
+    """K1-K5 at head dims the kernels pad (ops/attention.py::kernel_width):
+    hd 32 and 50 at width 64 (50: int8 rows in 2-byte pieces), 100 at 128
+    with G = 1 (bf16 V halves in 8-byte pieces, int8 rows in 4-byte ones),
+    160 at 192 and 226 at 256 (2-byte int8 pieces again), 192 and 256
+    unpadded, the s8 mode where JAX's router takes it: the paged decode and
+    verify with a ghost row, the tree's last step, a mixed prefill, over the
+    fp and the int8 cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    Hq, Hkv = (4, 4) if hd in (50, 100, 226) else (8, 2)
+    scale = hd ** -0.5
+    for B, Q, ctx_lens, ghosts in [(4, 1, [300, 64, 129], 1), (3, 5, [400, 5], 1)]:
+        q, kv, bt, ctx = paged_case(9, B, Q, Hq, Hkv, hd, 64, 8, ctx_lens, ghosts)
+        qd, kvd = t(q).cuda().to(dtype), t(kv).cuda().to(dtype)
+        rest = [t(a).cuda() for a in (bt, ctx, np.full(B, Q, np.int32))]
+        for layer, s8 in ((kvd, False), (int8_layer(kv, 5), False), (int8_layer(kv, 5), True)):
+            got = att.paged_attention(qd, layer, *rest, 64, scale, s8=s8)
+            want = att.paged_attention_plain(qd, layer, *rest, 64, scale, s8=s8)
+            assert close(got, want, dtype), (B, Q, s8)
+    q, kv, bt, ctx, fan = tree_case(4, 3, 4, [2] * 5, Hq, Hkv, hd, 64, 8, [200, 9], 3, 1)
+    qd, kvd = t(q).cuda().to(dtype), t(kv).cuda().to(dtype)
+    rest = [t(a).cuda() for a in (bt, ctx, fan)]
+    for layer, s8 in ((kvd, False), (int8_layer(kv, 6), False), (int8_layer(kv, 6), True)):
+        got = att.tree_attention(qd, layer, *rest, 3, 4, 64, scale, s8=s8)
+        assert close(got, att.tree_attention_plain(qd, layer, *rest, 3, 4, 64, scale, s8=s8),
+                     dtype), s8
+    q, kv, pages, lo, hi, _, T = flat_batch(8, [40, 130, 77], [0, 64, 0], Hq, Hkv, hd, 16,
+                                            pad_rows=5)
+    for layer in (t(kv).cuda().to(dtype), int8_layer(kv, 7)):
+        args = [t(q).cuda().to(dtype), layer] + [t(a).cuda() for a in (pages, lo, hi)]
+        got = att.flat_prefill_attention(*args, 16, scale)
+        assert close(got, att.flat_prefill_attention_plain(*args, 16, scale), dtype)
+        assert got[T:].abs().max() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [14, 99, 258])
+def test_untaken_head_dims_raise_on_card(hd):
+    """An odd head dim, or one outside [16, 256], raises on CUDA tensors in
+    every wrapper; nothing runs the plain version on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    q, kv, bt, ctx = paged_case(3, 2, 1, 4, 2, hd, 16, 4, [40, 9])
+    qd, kvd = t(q).cuda(), t(kv).cuda()
+    rest = [t(a).cuda() for a in (bt, ctx, np.ones(2, np.int32))]
+    with pytest.raises(ValueError, match="head_dim"):
+        att.paged_attention(qd, kvd, *rest, 16, 0.1)
+    with pytest.raises(ValueError, match="head_dim"):
+        att.paged_attention(qd, int8_layer(kv, 1), *rest, 16, 0.1)
+    fan = torch.zeros(2, 1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        att.tree_attention(qd, kvd, rest[0], rest[1] + 2, fan, 0, 1, 16, 0.1)
+    pages, lo, hi = (torch.zeros(1, dtype=torch.int32, device="cuda"),
+                     torch.zeros(2, dtype=torch.int32, device="cuda"),
+                     torch.ones(2, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="head_dim"):
+        att.flat_prefill_attention(qd[:, 0], kvd, pages, lo, hi, 16, 0.1)
+
+
 def int8_layer(kv, seed):
     """The cache `kv` [Hkv, S, 2hd] quantized by store_kv into the int8 pair,
     on the card (scales of never-written slots would be 1e-10; here every

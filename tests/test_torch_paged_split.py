@@ -231,7 +231,9 @@ def test_split_model_matches_pallas_v3(kind):
 def test_chunk_rule():
     """Every chunk length is a whole number of the kernels' 64-position ring
     tiles (two s8 tiles) and at most their 512 positions; the rule covers
-    both head widths and caches."""
-    assert set(att.PAGED_CHUNK) == {(hd, q8) for hd in att.KERNEL_HEAD_DIMS for q8 in (False, True)}
-    for chunk in att.PAGED_CHUNK.values():
+    every head dim the kernels take (each even hd in [16, 256],
+    att.kernel_width) and both caches."""
+    assert set(att.PAGED_CHUNK) == {(hd, q8) for hd in range(16, 257, 2) for q8 in (False, True)}
+    for (hd, _), chunk in att.PAGED_CHUNK.items():
+        assert att.kernel_width(hd) in (64, 128, 192, 256)
         assert chunk % (2 * att.PAGED_S8_TILE) == 0 and 0 < chunk <= 512

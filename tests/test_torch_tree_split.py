@@ -247,11 +247,15 @@ def test_tree_split_model_matches_pallas_v3():
 
 def test_tree_chunk_rule():
     """Every tree chunk length is a whole number of the kernels' 64-position
-    tiles (TREE_S8_TILE) and at most their 512 positions; the rule covers
-    both head widths and caches."""
-    assert set(att.TREE_CHUNK) == {(hd, q8) for hd in att.KERNEL_HEAD_DIMS for q8 in (False, True)}
-    for chunk in att.TREE_CHUNK.values():
+    tiles (TREE_S8_TILE) and at most their 512 positions, and the chunk of
+    every cache mode and q dtype fits one block's shared memory; the rule
+    covers every head dim the kernels take (each even hd in [16, 256]) and
+    both caches."""
+    assert set(att.TREE_CHUNK) == {(hd, q8) for hd in range(16, 257, 2) for q8 in (False, True)}
+    for (hd, q8), chunk in att.TREE_CHUNK.items():
         assert chunk % att.TREE_S8_TILE == 0 and 0 < chunk <= att.SPLIT_MAX_SPAN
+        assert all(att.tree_smem_bytes(hd, kind, qb, chunk) <= att.SMEM_MAX
+                   for kind in ((1, 2) if q8 else (0,)) for qb in (2, 4))
 
 
 def test_kernel_diag_tree_case():
