@@ -9,8 +9,8 @@ the script exits non-zero:
 
 1. env      - the card's name and power limit (nvidia-smi), torch and CUDA
               versions, and the build of the CUDA kernels from the sources in
-              ssd_tpu_torch/csrc (seconds, ptxas register/spill lines; for
-              each instantiation of the split-KV paged kernels K2/K4 and
+              ssd_tpu_torch/csrc (seconds, each source's seconds, ptxas
+              register/spill lines; for each instantiation of the split-KV paged kernels K2/K4 and
               tree kernels K3/K5, of K1's bf16 kernel, K6's two bf16
               routes and K9's kernels, its registers, spills and shared
               memory).
@@ -58,8 +58,11 @@ the script exits non-zero:
               b8 tree step and at B=1 over 2048 positions (tree_b1) too.
               The two bench probes: the s8 dot's three paths
               (csrc/s8_probe.cu: mma.sync s8, __dp4a, bf16 mma after a cast)
-              at bench/s8_probe.py's shapes, exact against the fp64 plain
-              version, and the paged kernels' stage variants (full, dma,
+              exact against the fp64 plain version at s8_probe.CHECK_SHAPES
+              (bench/s8_probe.py's shape, 4096 positions, one row block,
+              D = 64, tails past a whole 64-position tile), timed at the
+              probe's shape and at 4096 positions beside torch.bmm, and
+              the paged kernels' stage variants (full, dma,
               compute, empty; K2 and K4's int8 mode) at the decode b8 batch
               and at B=8 x 8192, "full" bit for bit the production kernel;
               timed, then run once through their bench entry points
@@ -346,6 +349,20 @@ the script exits non-zero:
               3 layers with a noisy 2-layer draft: AR, SD and SSD under
               graphs over the fp32 cache, AR and SSD over the int8 cache,
               each equal to the card's eager AR of its cache.
+17. cli     - the port's CLIs (ssd_tpu_torch/bench/) through main(argv)
+              on the card: compare_outputs on exact's fp32 pair (the
+              Llama-3.2-1B width, 3 layers of which 2 live, a noisy 2-layer
+              draft) with a 40-token id prompt, 48 tokens: AR, SD, fused SD
+              (spec_rounds 8) and SSD, each a fresh engine under graphs,
+              must print three EXACT MATCH lines and return 0; bench at
+              spec's full-depth 16-layer bf16 pair, AR b8 and async SSD b8
+              (K=4, fan-out 2, the 4-layer draft), 8 random-id prompts of
+              128 tokens, 64 tokens each, one warm-up pass: its tok/s
+              lines; one scripted chat turn in engine mode on the 16-layer
+              target with a token-id stand-in tokenizer, streamed, with
+              TTFT and tok/s. The kernels' launch counts are zeroed before
+              the phase and read after it (path "cli"); K1-K3 must have
+              launched.
 
 Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -365,7 +382,7 @@ import tempfile
 import time
 
 PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "quant", "eagle", "exact", "tp",
-          "eagle_tp", "head_dims")
+          "eagle_tp", "head_dims", "cli")
 EXTRA_PHASES = ("profile", "moe_profile", "quant_profile", "quant_moe_profile", "spec_profile",
                 "eagle_profile", "spec_async", "spec_draft_rank", "eagle_tp_cards")
 
@@ -476,6 +493,7 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
               "float32": 67e12}    # fp32 outside the tensor cores
 PEAK_OPS_INT8 = 1979e12            # dense int8 tensor-core rate (kv_quant int8_mxu)
 LONG_CTX = 8192                    # the long-context decode timing, tokens per sequence
+LONG_S8_L = 4096                   # the s8 probe's second timed length (its LONG_L)
 # |got - want| <= ATOL + RTOL[dtype] * |want| elementwise. Both sides compute
 # in fp32 and round the output once; 2^-7 |x| bounds one bf16 ulp at x.
 ATOL = 1e-4
@@ -620,6 +638,11 @@ def phase_env() -> dict:
     lib = cuda_lib.load()
     ptxas = [ln.strip() for ln in lib.build_log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    # Each source's nvcc seconds from the build's start ("== <source> (<s> s)").
+    import re
+
+    source_seconds = {m.group(1): float(m.group(2)) for m in
+                      re.finditer(r"^== (.+) \(([\d.]+) s\)$", lib.build_log, re.M)}
     # The wrappers pick the tree kernels' chunk from a mirror of their
     # shared-memory layout (ops/attention.py::tree_smem_bytes): it must
     # agree with the kernels' own at every padded width.
@@ -637,7 +660,7 @@ def phase_env() -> dict:
     emit("env", card=card, device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], build_seconds=lib.build_seconds,
-         library=os.path.relpath(lib.path), ptxas=ptxas,
+         library=os.path.relpath(lib.path), source_seconds=source_seconds, ptxas=ptxas,
          **_kernel_resources(lib),
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          tf32_cudnn=torch.backends.cudnn.allow_tf32)
@@ -1211,8 +1234,9 @@ def _flat_batch_invariance():
 
 
 def _probe_kernels(record, decode_ctx: list[int]) -> dict:
-    """Rows #11 and #12 of the kernel table: the s8 probe's three paths at
-    bench/s8_probe.py's shapes, exact against the fp64 plain version; the
+    """Rows #11 and #12 of the kernel table: the s8 probe's three paths
+    exact against the fp64 plain version at s8_probe.CHECK_SHAPES and
+    timed at bench/s8_probe.py's shape and at s8_probe.LONG_L positions; the
     paged kernels' stage variants (K2, and K4's int8 mode) at the decode b8
     batch and at B=8 x LONG_CTX, whose "full" stage must equal the
     production kernel bit for bit. Then both bench entry points run once
@@ -1225,29 +1249,44 @@ def _probe_kernels(record, decode_ctx: list[int]) -> dict:
     from ssd_tpu_torch.ops import probes
 
     timings = {}
-    q8, k8, qb = s8_probe.inputs("cuda")
-    want = probes.s8_dot_plain(q8, k8)
-    N, R, D = q8.shape
-    L = k8.shape[1]
-    ops = 2 * N * R * L * D
-    bmm, bmm_label = _bmm_yardstick(qb, k8.to(torch.bfloat16), want)
     no_lib = "none: torch._int_mm is 2-D; no single call takes a batched s8 product"
-    for name, fn, q, peak, lib, label in (
-            ("s8_dot_mma", probes.s8_dot_mma, q8, PEAK_OPS_INT8, None, no_lib),
-            ("s8_dot_dp4a", probes.s8_dot_dp4a, q8, PEAK_OPS_INT8, None, no_lib),
-            ("s8_dot_bf16", probes.s8_dot_bf16, qb, PEAK_FLOPS["bfloat16"], bmm, bmm_label)):
-        got = fn(q, k8)
-        torch.cuda.synchronize()
-        record(name, "s8_probe_shape", "float32", got, want)
-        if not torch.equal(got.double(), want.double()):
-            fail(f"{name}: differs from its exact plain version")
-        bytes_ = q.numel() * q.element_size() + k8.numel() + got.numel() * 4
-        tm = _timing(f"q [{N}, {R}, {D}] {q.dtype} . k [{N}, {L}, {D}] int8 -> "
-                     f"[{N}, {R}, {L}] {got.dtype}",
-                     lambda: fn(q, k8), lambda: probes.s8_dot_plain(q, k8), lib, bytes_, ops,
-                     peak, iters=50, plain_iters=5)
-        tm["library"] = label
-        timings[name] = tm
+    paths = (("s8_dot_mma", probes.s8_dot_mma, PEAK_OPS_INT8),
+             ("s8_dot_dp4a", probes.s8_dot_dp4a, PEAK_OPS_INT8),
+             ("s8_dot_bf16", probes.s8_dot_bf16, PEAK_FLOPS["bfloat16"]))
+    # Bit for bit at every shape of s8_probe.CHECK_SHAPES (the probe's, 4096
+    # positions, one row block, D = 64, tails past the last whole block).
+    for N, L, D in s8_probe.CHECK_SHAPES:
+        q8, k8, qb = s8_probe.inputs("cuda", N=N, L=L, D=D)
+        want = probes.s8_dot_plain(q8, k8)
+        for name, fn, _ in paths:
+            got = fn(qb if name == "s8_dot_bf16" else q8, k8)
+            torch.cuda.synchronize()
+            record(name, f"N{N}_L{L}_D{D}", "float32", got, want)
+            if not torch.equal(got.double(), want.double()):
+                fail(f"{name}: differs from its exact plain version at N={N}, L={L}, D={D}")
+    emit("kernels", kernel="s8_probe", exact_at=[list(s) for s in s8_probe.CHECK_SHAPES])
+    # Timed at the probe's shape and at LONG_L positions.
+    for L in (s8_probe.SHAPE["L"], s8_probe.LONG_L):
+        q8, k8, qb = s8_probe.inputs("cuda", L=L)
+        want = probes.s8_dot_plain(q8, k8)
+        N, R, D = q8.shape
+        ops = 2 * N * R * L * D
+        bmm, bmm_label = _bmm_yardstick(qb, k8.to(torch.bfloat16), want)
+        for name, fn, peak in paths:
+            q, bf16 = (qb, True) if name == "s8_dot_bf16" else (q8, False)
+            out_bytes = N * R * L * 4
+            bytes_ = q.numel() * q.element_size() + k8.numel() + out_bytes
+            tm = _timing(f"q [{N}, {R}, {D}] {q.dtype} . k [{N}, {L}, {D}] int8 -> "
+                         f"[{N}, {R}, {L}] {'float32' if bf16 else 'int32'}",
+                         lambda fn=fn, q=q: fn(q, k8), lambda q=q: probes.s8_dot_plain(q, k8),
+                         bmm if bf16 else None, bytes_, ops, peak, iters=50, plain_iters=5)
+            tm["library"] = bmm_label if bf16 else no_lib
+            if L == s8_probe.SHAPE["L"]:
+                timings[name] = tm
+            else:
+                timings[name][f"at_l{L}"] = tm
+            emit("kernels", kernel=name, timing=tm)
+        del q8, k8, qb, bmm
 
     scale = 64 ** -0.5
     shapes = {"decode_b8": decode_ctx, f"b8_x_{LONG_CTX}": [LONG_CTX] * 8}
@@ -2260,17 +2299,22 @@ def phase_profile(moe: bool = False, quantization: str | None = None) -> dict:
 # ---------------------------------------------------------------------------
 
 PROJ = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+HF_PROJ = tuple(f"{m}_proj" for m in ("self_attn.q", "self_attn.k", "self_attn.v",
+                                      "self_attn.o", "mlp.gate", "mlp.up", "mlp.down"))
 
 
 def _spec_pair(d: str, layers: int, live: int, scale: float, dtype, seed: int,
-               base: dict = LLAMA_1B):
+               base: dict = LLAMA_1B, draft_noise: float = 0.0):
     """Write a target/draft checkpoint pair with the construction of the JAX
     package's bench.py::build_spec_checkpoints: the target's layers >= live
     have o_proj = down = 0 (an exact residual pass-through) and the draft is
     the target's `live` layers with the same embeddings (and LM head), so
     greedy tokens agree while the draft costs live/layers of the target.
     Random normal weights times `scale` from a generator seeded with `seed`,
-    drawn on the card, at the geometry of the config `base`. Returns
+    drawn on the card, at the geometry of the config `base`; with
+    draft_noise, the draft is written as _perturb_draft(llm, draft_noise,
+    scale) leaves it once loaded (the same unit normals, _layer_noise, added
+    in the checkpoint's dtype), so the target stays the same. Returns
     (target dir, draft dir)."""
     import torch
 
@@ -2311,6 +2355,13 @@ def _spec_pair(d: str, layers: int, live: int, scale: float, dtype, seed: int,
         target.update(layer)
         if not dead:
             draft.update(layer)
+    if draft_noise:
+        for i in range(live):
+            # The loaded projections are the checkpoint's transposed, in PROJ's order.
+            names = [f"model.layers.{i}.{m}.weight" for m in HF_PROJ]
+            units = _layer_noise(i, tuple(tuple(draft[n].shape[::-1]) for n in names))
+            for n, u in zip(names, units):
+                draft[n] = draft[n] + (u * (scale * draft_noise)).to(dtype).T
     dirs = []
     for name, tensors, n in (("target", target, layers), ("draft", draft, live)):
         sub = os.path.join(d, name)
@@ -4806,6 +4857,135 @@ def phase_head_dims() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17
+# ---------------------------------------------------------------------------
+
+
+class _TokenIds:
+    """The chat turn's stand-in tokenizer (tests/test_cli_surfaces.py's):
+    token ids as text, a chat history as a short deterministic prompt."""
+    eos_token_id = 2
+
+    def apply_chat_template(self, history, add_generation_prompt=True):
+        seed = sum(len(m["content"]) for m in history) % 40
+        return [1, 3 + seed, 5, 7]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(i) for i in ids)
+
+    def encode(self, text):
+        return [1, 5, 9]
+
+
+def _echoed(fn, *args, **kw):
+    """fn's result and what it printed, which is printed here too."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args, **kw)
+    print(buf.getvalue(), end="", flush=True)
+    return result, buf.getvalue()
+
+
+def phase_cli() -> dict:
+    """The port's CLIs through their main(argv) on the card (module
+    docstring, phase 17)."""
+    import builtins
+    import re
+
+    import numpy as np
+    import torch
+
+    from ssd_tpu_torch.bench import bench as bench_cli
+    from ssd_tpu_torch.bench import chat as chat_cli
+    from ssd_tpu_torch.bench import compare_outputs
+    from ssd_tpu_torch.engine import llm_engine
+
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    out = {"seconds": {}}
+    with tempfile.TemporaryDirectory() as d:
+        # compare_outputs on exact's fp32 pair (3 layers, 2 live; the draft
+        # noisy, so SD and SSD both accept and reject), a token-id prompt.
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(d, "fp32"))
+        tdir, ddir = _spec_pair(os.path.join(d, "fp32"), layers=3, live=2, scale=0.4,
+                                dtype=torch.float32, seed=3, draft_noise=0.01)
+        ids = np.random.default_rng(5).integers(3, LLAMA_1B["vocab_size"], size=40).tolist()
+        rc, text = _echoed(compare_outputs.main, [
+            "--model-path", tdir, "--draft", ddir, "--prompt-ids", *map(str, ids),
+            "--max_new_tokens", "48", "--k", str(SPEC_K), "--f", str(SPEC_F),
+            "--max_model_len", "512", "--block_sz", str(BLOCK)], dtype="float32")
+        matches = text.count("EXACT MATCH")
+        out["compare_outputs"] = {"rc": rc, "exact_matches": matches, "prompt_tokens": len(ids),
+                                  "new_tokens": 48}
+        out["seconds"]["compare_outputs"] = time.perf_counter() - t0
+        if rc != 0 or matches != 3:
+            fail(f"cli: compare_outputs returned {rc} with {matches} EXACT MATCH lines of 3")
+
+        # bench at the full Llama-3.2-1B depth in bf16: AR b8, then async
+        # SSD b8 with spec's 4-layer draft; 8 random-id prompts of 128.
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(d, "bf16"))
+        tdir, ddir = _spec_pair(os.path.join(d, "bf16"), layers=16, live=SPEC_LIVE, scale=0.02,
+                                dtype=torch.bfloat16, seed=0)
+        out["seconds"]["checkpoints"] = time.perf_counter() - t0
+        common = ["--model-path", tdir, "--random", "--b", "8", "--numseqs", "8",
+                  "--input_len", "128", "--output_len", "64", "--block_sz", str(BLOCK),
+                  "--max_model_len", "512", "--warm-passes", "1"]
+        for mode, extra in (("ar", []), ("ssd", ["--draft", ddir, "--spec", "--async",
+                                                 "--k", str(SPEC_K), "--f", str(SPEC_F)])):
+            t0 = time.perf_counter()
+            _, text = _echoed(bench_cli.main, common + extra)
+            m = re.search(r"Total: (\d+) tokens in ([\d.]+)s = ([\d.]+) tok/s end-to-end", text)
+            if m is None or int(m.group(1)) != 8 * 64:
+                fail(f"cli: bench {mode} printed no total of {8 * 64} tokens")
+            # The measured pass's decode rate (the warm-up pass prints first).
+            decode = re.findall(r"Final Decode Throughput: (\d+)tok/s", text)
+            out[f"bench_{mode}_b8"] = {
+                "tokens": int(m.group(1)), "seconds": float(m.group(2)),
+                "end_to_end_tok_s": float(m.group(3)),
+                "decode_tok_s": int(decode[-1]) if decode else None}
+            out["seconds"][f"bench_{mode}"] = time.perf_counter() - t0
+
+        # One scripted chat turn in engine mode with the stand-in tokenizer.
+        t0 = time.perf_counter()
+        turns = iter(["hello there"])
+
+        def scripted(prompt=""):
+            try:
+                return next(turns)
+            except StopIteration:
+                raise EOFError from None
+
+        real_input, real_tok = builtins.input, llm_engine.load_tokenizer
+        builtins.input, llm_engine.load_tokenizer = scripted, lambda path: _TokenIds()
+        try:
+            _, text = _echoed(chat_cli.main, ["--model-path", tdir, "--max_new_tokens", "32",
+                                              "--max_model_len", "512", "--block_sz", str(BLOCK)])
+        finally:
+            builtins.input, llm_engine.load_tokenizer = real_input, real_tok
+        m = re.search(r"\[ttft ([\d.]+)s \| ([\d.]+) tok/s\]", text)
+        streamed = text.split("Assistant: ")[-1].split("\n[ttft")[0]
+        if m is None or not streamed.strip():
+            fail("cli: the chat turn streamed no tokens or printed no TTFT")
+        out["chat_turn"] = {"ttft_s": float(m.group(1)), "tok_s": float(m.group(2)),
+                            "streamed_chars": len(streamed)}
+        out["seconds"]["chat"] = time.perf_counter() - t0
+    out["launches"] = {w.__name__: w.launches for w in wrappers if w.launches}
+    emit("cli", geometry="compare_outputs: Llama-3.2-1B width, 3 layers (2 live), fp32; "
+         "bench and chat: Llama-3.2-1B (16 layers, random bf16 weights; SSD's draft its "
+         "first 4 layers)", **{k: v for k, v in out.items() if k != "seconds"},
+         phase_seconds=out["seconds"])
+    need = ("paged_attention", "flat_prefill_attention", "tree_attention")
+    if not all(out["launches"].get(n, 0) > 0 for n in need):
+        fail(f"cli: a kernel of the CLIs' paths never launched: {out['launches']}")
+    return out
+
+
 PALLAS = "ssd_tpu/ops/pallas_attention.py"
 # name in the kernels line -> (source, the TPU kernel it replaces)
 KERNEL_ROWS = {
@@ -4851,7 +5031,7 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                  kvq: dict | None, moe_run: dict | None, quant: dict | None,
                  eagle: dict | None, exact: dict | None, tp: dict | None = None,
                  eagle_tp: dict | None = None, eagle_tp_cards: dict | None = None,
-                 head_dims: dict | None = None) -> dict:
+                 head_dims: dict | None = None, cli: dict | None = None) -> dict:
     """Launches per path, each read from runs whose counts were zeroed just
     before them: `serve` (AR, AR multi-step) and `spec` (SD, fused SD,
     ngram, SSD, the fused exchange and superstep) for the fp-cache
@@ -4875,7 +5055,9 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
     times at their per-rank heads ("at_eagle_tp_cards_<label>"), and
     `head_dims`: OpenLLaMA-3B's graph runs at hd 100
     ("open_llama_3b_<cache>_<mode>_<batch>"), with the kernels' times at
-    its heads ("at_open_llama_3b_hd100")."""
+    its heads ("at_open_llama_3b_hd100"), and `cli`: the port's CLIs
+    (compare_outputs' four engines, bench's AR and SSD runs, the chat
+    turn) under the path "cli"."""
     by_path = {}
 
     def add(name, path, n):
@@ -4964,6 +5146,8 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
             for name, n in run["launches"].items():
                 if n:
                     add(name, f"open_llama_3b_{key}", n)
+    for name, n in (cli or {}).get("launches", {}).items():
+        add(name, "cli", n)
     out = []
     for name, tm in kern["timings"].items():
         err = max(v["max_abs_err"] for (k, _, _), v in kern["errors"].items() if k == name)
@@ -5018,6 +5202,10 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                                  if "shared_ms" in t}
         if "library" in tm:
             entry["library"] = tm["library"]
+        long_s8 = f"at_l{LONG_S8_L}"
+        if long_s8 in tm:
+            entry[long_s8] = {k: tm[long_s8][k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")}
         if "stages_ms" in tm:
             entry["stages_ms"] = tm["stages_ms"]
             entry[f"at_b8_x_{LONG_CTX}"] = {k: tm[f"at_b8_x_{LONG_CTX}"][k] for k in
@@ -5076,6 +5264,7 @@ def main(argv=None) -> int:
     eagle_tp = run("eagle_tp", phase_eagle_tp)
     eagle_tp_cards = run("eagle_tp_cards", phase_eagle_tp_cards)
     head_dims = run("head_dims", phase_head_dims)
+    cli = run("cli", phase_cli)
     run("profile", phase_profile)
     run("moe_profile", phase_profile, True)
     run("quant_profile", phase_profile, False, "int8")
@@ -5086,7 +5275,7 @@ def main(argv=None) -> int:
     run("eagle_profile", phase_eagle_profile)
     if kern is not None:
         print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, quant, eagle, exact, tp,
-                                      eagle_tp, eagle_tp_cards, head_dims)), flush=True)
+                                      eagle_tp, eagle_tp_cards, head_dims, cli)), flush=True)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds, phases=phases)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -88,21 +88,6 @@
 namespace ssd {
 namespace {
 
-// Four int8 values (one 32-bit word) as two bf16 pairs, exactly: byte b,
-// biased to b + 128 in [0, 255], becomes the low mantissa byte of 2^23, and
-// 2^23 + 128 is subtracted in fp32; the integer result fits bf16, so its
-// top 16 bits are it. lo = (byte 0, byte 1), hi = (byte 2, byte 3), each
-// with the first value in the low half.
-__device__ __forceinline__ void s8x4_to_bf16x4(unsigned w, unsigned& lo, unsigned& hi) {
-  const unsigned u = w ^ 0x80808080u;
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
-}
-
 // This block's rows: group g, rows [row0, row_end) of x; false past the
 // last row tile. Without offsets, row tile blockIdx.x of group 0.
 template <int BM>

@@ -40,15 +40,30 @@ def s8_dot_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return out.to(torch.int32 if q.dtype == torch.int8 else torch.float32)
 
 
+# The shapes csrc/s8_probe.cu takes: D is 64 or 128 (whole k-steps of both
+# mma shapes), and its N * ceil(L / PROBE_TILE) tiles count in an int.
+PROBE_DIMS = (64, 128)
+PROBE_TILE = 64
+
+
 def _check_probe_args(name, q, k, q_dtype):
+    """Raise on what the s8 probe's kernels refuse, before a launch."""
     if q.dtype != q_dtype or k.dtype != torch.int8:
         raise TypeError(f"{name}: q must be {q_dtype} and k int8, got {q.dtype}, {k.dtype}")
     if q.dim() != 3 or k.dim() != 3 or q.shape[0] != k.shape[0] \
             or q.shape[2] != k.shape[2] or q.shape[1] != 8:
         raise ValueError(f"{name}: needs q [N, 8, D] and k [N, L, D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
+    N, _, D = q.shape
+    L = k.shape[1]
+    if D not in PROBE_DIMS or N < 1 or L < 1 or N * -(-L // PROBE_TILE) > 2**31 - 1:
+        raise ValueError(f"{name}: the kernel takes D in {PROBE_DIMS}, N >= 1, L >= 1 "
+                         f"and N * ceil(L / {PROBE_TILE}) < 2^31 tiles, got N={N}, L={L}, D={D}")
     if k.device != q.device or not (q.is_contiguous() and k.is_contiguous()):
         raise ValueError(f"{name}: q and k must be contiguous on one device")
+    if q.data_ptr() % 16 or k.data_ptr() % 16:
+        raise ValueError(f"{name}: q and k must start 16-byte aligned (the kernel "
+                         "copies 16-byte pieces)")
 
 
 def _s8_dot_cuda(wrapper, entry: str, q, k, out_dtype, q_dtype):

@@ -284,18 +284,25 @@ def test_eagle_glue_and_draft_prefill_on_card(dtype):
 
 
 @pytest.mark.cuda
-def test_s8_probe_paths_exact_on_card():
-    """The three s8 probe kernels at bench/s8_probe.py's shapes equal their
-    fp64 plain version bit for bit, and each launch is counted."""
+@pytest.mark.parametrize("N,L,D", s8_probe.CHECK_SHAPES)
+def test_s8_probe_paths_exact_on_card(N, L, D):
+    """The three s8 probe kernels equal their fp64 plain version bit for
+    bit at bench/s8_probe.py's shapes, at 4096 positions, at one row block,
+    at D = 64, and at lengths with a tail past the last whole block of
+    positions (L % 4 != 0 too); each launch is counted, and a shape the
+    kernel refuses raises before a launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
-    q8, k8, qb = s8_probe.inputs("cuda")
+    q8, k8, qb = s8_probe.inputs("cuda", N=N, L=L, D=D)
     want = probes.s8_dot_plain(q8, k8)
     for fn, q in ((probes.s8_dot_mma, q8), (probes.s8_dot_dp4a, q8), (probes.s8_dot_bf16, qb)):
         n = fn.launches
         got = fn(q, k8)
         torch.cuda.synchronize()
         assert torch.equal(got.double(), want.double()), fn.__name__
+        assert fn.launches == n + 1
+        with pytest.raises(ValueError, match="D in"):
+            fn(q[..., :32].contiguous(), k8[..., :32].contiguous())
         assert fn.launches == n + 1
 
 

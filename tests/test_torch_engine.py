@@ -278,22 +278,26 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 
 
 def test_package_imports_neither_jax_nor_ssd_tpu():
-    """Statically: no file imports jax or the JAX package (a whole module
-    name, so ssd_tpu_torch itself does not match). At run time: importing
-    every module leaves both out of sys.modules."""
+    """Statically: no file imports jax, the JAX package or the top-level
+    `bench` package of its CLIs (a whole module name, so ssd_tpu_torch and
+    ssd_tpu_torch.bench do not match). At run time: importing every module,
+    the CLIs included, leaves all three out of sys.modules."""
+    refused = ("jax", "jaxlib", "ssd_tpu", "bench")
     files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
     for f in files:
         for m in _imported_modules(f):
             top = m.split(".")[0]
-            assert top not in ("jax", "jaxlib", "ssd_tpu"), f"{f}: imports {m}"
+            assert top not in refused, f"{f}: imports {m}"
     mods = [".".join(p.relative_to(PKG.parent).with_suffix("").parts)
             for p in sorted(PKG.rglob("*.py"))]
     assert {"ssd_tpu_torch.models.eagle3", "ssd_tpu_torch.engine.eagle_runner",
             "ssd_tpu_torch.ops.probes", "ssd_tpu_torch.bench.s8_probe",
-            "ssd_tpu_torch.bench.kernel_diag"} <= set(mods)
+            "ssd_tpu_torch.bench.kernel_diag", "ssd_tpu_torch.bench.chat",
+            "ssd_tpu_torch.bench.compare_outputs", "ssd_tpu_torch.bench.bench",
+            "ssd_tpu_torch.bench.bench_helpers"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ssd_tpu')]\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {refused!r}]\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=PKG.parent, timeout=120,

@@ -5,7 +5,9 @@ package's probe kernels, run as its own tests run Pallas on the CPU
 - ops/probes.py::s8_dot_plain (the plain version of csrc/s8_probe.cu's
   three paths) against bench/s8_probe.py's _kernel_s8 and _kernel_bf16 through
   pl.pallas_call(interpret=True), bit for bit, and against its `run` entry
-  point's checksum;
+  point's checksum, at the probe's shapes and the card checks' (4096
+  positions, one row block, D = 64, tails); the argument checks refuse
+  every shape the kernels refuse;
 - paged_attention_diag's "full" stage on CPU tensors (the plain paged
   attention) against bench/kernel_diag.py::diag_attention(do_dma=True,
   do_compute=True, interpret=True), in fp32 to 1e-5; the other stages compute
@@ -44,14 +46,24 @@ def _pallas_product(kernel, q, k, out_dtype):
         interpret=True)(q, k))
 
 
-@pytest.mark.parametrize("mode", ["s8", "bf16"])
-def test_s8_probe_plain_matches_pallas(mode):
+# The probe's shape keeps its cases' ids ("s8", "bf16"); the others carry
+# theirs.
+_PROBE_CASES = [pytest.param(mode, N, L, D, id=f"{mode}-N{N}-L{L}-D{D}" if i else mode)
+                for i, (N, L, D) in enumerate([(16, 512, 128), (4, 4096, 128), (1, 512, 128),
+                                               (8, 512, 64), (3, 517, 128), (5, 1000, 64)])
+                for mode in ("s8", "bf16")]
+
+
+@pytest.mark.parametrize("mode,N,L,D", _PROBE_CASES)
+def test_s8_probe_plain_matches_pallas(mode, N, L, D):
     """The probe's shapes at a quarter of its batch (16 row blocks of 8
-    rows, 512 positions, D = 128): the fp64 plain product equals the Pallas
-    kernel's s32 (or fp32) product exactly, and run()'s checksum (an int32
-    sum, which wraps)."""
-    q8, k8, qb = s8_probe.inputs("cpu")
-    q8, k8, qb = q8[:16], k8[:16], qb[:16]
+    rows, 512 positions, D = 128), and the shapes the card checks hold the
+    kernels to (s8_probe.CHECK_SHAPES) at fewer row blocks: 4096 positions,
+    one row block, D = 64, lengths past a whole number of 64-position tiles
+    (517, 1000): the fp64 plain product equals the Pallas kernel's s32 (or
+    fp32) product exactly, and run()'s checksum (an int32 sum, which
+    wraps)."""
+    q8, k8, qb = s8_probe.inputs("cpu", N=N, L=L, D=D)
     jq8, jk8 = jnp.asarray(q8.numpy()), jnp.asarray(k8.numpy())
     if mode == "s8":
         got = probes.s8_dot_plain(q8, k8)
@@ -68,6 +80,44 @@ def test_s8_probe_plain_matches_pallas(mode):
         check = float(np.asarray(js8.run(jqb, jk8, mode="bf16", interpret=True, iters=1)))
         assert check == pytest.approx(float(got.double().sum()), rel=1e-6)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _misaligned(shape):
+    """A contiguous int8 tensor of `shape` that starts 1 byte past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 16, dtype=torch.int8)[1:n + 1].view(shape)
+
+
+@pytest.mark.parametrize("case", ["D96", "D32", "L0", "N0", "R4", "strided", "misaligned"])
+def test_check_probe_args_refuses_what_the_kernel_refuses(case):
+    """_check_probe_args (run before every launch) raises on each shape or
+    layout csrc/s8_probe.cu refuses: D outside {64, 128}, no positions or
+    row blocks, R != 8, a non-contiguous or misaligned operand; it passes
+    the shapes the kernel takes."""
+    N, L, D = 2, 70, 128
+    q, k = torch.zeros(N, 8, D, dtype=torch.int8), torch.zeros(N, L, D, dtype=torch.int8)
+    if case.startswith("D"):
+        D = int(case[1:])
+        q, k = q[..., :D].contiguous(), k[..., :D].contiguous()
+    elif case == "L0":
+        k = k[:, :0]
+    elif case == "N0":
+        q, k = q[:0], k[:0]
+    elif case == "R4":
+        q = q[:, :4].contiguous()
+    elif case == "strided":
+        k = torch.zeros(N, 2 * L, D, dtype=torch.int8)[:, ::2]
+    else:
+        k = _misaligned((N, L, D))
+    with pytest.raises(ValueError):
+        probes._check_probe_args("s8_dot_mma", q, k, torch.int8)
+    for N, L, D in ((1, 1, 64), (3, 517, 128), (2, 4096, 64)):
+        probes._check_probe_args("s8_dot_mma", torch.zeros(N, 8, D, dtype=torch.int8),
+                                 torch.zeros(N, L, D, dtype=torch.int8), torch.int8)
+    with pytest.raises(TypeError):
+        probes._check_probe_args("s8_dot_bf16", torch.zeros(1, 8, 64, dtype=torch.int8),
+                                 torch.zeros(1, 8, 64, dtype=torch.int8), torch.bfloat16)
 
 
 def test_s8_probe_wrappers_on_cpu_take_the_plain_version():

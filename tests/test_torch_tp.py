@@ -77,7 +77,7 @@ GREEDY = dict(temperature=0.0, max_new_tokens=16, ignore_eos=True)
 
 
 def tiny_checkpoint(d, seed, scale, layers=2, hidden=64, heads=4, kv_heads=2, head_dim=16,
-                    intermediate=128, experts=0, top_k=0, moe_intermediate=96):
+                    intermediate=128, experts=0, top_k=0, moe_intermediate=96, vocab=128):
     """A tiny HF-layout checkpoint (config.json and one safetensors file of
     N(0, scale) fp32 weights, norms at one) of a Llama or, with experts, a
     Qwen3-MoE, written without transformers (whose import takes tens of
@@ -87,7 +87,7 @@ def tiny_checkpoint(d, seed, scale, layers=2, hidden=64, heads=4, kv_heads=2, he
     def w(*shape):
         return torch.randn(*shape, generator=g) * scale
 
-    D, V = hidden, 128
+    D, V = hidden, vocab
     t = {"model.embed_tokens.weight": w(V, D), "model.norm.weight": torch.ones(D),
          "lm_head.weight": w(V, D)}
     for i in range(layers):
