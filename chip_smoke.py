@@ -364,6 +364,39 @@ the script exits non-zero:
               the phase and read after it (path "cli"); K1-K3 must have
               launched.
 
+18. hosts   - multi-host serving (num_hosts=2, ssd_tpu_torch/parallel/
+              comm.py) on one card: two "host" processes with one rank
+              each on cuda:0 join through the TCP rendezvous at a free
+              port on 127.0.0.1, which picks gloo (the ranks share a card;
+              NCCL cannot hold two ranks on one), eagerly. (a) The
+              Llama-3.2-1B width at 4 layers, random fp32 weights, the
+              target its own draft, 4 prompts of 40-600 tokens at
+              max_num_seqs 2, 32 tokens each: AR with continuous
+              batching, fused SD (R=4) and async SSD at draft_dp=2 (one
+              replica a host, the hosts' replies unioned): each host's
+              tokens, hit rates and accepted lengths equal the card's
+              tp-1 engine's; K1 and K2 launch on both hosts, K3 and the
+              union where SSD runs; the rendezvous seconds and the
+              union's ms and bytes a step (and, timed apart before it, the
+              wait for the draft's reply on the card). (b) The full-depth
+              1B in bf16, AR b8 (serve's 8 prompts, 16 tokens): decode
+              tok/s through the two hosts against the same engine as a
+              gloo tp-2 group of the caller's (the tp phase's layout, the
+              same ranks), in turns (hosts, tp 2, tp 2, hosts); every
+              turn's tokens must be equal.
+19. hosts_cards - (only when asked for, four cards; it prints a line
+              saying it skipped with fewer) Llama-3.1-70B's geometry (80
+              layers, random bf16 weights) as two hosts of two cards each
+              (CUDA_VISIBLE_DEVICES 0,1 and 2,3; each host spawns its
+              second rank) over NCCL with the TCP rendezvous, under
+              graphs, against the same engines as one host of four cards
+              (a FileStore group, num_hosts=2 without a coordinator): AR
+              b8 and b1 and async SSD b8 (K=4, fan-out 2, the Llama-3.2-1B
+              geometry as the draft, draft_dp=2: one replica a host), 128
+              greedy tokens: token agreement, decode tok/s, graph replays
+              and collectives a decode step, the union's ms and bytes a
+              step and the wait for the draft's reply before it.
+
 Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -382,9 +415,10 @@ import tempfile
 import time
 
 PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "quant", "eagle", "exact", "tp",
-          "eagle_tp", "head_dims", "cli")
+          "eagle_tp", "head_dims", "cli", "hosts")
 EXTRA_PHASES = ("profile", "moe_profile", "quant_profile", "quant_moe_profile", "spec_profile",
-                "eagle_profile", "spec_async", "spec_draft_rank", "eagle_tp_cards")
+                "eagle_profile", "spec_async", "spec_draft_rank", "eagle_tp_cards",
+                "hosts_cards")
 
 # Llama-3.2-1B geometry (the JAX package's bench.py random-weight config).
 LLAMA_1B = {
@@ -3977,13 +4011,14 @@ def _tp_comm_counts() -> dict:
     from ssd_tpu_torch.parallel import comm
 
     return {"all_reduce_sum": comm.all_reduce_sum.launches,
-            "gather_vocab": comm.gather_vocab.launches}
+            "gather_vocab": comm.gather_vocab.launches,
+            "union_sum": comm.union_sum.launches}
 
 
 def _tp_zero_counts():
     from ssd_tpu_torch.parallel import comm
 
-    for w in _kernel_wrappers() + (comm.all_reduce_sum, comm.gather_vocab):
+    for w in _kernel_wrappers() + (comm.all_reduce_sum, comm.gather_vocab, comm.union_sum):
         w.launches = 0
 
 
@@ -4007,7 +4042,10 @@ def _tp_serve(llm, prompts, n_new: int) -> dict:
     return dict(tokens=[o["token_ids"] for o in outs], seconds=time.perf_counter() - t0,
                 decode_steps=steps, graph_replays=_replays(llm) - replays0,
                 launches={w.__name__: w.launches for w in _kernel_wrappers()},
-                collectives=_tp_comm_counts(), heads=[a.num_heads, a.num_kv_heads])
+                collectives=_tp_comm_counts(), heads=[a.num_heads, a.num_kv_heads],
+                decode_tok_s=m["decode_total_tokens"] / max(m["decode_total_time"], 1e-9),
+                cache_hits=[float(x) for x in m["cache_hits"]],
+                accepted=[float(x) for x in m["accepted_suffix_lens_with_recovery"]])
 
 
 def _tp_rank(rank: int, size: int, store: str, cases: list, out_path: str):
@@ -4608,11 +4646,12 @@ EAGLE3_70B = {**EAGLE3_8B, "hidden_size": 8192, "intermediate_size": 28672,
 EAGLE_TP_CARDS_NEW = 128            # tokens a sequence, b8 and b1
 
 
-def _eagle_tp_cards_run(llm, prompts: list[list[int]], n_new: int = EAGLE_TP_CARDS_NEW) -> dict:
+def _eagle_tp_cards_run(llm, prompts: list[list[int]], n_new: int = EAGLE_TP_CARDS_NEW,
+                        keep_tokens: bool = False) -> dict:
     """One greedy generate of n_new tokens a prompt with rank 0's counts
     zeroed just before and read just after (the draft rank's since the last
     drain): decode tok/s, accepted length, hit rate, exchange ms a step,
-    launches, collectives, replays."""
+    launches, collectives, replays, and with keep_tokens the tokens."""
     import torch
 
     from ssd_tpu_torch import SamplingParams
@@ -4636,10 +4675,12 @@ def _eagle_tp_cards_run(llm, prompts: list[list[int]], n_new: int = EAGLE_TP_CAR
     steps = max(1, len(m["target_step_times"]) - 1)
     run = dict(prompts=len(prompts), wall_s=wall, ttft_s=m["target_step_times"][0],
                decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
-               decode_steps=steps, mean_accepted_suffix_len=sum(lens) / len(lens),
+               decode_steps=steps,
                graph_replays_per_decode_step=(_replays(llm) - replays0) / steps,
                launches={w.__name__: w.launches for w in _kernel_wrappers()},
                collectives=_tp_comm_counts())
+    if lens:
+        run["mean_accepted_suffix_len"] = sum(lens) / len(lens)
     if m["cache_hits"]:
         run["cache_hit_rate"] = sum(m["cache_hits"]) / len(m["cache_hits"])
     if m["sd_superstep_times"]:
@@ -4649,6 +4690,8 @@ def _eagle_tp_cards_run(llm, prompts: list[list[int]], n_new: int = EAGLE_TP_CAR
         run["draft_rank_launches"] = ranks.drain()
         ex = ranks.exchange_s[n0:]
         run["exchange_ms_per_step"] = 1e3 * sum(ex) / len(ex)
+    if keep_tokens:
+        run["tokens"] = [o["token_ids"] for o in outs]
     return run
 
 
@@ -5027,11 +5070,409 @@ KERNEL_ROWS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# Phases hosts and hosts_cards
+# ---------------------------------------------------------------------------
+
+HOSTS = 2                           # the hosts phases' "hosts"
+HOSTS_NEW = 32                      # tokens a sequence in the hosts phase (a)
+HOSTS_FULL_NEW = 16                 # and in each of its full-depth turns (b)
+HOSTS_CARDS_NEW = 128               # and in hosts_cards
+
+
+def _free_ports(n: int) -> list[int]:
+    """n TCP ports free on the loopback now."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _time_hosts_layers() -> dict:
+    """Wrap the rendezvous (parallel/comm.py::_join) and the union of the
+    draft replies (engine/speculator_async.py::union_parts) of this process
+    so that each call's seconds (and the union's bytes) are recorded."""
+    from ssd_tpu_torch.engine import speculator_async
+    from ssd_tpu_torch.parallel import comm
+
+    rec = {"join_s": [], "union": []}
+    join, union = comm._join, speculator_async.union_parts
+
+    def timed_join(*a, **kw):
+        t0 = time.perf_counter()
+        out = join(*a, **kw)
+        rec["join_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_union(parts, B, K, V, c):
+        # The union ends in a host read, which waits for the target's stream
+        # and so for the draft's reply logits it waited on: that wait is
+        # timed apart, before the union.
+        import torch
+
+        t0 = time.perf_counter()
+        if c.device.type == "cuda":
+            torch.cuda.current_stream(c.device).synchronize()
+        t1 = time.perf_counter()
+        out = union(parts, B, K, V, c)
+        rec["union"].append((time.perf_counter() - t1, t1 - t0,
+                             B * (K + 1) * 4 + B * K * V * 4))
+        return out
+
+    comm._join, speculator_async.union_parts = timed_join, timed_union
+    return rec
+
+
+def _union_facts(rec: dict, n0: int = 0) -> dict:
+    """The union's calls since the n0-th: ms a call, the wait for the
+    draft's reply on the card before it, and bytes a call."""
+    u = rec["union"][n0:]
+    if not u:
+        return {}
+    return dict(union_calls=len(u), union_ms_per_step=1e3 * sum(t for t, _, _ in u) / len(u),
+                reply_wait_ms_per_step=1e3 * sum(w for _, w, _ in u) / len(u),
+                union_bytes_per_step=sum(b for _, _, b in u) / len(u))
+
+
+def _hosts_proc(host: int, hosts: int, ports: list, cases: list, store: str, out_path: str):
+    """One "host" of the hosts phase on the card (cuda:0, shared with the
+    other host, so the rendezvous picks gloo): each case's engine, eagerly,
+    either joins the hosts through the TCP rendezvous on 127.0.0.1 (layout
+    "hosts", a fresh port each) or runs over a tp-2 group of the caller's
+    over gloo (layout "gloo_tp2", the tp phase's layout: rank h on host h's
+    process, a fresh FileStore each). Host h writes what it served to
+    out_path + h."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    from ssd_tpu_torch import LLM
+
+    rec = _time_hosts_layers()
+    results = {}
+    for i, ((key, layout, path, prompts, n_new, kw), port) in enumerate(zip(cases, ports)):
+        if layout == "gloo_tp2":
+            dist.init_process_group("gloo", init_method=f"file://{store}_{i}", rank=host,
+                                    world_size=hosts)
+            kw = dict(kw, num_devices=hosts)
+        else:
+            kw = dict(kw, num_hosts=hosts, num_devices=hosts, host_id=host,
+                      coordinator_address=f"127.0.0.1:{port}")
+        try:
+            t0 = time.perf_counter()
+            llm = LLM(path, device="cuda", enforce_eager=True, **kw)
+            init_s = time.perf_counter() - t0
+            n0 = len(rec["union"])
+            results[key] = dict(_tp_serve(llm, prompts, n_new), init_s=init_s,
+                                backend=llm.comm.backend, ranks=llm.comm.size,
+                                **_union_facts(rec, n0))
+            if layout == "hosts":
+                results[key]["join_s"] = rec["join_s"][-1]
+            llm.exit()
+            del llm
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            if layout == "gloo_tp2":
+                dist.destroy_process_group()
+    with open(f"{out_path}{host}", "w") as f:
+        json.dump(results, f)
+
+
+def _agreement(a: list, b: list) -> dict:
+    """Tokens equal, tokens agreeing, and each sequence's first differing
+    step."""
+    return dict(tokens_equal=a == b,
+                tokens_agreeing=sum(x == y for ta, tb in zip(a, b) for x, y in zip(ta, tb)),
+                tokens=sum(map(len, a)),
+                first_differing_step=[next((i for i, (x, y) in enumerate(zip(ta, tb))
+                                            if x != y), None) for ta, tb in zip(a, b)])
+
+
+# Which kernels each hosts case must launch on every host: K1 and K2, and
+# K3 where the async draft builds its trees.
+HOSTS_NEED = ("flat_prefill_attention", "paged_attention")
+
+
+# The hosts phase's full-depth bf16 runs, in turns: two hosts against the
+# same ranks as a gloo tp-2 group of the caller's.
+HOSTS_TURNS = ("hosts", "gloo_tp2", "gloo_tp2", "hosts")
+
+
+def phase_hosts() -> dict:
+    """Multi-host serving on one card (module docstring, phase hosts)."""
+    import gc
+    import multiprocessing as mp
+
+    import torch
+
+    from ssd_tpu_torch import LLM
+
+    out = {"runs": {}}
+    with tempfile.TemporaryDirectory() as d:
+        ldir, fdir = os.path.join(d, "llama_4l"), os.path.join(d, "llama_full")
+        os.makedirs(ldir)
+        os.makedirs(fdir)
+        _write_config(ldir, num_hidden_layers=4)
+        _write_config(fdir)
+        base = dict(init_random=True, dtype="float32", max_model_len=1024,
+                    kvcache_block_size=BLOCK, max_num_seqs=2, num_kvcache_blocks=160)
+        spec = dict(draft=ldir, speculate=True, speculate_k=SPEC_K)
+        prompts = _tp_prompts(LLAMA_1B["vocab_size"])
+        cases = [(key, "hosts", ldir, prompts, HOSTS_NEW, dict(base, **kw)) for key, kw in (
+            ("ar_cb", {}),
+            (f"fused_sd{SPEC_R}", dict(spec, spec_rounds=SPEC_R)),
+            ("ssd_dp2", dict(spec, draft_async=True, async_fan_out=SPEC_F, draft_dp=HOSTS)))]
+        prompts8, _ = _serving_prompts()
+        full_kw = dict(init_random=True, dtype="bfloat16", max_model_len=SPEC_MAX_LEN,
+                       kvcache_block_size=BLOCK, max_num_seqs=8, num_kvcache_blocks=320)
+        turns = [(f"full_{layout}_{i}", layout, fdir, prompts8, HOSTS_FULL_NEW, full_kw)
+                 for i, layout in enumerate(HOSTS_TURNS)]
+        result = os.path.join(d, "hosts.json")
+        ports = _free_ports(len(cases) + len(turns))
+        t0 = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_hosts_proc, args=(
+            h, HOSTS, ports, cases + turns, os.path.join(d, "store"), result))
+            for h in range(HOSTS)]
+        for p in procs:
+            p.start()
+        # Meanwhile the references: the card's tp-1 engine of each case.
+        tp1 = {}
+        for key, _, path, ps, n_new, kw in cases:
+            llm = LLM(path, enforce_eager=True, **kw)
+            tp1[key] = _tp_serve(llm, ps, n_new)
+            llm.exit()
+            del llm
+            gc.collect()
+            torch.cuda.empty_cache()
+        for p in procs:
+            p.join(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if codes != [0] * HOSTS:
+            fail(f"hosts: the host processes exited with {codes}")
+        hosts = []
+        for h in range(HOSTS):
+            with open(f"{result}{h}") as f:
+                hosts.append(json.load(f))
+        out["processes_s"] = time.perf_counter() - t0
+    for key, *_ in cases:
+        want, h0 = tp1[key], hosts[0][key]
+        run = dict(
+            backend=h0["backend"], ranks=h0["ranks"],
+            tokens_equal_tp1=all(h[key]["tokens"] == want["tokens"] for h in hosts),
+            metrics_equal_tp1=all((h[key]["cache_hits"], h[key]["accepted"])
+                                  == (want["cache_hits"], want["accepted"]) for h in hosts),
+            launches_by_host={str(i): h[key]["launches"] for i, h in enumerate(hosts)},
+            collectives_host0=h0["collectives"], decode_tok_s=h0["decode_tok_s"],
+            decode_tok_s_tp1=want["decode_tok_s"], init_s=h0["init_s"], join_s=h0["join_s"],
+            **{k: h0[k] for k in ("union_calls", "union_ms_per_step", "reply_wait_ms_per_step",
+                                  "union_bytes_per_step") if k in h0})
+        if want["accepted"]:
+            run["mean_accepted"] = sum(want["accepted"]) / len(want["accepted"])
+        if want["cache_hits"]:
+            run["cache_hit_rate"] = sum(want["cache_hits"]) / len(want["cache_hits"])
+        out["runs"][key] = run
+        emit("hosts", case=key, geometry="Llama-3.2-1B width, 4 layers, random fp32 weights, "
+             "the target its own draft", hosts=HOSTS, **run)
+        if not (run["tokens_equal_tp1"] and run["metrics_equal_tp1"]):
+            fail(f"hosts: {key}: two hosts' fp32 tokens or speculation metrics differ from "
+                 "the card's tp-1 engine")
+        need = HOSTS_NEED + (("tree_attention",) if key.startswith("ssd") else ())
+        missing = {i: [k for k in need if not launches[k]]
+                   for i, launches in run["launches_by_host"].items()}
+        if any(missing.values()) or not h0["collectives"]["all_reduce_sum"] \
+                or (key.startswith("ssd") and not h0["collectives"]["union_sum"]):
+            fail(f"hosts: {key}: kernels or collectives of the path did not run: {missing}, "
+                 f"{h0['collectives']}")
+    runs = [hosts[0][key] for key, *_ in turns]
+    first = runs[0]["tokens"]
+    run = dict(_agreement(first, runs[1]["tokens"]),
+               all_turns_and_hosts_equal=all(h[key]["tokens"] == first
+                                             for h in hosts for key, *_ in turns),
+               turns=list(HOSTS_TURNS),
+               decode_tok_s=[r["decode_tok_s"] for r in runs],
+               seconds=[r["seconds"] for r in runs], init_s=[r["init_s"] for r in runs],
+               join_s=[r["join_s"] for r in runs if "join_s" in r],
+               backend=runs[0]["backend"], launches_host0=runs[0]["launches"],
+               collectives_host0=runs[0]["collectives"])
+    mean = {lay: [r["decode_tok_s"] for r, l in zip(runs, HOSTS_TURNS) if l == lay]
+            for lay in ("hosts", "gloo_tp2")}
+    run["hosts_over_gloo_tp2"] = sum(mean["hosts"]) / sum(mean["gloo_tp2"])
+    out["runs"]["llama1b_bf16_ar_b8"] = run
+    emit("hosts", case="llama1b_bf16_ar_b8", geometry="Llama-3.2-1B (16 layers), random bf16 "
+         "weights, b8", against="the same engine as a gloo tp-2 group of the caller's (the tp "
+         "phase's layout), in turns", **run)
+    if not run["all_turns_and_hosts_equal"]:
+        fail("hosts: llama1b_bf16_ar_b8: two hosts' tokens differ from the gloo tp-2 group's "
+             "or from each other")
+    if not all(runs[0]["launches"][k] for k in HOSTS_NEED):
+        fail(f"hosts: llama1b_bf16_ar_b8: K1 or K2 never launched: {runs[0]['launches']}")
+    return out
+
+
+def _hosts_cards_proc(host: int, hosts: int, ports: list, cards: str, cases: list,
+                      out_path: str):
+    """One host of hosts_cards: cards `cards` (CUDA_VISIBLE_DEVICES, set
+    before CUDA starts), num_devices over all hosts, NCCL, under graphs;
+    this process is global rank host * 2 and spawns its second rank. It
+    serves every case on one engine a mode and writes what it served to
+    out_path + host."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = cards
+    import torch
+
+    from ssd_tpu_torch import LLM
+
+    rec = _time_hosts_layers()
+    results = {}
+    for (mode, path, kw, runs), port in zip(cases, ports):
+        t0 = time.perf_counter()
+        llm = LLM(path, num_hosts=hosts, coordinator_address=f"127.0.0.1:{port}",
+                  host_id=host, **kw)
+        res = dict(init_s=time.perf_counter() - t0, join_s=rec["join_s"][-1],
+                   backend=llm.comm.backend, graphs=llm.graphs is not None)
+        for label, prompts, n_new in runs:
+            n0 = len(rec["union"])
+            res[label] = dict(_eagle_tp_cards_run(llm, prompts, n_new, keep_tokens=True),
+                              **_union_facts(rec, n0))
+        llm.exit()
+        results[mode] = res
+        del llm
+        torch.cuda.empty_cache()
+    with open(f"{out_path}{host}", "w") as f:
+        json.dump(results, f)
+
+
+def phase_hosts_cards() -> dict | None:
+    """Multi-host serving at Llama-3.1-70B's geometry over four cards as two
+    hosts of two (module docstring, phase hosts_cards)."""
+    import gc
+
+    import torch
+
+    from ssd_tpu_torch import LLM
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        emit("hosts_cards", skipped=f"{n} card(s) visible; this phase needs 4")
+        return None
+    out = {"runs": {}}
+    prompts8, prompt1 = _serving_prompts()
+    prompts8 = _eagle_prompts(prompts8, HOSTS_CARDS_NEW)
+    with tempfile.TemporaryDirectory() as d:
+        tdir, ddir = os.path.join(d, "target"), os.path.join(d, "draft")
+        os.makedirs(tdir)
+        os.makedirs(ddir)
+        _write_config(tdir, LLAMA_70B)
+        _write_config(ddir)
+        base = dict(init_random=True, num_devices=4, dtype="bfloat16",
+                    max_model_len=EAGLE_MAX_LEN, kvcache_block_size=BLOCK, max_num_seqs=8)
+        warm = (_tp_prompts(LLAMA_70B["vocab_size"])[:1], 8)
+        cases = [("ar", tdir, base, [("warm",) + warm, ("b8", prompts8, HOSTS_CARDS_NEW),
+                                      ("b1", prompt1, HOSTS_CARDS_NEW)]),
+                 ("ssd_dp2", tdir, dict(base, draft=ddir, speculate=True, speculate_k=SPEC_K,
+                                        draft_async=True, async_fan_out=SPEC_F, draft_dp=HOSTS),
+                  [("warm",) + warm, ("b8", prompts8, HOSTS_CARDS_NEW)])]
+        # One host: the same engines over a FileStore group of the four
+        # ranks this process spawns (num_hosts=2, no coordinator).
+        one = {}
+        rec = _time_hosts_layers()
+        for mode, path, kw, runs in cases:
+            t0 = time.perf_counter()
+            llm = LLM(path, num_hosts=HOSTS, **kw)
+            res = dict(init_s=time.perf_counter() - t0, backend=llm.comm.backend,
+                       graphs=_graph_facts(llm))
+            if llm.graphs is None or llm.comm.backend != "nccl":
+                fail(f"hosts_cards: the one-host {mode} engine runs no graphs or no NCCL")
+            for label, prompts, n_new in runs:
+                n0 = len(rec["union"])
+                res[label] = dict(_eagle_tp_cards_run(llm, prompts, n_new, keep_tokens=True),
+                                  **_union_facts(rec, n0))
+            t0 = time.perf_counter()
+            llm.exit()
+            res["exit_s"] = time.perf_counter() - t0
+            one[mode] = res
+            emit("hosts_cards", layout="1 host x 4 cards (FileStore group)", mode=mode,
+                 **{k: v for k, v in res.items() if k not in ("warm", "b8", "b1")},
+                 **{label: {k: v for k, v in res[label].items() if k != "tokens"}
+                    for label in ("b8", "b1") if label in res})
+            del llm
+            gc.collect()
+            torch.cuda.empty_cache()
+        ports = _free_ports(len(cases))
+        result = os.path.join(d, "hosts_cards.json")
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_hosts_cards_proc, args=(
+            h, HOSTS, ports, f"{2 * h},{2 * h + 1}", cases, result)) for h in range(HOSTS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=max(1.0, 1500 - (time.perf_counter() - t0)))
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if codes != [0] * HOSTS:
+            fail(f"hosts_cards: the host processes exited with {codes}")
+        two = []
+        for h in range(HOSTS):
+            with open(f"{result}{h}") as f:
+                two.append(json.load(f))
+    for mode, _, _, runs in cases:
+        for label, *_ in runs[1:]:
+            a, b = one[mode][label], two[0][mode][label]
+            run = dict(_agreement(a["tokens"], b["tokens"]),
+                       hosts_equal=b["tokens"] == two[1][mode][label]["tokens"],
+                       backend=two[0][mode]["backend"], join_s=two[0][mode]["join_s"],
+                       init_s_one_host=one[mode]["init_s"], init_s_hosts=two[0][mode]["init_s"],
+                       **{f"{k}_one_host": a.get(k) for k in (
+                           "decode_tok_s", "graph_replays_per_decode_step",
+                           "mean_accepted_suffix_len", "cache_hit_rate", "collectives")},
+                       **{f"{k}_hosts": b.get(k) for k in (
+                           "decode_tok_s", "graph_replays_per_decode_step",
+                           "mean_accepted_suffix_len", "cache_hit_rate", "collectives",
+                           "union_ms_per_step", "reply_wait_ms_per_step",
+                           "union_bytes_per_step")},
+                       launches_host0=b["launches"])
+            steps = max(1, b["decode_steps"])
+            run["collectives_per_decode_step_hosts"] = {
+                k: v / steps for k, v in b["collectives"].items()}
+            out["runs"][f"{mode}_{label}"] = run
+            emit("hosts_cards", case=f"{mode}_{label}",
+                 geometry="Llama-3.1-70B (80 layers), random bf16 weights; draft: the "
+                          "Llama-3.2-1B geometry (16 layers)",
+                 layout="2 hosts x 2 cards (TCP rendezvous) against 1 host x 4 cards "
+                        "(FileStore group)", **run)
+            if not (b["graph_replays_per_decode_step"] and all(
+                    b["launches"][k] for k in HOSTS_NEED)):
+                fail(f"hosts_cards: {mode} {label}: no graph replays or K1/K2 never launched")
+            if mode == "ssd_dp2" and not (b["launches"]["tree_attention"]
+                                          and b["collectives"]["union_sum"]):
+                fail(f"hosts_cards: {mode} {label}: K3 or the union never ran")
+    return out
+
+
 def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                  kvq: dict | None, moe_run: dict | None, quant: dict | None,
                  eagle: dict | None, exact: dict | None, tp: dict | None = None,
                  eagle_tp: dict | None = None, eagle_tp_cards: dict | None = None,
-                 head_dims: dict | None = None, cli: dict | None = None) -> dict:
+                 head_dims: dict | None = None, cli: dict | None = None,
+                 hosts: dict | None = None, hosts_cards: dict | None = None) -> dict:
     """Launches per path, each read from runs whose counts were zeroed just
     before them: `serve` (AR, AR multi-step) and `spec` (SD, fused SD,
     ngram, SSD, the fused exchange and superstep) for the fp-cache
@@ -5055,9 +5496,11 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
     times at their per-rank heads ("at_eagle_tp_cards_<label>"), and
     `head_dims`: OpenLLaMA-3B's graph runs at hd 100
     ("open_llama_3b_<cache>_<mode>_<batch>"), with the kernels' times at
-    its heads ("at_open_llama_3b_hd100"), and `cli`: the port's CLIs
+    its heads ("at_open_llama_3b_hd100"), `cli`: the port's CLIs
     (compare_outputs' four engines, bench's AR and SSD runs, the chat
-    turn) under the path "cli"."""
+    turn) under the path "cli", and `hosts`: host 0 of the two hosts on
+    one card ("hosts_<case>"), and `hosts_cards` when it ran: host 0's
+    first rank ("hosts_cards_<mode>_<batch>")."""
     by_path = {}
 
     def add(name, path, n):
@@ -5148,6 +5591,16 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                     add(name, f"open_llama_3b_{key}", n)
     for name, n in (cli or {}).get("launches", {}).items():
         add(name, "cli", n)
+    for case, run in (hosts or {}).get("runs", {}).items():
+        launches = run["launches_by_host"]["0"] if "launches_by_host" in run \
+            else run["launches_host0"]
+        for name, n in launches.items():
+            if n:
+                add(name, f"hosts_{case}", n)
+    for case, run in (hosts_cards or {}).get("runs", {}).items():
+        for name, n in run["launches_host0"].items():
+            if n:
+                add(name, f"hosts_cards_{case}", n)
     out = []
     for name, tm in kern["timings"].items():
         err = max(v["max_abs_err"] for (k, _, _), v in kern["errors"].items() if k == name)
@@ -5265,6 +5718,8 @@ def main(argv=None) -> int:
     eagle_tp_cards = run("eagle_tp_cards", phase_eagle_tp_cards)
     head_dims = run("head_dims", phase_head_dims)
     cli = run("cli", phase_cli)
+    hosts = run("hosts", phase_hosts)
+    hosts_cards = run("hosts_cards", phase_hosts_cards)
     run("profile", phase_profile)
     run("moe_profile", phase_profile, True)
     run("quant_profile", phase_profile, False, "int8")
@@ -5275,7 +5730,8 @@ def main(argv=None) -> int:
     run("eagle_profile", phase_eagle_profile)
     if kern is not None:
         print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, quant, eagle, exact, tp,
-                                      eagle_tp, eagle_tp_cards, head_dims, cli)), flush=True)
+                                      eagle_tp, eagle_tp_cards, head_dims, cli, hosts,
+                                      hosts_cards)), flush=True)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds, phases=phases)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

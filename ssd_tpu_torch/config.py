@@ -4,9 +4,6 @@ Counterpart of ssd_tpu/config.py, cut to the fields of the ported modes:
 autoregressive decoding (AR), sync speculative decoding (SD) and async tree
 speculation (SSD), each plain and fused. Differences from the JAX package:
 
-- there is no `use_pallas` knob: a CUDA tensor goes through the hand-written
-  kernel and a CPU tensor through its plain PyTorch version
-  (ssd_tpu_torch/ops/attention.py);
 - `gpu_memory_utilization` replaces `hbm_memory_utilization`; the KV pool is
   sized from `torch.cuda.mem_get_info()` (engine/model_runner.py);
 - `device` names where the engine runs: "cuda" unless the caller asks for
@@ -33,12 +30,37 @@ speculation (SSD), each plain and fused. Differences from the JAX package:
   process of its own on a card of its own (parallel/draft_rank.py), an
   async EAGLE-3 head too; with fewer devices the replicas share the
   target's card (engine/draft_runner.py::DraftServer);
+- `num_hosts` > 1 serves one model over several machines, as the JAX
+  package's multi-host serving does: every host runs one controller over
+  its own cards, and the hosts join one process group through a TCP
+  rendezvous at `coordinator_address` (host `host_id`; parallel/comm.py).
+  `num_devices` counts the job's cards over all hosts, split evenly:
+  num_devices / num_hosts ranks a host, on its cuda:0..n-1 (JAX's engine
+  takes every device its runtime sees, so the JAX test's 2 hosts x 2 local
+  devices is num_hosts=2, num_devices=4 here). The target spans every rank
+  (tp_size == num_devices), and the unfused async draft runs beside the
+  target on every rank, draft_dp / num_hosts replicas a host (host h owns
+  the global replicas [h*dp, (h+1)*dp)) whose partial replies are summed
+  over the hosts (engine/speculator_async.py::union_parts); with
+  draft_dp == 1 every rank runs the whole draft. Without a coordinator the
+  caller's group of num_devices ranks is taken, or all num_devices ranks
+  are spawned here, which gives the same bits;
 - `max_steps` ends generate() after that many engine steps, and
   `debug_mode` saves the EAGLE-3 head's first conditioned prefill inputs
   (engine/eagle_runner.py), as in the JAX package;
-- not ported yet, and refused here with the ROADMAP item: `num_hosts` > 1;
-  so is a speculative knob on an engine that does not use it, where it
-  would be ignored.
+- a speculative or multi-host knob on an engine that does not use it,
+  where it would be ignored, is refused;
+- the JAX package's TPU workarounds and XLA numerics controls have no
+  counterpart here and are not taken (ROADMAP, "Port the contracts, not
+  the TPU workarounds"): `use_pallas` (a CUDA tensor goes through the
+  hand-written kernel and a CPU tensor through its plain PyTorch version,
+  ops/attention.py), `ctx_bucket_policy` and `warmup_on_init` (XLA's
+  compile-time shape buckets and their pre-compilation; the card's steps
+  take any context length, and their CUDA graphs are captured at init),
+  `flat_prefill` (every prefill, the EAGLE-3 head's too, is one
+  flat-packed launch of csrc/flat_prefill_attention.cu), `moe_gather` and
+  `moe_ragged` (the dense-einsum controls of XLA's MoE routes; every MoE
+  product here runs the grouped GEMM over the sorted pairs, ops/moe.py).
 """
 
 from __future__ import annotations
@@ -119,7 +141,14 @@ class Config:
     # Tensor (and expert) parallelism: the model sharded over this many
     # processes, one per card (parallel/comm.py); 1 makes no process group.
     num_devices: int = 1
+    # Multi-host serving (parallel/comm.py): num_devices counts the cards of
+    # all hosts; with coordinator_address ("host:port", the TCP rendezvous
+    # that host 0's first rank serves) each host's process is host host_id.
+    # Leave both None when the caller has initialised a torch.distributed
+    # group of num_devices ranks.
     num_hosts: int = 1
+    coordinator_address: str | None = None
+    host_id: int | None = None
     hf_config: ModelConfig | None = None
     eos: int = -1
     kvcache_block_size: int = 256
@@ -210,10 +239,15 @@ class Config:
     def tp_size(self) -> int:
         """Ranks the target is sharded over: the unfused async draft takes
         the last draft_dp devices (ssd_tpu/config.py::tp_size); every other
-        mode shards its draft beside the target on all of them."""
-        if not self._unfused_async:
+        mode, and every mode over several hosts, shards the target over all
+        of them."""
+        if not self._unfused_async or self.num_hosts > 1:
             return self.num_devices
         return max(1, self.num_devices - self.draft_dp)
+
+    @property
+    def ranks_per_host(self) -> int:
+        return self.num_devices // self.num_hosts
 
     @property
     def draft_ranks(self) -> int:
@@ -222,7 +256,7 @@ class Config:
         holds the target's ranks and the replicas, else 0 (the replicas
         share the target's card, as ssd_tpu/engine/draft_runner.py puts
         them on the target's device)."""
-        if not self._unfused_async:
+        if not self._unfused_async or self.num_hosts > 1:
             return 0
         return self.draft_dp if self.num_devices >= self.tp_size + self.draft_dp else 0
 
@@ -234,11 +268,21 @@ class Config:
     @property
     def draft_replicas_here(self) -> int:
         """Draft models beside the target on each of its cards: the
-        unfused async draft's draft_dp replicas when they share it, none
-        when they run on ranks of their own, else the one draft."""
+        unfused async draft's draft_dp replicas when they share it (over
+        several hosts a host's share of them, or the one replica every rank
+        runs at draft_dp 1), none when they run on ranks of their own, else
+        the one draft."""
         if self._unfused_async:
-            return 0 if self.draft_ranks else self.draft_dp
+            if self.draft_ranks:
+                return 0
+            return max(1, self.draft_dp // self.num_hosts)
         return 1
+
+    @property
+    def draft_split_over_hosts(self) -> bool:
+        """The unfused async draft's replicas are split over the hosts, whose
+        partial replies are summed (engine/speculator_async.py::union_parts)."""
+        return self._unfused_async and self.num_hosts > 1 and self.draft_dp > 1
 
     @property
     def _unfused_async(self) -> bool:
@@ -273,7 +317,7 @@ class Config:
                 and not self.async_fused:
             raise ValueError("spec_rounds > 1 with draft_async needs async_fused=True "
                              "(the async superstep)")
-        self._refuse_unported_parallelism()
+        self._check_parallelism()
         for name in ("multi_step", "spec_rounds", "speculate_k", "ngram_n"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
@@ -327,15 +371,37 @@ class Config:
             raise ValueError(
                 "max_num_batched_tokens < max_model_len requires chunked_prefill")
 
-    def _refuse_unported_parallelism(self):
-        """The parallel forms of ROADMAP Queue 1 not ported yet."""
+    def _check_parallelism(self):
+        """The rules of the parallel forms: the JAX package's
+        (ssd_tpu/config.py, ssd_tpu/engine/llm_engine.py) and the port's
+        even split of num_devices over the hosts."""
         if self.num_devices < 1 or self.num_hosts < 1 or self.draft_dp < 1:
             raise ValueError(f"num_devices, num_hosts and draft_dp must be >= 1, got "
                              f"{self.num_devices}, {self.num_hosts} and {self.draft_dp}")
-        if self.num_hosts > 1:
-            raise NotImplementedError(
-                "not ported to ssd_tpu_torch yet (ROADMAP Queue 1, Parallelism: "
-                "num_hosts > 1, and the multi-host union of draft replies)")
+        if self.num_hosts == 1:
+            if self.coordinator_address is not None or self.host_id is not None:
+                raise ValueError("coordinator_address and host_id need num_hosts > 1")
+            return
+        if self.num_devices % self.num_hosts:
+            raise ValueError(f"num_devices ({self.num_devices}) counts the cards of all "
+                             f"hosts and must divide by num_hosts ({self.num_hosts})")
+        if self.async_fused:
+            raise ValueError("async_fused runs the draft inline on one controller; it "
+                             "needs num_hosts == 1 (the unfused draft serves hosts)")
+        if self._unfused_async and self.draft_dp > 1 and self.draft_dp % self.num_hosts:
+            raise ValueError(f"draft_dp ({self.draft_dp}) must be divisible by num_hosts "
+                             f"({self.num_hosts}): each host serves draft_dp / num_hosts "
+                             "replicas")
+        if self.coordinator_address is not None:
+            if self.host_id is None or not 0 <= self.host_id < self.num_hosts:
+                raise ValueError(f"with a coordinator, host_id must be in "
+                                 f"[0, {self.num_hosts}), got {self.host_id}")
+            if not self.coordinator_address.rpartition(":")[2].isdigit():
+                raise ValueError("coordinator_address must be 'host:port', got "
+                                 f"{self.coordinator_address!r}")
+        elif self.host_id is not None:
+            raise ValueError("host_id needs coordinator_address (a caller's group "
+                             "gives each process its host by its rank)")
 
     def _derive_speculative(self):
         """Draft config and tree geometry, as ssd_tpu/config.py derives them,

@@ -29,9 +29,18 @@ rows, the server replies with every part, and only then builds each
 replica's next tree. On cards of their own the replicas run in processes
 of their own instead (parallel/draft_rank.py).
 
+Over several hosts (Config.num_hosts > 1, ssd_tpu/engine/draft_runner.py::
+_replica_rows) every rank of host h runs this server beside its target
+shard with the host's replicas, the global replicas [h*dp, (h+1)*dp),
+dp = draft_dp / num_hosts: rows still route by max(seq_id, 0) % draft_dp,
+and the rows of other hosts' replicas land in no local part, so the
+target's side sums the hosts' partial replies
+(engine/speculator_async.py::union_parts). At draft_dp 1 every rank serves
+every row with the one replica.
+
 A failure in the draft thread is parked in the response queue and raised in
 the target thread as RuntimeError("draft server died"); it is never
-swallowed. Not ported: the multi-host union of replies.
+swallowed.
 """
 
 from __future__ import annotations
@@ -360,16 +369,19 @@ class DraftServer:
     miss chain) replay on the draft's stream."""
 
     def __init__(self, draft_cfg: Config, init_random: bool = False,
-                 batch_pads: list[int] | None = None):
+                 batch_pads: list[int] | None = None, host: int = 0):
         """With batch_pads (a card engine that is not eager), each replica's
         graphs are captured for those buckets into a StepGraphs of its own,
         here, before the thread starts, so no capture of this engine
-        overlaps the thread's work."""
+        overlaps the thread's work. `host` is this rank's host: over
+        several hosts it serves the host's share of the replicas."""
         if draft_cfg.use_eagle:
             from ssd_tpu_torch.engine.eagle_runner import EagleDraftRunner as cls
         else:
             cls = DraftRunner
-        self.dp = draft_cfg.draft_dp
+        self.global_dp = draft_cfg.draft_dp
+        self.dp = draft_cfg.draft_replicas_here
+        self.first = host * self.dp if draft_cfg.draft_split_over_hosts else 0
         self.runners = [cls(draft_cfg, init_random=init_random) for _ in range(self.dp)]
         self.runner = self.runners[0]
         dev = self.runner.device
@@ -401,6 +413,10 @@ class DraftServer:
     @property
     def use_warp(self) -> bool:
         return self.runner.use_warp
+
+    def _rows(self, seq_ids: np.ndarray) -> list[np.ndarray]:
+        """Row indices of each of this server's replicas."""
+        return replica_rows(seq_ids, self.global_dp)[self.first:self.first + self.dp]
 
     def _slice_req(self, req: SpecRequest, idx: np.ndarray) -> SpecRequest:
         """The rows idx of a request; the EAGLE payload is gathered on the
@@ -436,7 +452,7 @@ class DraftServer:
                     if cmd == "prefill":
                         (ids, bt, seq_ids, acts), ready = payload
                         self._receive(ready, [acts])
-                        for r, idx in enumerate(replica_rows(seq_ids, self.dp)):
+                        for r, idx in enumerate(self._rows(seq_ids)):
                             if len(idx):
                                 args = ([ids[i] for i in idx], bt[idx])
                                 if acts is not None:
@@ -447,7 +463,7 @@ class DraftServer:
                         self._receive(payload.acts_ready,
                                       (payload.recovery_acts, payload.extend_acts))
                         parts = []
-                        for r, idx in enumerate(replica_rows(payload.cache_keys[:, 0], self.dp)):
+                        for r, idx in enumerate(self._rows(payload.cache_keys[:, 0])):
                             if len(idx):
                                 sub = self._slice_req(payload, idx)
                                 parts.append((r, idx, sub, self.runners[r].service(sub)))

@@ -36,9 +36,21 @@ talks to them through DraftRanks. At a draft rank of a caller's group the
 constructor serves the draft replica until the target's exit() and then
 returns an engine that serves nothing.
 
+Config.num_hosts > 1 serves one model over several hosts, as the JAX
+package's multi-host engine does: every host's caller calls this engine
+identically, each host's first process relays to its own ranks and returns
+outputs and METRICS to its own caller, and the target shards over the ranks
+of all hosts (parallel/comm.py joins them through a TCP rendezvous at
+Config.coordinator_address). The unfused async draft runs beside the target
+on every rank: every rank runs the whole draft at draft_dp 1, and with
+draft_dp > 1 host h serves the global replicas [h*dp, (h+1)*dp),
+dp = draft_dp / num_hosts, the hosts' partial replies summed between steps
+(engine/speculator_async.py::union_parts).
+
 generate() takes the JAX package's stream_callback(seq_id, new token ids)
 and ends after Config.max_steps engine steps; under tensor parallelism the
-callback runs on rank 0 only, while every rank steps.
+callback runs on each host's first process only (Comm.lead), while every
+rank steps.
 """
 
 from __future__ import annotations
@@ -173,7 +185,8 @@ class LLMEngine:
 
                 self.draft_server = DraftServer(
                     self.draft_cfg, init_random=init_random,
-                    batch_pads=self._batch_pads() if self._use_graphs() else None)
+                    batch_pads=self._batch_pads() if self._use_graphs() else None,
+                    host=comm.host if comm is not None else 0)
             elif config.use_eagle:
                 from ssd_tpu_torch.engine.eagle_runner import EagleModelRunner
 
@@ -379,8 +392,9 @@ class LLMEngine:
         if config.draft_async:
             from ssd_tpu_torch.engine.speculator_async import SpeculatorAsync
 
-            speculator = SpeculatorAsync(config.speculate_k, self.draft_server,
-                                         eagle=config.use_eagle)
+            speculator = SpeculatorAsync(
+                config.speculate_k, self.draft_server, eagle=config.use_eagle,
+                union=self.comm if config.draft_split_over_hosts else None)
         else:
             from ssd_tpu_torch.engine.speculator_sync import SpeculatorSync
 
@@ -393,7 +407,7 @@ class LLMEngine:
                               async_spec=config.draft_async, eagle=config.use_eagle)
 
     def log_metrics(self):
-        if self.comm is not None and self.comm.rank != 0:
+        if self.comm is not None and not self.comm.lead:
             return
         if METRICS["prefill_total_time"] > 0:
             print(
@@ -438,8 +452,9 @@ class LLMEngine:
         after each step every running sequence's new tokens, then each
         finished sequence's tokens not streamed yet, in the JAX package's
         order (ssd_tpu/engine/llm_engine.py::generate), and the metrics are
-        not printed. Under tensor parallelism it runs on rank 0 only."""
-        if self.comm is not None and self.comm.rank != 0:
+        not printed. Under tensor parallelism it runs on each host's first
+        process only."""
+        if self.comm is not None and not self.comm.lead:
             stream_callback = None
         for k in METRICS:
             METRICS[k] = [] if isinstance(METRICS[k], list) else 0

@@ -404,7 +404,8 @@ class ModelRunner:
                     partner, cfg.d_model_target, len(cfg.eagle_layers)), eagle_param_bytes
             else:
                 d_arch, nbytes = Arch.from_model_config(partner), param_bytes
-            if self.comm is not None:
+            if self.comm is not None and not (cfg.draft_async and not cfg.async_fused):
+                # The unfused async draft's replicas beside the target are whole.
                 d_arch = Sharding(d_arch, self.comm.rank, self.comm.size).rank_arch()
             reserve = nbytes(d_arch, self.dtype, cfg.quantization)
             n = cfg.draft_replicas_here

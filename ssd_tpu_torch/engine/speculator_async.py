@@ -1,23 +1,33 @@
 """Target-side client of the asynchronous draft server.
 
-Counterpart of ssd_tpu/engine/speculator_async.py (no multi-host union):
-append the recovery token, send the speculation request (cache keys
-[seq_id, accepted_len-1, rec_token], num_tokens, draft block tables, draft
-temperatures), receive (cache_hits, [B, K] tokens, [B, K, V] draft logits).
-The server answers with one part per draft replica that holds rows
-(draft_dp > 1 routes rows by seq_id, engine/draft_runner.py; a draft rank
-of its own answers through parallel/draft_rank.py); the parts are put back
-together in request-row order, tokens and hits on the host and the logits
-in one [B, K, V] tensor on the target's device. On a card the logits were
-made on the draft's stream: the target's stream waits on each part's event
-and the tensor is marked as used by it, so the caching allocator cannot
-hand its memory to the draft while the verify still reads it. With an
-EAGLE-3 draft the prefill carries the target's taps and each request the
-conditioning payload (recovery taps, and the taps and tokens of the extend
-rows: the tokens the last verify accepted, whose draft KV is rewritten
-under the target's conditioning). The taps stay on the card: the payload
-is made on the target's stream and the draft's stream waits on an event
-recorded after it (the hand-off of the logits in the other direction).
+Counterpart of ssd_tpu/engine/speculator_async.py: append the recovery
+token, send the speculation request (cache keys [seq_id, accepted_len-1,
+rec_token], num_tokens, draft block tables, draft temperatures), receive
+(cache_hits, [B, K] tokens, [B, K, V] draft logits). The server answers
+with one part per draft replica that holds rows (draft_dp > 1 routes rows
+by seq_id, engine/draft_runner.py; a draft rank of its own answers through
+parallel/draft_rank.py); the parts are put back together in request-row
+order, tokens and hits on the host and the logits in one [B, K, V] tensor
+on the target's device. On a card the logits were made on the draft's
+stream: the target's stream waits on each part's event and the tensor is
+marked as used by it, so the caching allocator cannot hand its memory to
+the draft while the verify still reads it. With an EAGLE-3 draft the
+prefill carries the target's taps and each request the conditioning
+payload (recovery taps, and the taps and tokens of the extend rows: the
+tokens the last verify accepted, whose draft KV is rewritten under the
+target's conditioning). The taps stay on the card: the payload is made on
+the target's stream and the draft's stream waits on an event recorded
+after it (the hand-off of the logits in the other direction).
+
+Over several hosts with draft_dp > 1 (Config.draft_split_over_hosts) a
+host's parts hold its own replicas' rows only: `union_parts` sums the
+hosts' partial replies ([tokens | hits] int32 and the logits fp32, zeros
+in the rows of other hosts) over the rank's union group
+(parallel/comm.py::union_sum), on the target's thread between the draft's
+reply and the verify, outside any graph. The rows are disjoint, so every
+rank holds the union bit for bit (JAX's _union_parts, one psum over
+"dcn"). EAGLE-3's replies join only as tokens and logits: its activations
+feed the local tree build.
 """
 
 from __future__ import annotations
@@ -29,18 +39,46 @@ from ssd_tpu_torch.engine.draft_runner import spec_request
 from ssd_tpu_torch.engine.helpers.speculate_types import (
     SpeculateResult, SpeculatorBase, VerifyResult)
 from ssd_tpu_torch.engine.sequence import Sequence
+from ssd_tpu_torch.parallel.comm import union_sum
+
+
+def partial_reply(parts, B: int, K: int, V: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A host's partial reply to a request of B rows from its parts [(rows,
+    SpecResponse)]: [B, K+1] int32 [tokens | hits] and [B, K, V] fp32
+    logits on `device`, its rows filled and zeros in every other row."""
+    ints = torch.zeros(B, K + 1, dtype=torch.int32)
+    logits = torch.zeros(B, K, V, dtype=torch.float32, device=device)
+    for rows, resp in parts:
+        r = torch.from_numpy(rows)
+        ints[r, :K] = torch.from_numpy(resp.tokens).to(torch.int32)
+        ints[r, K] = torch.from_numpy(resp.cache_hits).to(torch.int32)
+        logits.index_copy_(0, r.to(device), resp.logits_q[:len(rows)].float())
+    return ints.to(device), logits
+
+
+def union_parts(parts, B: int, K: int, V: int, comm):
+    """The union of every host's parts (see the module's notes): (tokens
+    [B, K] int64, cache_hits [B] int64, logits [B, K, V] fp32 on the
+    target's device)."""
+    ints, logits = partial_reply(parts, B, K, V, comm.device)
+    union_sum(comm, ints)
+    union_sum(comm, logits)
+    ints = ints.cpu().numpy().astype(np.int64)
+    return ints[:, :K], ints[:, K], logits
 
 
 class SpeculatorAsync(SpeculatorBase):
 
-    def __init__(self, lookahead: int, draft_server, eagle: bool = False):
+    def __init__(self, lookahead: int, draft_server, eagle: bool = False, union=None):
         """draft_server: engine/draft_runner.py::DraftServer (the draft on
         the target's card) or parallel/draft_rank.py::DraftRanks (on ranks
-        of its own)."""
+        of its own). union: the engine's Comm when the draft's replicas
+        are split over the hosts, whose replies union_parts sums."""
         super().__init__(lookahead)
         self.K = lookahead
         self.draft_server = draft_server
         self.eagle = eagle
+        self.union = union
         self.max_blocks = draft_server.max_blocks
 
     def _block_tables(self, seqs: list[Sequence]) -> np.ndarray:
@@ -90,7 +128,10 @@ class SpeculatorAsync(SpeculatorBase):
                 stream = torch.cuda.current_stream(resp.logits_q.device)
                 stream.wait_event(resp.ready)
                 resp.logits_q.record_stream(stream)
-        if len(parts) == 1:   # one replica holds every row, in order
+        if self.union is not None:
+            tokens, cache_hits, logits_q = union_parts(
+                parts, B, self.K, self.draft_server.runner.arch.vocab_size, self.union)
+        elif len(parts) == 1:   # one replica holds every row, in order
             tokens, cache_hits, logits_q = (parts[0][1].tokens, parts[0][1].cache_hits,
                                             parts[0][1].logits_q)
         else:

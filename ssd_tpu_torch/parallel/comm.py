@@ -14,27 +14,51 @@ gathered logits and the seeded generators' draws are the same bits on
 every rank, and so are the scheduling decisions, none of which reads the
 clock or a per-process quantity.
 
-- `connect` gives an engine its Comm. A caller that has initialised a
-  torch.distributed group of num_devices ranks gets that group (its
-  backend, its device: the current CUDA device, or the CPU), and every such
-  process calls the engine identically. Otherwise, for num_devices > 1, the
-  caller's process becomes rank 0 and spawns ranks 1..N-1 (the spawn start
-  method, entry `worker_main`), over NCCL with one card each (cuda:r) or
-  over gloo on the CPU, rendezvousing through a FileStore in a temporary
-  directory (no TCP port). At num_devices=1 without a group there is no
-  Comm and no collective.
-- Rank 0 of a spawned group relays the public calls (add_request, step,
-  generate, abort_request, exit) to the other ranks through a pipe each
-  and returns the outputs; the others' results are dropped.
+- `connect` gives an engine its Comm, in one of three ways:
+  * a caller that has initialised a torch.distributed group of
+    Config.world_size ranks gets that group (its backend, its device: the
+    current CUDA device, or the CPU), and every such process calls the
+    engine identically; over several hosts, rank r is local rank
+    r % (num_devices / num_hosts) of host r // (num_devices / num_hosts);
+  * with Config.coordinator_address (num_hosts > 1), each host's calling
+    process becomes global rank host_id * n, n = num_devices / num_hosts,
+    and spawns its n - 1 local ranks, global ranks host_id * n + r on
+    cuda:r; every process of every host joins a TCP rendezvous at the
+    coordinator (a TCPStore that global rank 0, host 0's caller, serves).
+    Through that store the ranks compare their cards: NCCL when every rank
+    has a card of its own, gloo on the CPU and where ranks share a card
+    (two "hosts" on one card, eagerly). A host that never joins, or dies,
+    raises on the others within TIMEOUT;
+  * otherwise, for world_size > 1, the caller's process becomes rank 0 and
+    spawns ranks 1..N-1 (the spawn start method, entry `worker_main`), over
+    NCCL with one card each (cuda:r) or over gloo on the CPU, rendezvousing
+    through a FileStore in a temporary directory (no TCP port). With
+    num_hosts > 1 this is one machine standing in for the hosts, the
+    counterpart of JAX's one-controller emulation of a hybrid mesh: the
+    same ranks, groups and collectives as the multi-host run, so the same
+    bits.
+  At world_size 1 without a group there is no Comm and no collective.
+- The process that spawned ranks relays the public calls (add_request,
+  step, generate, abort_request, exit) to its own ranks through a pipe each
+  and returns the outputs; the others' results are dropped. Over several
+  hosts every host's caller calls the engine identically, and each host's
+  first process relays to its own ranks only (Comm.lead: the process whose
+  caller gets the outputs, the stream and the printed metrics).
+- With the unfused async draft split over the hosts
+  (Config.draft_split_over_hosts), every process makes one group per local
+  index l, the ranks {h * n + l : h}, in the same order; `union_sum` adds
+  the hosts' partial draft replies over the rank's own
+  (engine/speculator_async.py::union_parts).
 - Every collective of a group this module makes has a timeout
-  (TIMEOUT), and rank 0 polls a worker's liveness while it waits for its
-  reply, so a dead rank raises on rank 0 instead of hanging it.
+  (TIMEOUT), and a process that spawned ranks polls their liveness while
+  it waits for their replies, so a dead rank raises there instead of
+  hanging it.
 - gloo takes CPU tensors: under gloo a CUDA tensor is staged through host
   memory (two processes sharing one card, eagerly; graphs cannot capture a
   gloo collective, so the engine refuses them). NCCL never stages.
-- `all_reduce_sum` and `gather_vocab` count their calls in `.launches`
-  (through ops/cuda_lib.py::count_launch, so a CUDA graph's replays count
-  the collectives it captured).
+- `all_reduce_sum`, `gather_vocab` and `union_sum` count their calls in
+  `.launches` (through ops/cuda_lib.py::count_launch, so a CUDA graph's
+  replays count the collectives it captured).
 - With the unfused async draft on ranks of its own (Config.draft_ranks),
   the group has Config.world_size ranks: the target's tp_size first, then
   one rank per draft replica, spawned like the others (worker_main runs
@@ -67,6 +91,8 @@ WORKER_THREADS = 2
 # default process group it made is: a second spawning engine is refused
 # while it lives, and a later engine must not take its group for a caller's.
 _spawned = None
+# Set in a spawned rank: its engine's caller is the relay, not a user.
+_in_worker = False
 
 
 class Comm:
@@ -76,9 +102,13 @@ class Comm:
 
     def __init__(self, rank: int, size: int, backend: str, device: torch.device,
                  owned: bool = False, workers=(), store_dir: str | None = None,
-                 group=None, draft_ranks=(), draft_procs=()):
+                 group=None, draft_ranks=(), draft_procs=(), lead: bool = False,
+                 per_host: int | None = None, union_group=None):
         self.rank = rank              # the global rank (the target's rank below size)
         self.size = size              # the target's ranks
+        self.lead = lead              # its caller gets the outputs (see the notes)
+        self.per_host = per_host or size   # ranks a host (Config.ranks_per_host)
+        self.union_group = union_group   # the hosts' ranks of this local index
         self.backend = backend
         self.device = device
         self.owned = owned            # made by this engine: destroyed at close
@@ -90,6 +120,10 @@ class Comm:
         self.stage = backend == "gloo" and device.type == "cuda"
         self._hash = hashlib.blake2b(digest_size=8)
         self.closed = False
+
+    @property
+    def host(self) -> int:
+        return self.rank // self.per_host
 
     @property
     def is_draft(self) -> bool:
@@ -108,6 +142,8 @@ class Comm:
         """One collective before the first graph capture: NCCL makes its
         communicator at the first call, which a capture cannot hold."""
         self.min_over_ranks(0)
+        if self.union_group is not None:
+            union_sum(self, torch.zeros(1, device=self.device))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -227,8 +263,22 @@ def broadcast(comm: Comm, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def union_sum(comm: Comm, x: torch.Tensor) -> torch.Tensor:
+    """The sum of x over the hosts' ranks of this rank's local index
+    (Comm.union_group), in x's memory (through host memory under gloo)."""
+    if comm.stage:
+        t = x.cpu()
+        dist.all_reduce(t, group=comm.union_group)
+        x.copy_(t)
+    else:
+        dist.all_reduce(x, group=comm.union_group)
+    cuda_lib.count_launch(union_sum)
+    return x
+
+
 all_reduce_sum.launches = 0
 gather_vocab.launches = 0
+union_sum.launches = 0
 
 
 def _device_of(config) -> torch.device:
@@ -247,12 +297,44 @@ def _check_graphs(config, backend: str, device: torch.device):
 
 
 def _make_comm(config, rank: int, backend: str, device: torch.device, **kw) -> Comm:
-    """The Comm of global rank `rank`; with draft ranks, every process makes
-    the target's group here, in the same order."""
+    """The Comm of global rank `rank`. Every process makes here, in the
+    same order, the target's group when draft ranks follow it, and the
+    hosts' union groups when the async draft is split over the hosts."""
     tp = config.tp_size
     draft = list(range(tp, config.world_size))
     group = dist.new_group(list(range(tp))) if draft else None
-    return Comm(rank, tp, backend, device, group=group, draft_ranks=draft, **kw)
+    union = None
+    if config.draft_split_over_hosts:
+        n = config.ranks_per_host
+        for local in range(n):
+            g = dist.new_group([h * n + local for h in range(config.num_hosts)])
+            if rank % n == local:
+                union = g
+    return Comm(rank, tp, backend, device, group=group, draft_ranks=draft,
+                per_host=config.ranks_per_host, union_group=union, **kw)
+
+
+def _join(init: str, rank: int, size: int, backend: str | None,
+          device: torch.device) -> str:
+    """Join the engine's group as `rank` of `size` and return its backend:
+    through the FileStore of init "file://path" with `backend`, or through
+    the TCP rendezvous of init "tcp://host:port" (global rank 0 serves the
+    store), where the ranks compare their cards first: NCCL when each has a
+    card of its own, else gloo."""
+    if init.startswith("file://"):
+        dist.init_process_group(backend, init_method=init, rank=rank, world_size=size,
+                                timeout=TIMEOUT)
+        return backend
+    host, _, port = init[len("tcp://"):].rpartition(":")
+    store = dist.TCPStore(host, int(port), size, is_master=rank == 0, timeout=TIMEOUT)
+    backend = "gloo"
+    if device.type == "cuda":
+        store.set(f"card/{rank}", str(torch.cuda.get_device_properties(device).uuid))
+        if len({store.get(f"card/{r}") for r in range(size)}) == size:
+            backend = "nccl"
+    dist.init_process_group(backend, store=dist.PrefixStore("group", store), rank=rank,
+                            world_size=size, timeout=TIMEOUT)
+    return backend
 
 
 def connect(config, model: str, init_random: bool, kwargs: dict) -> Comm | None:
@@ -266,47 +348,59 @@ def connect(config, model: str, init_random: bool, kwargs: dict) -> Comm | None:
                 raise RuntimeError("another engine's spawned ranks are alive in this "
                                    "process; exit() it before building one more")
             return None
+        if config.coordinator_address is not None:
+            raise ValueError("coordinator_address makes the engine join the hosts "
+                             "itself; leave it None over a caller's process group")
         size = dist.get_world_size()
         if size != n:
             if n == 1:
                 return None
             raise ValueError(f"the engine runs {n} ranks (num_devices={config.num_devices}), "
                              f"but the caller's process group has {size}")
-        backend, device = dist.get_backend(), _device_of(config)
+        backend, device, rank = dist.get_backend(), _device_of(config), dist.get_rank()
         _check_graphs(config, backend, device)
-        return _make_comm(config, dist.get_rank(), backend, device)
+        lead = rank % config.ranks_per_host == 0 and not _in_worker
+        return _make_comm(config, rank, backend, device, lead=lead)
     if n == 1:
         return None
     device = torch.device(config.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available() or torch.cuda.device_count() < n:
-            raise RuntimeError(
-                f"num_devices={n} needs {n} visible CUDA devices, found "
-                f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
-        backend, device = "nccl", torch.device("cuda", 0)
+    store_dir = None
+    if config.coordinator_address is not None:
+        # This host's ranks: global ranks first.. on its cuda:0..local-1.
+        local = config.ranks_per_host
+        first = config.host_id * local
+        init, backend = f"tcp://{config.coordinator_address}", None
     else:
-        backend = "gloo"
-    store_dir = tempfile.mkdtemp(prefix="ssd_tp_")
-    store = os.path.join(store_dir, "store")
+        local, first = n, 0
+        store_dir = tempfile.mkdtemp(prefix="ssd_tp_")
+        init = "file://" + os.path.join(store_dir, "store")
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        if not torch.cuda.is_available() or torch.cuda.device_count() < local:
+            raise RuntimeError(
+                f"num_devices={n} needs {local} visible CUDA devices on this host, found "
+                f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
+        device = torch.device("cuda", 0)
     ctx = mp.get_context("spawn")
     threads = min(WORKER_THREADS, torch.get_num_threads())
     workers, drafts = [], []
-    for r in range(1, n):
+    for r in range(1, local):
         parent, child = ctx.Pipe()
-        kind = "tp" if r < config.tp_size else "draft"
-        proc = ctx.Process(target=worker_main, daemon=True, name=f"ssd-{kind}-rank{r}",
-                           args=(r, n, store, backend, model, init_random, kwargs,
-                                 child, threads))
+        kind = "tp" if first + r < config.tp_size else "draft"
+        proc = ctx.Process(target=worker_main, daemon=True, name=f"ssd-{kind}-rank{first + r}",
+                           args=(first + r, n, init, backend,
+                                 r if device.type == "cuda" else None,
+                                 model, init_random, kwargs, child, threads))
         proc.start()
         child.close()
         (workers if kind == "tp" else drafts).append((proc, parent))
-    comm = Comm(0, n, backend, device, owned=True, workers=workers + drafts,
+    comm = Comm(first, n, backend, device, owned=True, workers=workers + drafts,
                 store_dir=store_dir)
     try:
-        dist.init_process_group(backend, init_method=f"file://{store}", rank=0,
-                                world_size=n, timeout=TIMEOUT)
-        comm = _make_comm(config, 0, backend, device, owned=True, workers=workers,
-                          draft_procs=drafts, store_dir=store_dir)
+        backend = _join(init, first, n, backend, device)
+        _check_graphs(config, backend, device)
+        comm = _make_comm(config, first, backend, device, owned=True, workers=workers,
+                          draft_procs=drafts, store_dir=store_dir, lead=True)
     except BaseException:
         comm.close()
         raise
@@ -314,17 +408,27 @@ def connect(config, model: str, init_random: bool, kwargs: dict) -> Comm | None:
     return comm
 
 
-def worker_main(rank: int, size: int, store: str, backend: str, model: str,
-                init_random: bool, kwargs: dict, conn, threads: int):
-    """Entry of a spawned rank: join the group; a target rank builds the
-    engine over it, replies to the engine's construction, then serves the
-    relayed calls until exit (or until rank 0's pipe closes); a draft rank
+def worker_main(rank: int, size: int, init: str, backend: str | None, card: int | None,
+                model: str, init_random: bool, kwargs: dict, conn, threads: int):
+    """Entry of a spawned rank (global rank `rank` on cuda:card, or the CPU
+    when card is None): join the group; a target rank builds the engine
+    over it, replies to the engine's construction, then serves the relayed
+    calls until exit (or until its caller's pipe closes); a draft rank
     serves its draft replica (parallel/draft_rank.py) through its pipe."""
+    global _in_worker
+    _in_worker = True
     torch.set_num_threads(threads)
-    if backend == "nccl":
-        torch.cuda.set_device(rank)
-    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
-                            world_size=size, timeout=TIMEOUT)
+    device = torch.device("cpu")
+    if card is not None:
+        torch.cuda.set_device(card)
+        device = torch.device("cuda", card)
+    try:
+        backend = _join(init, rank, size, backend, device)
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+        return
+    # The group exists now: the rank's engine takes it as a caller's.
+    kwargs = {k: v for k, v in kwargs.items() if k not in ("coordinator_address", "host_id")}
     try:
         from ssd_tpu_torch.config import Config
 

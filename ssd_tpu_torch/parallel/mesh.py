@@ -28,6 +28,21 @@ the query heads and, for a mixture of experts, the experts (a replicated
 expert would be summed tp times by the all-reduce), and a rank's query heads
 must be whole groups of one k/v head or lie inside one.
 
+Over several hosts (Config.num_hosts > 1) the ranks are the global ranks of
+all hosts, host-major (rank h * n + l is local rank l of host h), and
+`tp` is num_devices: this is `_compatible_spec` over a ("dcn", "tp") mesh,
+which shards a dimension over both axes where their product divides it, so
+a 70B's memory spreads over the hosts. Where only the per-host count
+divides, JAX falls back to "tp" alone (sharded within a host, replicated
+over the hosts); the port keeps one rank axis and takes the rules above
+at the global count: an embedding or head whose rows do not divide is
+whole on every rank, heads, the MLP width and the experts must divide (a
+ValueError names them), and at a global count above Hkv each rank holds
+the k/v heads its query heads read, as `kv_sharding` falls back to
+replication. At Llama-70B's geometry over 2 hosts x 4 ranks every axis
+divides by 8, and each rank's shapes are JAX's per-device shapes
+(tests/test_torch_multihost.py).
+
 An EAGLE-3 head's flat dict (models/eagle3.py; ssd_tpu/parallel/mesh.py::
 _EAGLE_PARAM_SPECS) takes the same rules through the same names: its
 projections column- and row-parallel, its embedding and its reduced head

@@ -1410,3 +1410,103 @@ def test_load_params_on_card_equal_host(tmp_path, dtype, experts):
         y = b[k]
         assert y.is_cuda and y.is_contiguous() and y.dtype == x.dtype, k
         assert torch.equal(y.cpu(), x), k
+
+
+# --- multi-host serving on one card (parallel/comm.py) ------------------------
+
+# One "host" on cuda:0: AR and async SSD at draft_dp=2 (the target its own
+# draft; one replica a host, the replies unioned), each joining through the
+# TCP rendezvous at its own port, eagerly; prints each mode's tokens and
+# the kernels' launches.
+HOST_ON_CARD = """
+import json, sys
+import torch
+import ssd_tpu_torch
+from ssd_tpu_torch import SamplingParams
+from ssd_tpu_torch.ops import attention as att
+
+host, d, ports, prompts, kw = sys.argv[1], sys.argv[2], *map(json.loads, sys.argv[3:6])
+host = int(host)
+kernels = (att.flat_prefill_attention, att.paged_attention, att.tree_attention)
+for mode, port in zip(("ar", "ssd_dp2"), ports):
+    extra = {} if mode == "ar" else dict(draft=d, speculate=True, speculate_k=3,
+                                         draft_async=True, async_fan_out=2, draft_dp=2)
+    llm = ssd_tpu_torch.LLM(d, num_hosts=2, num_devices=2, coordinator_address=f"127.0.0.1:{port}",
+                            host_id=host, device="cuda", enforce_eager=True, **kw, **extra)
+    for k in kernels:
+        k.launches = 0
+    outs, m = llm.generate(prompts, SamplingParams(temperature=0.0, max_new_tokens=16,
+                                                   ignore_eos=True), use_tqdm=False)
+    print("HOST", json.dumps(dict(mode=mode, backend=llm.comm.backend,
+                                  tokens=[o["token_ids"] for o in outs],
+                                  hits=[float(x) for x in m["cache_hits"]],
+                                  launches={k.__name__: k.launches for k in kernels})), flush=True)
+    llm.exit()
+"""
+
+
+@pytest.mark.cuda
+def test_two_hosts_on_one_card_equal_tp1(tmp_path):
+    """Two "host" processes with one rank each on cuda:0 join through the TCP
+    rendezvous, which picks gloo (they share the card), and serve a random
+    fp32 model eagerly: AR with continuous batching and async SSD at
+    draft_dp=2 (each host owns one replica). Each host's greedy tokens and
+    cache hits equal the card's single-process engine (tp 1), and K1, K2
+    (and in SSD K3) launch on both hosts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from ssd_tpu_torch import LLM, SamplingParams
+
+    d = tmp_path / "llama"
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps(TINY_LLAMA))
+    kw = dict(init_random=True, dtype="float32", max_model_len=256,
+              kvcache_block_size=GRAPH_BS, num_kvcache_blocks=64, max_num_seqs=2)
+    g = np.random.default_rng(5)
+    prompts = [g.integers(3, 512, size=n).tolist() for n in (9, 40, 17, 70)]
+    socks = [socket.socket() for _ in range(2)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", HOST_ON_CARD, str(h), str(d), json.dumps(ports),
+         json.dumps(prompts), json.dumps(kw)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=root, env=dict(os.environ, PYTHONPATH=root))
+        for h in range(2)]
+    want = {}
+    try:
+        for mode in ("ar", "ssd_dp2"):
+            extra = {} if mode == "ar" else dict(draft=str(d), speculate=True, speculate_k=3,
+                                                 draft_async=True, async_fan_out=2, draft_dp=2)
+            llm = LLM(str(d), device="cuda", enforce_eager=True, **kw, **extra)
+            outs, m = llm.generate(prompts, SamplingParams(temperature=0.0, max_new_tokens=16,
+                                                           ignore_eos=True), use_tqdm=False)
+            want[mode] = ([o["token_ids"] for o in outs], [float(x) for x in m["cache_hits"]])
+            llm.exit()
+        texts = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert sum(want["ssd_dp2"][1]) > 0
+    for h, (p, text) in enumerate(zip(procs, texts)):
+        assert p.returncode == 0, text[-4000:]
+        runs = {r["mode"]: r for r in (json.loads(line[5:]) for line in text.splitlines()
+                                       if line.startswith("HOST "))}
+        for mode, (tokens, hits) in want.items():
+            run = runs[mode]
+            assert run["backend"] == "gloo" and run["tokens"] == tokens, (h, mode)
+            assert run["hits"] == hits, (h, mode)
+            need = ["flat_prefill_attention", "paged_attention"] + (
+                ["tree_attention"] if mode == "ssd_dp2" else [])
+            assert all(run["launches"][k] for k in need), (h, mode, run["launches"])

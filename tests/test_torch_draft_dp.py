@@ -15,8 +15,9 @@ of tests/test_torch_draft_vocab.py, whose draft both hits and misses):
 - a draft rank that fails at start-up, and one killed while serving, raise
   RuntimeError("draft server died") in the target; after exit() no group
   is left and no spawned process is alive;
-- the refusals that stay: EAGLE-3 under num_devices > 1, num_hosts > 1,
-  async_fused with draft_dp > 1.
+- the refusals: draft_dp not divisible by num_hosts (the replicas split
+  over the hosts), async_fused with draft_dp > 1, draft_dp without
+  draft_async.
 """
 
 import multiprocessing as mp
@@ -179,11 +180,12 @@ def test_draft_rank_failures_raise_in_target(pair, tmp_path):
 
 
 def test_refusals(pair):
-    """What stays refused names its ROADMAP item (or the JAX package's
-    rule), before any rank is spawned."""
+    """What is refused names the JAX package's rule, before any rank is
+    spawned."""
     target, draft = pair
     cases = [
-        (dict(num_hosts=2, **SSD), NotImplementedError, "num_hosts"),
+        (dict(num_hosts=2, num_devices=2, draft_dp=3, **SSD), ValueError,
+         "divisible by num_hosts"),
         (dict(async_fused=True, draft_dp=2, **SSD), ValueError, "draft_dp"),
         (dict(draft_dp=2, speculate=True, speculate_k=2), ValueError, "draft_dp"),
     ]

@@ -20,9 +20,9 @@ over gloo, against the JAX package on the same checkpoints:
   reduction order, the tolerance of tests/test_torch_model.py);
 - fused SD (R=3), ngram and the fused async exchange at tp 2 give the
   port's tp-1 tokens (exact);
-- the refusals; a caller's one-rank group is served (tokens equal the
-  engine without a group); after exit() no group is left and no spawned
-  rank is alive.
+- the num-devices refusal; a caller's one-rank group is served (tokens
+  equal the engine without a group); after exit() no group is left and no
+  spawned rank is alive.
 Spawned ranks take 2 torch threads and rendezvous through a FileStore in
 a temporary directory (parallel/comm.py).
 """
@@ -382,18 +382,12 @@ def test_llama_tp2_greedy_sampled_and_relayed_calls(ckpts, tp1_tokens):
 
 
 def test_refusals(ckpts):
-    """The parallel forms not ported yet raise NotImplementedError naming
-    their ROADMAP item, before any rank is spawned; num_devices above the
-    visible cards raises. (The unfused async draft on ranks of its own and
-    draft_dp are served: tests/test_torch_draft_dp.py; EAGLE-3 under tensor
-    parallelism: tests/test_torch_eagle_tp.py.)"""
+    """num_devices above the visible cards raises, and no rank is left.
+    (Every parallel form is served: the unfused async draft on ranks of its
+    own and draft_dp in tests/test_torch_draft_dp.py, EAGLE-3 under tensor
+    parallelism in tests/test_torch_eagle_tp.py, num_hosts > 1 and its
+    refusals in tests/test_torch_multihost.py.)"""
     d = ckpts["llama"]
-    cases = [
-        (dict(num_hosts=2), "num_hosts"),
-    ]
-    for kw, msg in cases:
-        with pytest.raises(NotImplementedError, match=msg):
-            ssd_tpu_torch.LLM(d, device="cpu", **ENGINE, **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="2 visible CUDA devices"):
             ssd_tpu_torch.LLM(d, num_devices=2, **ENGINE)
