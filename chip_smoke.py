@@ -397,6 +397,28 @@ the script exits non-zero:
               and collectives a decode step, the union's ms and bytes a
               step and the wait for the draft's reply before it.
 
+20. diag    - the step-decomposition tools (ssd_tpu_torch/bench/sd_diag.py,
+              fasync_diag.py, prefill_diag.py) through main(argv) at the
+              full Llama-3.2-1B width (random bf16 weights; target 16
+              layers, draft 4 or an EAGLE-3 head at the target's width),
+              each variant R rounds (or prefills) as one CUDA graph, the
+              least of 3 replays: sd_diag (full, draft, verify; K=4, R=16,
+              B=1) and with --eagle, fasync_diag (full, build, verify, fork,
+              sync; F=2, R=8) at B=1 and B=8, prefill_diag (full, no_kernel,
+              no_attn, matmul, head) at 2048 tokens, R=4. It fails unless
+              each full variant's replay equals the production function
+              called eagerly bit for bit, every variant's ms a round is
+              finite and above 0, and the launches match the
+              decomposition: prefill full launches K1 once a layer a
+              prefill and the stripped prefills no K1 or K2, sd's full,
+              draft and verify launch K2 and no K3, fasync's full K2 and
+              K3, its sync K2, its build K3 and its fork no attention
+              kernel (a variant with no count is a fault). One "diag" line with every tool's JSON;
+              the launches are read under the path "diag". `--phases
+              env,diag_profile` runs the same with each variant replayed
+              once more under torch.profiler (kernel time a round per
+              stream, the top kernels; line "diag_profile").
+
 Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -409,33 +431,28 @@ import contextlib
 import gc
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
 
+try:
+    # The card's peaks (H100 SXM data sheet) and its name and power limit.
+    from ssd_tpu_torch.bench.card import (
+        HBM_BYTES_PER_S, PEAK_FLOPS, PEAK_OPS_INT8, name_and_power_limit)
+    from ssd_tpu_torch.bench.diag_timing import LLAMA_1B_WIDTH
+except ImportError:   # outside a checkout of the repository: main() says so and exits
+    LLAMA_1B_WIDTH = {}   # before any phase reads it
+
 PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "quant", "eagle", "exact", "tp",
-          "eagle_tp", "head_dims", "cli", "hosts")
+          "eagle_tp", "head_dims", "cli", "hosts", "diag")
 EXTRA_PHASES = ("profile", "moe_profile", "quant_profile", "quant_moe_profile", "spec_profile",
                 "eagle_profile", "spec_async", "spec_draft_rank", "eagle_tp_cards",
-                "hosts_cards")
+                "hosts_cards", "diag_profile")
 
-# Llama-3.2-1B geometry (the JAX package's bench.py random-weight config).
-LLAMA_1B = {
-    "model_type": "llama",
-    "vocab_size": 128256,
-    "hidden_size": 2048,
-    "intermediate_size": 8192,
-    "num_hidden_layers": 16,
-    "num_attention_heads": 32,
-    "num_key_value_heads": 8,
-    "head_dim": 64,
-    "max_position_embeddings": 4096,
-    "rms_norm_eps": 1e-5,
-    "rope_theta": 500000.0,
-    "tie_word_embeddings": True,
-    "eos_token_id": 128001,
-}
+# Llama-3.2-1B geometry (the JAX package's bench.py random-weight config):
+# the package's width, its 16 layers, a tied head and its eos.
+LLAMA_1B = {**LLAMA_1B_WIDTH, "num_hidden_layers": 16, "tie_word_embeddings": True,
+            "eos_token_id": 128001}
 LLAMA_HEADS = (32, 8, 64)   # Hq, Hkv, head_dim
 # Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B, config.json): the MoE
 # phase's model, at full width and depth.
@@ -522,10 +539,6 @@ MISS_NOISE = 0.04                   # draft noise of the miss path
 NGRAM_N = 3                         # ngram speculation: match the last 3 tokens
 SPEC_R = 4                          # its rounds a step
 MISS_HIT_RATE = (0.2, 0.8)          # the range its SSD hit rate must land in
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
-              "float32": 67e12}    # fp32 outside the tensor cores
-PEAK_OPS_INT8 = 1979e12            # dense int8 tensor-core rate (kv_quant int8_mxu)
 LONG_CTX = 8192                    # the long-context decode timing, tokens per sequence
 LONG_S8_L = 4096                   # the s8 probe's second timed length (its LONG_L)
 # |got - want| <= ATOL + RTOL[dtype] * |want| elementwise. Both sides compute
@@ -663,11 +676,7 @@ def phase_env() -> dict:
 
     from ssd_tpu_torch.ops import cuda_lib
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "not read"
-    CARD = card
+    card = CARD = name_and_power_limit()
     print(card, flush=True)
     lib = cuda_lib.load()
     ptxas = [ln.strip() for ln in lib.build_log.splitlines()
@@ -2896,30 +2905,6 @@ def phase_kvq(serve: dict | None, spec: dict | None) -> dict:
     return out
 
 
-def _stream_busy(prof) -> dict:
-    """Kernel time per CUDA stream in a profile, the union over streams, and
-    the time two streams ran kernels at once (sum minus union), in ms."""
-    from torch.autograd import DeviceType
-
-    def merge(xs):
-        out = []
-        for a, b in sorted(xs):
-            if out and a <= out[-1][1]:
-                out[-1][1] = max(out[-1][1], b)
-            else:
-                out.append([a, b])
-        return out
-
-    per = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per.setdefault(str(getattr(e, "device_resource_id", 0)), []).append(
-                (e.time_range.start, e.time_range.end))
-    busy = {k: sum(b - a for a, b in merge(v)) / 1e3 for k, v in per.items()}
-    union = sum(b - a for a, b in merge([x for v in per.values() for x in v])) / 1e3
-    return dict(per_stream_ms=busy, union_ms=union, concurrent_ms=sum(busy.values()) - union)
-
-
 def _profile_window(llm, steps: int = 8) -> dict:
     """`steps` decode steps of a warm engine, timed without and then with
     torch.profiler: wall ms per step, the device time of each CUDA stream,
@@ -2931,6 +2916,7 @@ def _profile_window(llm, steps: int = 8) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from ssd_tpu_torch.bench.diag_timing import stream_busy
     from ssd_tpu_torch.engine.llm_engine import METRICS
 
     def window():
@@ -2948,7 +2934,7 @@ def _profile_window(llm, steps: int = 8) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_wall = window()
     verify = METRICS["target_verify_times"][n_verify:]
-    busy = _stream_busy(prof)
+    busy = stream_busy(prof)
     copies = [e for e in prof.events()
               if e.device_type == DeviceType.CUDA and e.name.startswith("Memcpy")]
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -5467,12 +5453,88 @@ def phase_hosts_cards() -> dict | None:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase diag
+# ---------------------------------------------------------------------------
+
+DIAG_RUNS = (("sd", "sd_diag", ["--rounds", "16"]),
+             ("sd_eagle", "sd_diag", ["--rounds", "16", "--eagle"]),
+             ("fasync_b1", "fasync_diag", ["--rounds", "8", "--batch", "1"]),
+             ("fasync_b8", "fasync_diag", ["--rounds", "8", "--batch", "8"]),
+             ("prefill", "prefill_diag", ["--t", "2048", "--r", "4"]))
+
+
+def _diag_launch_faults(label: str, tool: str, out: dict) -> list[str]:
+    """Where a run's launches a replay break the decomposition (module
+    docstring, phase 20); a variant with no launches entry is a fault."""
+    faults = []
+
+    def need(variant, ok, what):
+        got = out["launches"].get(variant)
+        if got is None or not ok(got):
+            faults.append(f"{label} {variant}: {what}, launched {got}")
+
+    if tool == "prefill_diag":
+        per = out["layers"] * out["r"]
+        need("full", lambda n: n["K1"] == per and n["K2"] == 0,
+             f"K1 once a layer a prefill ({per}) and no K2")
+        for v in ("no_kernel", "no_attn", "matmul", "head"):
+            need(v, lambda n: n["K1"] == 0 and n["K2"] == 0, "no K1 and no K2")
+    elif tool == "sd_diag":
+        for v in ("full", "draft", "verify"):
+            need(v, lambda n: n["K2"] > 0 and n["K3"] == 0, "K2 and no K3")
+    else:
+        need("full", lambda n: n["K2"] > 0 and n["K3"] > 0, "K2 and K3")
+        need("sync", lambda n: n["K2"] > 0, "K2")
+        need("build", lambda n: n["K3"] > 0, "K3")
+        need("fork", lambda n: not any(n.values()), "no attention kernel")
+    return faults
+
+
+def phase_diag(profile: bool = False) -> dict:
+    """The step-decomposition tools on the card (module docstring, phase
+    20); with `profile` (phase diag_profile, not run by default) each
+    variant also replays once under torch.profiler (the tools' --profile)."""
+    import importlib
+    import math
+
+    import torch
+
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    runs, seconds, faults = {}, {}, []
+    for label, tool, argv in DIAG_RUNS:
+        t0 = time.perf_counter()
+        out = importlib.import_module(f"ssd_tpu_torch.bench.{tool}").main(
+            argv + ["--reps", "3"] + (["--profile"] if profile else []))
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds[label] = time.perf_counter() - t0
+        runs[label] = out
+        if out["full_replay_equals_eager"] is not True:
+            faults.append(f"{label}: the full variant's graph replay differs from its eager call")
+        for v in out["launches"]:
+            if not (math.isfinite(out[v]) and out[v] > 0):
+                faults.append(f"{label} {v}: {out[v]} ms a round")
+        faults += _diag_launch_faults(label, tool, out)
+    launches = {w.__name__: w.launches for w in wrappers if w.launches}
+    emit("diag_profile" if profile else "diag",
+         geometry="Llama-3.2-1B width, random bf16 weights: target 16 layers, draft 4 (or "
+         "an EAGLE-3 head at the target's width), K=4, F=2, block 64; prefill 2048 tokens",
+         runs=runs, launches=launches, phase_seconds=seconds)
+    if faults:
+        fail("diag: " + "; ".join(faults))
+    return {"runs": runs, "launches": launches}
+
+
 def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                  kvq: dict | None, moe_run: dict | None, quant: dict | None,
                  eagle: dict | None, exact: dict | None, tp: dict | None = None,
                  eagle_tp: dict | None = None, eagle_tp_cards: dict | None = None,
                  head_dims: dict | None = None, cli: dict | None = None,
-                 hosts: dict | None = None, hosts_cards: dict | None = None) -> dict:
+                 hosts: dict | None = None, hosts_cards: dict | None = None,
+                 diag: dict | None = None) -> dict:
     """Launches per path, each read from runs whose counts were zeroed just
     before them: `serve` (AR, AR multi-step) and `spec` (SD, fused SD,
     ngram, SSD, the fused exchange and superstep) for the fp-cache
@@ -5500,7 +5562,9 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
     (compare_outputs' four engines, bench's AR and SSD runs, the chat
     turn) under the path "cli", and `hosts`: host 0 of the two hosts on
     one card ("hosts_<case>"), and `hosts_cards` when it ran: host 0's
-    first rank ("hosts_cards_<mode>_<batch>")."""
+    first rank ("hosts_cards_<mode>_<batch>"), and `diag`: the
+    decomposition tools' runs (captures, replays and the eager checks)
+    under the path "diag"."""
     by_path = {}
 
     def add(name, path, n):
@@ -5601,6 +5665,8 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
         for name, n in run["launches_host0"].items():
             if n:
                 add(name, f"hosts_cards_{case}", n)
+    for name, n in (diag or {}).get("launches", {}).items():
+        add(name, "diag", n)
     out = []
     for name, tm in kern["timings"].items():
         err = max(v["max_abs_err"] for (k, _, _), v in kern["errors"].items() if k == name)
@@ -5720,6 +5786,7 @@ def main(argv=None) -> int:
     cli = run("cli", phase_cli)
     hosts = run("hosts", phase_hosts)
     hosts_cards = run("hosts_cards", phase_hosts_cards)
+    diag = run("diag", phase_diag)
     run("profile", phase_profile)
     run("moe_profile", phase_profile, True)
     run("quant_profile", phase_profile, False, "int8")
@@ -5728,10 +5795,11 @@ def main(argv=None) -> int:
     run("spec_async", phase_spec_async)
     run("spec_draft_rank", phase_spec_draft_rank)
     run("eagle_profile", phase_eagle_profile)
+    run("diag_profile", phase_diag, True)
     if kern is not None:
         print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, quant, eagle, exact, tp,
                                       eagle_tp, eagle_tp_cards, head_dims, cli, hosts,
-                                      hosts_cards)), flush=True)
+                                      hosts_cards, diag)), flush=True)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds, phases=phases)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

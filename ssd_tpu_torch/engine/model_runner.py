@@ -247,6 +247,17 @@ def chain_decode_step(
     return torch.stack(toks[:K], dim=1), torch.stack(logits[:K], dim=1)
 
 
+def served_params(params: dict, quantization: str | None) -> dict:
+    """params as a runner holds them. The LM head of a float model runs in
+    fp32, as in the JAX package; keeping an fp32 copy costs its memory once
+    instead of a conversion every step (a tied head stops sharing the
+    embedding's tensor). An int8 head stays as it is: it takes K9 with fp32
+    output."""
+    if quantization != "int8":
+        params["lm_head"] = params["lm_head"].float()
+    return params
+
+
 def tensor_bytes(params: dict) -> int:
     """Bytes of the distinct tensors of a parameter dict (a tied head and
     embedding count once)."""
@@ -310,20 +321,14 @@ class ModelRunner:
         self.graphs = None   # engine/graphs.py::StepGraphs, set by the engine
 
         with torch.no_grad():
-            self.params = self._make_params(init_random)
-            if config.quantization == "int8":
+            self.params = served_params(self._make_params(init_random), config.quantization)
+            if config.quantization == "int8" and self.device.type == "cuda":
                 # Weight-only int8 at load, as ssd_tpu/engine/model_runner.py
                 # does: a model's leaves as they load (_place), an EAGLE
                 # head's dict leaf by leaf (engine/eagle_runner.py). The
                 # freed float weights return to the card's free memory
                 # before mem_get_info sizes the pool.
-                if self.device.type == "cuda":
-                    torch.cuda.empty_cache()
-            else:
-                # The LM head runs in fp32, as in the JAX package; keeping an
-                # fp32 copy costs its memory once instead of a conversion
-                # every step (an int8 head takes K9 with fp32 output).
-                self.params["lm_head"] = self.params["lm_head"].float()
+                torch.cuda.empty_cache()
         self.weight_bytes = tensor_bytes(self.params)
 
         self.pool_sizing = None   # set when the pool is sized from free memory

@@ -1510,3 +1510,42 @@ def test_two_hosts_on_one_card_equal_tp1(tmp_path):
             need = ["flat_prefill_attention", "paged_attention"] + (
                 ["tree_attention"] if mode == "ssd_dp2" else [])
             assert all(run["launches"][k] for k in need), (h, mode, run["launches"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tool,argv", [
+    ("sd_diag", ["--profile"]), ("sd_diag", ["--eagle"]), ("fasync_diag", ["--batch", "1"]),
+    ("fasync_diag", ["--batch", "3"]), ("prefill_diag", [])],
+    ids=["sd", "sd_eagle", "fasync_b1", "fasync_b3", "prefill"])
+def test_diag_full_replay_equals_eager_on_card(tool, argv):
+    """Each step-decomposition tool (ssd_tpu_torch/bench/) at its tiny
+    geometry in bf16: its full variant replayed from the CUDA graph equals
+    the production function called eagerly, bit for bit; every variant's
+    ms is above 0; and the launches a replay follow the decomposition
+    (K1 once a layer a prefill and none in the stripped prefills, K2 and no
+    K3 in the sd round, its chain and verify, K2 and K3 in the async
+    superstep, K2 in its sync form, K3 in the tree build, no attention
+    kernel in the fork); --profile's replay under torch.profiler sees the
+    variant's kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    import importlib
+
+    mod = importlib.import_module(f"ssd_tpu_torch.bench.{tool}")
+    small = ["--r", "2"] if tool == "prefill_diag" else ["--rounds", "3", "--ctx-pad", "512"]
+    out = mod.main(["--tiny", "--reps", "2", *small, *argv])
+    assert out["full_replay_equals_eager"] is True
+    n = out["launches"]
+    assert all(out[v] > 0 for v in n)
+    if tool == "prefill_diag":
+        assert n["full"] == {"K1": out["layers"] * out["r"], "K2": 0, "K3": 0}
+        assert all(n[v]["K1"] == n[v]["K2"] == 0 for v in ("no_kernel", "no_attn", "matmul",
+                                                            "head"))
+    elif tool == "sd_diag":
+        assert all(n[v]["K2"] > 0 and n[v]["K3"] == 0 for v in ("full", "draft", "verify"))
+        for v, prof in out.get("profile", {}).items():
+            assert prof["union_ms"] > 0 and prof["kernels"] > 0, v
+    else:
+        assert n["build"]["K3"] > 0 and n["full"]["K2"] > 0 and n["full"]["K3"] > 0
+        assert n["sync"]["K2"] > 0
+        assert not any(n["fork"].values())

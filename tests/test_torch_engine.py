@@ -294,7 +294,9 @@ def test_package_imports_neither_jax_nor_ssd_tpu():
             "ssd_tpu_torch.ops.probes", "ssd_tpu_torch.bench.s8_probe",
             "ssd_tpu_torch.bench.kernel_diag", "ssd_tpu_torch.bench.chat",
             "ssd_tpu_torch.bench.compare_outputs", "ssd_tpu_torch.bench.bench",
-            "ssd_tpu_torch.bench.bench_helpers"} <= set(mods)
+            "ssd_tpu_torch.bench.bench_helpers", "ssd_tpu_torch.bench.card",
+            "ssd_tpu_torch.bench.diag_timing", "ssd_tpu_torch.bench.sd_diag",
+            "ssd_tpu_torch.bench.fasync_diag", "ssd_tpu_torch.bench.prefill_diag"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {refused!r}]\n"
