@@ -419,6 +419,80 @@ the script exits non-zero:
               once more under torch.profiler (kernel time a round per
               stream, the top kernels; line "diag_profile").
 
+21. sampled - sampled serving under CUDA graphs, each check raising on
+              failure. (1) top_k=1 at temperature 0.8 (enable_top_sampling)
+              gives the same engine's greedy tokens, the prefix caches
+              emptied between the two runs, in AR, AR multi_step=4, SD,
+              fused SD R=4, ngram, unfused SSD (jit_speculate), the fused
+              exchange, the fused superstep R=4, SSD over the int8 cache
+              and fused SD R=4 with int8 weights (exact's construction:
+              the 1B width, 2 layers, fp32, draft noise 0.01), and EAGLE-3
+              async and fused R=4 on the constructed pair at that width;
+              each run must capture and replay a sampled graph. (2)
+              BASELINE.md's gate 2 at full depth in bf16 (spec's pair,
+              temperature 0.7, K=4, F=2, b8, 8 x 512 tokens: >= 1,024
+              rounds while SD's mean accepted count is at most 0.75 K):
+              the draft noise is the first of GATE_NOISE_LADDER that puts
+              SD's mean accepted count in [0.25 K, 0.75 K]; the per-depth
+              acceptance histogram of unfused SSD, the fused exchange
+              (both jit_speculate) and fused SD R=4 against SD's, of the
+              superstep R=4's cache-hit rounds against SD's (its hit and
+              miss shares printed), of SSD with top_p 0.9 and top_k 50
+              against SD's with them, of SSD and the exchange with both
+              models' final norms times GATE_PEAK against SD's so (a
+              peaked law, whose recovery tokens the forks hold: each must
+              have GATE_MIN_HITS cache-hit rounds), of SSD with sampler_x
+              2.0 and a draft temperature of 0.9 against the fused
+              exchange with both, and of EAGLE-3 async against EAGLE-3
+              fused R=4 (the Llama-3.1-8B width, the constructed pair's 8
+              layers, both final norms scaled by EAGLE_GATE_NORM so the
+              target's law is not a point mass; 8 x 256 tokens, as the
+              warp and peaked runs, >= 1,000 rounds at their low
+              acceptance); each mode also once eagerly (8 x 192 tokens)
+              against its graph run. Tolerance: tests/test_spec_stats.py's
+              (each depth within max(0.04, 4 sigma) of the two-sample
+              binomial noise of the smaller run, the means within 0.25).
+              (3) The emitted law: 64 generates of 64 copies of one
+              prompt (the b64 bucket; 4,096 continuations, top_k 16,
+              temperature 0.7, 5 tokens) on the 1B width at 4 layers, K=2
+              and the async modes at fan-out 1 (DIST_K says why); in bf16
+              SD, SSD, the superstep R=4 and ngram, the last three against
+              SD (the verify forward that computes their target logits has
+              SD's shapes), and in fp32 AR and SD, SD against AR (in bf16
+              a decode and a verify forward round the target's logits
+              apart: DIST_PLAN, phase path_logits); the tokens at positions
+              2-5 by a two-sample chi-square test (tokens expected below 5
+              times merged), p >= 1e-3 at every position and pair. Lines
+              "sampled": the runs, the histograms with their tolerance, the
+              p-values and the largest bins' counts.
+22. envelope - (only when asked for) batch buckets 16-64 and long
+              contexts at the full 1B depth in bf16 (spec's pair):
+              max_num_seqs 64, serve's eight lengths eight times (64
+              prompts of 33-1900 tokens), 128 tokens, AR, SD, unfused SSD
+              and the superstep R=4, greedy then sampled (temperature
+              0.7) twice (the first run captures the sampled forms, the
+              second runs on them): decode tok/s, TTFT, the buckets
+              captured, capture seconds and pool bytes; then fp32 at 2
+              layers, greedy tokens at max_num_seqs 64 equal those at 8. Then
+              max_model_len 8192 with chunked_prefill and
+              max_num_batched_tokens 2048: one 7,900-token prompt beside
+              seven of 33-1300 in a pool of the prompts' blocks + 8, so
+              the scheduler preempts (counted): in fp32 at 2 layers the
+              tokens equal the same mode's without chunking and with a
+              pool 4x larger that never preempts; at full depth in bf16
+              it runs to the end and prints tok/s, TTFT and preemptions
+              (K1 chunked over the 8k prompt, K2/K3 past 2,112 positions).
+23. path_logits - (only when asked for) the measurement behind DIST_PLAN:
+              the emitted-law test's 4-layer target, its logits at the 16
+              contexts of position 2 (the prompt and each token of
+              position 1's top-16) from the forwards that compute them:
+              AR's decode at 64 rows, the verify at 64 rows of K+1 (K 2
+              and 4), and a prefill and a decode at 1 row, in bf16 and in
+              fp32; against AR's decode, each one's largest difference,
+              the mean total variation of the top_k-16 laws and the
+              chi-square excess that position 2's law would show over
+              4,096 continuations a side (line "path_logits").
+
 Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -427,10 +501,12 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import gc
 import json
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -444,10 +520,10 @@ except ImportError:   # outside a checkout of the repository: main() says so and
     LLAMA_1B_WIDTH = {}   # before any phase reads it
 
 PHASES = ("env", "kernels", "serve", "spec", "kvq", "moe", "quant", "eagle", "exact", "tp",
-          "eagle_tp", "head_dims", "cli", "hosts", "diag")
+          "eagle_tp", "head_dims", "cli", "hosts", "diag", "sampled")
 EXTRA_PHASES = ("profile", "moe_profile", "quant_profile", "quant_moe_profile", "spec_profile",
                 "eagle_profile", "spec_async", "spec_draft_rank", "eagle_tp_cards",
-                "hosts_cards", "diag_profile")
+                "hosts_cards", "diag_profile", "envelope", "path_logits")
 
 # Llama-3.2-1B geometry (the JAX package's bench.py random-weight config):
 # the package's width, its 16 layers, a tied head and its eos.
@@ -1665,17 +1741,23 @@ def phase_kernels() -> dict:
     verify8 = [SPEC_MAX_LEN, SPEC_K + 1, 700, 1333, 64, 65, 2047]
     # The serve phase's b8 batch halfway through its 128 decode steps.
     serve8 = [n + 64 for n in SERVE_LENS8]
+    # The envelope phase's b64 verify: serve8's contexts eight times over
+    # (the last row a ghost).
+    verify64 = [n + SPEC_K + 1 for n in serve8] * 8
     # decode at B = 1 and B = 8 (one ghost row), the overshoot case (a full
-    # table with context beyond it, Q = 4), and the verify shape.
+    # table with context beyond it, Q = 4), and the verify shape at B = 8
+    # and B = 64.
     paged_cases = {
         "decode_b1": (1, 1, [1500], M, 0),
         "decode_b8": (8, 1, decode8, M, 1),
         "overshoot_q4": (3, 4, [258, 100, 256], 4, 0),  # table holds 256
         "verify_b1": (1, SPEC_K + 1, [2090], M_spec, 0),
         "verify_b8": (8, SPEC_K + 1, verify8, M_spec, 1),
+        "verify_b64": (64, SPEC_K + 1, verify64, M_spec, 1),
     }
     tree_cases = {"tree_b1": (1, [2048], 0),
-                  "tree_b8": (8, [1500, 0, 700, 1333, 64, 65, 1999], 1)}
+                  "tree_b8": (8, [1500, 0, 700, 1333, 64, 65, 1999], 1),
+                  "tree_b64": (64, [n + 64 for n in SERVE_LENS8] * 8, 1)}
     flat_lens = [17, 100, 300, 600, 900, 1200, 1600, 2048]
     flat_cached = [0, 0, 0, 0, 512, 0, 0, 1024]
     c = QWEN3_30B_A3B
@@ -2146,15 +2228,9 @@ def _decode_run(llm, prompts, sp, V, label, eager: bool) -> dict:
     after, graph replays a decode step, decode tok/s."""
     import torch
 
-    wrappers = _kernel_wrappers()
-    for w in wrappers:
-        w.launches = 0
     replays0 = _replays(llm)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with _eager(llm) if eager else contextlib.nullcontext():
-        outs, m = llm.generate(prompts, sp, use_tqdm=False)
-    wall = time.perf_counter() - t0
+    outs, m, launches, wall = _generate(llm, prompts, sp, eager)
     n_new = sp.max_new_tokens
     for o in outs:
         ids = o["token_ids"]
@@ -2168,8 +2244,7 @@ def _decode_run(llm, prompts, sp, V, label, eager: bool) -> dict:
         decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
         decode_step_ms=1e3 * m["decode_total_time"] / steps,
         graph_replays_per_decode_step=(_replays(llm) - replays0) / steps,
-        launches={w.__name__: w.launches for w in wrappers},
-        tokens=[o["token_ids"] for o in outs])
+        launches=launches, tokens=[o["token_ids"] for o in outs])
 
 
 def _spread(xs: list[float]) -> dict:
@@ -2346,6 +2421,21 @@ HF_PROJ = tuple(f"{m}_proj" for m in ("self_attn.q", "self_attn.k", "self_attn.v
                                       "self_attn.o", "mlp.gate", "mlp.up", "mlp.down"))
 
 
+# Spec's pair, which most phases serve: written once a run (_once).
+SHARED_PAIRS = {("spec", 16, SPEC_LIVE, 0.02, "bfloat16", 0)}
+_SHARED_DIRS: dict = {}
+
+
+def _once(key, write):
+    """write(d)'s result for a directory d of its own, written at the run's
+    first call with this key and returned again to the later ones."""
+    if key not in _SHARED_DIRS:
+        d = tempfile.mkdtemp(prefix="ckpt_")
+        atexit.register(shutil.rmtree, d, ignore_errors=True)
+        _SHARED_DIRS[key] = write(d)
+    return _SHARED_DIRS[key]
+
+
 def _spec_pair(d: str, layers: int, live: int, scale: float, dtype, seed: int,
                base: dict = LLAMA_1B, draft_noise: float = 0.0):
     """Write a target/draft checkpoint pair with the construction of the JAX
@@ -2358,7 +2448,17 @@ def _spec_pair(d: str, layers: int, live: int, scale: float, dtype, seed: int,
     draft_noise, the draft is written as _perturb_draft(llm, draft_noise,
     scale) leaves it once loaded (the same unit normals, _layer_noise, added
     in the checkpoint's dtype), so the target stays the same. Returns
-    (target dir, draft dir)."""
+    (target dir, draft dir); a pair of SHARED_PAIRS (at LLAMA_1B, no
+    noise) is written once a run, wherever d is."""
+    key = ("spec", layers, live, scale, str(dtype).removeprefix("torch."), seed)
+    if key in SHARED_PAIRS and base is LLAMA_1B and not draft_noise:
+        return _once(key, lambda own: _write_spec_pair(own, layers, live, scale, dtype, seed,
+                                                       base, draft_noise))
+    return _write_spec_pair(d, layers, live, scale, dtype, seed, base, draft_noise)
+
+
+def _write_spec_pair(d, layers, live, scale, dtype, seed, base, draft_noise):
+    """_spec_pair's writer."""
     import torch
 
     from ssd_tpu_torch.utils.loader import save_safetensors
@@ -2421,6 +2521,22 @@ def _kernel_wrappers() -> tuple:
     from ssd_tpu_torch.ops import linear, moe
 
     return att.KERNEL_WRAPPERS + (moe.grouped_gemm, linear.int8_linear)
+
+
+def _counted(fn, llm=None):
+    """fn()'s result and every kernel wrapper's launches in it: the counts
+    zeroed just before and read just after (an unfused async draft of llm
+    drained on both sides, so its last tree build counts)."""
+    wrappers = _kernel_wrappers()
+    server = getattr(llm, "draft_server", None)
+    if server is not None:
+        server.drain()
+    for w in wrappers:
+        w.launches = 0
+    out = fn()
+    if server is not None:
+        server.drain()
+    return out, {w.__name__: w.launches for w in wrappers}
 
 
 def _draft_params(llm, replica: int = 0) -> dict:
@@ -2537,7 +2653,10 @@ def _overlap(builds, verifies) -> dict:
 
 def _forget_prefixes(llm):
     """Empty the engine's prefix caches (target and draft), so that the
-    next requests prefill as on a fresh engine; the engine must be idle."""
+    next requests prefill as on a fresh engine; the engine must be idle
+    (an unfused async draft's last tree build is waited for here)."""
+    if getattr(llm, "draft_server", None) is not None:
+        llm.draft_server.drain()
     sch = llm.scheduler
     for bm in [sch.block_manager] + list(getattr(sch, "draft_block_managers", [])):
         bm.hash_to_block_id.clear()
@@ -2551,15 +2670,16 @@ def _spec_llm(tdir, ddir, mode, **kw):
     draft; K tokens from the last NGRAM_N, SPEC_R rounds a step)."""
     from ssd_tpu_torch import LLM
 
+    k = kw.pop("speculate_k", SPEC_K)
     if mode == "ngram":
-        return LLM(tdir, ngram_speculate=True, ngram_n=NGRAM_N, speculate_k=SPEC_K,
+        return LLM(tdir, ngram_speculate=True, ngram_n=NGRAM_N, speculate_k=k,
                    spec_rounds=SPEC_R, **kw)
-    async_ = dict(draft_async=True, async_fan_out=SPEC_F)
+    async_ = dict(draft_async=True, async_fan_out=kw.pop("async_fan_out", SPEC_F))
     extra = (async_ if mode == "ssd" else dict(async_, draft_dp=2) if mode == "ssd_dp2" else
              dict(async_, async_fused=True, spec_rounds=int(mode[6:]))
              if mode.startswith("fasync") else
              dict(spec_rounds=int(mode[5:])) if mode.startswith("fused") else {})
-    return LLM(tdir, draft=ddir, speculate=True, speculate_k=SPEC_K, **extra, **kw)
+    return LLM(tdir, draft=ddir, speculate=True, speculate_k=k, **extra, **kw)
 
 
 def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"], eager=False):
@@ -2594,26 +2714,16 @@ def _spec_run(llm, mode, prompts, n_new, V: int = LLAMA_1B["vocab_size"], eager=
     torch.cuda.synchronize()
     ref = torch.cuda.Event(enable_timing=True)
     ref.record()
-    wrappers = _kernel_wrappers()
-    for w in wrappers:
-        w.launches = 0
     replays0 = _replays(llm)
-    t0 = time.perf_counter()
     try:
-        with _eager(llm) if eager else contextlib.nullcontext():
-            outs, m = llm.generate(prompts, sp, use_tqdm=False)
-            if unfused:
-                # The tree build answering the last step runs on after
-                # generate returns; it belongs to this run, so its
-                # launches count.
-                llm.draft_server.drain()
+        # The tree build answering the last step runs on after generate
+        # returns; it belongs to this run (_counted drains it), so its
+        # launches count.
+        outs, m, launches, wall = _generate(llm, prompts, sp, eager)
     finally:
-        launches = {w.__name__: w.launches for w in wrappers}
         for spans in (verify_spans, build_spans, chain_spans, served):
             if spans is not None:
                 spans.restore()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     for o in outs:
         ids = o["token_ids"]
         if len(ids) != n_new or not all(0 <= t < V for t in ids):
@@ -3808,13 +3918,10 @@ def phase_exact() -> dict:
             else:
                 llm = _spec_llm(tdir, ddir, mode, device=dev, quantization="int8", **engine)
                 _perturb_draft(llm, 0.01, 0.4)
-            for w in _kernel_wrappers():
-                w.launches = 0
-            outs, m = llm.generate(prompts, sp, use_tqdm=False)
-            if mode == "ssd":
-                llm.draft_server.drain()
+            (outs, m), launches = _counted(
+                lambda: llm.generate(prompts, sp, use_tqdm=False), llm)
             if dev == "cuda":
-                k9_launches[f"1b_{mode}"] = _kernel_wrappers()[-1].launches
+                k9_launches[f"1b_{mode}"] = launches["int8_linear"]
             llm.exit()
             spec_tokens[("int8w", dev, mode)] = [o["token_ids"] for o in outs]
             run = f"int8w_{dev}_{mode}"
@@ -3851,7 +3958,6 @@ def phase_exact() -> dict:
     mprompts = [rng.integers(3, QWEN3_30B_A3B["vocab_size"], size=n).tolist()
                 for n in (20, 77, 130)]
     moe_tokens, moe_margins, router_margins, moe_launches, moe_accepted = {}, [], [], {}, {}
-    wrappers = _kernel_wrappers()
     with tempfile.TemporaryDirectory() as d:
         # One layer (cut from two to hold the run's time).
         _moe_checkpoint(d, layers=1, scale=0.4, seed=5)
@@ -3874,12 +3980,8 @@ def phase_exact() -> dict:
                         _record_margins(llm, moe_margins)
                 else:
                     llm = _spec_llm(d, d, mode, device=dev, **engine)
-                for w in wrappers:
-                    w.launches = 0
-                outs, m = llm.generate(mprompts, sp, use_tqdm=False)
-                if mode == "ssd":
-                    llm.draft_server.drain()
-                moe_launches[f"{dev}_{mode_q}"] = {w.__name__: w.launches for w in wrappers}
+                (outs, m), moe_launches[f"{dev}_{mode_q}"] = _counted(
+                    lambda: llm.generate(mprompts, sp, use_tqdm=False), llm)
                 llm.exit()
             finally:
                 undo()
@@ -3934,13 +4036,10 @@ def phase_exact() -> dict:
                     llm = _eagle_llm(tdir, edir, device=dev, form=mode, kv_quant=kvq,
                                      quantization=quant, eagle_layers=[0, 1, 1], **engine)
                     _perturb_eagle(llm, EXACT_EAGLE_NOISE, {})
-                for w in _kernel_wrappers():
-                    w.launches = 0
-                outs, m = llm.generate(eprompts, sp, use_tqdm=False)
-                if mode == "ssd":
-                    llm.draft_server.drain()
+                (outs, m), launches = _counted(
+                    lambda: llm.generate(eprompts, sp, use_tqdm=False), llm)
                 if quant and dev == "cuda":
-                    k9_launches[f"eagle_{mode}"] = _kernel_wrappers()[-1].launches
+                    k9_launches[f"eagle_{mode}"] = launches["int8_linear"]
                 llm.exit()
                 if dev == "cuda" and mode != "ar_eager" and llm.graphs is None:
                     fail(f"exact: the card's {tag} EAGLE {mode} engine holds no graphs")
@@ -5528,13 +5627,753 @@ def phase_diag(profile: bool = False) -> dict:
     return {"runs": runs, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phases sampled, envelope and path_logits
+# ---------------------------------------------------------------------------
+
+TOPK1_T = 0.8                       # the top_k=1 check's temperature
+SAMPLED_T = 0.7                     # gate 2's and the emitted-distribution test's
+GATE_NEW = 512                      # tokens a sequence: >= 1024 rounds at SD's mean <= 0.75 K
+GATE_LOW_NEW = 256                  # the same where at most ~1 token a round is accepted
+GATE_EAGER_NEW = 192                # an eager run's tokens a sequence
+GATE_ROUNDS = 1000                  # verify rounds a graph run has at least
+GATE_LENS = [33, 64, 111, 160, 250, 320, 400, 520]
+# Draft noise levels tried on the gate's SD engine, in turn, until its mean
+# accepted count lies in [0.25 K, 0.75 K].
+GATE_NOISE_LADDER = (0.04, 0.08, 0.16, 0.32, 0.64, 1.28, 2.56)
+GATE_DRAFT_T = 0.9                  # the sampler_x run's draft temperature
+GATE_SAMPLER_X = 2.0
+GATE_TOP_P, GATE_TOP_K = 0.9, 50
+# The peaked runs: both models' final norms times GATE_PEAK, so every logit
+# is; the target's law then sits on a few tokens and the recovery token is
+# often one of the draft's top-F forks, so the async modes verify cached
+# tree rows (at the plain law two forks hold the drawn recovery about once
+# in 1,000 rounds). Each peaked async run has GATE_MIN_HITS hit rounds.
+GATE_PEAK = 6.0
+GATE_MIN_HITS = 100
+# The constructed EAGLE pair's final norms times this: the chain token then
+# takes ~0.7 of the target's mass at SAMPLED_T (4096 x 0.0022 / 0.7 against
+# log 128256 + the rest's spread), not all of it, so acceptance is a draw.
+EAGLE_GATE_NORM = 0.0022
+DIST_ROWS, DIST_GENERATES = 64, 64  # the emitted-distribution test: 4096 continuations
+DIST_TOP_K = 16
+DIST_NEW = 5                        # tokens a continuation; positions 2-5 are tested
+# The speculative modes' depth and the async ones' fan-out there: the top_k
+# warp sorts each row's 128,256 probabilities at every draft, tree and
+# verify step, so K=2 and a fan-out of 1 (3 tree rows a sequence, not 10)
+# cut the sorting at b64 about eightfold; one superstep of R=4 rounds still
+# covers positions 2-5.
+DIST_K, DIST_FAN_OUT = 2, 1
+DIST_P_MIN = 1e-3
+# (dtype, modes, the mode the others are held to). In bf16 the target's
+# logits at one context move with the forward that computes them: AR's
+# decode at 64 rows against the verify at 64 rows of K+1 (phase
+# path_logits), which at top_k 16 over a near-flat 128,256-token vocabulary
+# swaps the 16th and 17th tokens in some contexts. Every speculative mode
+# takes its target logits from that verify, so in bf16 each is held to SD,
+# and SD is held to AR in fp32, where the two forwards agree to ~1e-5.
+DIST_PLAN = (("bfloat16", ("sd", "ssd", "fasync4", "ngram"), "sd"),
+             ("float32", ("ar", "sd"), "ar"))
+ENVELOPE_SEQS = 64                  # the b16-b64 buckets' engine
+LONG_MAX_LEN = 8192                 # the chunked-prefill engine
+LONG_PROMPT = 7900
+LONG_SHORT_LENS = [33, 111, 250, 400, 640, 900, 1300]
+LONG_CHUNK = 2048                   # max_num_batched_tokens
+LONG_NEW = 128
+
+
+def _generate(llm, prompts, sp, eager=False):
+    """One measured generate (eager: the engine's graphs detached): its
+    outputs, metrics, kernel launches and wall seconds."""
+    with _eager(llm) if eager else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        (outs, m), launches = _counted(lambda: llm.generate(prompts, sp, use_tqdm=False), llm)
+        wall = time.perf_counter() - t0
+    return outs, m, launches, wall
+
+
+def _buckets(llm) -> list[int]:
+    """The batch buckets the engine's graphs were captured at."""
+    return sorted({key[1] for g in _step_graphs(llm) for key in g.steps})
+
+
+def _sampled_topk1(out: dict):
+    """Part 1: top_k=1 at TOPK1_T equals the same engine's greedy tokens,
+    every mode under graphs, fp32 at the 1B width with 2 layers."""
+    import numpy as np
+    import torch
+
+    from ssd_tpu_torch import LLM, SamplingParams
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, LLAMA_1B["vocab_size"], size=n).tolist() for n in (20, 130)]
+    n_new = 24
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=n_new, ignore_eos=True)
+    top1 = SamplingParams(temperature=TOPK1_T, top_k=1, max_new_tokens=n_new, ignore_eos=True)
+    engine = dict(dtype="float32", max_model_len=512, kvcache_block_size=BLOCK, max_num_seqs=2,
+                  num_kvcache_blocks=32, enable_top_sampling=True)
+    # (label, mode of _spec_llm, engine keywords)
+    plan = (("ar", "ar", {}), ("ar_multi4", "ar", dict(multi_step=SERVE_M)),
+            ("sd", "sd", {}), ("fused4", "fused4", {}), ("ngram", "ngram", {}),
+            ("ssd", "ssd", dict(jit_speculate=True)), ("fasync1", "fasync1", {}),
+            ("fasync4", "fasync4", {}), ("ssd_int8", "ssd", dict(kv_quant="int8")),
+            ("fused4_int8w", "fused4", dict(quantization="int8")))
+    res = out.setdefault("topk1", {})
+    with tempfile.TemporaryDirectory() as d:
+        tdir, ddir = _spec_pair(d, layers=2, live=2, scale=0.4, dtype=torch.float32, seed=3)
+        for label, mode, kw in plan:
+            llm = (LLM(tdir, **engine, **kw) if mode == "ar" else
+                   _spec_llm(tdir, None if mode == "ngram" else ddir, mode, **engine, **kw))
+            if mode not in ("ar", "ngram"):
+                _perturb_draft(llm, 0.01, 0.4)
+            res[label] = _topk1_run(llm, label, prompts, greedy, top1, out)
+            llm.exit()
+            del llm
+        etdir, edir = _eagle_pair(os.path.join(d, "eagle"), 2, torch.float32, seed=13,
+                                  base=LLAMA_1B)
+        for form in ("ssd", "fused"):
+            label = f"eagle_{form}"
+            llm = _eagle_llm(etdir, edir, form=form, eagle_layers=[0, 1, 1], **engine)
+            _perturb_eagle(llm, EXACT_EAGLE_NOISE, {})
+            res[label] = _topk1_run(llm, label, prompts, greedy, top1, out)
+            llm.exit()
+            del llm
+    torch.cuda.empty_cache()
+
+
+def _topk1_run(llm, label, prompts, greedy, top1, out) -> dict:
+    """The engine's greedy tokens, then (its prefix caches emptied) its
+    top_k=1 tokens, which must equal them and run on sampled graphs."""
+
+    def graphs():
+        return sum(len(g.steps) for g in _step_graphs(llm))
+
+    if llm.graphs is None:
+        fail(f"sampled topk1 {label}: the engine holds no graphs")
+    want = [o["token_ids"] for o in llm.generate(prompts, greedy, use_tqdm=False)[0]]
+    _forget_prefixes(llm)
+    graphs0, replays0 = graphs(), _replays(llm)
+    outs, m, launches, _ = _generate(llm, prompts, top1)
+    got = [o["token_ids"] for o in outs]
+    r = dict(equal=got == want, sampled_graphs_captured=graphs() - graphs0,
+             replays=_replays(llm) - replays0, launches=launches)
+    lens = m["accepted_suffix_lens_with_recovery"]
+    if lens:
+        r["mean_accepted_suffix_len"] = sum(lens) / len(lens)
+    out["launches"][f"topk1_{label}"] = launches
+    emit("sampled", part="topk1", run=label, temperature=top1.temperature, top_k=1, **r)
+    if not r["equal"]:
+        fail(f"sampled topk1 {label}: top_k=1 tokens differ from the engine's greedy tokens")
+    if r["sampled_graphs_captured"] <= 0 or r["replays"] <= 0:
+        fail(f"sampled topk1 {label}: no sampled graph was captured and replayed: {r}")
+    return r
+
+
+def _gate_prompts(V: int) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    return [rng.integers(3, V, size=n).tolist() for n in GATE_LENS]
+
+
+def _gate_run(llm, label, prompts, sp, eager=False, hits_only=False, min_rounds=GATE_ROUNDS,
+              min_hits=0):
+    """One sampled generate of a gate engine: the per-depth acceptance
+    histogram of every round (hits_only: of the cache-hit rounds), with the
+    hit and miss shares of an async mode, under graphs or eagerly; a graph
+    run has at least min_rounds rounds (hits_only: hit and miss rounds
+    together) and min_hits cache-hit rounds."""
+    from ssd_tpu_torch.bench.spec_stats import accept_histogram
+
+    outs, m, launches, wall = _generate(llm, prompts, sp, eager)
+    hit = m.get("accepted_suffix_lens_on_hit") or []
+    miss = m.get("accepted_suffix_lens_on_miss") or []
+    lens = hit if hits_only else m["accepted_suffix_lens_with_recovery"]
+    h, n = accept_histogram(lens, SPEC_K)
+    r = dict(hist=h.round(4).tolist(), rounds=n, wall_s=wall, eager=eager,
+             mean_accepted=float((h * range(SPEC_K + 1)).sum()), launches=launches)
+    if hit or miss:
+        r.update(hit_rounds=len(hit), miss_rounds=len(miss),
+                 hit_share=len(hit) / (len(hit) + len(miss)),
+                 miss_hist=accept_histogram(miss, SPEC_K)[0].round(4).tolist())
+    total = len(hit) + len(miss) if hits_only else n
+    if not eager and total < min_rounds:
+        fail(f"sampled gate {label}: {total} rounds, fewer than {min_rounds}")
+    if len(hit) < min_hits:
+        fail(f"sampled gate {label}: {len(hit)} cache-hit rounds, fewer than {min_hits}")
+    if not all(0 <= t < llm.model_runner.arch.vocab_size for o in outs for t in o["token_ids"]):
+        fail(f"sampled gate {label}: a token outside the vocabulary")
+    return r
+
+
+def _gate_check(out, label, ref, got):
+    from ssd_tpu_torch.bench.spec_stats import histogram_gate
+
+    g = histogram_gate(ref["hist"], ref["rounds"], got["hist"], got["rounds"])
+    out["gate"][label] = g
+    emit("sampled", part="gate2", pair=label, **g)
+    if not g["ok"]:
+        fail(f"sampled gate2 {label}: acceptance histograms differ beyond tolerance: {g}")
+
+
+def _peak(llm):
+    """The peaked runs' models: the target's and the draft's final norms
+    times GATE_PEAK, in place (the graphs read the same tensors)."""
+    import torch
+
+    params = [llm.model_runner.params] + [
+        _draft_params(llm, r) for r in range(max(1, len(_draft_replicas(llm))))]
+    for t in {p["final_ln"].data_ptr(): p["final_ln"] for p in params}.values():
+        t.mul_(GATE_PEAK)
+    torch.cuda.synchronize()
+
+
+def _sampled_gate(out: dict):
+    """Part 2: BASELINE.md's gate 2 at full depth in bf16 (module
+    docstring): the noise search, then every mode's histogram against its
+    sync reference, and each graph run against an eager one."""
+    import torch
+
+    from ssd_tpu_torch import SamplingParams
+
+    V = LLAMA_1B["vocab_size"]
+    prompts = _gate_prompts(V)
+    K = SPEC_K
+
+    def sp(n, **kw):
+        return SamplingParams(temperature=SAMPLED_T, max_new_tokens=n, ignore_eos=True, **kw)
+
+    warp = dict(top_p=GATE_TOP_P, top_k=GATE_TOP_K)
+    engine = dict(dtype="bfloat16", max_model_len=1280, kvcache_block_size=BLOCK,
+                  max_num_seqs=8, enable_top_sampling=True)
+    runs = out.setdefault("gate_runs", {})
+
+    def record(label, r):
+        runs[label] = r
+        out["launches"][f"gate_{label}"] = r["launches"]
+        emit("sampled", part="gate2_run", run=label, **r)
+        return r
+
+    def peaked(llm, label, min_hits=0):
+        _forget_prefixes(llm)   # drains an unfused draft before its norm changes
+        _peak(llm)
+        return record(f"{label}_peaked", _gate_run(llm, f"{label}_peaked", prompts,
+                                                   sp(GATE_LOW_NEW), min_hits=min_hits))
+
+    with tempfile.TemporaryDirectory() as d:
+        tdir, ddir = _spec_pair(d, layers=16, live=SPEC_LIVE, scale=0.02, dtype=torch.bfloat16,
+                                seed=0)
+        llm = _spec_llm(tdir, ddir, "sd", **engine)
+        noise, found = 0.0, None
+        for level in GATE_NOISE_LADDER:
+            _perturb_draft(llm, level - noise, 0.02)
+            noise = level
+            _forget_prefixes(llm)
+            r = _gate_run(llm, f"sd_noise{level:g}", prompts, sp(96), min_rounds=0)
+            out["noise_search"][f"{level:g}"] = r["mean_accepted"]
+            if r["mean_accepted"] <= 0.75 * K:
+                found = level
+                break
+        emit("sampled", part="gate2_noise", search=out["noise_search"], noise=found)
+        if found is None or not 0.25 * K <= out["noise_search"][f"{found:g}"]:
+            fail(f"sampled gate2: no draft noise of {GATE_NOISE_LADDER} put SD's mean accepted "
+                 f"count in [{0.25 * K}, {0.75 * K}]: {out['noise_search']}")
+        out["noise"] = found
+        _forget_prefixes(llm)
+        ref = record("sd", _gate_run(llm, "sd", prompts, sp(GATE_NEW)))
+        ref_eager = record("sd_eager", _gate_run(llm, "sd", prompts, sp(GATE_EAGER_NEW),
+                                                 eager=True))
+        _gate_check(out, "sd_eager~sd", ref, ref_eager)
+        ref_warp = record("sd_warp", _gate_run(llm, "sd_warp", prompts,
+                                               sp(GATE_LOW_NEW, **warp)))
+        ref_peak = peaked(llm, "sd")
+        llm.exit()
+        del llm
+        # (label, mode, engine keywords, the runs: (suffix, tokens, sampling
+        # keywords, reference))
+        plan = (("ssd", "ssd", dict(jit_speculate=True),
+                 (("", GATE_NEW, {}, ref), ("_warp", GATE_LOW_NEW, warp, ref_warp))),
+                ("fasync1", "fasync1", dict(jit_speculate=True), (("", GATE_NEW, {}, ref),)),
+                ("fused4", "fused4", {}, (("", GATE_NEW, {}, ref),)),
+                ("fasync4", "fasync4", dict(jit_speculate=True), (("", GATE_NEW, {}, ref),)))
+        for label, mode, kw, plan_runs in plan:
+            llm = _spec_llm(tdir, ddir, mode, **engine, **kw)
+            _perturb_draft(llm, found, 0.02)
+            hits_only = mode == "fasync4"
+            for sfx, n_new, skw, want in plan_runs:
+                got = record(label + sfx, _gate_run(llm, label + sfx, prompts, sp(n_new, **skw),
+                                                    hits_only=hits_only))
+                _gate_check(out, f"{label}{sfx}~sd{sfx}", want, got)
+            _forget_prefixes(llm)
+            eager = record(f"{label}_eager", _gate_run(llm, label, prompts, sp(GATE_EAGER_NEW),
+                                                       eager=True, hits_only=hits_only))
+            _gate_check(out, f"{label}_eager~{label}", runs[label], eager)
+            if mode in ("ssd", "fasync1"):
+                _gate_check(out, f"{label}_peaked~sd_peaked", ref_peak,
+                            peaked(llm, label, GATE_MIN_HITS))
+            llm.exit()
+            del llm
+        # sampler_x and a draft temperature of its own: unfused SSD against
+        # the fused exchange of the same settings (both draw every row's
+        # tokens from the rescaled tree sampler, so both verify the same q).
+        sx = {}
+        for mode in ("fasync1", "ssd"):
+            llm = _spec_llm(tdir, ddir, mode, sampler_x=GATE_SAMPLER_X, jit_speculate=True,
+                            **engine)
+            _perturb_draft(llm, found, 0.02)
+            sx[mode] = record(f"{mode}_sampler_x", _gate_run(
+                llm, f"{mode}_sampler_x", prompts, sp(GATE_NEW, draft_temperature=GATE_DRAFT_T)))
+            llm.exit()
+            del llm
+        _gate_check(out, "ssd_sampler_x~fasync1_sampler_x", sx["fasync1"], sx["ssd"])
+    torch.cuda.empty_cache()
+    _eagle_gate(out, sp, record)
+
+
+def _eagle_gate(out, sp, record):
+    """Gate 2 for EAGLE-3 at the 8B width on the constructed pair (8
+    layers): async against the fused superstep R=4, and each against an
+    eager run."""
+    import torch
+
+    V = LLAMA_8B["vocab_size"]
+    prompts = _gate_prompts(V)
+    engine = dict(dtype="bfloat16", max_model_len=EAGLE_MAX_LEN, kvcache_block_size=BLOCK,
+                  max_num_seqs=8)
+    with tempfile.TemporaryDirectory() as d:
+        tdir, edir = _eagle_pair(d, EAGLE_PAIR_LAYERS, torch.bfloat16)
+        got = {}
+        for form in ("fused", "ssd"):
+            label = f"eagle_{form}"
+            llm = _eagle_llm(tdir, edir, form=form, **engine)
+            _perturb_eagle(llm, EXACT_EAGLE_NOISE, {})
+            for p in (llm.model_runner.params, _draft_params(llm)):
+                p["final_ln"].mul_(EAGLE_GATE_NORM)
+            got[form] = record(label, _gate_run(llm, label, prompts, sp(GATE_LOW_NEW)))
+            _forget_prefixes(llm)
+            eager = record(f"{label}_eager", _gate_run(llm, label, prompts,
+                                                       sp(GATE_EAGER_NEW), eager=True))
+            _gate_check(out, f"{label}_eager~{label}", got[form], eager)
+            llm.exit()
+            del llm
+        _gate_check(out, "eagle_ssd~eagle_fused", got["fused"], got["ssd"])
+    torch.cuda.empty_cache()
+
+
+def _dist_prompt(V: int) -> list[int]:
+    import numpy as np
+
+    return np.random.default_rng(9).integers(3, V, size=40).tolist()
+
+
+def _dist_llm(tdir, ddir, mode, dt):
+    """An engine of the emitted-law test: b64, top-k sampling, the
+    speculative modes at DIST_K (the async ones jit_speculate at
+    DIST_FAN_OUT), the draft at the gate's noise."""
+    from ssd_tpu_torch import LLM
+
+    engine = dict(dtype=dt, max_model_len=256, kvcache_block_size=BLOCK,
+                  max_num_seqs=DIST_ROWS, enable_top_sampling=True)
+    if mode == "ar":
+        return LLM(tdir, **engine)
+    kw = dict(speculate_k=DIST_K)
+    if mode in ASYNC_MODES:
+        kw.update(jit_speculate=True, async_fan_out=DIST_FAN_OUT)
+    return _spec_llm(tdir, None if mode == "ngram" else ddir, mode, **engine, **kw)
+
+
+def _sampled_distribution(out: dict):
+    """Part 3: the tokens each mode emits at positions 2-5 of DIST_ROWS x
+    DIST_GENERATES continuations of one prompt against its reference's
+    (DIST_PLAN), by a two-sample chi-square test."""
+    import torch
+
+    from ssd_tpu_torch import SamplingParams
+    from ssd_tpu_torch.bench.spec_stats import chi2_two_sample
+
+    V = LLAMA_1B["vocab_size"]
+    prompt = _dist_prompt(V)
+    sp = SamplingParams(temperature=SAMPLED_T, top_k=DIST_TOP_K, max_new_tokens=DIST_NEW,
+                        ignore_eos=True)
+    for dt, modes, ref in DIST_PLAN:
+        short = {"bfloat16": "bf16", "float32": "fp32"}[dt]
+        tokens = {}
+        with tempfile.TemporaryDirectory() as d:
+            # The gate's target cut to its 4 live layers: the same function.
+            tdir, ddir = _spec_pair(d, layers=SPEC_LIVE, live=SPEC_LIVE, scale=0.02,
+                                    dtype=getattr(torch, dt), seed=0)
+            for mode in modes:
+                t0 = time.perf_counter()
+                llm = _dist_llm(tdir, ddir, mode, dt)
+                init_s = time.perf_counter() - t0
+                if mode not in ("ar", "ngram"):
+                    _perturb_draft(llm, out["noise"], 0.02)
+                rows, lens = [], []
+
+                def serve():
+                    for _ in range(DIST_GENERATES):
+                        outs, m = llm.generate([prompt] * DIST_ROWS, sp, use_tqdm=False)
+                        rows.extend(o["token_ids"] for o in outs)
+                        lens.extend(m["accepted_suffix_lens_with_recovery"])
+
+                t0 = time.perf_counter()
+                _, launches = _counted(serve, llm)
+                buckets = _buckets(llm)
+                info = dict(wall_s=time.perf_counter() - t0, init_s=init_s, buckets=buckets,
+                            rows=len(rows))
+                if lens:
+                    info["mean_accepted"] = sum(lens) / len(lens) - 1
+                key = f"{mode}_{short}"
+                out["launches"][f"dist_{key}"] = launches
+                out["distribution"][key] = info
+                emit("sampled", part="distribution_run", run=key, launches=launches, **info)
+                if DIST_ROWS not in buckets or any(len(r) != DIST_NEW for r in rows):
+                    fail(f"sampled distribution {key}: the b{DIST_ROWS} bucket was not "
+                         f"captured, or a continuation is short: {info}")
+                tokens[mode] = rows
+                llm.exit()
+                del llm
+        for mode in modes:
+            if mode == ref:
+                continue
+            for pos in range(2, DIST_NEW + 1):
+                t = chi2_two_sample([r[pos - 1] for r in tokens[ref]],
+                                    [r[pos - 1] for r in tokens[mode]])
+                key = f"{mode}~{ref}_{short}_pos{pos}"
+                facts = {k: t[k] for k in ("stat", "df", "p", "n")}
+                out["chi2"][key] = facts
+                emit("sampled", part="distribution", mode=mode, position=pos, against=ref,
+                     dtype=dt, top_k=DIST_TOP_K, temperature=SAMPLED_T, **facts,
+                     bins=len(t["counts"]), counts=t["counts"][:12])
+                if not t["p"] >= DIST_P_MIN:
+                    fail(f"sampled distribution {key}: chi-square p {t['p']} < {DIST_P_MIN}")
+        torch.cuda.empty_cache()
+
+
+def phase_sampled() -> dict:
+    """Sampled serving on the card (module docstring, phase 21)."""
+    out = {"launches": {}, "gate": {}, "noise_search": {}, "chi2": {}, "distribution": {}}
+    for part, fn in (("topk1", _sampled_topk1), ("gate2", _sampled_gate),
+                     ("distribution", _sampled_distribution)):
+        t0 = time.perf_counter()
+        fn(out)
+        out.setdefault("seconds", {})[part] = time.perf_counter() - t0
+    emit("sampled", geometry="Llama-3.2-1B width (top_k=1: 2 layers fp32; gate 2: 16 layers, "
+         "4 live, bf16; distribution: 4 layers, bf16 and fp32); EAGLE-3 at the Llama-3.1-8B "
+         f"width, {EAGLE_PAIR_LAYERS} layers", K=SPEC_K, async_fan_out=SPEC_F,
+         noise=out["noise"], gate_ok=all(g["ok"] for g in out["gate"].values()),
+         min_chi2_p=min(t["p"] for t in out["chi2"].values()), seconds=out["seconds"])
+    return out
+
+
+def phase_path_logits() -> dict:
+    """Why the emitted-law test holds the speculative modes to SD in bf16
+    (module docstring, phase 23): the 4-layer target's logits at the 16
+    contexts of position 2 from each forward that computes them, against
+    AR's decode at DIST_ROWS rows."""
+    import numpy as np
+    import torch
+
+    from ssd_tpu_torch import LLM
+    from ssd_tpu_torch.bench.spec_stats import chi2_excess
+    from ssd_tpu_torch.engine.model_runner import decode_forward
+    from ssd_tpu_torch.ops.sampler import warp_top_probs
+
+    def warped(lg):
+        p = torch.softmax(lg.float() / SAMPLED_T, -1)
+        n = p.shape[0]
+        return warp_top_probs(p, torch.ones(n, device=p.device),
+                              torch.full((n,), DIST_TOP_K, dtype=torch.int32, device=p.device))
+
+    prompt = _dist_prompt(LLAMA_1B["vocab_size"])
+    n, rows = len(prompt), DIST_ROWS
+    per = -(-(n + SPEC_K + 1) // BLOCK)          # pages a row
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        with tempfile.TemporaryDirectory() as d:
+            tdir, _ = _spec_pair(d, layers=SPEC_LIVE, live=SPEC_LIVE, scale=0.02,
+                                 dtype=getattr(torch, dt), seed=0)
+            llm = LLM(tdir, dtype=dt, max_model_len=256, kvcache_block_size=BLOCK,
+                      max_num_seqs=rows, enforce_eager=True)
+            r = llm.model_runner
+            if r.num_kvcache_blocks < rows * per + 1:
+                fail(f"path_logits: {r.num_kvcache_blocks} KV blocks, fewer than {rows * per + 1}")
+            bt = np.full((rows, r.max_blocks), -1, np.int32)
+            bt[:, :per] = 1 + np.arange(rows * per, dtype=np.int32).reshape(rows, per)
+            tables = torch.from_numpy(bt).cuda()
+            # Every row's pages hold the prompt's K/V from one prefill; its
+            # top-16 next tokens are position 2's contexts, weighted by
+            # position 1's law.
+            temps = r._tensor(np.zeros(rows, np.float32))
+            _, first = r._flat_prefill([(prompt, bt[i], 0, n) for i in range(rows)], temps,
+                                       greedy=True)
+            p1 = warped(first[:1])[0]
+            ctx = torch.topk(p1, DIST_TOP_K).indices
+            weights = p1[ctx] / p1[ctx].sum()
+            C = len(ctx)
+            toks = ctx[torch.arange(rows, device=ctx.device) % C].tolist()
+
+            def forward(b, q):
+                """Rows 0..b-1 (row i's context toks[i]) with q queries each
+                (the context's token, then filler): the first query's logits."""
+                ids = torch.tensor([[t] + [3] * (q - 1) for t in toks[:b]], dtype=torch.int32,
+                                   device="cuda").reshape(-1)
+                pos = torch.arange(n, n + q, dtype=torch.int32, device="cuda").repeat(b)
+                lens = torch.full((b,), n + q, dtype=torch.int32, device="cuda")
+                return decode_forward(r.params, r.kv_cache, ids, pos, tables[:b], lens,
+                                      arch=r.arch, block_size=BLOCK, q_len=q).reshape(b, q, -1)[:, 0]
+
+            logits = {"decode_b64": forward(rows, 1)[:C],
+                      f"verify_b64_k{DIST_K}": forward(rows, DIST_K + 1)[:C],
+                      f"verify_b64_k{SPEC_K}": forward(rows, SPEC_K + 1)[:C]}
+            # One row at a time: context i on its own pages.
+            b1 = []
+            for i in range(C):
+                ids = torch.tensor([toks[i]], dtype=torch.int32, device="cuda")
+                pos = torch.tensor([n], dtype=torch.int32, device="cuda")
+                lens = torch.tensor([n + 1], dtype=torch.int32, device="cuda")
+                b1.append(decode_forward(r.params, r.kv_cache, ids, pos, tables[i:i + 1], lens,
+                                         arch=r.arch, block_size=BLOCK, q_len=1))
+            logits["decode_b1"] = torch.cat(b1)
+            # Last, as it rewrites each row's prompt K/V: the prompt and the
+            # context's token prefilled at once.
+            _, pre = r._flat_prefill([(prompt + [toks[i]], bt[i], 0, n + 1) for i in range(C)],
+                                     temps[:C], greedy=True)
+            logits["prefill"] = pre
+            ref = logits["decode_b64"]
+            laws = {k: warped(v) for k, v in logits.items()}
+            mix = {k: (weights[:, None] * v).sum(0).cpu().numpy() for k, v in laws.items()}
+            facts = {k: dict(max_abs_diff=float((v - ref).abs().max()),
+                             mean_tv=float(0.5 * (laws[k] - laws["decode_b64"]).abs().sum(-1)
+                                           .mean()),
+                             pos2_chi2_excess=chi2_excess(mix["decode_b64"], mix[k],
+                                                          DIST_ROWS * DIST_GENERATES))
+                     for k, v in logits.items() if k != "decode_b64"}
+            out[dt] = dict(against="decode_b64", contexts=C, logit_std=float(ref.std()), **facts)
+            emit("path_logits", dtype=dt, **out[dt])
+            llm.exit()
+            del llm
+    torch.cuda.empty_cache()
+    return out
+
+
+class _Preemptions:
+    """Scheduler.preempt calls while installed."""
+
+    def __init__(self):
+        from ssd_tpu_torch.engine.scheduler import Scheduler
+
+        self.n = 0
+        self.orig = Scheduler.preempt
+        orig = self.orig
+
+        def counted(sch, seq):
+            self.n += 1
+            return orig(sch, seq)
+
+        Scheduler.preempt = counted
+
+    def restore(self):
+        from ssd_tpu_torch.engine.scheduler import Scheduler
+
+        Scheduler.preempt = self.orig
+
+
+def _envelope_prompts(V: int, n: int) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(3, V, size=SERVE_LENS8[i % 8]).tolist() for i in range(n)]
+
+
+def _envelope_buckets(out: dict, V: int):
+    """Part 4: every bucket up to b64 at full depth in bf16, greedy and
+    sampled; then fp32 greedy tokens at max_num_seqs 64 against 8."""
+    import torch
+
+    from ssd_tpu_torch import LLM, SamplingParams
+
+    prompts = _envelope_prompts(V, ENVELOPE_SEQS)
+    sps = {"greedy": SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True),
+           "sampled": SamplingParams(temperature=SAMPLED_T, max_new_tokens=128,
+                                     ignore_eos=True)}
+    engine = dict(dtype="bfloat16", max_model_len=SPEC_MAX_LEN, kvcache_block_size=BLOCK,
+                  max_num_seqs=ENVELOPE_SEQS)
+    with tempfile.TemporaryDirectory() as d:
+        tdir, ddir = _spec_pair(d, layers=16, live=SPEC_LIVE, scale=0.02, dtype=torch.bfloat16,
+                                seed=0)
+        for mode in ("ar", "sd", "ssd", "fasync4"):
+            t0 = time.perf_counter()
+            llm = LLM(tdir, **engine) if mode == "ar" else _spec_llm(tdir, ddir, mode, **engine)
+            init_s = time.perf_counter() - t0
+            if mode != "ar":
+                _perturb_draft(llm, MISS_NOISE, 0.02)
+            # The sampled forms are captured on their first use, inside the
+            # first sampled run; the second one runs on them.
+            for kind, sp in (*sps.items(), ("sampled_again", sps["sampled"])):
+                _forget_prefixes(llm)
+                outs, m, launches, wall = _generate(llm, prompts, sp)
+                buckets = _buckets(llm)
+                r = dict(wall_s=wall, ttft_s=m["target_step_times"][0],
+                         decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
+                         buckets_captured=buckets, graphs=_graph_facts(llm), init_s=init_s,
+                         launches=launches)
+                lens = m["accepted_suffix_lens_with_recovery"]
+                if lens:
+                    r["mean_accepted_suffix_len"] = sum(lens) / len(lens)
+                key = f"b64_{mode}_{kind}"
+                out["runs"][key] = r
+                out["launches"][f"envelope_{key}"] = launches
+                emit("envelope", part="buckets", run=key, **r)
+                need = ["paged_attention", "flat_prefill_attention"] + (
+                    ["tree_attention"] if mode in ASYNC_MODES else [])
+                if ENVELOPE_SEQS not in buckets or any(launches.get(k, 0) <= 0 for k in need):
+                    fail(f"envelope {key}: bucket {ENVELOPE_SEQS} not captured or a kernel "
+                         f"never launched: {buckets}, {launches}")
+                if any(len(o["token_ids"]) != 128 for o in outs):
+                    fail(f"envelope {key}: a short output")
+            llm.exit()
+            del llm
+            torch.cuda.empty_cache()
+        # fp32 at 2 layers: greedy tokens at max_num_seqs 64 equal 8's.
+        tdir, ddir = _spec_pair(os.path.join(d, "fp32"), layers=2, live=2, scale=0.4,
+                                dtype=torch.float32, seed=3)
+        sp = SamplingParams(temperature=0.0, max_new_tokens=16, ignore_eos=True)
+        for mode in ("ar", "sd", "ssd", "fasync4"):
+            toks = {}
+            for seqs in (ENVELOPE_SEQS, 8):
+                kw = dict(dtype="float32", max_model_len=SPEC_MAX_LEN, kvcache_block_size=BLOCK,
+                          max_num_seqs=seqs)
+                llm = LLM(tdir, **kw) if mode == "ar" else _spec_llm(tdir, ddir, mode, **kw)
+                if mode != "ar":
+                    _perturb_draft(llm, 0.01, 0.4)
+                toks[seqs] = [o["token_ids"] for o in llm.generate(prompts, sp,
+                                                                   use_tqdm=False)[0]]
+                llm.exit()
+                del llm
+            eq = toks[ENVELOPE_SEQS] == toks[8]
+            out["exact"][mode] = eq
+            emit("envelope", part="b64_exact", mode=mode, equal_to_max_num_seqs_8=eq)
+            if not eq:
+                fail(f"envelope b64_exact {mode}: tokens at max_num_seqs={ENVELOPE_SEQS} "
+                     "differ from max_num_seqs=8")
+    torch.cuda.empty_cache()
+
+
+def _long_prompts(V: int) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(4)
+    return [rng.integers(3, V, size=n).tolist() for n in [LONG_PROMPT] + LONG_SHORT_LENS]
+
+
+def _long_pool() -> int:
+    """A pool that admits every prompt but not their growth: the prompts'
+    blocks and a few more."""
+    return sum(-(-n // BLOCK) for n in [LONG_PROMPT] + LONG_SHORT_LENS) + 8
+
+
+def _long_run(llm, prompts, sp):
+    pre = _Preemptions()
+    try:
+        outs, m, launches, wall = _generate(llm, prompts, sp)
+    finally:
+        pre.restore()
+    r = dict(wall_s=wall, ttft_s=m["target_step_times"][0], preemptions=pre.n,
+             decode_tok_s=m["decode_total_tokens"] / m["decode_total_time"],
+             prefill_tok_s=m["prefill_total_tokens"] / m["prefill_total_time"],
+             launches=launches)
+    return [o["token_ids"] for o in outs], r
+
+
+def _envelope_long(out: dict, V: int):
+    """Part 5: chunked prefill of a ~7,900-token prompt beside seven short
+    ones under preemption, max_model_len 8192: fp32 tokens equal the same
+    engine's without chunking and with a pool that never preempts; then
+    the full depth in bf16."""
+    import torch
+
+    from ssd_tpu_torch import LLM, SamplingParams
+
+    prompts = _long_prompts(V)
+    sp = SamplingParams(temperature=0.0, max_new_tokens=LONG_NEW, ignore_eos=True)
+    base = dict(max_model_len=LONG_MAX_LEN, kvcache_block_size=BLOCK, max_num_seqs=8)
+    chunked = dict(chunked_prefill=True, max_num_batched_tokens=LONG_CHUNK)
+
+    def build(tdir, ddir, mode, **kw):
+        return LLM(tdir, **kw) if mode == "ar" else _spec_llm(tdir, ddir, mode, **kw)
+
+    # The 1B geometry's 4096 positions (bench.py's config) raised to the
+    # engine's 8192, which Llama-3.2-1B's published 131072 covers.
+    base8k = {**LLAMA_1B, "max_position_embeddings": LONG_MAX_LEN}
+    with tempfile.TemporaryDirectory() as d:
+        tdir, ddir = _spec_pair(os.path.join(d, "fp32"), layers=2, live=2, scale=0.4,
+                                dtype=torch.float32, seed=3, base=base8k)
+        for mode in ("ar", "sd", "ssd", "fasync4"):
+            toks, facts = {}, {}
+            for label, kw in (("chunked_preempting", dict(chunked, num_kvcache_blocks=_long_pool())),
+                              ("whole", dict(max_num_batched_tokens=LONG_MAX_LEN,
+                                             num_kvcache_blocks=4 * _long_pool()))):
+                llm = build(tdir, ddir, mode, dtype="float32", **base, **kw)
+                if mode != "ar":
+                    _perturb_draft(llm, 0.01, 0.4)
+                toks[label], facts[label] = _long_run(llm, prompts, sp)
+                llm.exit()
+                del llm
+            eq = toks["chunked_preempting"] == toks["whole"]
+            out["exact"][f"long_{mode}"] = eq
+            emit("envelope", part="long_exact", mode=mode, equal=eq,
+                 preemptions={k: f["preemptions"] for k, f in facts.items()})
+            if not eq or facts["chunked_preempting"]["preemptions"] < 1 or \
+                    facts["whole"]["preemptions"]:
+                fail(f"envelope long_exact {mode}: chunked and preempting tokens differ from "
+                     f"whole and unpreempted ones ({eq}), or the pools did not (not) preempt: "
+                     f"{ {k: f['preemptions'] for k, f in facts.items()} }")
+        tdir, ddir = _spec_pair(os.path.join(d, "bf16"), layers=16, live=SPEC_LIVE, scale=0.02,
+                                dtype=torch.bfloat16, seed=0, base=base8k)
+        for mode in ("ar", "sd", "ssd", "fasync4"):
+            llm = build(tdir, ddir, mode, dtype="bfloat16", **base, **chunked,
+                        num_kvcache_blocks=_long_pool())
+            if mode != "ar":
+                _perturb_draft(llm, MISS_NOISE, 0.02)
+            toks, r = _long_run(llm, prompts, sp)
+            r["buckets_captured"] = _buckets(llm)
+            out["runs"][f"long_{mode}"] = r
+            out["launches"][f"envelope_long_{mode}"] = r["launches"]
+            emit("envelope", part="long", run=mode, prompt_lens=[len(p) for p in prompts], **r)
+            need = ["paged_attention", "flat_prefill_attention"] + (
+                ["tree_attention"] if mode in ASYNC_MODES else [])
+            if r["preemptions"] < 1 or any(r["launches"].get(k, 0) <= 0 for k in need) or \
+                    any(len(t) != LONG_NEW for t in toks):
+                fail(f"envelope long {mode}: no preemption, a kernel never launched or a "
+                     f"short output: {r}")
+            llm.exit()
+            del llm
+            torch.cuda.empty_cache()
+
+
+def phase_envelope() -> dict:
+    """Batch buckets 16-64, chunked prefill, preemption and 8k contexts
+    (module docstring, phase 22)."""
+    V = LLAMA_1B["vocab_size"]
+    out = {"runs": {}, "launches": {}, "exact": {}}
+    for part, fn in (("buckets", _envelope_buckets), ("long", _envelope_long)):
+        t0 = time.perf_counter()
+        fn(out, V)
+        out.setdefault("seconds", {})[part] = time.perf_counter() - t0
+    emit("envelope", geometry="Llama-3.2-1B width, 16 layers (4 live) bf16; 2 layers fp32",
+         exact=out["exact"], seconds=out["seconds"])
+    return out
+
+
 def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                  kvq: dict | None, moe_run: dict | None, quant: dict | None,
                  eagle: dict | None, exact: dict | None, tp: dict | None = None,
                  eagle_tp: dict | None = None, eagle_tp_cards: dict | None = None,
                  head_dims: dict | None = None, cli: dict | None = None,
                  hosts: dict | None = None, hosts_cards: dict | None = None,
-                 diag: dict | None = None) -> dict:
+                 diag: dict | None = None, sampled: dict | None = None,
+                 envelope: dict | None = None) -> dict:
     """Launches per path, each read from runs whose counts were zeroed just
     before them: `serve` (AR, AR multi-step) and `spec` (SD, fused SD,
     ngram, SSD, the fused exchange and superstep) for the fp-cache
@@ -5564,7 +6403,11 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
     one card ("hosts_<case>"), and `hosts_cards` when it ran: host 0's
     first rank ("hosts_cards_<mode>_<batch>"), and `diag`: the
     decomposition tools' runs (captures, replays and the eager checks)
-    under the path "diag"."""
+    under the path "diag", and `sampled`: its top_k=1 runs
+    ("topk1_<mode>"), gate 2's runs ("gate_<mode>", graph and eager) and
+    the emitted-distribution runs ("dist_<mode>_<bf16|fp32>"), and `envelope` when it
+    ran: the b64 engine's runs ("envelope_b64_<mode>_<greedy|sampled>")
+    and the 8k chunked-prefill runs ("envelope_long_<mode>")."""
     by_path = {}
 
     def add(name, path, n):
@@ -5667,6 +6510,11 @@ def kernels_line(kern: dict, serve: dict | None, spec: dict | None,
                 add(name, f"hosts_cards_{case}", n)
     for name, n in (diag or {}).get("launches", {}).items():
         add(name, "diag", n)
+    for phase in (sampled, envelope):
+        for path, launches in (phase or {}).get("launches", {}).items():
+            for name, n in launches.items():
+                if n:
+                    add(name, path, n)
     out = []
     for name, tm in kern["timings"].items():
         err = max(v["max_abs_err"] for (k, _, _), v in kern["errors"].items() if k == name)
@@ -5768,6 +6616,7 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t
+        emit("phase_end", name=name, seconds=seconds[name])
         return out
 
     phase_env()   # always: the card's name and power limit
@@ -5787,6 +6636,9 @@ def main(argv=None) -> int:
     hosts = run("hosts", phase_hosts)
     hosts_cards = run("hosts_cards", phase_hosts_cards)
     diag = run("diag", phase_diag)
+    sampled = run("sampled", phase_sampled)
+    envelope = run("envelope", phase_envelope)
+    run("path_logits", phase_path_logits)
     run("profile", phase_profile)
     run("moe_profile", phase_profile, True)
     run("quant_profile", phase_profile, False, "int8")
@@ -5799,7 +6651,7 @@ def main(argv=None) -> int:
     if kern is not None:
         print(json.dumps(kernels_line(kern, serve, spec, kvq, moe_run, quant, eagle, exact, tp,
                                       eagle_tp, eagle_tp_cards, head_dims, cli, hosts,
-                                      hosts_cards, diag)), flush=True)
+                                      hosts_cards, diag, sampled, envelope)), flush=True)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds, phases=phases)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,6 +37,21 @@
 // last-block merge): csrc/tree_split.cuh.
 #include "tree_split.cuh"
 
+// The build compiles this file twice (ops/cuda_lib.py::SPLIT_SOURCES), the
+// second time with SSD_BF16_PART, which holds only the bf16 kernels: the
+// two halves of the instantiations build in parallel.
+namespace ssd {
+namespace tree {
+cudaError_t dispatch_fp_bf16(int hd, const Args& a, int B, cudaStream_t st);
+}  // namespace tree
+}  // namespace ssd
+
+#ifdef SSD_BF16_PART
+cudaError_t ssd::tree::dispatch_fp_bf16(int hd, const Args& a, int B, cudaStream_t st) {
+  return dispatch_width<__nv_bfloat16, kFp>(hd, a, B, st);
+}
+#else
+
 extern "C" int ssd_tree_attention(int dtype, const void* q, const void* kv,
                                   const int* block_tables, const int* context_lens,
                                   const int* fan_idx_rows, void* out, void* ws, void* counters,
@@ -49,7 +64,10 @@ extern "C" int ssd_tree_attention(int dtype, const void* q, const void* kv,
   const ssd::tree::Args a{q, kv, nullptr, block_tables, context_lens, fan_idx_rows, out,
                           static_cast<float*>(ws), static_cast<int*>(counters), MQ, Hq, Hkv,
                           S, M, bs, step, K, chunk, per_block, scale, hd};
-  return ssd::tree::dispatch<ssd::tree::kFp>(dtype, hd, a, B, static_cast<cudaStream_t>(stream));
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == ssd::kBFloat16) return ssd::tree::dispatch_fp_bf16(hd, a, B, st);
+  if (dtype == ssd::kFloat32) return ssd::tree::dispatch_width<float, ssd::tree::kFp>(hd, a, B, st);
+  return cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory of one instantiation of the tree kernels (kind 0
@@ -58,3 +76,4 @@ extern "C" int ssd_tree_attention(int dtype, const void* q, const void* kv,
 extern "C" int ssd_tree_smem_bytes(int kind, int dtype, int hd, int chunk) {
   return ssd::tree::smem_bytes(kind, dtype, hd, chunk);
 }
+#endif  // SSD_BF16_PART

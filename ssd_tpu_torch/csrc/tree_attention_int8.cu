@@ -39,18 +39,24 @@
 // runs both dots on s8 tensor cores.
 #include "tree_split.cuh"
 
-// The build compiles this file twice (ops/cuda_lib.py::SPLIT_SOURCES), the
-// second time with SSD_S8_PART, which holds only the int8_mxu kernels: the
-// two halves of the instantiations build in parallel.
+// The build compiles this file three times (ops/cuda_lib.py::SPLIT_SOURCES):
+// with SSD_S8_PART it holds only the int8_mxu kernels, with SSD_BF16_PART
+// only the "int8" mode's bf16 ones, and without either the rest: the three
+// parts of the instantiations build in parallel.
 namespace ssd {
 namespace tree {
 cudaError_t dispatch_s8(int dtype, int hd, const Args& a, int B, cudaStream_t st);
+cudaError_t dispatch_i8_bf16(int hd, const Args& a, int B, cudaStream_t st);
 }  // namespace tree
 }  // namespace ssd
 
-#ifdef SSD_S8_PART
+#if defined(SSD_S8_PART)
 cudaError_t ssd::tree::dispatch_s8(int dtype, int hd, const Args& a, int B, cudaStream_t st) {
   return dispatch<kS8>(dtype, hd, a, B, st);
+}
+#elif defined(SSD_BF16_PART)
+cudaError_t ssd::tree::dispatch_i8_bf16(int hd, const Args& a, int B, cudaStream_t st) {
+  return dispatch_width<__nv_bfloat16, kI8>(hd, a, B, st);
 }
 #else
 
@@ -69,6 +75,9 @@ extern "C" int ssd_tree_attention_int8(int dtype, int s8, const void* q, const v
                           S, M, bs, step, K, chunk, per_block, scale, hd};
   const auto st = static_cast<cudaStream_t>(stream);
   using namespace ssd::tree;
-  return s8 ? dispatch_s8(dtype, hd, a, B, st) : dispatch<kI8>(dtype, hd, a, B, st);
+  if (s8) return dispatch_s8(dtype, hd, a, B, st);
+  if (dtype == ssd::kBFloat16) return dispatch_i8_bf16(hd, a, B, st);
+  if (dtype == ssd::kFloat32) return dispatch_width<float, kI8>(hd, a, B, st);
+  return cudaErrorInvalidValue;
 }
-#endif  // SSD_S8_PART
+#endif  // SSD_S8_PART, SSD_BF16_PART

@@ -2,9 +2,10 @@
 library at first use and loads it with ctypes.
 
 Each source compiles with its own `nvcc` process, all started together, for
-`sm_90a` (Hopper), and each of SPLIT_SOURCES with two, the second with
-`-DSSD_S8_PART` (the file's int8_mxu kernels, the first takes the rest); the
-objects then link into
+`sm_90a` (Hopper), and each of SPLIT_SOURCES once more for each of its
+parts, with that part's macro defined (`-DSSD_S8_PART`: the file's int8_mxu
+kernels; `-DSSD_BF16_PART`: its bf16 kernels of the other kinds; the first
+compile takes the rest); the objects then link into
 `csrc/build/libssd_tpu_torch_<hash>.so`, where `<hash>` covers the sources and
 flags, so an edited source rebuilds. The library has a plain C interface:
 pointers and the CUDA stream pass as `c_void_p`, and every entry point returns
@@ -32,9 +33,11 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
 ]
-# The sources whose instantiations build in two processes (the longest
-# compiles of the library).
-SPLIT_SOURCES = ("paged_attention_int8.cu", "tree_attention_int8.cu")
+# The sources whose instantiations build in several processes (the longest
+# compiles of the library): each part's macro, one process a part.
+SPLIT_SOURCES = {"paged_attention_int8.cu": ("SSD_S8_PART",),
+                 "tree_attention.cu": ("SSD_BF16_PART",),
+                 "tree_attention_int8.cu": ("SSD_S8_PART", "SSD_BF16_PART")}
 
 
 class KernelLibrary:
@@ -108,7 +111,8 @@ def _nvcc() -> str:
 
 
 def _digest(files: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(SPLIT_SOURCES)).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + [f"{k}:{','.join(v)}" for k, v in
+                                              sorted(SPLIT_SOURCES.items())]).encode())
     for f in files:
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -122,11 +126,13 @@ def _build(sources: list[Path], so: Path) -> str:
     objs, procs = [], []
     t0 = time.perf_counter()
     for src in sources:
-        for part in ([], ["-DSSD_S8_PART"]) if src.name in SPLIT_SOURCES else ([],):
-            obj = BUILD_DIR / f"{src.stem}{'.s8' if part else ''}.{tag}.o"
+        for macro in (None,) + SPLIT_SOURCES.get(src.name, ()):
+            part = macro and macro.removeprefix("SSD_").removesuffix("_PART").lower()
+            obj = BUILD_DIR / f"{src.stem}{'.' + part if part else ''}.{tag}.o"
             objs.append(obj)
-            procs.append((src.name + (" (s8 part)" if part else ""), subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, *part, "-c", str(src), "-o", str(obj)],
+            procs.append((src.name + (f" ({part} part)" if part else ""), subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *([f"-D{macro}"] if macro else []), "-c", str(src),
+                 "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     outs: dict[int, tuple[str, float]] = {}
 

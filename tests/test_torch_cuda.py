@@ -759,13 +759,42 @@ def test_graph_launches_counted_per_replay_on_card(tmp_path):
 def test_sampled_graph_advances_its_generator_on_card(tmp_path):
     """A sampled decode graph draws anew at each replay (the runner's
     generator is registered with the graph): eight replays on the same
-    inputs at temperature 1 do not all give the same tokens."""
+    inputs at temperature 1 do not all give the same tokens. And its draws
+    follow the law (the card's counterpart of tests/test_torch_ops.py::
+    test_temperature_sampling_follows_softmax): 2,000 replays on one input
+    at temperature 0.7 give each row's token frequencies within TV 0.03 of
+    softmax(logits / 0.7). The LM head is first scaled so that each row's
+    law has few outcomes (sum of sqrt(p) <= 1.4), which keeps the expected
+    TV of 2,000 draws from their own law below 0.013."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
     runner, graphs = _tiny_engine(tmp_path)
     key, fn, inputs, ghost = _graph_case(runner, "decode", greedy=False)
     draws = {tuple(graphs.run(key, fn, inputs, ghost)[0][:3].tolist()) for _ in range(8)}
     assert len(draws) > 1
+
+    T, N, rows = 0.7, 2000, 3
+    inputs["temperatures"][:rows] = T
+    logits = graphs.run(key, fn, inputs, ghost)[1][:rows].float().clone()
+
+    def spread(c):
+        return float(torch.softmax(c * logits / T, -1).sqrt().sum(-1).max())
+
+    lo, hi = 1.0, 1.0
+    while spread(hi) > 1.4:
+        lo, hi = hi, 2 * hi
+    for _ in range(30):
+        mid = (lo + hi) / 2
+        lo, hi = (lo, mid) if spread(mid) <= 1.4 else (mid, hi)
+    runner.params["lm_head"].mul_(hi)
+    toks = torch.stack([graphs.run(key, fn, inputs, ghost)[0][:rows].clone()
+                        for _ in range(N)]).cpu()
+    want = torch.softmax(graphs.run(key, fn, inputs, ghost)[1][:rows].float() / T, -1).cpu()
+    V = want.shape[-1]
+    for b in range(rows):
+        freq = torch.bincount(toks[:, b], minlength=V).double() / N
+        tv = 0.5 * (freq - want[b].double()).abs().sum().item()
+        assert tv < 0.03, (b, tv)
 
 
 # --- async SSD under graphs (engine/draft_runner.py, engine/async_fused.py) -----------
